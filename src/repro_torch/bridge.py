@@ -1,0 +1,69 @@
+"""Carry JAX state, given as numpy, into the port's tensors.
+
+The JAX package's params are a pytree whose `blocks` leaves are stacked
+over layers as [L, ...] (`src/repro/models/model.py:81`), with linear
+weights laid out [d_in, d_out] for `x @ W`. The port keeps that layout, so
+nothing is transposed; it unstacks `blocks` into one dict per layer. The
+index is the numpy fields of a `MultiIndex` (`src/repro/index/build.py:36`);
+index fields become int64, the port's indexing type.
+
+bf16 leaves come out of JAX as `ml_dtypes.bfloat16` numpy arrays, which
+`torch.from_numpy` rejects: they cross as their uint16 bit pattern and are
+viewed back as torch.bfloat16, so no value is rounded on the way.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.index.build import MultiIndex
+
+_INDEX_FIELDS = ("codebook1", "codebook2", "assign1", "assign2", "residuals",
+                 "sorted_ids", "offsets", "counts", "log_counts")
+_INT_FIELDS = ("assign1", "assign2", "sorted_ids", "offsets", "counts")
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
+                      device=None) -> dict:
+    """The JAX params pytree as numpy (`jax.tree_util.tree_map(np.asarray,
+    params)`) -> the port's params on `device` (default: the card)."""
+    device = resolve_device(device)
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
+    stacked = _tree(tree["blocks"], device)
+
+    def layer(sub, i):
+        return {k: (layer(v, i) if isinstance(v, dict) else v[i])
+                for k, v in sub.items()}
+
+    out["blocks"] = [layer(stacked, i) for i in range(cfg.num_layers)]
+    return out
+
+
+def index_from_numpy(d: Mapping, *, kind: str | None = None,
+                     device=None) -> MultiIndex:
+    """The fields of a JAX `MultiIndex` as numpy (a mapping of its data
+    fields, plus `kind` unless given) -> a port `MultiIndex`."""
+    device = resolve_device(device)
+    fields = {}
+    for name in _INDEX_FIELDS:
+        t = tensor_from_numpy(d[name], device)
+        fields[name] = t.long() if name in _INT_FIELDS else t
+    return MultiIndex(kind=kind or str(d["kind"]), **fields)

@@ -1,0 +1,98 @@
+"""Fast MIDX two-stage sampler (paper §4.3) and its closed-form log-prob.
+
+Mirrors `src/repro/core/midx.py`: `log_prob` (:59), `_member_uniform`
+(:51), `twostage_tables` (:110) and `sample_twostage` (:127). For a query z
+the proposal is Q(i|z) ∝ exp(s1[k1(i)] + s2[k2(i)]), drawn as k1 ~
+Cat(s1 + logψ), then k2 ~ Cat(s2 + log|Ω(k1,:)|), then a uniform member of
+Ω(k1,k2) through the CSR layout.
+
+Departure: where the reference splits a JAX key, every random number here
+is counter-based noise (`core/noise.py`) keyed by one int per query row,
+so row t's draws are a function of `keys[t]` alone:
+  k1 Gumbels [T,m,K]  role ROLE_K1,     draw j, column k
+  k2 Gumbels [T,m,K]  role ROLE_K2,     draw j, column k
+  member uniform [T,m] role ROLE_MEMBER, draw j, column 0
+Categorical draws are argmax(logits + Gumbel), ties to the lowest index.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import noise
+from repro_torch.index.build import MultiIndex
+from repro_torch.index.quantization import query_scores
+
+
+class Draw(NamedTuple):
+    ids: torch.Tensor     # [T, M] int64 sampled class ids
+    log_q: torch.Tensor   # [T, M] float32 log proposal prob of each id
+
+
+def joint_logits(index: MultiIndex, z: torch.Tensor):
+    """(J, s1, s2): J[..., K, K] = s1 ⊕ s2 + log|Ω|  (−inf on empties)."""
+    s1, s2 = query_scores(index.kind, index.codebook1, index.codebook2,
+                          z.float())
+    return s1[..., :, None] + s2[..., None, :] + index.log_counts, s1, s2
+
+
+def log_prob(index: MultiIndex, z: torch.Tensor,
+             ids: torch.Tensor) -> torch.Tensor:
+    """log Q_midx(ids | z) — closed form of Eq.(6): s1+s2 − lse(J)."""
+    j, s1, s2 = joint_logits(index, z)
+    lse = torch.logsumexp(j.reshape(*j.shape[:-2], -1), dim=-1)
+    k1 = index.assign1[ids]
+    k2 = index.assign2[ids]
+    return (torch.gather(s1, -1, k1) + torch.gather(s2, -1, k2)
+            - lse[..., None])
+
+
+def _member_uniform(index: MultiIndex, u: torch.Tensor,
+                    flat_cluster: torch.Tensor) -> torch.Tensor:
+    """Uniform member of each joint cluster id (CSR O(1) draw), from
+    uniforms u in (0, 1) of the same shape."""
+    cnt = index.counts.reshape(-1)[flat_cluster]
+    off = index.offsets[flat_cluster]
+    n = torch.clamp(cnt, min=1)
+    r = torch.minimum((u * n).long(), n - 1)
+    return index.sorted_ids[off + r]
+
+
+def twostage_tables(index: MultiIndex, z: torch.Tensor):
+    """Proposal tables, plain torch ops:
+      s1, s2 [..., K];  logψ[..., k1] = log Σ_k2 |Ω(k1,k2)| e^{s2[k2]}
+    as exp(s2 − max) @ countsᵀ, and lse = logsumexp_k1(s1 + logψ).
+    This is what the midx_probs kernel fuses."""
+    s1, s2 = query_scores(index.kind, index.codebook1, index.codebook2,
+                          z.float())
+    c2 = torch.amax(s2, dim=-1, keepdim=True)
+    psi = torch.exp(s2 - c2) @ index.counts.T.float()
+    log_psi = torch.log(torch.clamp(psi, min=1e-30)) + c2
+    lse = torch.logsumexp(s1 + log_psi, dim=-1)
+    return s1, s2, log_psi, lse
+
+
+def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
+                    keys: torch.Tensor, *, tables_fn=None) -> Draw:
+    """z [T, D], keys [T] per-row stream keys -> Draw of [T, m].
+
+    `tables_fn(index, z) -> (s1, s2, log_psi, lse)` replaces
+    `twostage_tables` — the hook through which the decode head runs the
+    midx_probs kernel (`kernels.midx_probs.ops.proposal_tables`)."""
+    s1, s2, log_psi, lse = (tables_fn or twostage_tables)(index, z)
+    kk = index.num_codewords
+    dev = z.device
+    key = keys.reshape(-1, 1, 1)                                 # [T,1,1]
+    draw = torch.arange(m, device=dev).reshape(1, m, 1)
+    col = torch.arange(kk, device=dev).reshape(1, 1, kk)
+    g1 = noise.gumbel_noise(key, noise.ROLE_K1, draw, col)       # [T,m,K]
+    k1 = torch.argmax((s1 + log_psi)[:, None, :] + g1, dim=-1)   # [T,m]
+    l2 = s2[:, None, :] + index.log_counts[k1]                   # [T,m,K]
+    g2 = noise.gumbel_noise(key, noise.ROLE_K2, draw, col)
+    k2 = torch.argmax(l2 + g2, dim=-1)                           # [T,m]
+    u = noise.uniform_noise(key[..., 0], noise.ROLE_MEMBER, draw[..., 0], 0)
+    ids = _member_uniform(index, u, k1 * kk + k2)
+    log_q = (torch.gather(s1, -1, k1) + torch.gather(s2, -1, k2)
+             - lse[:, None])
+    return Draw(ids, log_q)

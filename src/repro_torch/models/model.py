@@ -1,0 +1,142 @@
+"""Dense backbone: init, forward, class table and full-softmax logits.
+
+Mirrors `src/repro/models/model.py` for the `dense` family only (the MoE,
+SSM, hybrid, VLM and audio branches are later slices and raise here).
+Departures from the reference:
+  - params are a plain dict whose `blocks` is a Python list with one dict
+    per layer, walked by a Python loop, where the reference stacks leaves
+    over layers as [L, ...] and scans them (`repro_torch.bridge` unstacks);
+  - `init_params` draws from a `torch.Generator` on the target device and
+    defaults to the card (`device=None` -> "cuda", raising without one);
+  - `cast_blocks` pre-casts the block matmul weights to the compute dtype
+    once. The reference casts them inside every apply (`W.astype(dt)`); the
+    cast is the same rounding either way, so values are unchanged, but a
+    serving engine then reads bf16 weights instead of casting fp32 ones on
+    every token.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
+                                       mlp_init, norm_init, rope_angles)
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the torch port serves the dense family only; {cfg.name} is "
+            f"{cfg.family!r} (see ROADMAP.md Queue 1 item 12)")
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[cfg.dtype]
+
+
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.norm, device=device),
+        "attn": attn_mod.attn_init(gen, cfg.d_model, cfg.num_heads,
+                                   cfg.num_kv_heads, cfg.resolved_head_dim,
+                                   cfg.qk_norm, device=device),
+        "ln2": norm_init(cfg.d_model, cfg.norm, device=device),
+        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device=device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                *, device=None) -> dict:
+    """Random fp32 params on `device` (default: the card). `generator` must
+    live on that device; None seeds a fresh one with 0."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+    vpad = cfg.padded_vocab
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, vpad, cfg.d_model, device=device),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = embed_init(gen, vpad, cfg.d_model, device=device)
+    params["blocks"] = [_attn_block_init(gen, cfg, device)
+                        for _ in range(cfg.num_layers)]
+    return params
+
+
+_MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def cast_blocks(cfg: ModelConfig, params: dict) -> dict:
+    """A params dict whose block matmul weights are already in the compute
+    dtype (norm scales, the embedding and the head stay fp32, as the
+    reference reads them). Shares every other tensor with `params`."""
+    dt = torch_dtype(cfg)
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict)
+                    else v.to(dt) if k in _MATMUL_WEIGHTS else v)
+                for k, v in tree.items()}
+
+    return {**params, "blocks": [cast(bp) for bp in params["blocks"]]}
+
+
+def params_to(tree, device):
+    """The params tree (dicts and lists of tensors) moved to `device`."""
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def class_embeddings(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    """The class-embedding table the softmax head scores against. [Vpad, D]."""
+    return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def apply_attn_part(cfg: ModelConfig, bp: dict, x, cos, sin, *,
+                    causal: bool = True, window=None):
+    """Pre-norm self-attention sublayer. Returns (x', k, v)."""
+    h = apply_norm(bp["ln1"], x, eps=cfg.norm_eps, kind=cfg.norm)
+    q, k, v = attn_mod.project_qkv(bp["attn"], h, cfg.num_heads,
+                                   cfg.num_kv_heads, cfg.resolved_head_dim,
+                                   cos, sin, cfg.qk_norm, cfg.norm_eps)
+    o = attn_mod.attention(q, k, v, causal=causal, window=window)
+    b, s, _, _ = o.shape
+    return x + o.reshape(b, s, -1) @ bp["attn"]["wo"].to(x.dtype), k, v
+
+
+def apply_ffn_part(cfg: ModelConfig, bp: dict, x):
+    h = apply_norm(bp["ln2"], x, eps=cfg.norm_eps, kind=cfg.norm)
+    return x + apply_mlp(bp["ffn"], h, cfg.act)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            window: Optional[int] = None) -> dict:
+    """tokens [B,S] int -> {"hidden": [B,S,D], "aux_loss": scalar}."""
+    _require_dense(cfg)
+    s = tokens.shape[1]
+    x = params["embed"][tokens].to(torch_dtype(cfg))
+    cos, sin = rope_angles(torch.arange(s, device=tokens.device),
+                           cfg.resolved_head_dim, cfg.rope_theta)
+    for bp in params["blocks"]:
+        x, _, _ = apply_attn_part(cfg, bp, x, cos, sin, window=window)
+        x = apply_ffn_part(cfg, bp, x)
+    x = apply_norm(params["final_norm"], x, eps=cfg.norm_eps, kind=cfg.norm)
+    return {"hidden": x, "aux_loss": torch.zeros((), device=x.device)}
+
+
+def logits_full(cfg: ModelConfig, params: dict,
+                hidden: torch.Tensor) -> torch.Tensor:
+    """Full softmax head: [.., D] -> [.., Vpad] (fp32)."""
+    table = class_embeddings(cfg, params)
+    return hidden.float() @ table.float().T

@@ -1,0 +1,28 @@
+"""Serving latency metrics.
+
+Mirrors `src/repro/utils/metrics.py`: `percentiles` (:37) and
+`latency_summary` (:45) only — the ranking, load-test, speculative and
+refresh summaries arrive with the slices that need them.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def percentiles(xs, qs=(50, 95, 99)) -> dict[int, float]:
+    """{q: percentile} over a sample; empty input gives NaNs."""
+    if len(xs) == 0:
+        return {int(q): float("nan") for q in qs}
+    arr = np.asarray(xs, np.float64)
+    return {int(q): float(np.percentile(arr, q)) for q in qs}
+
+
+def latency_summary(latencies_s, qs=(50, 95, 99),
+                    counters: dict | None = None) -> dict[str, float]:
+    """Per-token latency summary in milliseconds, with optional counters
+    (shed / timeouts) merged into the same report."""
+    pct = percentiles(np.asarray(latencies_s, np.float64) * 1e3, qs)
+    out = {f"p{q}_ms": v for q, v in pct.items()}
+    if counters:
+        out.update({k: float(v) for k, v in counters.items()})
+    return out
