@@ -1,6 +1,9 @@
-"""Carry JAX state, given as numpy, into the port's tensors.
+"""Carry state between the JAX package and the port, as numpy.
 
-The JAX package's params are a pytree whose `blocks` leaves are stacked
+`params_from_numpy` / `index_from_numpy` take the JAX package's state into
+the port's tensors; `params_to_numpy` / `index_to_numpy` give the port's
+state back in the JAX package's layout, so a model the port trained loads
+into `repro.models` for comparison. The JAX package's params are a pytree whose `blocks` leaves are stacked
 over layers as [L, ...] (`src/repro/models/model.py:81`), with linear
 weights laid out [d_in, d_out] for `x @ W`. The port keeps that layout, so
 nothing is transposed; it unstacks `blocks` into one dict per layer. The
@@ -9,7 +12,9 @@ index fields become int64, the port's indexing type.
 
 bf16 leaves come out of JAX as `ml_dtypes.bfloat16` numpy arrays, which
 `torch.from_numpy` rejects: they cross as their uint16 bit pattern and are
-viewed back as torch.bfloat16, so no value is rounded on the way.
+viewed back as torch.bfloat16, so no value is rounded on the way; going
+back, bf16 tensors leave as `ml_dtypes.bfloat16` arrays (the numpy dtype
+JAX uses), imported only when a bf16 tensor is met.
 """
 from __future__ import annotations
 
@@ -67,3 +72,44 @@ def index_from_numpy(d: Mapping, *, kind: str | None = None,
         t = tensor_from_numpy(d[name], device)
         fields[name] = t.long() if name in _INT_FIELDS else t
     return MultiIndex(kind=kind or str(d["kind"]), **fields)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(cfg: ModelConfig, params: Mapping) -> dict:
+    """The port's params (one dict per layer in `blocks`) -> the JAX
+    package's params as numpy, with `blocks` leaves stacked [L, ...]."""
+    del cfg                                  # the layer count is len(blocks)
+
+    def tree(x):
+        if isinstance(x, Mapping):
+            return {k: tree(v) for k, v in x.items()}
+        return tensor_to_numpy(x)
+
+    out = {k: tree(v) for k, v in params.items() if k != "blocks"}
+    layers = [tree(bp) for bp in params["blocks"]]
+
+    def stack(subs):
+        first = subs[0]
+        if isinstance(first, dict):
+            return {k: stack([s[k] for s in subs]) for k in first}
+        return np.stack(subs)
+
+    out["blocks"] = stack(layers)
+    return out
+
+
+def index_to_numpy(index: MultiIndex) -> dict:
+    """A port `MultiIndex` -> its fields as numpy in the JAX package's
+    dtypes (int32 index fields), plus `kind`."""
+    out = {"kind": index.kind}
+    for name in _INDEX_FIELDS:
+        a = tensor_to_numpy(getattr(index, name))
+        out[name] = a.astype(np.int32) if name in _INT_FIELDS else a
+    return out

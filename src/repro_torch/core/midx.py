@@ -13,12 +13,17 @@ so row t's draws are a function of `keys[t]` alone:
   k2 Gumbels [T,m,K]  role ROLE_K2,     draw j, column k
   member uniform [T,m] role ROLE_MEMBER, draw j, column 0
 Categorical draws are argmax(logits + Gumbel), ties to the lowest index.
+log q of a draw stays differentiable in the tables (the reference does not
+stop its gradient); its table entries are picked by a one-hot sum, whose
+backward sums in a fixed order on the card, where `torch.gather`'s
+backward adds with atomics — so a train step replays bit for bit.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import noise
 from repro_torch.index.build import MultiIndex
@@ -59,6 +64,12 @@ def _member_uniform(index: MultiIndex, u: torch.Tensor,
     return index.sorted_ids[off + r]
 
 
+def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [T, K], idx [T, m] -> table[t, idx[t, j]] as [T, m]; exact."""
+    onehot = F.one_hot(idx, table.shape[-1]).to(table.dtype)     # [T,m,K]
+    return torch.sum(table[:, None, :] * onehot, dim=-1)
+
+
 def twostage_tables(index: MultiIndex, z: torch.Tensor):
     """Proposal tables, plain torch ops:
       s1, s2 [..., K];  logψ[..., k1] = log Σ_k2 |Ω(k1,k2)| e^{s2[k2]}
@@ -93,6 +104,5 @@ def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
     k2 = torch.argmax(l2 + g2, dim=-1)                           # [T,m]
     u = noise.uniform_noise(key[..., 0], noise.ROLE_MEMBER, draw[..., 0], 0)
     ids = _member_uniform(index, u, k1 * kk + k2)
-    log_q = (torch.gather(s1, -1, k1) + torch.gather(s2, -1, k2)
-             - lse[:, None])
+    log_q = _pick(s1, k1) + _pick(s2, k2) - lse[:, None]
     return Draw(ids, log_q)

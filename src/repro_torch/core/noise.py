@@ -32,6 +32,8 @@ _M2 = -2073287029 & _M32
 
 #: Roles salt the draws of one (request, position) apart.
 ROLE_K1, ROLE_K2, ROLE_MEMBER, ROLE_PICK, ROLE_FULL = range(5)
+#: Streams salt a row key by its use: a serving row, or a training token.
+STREAM_SERVE, STREAM_TRAIN = range(2)
 
 
 def _u32(x) -> torch.Tensor:
@@ -76,4 +78,13 @@ def gumbel_noise(seed, t_ids, d_ids, n_ids) -> torch.Tensor:
 def row_keys(seed, rid, pos) -> torch.Tensor:
     """Per-row stream key for the token drawn after consuming position
     `pos` of request `rid` under `seed` (broadcasting int tensors)."""
-    return hash_bits(seed, rid, pos, 0)
+    return hash_bits(seed, rid, pos, STREAM_SERVE)
+
+
+def train_keys(seed, step, n: int, device=None) -> torch.Tensor:
+    """Per-row stream keys [n] of train step `step`: row t (the flat token
+    index b·S + s) gets hash(seed, step, t). A function of (seed, step, t)
+    alone, so a step replayed after a restart draws the same negatives, on
+    the CPU and on the card alike."""
+    rows = torch.arange(n, device=device)
+    return hash_bits(seed, step, rows, STREAM_TRAIN)

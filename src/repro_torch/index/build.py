@@ -1,7 +1,8 @@
 """Inverted multi-index with a CSR cluster layout.
 
 Mirrors `src/repro/index/build.py` (`MultiIndex` :36,
-`_csr_from_assignments` :65, `from_quantization` :78, `build` :99). The
+`_csr_from_assignments` :65, `from_quantization` :78, `build` :99,
+`reassign` :131, `refresh` :139). The
 ragged cluster sets Ω(k1,k2) are stored flat:
   sorted_ids[N]   class ids sorted by joint cluster c = k1 * K + k2
   offsets[K²+1]   start offset of each joint cluster in sorted_ids
@@ -19,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.index.quantization import Quantization, fit
+from repro_torch.index.quantization import (Quantization, assign_against,
+                                           fit, reconstruct)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,14 @@ class MultiIndex:
     @property
     def num_codewords(self) -> int:
         return self.codebook1.shape[0]
+
+    @property
+    def num_classes(self) -> int:
+        return self.sorted_ids.shape[0]
+
+    @property
+    def has_residuals(self) -> bool:
+        return self.residuals.shape[0] > 0
 
     def joint_cluster(self) -> torch.Tensor:
         """Joint cluster id per class: k1 * K + k2. [N]"""
@@ -83,3 +93,31 @@ def build(gen: torch.Generator, class_embeddings: torch.Tensor, *,
         idx = dataclasses.replace(
             idx, residuals=class_embeddings.new_zeros((0, d)))
     return idx
+
+
+def reassign(index: MultiIndex, class_embeddings: torch.Tensor) -> MultiIndex:
+    """Incremental refresh: keep the codebooks, recompute the assignments
+    against the updated class table (one matmul per stage) and rebuild the
+    CSR layout. No Lloyd iterations."""
+    a1, a2 = assign_against(index.kind, index.codebook1, index.codebook2,
+                            class_embeddings)
+    sorted_ids, offsets, counts, log_counts = _csr_from_assignments(
+        a1, a2, index.num_codewords)
+    residuals = index.residuals
+    if index.has_residuals:
+        residuals = class_embeddings - reconstruct(
+            index.kind, index.codebook1, index.codebook2, a1, a2)
+    return MultiIndex(index.kind, index.codebook1, index.codebook2, a1, a2,
+                      residuals, sorted_ids, offsets, counts, log_counts)
+
+
+def refresh(index: MultiIndex, gen: torch.Generator,
+            class_embeddings: torch.Tensor, *,
+            iters: int = 10) -> MultiIndex:
+    """Full refit against updated class embeddings (the paper's per-epoch
+    rebuild), both K-means stages warm-started from the current codebooks.
+    The reference's `warm=False` cold rebuild is `build` itself."""
+    return build(gen, class_embeddings, kind=index.kind,
+                 k=index.num_codewords, iters=iters,
+                 keep_residuals=index.has_residuals,
+                 init=(index.codebook1, index.codebook2))

@@ -1,7 +1,7 @@
 """Product / residual quantizers for the inverted multi-index (paper §4.1).
 
-Mirrors `src/repro/index/quantization.py` (`fit_pq` :60,
-`fit_rq` :77, `fit` :90, `assign_against` :99, `query_scores` :118). Both
+Mirrors `src/repro/index/quantization.py` (`reconstruct` :51, `fit_pq`
+:60, `fit_rq` :77, `fit` :90, `assign_against` :99, `query_scores` :118). Both
 quantizers give two codebooks of K codewords, assignments (k1, k2) per class
 and residuals, and score a query z as
   PQ: z split into halves, s_l[k] = <z_l, c_l[k]>   (codewords in R^{D/2})
@@ -32,6 +32,13 @@ class Quantization:
     @property
     def num_codewords(self) -> int:
         return self.codebook1.shape[0]
+
+
+def reconstruct(kind: str, codebook1, codebook2, assign1, assign2):
+    """Reconstructed class embeddings from codeword assignments."""
+    if kind == "pq":
+        return torch.cat([codebook1[assign1], codebook2[assign2]], dim=-1)
+    return codebook1[assign1] + codebook2[assign2]
 
 
 def fit_pq(gen: torch.Generator, q: torch.Tensor, k: int, iters: int = 10,

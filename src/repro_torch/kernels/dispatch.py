@@ -1,9 +1,8 @@
 """Which implementation runs a kernel's function: decided by the device.
 
-Mirrors `src/repro/kernels/dispatch.py` (`midx_tables_fn` :65), with one
-rule in place of the reference's backend and environment switches (the
-decode head passes `kernels.midx_probs.ops.proposal_tables`, which lands
-here, as its `tables_fn`):
+Mirrors `src/repro/kernels/dispatch.py` (`midx_tables_fn` :65, and the
+choice between the fused CE kernels and their jnp oracles), with one rule
+in place of the reference's backend and environment switches:
   - a CUDA tensor -> the hand-written kernel (it launches or raises);
   - a CPU tensor  -> the kernel's plain torch version;
   - anything else -> an error.
@@ -15,6 +14,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.midx_probs.ref import midx_probs_ref
+from repro_torch.kernels.sampled_ce.ref import (sampled_ce_pt_bwd_ref,
+                                                sampled_ce_pt_fwd_ref)
+
+
+def _unsupported(name: str, x: torch.Tensor):
+    return RuntimeError(f"{name} has no implementation for {x.device}")
 
 
 def midx_probs(z: torch.Tensor, cb1: torch.Tensor, cb2: torch.Tensor,
@@ -25,4 +30,27 @@ def midx_probs(z: torch.Tensor, cb1: torch.Tensor, cb2: torch.Tensor,
         return midx_probs_cuda(z, cb1, cb2, counts, split=split)
     if z.device.type == "cpu":
         return midx_probs_ref(z, cb1, cb2, counts, split=split)
-    raise RuntimeError(f"midx_probs has no implementation for {z.device}")
+    raise _unsupported("midx_probs", z)
+
+
+def sampled_ce_pt(hidden, table, log_q, neg_ids, pos_ids):
+    """Per-token sampled CE forward: (loss [T], lse [T])."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda
+        return sampled_ce_pt_cuda(hidden, table, log_q, neg_ids, pos_ids)
+    if hidden.device.type == "cpu":
+        return sampled_ce_pt_fwd_ref(hidden, table, log_q, neg_ids, pos_ids)
+    raise _unsupported("sampled_ce_pt", hidden)
+
+
+def sampled_ce_pt_bwd(g, hidden, table, log_q, neg_ids, pos_ids, lse):
+    """Its backward from the saved lse: (dh [T, D], dtab [V, D] fp32,
+    dlq [T, M])."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_bwd_cuda
+        return sampled_ce_pt_bwd_cuda(g, hidden, table, log_q, neg_ids,
+                                      pos_ids, lse)
+    if hidden.device.type == "cpu":
+        return sampled_ce_pt_bwd_ref(g, hidden, table, log_q, neg_ids,
+                                     pos_ids, lse)
+    raise _unsupported("sampled_ce_pt_bwd", hidden)

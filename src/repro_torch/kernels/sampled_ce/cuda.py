@@ -1,0 +1,169 @@
+"""Load and launch the hand-written CUDA per-token sampled-CE kernels.
+
+`csrc/sampled_ce_pt.cu` replaces the JAX package's TPU kernels
+`kernels/sampled_ce/per_token.py::_fwd_kernel` (`sampled_ce_pt`) and
+`::_bwd_kernel` (`sampled_ce_pt_bwd`); its header says what bounds them on
+the card and how the design answers that. It is built by
+`kernels/build.py` (nvcc for sm_90a at first use, into `build/kernels/`)
+and loaded with `ctypes`.
+
+The backward is two launches: a per-token kernel (dh, dlq and the
+per-occurrence coefficients), then a deterministic segmented reduction for
+d(table). The host glue between them — the stable sort of the occurrence
+ids and the segment offsets — is `segments`, plain torch ops.
+
+Nothing here runs at import time: the CPU test suite imports this module
+on a machine without nvcc or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import KernelLibrary
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.sampled_ce_pt_fwd_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.sampled_ce_pt_bwd_rows_launch.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.sampled_ce_pt_dtab_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    for fn in (lib.sampled_ce_pt_fwd_launch, lib.sampled_ce_pt_bwd_rows_launch,
+               lib.sampled_ce_pt_dtab_launch, lib.sampled_ce_pt_max_m):
+        fn.restype = ctypes.c_int
+    lib.sampled_ce_pt_max_m.argtypes = []
+
+
+LIBRARY = KernelLibrary(
+    "sampled_ce_pt",
+    Path(__file__).resolve().parent / "csrc" / "sampled_ce_pt.cu", _declare)
+load = LIBRARY.load
+
+_VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}   # 16 bytes
+
+
+def _check(hidden, table, log_q, neg_ids, pos_ids, *extra):
+    tensors = (hidden, table, log_q, neg_ids, pos_ids, *extra)
+    if not all(x.is_cuda and x.device == hidden.device for x in tensors):
+        raise ValueError("sampled_ce_pt_cuda: every operand must be on "
+                         "hidden's CUDA device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("sampled_ce_pt_cuda: operands must be contiguous")
+    if table.dtype not in _VEC_ELEMS:
+        raise ValueError(f"sampled_ce_pt_cuda: table must be fp32 or bf16, "
+                         f"got {table.dtype}")
+    if not all(x.dtype == torch.float32 for x in (hidden, log_q, *extra)):
+        raise ValueError("sampled_ce_pt_cuda: hidden, log_q, g and lse must "
+                         "be fp32")
+    if neg_ids.dtype != torch.int64 or pos_ids.dtype != torch.int64:
+        raise ValueError("sampled_ce_pt_cuda: ids must be int64")
+    t, d = hidden.shape
+    if (table.dim() != 2 or table.shape[1] != d or log_q.dim() != 2
+            or log_q.shape[0] != t or tuple(neg_ids.shape) != tuple(log_q.shape)
+            or tuple(pos_ids.shape) != (t,)
+            or any(tuple(x.shape) != (t,) for x in extra)):
+        raise ValueError(f"sampled_ce_pt_cuda: bad shapes hidden"
+                         f"{tuple(hidden.shape)} table{tuple(table.shape)} "
+                         f"log_q{tuple(log_q.shape)} "
+                         f"neg_ids{tuple(neg_ids.shape)} "
+                         f"pos_ids{tuple(pos_ids.shape)}")
+    m = log_q.shape[1]
+    lib = load()
+    if m > lib.sampled_ce_pt_max_m():
+        raise ValueError(f"sampled_ce_pt_cuda supports M <= "
+                         f"{lib.sampled_ce_pt_max_m()}, got {m}")
+    return lib, t, d, m
+
+
+def _vec(d: int, elems: int, *tensors) -> int:
+    """1 when 16-byte vector loads are legal: D a multiple of the vector
+    and every base pointer 16-byte aligned."""
+    return int(d % elems == 0 and all(x.data_ptr() % 16 == 0
+                                      for x in tensors))
+
+
+def _raise(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
+                       log_q: torch.Tensor, neg_ids: torch.Tensor,
+                       pos_ids: torch.Tensor):
+    """Forward: hidden [T, D] fp32, table [V, D] fp32/bf16, log_q [T, M]
+    fp32, neg_ids [T, M] / pos_ids [T] int64 (ids in [0, V)), contiguous,
+    on one CUDA device -> (loss [T], lse [T]) fp32. Adds one to
+    `sampled_ce_pt_cuda.launches` per launch."""
+    lib, t, d, m = _check(hidden, table, log_q, neg_ids, pos_ids)
+    loss = torch.empty((t,), dtype=torch.float32, device=hidden.device)
+    lse = torch.empty_like(loss)
+    if t == 0:
+        return loss, lse
+    vec = _vec(d, _VEC_ELEMS[table.dtype], hidden, table)
+    with torch.cuda.device(hidden.device):
+        err = lib.sampled_ce_pt_fwd_launch(
+            hidden.data_ptr(), table.data_ptr(), log_q.data_ptr(),
+            neg_ids.data_ptr(), pos_ids.data_ptr(), loss.data_ptr(),
+            lse.data_ptr(), t, d, m, int(table.dtype == torch.bfloat16), vec,
+            torch.cuda.current_stream().cuda_stream)
+    _raise(err, "sampled_ce_pt")
+    sampled_ce_pt_cuda.launches += 1
+    return loss, lse
+
+
+sampled_ce_pt_cuda.launches = 0
+
+
+def segments(neg_ids: torch.Tensor, pos_ids: torch.Tensor, v: int):
+    """Host glue of the d(table) reduction. The occurrences of token t are
+    its M negatives then its positive, flat index t·(M+1) + j. Returns
+    (order, seg): the occurrence indices sorted stably by row id, and
+    seg [V+1] with row v's occurrences at order[seg[v] : seg[v+1]] — in
+    ascending occurrence index, so the sum order is fixed."""
+    ids = torch.cat([neg_ids, pos_ids[:, None]], dim=1).reshape(-1)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    seg = torch.searchsorted(
+        sorted_ids, torch.arange(v + 1, device=ids.device, dtype=ids.dtype))
+    return order, seg
+
+
+def sampled_ce_pt_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
+                           table: torch.Tensor, log_q: torch.Tensor,
+                           neg_ids: torch.Tensor, pos_ids: torch.Tensor,
+                           lse: torch.Tensor):
+    """Backward from the forward's lse: g/lse [T] fp32, the rest as the
+    forward -> (dh [T, D], dtab [V, D], dlq [T, M]), all fp32.
+    Adds one to `sampled_ce_pt_bwd_cuda.launches` per backward (its two
+    kernels launch together)."""
+    lib, t, d, m = _check(hidden, table, log_q, neg_ids, pos_ids, g, lse)
+    dev = hidden.device
+    v = table.shape[0]
+    dh = torch.empty((t, d), dtype=torch.float32, device=dev)
+    dlq = torch.empty((t, m), dtype=torch.float32, device=dev)
+    coef = torch.empty((t, m + 1), dtype=torch.float32, device=dev)
+    dtab = torch.empty((v, d), dtype=torch.float32, device=dev)
+    if t == 0:
+        return dh, dtab.zero_(), dlq
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.sampled_ce_pt_bwd_rows_launch(
+            g.data_ptr(), hidden.data_ptr(), table.data_ptr(),
+            log_q.data_ptr(), neg_ids.data_ptr(), pos_ids.data_ptr(),
+            lse.data_ptr(), dh.data_ptr(), dlq.data_ptr(), coef.data_ptr(),
+            t, d, m, int(table.dtype == torch.bfloat16),
+            _vec(d, _VEC_ELEMS[table.dtype], hidden, table, dh), stream)
+        _raise(err, "sampled_ce_pt_bwd (rows)")
+        order, seg = segments(neg_ids, pos_ids, v)
+        err = lib.sampled_ce_pt_dtab_launch(
+            hidden.data_ptr(), coef.data_ptr(), order.data_ptr(),
+            seg.data_ptr(), dtab.data_ptr(), v, d, m,
+            _vec(d, 4, hidden, dtab), stream)
+        _raise(err, "sampled_ce_pt_bwd (dtab)")
+    sampled_ce_pt_bwd_cuda.launches += 1
+    return dh, dtab, dlq
+
+
+sampled_ce_pt_bwd_cuda.launches = 0

@@ -1,0 +1,98 @@
+"""Train-step functions: the loss and one optimizer step.
+
+Mirrors `src/repro/launch/steps.py`: `make_loss_fn` (:70, modes `midx` and
+`full`) and `make_train_step` (:129, the non-trainable branch :188-202 with
+its non-finite skip guard). The registry's other proposal modes (ROADMAP.md
+Queue 1 item 10), the sharded and vocab-parallel steps (item 13) and the
+fault seam (item 11) are not ported and raise NotImplementedError.
+
+Departures: torch runs eagerly, so there is no jit; a step is a function
+of (params, opt state, head state, batch, keys) — `keys` [B·S] are the
+tokens' counter-hash stream keys (`core.noise.train_keys`) where the
+reference passes a JAX key. Params are a dict of leaf tensors; the step
+differentiates a fresh requires-grad view of them and returns new tensors.
+Trace ranges `train.forward`, `train.head`, `train.backward` and
+`train.optimizer` (torch.profiler) split a step's host time.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import heads
+from repro_torch.models.model import forward
+from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
+                                          tree_leaves, tree_map)
+
+HEAD_MODES = ("midx", "full")
+
+
+def resolve_mode(cfg: ModelConfig, head_mode: Optional[str] = None) -> str:
+    """The head mode, validated at step-build time."""
+    mode = head_mode or cfg.head.mode
+    if mode not in HEAD_MODES:
+        raise NotImplementedError(
+            f"head mode {mode!r}: the proposal registry is not ported yet "
+            "(ROADMAP.md Queue 1 item 10); the port trains 'midx' and "
+            "'full'")
+    return mode
+
+
+def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
+                 window: Optional[int] = None) -> Callable:
+    """loss(params, state, batch, keys) -> (loss, metrics). `state` is the
+    MultiIndex for 'midx' and ignored for 'full'; batch holds int64
+    `tokens` and `labels` [B, S] on the params' device."""
+    mode = resolve_mode(cfg, head_mode)
+
+    def loss_fn(params, state, batch, keys):
+        with record_function("train.forward"):
+            out = forward(cfg, params, batch["tokens"], window=window)
+        with record_function("train.head"):
+            if mode == "full":
+                ce = heads.loss_full(cfg, params, out["hidden"],
+                                     batch["labels"])
+            else:
+                ce = heads.loss_midx(cfg, params, state, out["hidden"],
+                                     batch["labels"], keys)
+        loss = ce + cfg.router_aux_weight * out["aux_loss"]
+        return loss, {"ce": ce, "aux": out["aux_loss"]}
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
+                    head_mode: Optional[str] = None,
+                    window: Optional[int] = None,
+                    clip_norm: float = 1.0) -> Callable:
+    """step(params, opt_state, state, batch, keys) -> (params, opt_state,
+    metrics). When the loss or the gradient's global norm is NaN/Inf, the
+    params and optimizer state come back unchanged and metrics['skipped']
+    is 1: a poisoned step never reaches the optimizer. The guard reads one
+    flag on the host (a sync the train loop makes anyway to log the loss);
+    the reference selects leafwise inside its jitted step instead."""
+    loss_fn = make_loss_fn(cfg, head_mode=head_mode, window=window)
+
+    def train_step(params, opt_state, state, batch, keys):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        (loss, metrics) = loss_fn(leaves, state, batch, keys)
+        flat = tree_leaves(leaves)
+        with record_function("train.backward"):
+            it = iter(torch.autograd.grad(loss, flat))
+        grads = tree_map(lambda _: next(it), leaves)
+        with record_function("train.optimizer"):
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            loss = loss.detach()
+            ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+            if ok:
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params)
+        metrics = {**{k: v.detach() for k, v in metrics.items()},
+                   "loss": loss, "grad_norm": gnorm,
+                   "skipped": 0.0 if ok else 1.0}
+        return params, opt_state, metrics
+
+    return train_step

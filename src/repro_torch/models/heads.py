@@ -1,19 +1,33 @@
-"""Decode heads: the MIDX sampling head and its index state.
+"""LM heads: the training losses, the MIDX decode head and its index state.
 
 Mirrors `src/repro/models/heads.py`: `init_head_state` (:39, the bf16 table
-path only — int8/fp8 tables are a later slice) and `midx_decode_head`
-(:316, the unquantized branch). Draw `num_candidates` classes through the
-two-stage MIDX proposal, rescore them exactly against the class table,
-IS-correct (logit − log q) and sample one — O(K·M + M·D) per row, no [T, V]
-logits matrix.
+path only — int8/fp8 tables are a later slice), `refresh_head_state` (:71),
+`refresh_head_state_with_policy` (:86), `loss_full` (:106), `loss_midx`
+(:113, the per-token branch with the table in its native dtype),
+`_masked_mean` (:232) and `midx_decode_head` (:316, the unquantized
+branch).
 
-Departures:
+`loss_midx` is the reference's fused lane: the proposal tables come from
+the midx_probs kernel and the CE from the per-token sampled-CE kernels
+(`kernels.sampled_ce.ops.sampled_ce_pt_op`, forward and backward) — the
+[T, M, D] gather and the [T, M] logits never reach device memory on the
+card. log q stays attached to the graph, as in the reference, so d(loss)/d
+log q flows back through the proposal tables into the hidden states. The
+pooled/mixture proposals (ROADMAP.md Queue 1 item 7) and quantized states
+(item 8) raise NotImplementedError. Like the reference's fused lane, the
+kernel always masks collisions (`mask_collisions` is not consulted).
+
+The decode head draws `num_candidates` classes through the two-stage MIDX
+proposal, rescores them exactly against the class table, IS-corrects
+(logit − log q) and samples one — O(K·M + M·D) per row, no [T, V] logits
+matrix. Departures:
   - batched over slots: the reference engine vmaps a one-row head per slot
     (`serve/engine.py:139-142`); here one call takes all T = max_slots
     rows, so one midx_probs launch serves a whole decode wave;
   - randomness is counter-based noise keyed per row (`core/noise.py`), so
     a slot's draw is a function of its own (seed, rid, pos) and never of
-    the batch it rides in;
+    the batch it rides in, and a training token's negatives a function of
+    (seed, step, token index);
   - the proposal tables always come through `proposal_tables` and
     `kernels.dispatch` (the CUDA kernel on the card, the plain version on
     the CPU); there is no `fused`/`interpret` switch.
@@ -27,11 +41,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import midx as midx_mod
 from repro_torch.core import noise
-from repro_torch.index.build import MultiIndex, build
+from repro_torch.core.sampled_softmax import full_softmax_loss
+from repro_torch.index import lifecycle as lifecycle_mod
+from repro_torch.index.build import MultiIndex, build, refresh
 from repro_torch.kernels.midx_probs.ops import proposal_tables
-from repro_torch.models.model import class_embeddings
+from repro_torch.kernels.sampled_ce.ops import sampled_ce_pt_op
+from repro_torch.models.model import class_embeddings, logits_full
 
 
+@torch.no_grad()
 def init_head_state(cfg: ModelConfig, params: dict,
                     gen: torch.Generator) -> MultiIndex:
     """Build the inverted multi-index over the class-embedding table."""
@@ -42,6 +60,69 @@ def init_head_state(cfg: ModelConfig, params: dict,
     table = class_embeddings(cfg, params).float()
     return build(gen, table, kind=cfg.head.quantizer, k=cfg.head.midx_k,
                  iters=cfg.head.kmeans_iters, keep_residuals=False)
+
+
+@torch.no_grad()
+def refresh_head_state(cfg: ModelConfig, params: dict, state: MultiIndex,
+                       gen: torch.Generator) -> MultiIndex:
+    """Full refit against the current class table, warm-started."""
+    table = class_embeddings(cfg, params).float()
+    return refresh(state, gen, table, iters=cfg.head.kmeans_iters)
+
+
+@torch.no_grad()
+def refresh_head_state_with_policy(cfg: ModelConfig, params: dict,
+                                   state: MultiIndex, gen: torch.Generator,
+                                   policy: Optional[str] = None):
+    """One refresh event under cfg.head.refresh_policy (or an override).
+    Returns (new_state, metrics): reassigned_frac, codeword_drift, did_full,
+    distortion."""
+    table = class_embeddings(cfg, params).float()
+    return lifecycle_mod.refresh_with_policy(
+        state, gen, table, iters=cfg.head.kmeans_iters,
+        policy=policy or cfg.head.refresh_policy,
+        threshold=cfg.head.refresh_drift_threshold)
+
+
+def _masked_mean(loss: torch.Tensor,
+                 mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is not None:
+        return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(loss)
+
+
+def loss_full(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
+              labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-softmax CE over the padded vocabulary; [B,S,D] -> scalar."""
+    logits = logits_full(cfg, params, hidden)
+    return _masked_mean(full_softmax_loss(logits, labels), mask)
+
+
+def loss_midx(cfg: ModelConfig, params: dict, index: MultiIndex,
+              hidden: torch.Tensor, labels: torch.Tensor, keys: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MIDX sampled-softmax CE. hidden [B,S,D], labels [B,S], keys [B·S]
+    the tokens' stream keys (`noise.train_keys(seed, step, B·S)`)."""
+    if not isinstance(index, MultiIndex):
+        raise NotImplementedError(
+            f"loss_midx over a {type(index).__name__} head state: the "
+            "quantized hot path is not ported yet (ROADMAP.md Queue 1 "
+            "item 8)")
+    if cfg.head.proposal != "per_token":
+        raise NotImplementedError(
+            f"proposal={cfg.head.proposal!r}: the shared-negative proposals "
+            "and the sampled_ce kernels are not ported yet (ROADMAP.md "
+            "Queue 1 item 7)")
+    table = class_embeddings(cfg, params)
+    m = cfg.head.num_negatives
+    b, s, d = hidden.shape
+    h32 = hidden.float().reshape(b * s, d)
+    draw = midx_mod.sample_twostage(index, h32, m, keys,
+                                    tables_fn=proposal_tables)    # [T,M]
+    loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
+                            labels.reshape(b * s))
+    return _masked_mean(loss.reshape(b, s), mask)
 
 
 class MidxDecodeOut(NamedTuple):

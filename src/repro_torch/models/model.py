@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -125,7 +126,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     """tokens [B,S] int -> {"hidden": [B,S,D], "aux_loss": scalar}."""
     _require_dense(cfg)
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(torch_dtype(cfg))
+    # F.embedding, not params["embed"][tokens]: the same rows, and on the
+    # CPU a backward that sums repeated tokens in a fixed order.
+    x = F.embedding(tokens, params["embed"]).to(torch_dtype(cfg))
     cos, sin = rope_angles(torch.arange(s, device=tokens.device),
                            cfg.resolved_head_dim, cfg.rope_theta)
     for bp in params["blocks"]:

@@ -1,0 +1,93 @@
+"""Head-state validation: reject degenerate indexes before they go live.
+
+Mirrors `src/repro/resilience/validate.py` (`validate_index` :29,
+`_validate_like` :85, `validate_state` :108) for the port's one head state,
+the `MultiIndex`. A silently broken index (NaN codebooks after a diverged
+refit, a CSR that lost classes) does not crash training — it biases every
+sampled-softmax step — so the index lifecycle checks each rebuilt index
+before swapping it in. Each check returns human-readable reasons; an empty
+list means the state is safe to install. Checks run on host copies, once
+per refresh, off the hot path. Quantized head states (ROADMAP.md Queue 1
+item 8) and the other proposals' states (item 10) are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.index.build import MultiIndex
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def validate_index(index: MultiIndex) -> list[str]:
+    """MultiIndex invariants: finite nonzero codebooks and a CSR layout that
+    partitions exactly the class set. Empty individual joint clusters are
+    legal; counts that no longer sum to N are not."""
+    reasons = []
+    for name in ("codebook1", "codebook2"):
+        cb = _np(getattr(index, name))
+        if not np.all(np.isfinite(cb)):
+            reasons.append(f"{name} has non-finite entries")
+        elif float(np.abs(cb).sum()) == 0.0:
+            reasons.append(f"{name} is all-zero")
+    if index.has_residuals and not np.all(np.isfinite(_np(index.residuals))):
+        reasons.append("residuals have non-finite entries")
+    n = index.num_classes
+    counts, offsets = _np(index.counts), _np(index.offsets)
+    sorted_ids = _np(index.sorted_ids)
+    total = int(counts.sum())
+    if total != n:
+        reasons.append(f"cluster counts sum to {total}, expected {n} "
+                       "(degenerate/empty clusters)")
+    if offsets.shape[0] != counts.size + 1:
+        reasons.append(f"offsets length {offsets.shape[0]} != K^2+1 "
+                       f"({counts.size + 1})")
+    else:
+        if int(offsets[0]) != 0 or int(offsets[-1]) != n:
+            reasons.append(f"offsets span [{int(offsets[0])}, "
+                           f"{int(offsets[-1])}], expected [0, {n}]")
+        if np.any(np.diff(offsets) < 0):
+            reasons.append("offsets are not monotone non-decreasing")
+        elif not np.array_equal(np.diff(offsets), counts.reshape(-1)):
+            reasons.append("offsets/counts disagree")
+    if sorted_ids.shape[0] != n or (
+            n and not np.array_equal(np.sort(sorted_ids), np.arange(n))):
+        reasons.append("sorted_ids is not a permutation of the class ids")
+    return reasons
+
+
+def _validate_like(state: MultiIndex, like: MultiIndex) -> list[str]:
+    """Field-by-field shape and dtype agreement with the state it replaces:
+    a swap never changes what the train step was built for."""
+    if state.kind != like.kind:
+        return [f"index kind {state.kind!r} != current {like.kind!r}"]
+    reasons = []
+    for f in dataclasses.fields(MultiIndex):
+        if f.name == "kind":
+            continue
+        a, b = getattr(state, f.name), getattr(like, f.name)
+        if a.shape != b.shape:
+            reasons.append(f"leaf .{f.name} shape {tuple(a.shape)} != "
+                           f"current {tuple(b.shape)}")
+        elif a.dtype != b.dtype:
+            reasons.append(f"leaf .{f.name} dtype {a.dtype} != current "
+                           f"{b.dtype}")
+    return reasons
+
+
+def validate_state(state, like=None) -> list[str]:
+    """Validate a head state before it goes live; `like` (the state being
+    replaced) adds the structural checks. Returns [] when it is safe."""
+    if not isinstance(state, MultiIndex):
+        raise NotImplementedError(
+            f"validating a {type(state).__name__} head state is not ported "
+            "yet (ROADMAP.md Queue 1 items 8 and 10)")
+    if like is not None:
+        reasons = _validate_like(state, like)
+        if reasons:
+            return reasons
+    return validate_index(state)

@@ -1,6 +1,7 @@
-"""Card-only checks of the torch port: the CUDA midx_probs kernel against
-its plain version, and the engine on the card. This file imports no JAX, so
-it runs on a machine that has a card and no JAX:
+"""Card-only checks of the torch port: the CUDA midx_probs and per-token
+sampled-CE kernels against their plain versions, the engine on the card,
+and a short training run through all three kernels. This file imports no
+JAX, so it runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -23,7 +24,8 @@ def _need_card():
 def test_cuda_kernel_matches_plain_version(kind):
     _need_card()
     from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
-    for t, d, k in ((1, 200, 32), (33, 2048, 64), (130, 16, 8), (0, 16, 8)):
+    for t, d, k in ((1, 200, 32), (33, 2048, 64), (130, 16, 8), (0, 16, 8),
+                    (1024, 200, 32)):
         g = torch.Generator(device="cuda").manual_seed(t)
         dc = d // 2 if kind == "pq" else d
         z = torch.randn((t, d), generator=g, device="cuda")
@@ -73,3 +75,79 @@ def test_engine_on_the_card_goes_through_the_kernel():
         assert res[r.rid].status == "ok"
         np.testing.assert_array_equal(res[r.rid].tokens,
                                       eng.replay_single(r))
+
+
+def _sce_inputs(t, d, m, v, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((t, d), generator=g, device="cuda")
+    tab = (0.2 * torch.randn((v, d), generator=g, device="cuda")).to(dtype)
+    lq = -5.0 + torch.randn((t, m), generator=g, device="cuda")
+    neg = torch.randint(0, v, (t, m), generator=g, device="cuda")
+    pos = torch.randint(0, v, (t,), generator=g, device="cuda")
+    if m > 3:
+        neg[:, 1] = neg[:, 0]                    # duplicate within a row
+        neg[::2, 2] = pos[::2]                   # collision with the positive
+    return h, tab, lq, neg, pos, torch.rand((t,), generator=g, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampled_ce_kernels_match_plain_version(dtype):
+    """Forward and backward within 1e-4·max(1, |plain|); the backward
+    bitwise repeatable; ragged T and M, D with and without 16-byte
+    vectors, and V smaller than M (every row drawn many times)."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_pt_bwd_cuda,
+                                                     sampled_ce_pt_cuda)
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_pt_bwd_ref,
+                                                    sampled_ce_pt_fwd_ref)
+    for t, d, m, v in ((1, 200, 20, 10000), (37, 24, 13, 7), (130, 30, 9, 50),
+                       (64, 2048, 64, 5000), (0, 16, 4, 10),
+                       (1024, 200, 20, 10000)):
+        h, tab, lq, neg, pos, g = _sce_inputs(t, d, m, v, dtype, seed=t + d)
+        got_f = sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+        want_f = sampled_ce_pt_fwd_ref(h, tab, lq, neg, pos)
+        got_b = sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, got_f[1])
+        again = sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, got_f[1])
+        want_b = sampled_ce_pt_bwd_ref(g, h, tab, lq, neg, pos, want_f[1])
+        torch.cuda.synchronize()
+        for a, b in zip((*got_f, *got_b), (*want_f, *want_b)):
+            assert a.shape == b.shape
+            assert torch.all((a - b).abs() <= 1e-4 * b.abs().clamp(min=1))
+        assert all(torch.equal(a, b) for a, b in zip(got_b, again))
+
+
+def test_sampled_ce_kernels_reject_what_they_cannot_take():
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda
+    h, tab, lq, neg, pos, _ = _sce_inputs(4, 16, 5, 20, torch.float32, 0)
+    with pytest.raises(ValueError, match="int64"):
+        sampled_ce_pt_cuda(h, tab, lq, neg.int(), pos)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        sampled_ce_pt_cuda(h, tab.half(), lq, neg, pos)
+    with pytest.raises(ValueError, match="bad shapes"):
+        sampled_ce_pt_cuda(h, tab[:, :8].contiguous(), lq, neg, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        sampled_ce_pt_cuda(h, tab, lq.t().contiguous().t(), neg, pos)
+
+
+def test_training_on_the_card_goes_through_all_three_kernels():
+    _need_card()
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_pt_bwd_cuda,
+                                                     sampled_ce_pt_cuda)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.serve import Engine, Request
+    counters = (midx_probs_cuda, sampled_ce_pt_cuda, sampled_ce_pt_bwd_cuda)
+    before = [c.launches for c in counters]
+    cfg = get_config("paper-lm").with_serve(max_slots=2, page_size=4,
+                                            max_seq=16)
+    params, _, index, hist = train_loop(cfg, steps=6, batch_size=4,
+                                        seq_len=16, lr=3e-3,
+                                        refresh_every=3)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert np.all(np.isfinite(hist))
+    eng = Engine(cfg, params, index=index, head="midx")
+    req = Request(rid=0, tokens=np.arange(5, dtype=np.int32), max_new=4,
+                  seed=1)
+    res = eng.run([req])
+    np.testing.assert_array_equal(res[0].tokens, eng.replay_single(req))
