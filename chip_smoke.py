@@ -7,14 +7,16 @@ Run from the repository root on a machine with one NVIDIA H100:
 It imports nothing of JAX or of the JAX package. Phases, each fatal:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the serving and training paths from the sources
-     in the checkout, both libraries at once (`kernels/midx_probs/csrc/
-     midx_probs.cu`, `kernels/sampled_ce/csrc/sampled_ce_pt.cu`), and print
-     what ptxas says;
+     in the checkout, one nvcc per source, all at once (`kernels/
+     midx_probs/csrc/midx_probs.cu`, `kernels/sampled_ce/csrc/
+     sampled_ce_pt.cu` and `sampled_ce.cu`), and print what ptxas says;
   3. hold each kernel against its plain torch version on the card, at the
-     main paths' shapes and a sweep around them, with TF32 off; the
-     sampled-CE backward must also repeat bit for bit; time each kernel and
-     its plain version with CUDA events (median of 50 cold-L2 launches)
-     beside the bound (bytes over 3.35 TB/s, FLOPs over 67 TFLOP/s fp32);
+     main paths' shapes and a sweep around them, with TF32 off; both
+     sampled-CE backwards must also repeat bit for bit; time each kernel
+     and its plain version with CUDA events (median of 50 cold-L2
+     launches) beside the bound (bytes over 3.35 TB/s, FLOPs over
+     67 TFLOP/s fp32), and the fp32 bmm of the shared CE's logit product
+     as a reference point;
   4. check the port against itself on the CPU at a small input (prefill
      hidden states, fp32);
   5. serve `paper-lm` at full width through the MIDX head (16 requests,
@@ -23,13 +25,21 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      4 slots, prompt 64, 32 tokens), then once with the full head, greedy,
      batched == solo;
   7. train `paper-lm` at full width through `launch.train.train_loop` with
-     the MIDX head (120 steps, batch 16, seq 64, lr 3e-3, index refreshes
-     after steps 49 and 99): every step finite and applied, the last 5
-     steps' mean loss more than 0.1 below the first 5's; then two more
-     30-step runs (refresh every 10) must agree bit for bit — losses,
-     params, optimizer state and index;
-  8. serve the trained params and index (8 requests, 16 tokens), with
-     batched == solo on 2;
+     the per-token MIDX head (120 steps, batch 16, seq 64, lr 3e-3, index
+     refreshes after steps 49 and 99): every step finite and applied, the
+     last 5 steps' mean loss more than 0.1 below the first 5's; then two
+     more 30-step runs (refresh every 10) must agree bit for bit — losses,
+     params, optimizer state and index; serve the trained model (8
+     requests, 16 tokens), with batched == solo on 2;
+  8. train `llama3.2-1b` at full width (16 layers, d=2048, V=128 256) with
+     its own pooled head (RQ, K=64, M=1024) through `train_loop`: 60 steps
+     of 4 x 256 tokens from 32 ZipfLM sequences, lr 1e-3, refreshes after
+     steps 24 and 49, the same finite / applied / loss-drop checks, and
+     the peak device memory; serve the trained params and index (4
+     requests, 16 tokens) with batched == solo on 2; two 10-step runs at
+     2 layers (refresh every 5) must agree bit for bit; 5 steps at 2
+     layers with the mixture proposal must stay finite and launch both
+     shared-CE kernels;
   9. print the kernels' JSON line, then the result line.
 Each main-path run sets the kernels' launch counters to 0 just before it
 and reads them just after; a kernel of the path that was never launched
@@ -56,6 +66,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOP_S = 67e12            # H100 SXM fp32 outside the tensor cores
 REL_TOL = 1e-4                 # |kernel - plain| <= 1e-4 * max(1, |plain|)
+LLAMA_STEPS, LLAMA_LR, LLAMA_REFRESH = 60, 1e-3, 25   # full-width training
+LLAMA_CORPUS = 32              # ZipfLM sequences (host time: O(V) per token)
 MIDX_TS = (1, 4, 8, 33, 512, 1024)   # decode, prefill and training rows
 
 
@@ -211,6 +223,54 @@ def sce_limit(ref: torch.Tensor) -> torch.Tensor:
     return REL_TOL * torch.clamp(ref.abs(), min=max(s, 1e-30))
 
 
+def hold_ce(label: str, kern_fwd, kern_bwd, ref_fwd, ref_bwd, args,
+            g: torch.Tensor, bwd_names, where: str):
+    """Run a sampled-CE kernel pair and its plain versions on `args`; the
+    backward twice, which must agree bit for bit. Hold every output to
+    `sce_limit`. Returns ((loss, lse), {"fwd": err, "bwd": err}, largest
+    err/limit, readings)."""
+    loss, lse = kern_fwd(*args)
+    got = kern_bwd(g, *args, lse)
+    again = kern_bwd(g, *args, lse)
+    want_f = ref_fwd(*args)
+    want_b = ref_bwd(g, *args, want_f[1])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"{label}_bwd is not bitwise repeatable at {where}")
+    worst, loosest, readings = {"fwd": 0.0, "bwd": 0.0}, 0.0, []
+    for kind, names, outs, refs in (
+            ("fwd", ("loss", "lse"), (loss, lse), want_f),
+            ("bwd", bwd_names, got, want_b)):
+        for name, a, b in zip(names, outs, refs):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise SystemExit(f"{label} {name}: bad output shape/values "
+                                 f"at {where}")
+            err = (a - b).abs()
+            ratio = float((err / sce_limit(b)).max())
+            if ratio > 1.0:
+                raise SystemExit(
+                    f"{label} {name} disagrees with the plain version at "
+                    f"{where}: max err {float(err.max()):.3e}, {ratio:.3f} "
+                    f"of the limit")
+            worst[kind] = max(worst[kind], float(err.max()))
+            loosest = max(loosest, ratio)
+            readings.append(f"{name} {float(err.max()):.3e} (max|ref| "
+                            f"{float(b.abs().max()):.3e}, err/limit "
+                            f"{ratio:.4f})")
+    return (loss, lse), worst, loosest, readings
+
+
+def time_ce(label: str, where: str, kern, plain, bound_by, buf, card: str):
+    """Time a kernel and its plain version; log them beside the bound.
+    Returns (ms, plain_ms, bound_ms, bound_by)."""
+    ms, plain_ms = time_ms(kern, buf), time_ms(plain, buf)
+    bound, by = bound_by
+    log(f"[smoke] {label} ({where}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); library: none; "
+        f"on {card}")
+    return ms, plain_ms, bound, by
+
+
 def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     """Phase 3 for the per-token sampled CE, forward and backward: sweep
     (V, D, M) x T x table dtype against the plain version, a bitwise repeat
@@ -223,39 +283,14 @@ def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
             for t in (1, 7, 1024):
                 h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, dtype,
                                                      seed=t + d + m)
-                loss, lse = sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
-                got = sce.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, lse)
-                again = sce.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos,
-                                                   lse)
-                want_f = fwd_ref(h, tab, lq, neg, pos)
-                want_b = bwd_ref(g, h, tab, lq, neg, pos, want_f[1])
-                torch.cuda.synchronize()
                 where = (f"T={t} D={d} M={m} V={v} "
                          f"{str(dtype).split('.')[-1]}")
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise SystemExit(f"sampled_ce_pt_bwd is not bitwise "
-                                     f"repeatable at {where}")
-                readings = []
-                for kind, names, outs, refs in (
-                        ("fwd", ("loss", "lse"), (loss, lse), want_f),
-                        ("bwd", ("dh", "dtab", "dlq"), got, want_b)):
-                    for name, a, b in zip(names, outs, refs):
-                        if a.shape != b.shape or not torch.isfinite(a).all():
-                            raise SystemExit(f"sampled_ce {name}: bad output"
-                                             f" shape/values at {where}")
-                        err = (a - b).abs()
-                        ratio = float((err / sce_limit(b)).max())
-                        if ratio > 1.0:
-                            raise SystemExit(
-                                f"sampled_ce {name} disagrees with the plain "
-                                f"version at {where}: max err "
-                                f"{float(err.max()):.3e}, {ratio:.3f} of the "
-                                f"limit")
-                        worst[kind] = max(worst[kind], float(err.max()))
-                        loosest = max(loosest, ratio)
-                        readings.append(f"{name} {float(err.max()):.3e} "
-                                        f"(max|ref| {float(b.abs().max()):.3e}"
-                                        f", err/limit {ratio:.4f})")
+                _, errs, ratio, readings = hold_ce(
+                    "sampled_ce_pt", sce.sampled_ce_pt_cuda,
+                    sce.sampled_ce_pt_bwd_cuda, fwd_ref, bwd_ref,
+                    (h, tab, lq, neg, pos), g, ("dh", "dtab", "dlq"), where)
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+                loosest = max(loosest, ratio)
                 if t == 1024:
                     log(f"[smoke] sampled_ce_pt at {where}: "
                         + "; ".join(readings))
@@ -272,24 +307,137 @@ def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
             ("llama3.2-1b width", (1024, 2048, 64, 128256, torch.bfloat16))):
         h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, dtype, seed=1)
         _, lse = sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+        where = (f"{name}, T={t} D={d} M={m} V={v} "
+                 f"{str(dtype).split('.')[-1]}")
         elem = tab.element_size()
-        rows = {}
-        for kind, kern, plain in (
-                ("fwd", lambda: sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos),
-                 lambda: fwd_ref(h, tab, lq, neg, pos)),
-                ("bwd", lambda: sce.sampled_ce_pt_bwd_cuda(
-                    g, h, tab, lq, neg, pos, lse),
-                 lambda: bwd_ref(g, h, tab, lq, neg, pos, lse))):
-            ms, plain_ms = time_ms(kern, buf), time_ms(plain, buf)
-            bound, by = sce_bound_ms(t, d, m, v, elem, neg, pos,
-                                     backward=kind == "bwd")
-            rows[kind] = (ms, plain_ms, bound, by)
-            log(f"[smoke] sampled_ce_pt {kind} {name} (T={t} D={d} M={m} "
-                f"V={v} {str(dtype).split('.')[-1]}): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); "
-                f"library: none; on {card}")
-        timings[name] = rows
+        timings[name] = {
+            "fwd": time_ce(
+                "sampled_ce_pt fwd", where,
+                lambda: sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos),
+                lambda: fwd_ref(h, tab, lq, neg, pos),
+                sce_bound_ms(t, d, m, v, elem, neg, pos, backward=False),
+                buf, card),
+            "bwd": time_ce(
+                "sampled_ce_pt bwd", where,
+                lambda: sce.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos,
+                                                   lse),
+                lambda: bwd_ref(g, h, tab, lq, neg, pos, lse),
+                sce_bound_ms(t, d, m, v, elem, neg, pos, backward=True),
+                buf, card)}
     return worst, timings
+
+
+SHAPE = (4, 256, 1024, 2048)   # llama3.2-1b training: B, S, M, D
+
+
+def shared_inputs(b: int, s: int, m: int, d: int, v: int, dtype, seed: int):
+    """Shared-negative CE inputs on the card, rows gathered from a [v, d]
+    table: duplicate negatives, negatives that collide with positives, and
+    a token (0, 0) all of whose negatives collide."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    h = 0.5 * torch.randn((b, s, d), generator=g, device="cuda")
+    table = (0.1 * torch.randn((v, d), generator=g, device="cuda")).to(dtype)
+    log_q = -9.0 + 0.5 * torch.randn((b, m), generator=g, device="cuda")
+    neg = torch.randint(0, v, (b, m), generator=g, device="cuda")
+    pos = torch.randint(0, v, (b, s), generator=g, device="cuda")
+    neg[:, 1::2] = neg[:, 0::2][:, :m // 2]     # duplicates
+    neg[:, 2] = pos[:, -1]                      # collisions
+    neg[0] = pos[0, 0]                          # every negative collides
+    grad = torch.rand((b, s), generator=g, device="cuda")
+    return (h, table[pos].contiguous(), table[neg].contiguous(), log_q, neg,
+            pos, grad)
+
+
+def shared_bound_ms(b: int, s: int, m: int, d: int, elem: int,
+                    backward: bool):
+    """Bytes: each input read once (h, the gathered pe and ne rows, log_q,
+    the ids; backward also g and lse) and each output written once (loss
+    and lse; backward dh, dpe, dne, dlq). FLOPs the function needs: the
+    [S, M] logit product over D per sequence and the positive dots; the
+    backward needs the logits once, w·ne and (g·w)ᵀ·h — three products —
+    and the positive terms (h·pe, (p_pos − 1)·pe into dh, dpe). The
+    kernels' second recompute of the logits (dh/dpe and dne/dlq each make
+    their own) is their overhead, not part of the bound."""
+    nbytes = (4 * b * s * d + elem * b * (s + m) * d + 4 * b * m + 8 * b * m
+              + 8 * b * s)
+    if backward:
+        nbytes += 8 * b * s + 4 * b * (2 * s + m) * d + 4 * b * m
+        flops = 6 * b * s * m * d + 6 * b * s * d
+    else:
+        nbytes += 8 * b * s
+        flops = 2 * b * s * m * d + 2 * b * s * d
+    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
+    """Phase 3 for the shared-negative CE, forward and both backward
+    kernels: sweep S x M x D x row dtype against the plain version, a
+    bitwise repeat of the backward, and, at the llama3.2-1b training shape
+    (B=4, S=256, M=1024, D=2048, fp32 rows) and at S=512, the same holds
+    and the times. Prints each output's error, size and err/limit at
+    S >= 256, M = 1024."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    loosest = 0.0
+    bwd_names = ("dh", "dpe", "dne", "dlq")
+
+    def hold(b, s, m, d, v, dtype, seed):
+        args = shared_inputs(b, s, m, d, v, dtype, seed)
+        where = f"B={b} S={s} M={m} D={d} {str(dtype).split('.')[-1]}"
+        (loss, lse), errs, ratio, readings = hold_ce(
+            "sampled_ce", sce.sampled_ce_cuda, sce.sampled_ce_bwd_cuda,
+            fwd_ref, bwd_ref, args[:-1], args[-1], bwd_names, where)
+        nonlocal loosest
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+        loosest = max(loosest, ratio)
+        if float(loss[0, 0]) != 0.0:
+            raise SystemExit(f"sampled_ce at {where}: a token whose "
+                             f"negatives all collide has loss "
+                             f"{float(loss[0, 0])}, not 0")
+        if s >= 256 and m == 1024:
+            log(f"[smoke] sampled_ce at {where}: " + "; ".join(readings))
+        return args, lse, where
+
+    for d in (200, 2048):
+        for m in (20, 1024):
+            for dtype in (torch.float32, torch.bfloat16):
+                for s in (1, 7, 256):
+                    hold(2, s, m, d, 5000, dtype, seed=s + m + d)
+    rows = {}
+    for b, s, m, d in (SHAPE, (4, 512, 1024, 2048)):
+        (h, pe, ne, lq, neg, pos, g), lse, where = hold(
+            b, s, m, d, 128256, torch.float32, seed=1)
+        where = f"llama3.2-1b train, {where}"
+        timed = {
+            "fwd": time_ce(
+                "sampled_ce fwd", where,
+                lambda: sce.sampled_ce_cuda(h, pe, ne, lq, neg, pos),
+                lambda: fwd_ref(h, pe, ne, lq, neg, pos),
+                shared_bound_ms(b, s, m, d, 4, backward=False), buf, card),
+            "bwd": time_ce(
+                "sampled_ce bwd", where,
+                lambda: sce.sampled_ce_bwd_cuda(g, h, pe, ne, lq, neg, pos,
+                                                lse),
+                lambda: bwd_ref(g, h, pe, ne, lq, neg, pos, lse),
+                shared_bound_ms(b, s, m, d, 4, backward=True), buf, card)}
+        if (b, s, m, d) == SHAPE:
+            rows = timed
+    log(f"[smoke] sampled_ce vs plain: max_abs_err fwd={worst['fwd']:.3e} "
+        f"bwd={worst['bwd']:.3e} over B=2, S in {{1,7,256}}, M in "
+        f"{{20,1024}}, D in {{200,2048}}, fp32/bf16 rows, and B=4, S in "
+        f"{{256,512}}, M=1024, D=2048, fp32 rows (the training shape), with "
+        f"duplicate and colliding ids and an all-colliding token, g ~ "
+        f"U(0,1) (tol {REL_TOL}*max(|ref|, min(1, max|ref|)) per tensor; "
+        f"largest err/limit {loosest:.4f}); backward bitwise repeatable")
+    b, s, m, d = SHAPE
+    h, pe, ne, *_ = shared_inputs(b, s, m, d, 128256, torch.float32, seed=1)
+    nt = ne.transpose(1, 2)
+    bmm = time_ms(lambda: torch.bmm(h, nt), buf)
+    log(f"[smoke] reference point: fp32 torch.bmm of the logit product alone "
+        f"([{b},{s},{d}] x [{b},{d},{m}], TF32 off) {bmm:.4f} ms on {card}")
+    return worst, rows
 
 
 def check_against_cpu(cfg_name: str) -> None:
@@ -352,58 +500,64 @@ def serve(cfg, *, head: str, requests: int, prompt: int, tokens: int,
     return engine, s, launches
 
 
-def train(counters):
-    """Phase 7: `paper-lm` at full width through `train_loop` on the card.
-    Returns (cfg, params, index, launches per counter, summary)."""
-    from repro_torch.configs import get_config
+def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
+          lr: float, corpus=None, refresh_every=None):
+    """Drive `launch.train.train_loop` on the card with the counters set to
+    0 just before; every step must be finite and applied and the last 5
+    steps' mean loss more than 0.1 below the first 5's. Returns (params,
+    index, launches per counter, summary)."""
     from repro_torch.launch.train import train_loop
-    cfg = get_config("paper-lm")
-    steps, batch, seq = 120, 16, 64
     seen = []
+    torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     params, _, index, hist = train_loop(
-        cfg, steps=steps, batch_size=batch, seq_len=seq, lr=3e-3,
-        log_every=40, device="cuda",
+        cfg, steps=steps, batch_size=batch, seq_len=seq, lr=lr,
+        corpus=corpus, refresh_every=refresh_every, log_every=20,
+        device="cuda",
         on_metrics=lambda step, m: seen.append(
             (step, float(m["loss"]), float(m["grad_norm"]),
              float(m["skipped"]), m["step_s"])))
     torch.cuda.synchronize()
     launches = [c.launches for c in counters]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     bad = [s for s in seen if s[3] or not np.isfinite(s[1:3]).all()]
     if len(seen) != steps or bad:
-        raise SystemExit(f"paper-lm training: {len(seen)} steps logged, "
+        raise SystemExit(f"{cfg.name} training: {len(seen)} steps logged, "
                          f"skipped or non-finite: {bad[:3]}")
     first, last = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
     if not last < first - 0.1:
-        raise SystemExit(f"paper-lm training: loss did not drop by > 0.1 "
+        raise SystemExit(f"{cfg.name} training: loss did not drop by > 0.1 "
                          f"(first 5 mean {first:.4f}, last 5 mean "
                          f"{last:.4f})")
+    for name, n in zip(names, launches):
+        if n <= 0:
+            raise SystemExit(f"{cfg.name} training: {name} was never "
+                             f"launched on the main path")
     step_s = statistics.median(s[4] for s in seen[1:])
     summary = {"first5": first, "last5": last, "median_step_ms":
-               step_s * 1e3, "tok_s": batch * seq / step_s}
-    log(f"[smoke] train paper-lm L={cfg.num_layers} d={cfg.d_model} "
-        f"V={cfg.vocab_size} head=midx M={cfg.head.num_negatives} "
-        f"K={cfg.head.midx_k}: {steps} steps x {batch}x{seq} tokens, loss "
-        f"first-5 mean {first:.4f} -> last-5 mean {last:.4f}; median step "
-        f"{step_s * 1e3:.2f} ms, {batch * seq / step_s:.0f} tokens/s; "
-        f"launches midx_probs {launches[0]}, sampled_ce_pt {launches[1]}, "
-        f"sampled_ce_pt_bwd {launches[2]}")
-    return cfg, params, index, launches, summary
+               step_s * 1e3, "tok_s": batch * seq / step_s,
+               "peak_gib": peak_gib}
+    log(f"[smoke] train {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+        f"V={cfg.vocab_size} head=midx proposal={cfg.head.proposal} "
+        f"M={cfg.head.num_negatives} K={cfg.head.midx_k}: {steps} steps x "
+        f"{batch}x{seq} tokens, lr {lr}, loss first-5 mean {first:.4f} -> "
+        f"last-5 mean {last:.4f}; median step {step_s * 1e3:.2f} ms, "
+        f"{batch * seq / step_s:.0f} tokens/s; peak memory {peak_gib:.2f} "
+        f"GiB; launches " + ", ".join(f"{n} {k}" for k, n in
+                                      zip(names, launches)))
+    return params, index, launches, summary
 
 
-def replay() -> None:
-    """Phase 7, replay: two runs from one seed agree bit for bit."""
-    from repro_torch.configs import get_config
-    from repro_torch.data import ZipfLM
+def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
+           refresh_every: int) -> None:
+    """Two runs from one seed agree bit for bit: losses, params, optimizer
+    state and index."""
     from repro_torch.launch.train import train_loop
     from repro_torch.optim.optimizers import tree_leaves
-    cfg = get_config("paper-lm")
-    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64, seq_len=65,
-                    seed=0).sample(64)
-    runs = [train_loop(cfg, steps=30, batch_size=16, seq_len=64, lr=3e-3,
-                       corpus=corpus, refresh_every=10, log_every=1000,
-                       device="cuda") for _ in range(2)]
+    runs = [train_loop(cfg, steps=steps, batch_size=batch, seq_len=seq,
+                       lr=lr, corpus=corpus, refresh_every=refresh_every,
+                       log_every=1000, device="cuda") for _ in range(2)]
 
     def state(run):
         params, opt, index, _ = run
@@ -413,13 +567,16 @@ def replay() -> None:
     if runs[0][3] != runs[1][3] or not all(
             torch.equal(a, b) for a, b in zip(state(runs[0]),
                                               state(runs[1]))):
-        raise SystemExit("paper-lm training does not replay bit for bit on "
-                         "the card")
-    log(f"[smoke] train paper-lm replay: two 30-step runs (refresh every "
-        f"10) agree bit for bit (final loss {runs[0][3][-1]:.6f})")
+        raise SystemExit(f"{cfg.name} ({cfg.head.proposal}) training does "
+                         f"not replay bit for bit on the card")
+    log(f"[smoke] train {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+        f"proposal={cfg.head.proposal} replay: two {steps}-step runs "
+        f"(refresh every {refresh_every}) agree bit for bit (final loss "
+        f"{runs[0][3][-1]:.6f})")
 
 
-def profile_train(cfg, params, index, label: str) -> None:
+def profile_train(cfg, params, index, label: str, b: int = 16,
+                  s: int = 64) -> None:
     """Where a training step's time goes: 5 steps of the trained model
     under torch.profiler (wall, device busy and idle share, launches, and
     the kernels that took the most device time)."""
@@ -431,11 +588,11 @@ def profile_train(cfg, params, index, label: str) -> None:
     step = steps_mod.make_train_step(cfg, opt)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    toks = torch.randint(0, cfg.vocab_size, (16, 65), generator=gen,
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
                          device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     state = opt.init(params)
-    keys = noise.train_keys(0, 0, 16 * 64, "cuda")
+    keys = noise.train_keys(0, 0, b * s, "cuda")
     p, state, _ = step(params, state, index, batch, keys)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -459,7 +616,8 @@ def profile_train(cfg, params, index, label: str) -> None:
                 f"{e.cpu_time_total / 1e3 / e.count:.3f} ms each")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in kernels if any(k in e.key for k in (
-        "midx_probs", "fwd_kernel", "bwd_rows_kernel", "dtab_kernel"))]
+        "midx_probs", "fwd_kernel", "bwd_rows_kernel", "dtab_kernel",
+        "bwd_dh_kernel", "bwd_dne_kernel"))]
     for e in top + [e for e in ours if e not in top]:
         log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
             f"{e.self_device_time_total / 1e3:.2f} ms "
@@ -509,7 +667,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also profile one llama3.2-1b run per head and 5 "
-                         "paper-lm train steps")
+                         "train steps each of paper-lm and llama3.2-1b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -519,7 +677,9 @@ def main() -> None:
     from repro_torch.kernels.midx_probs import cuda as midx_cuda
     from repro_torch.kernels.midx_probs.ref import midx_probs_ref
     from repro_torch.kernels.sampled_ce import cuda as sce_cuda
-    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_pt_bwd_ref,
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
+                                                    sampled_ce_fwd_ref,
+                                                    sampled_ce_pt_bwd_ref,
                                                     sampled_ce_pt_fwd_ref)
 
     t_start = time.perf_counter()
@@ -531,7 +691,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libraries = (midx_cuda.LIBRARY, sce_cuda.LIBRARY)
+    libraries = (midx_cuda.LIBRARY, sce_cuda.LIBRARY, sce_cuda.SHARED_LIBRARY)
     for lib in libraries:                      # one nvcc per source, at once
         lib.start()
     for lib in libraries:
@@ -548,6 +708,8 @@ def main() -> None:
                                      card)
     sce_worst, sce_timings = check_sampled_ce(
         sce_cuda, sampled_ce_pt_fwd_ref, sampled_ce_pt_bwd_ref, buf, card)
+    shared_worst, shared_timings = check_shared_ce(
+        sce_cuda, sampled_ce_fwd_ref, sampled_ce_bwd_ref, buf, card)
     del buf
     check_against_cpu("paper-lm")
 
@@ -569,26 +731,73 @@ def main() -> None:
     del eng, eng_full
     torch.cuda.empty_cache()
 
+    from repro_torch.data import ZipfLM
     counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
                 sce_cuda.sampled_ce_pt_bwd_cuda)
-    cfg, params, index, n_train, _ = train(counters)
-    replay()
+    cfg = get_config("paper-lm")
+    params, index, n_train, _ = train(
+        cfg, counters, ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd"),
+        steps=120, batch=16, seq=64, lr=3e-3)
+    replay(cfg, steps=30, batch=16, seq=64, lr=3e-3, refresh_every=10,
+           corpus=ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64,
+                         seq_len=65, seed=0).sample(64))
     if args.profile:
         profile_train(cfg, params, index, "paper-lm train step")
     trained = cfg.with_serve(max_slots=4, page_size=16, max_seq=32)
     _, _, n_trained = serve(trained, head="midx", requests=8, prompt=8,
                             tokens=16, verify=2, params=params, index=index,
                             counter=counters[0])
+    del params, index
+
+    # llama3.2-1b at full width through the pooled head (the config's own
+    # head: RQ, K=64, M=1024), then replay, mixture and serving.
+    b, s, _, _ = SHAPE
+    t0 = time.perf_counter()
+    llama_cfg = get_config("llama3.2-1b")
+    corpus = ZipfLM(vocab_size=llama_cfg.vocab_size, num_clusters=64,
+                    seq_len=s + 1, seed=0).sample(LLAMA_CORPUS)
+    log(f"[smoke] llama3.2-1b corpus: {LLAMA_CORPUS} sequences x {s + 1} "
+        f"tokens drawn on the host in {time.perf_counter() - t0:.1f}s")
+    shared = (sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda)
+    params, index, n_shared, _ = train(
+        llama_cfg, shared, ("sampled_ce", "sampled_ce_bwd"),
+        steps=LLAMA_STEPS, batch=b, seq=s, lr=LLAMA_LR, corpus=corpus,
+        refresh_every=LLAMA_REFRESH)
+    if args.profile:
+        profile_train(llama_cfg, params, index,
+                      "llama3.2-1b pooled train step", b=b, s=s)
+    served = llama_cfg.with_serve(max_slots=4, page_size=16, max_seq=48)
+    _, _, n_llama_trained = serve(served, head="midx", requests=4, prompt=16,
+                                  tokens=16, verify=2, params=params,
+                                  index=index, counter=counters[0])
+    del params, index
+    torch.cuda.empty_cache()
+    short = dataclasses.replace(llama_cfg, num_layers=2)
+    replay(short, steps=10, batch=b, seq=s, lr=LLAMA_LR, corpus=corpus,
+           refresh_every=5)
+    for c in shared:
+        c.launches = 0
+    mixture = short.with_head(proposal="mixture")
+    from repro_torch.launch.train import train_loop
+    _, _, _, hist = train_loop(mixture, steps=5, batch_size=b, seq_len=s,
+                               lr=LLAMA_LR, corpus=corpus, log_every=1000,
+                               device="cuda")
+    torch.cuda.synchronize()
+    n_mix = [c.launches for c in shared]
+    if not np.all(np.isfinite(hist)) or min(n_mix) <= 0:
+        raise SystemExit(f"llama3.2-1b mixture training: losses {hist}, "
+                         f"launches sampled_ce/sampled_ce_bwd {n_mix}")
+    log(f"[smoke] train llama3.2-1b L=2 proposal=mixture: 5 steps finite "
+        f"(loss {hist[0]:.4f} -> {hist[-1]:.4f}); launches {n_mix[0]} "
+        f"sampled_ce, {n_mix[1]} sampled_ce_bwd")
     for name, n in (("paper-lm serve", n_paper), ("llama3.2-1b serve",
                                                   n_llama),
                     ("paper-lm train", n_train[0]),
-                    ("trained paper-lm serve", n_trained)):
+                    ("trained paper-lm serve", n_trained),
+                    ("trained llama3.2-1b serve", n_llama_trained)):
         if n <= 0:
             raise SystemExit(f"{name}: midx_probs was never launched on the "
                              "main path")
-    for kname, n in zip(("sampled_ce_pt", "sampled_ce_pt_bwd"), n_train[1:]):
-        if n <= 0:
-            raise SystemExit(f"paper-lm train: {kname} was never launched")
 
     ms, plain, bound, by = timings["llama3.2-1b decode"]
     t_ms, t_plain, t_bound, t_by = timings["paper-lm train"]
@@ -597,7 +806,8 @@ def main() -> None:
         "name": "midx_probs", "route": "cuda",
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
         "replaces": "src/repro/kernels/midx_probs/midx_probs.py:23",
-        "launches": n_paper + n_llama + n_train[0] + n_trained,
+        "launches": n_paper + n_llama + n_train[0] + n_trained
+                    + n_llama_trained,
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
         "bound_by": by, "library_ms": None,
         "shape": "llama3.2-1b decode T=4 D=2048 K=64 rq",
@@ -615,6 +825,18 @@ def main() -> None:
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
             "shape": "paper-lm train T=1024 D=200 M=20 V=10000 fp32"})
+    src = "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce.cu"
+    for kname, kind, line, n in (
+            ("sampled_ce", "fwd", "33", n_shared[0]),
+            ("sampled_ce_bwd", "bwd", "205", n_shared[1])):
+        ms, plain, bound, by = shared_timings[kind]
+        rows.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
+            "launches": n, "max_abs_err": shared_worst[kind], "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+            "shape": "llama3.2-1b train B=4 S=256 M=1024 D=2048 fp32 rows"})
     log(json.dumps({"kernels": rows}))
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"ok": True, "device": {

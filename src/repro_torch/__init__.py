@@ -3,9 +3,10 @@
 A package of its own beside the JAX reference (`src/repro/`), mirrored
 module for module: each file's docstring names the reference file it
 mirrors and where it departs. It imports torch and never jax, nor anything
-of `repro`. The one hot kernel of the serving path, `midx_probs`, is CUDA
-C++ built at first use (`kernels/midx_probs/`); everything else is plain
-torch ops.
+of `repro`. The head's kernels — `midx_probs` (`kernels/midx_probs/`)
+and the per-token and shared-negative sampled CEs with their backwards
+(`kernels/sampled_ce/`) — are CUDA C++ built at first use; everything
+else is plain torch ops.
 
 Entry points (`init_params`, `serve.Engine`, `launch.serve`) run on the
 card unless the caller asks for the CPU: `device=None` means "cuda", and

@@ -1,10 +1,13 @@
 """Fast MIDX two-stage sampler (paper §4.3) and its closed-form log-prob.
 
 Mirrors `src/repro/core/midx.py`: `log_prob` (:59), `_member_uniform`
-(:51), `twostage_tables` (:110) and `sample_twostage` (:127). For a query z
-the proposal is Q(i|z) ∝ exp(s1[k1(i)] + s2[k2(i)]), drawn as k1 ~
-Cat(s1 + logψ), then k2 ~ Cat(s2 + log|Ω(k1,:)|), then a uniform member of
-Ω(k1,k2) through the CSR layout.
+(:51), `twostage_tables` (:110), `sample_twostage` (:127), and the
+shared-negative samplers `_inverse_cdf_sample` (:168), `_shared_draw`
+(:177), `sample_pooled` (:201) and `sample_mixture` (:210), the latter two
+with the plain scores only (the quantized `scores_fn` is not ported).
+For a query z the proposal is Q(i|z) ∝ exp(s1[k1(i)] + s2[k2(i)]), drawn
+as k1 ~ Cat(s1 + logψ), then k2 ~ Cat(s2 + log|Ω(k1,:)|), then a uniform
+member of Ω(k1,k2) through the CSR layout.
 
 Departure: where the reference splits a JAX key, every random number here
 is counter-based noise (`core/noise.py`) keyed by one int per query row,
@@ -13,17 +16,21 @@ so row t's draws are a function of `keys[t]` alone:
   k2 Gumbels [T,m,K]  role ROLE_K2,     draw j, column k
   member uniform [T,m] role ROLE_MEMBER, draw j, column 0
 Categorical draws are argmax(logits + Gumbel), ties to the lowest index.
+A sequence's shared draws take uniforms keyed by one int per sequence
+(`noise.sequence_keys`):
+  cluster uniform [B,m] role ROLE_SHARED_PAIR,   draw j, column 0
+  member uniform  [B,m] role ROLE_SHARED_MEMBER, draw j, column 0
 log q of a draw stays differentiable in the tables (the reference does not
-stop its gradient); its table entries are picked by a one-hot sum, whose
-backward sums in a fixed order on the card, where `torch.gather`'s
-backward adds with atomics — so a train step replays bit for bit.
+stop its gradient); its table entries are picked by `_PickRows`, whose
+backward sums repeated indices over a stable sort in a fixed order on the
+card, where `torch.gather`'s backward adds with atomics — so a train step
+replays bit for bit.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import noise
 from repro_torch.index.build import MultiIndex
@@ -64,10 +71,33 @@ def _member_uniform(index: MultiIndex, u: torch.Tensor,
     return index.sorted_ids[off + r]
 
 
-def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table [T, K], idx [T, m] -> table[t, idx[t, j]] as [T, m]; exact."""
-    onehot = F.one_hot(idx, table.shape[-1]).to(table.dtype)     # [T,m,K]
-    return torch.sum(table[:, None, :] * onehot, dim=-1)
+class _PickRows(torch.autograd.Function):
+    """table [B, C], idx [B, m] -> table[b, idx[b, j]]. The backward sums
+    the gradient of repeated indices in a fixed order: a stable sort of
+    each row's indices, a cumulative sum along it, and each segment's total
+    as a difference of two cumulative sums, scattered back with `scatter_`
+    (every member of a segment writes the same value). torch.gather's own
+    backward adds with atomics on the card."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.width = table.shape[-1]
+        return torch.gather(table, 1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        sidx, order = torch.sort(idx, dim=1, stable=True)
+        csum = torch.cumsum(torch.gather(g, 1, order), dim=1)
+        start = torch.searchsorted(sidx, sidx, right=False)
+        end = torch.searchsorted(sidx, sidx, right=True) - 1
+        before = torch.where(start > 0,
+                             torch.gather(csum, 1, (start - 1).clamp(min=0)),
+                             torch.zeros_like(csum))
+        total = torch.gather(csum, 1, end) - before
+        out = g.new_zeros((g.shape[0], ctx.width))
+        return out.scatter_(1, sidx, total), None
 
 
 def twostage_tables(index: MultiIndex, z: torch.Tensor):
@@ -104,5 +134,60 @@ def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
     k2 = torch.argmax(l2 + g2, dim=-1)                           # [T,m]
     u = noise.uniform_noise(key[..., 0], noise.ROLE_MEMBER, draw[..., 0], 0)
     ids = _member_uniform(index, u, k1 * kk + k2)
-    log_q = _pick(s1, k1) + _pick(s2, k2) - lse[:, None]
+    log_q = (_PickRows.apply(s1, k1) + _PickRows.apply(s2, k2)
+             - lse[:, None])
     return Draw(ids, log_q)
+
+
+# ----------------------------------------------------------------- shared
+def inverse_cdf_sample(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Indices drawn from categorical rows probs [..., C] by uniforms
+    u [..., m] in (0, 1): the count of cdf entries strictly below u, as the
+    reference's sum(u > cdf), found by binary search instead of a
+    [..., C, m] comparison."""
+    cdf = torch.cumsum(probs, dim=-1)
+    cdf = cdf / cdf[..., -1:]
+    idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=False)
+    return torch.clamp(idx, max=probs.shape[-1] - 1)
+
+
+def _shared_draw(index: MultiIndex, flat_log: torch.Tensor, m: int,
+                 keys: torch.Tensor) -> Draw:
+    """m (cluster, member) draws per row of flat_log [B, K²] (log weights,
+    −inf on empty clusters), row b keyed by keys[b] -> Draw of [B, m]."""
+    lse = torch.logsumexp(flat_log, dim=-1, keepdim=True)
+    probs = torch.exp(flat_log - lse)
+    key = keys.reshape(-1, 1)
+    draw = torch.arange(m, device=flat_log.device).reshape(1, m)
+    u = noise.uniform_noise(key, noise.ROLE_SHARED_PAIR, draw, 0)
+    cluster = inverse_cdf_sample(probs.detach(), u)
+    u = noise.uniform_noise(key, noise.ROLE_SHARED_MEMBER, draw, 0)
+    ids = _member_uniform(index, u, cluster)
+    log_q = (_PickRows.apply(flat_log, cluster)
+             - index.log_counts.reshape(-1)[cluster] - lse)
+    return Draw(ids, log_q)
+
+
+def sample_pooled(index: MultiIndex, z_seq: torch.Tensor, m: int,
+                  keys: torch.Tensor) -> Draw:
+    """Pooled proposal: one proposal per sequence from its mean query.
+    z_seq [B, S, D], keys [B] -> Draw of [B, m]."""
+    z_bar = torch.mean(z_seq.float(), dim=-2)                    # [B,D]
+    j, _, _ = joint_logits(index, z_bar)
+    return _shared_draw(index, j.reshape(j.shape[0], -1), m, keys)
+
+
+def sample_mixture(index: MultiIndex, z_seq: torch.Tensor, m: int,
+                   keys: torch.Tensor) -> Draw:
+    """Exact token-mixture proposal per sequence:
+    P̄[k,k'] ∝ |Ω| ⊙ Σ_t a_t[k] b_t[k'],  a_t = exp(s1_t)/Z_t, b_t = exp(s2_t),
+    Z_t the token's joint normaliser — one K×S @ S×K product per sequence.
+    z_seq [B, S, D], keys [B] -> Draw of [B, m], log q under the mixture."""
+    j, s1, s2 = joint_logits(index, z_seq)                       # [B,S,K,K]
+    log_z = torch.logsumexp(j.reshape(*j.shape[:-2], -1), dim=-1)  # [B,S]
+    c2 = torch.amax(s2, dim=-1, keepdim=True)
+    a = torch.exp(s1 - log_z[..., None] + c2)
+    b = torch.exp(s2 - c2)
+    mix = torch.einsum("bsk,bsl->bkl", a, b)                     # [B,K,K]
+    mix_log = torch.log(torch.clamp(mix, min=1e-30)) + index.log_counts
+    return _shared_draw(index, mix_log.reshape(mix.shape[0], -1), m, keys)

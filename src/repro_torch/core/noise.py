@@ -30,8 +30,10 @@ _C_N = -1028477379 & _M32
 _M1 = 0x7FEB352D
 _M2 = -2073287029 & _M32
 
-#: Roles salt the draws of one (request, position) apart.
-ROLE_K1, ROLE_K2, ROLE_MEMBER, ROLE_PICK, ROLE_FULL = range(5)
+#: Roles salt the draws of one (request, position) apart. The last two
+#: salt a sequence's shared negatives (pooled and mixture proposals).
+(ROLE_K1, ROLE_K2, ROLE_MEMBER, ROLE_PICK, ROLE_FULL, ROLE_SHARED_PAIR,
+ ROLE_SHARED_MEMBER) = range(7)
 #: Streams salt a row key by its use: a serving row, or a training token.
 STREAM_SERVE, STREAM_TRAIN = range(2)
 
@@ -88,3 +90,12 @@ def train_keys(seed, step, n: int, device=None) -> torch.Tensor:
     the CPU and on the card alike."""
     rows = torch.arange(n, device=device)
     return hash_bits(seed, step, rows, STREAM_TRAIN)
+
+
+def sequence_keys(token_keys: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """Per-sequence keys [B] from a step's token keys [B·S]: sequence b
+    takes the key of its first token, hash(seed, step, b·S). Its shared
+    draws (under ROLE_SHARED_PAIR / ROLE_SHARED_MEMBER, which no per-token
+    draw uses) are then a function of (seed, step, b) at a given S, never
+    of B or of the other sequences in the batch."""
+    return token_keys.reshape(-1, seq_len)[:, 0]

@@ -14,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.midx_probs.ref import midx_probs_ref
-from repro_torch.kernels.sampled_ce.ref import (sampled_ce_pt_bwd_ref,
+from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
+                                                sampled_ce_fwd_ref,
+                                                sampled_ce_pt_bwd_ref,
                                                 sampled_ce_pt_fwd_ref)
 
 
@@ -54,3 +56,29 @@ def sampled_ce_pt_bwd(g, hidden, table, log_q, neg_ids, pos_ids, lse):
         return sampled_ce_pt_bwd_ref(g, hidden, table, log_q, neg_ids,
                                      pos_ids, lse)
     raise _unsupported("sampled_ce_pt_bwd", hidden)
+
+
+def sampled_ce(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids):
+    """Shared-negative sampled CE forward: (loss [B, S], lse [B, S])."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_cuda
+        return sampled_ce_cuda(hidden, pos_emb, neg_emb, log_q, neg_ids,
+                               pos_ids)
+    if hidden.device.type == "cpu":
+        return sampled_ce_fwd_ref(hidden, pos_emb, neg_emb, log_q, neg_ids,
+                                  pos_ids)
+    raise _unsupported("sampled_ce", hidden)
+
+
+def sampled_ce_bwd(g, hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
+                   lse):
+    """Its backward from the saved lse: (dh, dpe [B, S, D], dne [B, M, D],
+    dlq [B, M]), all fp32."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_bwd_cuda
+        return sampled_ce_bwd_cuda(g, hidden, pos_emb, neg_emb, log_q,
+                                   neg_ids, pos_ids, lse)
+    if hidden.device.type == "cpu":
+        return sampled_ce_bwd_ref(g, hidden, pos_emb, neg_emb, log_q, neg_ids,
+                                  pos_ids, lse)
+    raise _unsupported("sampled_ce_bwd", hidden)

@@ -1,13 +1,16 @@
-"""Load and launch the hand-written CUDA per-token sampled-CE kernels.
+"""Load and launch the hand-written CUDA sampled-CE kernels.
 
 `csrc/sampled_ce_pt.cu` replaces the JAX package's TPU kernels
 `kernels/sampled_ce/per_token.py::_fwd_kernel` (`sampled_ce_pt`) and
-`::_bwd_kernel` (`sampled_ce_pt_bwd`); its header says what bounds them on
-the card and how the design answers that. It is built by
-`kernels/build.py` (nvcc for sm_90a at first use, into `build/kernels/`)
-and loaded with `ctypes`.
+`::_bwd_kernel` (`sampled_ce_pt_bwd`); `csrc/sampled_ce.cu` replaces
+`kernels/sampled_ce/sampled_ce.py::_kernel` (`sampled_ce`) and
+`::_bwd_dh_kernel` / `::_bwd_dne_kernel` (`sampled_ce_bwd`), the
+shared-negative pair. Each header says what bounds its kernels on the card
+and how the design answers that. Both are built by `kernels/build.py`
+(nvcc for sm_90a at first use, into `build/kernels/`), one library per
+source, and loaded with `ctypes`.
 
-The backward is two launches: a per-token kernel (dh, dlq and the
+The per-token backward is two launches: a per-token kernel (dh, dlq and the
 per-occurrence coefficients), then a deterministic segmented reduction for
 d(table). The host glue between them — the stable sort of the occurrence
 ids and the segment offsets — is `segments`, plain torch ops.
@@ -167,3 +170,119 @@ def sampled_ce_pt_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
 
 
 sampled_ce_pt_bwd_cuda.launches = 0
+
+
+# ------------------------------------------------------ shared negatives
+def _declare_shared(lib: ctypes.CDLL) -> None:
+    lib.sampled_ce_fwd_launch.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.sampled_ce_bwd_launch.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.sampled_ce_fwd_launch.restype = ctypes.c_int
+    lib.sampled_ce_bwd_launch.restype = ctypes.c_int
+
+
+SHARED_LIBRARY = KernelLibrary(
+    "sampled_ce", Path(__file__).resolve().parent / "csrc" / "sampled_ce.cu",
+    _declare_shared)
+
+
+def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra):
+    """Raises on what the shared-negative kernels do not take; returns
+    (B, S, M, D). extra: the backward's g and lse [B, S] fp32."""
+    tensors = (hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra)
+    if not all(x.is_cuda and x.device == hidden.device for x in tensors):
+        raise ValueError("sampled_ce_cuda: every operand must be on "
+                         "hidden's CUDA device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("sampled_ce_cuda: operands must be contiguous")
+    if pos_emb.dtype not in _VEC_ELEMS or neg_emb.dtype != pos_emb.dtype:
+        raise ValueError(f"sampled_ce_cuda: pos_emb and neg_emb must be both "
+                         f"fp32 or both bf16, got {pos_emb.dtype} and "
+                         f"{neg_emb.dtype}")
+    if not all(x.dtype == torch.float32 for x in (hidden, log_q, *extra)):
+        raise ValueError("sampled_ce_cuda: hidden, log_q, g and lse must be "
+                         "fp32")
+    if neg_ids.dtype != torch.int64 or pos_ids.dtype != torch.int64:
+        raise ValueError("sampled_ce_cuda: ids must be int64")
+    if hidden.dim() != 3 or neg_emb.dim() != 3:
+        raise ValueError(f"sampled_ce_cuda: bad shapes hidden"
+                         f"{tuple(hidden.shape)} neg_emb"
+                         f"{tuple(neg_emb.shape)}")
+    b, s, d = hidden.shape
+    m = neg_emb.shape[1]
+    if (tuple(pos_emb.shape) != (b, s, d) or tuple(neg_emb.shape) != (b, m, d)
+            or tuple(log_q.shape) != (b, m) or tuple(neg_ids.shape) != (b, m)
+            or tuple(pos_ids.shape) != (b, s)
+            or any(tuple(x.shape) != (b, s) for x in extra)):
+        raise ValueError(f"sampled_ce_cuda: bad shapes hidden"
+                         f"{tuple(hidden.shape)} pos_emb"
+                         f"{tuple(pos_emb.shape)} neg_emb"
+                         f"{tuple(neg_emb.shape)} log_q{tuple(log_q.shape)} "
+                         f"neg_ids{tuple(neg_ids.shape)} "
+                         f"pos_ids{tuple(pos_ids.shape)}")
+    if d < 1 or m < 1 or b > 65535:
+        raise ValueError(f"sampled_ce_cuda takes D >= 1, M >= 1 and "
+                         f"B <= 65535, got D={d} M={m} B={b}")
+    return b, s, m, d
+
+
+def sampled_ce_cuda(hidden: torch.Tensor, pos_emb: torch.Tensor,
+                    neg_emb: torch.Tensor, log_q: torch.Tensor,
+                    neg_ids: torch.Tensor, pos_ids: torch.Tensor):
+    """Forward: hidden [B, S, D] fp32, pos_emb [B, S, D] and neg_emb
+    [B, M, D] both fp32 or both bf16, log_q [B, M] fp32, neg_ids [B, M] /
+    pos_ids [B, S] int64, contiguous, on one CUDA device -> (loss [B, S],
+    lse [B, S]) fp32. Adds one to `sampled_ce_cuda.launches` per launch."""
+    b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
+                               pos_ids)
+    lib = SHARED_LIBRARY.load()
+    loss = torch.empty((b, s), dtype=torch.float32, device=hidden.device)
+    lse = torch.empty_like(loss)
+    if loss.numel() == 0:
+        return loss, lse
+    with torch.cuda.device(hidden.device):
+        err = lib.sampled_ce_fwd_launch(
+            hidden.data_ptr(), pos_emb.data_ptr(), neg_emb.data_ptr(),
+            log_q.data_ptr(), neg_ids.data_ptr(), pos_ids.data_ptr(),
+            loss.data_ptr(), lse.data_ptr(), b, s, m, d,
+            int(pos_emb.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _raise(err, "sampled_ce")
+    sampled_ce_cuda.launches += 1
+    return loss, lse
+
+
+sampled_ce_cuda.launches = 0
+
+
+def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
+                        pos_emb: torch.Tensor, neg_emb: torch.Tensor,
+                        log_q: torch.Tensor, neg_ids: torch.Tensor,
+                        pos_ids: torch.Tensor, lse: torch.Tensor):
+    """Backward from the forward's lse: g/lse [B, S] fp32, the rest as the
+    forward -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32.
+    Adds one to `sampled_ce_bwd_cuda.launches` per backward (its two
+    kernels, dh/dpe then dne/dlq, launch together)."""
+    b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
+                               pos_ids, g, lse)
+    lib = SHARED_LIBRARY.load()
+    dev = hidden.device
+    dh = torch.empty((b, s, d), dtype=torch.float32, device=dev)
+    dpe = torch.empty_like(dh)
+    dne = torch.empty((b, m, d), dtype=torch.float32, device=dev)
+    dlq = torch.empty((b, m), dtype=torch.float32, device=dev)
+    if b == 0:
+        return dh, dpe, dne, dlq
+    with torch.cuda.device(dev):
+        err = lib.sampled_ce_bwd_launch(
+            g.data_ptr(), hidden.data_ptr(), pos_emb.data_ptr(),
+            neg_emb.data_ptr(), log_q.data_ptr(), neg_ids.data_ptr(),
+            pos_ids.data_ptr(), lse.data_ptr(), dh.data_ptr(),
+            dpe.data_ptr(), dne.data_ptr(), dlq.data_ptr(), b, s, m, d,
+            int(pos_emb.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _raise(err, "sampled_ce_bwd")
+    sampled_ce_bwd_cuda.launches += 1
+    return dh, dpe, dne, dlq
+
+
+sampled_ce_bwd_cuda.launches = 0

@@ -1,4 +1,4 @@
-"""Plain torch versions of the per-token sampled-CE kernels.
+"""Plain torch versions of the sampled-CE kernels: per-token and shared.
 
 Mirrors `src/repro/kernels/sampled_ce/ref.py::sampled_ce_pt_ref` (:31): the
 memory-hungry formulation the kernels replace — the [T, M, D] negative
@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sampled_softmax import NEG_INF, corrected_logits
+from repro_torch.core.sampled_softmax import (NEG_INF, NEG_INF_THRESHOLD,
+                                              corrected_logits)
 
 
 def _all_logits(hidden, table, log_q, neg_ids, pos_ids):
@@ -58,3 +59,56 @@ def sampled_ce_pt_bwd_ref(g, hidden, table, log_q, neg_ids, pos_ids, lse):
         loss = sampled_ce_pt_ref(h, tab, lq, neg_ids, pos_ids)
         dh, dtab, dlq = torch.autograd.grad(loss, (h, tab, lq), g.float())
     return dh, dtab, dlq
+
+
+# ------------------------------------------------------ shared negatives
+# Mirrors `src/repro/kernels/sampled_ce/ref.py::sampled_ce_ref` (:15) with
+# the batch as a leading dimension: each sequence b scores its S tokens
+# against its own M shared negatives. hidden/pos_emb [B, S, D]; neg_emb
+# [B, M, D]; log_q/neg_ids [B, M]; pos_ids [B, S].
+
+def _shared_corr(hidden, neg_emb, log_q, neg_ids, pos_ids):
+    """Corrected, collision-masked negative logits [B, S, M] (fp32)."""
+    m = neg_emb.shape[-2]
+    logits = torch.matmul(hidden.float(), neg_emb.float().transpose(-1, -2))
+    corr = corrected_logits(logits, log_q.float()[:, None, :], m)
+    hit = neg_ids[:, None, :] == pos_ids[:, :, None]
+    return torch.where(hit, corr.new_tensor(NEG_INF), corr)
+
+
+def sampled_ce_fwd_ref(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids):
+    """The forward kernel's outputs: (loss [B, S], lse [B, S]) fp32."""
+    pos_logit = torch.sum(hidden.float() * pos_emb.float(), dim=-1)
+    corr = _shared_corr(hidden, neg_emb, log_q, neg_ids, pos_ids)
+    lse = torch.logsumexp(torch.cat([pos_logit[..., None], corr], dim=-1),
+                          dim=-1)
+    return lse - pos_logit, lse
+
+
+def sampled_ce_ref(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids):
+    """Per-token corrected sampled-softmax CE [B, S] fp32 (Eq. 1 with
+    collision masking); autograd through it is the plain backward."""
+    return sampled_ce_fwd_ref(hidden, pos_emb, neg_emb, log_q, neg_ids,
+                              pos_ids)[0]
+
+
+def sampled_ce_bwd_ref(g, hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
+                       lse):
+    """The backward kernels' outputs from the saved lse, as
+    `sampled_ce.py::sampled_ce_bwd` (:277-372) computes them:
+      w   = exp(corr − lse) on valid entries, else 0     [B, S, M]
+      dh  = g·(w @ ne + (p_pos − 1)·pe),  dpe = g·(p_pos − 1)·h
+      dne = (g·w)ᵀ @ h,                   dlq = −Σ_s g·w
+    -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32."""
+    h, pe, ne = hidden.float(), pos_emb.float(), neg_emb.float()
+    g = g.float()[..., None]                                     # [B,S,1]
+    lse = lse[..., None]
+    corr = _shared_corr(hidden, neg_emb, log_q, neg_ids, pos_ids)
+    w = torch.where(corr > NEG_INF_THRESHOLD, torch.exp(corr - lse),
+                    torch.zeros_like(corr))
+    p_pos = torch.exp(torch.sum(h * pe, dim=-1, keepdim=True) - lse)
+    dh = g * (torch.matmul(w, ne) + (p_pos - 1.0) * pe)
+    dpe = g * (p_pos - 1.0) * h
+    gw = g * w
+    return (dh, dpe, torch.matmul(gw.transpose(-1, -2), h),
+            -torch.sum(gw, dim=-2))

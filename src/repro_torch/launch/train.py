@@ -15,7 +15,14 @@ Every random choice is a pure function of (seed, step): the batches
 `core.noise.train_keys`) and the refresh's K-means generator. Two runs
 with one seed on one device therefore agree bit for bit.
 
+The head trains with the config's proposal: per-token for `paper-lm`,
+the shared-negative `pooled` default (`HeadConfig.proposal`) for the other
+dense configs, e.g. `llama3.2-1b` at full width (M = 1024, K = 64). At
+V = 128 256 the default corpus (`ZipfLM`, 512 sequences) takes the host
+tens of seconds to draw before step 0.
+
   python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3
+  python -m repro_torch.launch.train --arch llama3.2-1b --steps 40 --batch 4 --seq 256
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
 """
 from __future__ import annotations

@@ -3,19 +3,25 @@
 Mirrors `src/repro/models/heads.py`: `init_head_state` (:39, the bf16 table
 path only — int8/fp8 tables are a later slice), `refresh_head_state` (:71),
 `refresh_head_state_with_policy` (:86), `loss_full` (:106), `loss_midx`
-(:113, the per-token branch with the table in its native dtype),
+(:113, the fused lane: per-token, pooled and mixture proposals, with the
+table in its native dtype),
 `_masked_mean` (:232) and `midx_decode_head` (:316, the unquantized
 branch).
 
-`loss_midx` is the reference's fused lane: the proposal tables come from
-the midx_probs kernel and the CE from the per-token sampled-CE kernels
-(`kernels.sampled_ce.ops.sampled_ce_pt_op`, forward and backward) — the
-[T, M, D] gather and the [T, M] logits never reach device memory on the
-card. log q stays attached to the graph, as in the reference, so d(loss)/d
-log q flows back through the proposal tables into the hidden states. The
-pooled/mixture proposals (ROADMAP.md Queue 1 item 7) and quantized states
-(item 8) raise NotImplementedError. Like the reference's fused lane, the
-kernel always masks collisions (`mask_collisions` is not consulted).
+`loss_midx` is the reference's fused lane. Per-token proposals: the
+proposal tables come from the midx_probs kernel and the CE from the
+per-token sampled-CE kernels (`kernels.sampled_ce.ops.sampled_ce_pt_op`,
+forward and backward) — the [T, M, D] gather and the [T, M] logits never
+reach device memory on the card. Pooled and mixture proposals: each
+sequence draws M shared negatives (`core.midx.sample_pooled` /
+`sample_mixture`, plain joint logits as in the reference), their rows and
+the positives' are gathered in the table's native dtype, and the CE runs
+in the shared-negative kernels (`sampled_ce_op`) — the [B, S, M] logits
+never reach device memory. log q stays attached to the graph, as in the
+reference, so d(loss)/d log q flows back through the proposal into the
+hidden states. Quantized states (ROADMAP.md Queue 1 item 8) raise
+NotImplementedError. Like the reference's fused lane, the kernels always
+mask collisions (`mask_collisions` is not consulted).
 
 The decode head draws `num_candidates` classes through the two-stage MIDX
 proposal, rescores them exactly against the class table, IS-corrects
@@ -26,8 +32,12 @@ matrix. Departures:
     rows, so one midx_probs launch serves a whole decode wave;
   - randomness is counter-based noise keyed per row (`core/noise.py`), so
     a slot's draw is a function of its own (seed, rid, pos) and never of
-    the batch it rides in, and a training token's negatives a function of
-    (seed, step, token index);
+    the batch it rides in, a training token's negatives a function of
+    (seed, step, token index), and a sequence's shared negatives a
+    function of (seed, step, b·S) (`noise.sequence_keys`);
+  - the gathers use `F.embedding`, whose backward onto the table sums
+    repeated ids in a fixed order, where `table[ids]`'s backward adds
+    with atomics;
   - the proposal tables always come through `proposal_tables` and
     `kernels.dispatch` (the CUDA kernel on the card, the plain version on
     the CPU); there is no `fused`/`interpret` switch.
@@ -37,6 +47,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import midx as midx_mod
@@ -45,7 +56,8 @@ from repro_torch.core.sampled_softmax import full_softmax_loss
 from repro_torch.index import lifecycle as lifecycle_mod
 from repro_torch.index.build import MultiIndex, build, refresh
 from repro_torch.kernels.midx_probs.ops import proposal_tables
-from repro_torch.kernels.sampled_ce.ops import sampled_ce_pt_op
+from repro_torch.kernels.sampled_ce.ops import (sampled_ce_op,
+                                                sampled_ce_pt_op)
 from repro_torch.models.model import class_embeddings, logits_full
 
 
@@ -103,26 +115,34 @@ def loss_midx(cfg: ModelConfig, params: dict, index: MultiIndex,
               hidden: torch.Tensor, labels: torch.Tensor, keys: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MIDX sampled-softmax CE. hidden [B,S,D], labels [B,S], keys [B·S]
-    the tokens' stream keys (`noise.train_keys(seed, step, B·S)`)."""
+    the tokens' stream keys (`noise.train_keys(seed, step, B·S)`); the
+    shared proposals key sequence b by keys[b·S]."""
     if not isinstance(index, MultiIndex):
         raise NotImplementedError(
             f"loss_midx over a {type(index).__name__} head state: the "
             "quantized hot path is not ported yet (ROADMAP.md Queue 1 "
             "item 8)")
-    if cfg.head.proposal != "per_token":
-        raise NotImplementedError(
-            f"proposal={cfg.head.proposal!r}: the shared-negative proposals "
-            "and the sampled_ce kernels are not ported yet (ROADMAP.md "
-            "Queue 1 item 7)")
     table = class_embeddings(cfg, params)
     m = cfg.head.num_negatives
     b, s, d = hidden.shape
-    h32 = hidden.float().reshape(b * s, d)
-    draw = midx_mod.sample_twostage(index, h32, m, keys,
-                                    tables_fn=proposal_tables)    # [T,M]
-    loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
-                            labels.reshape(b * s))
-    return _masked_mean(loss.reshape(b, s), mask)
+    proposal = cfg.head.proposal
+    if proposal == "per_token":
+        h32 = hidden.float().reshape(b * s, d)
+        draw = midx_mod.sample_twostage(index, h32, m, keys,
+                                        tables_fn=proposal_tables)  # [T,M]
+        loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
+                                labels.reshape(b * s)).reshape(b, s)
+        return _masked_mean(loss, mask)
+    if proposal not in ("pooled", "mixture"):
+        raise ValueError(f"unknown proposal {proposal!r}")
+    sampler = (midx_mod.sample_pooled if proposal == "pooled"
+               else midx_mod.sample_mixture)
+    h32 = hidden.float()
+    draw = sampler(index, h32, m, noise.sequence_keys(keys, s))  # [B,M]
+    pos_emb = F.embedding(labels, table)                  # [B,S,D] native
+    neg_emb = F.embedding(draw.ids, table)                # [B,M,D] native
+    loss = sampled_ce_op(h32, pos_emb, neg_emb, draw.log_q, draw.ids, labels)
+    return _masked_mean(loss, mask)
 
 
 class MidxDecodeOut(NamedTuple):

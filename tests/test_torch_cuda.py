@@ -1,6 +1,7 @@
-"""Card-only checks of the torch port: the CUDA midx_probs and per-token
-sampled-CE kernels against their plain versions, the engine on the card,
-and a short training run through all three kernels. This file imports no
+"""Card-only checks of the torch port: the CUDA midx_probs, per-token and
+shared-negative sampled-CE kernels against their plain versions, the
+engine on the card, and short training runs through the kernels of the
+per-token and the pooled heads. This file imports no
 JAX, so it runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -151,3 +152,91 @@ def test_training_on_the_card_goes_through_all_three_kernels():
                   seed=1)
     res = eng.run([req])
     np.testing.assert_array_equal(res[0].tokens, eng.replay_single(req))
+
+
+def _shared_inputs(b, s, m, d, v, dtype, seed):
+    """Shared-negative CE inputs on the card: duplicate negatives, negatives
+    that collide with positives, and a token all of whose negatives
+    collide (sequence 0, token 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((b, s, d), generator=g, device="cuda")
+    tab = (0.2 * torch.randn((v, d), generator=g, device="cuda")).to(dtype)
+    lq = -5.0 + torch.randn((b, m), generator=g, device="cuda")
+    neg = torch.randint(0, v, (b, m), generator=g, device="cuda")
+    pos = torch.randint(0, v, (b, s), generator=g, device="cuda")
+    if m > 2 and s > 0:
+        neg[:, 1] = neg[:, 0]                    # duplicates
+        neg[:, 2] = pos[:, -1]                   # collisions
+        neg[0] = pos[0, 0]                       # every negative collides
+    return (h, tab[pos].contiguous(), tab[neg].contiguous(), lq, neg, pos,
+            torch.rand((b, s), generator=g, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_sampled_ce_kernels_match_plain_version(dtype):
+    """Forward and both backward kernels within 1e-4·max(1, |plain|); the
+    backward bitwise repeatable; ragged S, M and D, and an empty S."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
+                                                     sampled_ce_cuda)
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
+                                                    sampled_ce_fwd_ref)
+    for b, s, m, d, v in ((1, 1, 20, 200, 10000), (2, 7, 13, 30, 9),
+                          (3, 70, 130, 2048, 5000), (2, 256, 1024, 200, 10000),
+                          (1, 0, 8, 16, 20)):
+        h, pe, ne, lq, neg, pos, g = _shared_inputs(b, s, m, d, v, dtype,
+                                                    seed=s + m + d)
+        got_f = sampled_ce_cuda(h, pe, ne, lq, neg, pos)
+        want_f = sampled_ce_fwd_ref(h, pe, ne, lq, neg, pos)
+        got_b = sampled_ce_bwd_cuda(g, h, pe, ne, lq, neg, pos, got_f[1])
+        again = sampled_ce_bwd_cuda(g, h, pe, ne, lq, neg, pos, got_f[1])
+        want_b = sampled_ce_bwd_ref(g, h, pe, ne, lq, neg, pos, want_f[1])
+        torch.cuda.synchronize()
+        for a, w in zip((*got_f, *got_b), (*want_f, *want_b)):
+            assert a.shape == w.shape
+            assert torch.all((a - w).abs() <= 1e-4 * w.abs().clamp(min=1))
+        assert all(torch.equal(a, w) for a, w in zip(got_b, again))
+
+
+def test_shared_sampled_ce_kernels_reject_what_they_cannot_take():
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
+                                                     sampled_ce_cuda)
+    h, pe, ne, lq, neg, pos, g = _shared_inputs(2, 4, 5, 16, 20,
+                                                torch.float32, 0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sampled_ce_cuda(h.cpu(), pe, ne, lq, neg, pos)
+    with pytest.raises(ValueError, match="int64"):
+        sampled_ce_cuda(h, pe, ne, lq, neg.int(), pos)
+    with pytest.raises(ValueError, match="both fp32 or both bf16"):
+        sampled_ce_cuda(h, pe, ne.bfloat16(), lq, neg, pos)
+    with pytest.raises(ValueError, match="both fp32 or both bf16"):
+        sampled_ce_cuda(h, pe.half(), ne.half(), lq, neg, pos)
+    with pytest.raises(ValueError, match="bad shapes"):
+        sampled_ce_cuda(h, pe, ne[:, :, :8].contiguous(), lq, neg, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        sampled_ce_cuda(h.transpose(0, 1).contiguous().transpose(0, 1), pe,
+                        ne, lq, neg, pos)
+    with pytest.raises(ValueError, match="fp32"):
+        sampled_ce_bwd_cuda(g.double(), h, pe, ne, lq, neg, pos, g)
+    with pytest.raises(ValueError, match="M >= 1"):
+        sampled_ce_cuda(h, pe, ne[:, :0].contiguous(), lq[:, :0].contiguous(),
+                        neg[:, :0].contiguous(), pos)
+
+
+def test_pooled_llama_train_step_goes_through_the_shared_kernels():
+    _need_card()
+    import dataclasses
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
+                                                     sampled_ce_cuda)
+    from repro_torch.launch.train import train_loop
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    assert cfg.head.proposal == "pooled"
+    corpus = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 65)).astype(np.int32)
+    before = sampled_ce_cuda.launches, sampled_ce_bwd_cuda.launches
+    _, _, _, hist = train_loop(cfg, steps=2, batch_size=2, seq_len=64,
+                               corpus=corpus, log_every=1000)
+    assert sampled_ce_cuda.launches > before[0]
+    assert sampled_ce_bwd_cuda.launches > before[1]
+    assert np.all(np.isfinite(hist))

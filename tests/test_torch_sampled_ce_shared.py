@@ -1,0 +1,410 @@
+"""Shared-negative sampled CE and the pooled / mixture proposals: the port's
+plain versions and samplers against the JAX package on the CPU. The CUDA
+kernels are held to the plain versions in `test_torch_cuda.py`.
+
+Inputs are made with numpy from a seed. Tolerances:
+  - 1e-5 (atol and rtol) on fp32 forward values, and on the losses and
+    every parameter gradient of `loss_midx` given the same negatives (the
+    bar of `tests/test_fused_head.py`); for bf16 rows both sides upcast the
+    same bf16 values and compute in fp32, so the same bar holds;
+  - the CE backward: atol 1e-5, rtol 1e-4, the bar of the reference's own
+    kernel-vs-oracle backward test (`tests/test_kernels.py:178-180`);
+  - the inverse-CDF draw: the normalised CDF within 1e-6; the indices
+    exactly, on inputs where no uniform lies within 1e-6 of a CDF edge
+    (there a one-ulp difference between torch's and XLA's cumsum could
+    flip a draw; the test asserts the margin before it compares);
+  - draw frequencies against exp(log q): total variation below 0.05 over
+    50 000 draws (its expected size there is about 0.02).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfg
+from repro.core import midx as jmidx
+from repro.kernels.sampled_ce.ref import sampled_ce_ref as jref
+from repro.kernels.sampled_ce.sampled_ce import sampled_ce as jkernel
+from repro.kernels.sampled_ce.sampled_ce import sampled_ce_bwd as jkernel_bwd
+from repro.models import heads as jheads
+from repro.models.model import forward as jforward
+from repro.models.model import init_params as jinit
+from repro_torch import configs as tcfg
+from repro_torch.bridge import (index_from_numpy, params_from_numpy,
+                                params_to_numpy, tensor_from_numpy)
+from repro_torch.core import midx, noise
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
+                                                 sampled_ce_cuda)
+from repro_torch.kernels.sampled_ce.ops import sampled_ce_op
+from repro_torch.kernels.sampled_ce.ref import sampled_ce_ref
+from repro_torch.models import heads
+from repro_torch.models.model import forward as tforward
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+TOL = 1e-5
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+FIELDS = ("kind", "codebook1", "codebook2", "assign1", "assign2",
+          "residuals", "sorted_ids", "offsets", "counts", "log_counts")
+
+
+def _case(b, s, m, d, v, seed, dtype=jnp.float32, hot=False):
+    """Numpy inputs of one shared-negative CE call. hot=True forces
+    duplicate negatives, negatives that collide with positives, and a
+    token whose every negative collides (sequence 0, token 0)."""
+    rng = np.random.default_rng(seed)
+    h = (0.3 * rng.standard_normal((b, s, d))).astype(np.float32)
+    table = np.asarray(jnp.asarray(
+        (0.3 * rng.standard_normal((v, d))).astype(np.float32)).astype(dtype))
+    pos = rng.integers(0, v, (b, s)).astype(np.int32)
+    neg = rng.integers(0, v, (b, m)).astype(np.int32)
+    if hot:
+        neg[:, 1] = neg[:, 0]                       # duplicates
+        neg[:, 2] = pos[:, min(1, s - 1)]           # collides with a token
+        neg[0, :] = 7                               # every negative collides
+        pos[0, 0] = 7                               # ... with token (0, 0)
+    lq = (-np.log(v) + 0.1 * rng.standard_normal((b, m))).astype(np.float32)
+    return h, table, lq, neg, pos
+
+
+def _rows(table, neg, pos):
+    return table[pos], table[neg]
+
+
+def _torch(h, table, lq, neg, pos):
+    pe, ne = _rows(table, neg, pos)
+    return (torch.from_numpy(h), tensor_from_numpy(np.ascontiguousarray(pe),
+                                                   "cpu"),
+            tensor_from_numpy(np.ascontiguousarray(ne), "cpu"),
+            torch.from_numpy(lq), torch.from_numpy(neg.astype(np.int64)),
+            torch.from_numpy(pos.astype(np.int64)))
+
+
+def _jax_seq(h, table, lq, neg, pos, b):
+    pe, ne = _rows(table, neg, pos)
+    return [jnp.asarray(x) for x in (h[b], pe[b], ne[b], lq[b], neg[b],
+                                     pos[b])]
+
+
+CASES = [
+    (2, 16, 16, 32, 500, jnp.float32, False),
+    (3, 7, 13, 24, 60, jnp.float32, False),      # odd S and M
+    (1, 1, 20, 16, 100, jnp.float32, False),     # one token
+    (2, 9, 11, 40, 200, jnp.bfloat16, False),    # native bf16 rows
+    (2, 10, 12, 16, 9, jnp.float32, True),       # V << M: duplicates, hits
+    (2, 5, 6, 8, 50, jnp.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("b,s,m,d,v,dtype,hot", CASES)
+def test_plain_forward_matches_jax_kernel_and_oracle(b, s, m, d, v, dtype,
+                                                     hot):
+    h, table, lq, neg, pos = _case(b, s, m, d, v, seed=s + m, dtype=dtype,
+                                   hot=hot)
+    loss, lse = dispatch.sampled_ce(*_torch(h, table, lq, neg, pos))
+    assert loss.shape == lse.shape == (b, s)
+    for i in range(b):
+        args = _jax_seq(h, table, lq, neg, pos, i)
+        kl, klse = jkernel(*args, block_t=8, block_m=8, interpret=True)
+        np.testing.assert_allclose(loss[i].numpy(), np.asarray(kl), atol=TOL,
+                                   rtol=TOL)
+        np.testing.assert_allclose(lse[i].numpy(), np.asarray(klse),
+                                   atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(loss[i].numpy(), np.asarray(jref(*args)),
+                                   atol=TOL, rtol=TOL)
+    if hot:                         # all negatives masked: the loss is 0
+        assert abs(float(loss[0, 0])) <= TOL
+
+
+@pytest.mark.parametrize("b,s,m,d,v,dtype,hot", CASES)
+def test_plain_backward_matches_jax_kernel_and_grad(b, s, m, d, v, dtype,
+                                                    hot):
+    h, table, lq, neg, pos = _case(b, s, m, d, v, seed=3 * s + m,
+                                   dtype=dtype, hot=hot)
+    g = np.random.default_rng(s).random((b, s)).astype(np.float32)
+    th, tpe, tne, tlq, tneg, tpos = _torch(h, table, lq, neg, pos)
+    _, lse = dispatch.sampled_ce(th, tpe, tne, tlq, tneg, tpos)
+    got = dispatch.sampled_ce_bwd(torch.from_numpy(g), th, tpe, tne, tlq,
+                                  tneg, tpos, lse)
+    # and through the autograd wrapper, as the head calls it
+    leaves = [x.float().requires_grad_(True) for x in (th, tpe, tne, tlq)]
+    sampled_ce_op(*leaves, tneg, tpos).backward(torch.from_numpy(g))
+    for i in range(b):
+        args = _jax_seq(h, table, lq, neg, pos, i)
+        _, jlse = jkernel(*args, block_t=8, block_m=8, interpret=True)
+        ker = jkernel_bwd(jnp.asarray(g[i]), *args, jlse, block_t=8,
+                          block_m=8, interpret=True)
+        f32 = [a.astype(jnp.float32) for a in args[:4]]
+        grad = jax.grad(lambda a, p, n, q: jnp.sum(
+            jnp.asarray(g[i]) * jref(a, p, n, q, args[4], args[5])),
+            argnums=(0, 1, 2, 3))(*f32)
+        for name, x, y, z, leaf in zip(("dh", "dpe", "dne", "dlq"), got, ker,
+                                       grad, leaves):
+            for want in (y, z):
+                np.testing.assert_allclose(x[i].numpy(), np.asarray(want),
+                                           atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                           err_msg=name)
+            np.testing.assert_allclose(leaf.grad[i].numpy(), np.asarray(y),
+                                       atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                       err_msg=name)
+
+
+def test_plain_backward_is_autograd_of_the_plain_forward():
+    h, table, lq, neg, pos = _case(2, 6, 9, 12, 30, seed=4, hot=True)
+    th, tpe, tne, tlq, tneg, tpos = _torch(h, table, lq, neg, pos)
+    g = torch.rand((2, 6), generator=torch.Generator().manual_seed(0))
+    leaves = [x.clone().requires_grad_(True) for x in (th, tpe, tne, tlq)]
+    want = torch.autograd.grad(sampled_ce_ref(*leaves, tneg, tpos), leaves, g)
+    _, lse = dispatch.sampled_ce(th, tpe, tne, tlq, tneg, tpos)
+    got = dispatch.sampled_ce_bwd(g, th, tpe, tne, tlq, tneg, tpos, lse)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def test_dispatch_and_cuda_wrappers_refuse_what_they_cannot_take():
+    args = _torch(*_case(2, 4, 3, 8, 20, seed=2))
+    with pytest.raises(RuntimeError, match="no implementation"):
+        dispatch.sampled_ce(*(x.to("meta") for x in args))
+    with pytest.raises(ValueError, match="CUDA device"):
+        sampled_ce_cuda(*args)
+    g = torch.ones((2, 4))
+    with pytest.raises(ValueError, match="CUDA device"):
+        sampled_ce_bwd_cuda(g, *args, g)
+
+
+# ------------------------------------------------------------- samplers
+def test_inverse_cdf_sample_matches_jax_given_the_same_uniforms():
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((3, 50)).astype(np.float32)
+    logits[:, 5] = -np.inf                          # empty clusters
+    logits[1, :10] = -np.inf
+    probs = np.array(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    key = jax.random.PRNGKey(3)
+    m = 400
+    want = np.asarray(jmidx._inverse_cdf_sample(key, jnp.asarray(probs), m))
+    u = np.asarray(jax.random.uniform(key, (3, m)))  # the reference's u
+    jcdf = np.asarray(jnp.cumsum(jnp.asarray(probs), axis=-1))
+    jcdf = jcdf / jcdf[:, -1:]
+    tcdf = torch.cumsum(torch.from_numpy(probs), -1)
+    tcdf = (tcdf / tcdf[:, -1:]).numpy()
+    np.testing.assert_allclose(tcdf, jcdf, atol=1e-6, rtol=0)
+    margin = np.abs(u[:, :, None] - jcdf[:, None, :]).min()
+    assert margin > 1e-6, "a uniform sits on a CDF edge: pick another seed"
+    got = midx.inverse_cdf_sample(torch.from_numpy(probs), torch.from_numpy(u))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.all(probs[np.arange(3)[:, None], want] > 0)
+
+
+def test_pick_rows_gradient_is_the_gather_gradient():
+    """The shared draws' log q pick: a repeated index gets the sum of its
+    gradients, as torch.gather's backward gives, in a fixed order."""
+    rng = np.random.default_rng(6)
+    table = torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 40, (3, 200)))
+    idx[:, :50] = 5                                  # a hot entry
+    g = torch.from_numpy(rng.standard_normal((3, 200)).astype(np.float32))
+    a = table.clone().requires_grad_(True)
+    b = table.clone().requires_grad_(True)
+    out = midx._PickRows.apply(a, idx)
+    assert torch.equal(out, torch.gather(table, 1, idx))
+    out.backward(g)
+    torch.gather(b, 1, idx).backward(g)
+    torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-5)
+
+
+def _index(seed=0, v=120, d=16, k=6, kind="rq"):
+    rng = np.random.default_rng(seed)
+    table = (rng.standard_normal((v, d))).astype(np.float32)
+    from repro.index.build import build as jbuild
+    jidx = jbuild(jax.random.PRNGKey(seed), jnp.asarray(table), kind=kind,
+                  k=k, iters=3)
+    tidx = index_from_numpy(
+        {f: (getattr(jidx, f) if f == "kind" else np.asarray(getattr(jidx, f)))
+         for f in FIELDS}, device="cpu")
+    return jidx, tidx
+
+
+def _jax_flat(monkeypatch, proposal, jidx, z):
+    """The reference sampler's [B, K²] log table (the `flat_log` its
+    `_shared_draw` receives)."""
+    seen = {}
+
+    def capture(index, key, flat_log, m, member_fn=None):
+        seen["flat"] = flat_log
+        return jmidx.Draw(jnp.zeros(flat_log.shape[:-1] + (m,), jnp.int32),
+                          jnp.zeros(flat_log.shape[:-1] + (m,)))
+
+    monkeypatch.setattr(jmidx, "_shared_draw", capture)
+    sampler = jmidx.sample_pooled if proposal == "pooled" \
+        else jmidx.sample_mixture
+    sampler(jidx, jax.random.PRNGKey(0), jnp.asarray(z), 4)
+    return np.asarray(seen["flat"])
+
+
+def _jax_log_q(flat, jidx, ids):
+    """log q of class ids [B, m] under the [B, K²] table, as `_shared_draw`
+    computes it: flat[c] − log|Ω(c)| − lse(flat)."""
+    k = jidx.codebook1.shape[0]
+    c = np.asarray(jidx.assign1)[ids] * k + np.asarray(jidx.assign2)[ids]
+    lse = np.asarray(jax.nn.logsumexp(jnp.asarray(flat), axis=-1))
+    logc = np.asarray(jidx.log_counts).reshape(-1)
+    return np.take_along_axis(flat, c, -1) - logc[c] - lse[:, None]
+
+
+@pytest.mark.parametrize("proposal", ["pooled", "mixture"])
+@pytest.mark.parametrize("kind", ["rq", "pq"])
+def test_shared_log_q_matches_the_jax_tables(monkeypatch, proposal, kind):
+    jidx, tidx = _index(kind=kind)
+    z = np.random.default_rng(1).standard_normal((3, 5, 16)).astype(
+        np.float32)
+    sampler = midx.sample_pooled if proposal == "pooled" \
+        else midx.sample_mixture
+    keys = noise.sequence_keys(noise.train_keys(0, 2, 15), 5)
+    draw = sampler(tidx, torch.from_numpy(z), 64, keys)
+    assert draw.ids.shape == draw.log_q.shape == (3, 64)
+    ids = draw.ids.numpy()
+    flat = _jax_flat(monkeypatch, proposal, jidx, z)
+    np.testing.assert_allclose(draw.log_q.numpy(),
+                               _jax_log_q(flat, jidx, ids), atol=TOL,
+                               rtol=TOL)
+    if proposal == "pooled":
+        want = jmidx.log_prob(jidx, jnp.asarray(z.mean(1)), jnp.asarray(ids))
+        np.testing.assert_allclose(draw.log_q.numpy(), np.asarray(want),
+                                   atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("proposal", ["pooled", "mixture"])
+def test_shared_draws_follow_exp_log_q(proposal):
+    _, tidx = _index(seed=2, v=80, k=4)
+    z = 0.5 * torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 4, 16)).astype(np.float32))
+    sampler = midx.sample_pooled if proposal == "pooled" \
+        else midx.sample_mixture
+    n = 50_000
+    draw = sampler(tidx, z, n, noise.sequence_keys(noise.train_keys(1, 0, 4),
+                                                   4))
+    ids, lq = draw.ids[0].numpy(), draw.log_q[0].detach().numpy()
+    q = {}
+    for i, l in zip(ids, lq):
+        q[i] = float(np.exp(l))
+    freq = np.bincount(ids, minlength=80) / n
+    seen = np.array(sorted(q))
+    tv = 0.5 * (np.abs(freq[seen] - np.array([q[i] for i in seen])).sum()
+                + (1.0 - sum(q.values())))
+    assert tv < 0.05, tv
+
+
+@pytest.mark.parametrize("proposal", ["pooled", "mixture"])
+def test_a_sequence_draws_the_same_negatives_whatever_the_batch(proposal):
+    _, tidx = _index(seed=4)
+    z = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, 6, 16)).astype(np.float32))
+    sampler = midx.sample_pooled if proposal == "pooled" \
+        else midx.sample_mixture
+    small = sampler(tidx, z[:2], 32, noise.sequence_keys(
+        noise.train_keys(0, 9, 2 * 6), 6))
+    other = z.clone()
+    other[2:] = -other[2:]                          # other sequences differ
+    big = sampler(tidx, other, 32, noise.sequence_keys(
+        noise.train_keys(0, 9, 4 * 6), 6))
+    assert torch.equal(small.ids, big.ids[:2])
+    assert torch.equal(small.log_q, big.log_q[:2])
+    assert not torch.equal(big.ids[0], big.ids[1])
+    again = sampler(tidx, z[:2], 32, noise.sequence_keys(
+        noise.train_keys(0, 10, 2 * 6), 6))         # another step
+    assert not torch.equal(small.ids, again.ids)
+
+
+# ------------------------------------------------------------- the head
+B, S = 2, 8
+
+
+def _setup(proposal, seed=0):
+    j = jcfg.get_config("paper-lm").reduced()
+    t = tcfg.get_config("paper-lm").reduced()
+    head = dict(proposal=proposal, num_negatives=24)
+    jc = dataclasses.replace(j, dtype="float32").with_head(**head)
+    tc = dataclasses.replace(t, dtype="float32").with_head(**head)
+    jp = jinit(jc, jax.random.PRNGKey(seed))
+    tp = params_from_numpy(tc, jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    jidx = jheads.init_head_state(jc, jp, jax.random.PRNGKey(seed + 1))
+    tidx = index_from_numpy(
+        {f: (getattr(jidx, f) if f == "kind" else np.asarray(getattr(jidx, f)))
+         for f in FIELDS}, device="cpu")
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    labels = rng.integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    labels[0, :3] = labels[0, 3]                    # repeated labels
+    return jc, tc, jp, tp, jidx, tidx, toks, labels
+
+
+@pytest.mark.parametrize("proposal", ["pooled", "mixture"])
+def test_loss_midx_and_every_grad_match_jax_given_the_same_negatives(
+        monkeypatch, proposal):
+    jc, tc, jp, tp, jidx, tidx, toks, labels = _setup(proposal)
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), tp)
+    keys = noise.train_keys(0, 3, B * S)
+    hidden = tforward(tc, leaves, torch.from_numpy(toks).long())["hidden"]
+    loss = heads.loss_midx(tc, leaves, tidx, hidden,
+                           torch.from_numpy(labels).long(), keys)
+    flat = tree_leaves(leaves)
+    got = iter(torch.autograd.grad(loss, flat))
+    grads = tree_map(lambda _: next(got), leaves)
+
+    sampler = midx.sample_pooled if proposal == "pooled" \
+        else midx.sample_mixture
+    draw = sampler(tidx, hidden.detach(), tc.head.num_negatives,
+                   noise.sequence_keys(keys, S))
+    ids = jnp.asarray(draw.ids.numpy().astype(np.int32))
+    kk = jidx.codebook1.shape[0]
+    cluster = jidx.assign1[ids] * kk + jidx.assign2[ids]
+    # the loss to compare draws the port's negatives, and takes log q from
+    # the reference's own proposal table for them (`_shared_draw`'s line)
+    def same_negatives(index, key, flat_log, m, member_fn=None):
+        lse = jax.nn.logsumexp(flat_log, axis=-1, keepdims=True)
+        log_q = (jnp.take_along_axis(flat_log, cluster, axis=-1)
+                 - index.log_counts.reshape(-1)[cluster] - lse)
+        return jmidx.Draw(ids, log_q)
+
+    monkeypatch.setattr(jmidx, "_shared_draw", same_negatives)
+
+    def jloss(p):
+        h = jforward(jc, p, jnp.asarray(toks))["hidden"]
+        return jheads.loss_midx(jc, p, jidx, h, jnp.asarray(labels),
+                                jax.random.PRNGKey(0), fused=False)
+
+    jl, jg = jax.value_and_grad(jloss)(jp)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), atol=TOL,
+                               rtol=TOL)
+    a = params_to_numpy(tc, grads)
+    b = jax.tree_util.tree_map(np.asarray, jg)
+    assert jax.tree_util.tree_structure(a) == jax.tree_util.tree_structure(b)
+    for (path, x), y in zip(jax.tree_util.tree_leaves_with_path(a),
+                            jax.tree_util.tree_leaves(b)):
+        np.testing.assert_allclose(x, y, atol=TOL, rtol=TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("proposal", ["pooled", "mixture"])
+def test_loss_midx_gradient_reaches_hidden_through_log_q(proposal):
+    """log q is not stop-gradient'ed: detaching it changes d(loss)/dh."""
+    _, tc, _, tp, _, tidx, _, labels = _setup(proposal, seed=1)
+    hidden = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, S, tc.d_model)).astype(np.float32)).requires_grad_(True)
+    keys = noise.train_keys(0, 0, B * S)
+    tl = torch.from_numpy(labels).long()
+    g1, = torch.autograd.grad(heads.loss_midx(tc, tp, tidx, hidden, tl, keys),
+                              hidden)
+    sampler = midx.sample_pooled if proposal == "pooled" \
+        else midx.sample_mixture
+    draw = sampler(tidx, hidden.detach(), tc.head.num_negatives,
+                   noise.sequence_keys(keys, S))
+    table = tp["embed"]
+    l2 = sampled_ce_op(hidden, table[tl], table[draw.ids],
+                       draw.log_q.detach(), draw.ids, tl).mean()
+    g2, = torch.autograd.grad(l2, hidden)
+    assert float((g1 - g2).abs().max()) > 1e-6

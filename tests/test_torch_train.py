@@ -209,12 +209,10 @@ def test_loss_full_and_every_grad_match_jax():
 
 
 def test_unported_heads_raise():
-    _, tc, _, tp, _, tidx, _, labels = _setup()
-    h = torch.zeros((B, S, tc.d_model))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        heads.loss_midx(tc.with_head(proposal="pooled"), tp, tidx, h,
-                        torch.from_numpy(labels).long(),
-                        noise.train_keys(0, 0, B * S))
+    _, tc, _, tp, _, _, _, _ = _setup()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        heads.init_head_state(tc.with_head(table_dtype="int8"), tp,
+                              torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 10"):
         steps.make_loss_fn(tc, head_mode="uniform")
 
