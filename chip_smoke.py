@@ -9,21 +9,25 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
   2. build every kernel of the serving and training paths from the sources
      in the checkout, one nvcc per source, all at once (`kernels/
      midx_probs/csrc/midx_probs.cu`, `kernels/sampled_ce/csrc/
-     sampled_ce_pt.cu` and `sampled_ce.cu`), and print what ptxas says;
+     sampled_ce_pt.cu` and `sampled_ce.cu`, `kernels/rff_sample/csrc/
+     rff_sample.cu`), and print what ptxas says;
   3. hold each kernel against its plain torch version on the card, at the
      main paths' shapes and a sweep around them, with TF32 off; both
-     sampled-CE backwards must also repeat bit for bit; time each kernel
-     and its plain version with CUDA events (median of 50 cold-L2
-     launches) beside the bound (bytes over 3.35 TB/s, FLOPs over
-     67 TFLOP/s fp32), and the fp32 bmm of the shared CE's logit product
-     as a reference point;
+     sampled-CE backwards and the RFF sampler must also repeat bit for
+     bit, and the sampler's ids may differ from the plain version's only
+     at near-ties; time each kernel and its plain version with CUDA
+     events (median of 50 cold-L2 launches) beside the bound (bytes over
+     3.35 TB/s, operations over 67 TFLOP/s fp32), and the fp32 bmm of the
+     shared CE's logit product as a reference point;
   4. check the port against itself on the CPU at a small input (prefill
      hidden states, fp32);
   5. serve `paper-lm` at full width through the MIDX head (16 requests,
      4 slots, 16 tokens), with batched == solo on 2 requests;
   6. serve `llama3.2-1b` at full width through the MIDX head (8 requests,
      4 slots, prompt 64, 32 tokens), then once with the full head, greedy,
-     batched == solo;
+     batched == solo; then through the RFF proposal head (`rff-fused`, the
+     same requests) from fresh params, with the peak device memory of the
+     MIDX and the RFF serves;
   7. train `paper-lm` at full width through `launch.train.train_loop` with
      the per-token MIDX head (120 steps, batch 16, seq 64, lr 3e-3, index
      refreshes after steps 49 and 99): every step finite and applied, the
@@ -40,7 +44,15 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      2 layers (refresh every 5) must agree bit for bit; 5 steps at 2
      layers with the mixture proposal must stay finite and launch both
      shared-CE kernels;
-  9. print the kernels' JSON line, then the result line.
+  9. the RFF proposal (`head="rff-fused"`): train `paper-lm` at full width
+     with its per-token proposal (M=20), 120 steps, batch 16, seq 64, lr
+     3e-3, φ(C) re-mapped after steps 49 and 99, with the same finite /
+     applied / loss-drop checks, then serve the trained params and
+     proposal state (8 requests, 16 tokens) with batched == solo on 2;
+     two 10-step runs of `llama3.2-1b` cut to 2 layers with its pooled
+     head (M=1024, 4 x 256 tokens, refresh every 5) must agree bit for
+     bit, losses, params, optimizer state and proposal state;
+ 10. print the kernels' JSON line, then the result line.
 Each main-path run sets the kernels' launch counters to 0 just before it
 and reads them just after; a kernel of the path that was never launched
 fails the run. Exits non-zero, with no result line, without a CUDA device
@@ -440,6 +452,104 @@ def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     return worst, rows
 
 
+RFF_SWEEP = ((8, 128, 64, 16), (13, 200, 32, 5), (1, 64, 16, 3),
+             (20, 130, 64, 17))            # T, N, 2R, m: ragged edges
+RFF_SHAPES = {                             # the main paths' shapes
+    "llama3.2-1b serve": (4, 128256, 64, 64),
+    "paper-lm per-token train": (1024, 10000, 64, 20),
+    "llama3.2-1b pooled train": (4, 128256, 64, 1024)}
+RFF_TIE = 1e-5                 # near-tie: |v_kern - v_plain| <= 1e-5 max(1,|v|)
+
+
+def rff_inputs(t: int, n: int, r2: int, form: str, seed: int):
+    """φ(z), φ(C) >= 0 and the seeds in the reference's form (one seed,
+    rows counted 0..T-1) or the port's (each row its own key, counter 0)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pz = 0.3 * torch.rand((t, r2), generator=g, device="cuda")
+    pc = torch.rand((n, r2), generator=g, device="cuda")
+    if form == "reference":
+        seeds = torch.full((t,), 7, dtype=torch.int64, device="cuda")
+        t_ids = torch.arange(t, device="cuda")
+    else:
+        seeds = torch.randint(0, 2**32, (t,), generator=g, device="cuda")
+        t_ids = torch.zeros(t, dtype=torch.int64, device="cuda")
+    return pz, pc, seeds, t_ids
+
+
+def rff_bound_ms(t: int, n: int, r2: int, m: int):
+    """Bytes: φ(z), φ(C), seeds and row counters read once; ids and log q
+    written once. Operations the function needs: per (t, n) the 2·2R of
+    the dot, the floor and log of the logit and the exp, subtract and add
+    of the logsumexp (5); per (t, d) the second hash round (10); per
+    (t, d, n) 19: the last hash round's 10 integer operations (a multiply
+    and a xor folding n in, the mix's 3 shifts, 3 xors and 2 multiplies),
+    the uniform's 3 (shift, int-to-float, multiply-add), the Gumbel's two
+    logs and two negations (4, a log counted as one), the add to the logit
+    and the compare (2)."""
+    nbytes = 4 * t * r2 + 4 * n * r2 + 16 * t + 8 * t * m
+    ops = t * n * (2 * r2 + 5) + 10 * t * m + 19 * t * m * n
+    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def check_rff_sample(rff_mod, ref_mod, buf, card: str):
+    """Phase 3 for the RFF sampler: the reference's sweep and the main
+    paths' shapes, both seed forms, against the plain version: ids equal
+    except at near-ties of the perturbed values, log q within
+    1e-5·max(1, |plain|) of the plain log q of the drawn id, the kernel
+    bitwise repeatable. Then times at the main shapes (the port's form)."""
+    worst, n_diff, n_draws = 0.0, 0, 0
+    for t, n, r2, m in RFF_SWEEP + tuple(RFF_SHAPES.values()):
+        for form in ("reference", "rows"):
+            pz, pc, seeds, t_ids = rff_inputs(t, n, r2, form, seed=t + n)
+            ids, lq = rff_mod.rff_sample_cuda(pz, pc, seeds, t_ids, m)
+            again = rff_mod.rff_sample_cuda(pz, pc, seeds, t_ids, m)
+            want, _, lse = ref_mod.rff_gumbel_ref(pz, pc, seeds, t_ids, m)
+            torch.cuda.synchronize()
+            where = f"T={t} N={n} 2R={r2} m={m} seeds={form}"
+            if not (torch.equal(ids, again[0]) and torch.equal(lq, again[1])):
+                raise SystemExit(f"rff_sample is not bitwise repeatable at "
+                                 f"{where}")
+            if tuple(ids.shape) != (t, m) or not torch.isfinite(lq).all() \
+                    or not bool(((ids >= 0) & (ids < n)).all()):
+                raise SystemExit(f"rff_sample: bad output at {where}")
+            logits = ref_mod.rff_scores(pz, pc)
+            a = ref_mod.perturbed_values(logits, seeds, t_ids, ids)
+            b = ref_mod.perturbed_values(logits, seeds, t_ids, want)
+            same = ids == want
+            near = (a - b).abs() <= RFF_TIE * b.abs().clamp(min=1)
+            if not bool((same | near).all()):
+                raise SystemExit(f"rff_sample draws differ from the plain "
+                                 f"version's beyond a near-tie at {where}")
+            want_lq = torch.gather(logits, 1, ids.long()) - lse[:, None]
+            err = (lq - want_lq).abs()
+            if bool((err > RFF_TIE * want_lq.abs().clamp(min=1)).any()):
+                raise SystemExit(f"rff_sample log_q disagrees with the plain "
+                                 f"version at {where}: max err "
+                                 f"{float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+            n_diff += int((~same).sum())
+            n_draws += t * m
+    log(f"[smoke] rff_sample vs plain: log_q max_abs_err={worst:.3e} (tol "
+        f"{RFF_TIE}*max(1,|ref|)); {n_diff} of {n_draws} draws differ, each "
+        f"a near-tie (tol {RFF_TIE}*max(1,|v|)); over the reference's sweep "
+        f"and the main shapes, both seed forms; bitwise repeatable")
+    timings = {}
+    for name, (t, n, r2, m) in RFF_SHAPES.items():
+        pz, pc, seeds, t_ids = rff_inputs(t, n, r2, "rows", seed=1)
+        ms = time_ms(lambda: rff_mod.rff_sample_cuda(pz, pc, seeds, t_ids,
+                                                     m), buf)
+        plain = time_ms(lambda: ref_mod.rff_gumbel_ref(pz, pc, seeds, t_ids,
+                                                       m), buf)
+        bound, by = rff_bound_ms(t, n, r2, m)
+        timings[name] = (ms, plain, bound, by)
+        log(f"[smoke] rff_sample {name} (T={t} N={n} 2R={r2} m={m}): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms "
+            f"({by}); library: none; on {card}")
+    return worst, n_diff, timings
+
+
 def check_against_cpu(cfg_name: str) -> None:
     """Phase 4: the port on the card against the port on the CPU, fp32,
     small input: prefill hidden states agree to 1e-3."""
@@ -461,9 +571,14 @@ def check_against_cpu(cfg_name: str) -> None:
 
 def serve(cfg, *, head: str, requests: int, prompt: int, tokens: int,
           verify: int, params=None, index=None, counter=None):
-    """Drive `Engine` on the card; returns (engine, summary, launches)."""
+    """Drive `Engine` on the card; returns (engine, summary, launches).
+    The summary adds the peak device memory from the engine's construction
+    to the end of the solo replays (`peak_gib`) and what was allocated
+    before it (`base_gib`)."""
     from repro_torch.launch.serve import prompt_buckets, synthetic_requests
     from repro_torch.serve import Engine
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = Engine(cfg, params, index=index, head=head, device="cuda",
                     seed=0)
@@ -491,12 +606,17 @@ def serve(cfg, *, head: str, requests: int, prompt: int, tokens: int,
             raise SystemExit(f"{cfg.name}/{head}: rid {r.rid} batched "
                              f"{results[r.rid].tokens.tolist()} != solo "
                              f"{solo.tolist()}")
+    torch.cuda.synchronize()
+    s = {**s, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "base_gib": base}
+    kname = counter.__name__.removesuffix("_cuda") if counter else "kernel"
     log(f"[smoke] serve {cfg.name} head={head} L={cfg.num_layers} "
         f"d={cfg.d_model} V={vocab}: setup {setup:.1f}s, "
         f"{requests} requests x {tokens} tokens on {cfg.serve.max_slots} "
         f"slots: tok/s={s['tok_s']} p50={s['p50_ms']}ms p99={s['p99_ms']}ms "
-        f"steps={s['steps']}; batched == solo on {verify}; "
-        f"midx_probs launches {launches}")
+        f"steps={s['steps']}; batched == solo on {verify}; {kname} "
+        f"launches {launches}; peak memory {s['peak_gib']:.2f} GiB "
+        f"({base:.2f} GiB allocated before)")
     return engine, s, launches
 
 
@@ -539,7 +659,8 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
                step_s * 1e3, "tok_s": batch * seq / step_s,
                "peak_gib": peak_gib}
     log(f"[smoke] train {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
-        f"V={cfg.vocab_size} head=midx proposal={cfg.head.proposal} "
+        f"V={cfg.vocab_size} head={cfg.head.mode} "
+        f"proposal={cfg.head.proposal} "
         f"M={cfg.head.num_negatives} K={cfg.head.midx_k}: {steps} steps x "
         f"{batch}x{seq} tokens, lr {lr}, loss first-5 mean {first:.4f} -> "
         f"last-5 mean {last:.4f}; median step {step_s * 1e3:.2f} ms, "
@@ -550,29 +671,46 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
 
 
 def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
-           refresh_every: int) -> None:
+           refresh_every: int, counter=None) -> list:
     """Two runs from one seed agree bit for bit: losses, params, optimizer
-    state and index."""
+    state and head state (the MIDX index or the proposal's state). With a
+    counter, its kernel must launch in each run. Returns the launches."""
+    from repro_torch.index.build import MultiIndex
     from repro_torch.launch.train import train_loop
     from repro_torch.optim.optimizers import tree_leaves
-    runs = [train_loop(cfg, steps=steps, batch_size=batch, seq_len=seq,
-                       lr=lr, corpus=corpus, refresh_every=refresh_every,
-                       log_every=1000, device="cuda") for _ in range(2)]
+    runs, launches = [], []
+    for _ in range(2):
+        if counter is not None:
+            counter.launches = 0
+        runs.append(train_loop(cfg, steps=steps, batch_size=batch,
+                               seq_len=seq, lr=lr, corpus=corpus,
+                               refresh_every=refresh_every, log_every=1000,
+                               device="cuda"))
+        if counter is not None:
+            launches.append(counter.launches)
 
     def state(run):
         params, opt, index, _ = run
+        head = ([index.codebook1, index.codebook2, index.sorted_ids]
+                if isinstance(index, MultiIndex)
+                else [index[k] for k in sorted(index)])
         return (tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
-                + [index.codebook1, index.codebook2, index.sorted_ids])
+                + head)
 
     if runs[0][3] != runs[1][3] or not all(
             torch.equal(a, b) for a, b in zip(state(runs[0]),
                                               state(runs[1]))):
-        raise SystemExit(f"{cfg.name} ({cfg.head.proposal}) training does "
-                         f"not replay bit for bit on the card")
+        raise SystemExit(f"{cfg.name} ({cfg.head.mode}, {cfg.head.proposal})"
+                         f" training does not replay bit for bit on the card")
+    if counter is not None and min(launches) <= 0:
+        raise SystemExit(f"{cfg.name} ({cfg.head.mode}) replay: "
+                         f"{counter.__name__} launches {launches}")
     log(f"[smoke] train {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
-        f"proposal={cfg.head.proposal} replay: two {steps}-step runs "
-        f"(refresh every {refresh_every}) agree bit for bit (final loss "
-        f"{runs[0][3][-1]:.6f})")
+        f"head={cfg.head.mode} proposal={cfg.head.proposal} replay: two "
+        f"{steps}-step runs (refresh every {refresh_every}) agree bit for bit "
+        f"(final loss {runs[0][3][-1]:.6f})"
+        + (f"; {counter.__name__} launches {launches}" if counter else ""))
+    return launches
 
 
 def profile_train(cfg, params, index, label: str, b: int = 16,
@@ -676,6 +814,8 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.midx_probs import cuda as midx_cuda
     from repro_torch.kernels.midx_probs.ref import midx_probs_ref
+    from repro_torch.kernels.rff_sample import cuda as rff_cuda
+    from repro_torch.kernels.rff_sample import ref as rff_ref
     from repro_torch.kernels.sampled_ce import cuda as sce_cuda
     from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
                                                     sampled_ce_fwd_ref,
@@ -691,7 +831,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libraries = (midx_cuda.LIBRARY, sce_cuda.LIBRARY, sce_cuda.SHARED_LIBRARY)
+    libraries = (midx_cuda.LIBRARY, sce_cuda.LIBRARY, sce_cuda.SHARED_LIBRARY,
+                 rff_cuda.LIBRARY)
     for lib in libraries:                      # one nvcc per source, at once
         lib.start()
     for lib in libraries:
@@ -710,6 +851,8 @@ def main() -> None:
         sce_cuda, sampled_ce_pt_fwd_ref, sampled_ce_pt_bwd_ref, buf, card)
     shared_worst, shared_timings = check_shared_ce(
         sce_cuda, sampled_ce_fwd_ref, sampled_ce_bwd_ref, buf, card)
+    rff_worst, rff_diff, rff_timings = check_rff_sample(rff_cuda, rff_ref,
+                                                        buf, card)
     del buf
     check_against_cpu("paper-lm")
 
@@ -720,8 +863,10 @@ def main() -> None:
                           tokens=16, verify=2, counter=counter)
     llama = get_config("llama3.2-1b").with_serve(max_slots=4, page_size=16,
                                                  max_seq=112)
-    eng, _, n_llama = serve(llama, head="midx", requests=8, prompt=64,
-                            tokens=32, verify=2, counter=counter)
+    torch.cuda.empty_cache()
+    eng, midx_serve, n_llama = serve(llama, head="midx", requests=8,
+                                     prompt=64, tokens=32, verify=2,
+                                     counter=counter)
     greedy = llama.with_head(decode_temperature=0.0)
     eng_full, _, _ = serve(greedy, head="full", requests=8, prompt=64,
                            tokens=32, verify=2, params=eng.params)
@@ -729,6 +874,15 @@ def main() -> None:
         profile_run(eng, "llama3.2-1b head=midx", prompt=64, tokens=16)
         profile_run(eng_full, "llama3.2-1b head=full", prompt=64, tokens=16)
     del eng, eng_full
+    torch.cuda.empty_cache()
+    rff_counter = rff_cuda.rff_sample_cuda
+    _, rff_serve, n_rff_llama = serve(llama, head="rff-fused", requests=8,
+                                      prompt=64, tokens=32, verify=2,
+                                      counter=rff_counter)
+    log(f"[smoke] llama3.2-1b serve peak device memory: head=midx "
+        f"{midx_serve['peak_gib']:.3f} GiB, head=rff-fused "
+        f"{rff_serve['peak_gib']:.3f} GiB (allocated before each: "
+        f"{midx_serve['base_gib']:.3f} / {rff_serve['base_gib']:.3f} GiB)")
     torch.cuda.empty_cache()
 
     from repro_torch.data import ZipfLM
@@ -790,6 +944,27 @@ def main() -> None:
     log(f"[smoke] train llama3.2-1b L=2 proposal=mixture: 5 steps finite "
         f"(loss {hist[0]:.4f} -> {hist[-1]:.4f}); launches {n_mix[0]} "
         f"sampled_ce, {n_mix[1]} sampled_ce_bwd")
+    # the RFF proposal: paper-lm trained and served through rff-fused, then
+    # the 2-layer llama pooled replay
+    rff_paper = cfg.with_head(mode="rff-fused")
+    params, state, n_rff_train, _ = train(
+        rff_paper, (rff_counter,), ("rff_sample",), steps=120, batch=16,
+        seq=64, lr=3e-3)
+    _, _, n_rff_trained = serve(
+        rff_paper.with_serve(max_slots=4, page_size=16, max_seq=32),
+        head="rff-fused", requests=8, prompt=8, tokens=16, verify=2,
+        params=params, index=state, counter=rff_counter)
+    del params, state
+    torch.cuda.empty_cache()
+    n_rff_replay = replay(short.with_head(mode="rff-fused"), steps=10,
+                          batch=b, seq=s, lr=LLAMA_LR, corpus=corpus,
+                          refresh_every=5, counter=rff_counter)
+    for name, n in (("llama3.2-1b serve", n_rff_llama),
+                    ("paper-lm train", n_rff_train[0]),
+                    ("trained paper-lm serve", n_rff_trained)):
+        if n <= 0:
+            raise SystemExit(f"{name} (rff-fused): rff_sample was never "
+                             "launched on the main path")
     for name, n in (("paper-lm serve", n_paper), ("llama3.2-1b serve",
                                                   n_llama),
                     ("paper-lm train", n_train[0]),
@@ -837,6 +1012,24 @@ def main() -> None:
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
             "shape": "llama3.2-1b train B=4 S=256 M=1024 D=2048 fp32 rows"})
+    ms, plain, bound, by = rff_timings["llama3.2-1b serve"]
+    rows.append({
+        "name": "rff_sample", "route": "cuda",
+        "source": "src/repro_torch/kernels/rff_sample/csrc/rff_sample.cu",
+        "replaces": "src/repro/kernels/rff_sample/rff_sample.py:31",
+        "launches": n_rff_llama + n_rff_train[0] + n_rff_trained
+                    + sum(n_rff_replay),
+        "max_abs_err": rff_worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "draws_differing_at_near_ties": rff_diff,
+        "shape": "llama3.2-1b serve T=4 N=128256 2R=64 m=64",
+        "other_shapes": [
+            {"shape": f"{name} T={t} N={n} 2R={r2} m={m}",
+             "ms": rff_timings[name][0], "plain_ms": rff_timings[name][1],
+             "bound_ms": rff_timings[name][2],
+             "bound_by": rff_timings[name][3]}
+            for name, (t, n, r2, m) in RFF_SHAPES.items()
+            if name != "llama3.2-1b serve"]})
     log(json.dumps({"kernels": rows}))
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"ok": True, "device": {

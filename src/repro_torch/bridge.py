@@ -8,7 +8,10 @@ over layers as [L, ...] (`src/repro/models/model.py:81`), with linear
 weights laid out [d_in, d_out] for `x @ W`. The port keeps that layout, so
 nothing is transposed; it unstacks `blocks` into one dict per layer. The
 index is the numpy fields of a `MultiIndex` (`src/repro/index/build.py:36`);
-index fields become int64, the port's indexing type.
+index fields become int64, the port's indexing type. A proposal's state is
+a flat dict of arrays (the RFF state `{emb, w, tau, phi_c}`,
+`src/repro/proposals/rff.py:36`) and crosses leaf by leaf,
+`proposal_state_from_numpy` / `proposal_state_to_numpy`.
 
 bf16 leaves come out of JAX as `ml_dtypes.bfloat16` numpy arrays, which
 `torch.from_numpy` rejects: they cross as their uint16 bit pattern and are
@@ -113,3 +116,15 @@ def index_to_numpy(index: MultiIndex) -> dict:
         a = tensor_to_numpy(getattr(index, name))
         out[name] = a.astype(np.int32) if name in _INT_FIELDS else a
     return out
+
+
+def proposal_state_from_numpy(d: Mapping, *, device=None) -> dict:
+    """A JAX proposal state (a dict of arrays, e.g. the RFF state
+    `{emb, w, tau, phi_c}`) as numpy -> the port's state on `device`."""
+    device = resolve_device(device)
+    return {k: tensor_from_numpy(v, device) for k, v in d.items()}
+
+
+def proposal_state_to_numpy(state: Mapping) -> dict:
+    """A port proposal state -> its leaves as numpy, for the JAX package."""
+    return {k: tensor_to_numpy(v) for k, v in state.items()}

@@ -30,10 +30,14 @@ _C_N = -1028477379 & _M32
 _M1 = 0x7FEB352D
 _M2 = -2073287029 & _M32
 
-#: Roles salt the draws of one (request, position) apart. The last two
-#: salt a sequence's shared negatives (pooled and mixture proposals).
+#: Roles salt the draws of one (request, position) apart. ROLE_SHARED_*
+#: salt a sequence's shared negatives (pooled and mixture proposals),
+#: ROLE_CATEGORICAL the generic proposals' categorical draws.
 (ROLE_K1, ROLE_K2, ROLE_MEMBER, ROLE_PICK, ROLE_FULL, ROLE_SHARED_PAIR,
- ROLE_SHARED_MEMBER) = range(7)
+ ROLE_SHARED_MEMBER, ROLE_CATEGORICAL) = range(8)
+#: Elements of the [T, draws, N] noise block one step of
+#: `gumbel_max_draws` materialises.
+DRAW_CHUNK = 1 << 22
 #: Streams salt a row key by its use: a serving row, or a training token.
 STREAM_SERVE, STREAM_TRAIN = range(2)
 
@@ -75,6 +79,29 @@ def uniform_noise(seed, t_ids, d_ids, n_ids) -> torch.Tensor:
 def gumbel_noise(seed, t_ids, d_ids, n_ids) -> torch.Tensor:
     """Deterministic Gumbel(0,1) noise, as the reference's `gumbel_noise`."""
     return -torch.log(-torch.log(uniform_noise(seed, t_ids, d_ids, n_ids)))
+
+
+def gumbel_max_draws(logits: torch.Tensor, seeds, t_ids,
+                     m: int) -> torch.Tensor:
+    """m Gumbel-max draws per row of logits [T, N]: draw d of row t is
+    argmax_n logits[t, n] + gumbel_noise(seeds[t], t_ids[t], d, n), the
+    first (lowest) column among equal maxima. `seeds` / `t_ids` are [T]
+    int tensors or ints. Loops over the draws in chunks of at most
+    `DRAW_CHUNK` noise elements, so [T, m, N] is never materialised.
+    Returns int64 ids [T, m]."""
+    t, n = logits.shape
+    dev = logits.device
+    seed = _u32(seeds).to(dev).reshape(-1, 1, 1)
+    row = _u32(t_ids).to(dev).reshape(-1, 1, 1)
+    col = torch.arange(n, device=dev).reshape(1, 1, n)
+    step = max(1, DRAW_CHUNK // max(1, t * n))
+    ids = torch.empty((t, m), dtype=torch.int64, device=dev)
+    for d0 in range(0, m, step):
+        draw = torch.arange(d0, min(m, d0 + step), device=dev)
+        g = gumbel_noise(seed, row, draw.reshape(1, -1, 1), col)
+        ids[:, d0:d0 + draw.numel()] = torch.argmax(logits[:, None, :] + g,
+                                                    dim=-1)
+    return ids
 
 
 def row_keys(seed, rid, pos) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Mirrors `src/repro/index/lifecycle.py` (`drift_metrics` :41,
 `refresh_with_policy` :112 with `_refresh_fixed` :131, `RefreshEvent` :146,
-`IndexLifecycle` :163) for what single-device training needs: the `fixed`
+`IndexLifecycle` :163, over any head state) for what single-device
+training needs: the `fixed`
 policy (a warm-started full refit at every event) and the synchronous swap
 (`lag=0`). The `drift` policy (reassign-only with escalation) and `lag>0`
 (a rebuild overlapped with training, on a side CUDA stream in the port)
@@ -107,9 +108,11 @@ class IndexLifecycle:
     """Head-state refresh schedule for the train loop, synchronous (`lag=0`).
 
     `refresh_fn(params, state, seed) -> (state, metrics)` runs after every
-    `every`-th step with seed = hash(base_seed, step). Each rebuilt index
-    passes `resilience.validate_state` against the live one before it is
-    swapped in; a degenerate one is rejected and the old index kept."""
+    `every`-th step with seed = hash(base_seed, step). The state is any
+    head state: the MIDX index or a proposal's state (the RFF feature
+    re-map). Each rebuilt state passes `resilience.validate_state` against
+    the live one before it is swapped in; a degenerate one is rejected and
+    the old state kept."""
 
     def __init__(self, refresh_fn: Callable, *, every: int, base_seed: int,
                  lag: int = 0, enabled: bool = True):
@@ -124,9 +127,9 @@ class IndexLifecycle:
         self.events: list[RefreshEvent] = []
 
     def step(self, step: int, params: Any,
-             index: MultiIndex) -> tuple[MultiIndex, Optional[RefreshEvent]]:
-        """Advance after train step `step`: returns the index the next step
-        uses, and the RefreshEvent when a refresh ran."""
+             index: Any) -> tuple[Any, Optional[RefreshEvent]]:
+        """Advance after train step `step`: returns the head state the next
+        step uses, and the RefreshEvent when a refresh ran."""
         if not self.enabled or (step + 1) % self.every:
             return index, None
         t0 = time.perf_counter()

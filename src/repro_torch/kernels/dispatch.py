@@ -1,8 +1,9 @@
 """Which implementation runs a kernel's function: decided by the device.
 
-Mirrors `src/repro/kernels/dispatch.py` (`midx_tables_fn` :65, and the
-choice between the fused CE kernels and their jnp oracles), with one rule
-in place of the reference's backend and environment switches:
+Mirrors `src/repro/kernels/dispatch.py` (`midx_tables_fn` :65,
+`rff_sample_fn` :114, and the choice between the fused CE kernels and their
+jnp oracles), with one rule in place of the reference's backend and
+environment switches:
   - a CUDA tensor -> the hand-written kernel (it launches or raises);
   - a CPU tensor  -> the kernel's plain torch version;
   - anything else -> an error.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.midx_probs.ref import midx_probs_ref
+from repro_torch.kernels.rff_sample.ref import rff_gumbel_ref
 from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
                                                 sampled_ce_fwd_ref,
                                                 sampled_ce_pt_bwd_ref,
@@ -82,3 +84,14 @@ def sampled_ce_bwd(g, hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
         return sampled_ce_bwd_ref(g, hidden, pos_emb, neg_emb, log_q, neg_ids,
                                   pos_ids, lse)
     raise _unsupported("sampled_ce_bwd", hidden)
+
+
+def rff_sample(phi_z, phi_c, seeds, t_ids, m: int):
+    """Fused RFF Gumbel-top-m: (ids [T, m] int32, log_q [T, m])."""
+    if phi_z.is_cuda:
+        from repro_torch.kernels.rff_sample.cuda import rff_sample_cuda
+        return rff_sample_cuda(phi_z, phi_c, seeds, t_ids, m)
+    if phi_z.device.type == "cpu":
+        ids, score, lse = rff_gumbel_ref(phi_z, phi_c, seeds, t_ids, m)
+        return ids, score - lse[:, None]
+    raise _unsupported("rff_sample", phi_z)

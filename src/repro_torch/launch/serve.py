@@ -1,12 +1,15 @@
 """Serving CLI: a thin command line over `repro_torch.serve.Engine`.
 
 Mirrors `src/repro/launch/serve.py` for what the port serves: continuous
-batching over a paged KV pool, batched single-pass prefill, and two decode
+batching over a paged KV pool, batched single-pass prefill, and the decode
 heads —
-  --head midx : MIDX sampling head (default): candidates drawn through the
-                index (proposal tables from the midx_probs CUDA kernel on
-                the card), rescored exactly, IS-corrected;
-  --head full : exact [B, V] logits each step.
+  --head midx      : MIDX sampling head (default): candidates drawn through
+                     the index (proposal tables from the midx_probs CUDA
+                     kernel on the card), rescored exactly, IS-corrected;
+  --head full      : exact [B, V] logits each step;
+  --head rff-fused : candidates drawn from the RFF proposal (the rff_sample
+                     CUDA kernel on the card), rescored, IS-corrected;
+  --head rff       : the same proposal, drawn by plain torch ops.
 Synthetic open-loop traffic (Poisson arrivals at --rate req/s; 0 = all at
 t0); reports tokens/s and p50/p95/p99 per-token latency, and replays
 --verify requests alone, requiring identical tokens.
@@ -17,6 +20,7 @@ The flags are the reference's for what this slice supports: --arch
 plus --device (default: the card). Any other flag is rejected.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --head midx
+  python -m repro_torch.launch.serve --arch llama3.2-1b --head rff-fused
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 """
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import pad_to
+from repro_torch.proposals import registry as proposals_registry
 from repro_torch.serve import Engine, Request
 
 
@@ -89,7 +94,8 @@ def parser() -> argparse.ArgumentParser:
                     help="tokens per request")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--head", default="midx", choices=("midx", "full"))
+    ap.add_argument("--head", default="midx",
+                    choices=proposals_registry.PORTED_MODES)
     ap.add_argument("--num-candidates", type=int, default=0,
                     help="MIDX decode candidates (0 = cfg.head default)")
     ap.add_argument("--temperature", type=float, default=0.0,

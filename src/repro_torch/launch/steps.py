@@ -1,10 +1,12 @@
 """Train-step functions: the loss and one optimizer step.
 
-Mirrors `src/repro/launch/steps.py`: `make_loss_fn` (:70, modes `midx` and
-`full`) and `make_train_step` (:129, the non-trainable branch :188-202 with
-its non-finite skip guard). The registry's other proposal modes (ROADMAP.md
+Mirrors `src/repro/launch/steps.py`: `resolve_proposal` (:55),
+`make_loss_fn` (:70; modes `midx`, `full` and the ported registry
+contenders, which route through `heads.loss_sampled`) and
+`make_train_step` (:129, the non-trainable branch :188-202 with its
+non-finite skip guard). The unported registry contenders (ROADMAP.md
 Queue 1 item 10), the sharded and vocab-parallel steps (item 13) and the
-fault seam (item 11) are not ported and raise NotImplementedError.
+fault seam (item 11) raise NotImplementedError.
 
 Departures: torch runs eagerly, so there is no jit; a step is a function
 of (params, opt state, head state, batch, keys) — `keys` [B·S] are the
@@ -26,27 +28,27 @@ from repro_torch.models import heads
 from repro_torch.models.model import forward
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           tree_leaves, tree_map)
+from repro_torch.proposals import registry as proposals_registry
 
-HEAD_MODES = ("midx", "full")
-
-
-def resolve_mode(cfg: ModelConfig, head_mode: Optional[str] = None) -> str:
-    """The head mode, validated at step-build time."""
+def resolve_proposal(cfg: ModelConfig, head_mode: Optional[str] = None):
+    """(mode, Proposal-or-None) for a head config, validated at step-build
+    time: an unknown mode raises the registry's ValueError, an unported
+    contender its NotImplementedError. 'midx' and 'full' return None: they
+    keep their dedicated lanes."""
     mode = head_mode or cfg.head.mode
-    if mode not in HEAD_MODES:
-        raise NotImplementedError(
-            f"head mode {mode!r}: the proposal registry is not ported yet "
-            "(ROADMAP.md Queue 1 item 10); the port trains 'midx' and "
-            "'full'")
-    return mode
+    proposals_registry.validate_mode(mode)
+    if mode in ("midx", "full"):
+        return mode, None
+    return mode, proposals_registry.from_config(cfg.head, mode)
 
 
 def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
                  window: Optional[int] = None) -> Callable:
     """loss(params, state, batch, keys) -> (loss, metrics). `state` is the
-    MultiIndex for 'midx' and ignored for 'full'; batch holds int64
-    `tokens` and `labels` [B, S] on the params' device."""
-    mode = resolve_mode(cfg, head_mode)
+    MultiIndex for 'midx', ignored for 'full', and the proposal's state for
+    a registry contender; batch holds int64 `tokens` and `labels` [B, S] on
+    the params' device."""
+    mode, proposal = resolve_proposal(cfg, head_mode)
 
     def loss_fn(params, state, batch, keys):
         with record_function("train.forward"):
@@ -55,9 +57,12 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
             if mode == "full":
                 ce = heads.loss_full(cfg, params, out["hidden"],
                                      batch["labels"])
-            else:
+            elif mode == "midx":
                 ce = heads.loss_midx(cfg, params, state, out["hidden"],
                                      batch["labels"], keys)
+            else:
+                ce = heads.loss_sampled(cfg, params, proposal, state,
+                                        out["hidden"], batch["labels"], keys)
         loss = ce + cfg.router_aux_weight * out["aux_loss"]
         return loss, {"ce": ce, "aux": out["aux_loss"]}
 

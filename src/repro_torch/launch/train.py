@@ -1,8 +1,11 @@
 """Training loop and CLI: the MIDX head first-class, on one card.
 
 Mirrors `src/repro/launch/train.py`: `train_loop` (:68) on a single device
-with the `midx` and `full` heads, the index-refresh lifecycle, the loss
-history and the step log, and the CLI (`main` :348) with the flags --arch
+with the `midx` and `full` heads and the ported registry proposals (`rff`,
+`rff-fused`; their state initialised as at :172-177 and refreshed by the
+lifecycle when adaptive, :200-201 — the RFF refresh re-maps φ(C) from the
+current table), the head-state refresh lifecycle, the loss history and
+the step log, and the CLI (`main` :348) with the flags --arch
 --steps --batch --seq --lr --head --reduced --refresh-every, plus --device
 (default: the card; 'cpu' must be asked for). The reference's other flags
 are accepted and raise NotImplementedError with a pointer to ROADMAP.md
@@ -23,6 +26,7 @@ tens of seconds to draw before step 0.
 
   python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3
   python -m repro_torch.launch.train --arch llama3.2-1b --steps 40 --batch 4 --seq 256
+  python -m repro_torch.launch.train --arch paper-lm --head rff-fused --steps 120 --lr 3e-3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
 """
 from __future__ import annotations
@@ -42,6 +46,7 @@ from repro_torch.index.lifecycle import IndexLifecycle
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import heads, init_params
 from repro_torch.optim import adamw, cosine_schedule
+from repro_torch.proposals import registry as proposals_registry
 
 # Generator streams derived from the run's seed.
 _STREAM_INIT, _STREAM_INDEX, _STREAM_REFRESH = range(3)
@@ -69,7 +74,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                device=None):
     """Single-device training loop. Returns (params, opt_state, index,
     history): params detached, ready for `serve.Engine(cfg, params,
-    index=index)`; history the per-step losses.
+    index=index, head=mode)`; index the head state (the MultiIndex, or the
+    proposal's state for a registry mode); history the per-step losses.
 
     total_steps: the schedule horizon (default `steps`). on_metrics(step,
     metrics) also receives `step_s`, the host time of the step (which ends
@@ -80,7 +86,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                   if v is not None}
     if refresh_kw:
         cfg = cfg.with_head(**refresh_kw)
-    mode = steps_mod.resolve_mode(cfg, head_mode)
+    mode, proposal = steps_mod.resolve_proposal(cfg, head_mode)
     device = resolve_device(device)
     horizon = total_steps or steps
 
@@ -99,19 +105,25 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
 
     train_step = steps_mod.make_train_step(cfg, optimizer, head_mode=mode)
     index = None
+    gen_index = _generator(device, seed, _STREAM_INDEX)
     if mode == "midx":
-        index = heads.init_head_state(
-            cfg, params, _generator(device, seed, _STREAM_INDEX))
+        index = heads.init_head_state(cfg, params, gen_index)
+    elif proposal is not None:
+        index = heads.init_proposal_state(cfg, params, gen_index, proposal)
 
     def refresh(p, state, step_seed):
         gen = torch.Generator(device=device)
         gen.manual_seed(step_seed)
-        return heads.refresh_head_state_with_policy(cfg, p, state, gen)
+        if proposal is None:
+            return heads.refresh_head_state_with_policy(cfg, p, state, gen)
+        # drift probes are a MultiIndex notion: a proposal reports none
+        return heads.refresh_proposal_state(cfg, p, proposal, state, gen), {}
 
     lifecycle = IndexLifecycle(
         refresh, every=cfg.head.refresh_every, lag=cfg.head.refresh_lag,
         base_seed=int(noise.hash_bits(seed, _STREAM_REFRESH, 0, 0)),
-        enabled=mode == "midx")
+        enabled=mode == "midx" or (proposal is not None
+                                   and proposal.adaptive))
 
     history = []
     for step in range(steps):
@@ -128,10 +140,12 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                   f"(loss {loss}, params/opt state unchanged)")
         index, ev = lifecycle.step(step, params, index)
         if ev is not None:
+            drift = "".join(f" {name}={ev.metrics[key]:.3f}" for name, key
+                            in (("reassigned", "reassigned_frac"),
+                                ("drift", "codeword_drift"))
+                            if key in ev.metrics)
             print(f"[train] refresh @{ev.step} mode={ev.mode} "
-                  f"{ev.seconds:.3f}s "
-                  f"reassigned={ev.metrics.get('reassigned_frac', 0.0):.3f} "
-                  f"drift={ev.metrics.get('codeword_drift', 0.0):.3f}")
+                  f"{ev.seconds:.3f}s{drift}")
             if ev.rejected:
                 print(f"[train] refresh @{ev.step} REJECTED: "
                       f"{'; '.join(ev.reasons)} — keeping live state")
@@ -158,7 +172,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced (CPU smoke) config")
-    ap.add_argument("--head", default=None, choices=(None, *steps_mod.HEAD_MODES),
+    ap.add_argument("--head", default=None,
+                    choices=(None, *proposals_registry.PORTED_MODES),
                     help="head mode (default: cfg.head.mode)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--refresh-every", type=int, default=None,

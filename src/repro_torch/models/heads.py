@@ -5,8 +5,10 @@ path only — int8/fp8 tables are a later slice), `refresh_head_state` (:71),
 `refresh_head_state_with_policy` (:86), `loss_full` (:106), `loss_midx`
 (:113, the fused lane: per-token, pooled and mixture proposals, with the
 table in its native dtype),
-`_masked_mean` (:232) and `midx_decode_head` (:316, the unquantized
-branch).
+`_masked_mean` (:232), the generic proposal heads `_midx_index_of`
+(:239), `init_proposal_state` (:253), `refresh_proposal_state` (:260),
+`loss_sampled` (:267), `proposal_decode_head` (:538), and
+`midx_decode_head` (:316, the unquantized branch).
 
 `loss_midx` is the reference's fused lane. Per-token proposals: the
 proposal tables come from the midx_probs kernel and the CE from the
@@ -22,6 +24,12 @@ reference, so d(loss)/d log q flows back through the proposal into the
 hidden states. Quantized states (ROADMAP.md Queue 1 item 8) raise
 NotImplementedError. Like the reference's fused lane, the kernels always
 mask collisions (`mask_collisions` is not consulted).
+
+`loss_sampled` and `proposal_decode_head` run any ported registry
+proposal (`repro_torch.proposals`): the draws come from the proposal (for
+`rff-fused`, the rff_sample kernel on the card), the rows are gathered
+with `F.embedding` and the products are plain torch ops, as the reference
+computes them outside any Pallas kernel.
 
 The decode head draws `num_candidates` classes through the two-stage MIDX
 proposal, rescores them exactly against the class table, IS-corrects
@@ -52,7 +60,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import midx as midx_mod
 from repro_torch.core import noise
-from repro_torch.core.sampled_softmax import full_softmax_loss
+from repro_torch.core.sampled_softmax import (full_softmax_loss,
+                                              sampled_softmax_loss)
 from repro_torch.index import lifecycle as lifecycle_mod
 from repro_torch.index.build import MultiIndex, build, refresh
 from repro_torch.kernels.midx_probs.ops import proposal_tables
@@ -179,8 +188,112 @@ def midx_decode_head(cfg: ModelConfig, params: dict, index: MultiIndex,
                                     tables_fn=proposal_tables)      # [T,M]
     corrected = candidate_logits(cfg, params, h, draw.ids, draw.log_q,
                                  temperature)
-    col = torch.arange(num_candidates, device=h.device)
+    return _pick(draw, corrected, keys)
+
+
+def _pick(draw, corrected: torch.Tensor, keys: torch.Tensor) -> MidxDecodeOut:
+    """One candidate per row from softmax(corrected) by Gumbel-max under
+    the row's key (role ROLE_PICK), with its proposal log-prob."""
+    col = torch.arange(corrected.shape[-1], device=corrected.device)
     g = noise.gumbel_noise(keys[:, None], noise.ROLE_PICK, 0, col)   # [T,M]
     pick = torch.argmax(corrected + g, dim=-1, keepdim=True)         # [T,1]
     return MidxDecodeOut(torch.gather(draw.ids, 1, pick)[:, 0],
                          torch.gather(draw.log_q, 1, pick)[:, 0])
+
+
+# --------------------------------------------------------- generic proposals
+def _midx_index_of(proposal, state):
+    """The MultiIndex behind a midx-backed proposal state, or None.
+
+    midx-pq/rq keep the index AS the state; midx-learnable derives one from
+    the trained codebooks. midx-exact-* is NOT a fast-lane candidate — its
+    sampling distribution is the exact softmax, not the index proposal."""
+    if proposal is None:
+        return state
+    if proposal.name in ("midx-pq", "midx-rq"):
+        return state
+    if proposal.name.startswith("midx-learnable"):
+        return state["index"]
+    return None
+
+
+@torch.no_grad()
+def init_proposal_state(cfg: ModelConfig, params: dict, gen: torch.Generator,
+                        proposal, class_freq: Optional[torch.Tensor] = None):
+    """Proposal-state counterpart of init_head_state (any contender)."""
+    table = class_embeddings(cfg, params).detach().float()
+    return proposal.init(gen, table, class_freq)
+
+
+@torch.no_grad()
+def refresh_proposal_state(cfg: ModelConfig, params: dict, proposal, state,
+                           gen: torch.Generator):
+    """Refresh any proposal's state against the current class table."""
+    table = class_embeddings(cfg, params).detach().float()
+    return proposal.refresh(state, gen, table)
+
+
+def loss_sampled(cfg: ModelConfig, params: dict, proposal, state,
+                 hidden: torch.Tensor, labels: torch.Tensor,
+                 keys: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sampled softmax CE through any registered proposal. hidden [B,S,D],
+    labels [B,S], keys [B·S] the tokens' stream keys.
+
+    MIDX-backed contenders short-circuit to `loss_midx` with their
+    MultiIndex as the head state. Everything else runs the plain
+    formulation, its products as torch ops, as the reference computes them
+    outside any Pallas kernel:
+      per_token        draws [B,S,M] negatives from q(·|h_t), token t keyed
+                       by keys[t];
+      pooled / mixture draws [B,M] shared negatives from q(·|z̄) with
+                       z̄ = mean_t h_t, sequence b keyed by keys[b·S]
+                       (`noise.sequence_keys`); generic proposals have no
+                       per-token mixture form, so 'mixture' pools too."""
+    idx = _midx_index_of(proposal, state)
+    if idx is not None:
+        return loss_midx(cfg, params, idx, hidden, labels, keys, mask)
+    table = class_embeddings(cfg, params)
+    m = cfg.head.num_negatives
+    b, s, _ = hidden.shape
+    h32 = hidden.float()
+    pos_logit = torch.sum(h32 * F.embedding(labels, table).float(), dim=-1)
+    if cfg.head.proposal == "per_token":
+        draw = proposal.sample(state, keys.reshape(b, s), h32, m)  # [B,S,M]
+        neg_e = F.embedding(draw.ids, table).float()              # [B,S,M,D]
+        neg_logits = torch.einsum("bsd,bsmd->bsm", h32, neg_e)
+        log_q, neg_ids = draw.log_q, draw.ids
+    else:
+        z_bar = torch.mean(h32, dim=-2)                           # [B,D]
+        draw = proposal.sample(state, noise.sequence_keys(keys, s), z_bar,
+                               m)                                 # [B,M]
+        neg_e = F.embedding(draw.ids, table).float()              # [B,M,D]
+        neg_logits = torch.einsum("bsd,bmd->bsm", h32, neg_e)
+        log_q = draw.log_q[:, None, :]                            # over S
+        neg_ids = draw.ids[:, None, :]
+    loss = sampled_softmax_loss(pos_logit, neg_logits, log_q, neg_ids, labels,
+                                cfg.head.mask_collisions)
+    return _masked_mean(loss, mask)
+
+
+def proposal_decode_head(cfg: ModelConfig, params: dict, proposal, state,
+                         hidden: torch.Tensor, keys: torch.Tensor,
+                         num_candidates: Optional[int] = None,
+                         temperature: Optional[float] = None
+                         ) -> MidxDecodeOut:
+    """midx_decode_head generalised to any proposal: draw candidates from
+    q(·|h), rescore exactly, IS-correct, sample. hidden [T, D], keys [T].
+    MIDX-backed states keep the dedicated path."""
+    idx = _midx_index_of(proposal, state)
+    if idx is not None:
+        return midx_decode_head(cfg, params, idx, hidden, keys,
+                                num_candidates, temperature)
+    if num_candidates is None:
+        num_candidates = cfg.head.decode_candidates
+    if temperature is None:
+        temperature = cfg.head.decode_temperature
+    h = hidden.float()
+    draw = proposal.sample(state, keys, h, num_candidates)          # [T,M]
+    corrected = candidate_logits(cfg, params, h, draw.ids, draw.log_q,
+                                 temperature)
+    return _pick(draw, corrected, keys)

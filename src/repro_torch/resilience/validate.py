@@ -1,20 +1,24 @@
 """Head-state validation: reject degenerate indexes before they go live.
 
 Mirrors `src/repro/resilience/validate.py` (`validate_index` :29,
-`_validate_like` :85, `validate_state` :108) for the port's one head state,
-the `MultiIndex`. A silently broken index (NaN codebooks after a diverged
+`_validate_generic` :71, `_validate_like` :85, `validate_state` :108) for
+the port's head states: the `MultiIndex` and any proposal's state dict
+(e.g. the RFF state). A silently broken index (NaN codebooks after a diverged
 refit, a CSR that lost classes) does not crash training — it biases every
 sampled-softmax step — so the index lifecycle checks each rebuilt index
 before swapping it in. Each check returns human-readable reasons; an empty
 list means the state is safe to install. Checks run on host copies, once
 per refresh, off the hot path. Quantized head states (ROADMAP.md Queue 1
-item 8) and the other proposals' states (item 10) are not ported.
+item 8) are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
+from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.index.build import MultiIndex
 
@@ -60,34 +64,63 @@ def validate_index(index: MultiIndex) -> list[str]:
     return reasons
 
 
-def _validate_like(state: MultiIndex, like: MultiIndex) -> list[str]:
-    """Field-by-field shape and dtype agreement with the state it replaces:
-    a swap never changes what the train step was built for."""
-    if state.kind != like.kind:
-        return [f"index kind {state.kind!r} != current {like.kind!r}"]
+def _leaves(tree, path: str = ""):
+    """(path, leaf) pairs of a state: a MultiIndex's array fields, a dict's
+    values in key order (the order JAX flattens a dict in), or a leaf."""
+    if isinstance(tree, MultiIndex):
+        for f in dataclasses.fields(MultiIndex):
+            if f.name != "kind":
+                yield from _leaves(getattr(tree, f.name), f"{path}.{f.name}")
+    elif isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}[{k!r}]")
+    else:
+        yield path, tree
+
+
+def _structure(tree) -> str:
+    paths = ", ".join(p for p, _ in _leaves(tree))
+    if isinstance(tree, MultiIndex):
+        return f"MultiIndex(kind={tree.kind!r}: {paths})"
+    return f"{type(tree).__name__}({paths})"
+
+
+def _validate_generic(state: Any) -> list[str]:
+    """Any head-state tree: float leaves must be NaN-free. -inf is legal
+    (log-probabilities of zero-mass classes), NaN never is."""
     reasons = []
-    for f in dataclasses.fields(MultiIndex):
-        if f.name == "kind":
-            continue
-        a, b = getattr(state, f.name), getattr(like, f.name)
+    for path, leaf in _leaves(state):
+        if torch.is_tensor(leaf) and leaf.is_floating_point() \
+                and bool(torch.isnan(leaf).any()):
+            reasons.append(f"NaN values in leaf {path}")
+    return reasons
+
+
+def _validate_like(state: Any, like: Any) -> list[str]:
+    """Structure, shape and dtype agreement with the state it replaces: a
+    swap never changes what the train step was built for."""
+    if _structure(state) != _structure(like):
+        return [f"tree structure mismatch: got {_structure(state)}, "
+                f"expected {_structure(like)}"]
+    reasons = []
+    for (path, a), (_, b) in zip(_leaves(state), _leaves(like)):
         if a.shape != b.shape:
-            reasons.append(f"leaf .{f.name} shape {tuple(a.shape)} != "
-                           f"current {tuple(b.shape)}")
+            reasons.append(f"leaf {path} shape {tuple(a.shape)} != current "
+                           f"{tuple(b.shape)}")
         elif a.dtype != b.dtype:
-            reasons.append(f"leaf .{f.name} dtype {a.dtype} != current "
+            reasons.append(f"leaf {path} dtype {a.dtype} != current "
                            f"{b.dtype}")
     return reasons
 
 
-def validate_state(state, like=None) -> list[str]:
-    """Validate a head state before it goes live; `like` (the state being
-    replaced) adds the structural checks. Returns [] when it is safe."""
-    if not isinstance(state, MultiIndex):
-        raise NotImplementedError(
-            f"validating a {type(state).__name__} head state is not ported "
-            "yet (ROADMAP.md Queue 1 items 8 and 10)")
+def validate_state(state: Any, like: Any = None) -> list[str]:
+    """Validate any proposal / head state before it goes live; `like` (the
+    state being replaced) adds the structural checks, and a MultiIndex gets
+    the full CSR / codebook invariants. Returns [] when it is safe."""
     if like is not None:
         reasons = _validate_like(state, like)
         if reasons:
-            return reasons
-    return validate_index(state)
+            return reasons          # structure is broken; leaf checks moot
+    if isinstance(state, MultiIndex):
+        return validate_index(state)
+    return _validate_generic(state)

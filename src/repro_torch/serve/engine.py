@@ -1,13 +1,16 @@
 """Serving engine: continuous batching around the MIDX decode head.
 
 Mirrors `src/repro/serve/engine.py` (`Engine` :153) for what this slice
-serves: the dense family, `head` 'midx' or 'full', whole-prompt batched
+serves: the dense family, `head` 'midx', 'full' or a ported registry
+proposal ('rff', 'rff-fused': the generic candidate-rescore head
+`heads.proposal_decode_head`, its state initialised from the params when
+none is given, reference :159-166, :200-202), whole-prompt batched
 prefill (one `prefill` per prompt-length group, padded to max_slots rows)
 and single-token decode waves over all `max_slots` slots (inactive slots
 ride along masked and write only the trash page). The loop is factored as
 in the reference: `start_run` / `tick` / `finish_run`, composed by `run`.
 Speculative decoding, chunked prefill, the prefix cache, index hot-swap,
-checkpoints and the generic proposal heads raise NotImplementedError (see
+checkpoints and the unported proposals raise NotImplementedError (see
 ROADMAP.md). The greedy rule of the reference (:188-191) is kept:
 temperature <= 0 needs head='full'.
 
@@ -17,8 +20,8 @@ Departures:
     place of fold_in(fold_in(PRNGKey(seed), rid), p) — and every draw is a
     function of that key alone, so batch composition never changes a
     request's tokens;
-  - the MIDX head runs once per wave over all max_slots rows (one
-    midx_probs launch), not vmapped per slot;
+  - the MIDX and proposal heads run once per wave over all max_slots rows
+    (one midx_probs or rff_sample launch), not vmapped per slot;
   - the KV pool is updated in place (`models/decode.py`), not donated;
   - `replay_single` replays a request alone in an engine of the SAME
     max_slots (the reference uses max_slots=1): every launch then has the
@@ -42,6 +45,7 @@ from repro_torch.core import noise
 from repro_torch.models import (cast_blocks, heads, init_paged_state,
                                 init_params, logits_full, paged_decode_step,
                                 params_to, prefill, reset_slot, write_prefill)
+from repro_torch.proposals import registry as proposals_registry
 from repro_torch.serve.kv_pool import PagePool
 from repro_torch.serve.scheduler import Request, Scheduler, SlotState
 from repro_torch.utils import metrics as metrics_mod
@@ -94,8 +98,11 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
                  index=None, head: str = "midx",
                  window: Optional[int] = None, device=None, seed: int = 0):
-        if head not in ("midx", "full"):
-            raise _unported(f"decode head {head!r}")
+        proposals_registry.validate_mode(head)
+        # 'midx'/'full' keep their dedicated decode paths; a registered
+        # contender serves through the generic proposal head
+        self.proposal = (None if head in ("midx", "full")
+                         else proposals_registry.from_config(cfg.head, head))
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the torch engine serves the dense family only, not "
@@ -122,6 +129,9 @@ class Engine:
         self.index = index
         if head == "midx" and self.index is None:
             self.index = heads.init_head_state(cfg, self.params, gen)
+        elif self.proposal is not None and self.index is None:
+            self.index = heads.init_proposal_state(cfg, self.params, gen,
+                                                   self.proposal)
         self.pool = PagePool(sv.resolved_num_pages, sv.page_size,
                              sv.pages_per_slot, sv.max_slots)
         self.sched = Scheduler(sv.max_slots, self.pool,
@@ -142,6 +152,9 @@ class Engine:
     def _sample(self, hidden: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         """Next token per row. hidden [B, D], keys [B] row stream keys."""
         cfg = self.cfg
+        if self.proposal is not None:
+            return heads.proposal_decode_head(cfg, self.params, self.proposal,
+                                              self.index, hidden, keys).token
         if self.head == "midx":
             return heads.midx_decode_head(cfg, self.params, self.index,
                                           hidden, keys).token

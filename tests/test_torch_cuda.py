@@ -1,7 +1,7 @@
 """Card-only checks of the torch port: the CUDA midx_probs, per-token and
-shared-negative sampled-CE kernels against their plain versions, the
-engine on the card, and short training runs through the kernels of the
-per-token and the pooled heads. This file imports no
+shared-negative sampled-CE and RFF sampling kernels against their plain
+versions, the engine on the card, and short training runs through the
+kernels of the per-token, the pooled and the rff-fused heads. This file imports no
 JAX, so it runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -240,3 +240,100 @@ def test_pooled_llama_train_step_goes_through_the_shared_kernels():
     assert sampled_ce_cuda.launches > before[0]
     assert sampled_ce_bwd_cuda.launches > before[1]
     assert np.all(np.isfinite(hist))
+
+
+RFF_SHAPES = ((8, 128, 64, 16), (13, 200, 32, 5), (1, 64, 16, 3),
+              (20, 130, 64, 17),                # the reference's sweep
+              (4, 128256, 64, 64),               # serving llama3.2-1b
+              (1024, 10000, 64, 20),             # paper-lm per-token training
+              (4, 128256, 64, 1024))             # llama3.2-1b pooled training
+
+
+def _rff_inputs(t, n, r2, form, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pz = 0.3 * torch.rand((t, r2), generator=g, device="cuda")
+    pc = torch.rand((n, r2), generator=g, device="cuda")
+    if form == "reference":              # one seed, rows counted 0..T-1
+        seeds = torch.full((t,), 7, dtype=torch.int64, device="cuda")
+        t_ids = torch.arange(t, device="cuda")
+    else:                                # each row its own key, counter 0
+        seeds = torch.randint(0, 2**32, (t,), generator=g, device="cuda")
+        t_ids = torch.zeros(t, dtype=torch.int64, device="cuda")
+    return pz, pc, seeds, t_ids
+
+
+@pytest.mark.parametrize("form", ["reference", "rows"])
+def test_rff_sample_kernel_matches_plain_version(form):
+    """ids equal to the plain version's except at near-ties of the
+    perturbed values (|v_kernel − v_plain| <= 1e-5·max(1, |v_plain|));
+    log_q within 1e-5·max(1, |plain|) of the plain log q of the drawn id;
+    bitwise repeatable."""
+    _need_card()
+    from repro_torch.kernels.rff_sample.cuda import rff_sample_cuda
+    from repro_torch.kernels.rff_sample.ref import (perturbed_values,
+                                                    rff_gumbel_ref,
+                                                    rff_scores)
+    for t, n, r2, m in RFF_SHAPES:
+        pz, pc, seeds, t_ids = _rff_inputs(t, n, r2, form, seed=t + n)
+        before = rff_sample_cuda.launches
+        ids, lq = rff_sample_cuda(pz, pc, seeds, t_ids, m)
+        again = rff_sample_cuda(pz, pc, seeds, t_ids, m)
+        want_ids, _, lse = rff_gumbel_ref(pz, pc, seeds, t_ids, m)
+        torch.cuda.synchronize()
+        assert rff_sample_cuda.launches == before + 2
+        assert torch.equal(ids, again[0]) and torch.equal(lq, again[1])
+        assert ids.dtype == torch.int32 and tuple(ids.shape) == (t, m)
+        assert bool(((ids >= 0) & (ids < n)).all())
+        logits = rff_scores(pz, pc)
+        a = perturbed_values(logits, seeds, t_ids, ids)
+        b = perturbed_values(logits, seeds, t_ids, want_ids)
+        near = (a - b).abs() <= 1e-5 * b.abs().clamp(min=1)
+        assert bool(((ids == want_ids) | near).all())
+        want_lq = torch.gather(logits, 1, ids.long()) - lse[:, None]
+        assert torch.all((lq - want_lq).abs()
+                         <= 1e-5 * want_lq.abs().clamp(min=1))
+
+
+def test_rff_sample_kernel_rejects_what_it_cannot_take():
+    _need_card()
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.rff_sample.cuda import rff_sample_cuda
+    pz, pc, seeds, t_ids = _rff_inputs(4, 50, 64, "rows", 0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rff_sample_cuda(pz.cpu(), pc, seeds, t_ids, 3)
+    with pytest.raises(ValueError, match="fp32"):
+        rff_sample_cuda(pz.double(), pc, seeds, t_ids, 3)
+    with pytest.raises(ValueError, match="int64"):
+        rff_sample_cuda(pz, pc, seeds.int(), t_ids, 3)
+    with pytest.raises(ValueError, match="bad shapes"):
+        rff_sample_cuda(pz, pc[:, :32].contiguous(), seeds, t_ids, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        rff_sample_cuda(pz.t().contiguous().t(), pc, seeds, t_ids, 3)
+    with pytest.raises(ValueError, match="R2 <="):
+        big = torch.rand((4, 300), device="cuda")
+        rff_sample_cuda(big, torch.rand((50, 300), device="cuda"), seeds,
+                        t_ids, 3)
+    before = rff_sample_cuda.launches      # a CUDA tensor reaches the kernel
+    dispatch.rff_sample(pz, pc, seeds, t_ids, 3)
+    assert rff_sample_cuda.launches == before + 1
+
+
+def test_rff_fused_serving_and_training_go_through_the_kernel():
+    _need_card()
+    from repro_torch.kernels.rff_sample.cuda import rff_sample_cuda
+    from repro_torch.launch.train import train_loop
+    from repro_torch.serve import Engine, Request
+    cfg = get_config("paper-lm").with_head(mode="rff-fused").with_serve(
+        max_slots=2, page_size=4, max_seq=16)
+    before = rff_sample_cuda.launches
+    params, _, state, hist = train_loop(cfg, steps=6, batch_size=4,
+                                        seq_len=16, lr=3e-3, refresh_every=3)
+    assert rff_sample_cuda.launches > before and np.all(np.isfinite(hist))
+    eng = Engine(cfg, params, index=state, head="rff-fused")
+    reqs = [Request(rid=i, tokens=np.arange(3 + i, dtype=np.int32),
+                    max_new=4, seed=1) for i in range(3)]
+    before = rff_sample_cuda.launches
+    res = eng.run(reqs)
+    assert rff_sample_cuda.launches > before
+    for r in reqs:
+        np.testing.assert_array_equal(res[r.rid].tokens, eng.replay_single(r))
