@@ -8,9 +8,10 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the serving and training paths from the sources
      in the checkout, one nvcc per source, all at once (`kernels/
-     midx_probs/csrc/midx_probs.cu`, `kernels/sampled_ce/csrc/
-     sampled_ce_pt.cu` and `sampled_ce.cu`, `kernels/rff_sample/csrc/
-     rff_sample.cu`), and print what ptxas says;
+     flash_attention/csrc/flash_attention.cu`, `kernels/midx_probs/csrc/
+     midx_probs.cu`, `kernels/sampled_ce/csrc/sampled_ce_pt.cu` and
+     `sampled_ce.cu`, `kernels/rff_sample/csrc/rff_sample.cu`), and print
+     what ptxas says;
   3. hold each kernel against its plain torch version on the card, at the
      main paths' shapes and a sweep around them, with TF32 off; both
      sampled-CE backwards and the RFF sampler must also repeat bit for
@@ -19,6 +20,14 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      events (median of 50 cold-L2 launches) beside the bound (bytes over
      3.35 TB/s, operations over 67 TFLOP/s fp32), and the fp32 bmm of the
      shared CE's logit product as a reference point;
+ 3b. hold the flash-attention forward against its plain version, TF32 off:
+     a sweep (fp32/bf16, hd 50/64/128, four (H, KV), S 128..2048, causal
+     on/off, window None/16, Sq < Sk, rows with no allowed key), every
+     case bitwise repeatable; at the main shapes (llama3.2-1b prefill B=4,
+     S=2048 and 4096; B=1, S=32768) batched == solo bit for bit, and the
+     times of the kernel, its plain version and SDPA (the library call)
+     beside the bound (bf16 operations at 989 TFLOP/s on the tensor
+     cores) and the bound at the fp32 rate outside them;
   4. check the port against itself on the CPU at a small input (prefill
      hidden states, fp32);
   5. serve `paper-lm` at full width through the MIDX head (16 requests,
@@ -28,6 +37,11 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      batched == solo; then through the RFF proposal head (`rff-fused`, the
      same requests) from fresh params, with the peak device memory of the
      MIDX and the RFF serves;
+ 6b. serve `llama3.2-1b` at full width through the MIDX head with long
+     prompts (2 of 2048 and 2 of 4096 tokens, 16 tokens each, 4 slots,
+     page 16): whole-prompt prefill through the flash kernel, batched ==
+     solo on one request of each length, tok/s, p50/p99, prefill latency
+     per length and peak memory;
   7. train `paper-lm` at full width through `launch.train.train_loop` with
      the per-token MIDX head (120 steps, batch 16, seq 64, lr 3e-3, index
      refreshes after steps 49 and 99): every step finite and applied, the
@@ -52,7 +66,13 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      two 10-step runs of `llama3.2-1b` cut to 2 layers with its pooled
      head (M=1024, 4 x 256 tokens, refresh every 5) must agree bit for
      bit, losses, params, optimizer state and proposal state;
- 10. print the kernels' JSON line, then the result line.
+ 10. train_4k: `llama3.2-1b` at full width with its pooled head, 20 steps
+     of batch 2 x seq 4096 (2 x 4097 tokens cut from phase 8's corpus),
+     lr 1e-3, refresh every 10, with the same checks, the median step,
+     tokens/s and peak memory; `flash_attention`, `sampled_ce` and
+     `sampled_ce_bwd` all launched; two 5-step runs at 2 layers and seq
+     4096 (refresh every 3) agree bit for bit;
+ 11. print the kernels' JSON line, then the result line.
 Each main-path run sets the kernels' launch counters to 0 just before it
 and reads them just after; a kernel of the path that was never launched
 fails the run. Exits non-zero, with no result line, without a CUDA device
@@ -80,6 +100,7 @@ FP32_FLOP_S = 67e12            # H100 SXM fp32 outside the tensor cores
 REL_TOL = 1e-4                 # |kernel - plain| <= 1e-4 * max(1, |plain|)
 LLAMA_STEPS, LLAMA_LR, LLAMA_REFRESH = 60, 1e-3, 25   # full-width training
 LLAMA_CORPUS = 32              # ZipfLM sequences (host time: O(V) per token)
+TRAIN_4K = 4096                # the repo's train_4k sequence length
 MIDX_TS = (1, 4, 8, 33, 512, 1024)   # decode, prefill and training rows
 
 
@@ -98,10 +119,10 @@ def flush_l2(buf: torch.Tensor) -> None:
     buf.zero_()                # 128 MB > the 50 MB L2: evicts everything
 
 
-def time_ms(fn, buf: torch.Tensor, reps: int = 50) -> float:
+def time_ms(fn, buf: torch.Tensor, reps: int = 50, warm: int = 5) -> float:
     """Median of `reps` single calls, each after an L2 flush, timed with
-    CUDA events."""
-    for _ in range(5):
+    CUDA events, after `warm` untimed calls."""
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -550,6 +571,188 @@ def check_rff_sample(rff_mod, ref_mod, buf, card: str):
     return worst, n_diff, timings
 
 
+TC_BF16_FLOP_S = 989e12        # H100 SXM bf16 on the tensor cores (dense)
+BF16_RTOL = 2.0 ** -7          # one bf16 ulp is at most 2^-7 * |value|
+BF16_ATOL = 1e-5               # fp32 summation-order differences, which
+                               # matter only where |out| is near 0
+FLASH_MAIN = {                 # llama3.2-1b causal attention: B, S (H=32,
+    "llama3.2-1b prefill B=4 S=2048": (4, 2048),   # KV=8, hd=64, bf16)
+    "llama3.2-1b prefill B=4 S=4096": (4, 4096),
+    "prefill_32k B=1 S=32768": (1, 32768)}
+FLASH_REPS = {2048: 50, 4096: 50, 32768: 5}        # timed launches per shape
+
+
+def flash_inputs(b: int, sq: int, sk: int, h: int, kv: int, hd: int, dtype,
+                 seed: int):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                               (b, sk, kv, hd)))
+
+
+def flash_scores(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
+    """The allowed (query, key) pairs of one (batch, head): the scores this
+    run's mask needs."""
+    qi = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(sk - 1, qi) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, qi - window + 1) if window is not None else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound_ms(b: int, sq: int, sk: int, h: int, kv: int, hd: int,
+                   elem: int, causal: bool = True, window=None,
+                   q_offset: int = 0):
+    """Operations: per allowed score the q.k dot and the p.v update (4·hd,
+    a multiply-add counted as two) and one exp, at the card's peak rate for
+    the inputs' type: 989 TFLOP/s for bf16 (tensor cores), 67 TFLOP/s for
+    fp32. Bytes: q, k and v read once, out and lse written once, at
+    3.35 TB/s. Returns (bound ms, what bounds it, the bound at the fp32
+    rate outside the tensor cores in ms, which the kernel's fp32 FMAs are
+    held to)."""
+    ops = b * h * flash_scores(sq, sk, causal, window, q_offset) * (4 * hd + 1)
+    nbytes = elem * (2 * b * sq * h * hd + 2 * b * sk * kv * hd) + 4 * b * h * sq
+    rate = TC_BF16_FLOP_S if elem == 2 else FP32_FLOP_S
+    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    return (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations",
+            max(b_ms, ops / FP32_FLOP_S * 1e3))
+
+
+def hold_flash(cuda_mod, ref_fn, q, k, v, *, causal: bool, window,
+               q_offset: int, where: str):
+    """The kernel against its plain version on one input, and bit for bit
+    against itself. out within 1e-4·max(1, |plain|) in fp32 and
+    2^-7·|plain| + 1e-5 in bf16 (one bf16 ulp: both round an fp32 result);
+    lse within 1e-4·max(1, |plain|). Returns (out, max out err, max lse
+    err, elements differing at all)."""
+    sq, sk = q.shape[1], k.shape[1]
+    out, lse = cuda_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window, q_offset=q_offset)
+    again = cuda_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset)
+    want, want_lse = ref_fn(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, q_chunk=min(512, sq),
+                            kv_chunk=min(1024, sk))
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise SystemExit(f"flash_attention is not bitwise repeatable at "
+                         f"{where}")
+    if out.shape != want.shape or lse.shape != want_lse.shape \
+            or not torch.isfinite(out).all() or not torch.isfinite(lse).all():
+        raise SystemExit(f"flash_attention: bad output shape/values at "
+                         f"{where}")
+    bf16 = q.dtype == torch.bfloat16
+    errs = []
+    for name, a, b in (("out", out.float(), want.float()),
+                       ("lse", lse, want_lse)):
+        err = (a - b).abs()
+        if name == "out" and bf16:
+            lim, rule = BF16_RTOL * b.abs() + BF16_ATOL, "2^-7*|ref| + 1e-5"
+        else:
+            lim, rule = REL_TOL * b.abs().clamp(min=1.0), "1e-4*max(1,|ref|)"
+        if bool((err > lim).any()):
+            raise SystemExit(f"flash_attention {name} disagrees with the "
+                             f"plain version at {where}: max err "
+                             f"{float(err.max()):.3e} (tol {rule})")
+        errs.append(float(err.max()))
+    return out, errs[0], errs[1], int((out != want).sum())
+
+
+def sdpa_backend(q, k, v) -> str:
+    """Which kernel PyTorch's scaled_dot_product_attention ran: the names
+    of the CUDA kernels of one call under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type.name == "CUDA"]
+    return "; ".join(n[:70] for n in names) or "no CUDA kernel recorded"
+
+
+def check_flash_attention(cuda_mod, ref_fn, buf, card: str):
+    """Phase 3 for the flash-attention forward, TF32 off: a sweep (fp32 and
+    bf16; hd in {50, 64, 128}; (H, KV) in {(4,4), (6,3), (32,8), (2,1)};
+    Sq = Sk in {128, 384, 1024, 2048}; causal on and off; window None or
+    16) plus Sq < Sk with q_offset = Sk - Sq and two forms with rows that
+    have no allowed key, each bitwise repeatable; then the main shapes
+    (llama3.2-1b prefill B=4 at S=2048 and 4096, and the prefill_32k
+    length), where row b of a B=4 call must equal a B=1 call on that row
+    bit for bit, and the times of the kernel, its plain version and SDPA
+    beside the bound."""
+    worst = {"out fp32": 0.0, "out bf16": 0.0, "lse": 0.0}
+    n_diff = n_bf16 = cases = 0
+    sweep = [(dt, hd, h, kv, s, s, causal, window, 0)
+             for dt in (torch.float32, torch.bfloat16) for hd in (50, 64, 128)
+             for h, kv in ((4, 4), (6, 3), (32, 8), (2, 1))
+             for s in (128, 384, 1024, 2048) for causal in (True, False)
+             for window in (None, 16)]
+    sweep += [(dt, 64, 32, 8, 512, 2048, True, None, 1536)
+              for dt in (torch.float32, torch.bfloat16)]
+    sweep += [(torch.float32, 64, 6, 3, 384, 384, True, 16, -100),
+              (torch.bfloat16, 128, 4, 2, 384, 384, False, 16, 384)]
+    for dt, hd, h, kv, sq, sk, causal, window, off in sweep:
+        q, k, v = flash_inputs(2, sq, sk, h, kv, hd, dt, seed=sq + hd + h)
+        where = (f"B=2 Sq={sq} Sk={sk} H={h} KV={kv} hd={hd} "
+                 f"{str(dt).split('.')[-1]} causal={causal} window={window} "
+                 f"q_offset={off}")
+        _, e_out, e_lse, nd = hold_flash(cuda_mod, ref_fn, q, k, v,
+                                         causal=causal, window=window,
+                                         q_offset=off, where=where)
+        key = "out bf16" if dt == torch.bfloat16 else "out fp32"
+        worst[key] = max(worst[key], e_out)
+        worst["lse"] = max(worst["lse"], e_lse)
+        if dt == torch.bfloat16:
+            n_diff += nd
+            n_bf16 += q.numel()
+        cases += 1
+    log(f"[smoke] flash_attention vs plain: {cases} cases, max_abs_err out "
+        f"fp32={worst['out fp32']:.3e} bf16={worst['out bf16']:.3e} lse="
+        f"{worst['lse']:.3e} (tol out 1e-4*max(1,|ref|) fp32 / 2^-7*|ref| + "
+        f"1e-5 bf16, lse 1e-4*max(1,|ref|)); bf16 out elements differing at "
+        f"all: {n_diff} of "
+        f"{n_bf16}; every case bitwise repeatable")
+    timings = {}
+    for name, (b, s) in FLASH_MAIN.items():
+        q, k, v = flash_inputs(b, s, s, 32, 8, 64, torch.bfloat16, seed=s)
+        out, e_out, e_lse, nd = hold_flash(cuda_mod, ref_fn, q, k, v,
+                                           causal=True, window=None,
+                                           q_offset=0, where=name)
+        worst["out bf16"] = max(worst["out bf16"], e_out)
+        worst["lse"] = max(worst["lse"], e_lse)
+        for row in range(b if b > 1 else 0):
+            solo, _ = cuda_mod.flash_attention_cuda(
+                q[row:row + 1].contiguous(), k[row:row + 1].contiguous(),
+                v[row:row + 1].contiguous(), causal=True, window=None,
+                q_offset=0)
+            if not torch.equal(solo[0], out[row]):
+                raise SystemExit(f"flash_attention at {name}: row {row} of "
+                                 f"the batch != the same row alone")
+        reps = FLASH_REPS[s]
+        warm = 5 if reps > 5 else 1
+        ms = time_ms(lambda: cuda_mod.flash_attention_cuda(
+            q, k, v, causal=True, window=None, q_offset=0), buf, reps, warm)
+        plain = time_ms(lambda: ref_fn(q, k, v, causal=True, window=None,
+                                       q_offset=0, q_chunk=512,
+                                       kv_chunk=1024),
+                        buf, max(2, reps // 10), 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), buf, reps, warm)
+        backend = sdpa_backend(qt, kt, vt)
+        bound, by, simt_bound = flash_bound_ms(b, s, s, 32, 8, 64, 2)
+        timings[name] = (ms, plain, bound, by, lib, simt_bound)
+        log(f"[smoke] flash_attention {name} (H=32 KV=8 hd=64 bf16 causal; "
+            f"out err {e_out:.3e}, {nd} elements differ, lse err "
+            f"{e_lse:.3e}; batched == solo): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.6f} ms ({by}, bf16 at 989 "
+            f"TFLOP/s; at the fp32 rate outside the tensor cores "
+            f"{simt_bound:.6f} ms), library (SDPA) {lib:.4f} ms [{backend}]"
+            f"; {reps} timed launches; on {card}")
+    return worst, n_diff, timings
+
+
 def check_against_cpu(cfg_name: str) -> None:
     """Phase 4: the port on the card against the port on the CPU, fp32,
     small input: prefill hidden states agree to 1e-3."""
@@ -617,6 +820,70 @@ def serve(cfg, *, head: str, requests: int, prompt: int, tokens: int,
         f"steps={s['steps']}; batched == solo on {verify}; {kname} "
         f"launches {launches}; peak memory {s['peak_gib']:.2f} GiB "
         f"({base:.2f} GiB allocated before)")
+    return engine, s, launches
+
+
+LONG_PROMPTS = (2048, 4096, 2048, 4096)    # the long-prompt serve's requests
+
+
+def serve_long(cfg, params, index, counters, names):
+    """The long-prompt serve: llama3.2-1b at full width through the MIDX
+    head, 4 slots, 2 prompts of 2048 and 2 of 4096 tokens, 16 tokens each,
+    whole-prompt prefill through the chunked attention path. Counters are
+    set to 0 just before the run and read just after; batched == solo on
+    one request of each length. Returns (engine, summary, launches)."""
+    from repro_torch.serve import Engine, Request
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    engine = Engine(cfg, params, index=index, head="midx", device="cuda",
+                    seed=0)
+    engine.warmup(sorted(set(LONG_PROMPTS)))
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new=16, seed=3)
+            for i, n in enumerate(LONG_PROMPTS)]
+    for c in counters:
+        c.launches = 0
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    s = engine.stats.summary()
+    for r in reqs:
+        res = results[r.rid]
+        if res.status != "ok" or len(res.tokens) != 16 \
+                or res.tokens.min() < 0 or res.tokens.max() >= cfg.padded_vocab:
+            raise SystemExit(f"long-prompt serve: request {r.rid} (prompt "
+                             f"{len(r.tokens)}) came back {res.status} with "
+                             f"{res.tokens.tolist()}")
+    for name, n in zip(names, launches):
+        if n <= 0:
+            raise SystemExit(f"long-prompt serve: {name} was never launched "
+                             f"on the main path")
+    prefill_ms = {n: 1e3 * statistics.median(
+        results[r.rid].latencies_s[0] for r in reqs if len(r.tokens) == n)
+        for n in sorted(set(LONG_PROMPTS))}
+    for r in reqs[:2]:                         # one of each length
+        solo = engine.replay_single(r)
+        if not np.array_equal(results[r.rid].tokens, solo):
+            raise SystemExit(f"long-prompt serve: rid {r.rid} (prompt "
+                             f"{len(r.tokens)}) batched "
+                             f"{results[r.rid].tokens.tolist()} != solo "
+                             f"{solo.tolist()}")
+    torch.cuda.synchronize()
+    s = {**s, "prefill_ms": prefill_ms,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "base_gib": base}
+    log(f"[smoke] serve {cfg.name} head=midx L={cfg.num_layers} "
+        f"d={cfg.d_model} long prompts {list(LONG_PROMPTS)} x 16 tokens on "
+        f"{cfg.serve.max_slots} slots (max_seq {cfg.serve.max_seq}): "
+        f"tok/s={s['tok_s']} p50={s['p50_ms']}ms p99={s['p99_ms']}ms "
+        f"steps={s['steps']}; prefill (first-token) latency per group: "
+        + ", ".join(f"{n} tokens {ms:.2f} ms" for n, ms in prefill_ms.items())
+        + f"; batched == solo on one of each length; launches "
+        + ", ".join(f"{n} {k}" for k, n in zip(names, launches))
+        + f"; peak memory {s['peak_gib']:.2f} GiB ({base:.2f} GiB allocated "
+        f"before)")
     return engine, s, launches
 
 
@@ -714,8 +981,8 @@ def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
 
 
 def profile_train(cfg, params, index, label: str, b: int = 16,
-                  s: int = 64) -> None:
-    """Where a training step's time goes: 5 steps of the trained model
+                  s: int = 64, steps: int = 5) -> None:
+    """Where a training step's time goes: `steps` steps of the trained model
     under torch.profiler (wall, device busy and idle share, launches, and
     the kernels that took the most device time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -736,7 +1003,7 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(steps):
             p, state, m = step(p, state, index, batch, keys)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -745,7 +1012,7 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
                and not e.key.startswith("train.")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_kern = sum(e.count for e in kernels)
-    log(f"[profile] {label}: 5 steps, wall {wall * 1e3:.2f} ms, device busy "
+    log(f"[profile] {label}: {steps} steps, wall {wall * 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms (idle share {1 - busy_us / 1e6 / wall:.3f}),"
         f" {n_kern} kernel launches")
     for e in events:
@@ -755,7 +1022,7 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in kernels if any(k in e.key for k in (
         "midx_probs", "fwd_kernel", "bwd_rows_kernel", "dtab_kernel",
-        "bwd_dh_kernel", "bwd_dne_kernel"))]
+        "bwd_dh_kernel", "bwd_dne_kernel", "flash_fwd_kernel"))]
     for e in top + [e for e in ours if e not in top]:
         log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
             f"{e.self_device_time_total / 1e3:.2f} ms "
@@ -795,7 +1062,9 @@ def profile_run(engine, label: str, *, prompt: int, tokens: int) -> None:
             log(f"[profile]   {e.key}: x{e.count}, host "
                 f"{e.cpu_time_total / 1e3 / e.count:.3f} ms each")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    for e in top + [e for e in kernels if "midx_probs" in e.key]:
+    for e in top + [e for e in kernels if ("midx_probs" in e.key
+                                           or "flash_fwd" in e.key)
+                    and e not in top]:
         log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
             f"{e.self_device_time_total / 1e3:.2f} ms "
             f"({e.self_device_time_total / max(busy_us, 1e-9):.3f} of busy)")
@@ -804,14 +1073,17 @@ def profile_run(engine, label: str, *, prompt: int, tokens: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one llama3.2-1b run per head and 5 "
-                         "train steps each of paper-lm and llama3.2-1b")
+                    help="also profile one llama3.2-1b run per head, 5 "
+                         "train steps each of paper-lm and llama3.2-1b, one "
+                         "long-prompt prefill and 3 train_4k steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         sys.exit(2)
     import repro_torch  # noqa: F401  (fails without the repository)
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import cuda as flash_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
     from repro_torch.kernels.midx_probs import cuda as midx_cuda
     from repro_torch.kernels.midx_probs.ref import midx_probs_ref
     from repro_torch.kernels.rff_sample import cuda as rff_cuda
@@ -831,8 +1103,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libraries = (midx_cuda.LIBRARY, sce_cuda.LIBRARY, sce_cuda.SHARED_LIBRARY,
-                 rff_cuda.LIBRARY)
+    libraries = (flash_cuda.LIBRARY, midx_cuda.LIBRARY, sce_cuda.LIBRARY,
+                 sce_cuda.SHARED_LIBRARY, rff_cuda.LIBRARY)
     for lib in libraries:                      # one nvcc per source, at once
         lib.start()
     for lib in libraries:
@@ -853,6 +1125,8 @@ def main() -> None:
         sce_cuda, sampled_ce_fwd_ref, sampled_ce_bwd_ref, buf, card)
     rff_worst, rff_diff, rff_timings = check_rff_sample(rff_cuda, rff_ref,
                                                         buf, card)
+    flash_worst, flash_diff, flash_timings = check_flash_attention(
+        flash_cuda, flash_fwd_ref, buf, card)
     del buf
     check_against_cpu("paper-lm")
 
@@ -873,7 +1147,19 @@ def main() -> None:
     if args.profile:
         profile_run(eng, "llama3.2-1b head=midx", prompt=64, tokens=16)
         profile_run(eng_full, "llama3.2-1b head=full", prompt=64, tokens=16)
+    llama_params, llama_index = eng.params, eng.index
     del eng, eng_full
+    # long prompts (2048 and 4096 tokens) through the chunked attention path
+    flash = flash_cuda.flash_attention_cuda
+    long_llama = get_config("llama3.2-1b").with_serve(
+        max_slots=4, page_size=16, max_seq=max(LONG_PROMPTS) + 32)
+    eng_long, long_serve, n_long_serve = serve_long(
+        long_llama, llama_params, llama_index, (flash, counter),
+        ("flash_attention", "midx_probs"))
+    if args.profile:
+        profile_run(eng_long, "llama3.2-1b head=midx, one prefill of 4 x "
+                    "4096-token prompts", prompt=max(LONG_PROMPTS), tokens=1)
+    del eng_long, llama_params, llama_index
     torch.cuda.empty_cache()
     rff_counter = rff_cuda.rff_sample_cuda
     _, rff_serve, n_rff_llama = serve(llama, head="rff-fused", requests=8,
@@ -959,6 +1245,23 @@ def main() -> None:
     n_rff_replay = replay(short.with_head(mode="rff-fused"), steps=10,
                           batch=b, seq=s, lr=LLAMA_LR, corpus=corpus,
                           refresh_every=5, counter=rff_counter)
+    torch.cuda.empty_cache()
+    # train_4k: llama3.2-1b at full width with its pooled head, batch 2 x
+    # seq 4096, on 2 x 4097 tokens cut from the corpus drawn above
+    long_corpus = corpus.reshape(-1)[:2 * (TRAIN_4K + 1)].reshape(
+        2, TRAIN_4K + 1)
+    params, index, n_4k, train_4k = train(
+        llama_cfg, (flash,) + shared,
+        ("flash_attention", "sampled_ce", "sampled_ce_bwd"), steps=20,
+        batch=2, seq=TRAIN_4K, lr=LLAMA_LR, corpus=long_corpus,
+        refresh_every=10)
+    if args.profile:
+        profile_train(llama_cfg, params, index, "llama3.2-1b train_4k step",
+                      b=2, s=TRAIN_4K, steps=3)
+    del params, index
+    torch.cuda.empty_cache()
+    n_4k_replay = replay(short, steps=5, batch=2, seq=TRAIN_4K, lr=LLAMA_LR,
+                         corpus=long_corpus, refresh_every=3, counter=flash)
     for name, n in (("llama3.2-1b serve", n_rff_llama),
                     ("paper-lm train", n_rff_train[0]),
                     ("trained paper-lm serve", n_rff_trained)):
@@ -982,7 +1285,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
         "replaces": "src/repro/kernels/midx_probs/midx_probs.py:23",
         "launches": n_paper + n_llama + n_train[0] + n_trained
-                    + n_llama_trained,
+                    + n_llama_trained + n_long_serve[1],
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
         "bound_by": by, "library_ms": None,
         "shape": "llama3.2-1b decode T=4 D=2048 K=64 rq",
@@ -1002,8 +1305,8 @@ def main() -> None:
             "shape": "paper-lm train T=1024 D=200 M=20 V=10000 fp32"})
     src = "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce.cu"
     for kname, kind, line, n in (
-            ("sampled_ce", "fwd", "33", n_shared[0]),
-            ("sampled_ce_bwd", "bwd", "205", n_shared[1])):
+            ("sampled_ce", "fwd", "33", n_shared[0] + n_4k[1]),
+            ("sampled_ce_bwd", "bwd", "205", n_shared[1] + n_4k[2])):
         ms, plain, bound, by = shared_timings[kind]
         rows.append({
             "name": kname, "route": "cuda", "source": src,
@@ -1030,6 +1333,31 @@ def main() -> None:
              "bound_by": rff_timings[name][3]}
             for name, (t, n, r2, m) in RFF_SHAPES.items()
             if name != "llama3.2-1b serve"]})
+    ms, plain, bound, by, lib, simt_bound = flash_timings[
+        "llama3.2-1b prefill B=4 S=4096"]
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:25",
+        "launches": n_long_serve[0] + n_4k[0] + sum(n_4k_replay),
+        "launches_by_path": {"long-prompt serve": n_long_serve[0],
+                             "train_4k": n_4k[0],
+                             "train_4k replay": n_4k_replay},
+        "max_abs_err": max(flash_worst.values()),
+        "max_abs_err_by_output": flash_worst,
+        "bf16_out_elements_differing": flash_diff, "ms": ms,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": lib, "fp32_simt_bound_ms": simt_bound,
+        "shape": "llama3.2-1b prefill B=4 S=4096 H=32 KV=8 hd=64 bf16 causal",
+        "other_shapes": [
+            {"shape": name, "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+             "bound_by": t[3], "library_ms": t[4],
+             "fp32_simt_bound_ms": t[5]}
+            for name, t in flash_timings.items()
+            if name != "llama3.2-1b prefill B=4 S=4096"]})
+    log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
+        f"{json.dumps(train_4k)}")
     log(json.dumps({"kernels": rows}))
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"ok": True, "device": {

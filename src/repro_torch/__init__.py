@@ -3,10 +3,12 @@
 A package of its own beside the JAX reference (`src/repro/`), mirrored
 module for module: each file's docstring names the reference file it
 mirrors and where it departs. It imports torch and never jax, nor anything
-of `repro`. The head's kernels — `midx_probs` (`kernels/midx_probs/`)
-and the per-token and shared-negative sampled CEs with their backwards
-(`kernels/sampled_ce/`) — are CUDA C++ built at first use; everything
-else is plain torch ops.
+of `repro`. The kernels — the head's `midx_probs`
+(`kernels/midx_probs/`), the per-token and shared-negative sampled CEs
+with their backwards (`kernels/sampled_ce/`) and the RFF sampler
+(`kernels/rff_sample/`), and the long-context attention forward
+(`kernels/flash_attention/`) — are CUDA C++ built at first use;
+everything else is plain torch ops.
 
 Entry points (`init_params`, `serve.Engine`, `launch.serve`) run on the
 card unless the caller asks for the CPU: `device=None` means "cuda", and

@@ -2,7 +2,8 @@
 
 Mirrors `src/repro/kernels/dispatch.py` (`midx_tables_fn` :65,
 `rff_sample_fn` :114, and the choice between the fused CE kernels and their
-jnp oracles), with one rule in place of the reference's backend and
+jnp oracles) and the choice in `src/repro/models/attention.py` between the
+Pallas flash kernel and the chunked XLA forward, with one rule in place of the reference's backend and
 environment switches:
   - a CUDA tensor -> the hand-written kernel (it launches or raises);
   - a CPU tensor  -> the kernel's plain torch version;
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 from repro_torch.kernels.midx_probs.ref import midx_probs_ref
 from repro_torch.kernels.rff_sample.ref import rff_gumbel_ref
 from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
@@ -95,3 +97,20 @@ def rff_sample(phi_z, phi_c, seeds, t_ids, m: int):
         ids, score, lse = rff_gumbel_ref(phi_z, phi_c, seeds, t_ids, m)
         return ids, score - lse[:, None]
     raise _unsupported("rff_sample", phi_z)
+
+
+def flash_attention(q, k, v, *, causal: bool, window, q_offset: int,
+                    q_chunk: int, kv_chunk: int):
+    """Online-softmax attention forward: (out like q, lse [B, KV, G, Sq]
+    fp32). The chunk sizes shape the plain version's loops; the kernel
+    walks its own 64-key blocks."""
+    if q.is_cuda:
+        from repro_torch.kernels.flash_attention.cuda import \
+            flash_attention_cuda
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
+    raise _unsupported("flash_attention", q)

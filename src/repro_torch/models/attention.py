@@ -1,17 +1,22 @@
-"""GQA attention as plain torch ops: the direct path and single-token decode.
+"""GQA attention: the direct path, the chunked path and single-token decode.
 
 Mirrors `src/repro/models/attention.py`: `project_qkv` (:38), the direct
 einsum path `_direct_attention` (:70), the `attention` dispatcher (:253) and
 `decode_attention` (:273), with the same NEG_INF = -1e30 masking and fp32
-scores. The chunked online-softmax path (:98-:270) is not ported yet: the
-dispatcher raises where the reference would take it (a sequence longer than
-`direct_threshold` whose length is a multiple of both chunks). See
-ROADMAP.md.
+scores. The chunked online-softmax path (`_block_mask` :87, `_flash_fwd`
+:98, `_flash_bwd` :147, `_flash_attention_xla` :216) lives in
+`kernels/flash_attention/`: `ops.FlashAttentionFn`, whose forward is the
+hand-written CUDA kernel on the card and `ref.flash_fwd_ref` on the CPU,
+and whose backward is the blockwise recompute. The dispatcher takes it
+under the reference's rule: a sequence longer than `direct_threshold`
+whose lengths are multiples of both chunks. The reference's
+`set_impl("autodiff")` switch (:237-250) is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.layers import apply_norm, apply_rope, dense_init, \
     norm_init
 
@@ -88,13 +93,13 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               q_offset: int = 0, direct_threshold: int = 1024,
               q_chunk: int = 512, kv_chunk: int = 1024):
     """The reference dispatcher's rule: direct unless the sequence is long
-    AND a multiple of both chunk sizes. The chunked path is a later slice."""
+    AND a multiple of both chunk sizes; then the chunked (flash) path, whose
+    backward is the blockwise recompute."""
     sq, sk = q.shape[1], k.shape[1]
     if max(sq, sk) <= direct_threshold or sq % q_chunk or sk % kv_chunk:
         return _direct_attention(q, k, v, causal, window, q_offset)
-    raise NotImplementedError(
-        f"chunked online-softmax attention (S={max(sq, sk)} > "
-        f"{direct_threshold}) is not ported yet; see ROADMAP.md Queue 1")
+    return flash_attention_op(q, k, v, causal, window, q_chunk, kv_chunk,
+                              q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None):

@@ -1,8 +1,9 @@
 """Card-only checks of the torch port: the CUDA midx_probs, per-token and
-shared-negative sampled-CE and RFF sampling kernels against their plain
-versions, the engine on the card, and short training runs through the
-kernels of the per-token, the pooled and the rff-fused heads. This file imports no
-JAX, so it runs on a machine that has a card and no JAX:
+shared-negative sampled-CE, RFF sampling and flash-attention kernels
+against their plain versions, the engine on the card, short training runs
+through the kernels of the per-token, the pooled and the rff-fused heads,
+and the chunked attention's backward on the card against the CPU. This
+file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -337,3 +338,102 @@ def test_rff_fused_serving_and_training_go_through_the_kernel():
     assert rff_sample_cuda.launches > before
     for r in reqs:
         np.testing.assert_array_equal(res[r.rid].tokens, eng.replay_single(r))
+
+
+FLASH_SHAPES = (   # B, Sq, Sk, H, KV, hd, dtype, causal, window, q_offset
+    (2, 128, 128, 4, 4, 50, torch.float32, True, None, 0),
+    (2, 384, 384, 6, 3, 64, torch.bfloat16, False, 16, 0),
+    (1, 1024, 1024, 2, 1, 128, torch.float32, True, 16, 0),
+    (2, 512, 2048, 32, 8, 64, torch.bfloat16, True, None, 1536),
+    (1, 384, 384, 6, 3, 64, torch.float32, True, 16, -100),  # rows with no
+    (4, 2048, 2048, 32, 8, 64, torch.bfloat16, True, None, 0))  # allowed key
+
+
+def _flash_inputs(b, sq, sk, h, kv, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                               (b, sk, kv, hd)))
+
+
+def test_flash_attention_kernel_matches_plain_version():
+    """out within 1e-4·max(1, |plain|) in fp32 and 2^-7·|plain| + 1e-5
+    (one bf16 ulp, both round an fp32 result) in bf16; lse within
+    1e-4·max(1, |plain|); bitwise repeatable; row b of a batch equal to
+    that row alone."""
+    _need_card()
+    from repro_torch.kernels.flash_attention.cuda import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    for b, sq, sk, h, kv, hd, dt, causal, window, off in FLASH_SHAPES:
+        q, k, v = _flash_inputs(b, sq, sk, h, kv, hd, dt, seed=sq + hd)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        before = flash_attention_cuda.launches
+        out, lse = flash_attention_cuda(q, k, v, **kw)
+        again = flash_attention_cuda(q, k, v, **kw)
+        want, want_lse = flash_fwd_ref(q, k, v, q_chunk=min(512, sq),
+                                       kv_chunk=min(1024, sk), **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches == before + 2
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert out.dtype == dt and lse.shape == (b, kv, h // kv, sq)
+        err, ref = (out.float() - want.float()).abs(), want.float().abs()
+        if dt == torch.bfloat16:
+            assert torch.all(err <= 2.0 ** -7 * ref + 1e-5)
+        else:
+            assert torch.all(err <= 1e-4 * ref.clamp(min=1))
+        assert torch.all((lse - want_lse).abs()
+                         <= 1e-4 * want_lse.abs().clamp(min=1))
+        for row in range(b):
+            solo, _ = flash_attention_cuda(q[row:row + 1].contiguous(),
+                                           k[row:row + 1].contiguous(),
+                                           v[row:row + 1].contiguous(), **kw)
+            assert torch.equal(solo[0], out[row])
+
+
+def test_flash_attention_kernel_rejects_what_it_cannot_take():
+    _need_card()
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention.cuda import flash_attention_cuda
+    q, k, v = _flash_inputs(1, 128, 128, 4, 2, 64, torch.float32, 0)
+    kw = dict(causal=True, window=None, q_offset=0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_cuda(q.cpu(), k, v, **kw)
+    with pytest.raises(ValueError, match="fp32 or all bf16"):
+        flash_attention_cuda(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(ValueError, match="fp32 or all bf16"):
+        flash_attention_cuda(q, k.bfloat16(), v, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v, **kw)
+    with pytest.raises(ValueError, match="bad shapes"):
+        flash_attention_cuda(q, k[:, :, :1].contiguous(), v, **kw)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        flash_attention_cuda(q[:, :96].contiguous(), k, v, **kw)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        big = torch.randn((1, 64, 2, 160), device="cuda")
+        flash_attention_cuda(big, big, big, **kw)
+    before = flash_attention_cuda.launches   # a CUDA tensor reaches the kernel
+    dispatch.flash_attention(q, k, v, q_chunk=64, kv_chunk=128, **kw)
+    assert flash_attention_cuda.launches == before + 1
+
+
+def test_flash_attention_backward_on_the_card_matches_the_cpu():
+    """One FlashAttentionFn forward and backward at S = 2048 (fp32, the
+    default chunks): the card (kernel forward, blockwise backward) against
+    the CPU (plain forward, the same backward), within 1e-4·max(1, |cpu|)."""
+    _need_card()
+    from repro_torch.kernels.flash_attention.cuda import flash_attention_cuda
+    from repro_torch.models.attention import attention
+    q, k, v = _flash_inputs(1, 2048, 2048, 8, 2, 64, torch.float32, 3)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda")
+                    .manual_seed(4), device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        before = flash_attention_cuda.launches
+        out = attention(*leaves, causal=True)
+        assert flash_attention_cuda.launches == before + (dev == "cuda")
+        grads.append([out] + list(torch.autograd.grad(out, leaves, g.to(dev))))
+    for a, b in zip(*grads):
+        a, b = a.detach().cpu(), b.detach()
+        assert torch.all((a - b).abs() <= 1e-4 * b.abs().clamp(min=1))
