@@ -10,8 +10,8 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      in the checkout, one nvcc per source, all at once (`kernels/
      flash_attention/csrc/flash_attention.cu`, `kernels/midx_probs/csrc/
      midx_probs.cu`, `kernels/sampled_ce/csrc/sampled_ce_pt.cu` and
-     `sampled_ce.cu`, `kernels/rff_sample/csrc/rff_sample.cu`), and print
-     what ptxas says;
+     `sampled_ce.cu`, `kernels/rff_sample/csrc/rff_sample.cu`, `kernels/
+     ssd_scan/csrc/ssd_scan.cu`), and print what ptxas says;
   3. hold each kernel against its plain torch version on the card, at the
      main paths' shapes and a sweep around them, with TF32 off; both
      sampled-CE backwards and the RFF sampler must also repeat bit for
@@ -28,8 +28,18 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      times of the kernel, its plain version and SDPA (the library call)
      beside the bound (bf16 operations at 989 TFLOP/s on the tensor
      cores) and the bound at the fp32 rate outside them;
+ 3c. hold the SSD scan against its plain version, TF32 off: a sweep (chunk
+     Q in {8, 13, 64, 256} and Q = S; (N, P) in {16, 128} x {16, 64}; Bt
+     1-4, H 3 and 32; adt as `tests/test_ssd_kernel.py` draws it, and a
+     steep case, adt ~ -20 a step at Q = 256, where the masked
+     exponentials would overflow), y and h_last within
+     1e-4·max(1, |plain|), every case bitwise repeatable and row b of a
+     batch equal to that row alone; then the times of the kernel and its
+     plain version beside the bound (operations over 67 TFLOP/s fp32) at
+     mamba2-370m's training shape (Bt=4, S=1024, H=32, P=64, N=128,
+     Q=256) and its prefill shapes (4 x 512, Q=256; 4 x 64, Q=64);
   4. check the port against itself on the CPU at a small input (prefill
-     hidden states, fp32);
+     hidden states, fp32; paper-lm and the reduced mamba2);
   5. serve `paper-lm` at full width through the MIDX head (16 requests,
      4 slots, 16 tokens), with batched == solo on 2 requests;
   6. serve `llama3.2-1b` at full width through the MIDX head (8 requests,
@@ -66,13 +76,28 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      two 10-step runs of `llama3.2-1b` cut to 2 layers with its pooled
      head (M=1024, 4 x 256 tokens, refresh every 5) must agree bit for
      bit, losses, params, optimizer state and proposal state;
- 10. train_4k: `llama3.2-1b` at full width with its pooled head, 20 steps
-     of batch 2 x seq 4096 (2 x 4097 tokens cut from phase 8's corpus),
+ 10. train_4k: `llama3.2-1b` at full width and depth (16 layers), with
+     its pooled head, 20 steps of batch 2 x seq 4096 (2 x 4097
+     tokens cut from phase 8's corpus),
      lr 1e-3, refresh every 10, with the same checks, the median step,
      tokens/s and peak memory; `flash_attention`, `sampled_ce` and
      `sampled_ce_bwd` all launched; two 5-step runs at 2 layers and seq
      4096 (refresh every 3) agree bit for bit;
- 11. print the kernels' JSON line, then the result line.
+ 11. serve `mamba2-370m` at full width (48 layers, d=1024, V=50 280,
+     N=128, P=64, H=32, chunk 256, tied embeddings) from random weights, 4
+     slots: the MIDX head with 2 prompts of 64 tokens (one chunk of 64)
+     and 2 of 512 (two chunks of 256), 16 tokens each, batched == solo on
+     one of each length; then the full head, greedy, batched == solo; tok/s,
+     p50/p99, prefill latency per length and peak memory; `ssd_scan`
+     launched 48 times per prefill group;
+ 12. train `mamba2-370m` at full width with its own head (pooled MIDX, RQ
+     K=64, M=1024) through `train_loop`: 30 steps of 4 x 1024 on the
+     reference's default corpus (512 x 1025 ZipfLM sequences), lr 1e-3,
+     refresh every 10, with the same finite / applied / loss-drop checks,
+     the median step, tokens/s and peak memory, `ssd_scan` launched 48
+     times a step and both shared-CE kernels launched; serve the trained params and index with batched == solo
+     on 2; two 5-step runs cut to 2 layers agree bit for bit;
+ 13. print the kernels' JSON line, then the result line.
 Each main-path run sets the kernels' launch counters to 0 just before it
 and reads them just after; a kernel of the path that was never launched
 fails the run. Exits non-zero, with no result line, without a CUDA device
@@ -102,10 +127,19 @@ LLAMA_STEPS, LLAMA_LR, LLAMA_REFRESH = 60, 1e-3, 25   # full-width training
 LLAMA_CORPUS = 32              # ZipfLM sequences (host time: O(V) per token)
 TRAIN_4K = 4096                # the repo's train_4k sequence length
 MIDX_TS = (1, 4, 8, 33, 512, 1024)   # decode, prefill and training rows
+MIDX_DK = ((200, 32), (1024, 64), (2048, 64))   # paper-lm, mamba2, llama
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(phase: str) -> None:
+    """Log the script time at the end of a phase."""
+    log(f"[smoke] time: {phase} done at {time.perf_counter() - T_START:.1f}s")
 
 
 def card_line() -> str:
@@ -161,7 +195,7 @@ def midx_bound_ms(t: int, d: int, k: int, split: bool):
 def check_midx_probs(cuda_mod, ref_fn, buf, card: str):
     """Phase 3 for midx_probs: sweep vs plain; time at the decode shape."""
     worst = 0.0
-    for d, k in ((200, 32), (2048, 64)):
+    for d, k in MIDX_DK:
         for split in (True, False):
             for t in MIDX_TS:
                 z, cb1, cb2, counts = midx_inputs(t, d, k, split,
@@ -185,7 +219,7 @@ def check_midx_probs(cuda_mod, ref_fn, buf, card: str):
                             f"{float(err.max()):.3e}")
                     worst = max(worst, float(err.max()))
     log(f"[smoke] midx_probs vs plain: max_abs_err={worst:.3e} over "
-        f"(D,K) in {{(200,32),(2048,64)}}, pq/rq, T in {MIDX_TS} "
+        f"(D,K) in {set(MIDX_DK)}, pq/rq, T in {MIDX_TS} "
         f"(tol {REL_TOL}*max(1,|ref|))")
     timings = {}
     for name, (t, d, k, split) in (
@@ -194,6 +228,7 @@ def check_midx_probs(cuda_mod, ref_fn, buf, card: str):
             ("llama3.2-1b T=8", (8, 2048, 64, False)),
             ("llama3.2-1b T=512", (512, 2048, 64, False)),
             ("llama3.2-1b decode pq", (4, 2048, 64, True)),
+            ("mamba2-370m decode", (4, 1024, 64, False)),
             ("paper-lm train", (1024, 200, 32, False))):
         z, cb1, cb2, counts = midx_inputs(t, d, k, split, seed=1)
         ms = time_ms(lambda: cuda_mod.midx_probs_cuda(
@@ -361,6 +396,10 @@ def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
 
 
 SHAPE = (4, 256, 1024, 2048)   # llama3.2-1b training: B, S, M, D
+SHARED_TRAIN = {               # the training shapes: (B, S, M, D), V
+    "llama3.2-1b train": (SHAPE, 128256),
+    "llama3.2-1b train S=512": ((4, 512, 1024, 2048), 128256),
+    "mamba2-370m train": ((4, 1024, 1024, 1024), 50280)}
 
 
 def shared_inputs(b: int, s: int, m: int, d: int, v: int, dtype, seed: int):
@@ -407,10 +446,11 @@ def shared_bound_ms(b: int, s: int, m: int, d: int, elem: int,
 def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     """Phase 3 for the shared-negative CE, forward and both backward
     kernels: sweep S x M x D x row dtype against the plain version, a
-    bitwise repeat of the backward, and, at the llama3.2-1b training shape
-    (B=4, S=256, M=1024, D=2048, fp32 rows) and at S=512, the same holds
+    bitwise repeat of the backward, and, at the training shapes
+    (`SHARED_TRAIN`: llama3.2-1b B=4, S=256 and 512, M=1024, D=2048;
+    mamba2-370m B=4, S=1024, M=1024, D=1024; fp32 rows), the same holds
     and the times. Prints each output's error, size and err/limit at
-    S >= 256, M = 1024."""
+    S >= 256, M = 1024. Returns (worst errors, {shape: {"fwd", "bwd"}})."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     loosest = 0.0
     bwd_names = ("dh", "dpe", "dne", "dlq")
@@ -439,11 +479,11 @@ def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
                 for s in (1, 7, 256):
                     hold(2, s, m, d, 5000, dtype, seed=s + m + d)
     rows = {}
-    for b, s, m, d in (SHAPE, (4, 512, 1024, 2048)):
+    for label, ((b, s, m, d), v) in SHARED_TRAIN.items():
         (h, pe, ne, lq, neg, pos, g), lse, where = hold(
-            b, s, m, d, 128256, torch.float32, seed=1)
-        where = f"llama3.2-1b train, {where}"
-        timed = {
+            b, s, m, d, v, torch.float32, seed=1)
+        where = f"{label}, {where} V={v}"
+        rows[label] = {
             "fwd": time_ce(
                 "sampled_ce fwd", where,
                 lambda: sce.sampled_ce_cuda(h, pe, ne, lq, neg, pos),
@@ -455,12 +495,11 @@ def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
                                                 lse),
                 lambda: bwd_ref(g, h, pe, ne, lq, neg, pos, lse),
                 shared_bound_ms(b, s, m, d, 4, backward=True), buf, card)}
-        if (b, s, m, d) == SHAPE:
-            rows = timed
     log(f"[smoke] sampled_ce vs plain: max_abs_err fwd={worst['fwd']:.3e} "
         f"bwd={worst['bwd']:.3e} over B=2, S in {{1,7,256}}, M in "
-        f"{{20,1024}}, D in {{200,2048}}, fp32/bf16 rows, and B=4, S in "
-        f"{{256,512}}, M=1024, D=2048, fp32 rows (the training shape), with "
+        f"{{20,1024}}, D in {{200,2048}}, fp32/bf16 rows, and B=4, M=1024, "
+        f"fp32 rows at (S, D) in {{(256,2048),(512,2048),(1024,1024)}} (the "
+        f"training shapes), with "
         f"duplicate and colliding ids and an all-colliding token, g ~ "
         f"U(0,1) (tol {REL_TOL}*max(|ref|, min(1, max|ref|)) per tensor; "
         f"largest err/limit {loosest:.4f}); backward bitwise repeatable")
@@ -753,6 +792,118 @@ def check_flash_attention(cuda_mod, ref_fn, buf, card: str):
     return worst, n_diff, timings
 
 
+SSD_MAIN = {                   # mamba2-370m: Bt, S, Q (H=32, P=64, N=128)
+    "mamba2-370m train 4x1024 Q=256": (4, 1024, 256),
+    "mamba2-370m prefill 4x512 Q=256": (4, 512, 256),
+    "mamba2-370m prefill 4x64 Q=64": (4, 64, 64)}
+
+
+def ssd_inputs(bt: int, s: int, h: int, p: int, n: int, seed: int,
+               steep: bool = False):
+    """x, B, C ~ 0.5·N(0,1), adt = -softplus(N(0,1)) (minus 20 when steep),
+    dt = softplus(N(0,1)), as `tests/test_ssd_kernel.py` draws them."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    sp = torch.nn.functional.softplus
+    x, bm, cm = 0.5 * normal(bt, s, h, p), 0.5 * normal(bt, s, n), \
+        0.5 * normal(bt, s, n)
+    adt = -sp(normal(bt, s, h)) - (20.0 if steep else 0.0)
+    return x, bm, cm, adt, sp(normal(bt, s, h))
+
+
+def ssd_bound_ms(bt: int, s: int, h: int, p: int, n: int, q: int):
+    """Operations the function needs, per (b, h, chunk of Q): the causal
+    half of the intra-chunk product (Q(Q+1)/2 pairs: the decay's subtract,
+    exp and multiply into C·B, 3, and 2P for (CB ⊙ L)·(dt x)); dt·x (QP);
+    C·h (2QNP) and its e^cum scaling (Q + QP); y1 + y2 (QP); the prefix sum
+    (Q); the state update (2Q for e^(cum_Q - cum), QP for the weights,
+    2QNP for Bᵀ·w, 2NP for e^cum_Q h + s). C·B is shared by the heads:
+    Q(Q+1)/2 · 2N once per (b, chunk). Bytes: x, B, C, adt and dt read once,
+    y and h_last written once, fp32."""
+    nc = s // q
+    pairs = q * (q + 1) // 2
+    per_head = (pairs * (3 + 2 * p) + q * p + 2 * q * n * p + q + q * p
+                + q * p + q + 2 * q + q * p + 2 * q * n * p + 2 * n * p)
+    ops = bt * nc * (h * per_head + pairs * 2 * n)
+    nbytes = 4 * (2 * bt * s * h * p + 2 * bt * s * n + 2 * bt * s * h
+                  + bt * h * n * p)
+    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def hold_ssd(cuda_mod, ref_fn, args, q: int, where: str):
+    """The kernel against its plain version on one input: y and h_last
+    within 1e-4·max(1, |plain|), bit for bit against itself, and each row
+    of the batch equal to that row alone. Returns (y err, h_last err)."""
+    y, h_last = cuda_mod.ssd_scan_cuda(*args, chunk=q)
+    again = cuda_mod.ssd_scan_cuda(*args, chunk=q)
+    want = ref_fn(*args, chunk=q)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, again[0]) and torch.equal(h_last, again[1])):
+        raise SystemExit(f"ssd_scan is not bitwise repeatable at {where}")
+    errs = []
+    for name, a, b in (("y", y, want[0]), ("h_last", h_last, want[1])):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise SystemExit(f"ssd_scan {name}: bad output shape/values at "
+                             f"{where}")
+        err = (a - b).abs()
+        if bool((err > REL_TOL * b.abs().clamp(min=1.0)).any()):
+            raise SystemExit(f"ssd_scan {name} disagrees with the plain "
+                             f"version at {where}: max err "
+                             f"{float(err.max()):.3e}")
+        errs.append(float(err.max()))
+    bt = y.shape[0]
+    for row in range(bt if bt > 1 else 0):
+        solo = cuda_mod.ssd_scan_cuda(*(t[row:row + 1].contiguous()
+                                        for t in args), chunk=q)
+        if not (torch.equal(solo[0][0], y[row])
+                and torch.equal(solo[1][0], h_last[row])):
+            raise SystemExit(f"ssd_scan at {where}: row {row} of the batch "
+                             f"!= the same row alone")
+    return errs
+
+
+def check_ssd_scan(cuda_mod, ref_fn, buf, card: str):
+    """Phase 3c for the SSD scan (see the module docstring)."""
+    worst = {"y": 0.0, "h_last": 0.0}
+    cases = []
+    for n, p in ((16, 16), (128, 64), (16, 64), (128, 16)):
+        for q in (8, 13, 64, 256):
+            cases.append((2, 2 * q, 3, p, n, q, False))
+        cases.append((3, 200, 3, p, n, 200, False))           # Q = S
+    cases += [(2, 512, 4, 64, 128, 256, True),                # steep
+              (1, 104, 32, 64, 128, 13, False),
+              (4, 1024, 32, 64, 128, 256, False)]
+    for bt, s, h, p, n, q, steep in cases:
+        where = (f"Bt={bt} S={s} H={h} P={p} N={n} Q={q}"
+                 f"{' steep' if steep else ''}")
+        args = ssd_inputs(bt, s, h, p, n, seed=s + q + n + p, steep=steep)
+        e_y, e_h = hold_ssd(cuda_mod, ref_fn, args, q, where)
+        worst["y"] = max(worst["y"], e_y)
+        worst["h_last"] = max(worst["h_last"], e_h)
+    log(f"[smoke] ssd_scan vs plain: {len(cases)} cases, max_abs_err y="
+        f"{worst['y']:.3e} h_last={worst['h_last']:.3e} (tol "
+        f"{REL_TOL}*max(1,|ref|)); every case bitwise repeatable, each row "
+        f"of a batch equal to that row alone")
+    timings = {}
+    for name, (bt, s, q) in SSD_MAIN.items():
+        args = ssd_inputs(bt, s, 32, 64, 128, seed=s)
+        e_y, e_h = hold_ssd(cuda_mod, ref_fn, args, q, name)
+        ms = time_ms(lambda: cuda_mod.ssd_scan_cuda(*args, chunk=q), buf)
+        plain = time_ms(lambda: ref_fn(*args, chunk=q), buf)
+        bound, by = ssd_bound_ms(bt, s, 32, 64, 128, q)
+        timings[name] = (ms, plain, bound, by)
+        log(f"[smoke] ssd_scan {name} (H=32 P=64 N=128 fp32; y err "
+            f"{e_y:.3e}, h_last err {e_h:.3e}; batched == solo): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms ({by}, "
+            f"fp32 at 67 TFLOP/s); library: none; on {card}")
+    return worst, timings
+
+
 def check_against_cpu(cfg_name: str) -> None:
     """Phase 4: the port on the card against the port on the CPU, fp32,
     small input: prefill hidden states agree to 1e-3."""
@@ -760,7 +911,7 @@ def check_against_cpu(cfg_name: str) -> None:
     from repro_torch.models import init_params, params_to, prefill
     cfg = dataclasses.replace(get_config(cfg_name).reduced(), dtype="float32")
     params = init_params(cfg, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
                          generator=torch.Generator().manual_seed(0))
     h_cpu, _ = prefill(cfg, params, toks)
     gpu = params_to(params, "cuda")
@@ -824,25 +975,27 @@ def serve(cfg, *, head: str, requests: int, prompt: int, tokens: int,
 
 
 LONG_PROMPTS = (2048, 4096, 2048, 4096)    # the long-prompt serve's requests
+MAMBA_PROMPTS = (64, 512, 64, 512)         # the mamba2 serve's requests
 
 
-def serve_long(cfg, params, index, counters, names):
-    """The long-prompt serve: llama3.2-1b at full width through the MIDX
-    head, 4 slots, 2 prompts of 2048 and 2 of 4096 tokens, 16 tokens each,
-    whole-prompt prefill through the chunked attention path. Counters are
-    set to 0 just before the run and read just after; batched == solo on
-    one request of each length. Returns (engine, summary, launches)."""
+def serve_prompts(cfg, params, index, counters, names, prompts, *,
+                  head: str = "midx"):
+    """Serve one request of 16 tokens per entry of `prompts` on the
+    config's slots, whole-prompt prefill, one prefill per length group.
+    Counters are set to 0 just before the run and read just after; batched
+    == solo on one request of each length (the first two). Returns
+    (engine, summary, launches)."""
     from repro_torch.serve import Engine, Request
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated() / 2**30
-    engine = Engine(cfg, params, index=index, head="midx", device="cuda",
+    engine = Engine(cfg, params, index=index, head=head, device="cuda",
                     seed=0)
-    engine.warmup(sorted(set(LONG_PROMPTS)))
+    engine.warmup(sorted(set(prompts)))
     rng = np.random.default_rng(7)
     reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, size=n)
                     .astype(np.int32), max_new=16, seed=3)
-            for i, n in enumerate(LONG_PROMPTS)]
+            for i, n in enumerate(prompts)]
     for c in counters:
         c.launches = 0
     results = engine.run(reqs)
@@ -853,20 +1006,20 @@ def serve_long(cfg, params, index, counters, names):
         res = results[r.rid]
         if res.status != "ok" or len(res.tokens) != 16 \
                 or res.tokens.min() < 0 or res.tokens.max() >= cfg.padded_vocab:
-            raise SystemExit(f"long-prompt serve: request {r.rid} (prompt "
+            raise SystemExit(f"{cfg.name} serve: request {r.rid} (prompt "
                              f"{len(r.tokens)}) came back {res.status} with "
                              f"{res.tokens.tolist()}")
     for name, n in zip(names, launches):
         if n <= 0:
-            raise SystemExit(f"long-prompt serve: {name} was never launched "
+            raise SystemExit(f"{cfg.name} serve: {name} was never launched "
                              f"on the main path")
     prefill_ms = {n: 1e3 * statistics.median(
         results[r.rid].latencies_s[0] for r in reqs if len(r.tokens) == n)
-        for n in sorted(set(LONG_PROMPTS))}
+        for n in sorted(set(prompts))}
     for r in reqs[:2]:                         # one of each length
         solo = engine.replay_single(r)
         if not np.array_equal(results[r.rid].tokens, solo):
-            raise SystemExit(f"long-prompt serve: rid {r.rid} (prompt "
+            raise SystemExit(f"{cfg.name} serve: rid {r.rid} (prompt "
                              f"{len(r.tokens)}) batched "
                              f"{results[r.rid].tokens.tolist()} != solo "
                              f"{solo.tolist()}")
@@ -874,8 +1027,8 @@ def serve_long(cfg, params, index, counters, names):
     s = {**s, "prefill_ms": prefill_ms,
          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
          "base_gib": base}
-    log(f"[smoke] serve {cfg.name} head=midx L={cfg.num_layers} "
-        f"d={cfg.d_model} long prompts {list(LONG_PROMPTS)} x 16 tokens on "
+    log(f"[smoke] serve {cfg.name} head={head} L={cfg.num_layers} "
+        f"d={cfg.d_model} prompts {list(prompts)} x 16 tokens on "
         f"{cfg.serve.max_slots} slots (max_seq {cfg.serve.max_seq}): "
         f"tok/s={s['tok_s']} p50={s['p50_ms']}ms p99={s['p99_ms']}ms "
         f"steps={s['steps']}; prefill (first-token) latency per group: "
@@ -1022,7 +1175,8 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in kernels if any(k in e.key for k in (
         "midx_probs", "fwd_kernel", "bwd_rows_kernel", "dtab_kernel",
-        "bwd_dh_kernel", "bwd_dne_kernel", "flash_fwd_kernel"))]
+        "bwd_dh_kernel", "bwd_dne_kernel", "flash_fwd_kernel",
+        "ssd_scan_kernel"))]
     for e in top + [e for e in ours if e not in top]:
         log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
             f"{e.self_device_time_total / 1e3:.2f} ms "
@@ -1063,11 +1217,85 @@ def profile_run(engine, label: str, *, prompt: int, tokens: int) -> None:
                 f"{e.cpu_time_total / 1e3 / e.count:.3f} ms each")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     for e in top + [e for e in kernels if ("midx_probs" in e.key
-                                           or "flash_fwd" in e.key)
+                                           or "flash_fwd" in e.key
+                                           or "ssd_scan" in e.key)
                     and e not in top]:
         log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
             f"{e.self_device_time_total / 1e3:.2f} ms "
             f"({e.self_device_time_total / max(busy_us, 1e-9):.3f} of busy)")
+
+
+MAMBA_STEPS, MAMBA_LR, MAMBA_REFRESH = 30, 1e-3, 10  # full-width training
+MAMBA_SHAPE = (4, 1024)        # mamba2-370m training: batch, seq
+
+
+def mamba_phases(get_config, ssd, midx_cuda, sce_cuda, profile: bool,
+                 card: str) -> dict:
+    """Phases 11 and 12: mamba2-370m at full width, served (MIDX head, then
+    the full head, greedy) and trained through `train_loop` with its own
+    pooled head, then the trained model served and a 2-layer cut
+    replayed. Returns {kernel: launches}: ssd_scan's by main-path run,
+    midx_probs' in the MIDX serve, the shared CE's in training."""
+    layers = get_config("mamba2-370m").num_layers
+    cfg = get_config("mamba2-370m").with_serve(
+        max_slots=4, page_size=16, max_seq=max(MAMBA_PROMPTS) + 32)
+    eng, mamba_serve, n_serve = serve_prompts(
+        cfg, None, None, (ssd, midx_cuda.midx_probs_cuda),
+        ("ssd_scan", "midx_probs"), MAMBA_PROMPTS)
+    groups = len(set(MAMBA_PROMPTS))
+    if n_serve[0] % layers or n_serve[0] < layers * groups:
+        raise SystemExit(f"mamba2-370m serve: ssd_scan launched "
+                         f"{n_serve[0]} times, not {layers} per prefill "
+                         f"group (at least {groups} groups)")
+    if profile:
+        profile_run(eng, "mamba2-370m head=midx, one prefill of 4 x "
+                    f"{max(MAMBA_PROMPTS)}-token prompts",
+                    prompt=max(MAMBA_PROMPTS), tokens=1)
+    greedy = cfg.with_head(decode_temperature=0.0)
+    _, full_serve, n_full = serve_prompts(greedy, eng.params, None, (ssd,),
+                                          ("ssd_scan",), MAMBA_PROMPTS,
+                                          head="full")
+    del eng
+    torch.cuda.empty_cache()
+    mark("mamba2-370m serving")
+    b, s = MAMBA_SHAPE
+    t0 = time.perf_counter()
+    params, index, n_train, summary = train(
+        cfg, (ssd, sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda),
+        ("ssd_scan", "sampled_ce", "sampled_ce_bwd"), steps=MAMBA_STEPS,
+        batch=b, seq=s, lr=MAMBA_LR, refresh_every=MAMBA_REFRESH)
+    if n_train[0] != layers * MAMBA_STEPS:
+        raise SystemExit(f"mamba2-370m training: ssd_scan launched "
+                         f"{n_train[0]} times, not {layers} a step")
+    log(f"[smoke] mamba2-370m training phase (corpus draw of max(512, 4 x "
+        f"{b}) x {s + 1} ZipfLM tokens included): "
+        f"{time.perf_counter() - t0:.1f}s on {card}")
+    if profile:
+        profile_train(cfg, params, index, "mamba2-370m train step", b=b, s=s,
+                      steps=3)
+    served = cfg.with_serve(max_slots=4, page_size=16, max_seq=96)
+    _, _, n_trained = serve(served, head="midx", requests=4, prompt=64,
+                            tokens=16, verify=2, params=params, index=index,
+                            counter=ssd)
+    del params, index
+    torch.cuda.empty_cache()
+    from repro_torch.data import ZipfLM
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64,
+                    seq_len=s + 1, seed=0).sample(16)
+    n_replay = replay(dataclasses.replace(cfg, num_layers=2), steps=5,
+                      batch=b, seq=s, lr=MAMBA_LR, corpus=corpus,
+                      refresh_every=3, counter=ssd)
+    log(f"[smoke] mamba2-370m: serve {json.dumps(mamba_serve)}; full head "
+        f"{json.dumps(full_serve)}; train {json.dumps(summary)}; on {card}")
+    launches = {"serve midx": n_serve[0], "serve full": n_full[0],
+                "train": n_train[0], "trained serve": n_trained,
+                "replay": sum(n_replay)}
+    for name, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"mamba2-370m {name}: ssd_scan was never "
+                             "launched on the main path")
+    return {"ssd_scan": launches, "midx_probs": n_serve[1],
+            "sampled_ce": n_train[1], "sampled_ce_bwd": n_train[2]}
 
 
 def main() -> None:
@@ -1075,7 +1303,8 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one llama3.2-1b run per head, 5 "
                          "train steps each of paper-lm and llama3.2-1b, one "
-                         "long-prompt prefill and 3 train_4k steps")
+                         "long-prompt prefill, 3 train_4k steps, one "
+                         "mamba2-370m prefill and 3 of its train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1093,8 +1322,9 @@ def main() -> None:
                                                     sampled_ce_fwd_ref,
                                                     sampled_ce_pt_bwd_ref,
                                                     sampled_ce_pt_fwd_ref)
+    from repro_torch.kernels.ssd_scan import cuda as ssd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1104,7 +1334,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     libraries = (flash_cuda.LIBRARY, midx_cuda.LIBRARY, sce_cuda.LIBRARY,
-                 sce_cuda.SHARED_LIBRARY, rff_cuda.LIBRARY)
+                 sce_cuda.SHARED_LIBRARY, rff_cuda.LIBRARY, ssd_cuda.LIBRARY)
     for lib in libraries:                      # one nvcc per source, at once
         lib.start()
     for lib in libraries:
@@ -1115,6 +1345,7 @@ def main() -> None:
                     or "Compiling entry" in line:
                 log(f"[smoke]   ptxas: {line.strip()}")
     log(f"[smoke] built all kernels in {time.perf_counter() - t0:.1f}s")
+    mark("build")
 
     buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     worst, timings = check_midx_probs(midx_cuda, midx_probs_ref, buf,
@@ -1127,8 +1358,11 @@ def main() -> None:
                                                         buf, card)
     flash_worst, flash_diff, flash_timings = check_flash_attention(
         flash_cuda, flash_fwd_ref, buf, card)
+    ssd_worst, ssd_timings = check_ssd_scan(ssd_cuda, ssd_scan_ref, buf, card)
     del buf
+    mark("kernel checks (phases 3-3c)")
     check_against_cpu("paper-lm")
+    check_against_cpu("mamba2-370m")
 
     counter = midx_cuda.midx_probs_cuda
     paper = get_config("paper-lm").with_serve(max_slots=4, page_size=16,
@@ -1153,9 +1387,9 @@ def main() -> None:
     flash = flash_cuda.flash_attention_cuda
     long_llama = get_config("llama3.2-1b").with_serve(
         max_slots=4, page_size=16, max_seq=max(LONG_PROMPTS) + 32)
-    eng_long, long_serve, n_long_serve = serve_long(
+    eng_long, long_serve, n_long_serve = serve_prompts(
         long_llama, llama_params, llama_index, (flash, counter),
-        ("flash_attention", "midx_probs"))
+        ("flash_attention", "midx_probs"), LONG_PROMPTS)
     if args.profile:
         profile_run(eng_long, "llama3.2-1b head=midx, one prefill of 4 x "
                     "4096-token prompts", prompt=max(LONG_PROMPTS), tokens=1)
@@ -1170,6 +1404,7 @@ def main() -> None:
         f"{rff_serve['peak_gib']:.3f} GiB (allocated before each: "
         f"{midx_serve['base_gib']:.3f} / {rff_serve['base_gib']:.3f} GiB)")
     torch.cuda.empty_cache()
+    mark("serving (phases 5-6b)")
 
     from repro_torch.data import ZipfLM
     counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
@@ -1188,6 +1423,7 @@ def main() -> None:
                             tokens=16, verify=2, params=params, index=index,
                             counter=counters[0])
     del params, index
+    mark("paper-lm training (phase 7)")
 
     # llama3.2-1b at full width through the pooled head (the config's own
     # head: RQ, K=64, M=1024), then replay, mixture and serving.
@@ -1230,6 +1466,7 @@ def main() -> None:
     log(f"[smoke] train llama3.2-1b L=2 proposal=mixture: 5 steps finite "
         f"(loss {hist[0]:.4f} -> {hist[-1]:.4f}); launches {n_mix[0]} "
         f"sampled_ce, {n_mix[1]} sampled_ce_bwd")
+    mark("llama3.2-1b training (phase 8)")
     # the RFF proposal: paper-lm trained and served through rff-fused, then
     # the 2-layer llama pooled replay
     rff_paper = cfg.with_head(mode="rff-fused")
@@ -1246,6 +1483,7 @@ def main() -> None:
                           batch=b, seq=s, lr=LLAMA_LR, corpus=corpus,
                           refresh_every=5, counter=rff_counter)
     torch.cuda.empty_cache()
+    mark("rff-fused (phase 9)")
     # train_4k: llama3.2-1b at full width with its pooled head, batch 2 x
     # seq 4096, on 2 x 4097 tokens cut from the corpus drawn above
     long_corpus = corpus.reshape(-1)[:2 * (TRAIN_4K + 1)].reshape(
@@ -1262,6 +1500,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     n_4k_replay = replay(short, steps=5, batch=2, seq=TRAIN_4K, lr=LLAMA_LR,
                          corpus=long_corpus, refresh_every=3, counter=flash)
+    del corpus, long_corpus
+    torch.cuda.empty_cache()
+    mark("train_4k (phase 10)")
+    n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
+                           sce_cuda, args.profile, card)
+    n_ssd = n_mamba["ssd_scan"]
+    mark("mamba2-370m (phases 11-12)")
     for name, n in (("llama3.2-1b serve", n_rff_llama),
                     ("paper-lm train", n_rff_train[0]),
                     ("trained paper-lm serve", n_rff_trained)):
@@ -1285,13 +1530,18 @@ def main() -> None:
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
         "replaces": "src/repro/kernels/midx_probs/midx_probs.py:23",
         "launches": n_paper + n_llama + n_train[0] + n_trained
-                    + n_llama_trained + n_long_serve[1],
+                    + n_llama_trained + n_long_serve[1]
+                    + n_mamba["midx_probs"],
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
         "bound_by": by, "library_ms": None,
         "shape": "llama3.2-1b decode T=4 D=2048 K=64 rq",
         "train": {"shape": "paper-lm train T=1024 D=200 K=32 rq",
                   "launches": n_train[0], "ms": t_ms, "plain_ms": t_plain,
-                  "bound_ms": t_bound, "bound_by": t_by}}]
+                  "bound_ms": t_bound, "bound_by": t_by},
+        "mamba2": {"shape": "mamba2-370m decode T=4 D=1024 K=64 rq",
+                   "launches": n_mamba["midx_probs"],
+                   **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                              timings["mamba2-370m decode"]))}}]
     for kname, kind, line, n in (
             ("sampled_ce_pt", "fwd", 74, n_train[1]),
             ("sampled_ce_pt_bwd", "bwd", 217, n_train[2])):
@@ -1304,17 +1554,26 @@ def main() -> None:
             "library_ms": None,
             "shape": "paper-lm train T=1024 D=200 M=20 V=10000 fp32"})
     src = "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce.cu"
-    for kname, kind, line, n in (
-            ("sampled_ce", "fwd", "33", n_shared[0] + n_4k[1]),
-            ("sampled_ce_bwd", "bwd", "205", n_shared[1] + n_4k[2])):
-        ms, plain, bound, by = shared_timings[kind]
+    for i, (kname, kind, line) in enumerate((
+            ("sampled_ce", "fwd", "33"), ("sampled_ce_bwd", "bwd", "205"))):
+        ms, plain, bound, by = shared_timings["llama3.2-1b train"][kind]
+        by_path = {"llama3.2-1b train": n_shared[i], "train_4k": n_4k[1 + i],
+                   "mamba2-370m train": n_mamba[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
-            "launches": n, "max_abs_err": shared_worst[kind], "ms": ms,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": shared_worst[kind], "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
-            "shape": "llama3.2-1b train B=4 S=256 M=1024 D=2048 fp32 rows"})
+            "shape": "llama3.2-1b train B=4 S=256 M=1024 D=2048 fp32 rows",
+            "other_shapes": [
+                {"shape": f"{label} B={b} S={s_} M={m} D={d} V={v} fp32 "
+                          "rows",
+                 **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                            shared_timings[label][kind]))}
+                for label, ((b, s_, m, d), v) in SHARED_TRAIN.items()
+                if label != "llama3.2-1b train"]})
     ms, plain, bound, by = rff_timings["llama3.2-1b serve"]
     rows.append({
         "name": "rff_sample", "route": "cuda",
@@ -1356,10 +1615,25 @@ def main() -> None:
              "fp32_simt_bound_ms": t[5]}
             for name, t in flash_timings.items()
             if name != "llama3.2-1b prefill B=4 S=4096"]})
+    ms, plain, bound, by = ssd_timings["mamba2-370m train 4x1024 Q=256"]
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:24",
+        "launches": sum(n_ssd.values()), "launches_by_path": n_ssd,
+        "max_abs_err": max(ssd_worst.values()),
+        "max_abs_err_by_output": ssd_worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": "mamba2-370m train Bt=4 S=1024 H=32 P=64 N=128 Q=256 fp32",
+        "other_shapes": [
+            {"shape": name, "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+             "bound_by": t[3]}
+            for name, t in ssd_timings.items()
+            if name != "mamba2-370m train 4x1024 Q=256"]})
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
-        f"{json.dumps(train_4k)}")
+        f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))
-    log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s on {card}")
+    log(f"[smoke] done in {time.perf_counter() - T_START:.1f}s on {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

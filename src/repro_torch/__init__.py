@@ -6,8 +6,9 @@ mirrors and where it departs. It imports torch and never jax, nor anything
 of `repro`. The kernels — the head's `midx_probs`
 (`kernels/midx_probs/`), the per-token and shared-negative sampled CEs
 with their backwards (`kernels/sampled_ce/`) and the RFF sampler
-(`kernels/rff_sample/`), and the long-context attention forward
-(`kernels/flash_attention/`) — are CUDA C++ built at first use;
+(`kernels/rff_sample/`), the long-context attention forward
+(`kernels/flash_attention/`) and mamba2's chunked SSD scan
+(`kernels/ssd_scan/`) — are CUDA C++ built at first use;
 everything else is plain torch ops.
 
 Entry points (`init_params`, `serve.Engine`, `launch.serve`) run on the

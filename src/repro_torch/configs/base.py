@@ -3,8 +3,8 @@
 Mirrors `src/repro/configs/base.py` field for field (a copy, not an import:
 `repro/__init__.py` imports jax). One `ModelConfig` describes any of the 10
 assigned architectures plus the paper's own small LM. `reduced()` derives
-the CPU smoke-test variant. The port serves only the `dense` family so far;
-the other families' configs are carried as data.
+the CPU smoke-test variant. The port runs the `dense` and `ssm` families
+so far; the other families' configs are carried as data.
 """
 from __future__ import annotations
 

@@ -3,7 +3,10 @@
 A copy of `src/repro/data/synthetic.py` (`ZipfLM` :18, `zipf_tokens` :73),
 numpy only: `repro/__init__.py` imports jax, so the port keeps its own copy
 instead of importing it. The same seed gives the same corpus as the
-reference, bit for bit. The RecSys and XMC generators are not copied yet.
+reference, bit for bit; `ZipfLM.sample` departs in how it gets there (one
+CDF per cluster, built once, where the reference rebuilds one per token),
+which makes a 512 x 4097 corpus at V = 128 256 a matter of seconds. The
+RecSys and XMC generators are not copied yet.
 
 - Zipf LM: a latent-cluster bigram language — context determines a cluster
   of plausible next tokens (so adaptive samplers have structure to
@@ -48,28 +51,51 @@ class ZipfLM:
         return token_cluster, trans, within, zipf / zipf.sum()
 
     def sample(self, num_seqs: int, seed: int | None = None) -> np.ndarray:
-        """Returns int32 [num_seqs, seq_len]."""
+        """Returns int32 [num_seqs, seq_len], bit for bit the reference's
+        draw. The reference calls `rng.choice(v, p=row)` once per token,
+        which rebuilds the row's CDF each time (O(V) a token). Here each
+        cluster's CDF is built once, the same way (`cumsum`, then divided
+        by its last entry), and the same uniforms, drawn in the same order
+        (per step: the noise mask, the coherent draws, the marginal draws,
+        the cluster transitions; n each), are mapped with
+        `searchsorted(..., side="right")`, as `Generator.choice` maps them."""
         token_cluster, trans, within, marginal = self._tables()
         rng = np.random.default_rng(self.seed + 1 if seed is None else seed)
-        v, c = self.vocab_size, self.num_clusters
-        out = np.empty((num_seqs, self.seq_len), np.int32)
-        cur = rng.integers(0, c, size=num_seqs)
+        c = self.num_clusters
+        n = num_seqs
+        within_cdf = [_cdf(row) for row in within]
+        trans_cdf = [_cdf(row) for row in trans]
+        marginal_cdf = _cdf(marginal)
+        out = np.empty((n, self.seq_len), np.int32)
+        cur = rng.integers(0, c, size=n)
         for t in range(self.seq_len):
-            # mostly stay coherent with the cluster chain, sometimes noise
-            probs = within[cur]
-            noise = rng.random(num_seqs) < self.within_cluster_noise
-            tok_coherent = np.array(
-                [rng.choice(v, p=probs[i]) for i in range(num_seqs)])
-            tok_noise = rng.choice(v, p=marginal, size=num_seqs)
+            u = rng.random((4, n))
+            noise = u[0] < self.within_cluster_noise
+            tok_coherent = _choose(within_cdf, cur, u[1])
+            tok_noise = marginal_cdf.searchsorted(u[2], side="right")
             tok = np.where(noise, tok_noise, tok_coherent)
             out[:, t] = tok
-            nxt = np.array([rng.choice(c, p=trans[token_cluster[tok[i]]])
-                            for i in range(num_seqs)])
-            cur = nxt
+            cur = _choose(trans_cdf, token_cluster[tok], u[3])
         return out
 
     def unigram_counts(self, tokens: np.ndarray) -> np.ndarray:
         return np.bincount(tokens.reshape(-1), minlength=self.vocab_size)
+
+
+def _cdf(p: np.ndarray) -> np.ndarray:
+    """The CDF `Generator.choice(..., p=p)` builds from p."""
+    cdf = np.cumsum(p)
+    cdf /= cdf[-1]
+    return cdf
+
+
+def _choose(cdfs: list, rows: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """out[i] = the draw of uniform u[i] under cdfs[rows[i]]."""
+    out = np.empty(rows.shape, np.int64)
+    for r in np.unique(rows):
+        sel = rows == r
+        out[sel] = cdfs[r].searchsorted(u[sel], side="right")
+    return out
 
 
 def zipf_tokens(num_seqs: int, seq_len: int, vocab: int, a: float = 1.2,

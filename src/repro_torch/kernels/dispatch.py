@@ -2,9 +2,11 @@
 
 Mirrors `src/repro/kernels/dispatch.py` (`midx_tables_fn` :65,
 `rff_sample_fn` :114, and the choice between the fused CE kernels and their
-jnp oracles) and the choice in `src/repro/models/attention.py` between the
-Pallas flash kernel and the chunked XLA forward, with one rule in place of the reference's backend and
-environment switches:
+jnp oracles), the choice in `src/repro/models/attention.py` between the
+Pallas flash kernel and the chunked XLA forward, and the one between the
+Pallas SSD scan (`kernels/ssd_scan/ops.py`) and mamba2's own chunked scan,
+with one rule in place of the reference's backend and environment
+switches:
   - a CUDA tensor -> the hand-written kernel (it launches or raises);
   - a CPU tensor  -> the kernel's plain torch version;
   - anything else -> an error.
@@ -22,6 +24,7 @@ from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
                                                 sampled_ce_fwd_ref,
                                                 sampled_ce_pt_bwd_ref,
                                                 sampled_ce_pt_fwd_ref)
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 
 def _unsupported(name: str, x: torch.Tensor):
@@ -114,3 +117,13 @@ def flash_attention(q, k, v, *, causal: bool, window, q_offset: int,
                              q_offset=q_offset, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
     raise _unsupported("flash_attention", q)
+
+
+def ssd_scan(x, bmat, cmat, adt, dt, *, chunk: int):
+    """Chunked SSD scan: (y [Bt,S,H,P], h_last [Bt,H,N,P]), fp32."""
+    if x.is_cuda:
+        from repro_torch.kernels.ssd_scan.cuda import ssd_scan_cuda
+        return ssd_scan_cuda(x, bmat, cmat, adt, dt, chunk=chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, bmat, cmat, adt, dt, chunk=chunk)
+    raise _unsupported("ssd_scan", x)

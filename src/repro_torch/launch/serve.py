@@ -1,8 +1,9 @@
 """Serving CLI: a thin command line over `repro_torch.serve.Engine`.
 
-Mirrors `src/repro/launch/serve.py` for what the port serves: continuous
-batching over a paged KV pool, batched single-pass prefill, and the decode
-heads —
+Mirrors `src/repro/launch/serve.py` for what the port serves (the dense
+family and the ssm family, `--arch mamba2-370m`): continuous batching over
+a paged KV pool (slot-major carries for ssm), batched single-pass prefill,
+and the decode heads —
   --head midx      : MIDX sampling head (default): candidates drawn through
                      the index (proposal tables from the midx_probs CUDA
                      kernel on the card), rescored exactly, IS-corrected;
@@ -21,7 +22,9 @@ plus --device (default: the card). Any other flag is rejected.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --head midx
   python -m repro_torch.launch.serve --arch llama3.2-1b --head rff-fused
+  python -m repro_torch.launch.serve --arch mamba2-370m --prompt 512
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --device cpu --reduced
 """
 from __future__ import annotations
 

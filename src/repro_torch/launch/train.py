@@ -20,22 +20,24 @@ with one seed on one device therefore agree bit for bit.
 
 The head trains with the config's proposal: per-token for `paper-lm`,
 the shared-negative `pooled` default (`HeadConfig.proposal`) for the other
-dense configs, e.g. `llama3.2-1b` at full width (M = 1024, K = 64).
-Sequences longer than 1024 tokens (the repo's `train_4k` length, 4096)
-run their attention through the chunked flash path.
+configs, e.g. `llama3.2-1b` at full width (M = 1024, K = 64) and
+`mamba2-370m` (the ssm family, its chunked scan through the ssd_scan
+kernel on the card). Sequences longer than 1024 tokens (the repo's
+`train_4k` length, 4096) run their attention through the chunked flash
+path. The moe, hybrid, vlm and audio families raise (ROADMAP.md Queue 1
+item 12b).
 
-Drawing the `ZipfLM` corpus costs O(V) host time per token. Up to
-seq 1024 `train_loop` draws the reference's default corpus, max(512,
-4 x batch) sequences, so CLI runs there train on the reference CLI's data.
-Longer sequences draw max(4 x batch, 32 768 // (seq + 1)) sequences
-instead: 512 sequences of 4097 tokens would take most of an hour of host
-time at V = 128 256, and 32 768 tokens take tens of seconds.
+`train_loop`'s default corpus is the reference's, max(512, 4 x batch)
+`ZipfLM` sequences at every length, so CLI runs train on the reference
+CLI's data.
 
   python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3
   python -m repro_torch.launch.train --arch llama3.2-1b --steps 40 --batch 4 --seq 256
   python -m repro_torch.launch.train --arch llama3.2-1b --seq 4096 --batch 2 --steps 20 --lr 1e-3
   python -m repro_torch.launch.train --arch paper-lm --head rff-fused --steps 120 --lr 3e-3
+  python -m repro_torch.launch.train --arch mamba2-370m --steps 30 --batch 4 --seq 1024 --lr 1e-3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m --device cpu --reduced
 """
 from __future__ import annotations
 
@@ -58,10 +60,6 @@ from repro_torch.proposals import registry as proposals_registry
 
 # Generator streams derived from the run's seed.
 _STREAM_INIT, _STREAM_INDEX, _STREAM_REFRESH = range(3)
-# The default corpus: the reference's draw up to the direct-attention
-# length; past it a token budget, since ZipfLM costs O(V) host time a token.
-_REF_CORPUS_MAX_SEQ = 1024
-_LONG_CORPUS_TOKENS = 32 * 1024
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -112,10 +110,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     if corpus is None:
         gen = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64,
                      seq_len=seq_len + 1, seed=seed)
-        n_seqs = (max(512, batch_size * 4) if seq_len <= _REF_CORPUS_MAX_SEQ
-                  else max(batch_size * 4,
-                           _LONG_CORPUS_TOKENS // (seq_len + 1)))
-        corpus = gen.sample(n_seqs)
+        corpus = gen.sample(max(512, batch_size * 4))
     stream = make_lm_stream(corpus, batch_size, seed=seed)
 
     train_step = steps_mod.make_train_step(cfg, optimizer, head_mode=mode)

@@ -1,4 +1,4 @@
-"""Dense backbone, decode paths and the MIDX decode head.
+"""Dense and mamba2 backbones, decode paths and the MIDX decode head.
 
 Mirrors `src/repro/models/__init__.py` for what the port has so far."""
 from repro_torch.models.model import (init_params, forward, logits_full,

@@ -22,8 +22,11 @@ in the shared-negative kernels (`sampled_ce_op`) — the [B, S, M] logits
 never reach device memory. log q stays attached to the graph, as in the
 reference, so d(loss)/d log q flows back through the proposal into the
 hidden states. Quantized states (ROADMAP.md Queue 1 item 8) raise
-NotImplementedError. Like the reference's fused lane, the kernels always
-mask collisions (`mask_collisions` is not consulted).
+NotImplementedError. The kernels always mask collisions, so, as in the
+reference (`kernels/dispatch.py:55-56`), a head with `mask_collisions`
+False takes the plain lane instead (reference :214-215): the same draws,
+the rows gathered with `F.embedding`, and `sampled_softmax_loss` with
+collisions left unmasked.
 
 `loss_sampled` and `proposal_decode_head` run any ported registry
 proposal (`repro_torch.proposals`): the draws come from the proposal (for
@@ -135,12 +138,21 @@ def loss_midx(cfg: ModelConfig, params: dict, index: MultiIndex,
     m = cfg.head.num_negatives
     b, s, d = hidden.shape
     proposal = cfg.head.proposal
+    masked = cfg.head.mask_collisions
     if proposal == "per_token":
         h32 = hidden.float().reshape(b * s, d)
         draw = midx_mod.sample_twostage(index, h32, m, keys,
                                         tables_fn=proposal_tables)  # [T,M]
-        loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
-                                labels.reshape(b * s)).reshape(b, s)
+        if masked:
+            loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
+                                    labels.reshape(b * s)).reshape(b, s)
+            return _masked_mean(loss, mask)
+        neg_logits = torch.einsum("td,tmd->tm", h32,
+                                  F.embedding(draw.ids, table).float())
+        loss = _unmasked_loss(h32.reshape(b, s, d), table, labels,
+                              neg_logits.reshape(b, s, m),
+                              draw.log_q.reshape(b, s, m),
+                              draw.ids.reshape(b, s, m))
         return _masked_mean(loss, mask)
     if proposal not in ("pooled", "mixture"):
         raise ValueError(f"unknown proposal {proposal!r}")
@@ -148,10 +160,25 @@ def loss_midx(cfg: ModelConfig, params: dict, index: MultiIndex,
                else midx_mod.sample_mixture)
     h32 = hidden.float()
     draw = sampler(index, h32, m, noise.sequence_keys(keys, s))  # [B,M]
-    pos_emb = F.embedding(labels, table)                  # [B,S,D] native
-    neg_emb = F.embedding(draw.ids, table)                # [B,M,D] native
-    loss = sampled_ce_op(h32, pos_emb, neg_emb, draw.log_q, draw.ids, labels)
+    if masked:
+        pos_emb = F.embedding(labels, table)              # [B,S,D] native
+        neg_emb = F.embedding(draw.ids, table)            # [B,M,D] native
+        loss = sampled_ce_op(h32, pos_emb, neg_emb, draw.log_q, draw.ids,
+                             labels)
+        return _masked_mean(loss, mask)
+    neg_logits = torch.einsum("bsd,bmd->bsm", h32,
+                              F.embedding(draw.ids, table).float())
+    loss = _unmasked_loss(h32, table, labels, neg_logits,
+                          draw.log_q[:, None, :], draw.ids[:, None, :])
     return _masked_mean(loss, mask)
+
+
+def _unmasked_loss(h32, table, labels, neg_logits, log_q, neg_ids):
+    """The plain lane of `loss_midx` for `mask_collisions` False: per-token
+    sampled CE [B, S] with a negative equal to the positive left in."""
+    pos_logit = torch.sum(h32 * F.embedding(labels, table).float(), dim=-1)
+    return sampled_softmax_loss(pos_logit, neg_logits, log_q, neg_ids,
+                                labels, mask_collisions=False)
 
 
 class MidxDecodeOut(NamedTuple):

@@ -1,18 +1,21 @@
-"""Dense backbone: init, forward, class table and full-softmax logits.
+"""Backbones: init, forward, class table and full-softmax logits.
 
-Mirrors `src/repro/models/model.py` for the `dense` family only (the MoE,
-SSM, hybrid, VLM and audio branches are later slices and raise here).
+Mirrors `src/repro/models/model.py` for the `dense` and `ssm` (mamba2)
+families: `init_params` (:73; the ssm blocks `{ln1, mamba}` :54-60,
+:94-96) and `forward` (:215; the ssm body, pre-norm mamba2 and no RoPE,
+:238-240, :257-265). The MoE, hybrid, VLM and audio branches are later
+slices and raise here.
 Departures from the reference:
   - params are a plain dict whose `blocks` is a Python list with one dict
     per layer, walked by a Python loop, where the reference stacks leaves
     over layers as [L, ...] and scans them (`repro_torch.bridge` unstacks);
   - `init_params` draws from a `torch.Generator` on the target device and
     defaults to the card (`device=None` -> "cuda", raising without one);
-  - `cast_blocks` pre-casts the block matmul weights to the compute dtype
-    once. The reference casts them inside every apply (`W.astype(dt)`); the
-    cast is the same rounding either way, so values are unchanged, but a
-    serving engine then reads bf16 weights instead of casting fp32 ones on
-    every token.
+  - `cast_blocks` pre-casts the block matmul weights (and mamba2's conv
+    weights and biases) to the compute dtype once. The reference casts
+    them inside every apply (`W.astype(dt)`); the cast is the same
+    rounding either way, so values are unchanged, but a serving engine
+    then reads bf16 weights instead of casting fp32 ones on every token.
 """
 from __future__ import annotations
 
@@ -24,15 +27,20 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        mlp_init, norm_init, rope_angles)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the torch port serves the dense family only; {cfg.name} is "
-            f"{cfg.family!r} (see ROADMAP.md Queue 1 item 12)")
+            f"the torch port runs the {' and '.join(PORTED_FAMILIES)} "
+            f"families; {cfg.name} is {cfg.family!r} (see ROADMAP.md Queue 1 "
+            "item 12b)")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -51,11 +59,22 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
+def _mamba_block_init(gen: torch.Generator, cfg: ModelConfig,
+                      device) -> dict:
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.norm, device=device),
+        "mamba": mamba_mod.mamba2_init(
+            gen, cfg.d_model, d_state=cfg.ssm_state,
+            head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+            conv_width=cfg.ssm_conv_width, device=device),
+    }
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, device=None) -> dict:
     """Random fp32 params on `device` (default: the card). `generator` must
     live on that device; None seeds a fresh one with 0."""
-    _require_dense(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     gen = generator
     if gen is None:
@@ -68,18 +87,25 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, vpad, cfg.d_model, device=device)
-    params["blocks"] = [_attn_block_init(gen, cfg, device)
+    block_init = (_mamba_block_init if cfg.family == "ssm"
+                  else _attn_block_init)
+    params["blocks"] = [block_init(gen, cfg, device)
                         for _ in range(cfg.num_layers)]
     return params
 
 
-_MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+_MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "gate", "up", "down",
+                   "z_proj", "x_proj", "b_proj", "c_proj", "dt_proj",
+                   "out_proj", "conv_x", "conv_x_b", "conv_b", "conv_b_b",
+                   "conv_c", "conv_c_b")
 
 
 def cast_blocks(cfg: ModelConfig, params: dict) -> dict:
-    """A params dict whose block matmul weights are already in the compute
-    dtype (norm scales, the embedding and the head stay fp32, as the
-    reference reads them). Shares every other tensor with `params`."""
+    """A params dict whose block matmul weights (and mamba2's conv weights
+    and biases) are already in the compute dtype; norm scales, the
+    embedding, the head and mamba2's a_log, dt_bias, d_skip and norm_scale
+    stay fp32, as the reference reads them. Shares every other tensor with
+    `params`."""
     dt = torch_dtype(cfg)
 
     def cast(tree):
@@ -121,19 +147,37 @@ def apply_ffn_part(cfg: ModelConfig, bp: dict, x):
     return x + apply_mlp(bp["ffn"], h, cfg.act)
 
 
+def apply_mamba_part(cfg: ModelConfig, bp: dict, x, *,
+                     chunk: Optional[int] = None, return_state: bool = False):
+    """Pre-norm mamba2 sublayer: x + mamba2(norm(x)), and with
+    return_state its decode carry."""
+    h = apply_norm(bp["ln1"], x, eps=cfg.norm_eps, kind=cfg.norm)
+    out = mamba_mod.apply_mamba2(
+        bp["mamba"], h, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+        expand=cfg.ssm_expand, chunk=chunk or cfg.ssm_chunk,
+        return_state=return_state)
+    if return_state:
+        return x + out[0], out[1]
+    return x + out
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             window: Optional[int] = None) -> dict:
     """tokens [B,S] int -> {"hidden": [B,S,D], "aux_loss": scalar}."""
-    _require_dense(cfg)
+    require_ported(cfg)
     s = tokens.shape[1]
     # F.embedding, not params["embed"][tokens]: the same rows, and on the
     # CPU a backward that sums repeated tokens in a fixed order.
     x = F.embedding(tokens, params["embed"]).to(torch_dtype(cfg))
-    cos, sin = rope_angles(torch.arange(s, device=tokens.device),
-                           cfg.resolved_head_dim, cfg.rope_theta)
-    for bp in params["blocks"]:
-        x, _, _ = apply_attn_part(cfg, bp, x, cos, sin, window=window)
-        x = apply_ffn_part(cfg, bp, x)
+    if cfg.family == "ssm":
+        for bp in params["blocks"]:
+            x = apply_mamba_part(cfg, bp, x)
+    else:
+        cos, sin = rope_angles(torch.arange(s, device=tokens.device),
+                               cfg.resolved_head_dim, cfg.rope_theta)
+        for bp in params["blocks"]:
+            x, _, _ = apply_attn_part(cfg, bp, x, cos, sin, window=window)
+            x = apply_ffn_part(cfg, bp, x)
     x = apply_norm(params["final_norm"], x, eps=cfg.norm_eps, kind=cfg.norm)
     return {"hidden": x, "aux_loss": torch.zeros((), device=x.device)}
 

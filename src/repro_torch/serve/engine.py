@@ -1,13 +1,16 @@
 """Serving engine: continuous batching around the MIDX decode head.
 
-Mirrors `src/repro/serve/engine.py` (`Engine` :153) for what this slice
-serves: the dense family, `head` 'midx', 'full' or a ported registry
+Mirrors `src/repro/serve/engine.py` (`Engine` :153) for what the port
+serves: the dense and ssm (mamba2) families, `head` 'midx', 'full' or a
+ported registry
 proposal ('rff', 'rff-fused': the generic candidate-rescore head
 `heads.proposal_decode_head`, its state initialised from the params when
 none is given, reference :159-166, :200-202), whole-prompt batched
 prefill (one `prefill` per prompt-length group, padded to max_slots rows)
 and single-token decode waves over all `max_slots` slots (inactive slots
-ride along masked and write only the trash page). The loop is factored as
+ride along masked and write only the trash page; an ssm state has no page
+table, and its inactive slots' carries are overwritten at admission, as
+in the reference, :444, :498). The loop is factored as
 in the reference: `start_run` / `tick` / `finish_run`, composed by `run`.
 Speculative decoding, chunked prefill, the prefix cache, index hot-swap,
 checkpoints and the unported proposals raise NotImplementedError (see
@@ -45,6 +48,7 @@ from repro_torch.core import noise
 from repro_torch.models import (cast_blocks, heads, init_paged_state,
                                 init_params, logits_full, paged_decode_step,
                                 params_to, prefill, reset_slot, write_prefill)
+from repro_torch.models.model import require_ported
 from repro_torch.proposals import registry as proposals_registry
 from repro_torch.serve.kv_pool import PagePool
 from repro_torch.serve.scheduler import Request, Scheduler, SlotState
@@ -103,10 +107,7 @@ class Engine:
         # contender serves through the generic proposal head
         self.proposal = (None if head in ("midx", "full")
                          else proposals_registry.from_config(cfg.head, head))
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"the torch engine serves the dense family only, not "
-                f"{cfg.family!r} (ROADMAP.md Queue 1 item 12)")
+        require_ported(cfg)
         sv = cfg.serve
         if sv.spec_decode:
             raise _unported("speculative decoding (spec_decode)")
@@ -176,8 +177,9 @@ class Engine:
         """Prefill newly admitted slots: one batched `prefill` per
         prompt-length group, padded to max_slots rows, written straight into
         the paged pool. First-token latency is charged per group."""
-        self.state["page_table"].copy_(torch.from_numpy(
-            self.pool.table.astype(np.int64)))
+        if "page_table" in self.state:
+            self.state["page_table"].copy_(torch.from_numpy(
+                self.pool.table.astype(np.int64)))
         for ss in admitted:
             self._seed[ss.slot] = ss.request.seed
             self._rid[ss.slot] = ss.request.rid

@@ -117,8 +117,9 @@ def test_unported_engine_features_raise():
                {"prefix_cache": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg.with_serve(**kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(tcfg.get_config("mamba2-370m").reduced(), device="cpu")
+    for arch in ("granite-moe-1b-a400m", "zamba2-7b"):   # moe, hybrid
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            Engine(tcfg.get_config(arch).reduced(), device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(cfg, head="uniform", device="cpu")
     with pytest.raises(ValueError, match="greedy"):

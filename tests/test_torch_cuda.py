@@ -1,8 +1,9 @@
 """Card-only checks of the torch port: the CUDA midx_probs, per-token and
-shared-negative sampled-CE, RFF sampling and flash-attention kernels
-against their plain versions, the engine on the card, short training runs
-through the kernels of the per-token, the pooled and the rff-fused heads,
-and the chunked attention's backward on the card against the CPU. This
+shared-negative sampled-CE, RFF sampling, flash-attention and SSD-scan
+kernels against their plain versions, the engine on the card, short
+training runs through the kernels of the per-token, the pooled and the
+rff-fused heads and of mamba2, and the chunked attention's backward on the
+card against the CPU. This
 file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -437,3 +438,100 @@ def test_flash_attention_backward_on_the_card_matches_the_cpu():
     for a, b in zip(*grads):
         a, b = a.detach().cpu(), b.detach()
         assert torch.all((a - b).abs() <= 1e-4 * b.abs().clamp(min=1))
+
+
+SSD_SHAPES = (     # Bt, S, H, P, N, chunk, steep
+    (2, 64, 3, 16, 16, 8, False),
+    (1, 26, 2, 16, 16, 13, False),        # a ragged chunk
+    (4, 1024, 32, 64, 128, 256, False),   # mamba2-370m training
+    (2, 512, 4, 64, 128, 256, True),      # masked exps would overflow
+    (1, 200, 2, 64, 128, 200, False))     # one chunk of S
+
+
+def _ssd_inputs(bt, s, h, p, n, steep, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 0.5 * torch.randn((bt, s, h, p), generator=g, device="cuda")
+    bm = 0.5 * torch.randn((bt, s, n), generator=g, device="cuda")
+    cm = 0.5 * torch.randn((bt, s, n), generator=g, device="cuda")
+    adt = -torch.nn.functional.softplus(torch.randn((bt, s, h), generator=g,
+                                                    device="cuda"))
+    if steep:
+        adt = adt - 20.0
+    dt = torch.nn.functional.softplus(torch.randn((bt, s, h), generator=g,
+                                                  device="cuda"))
+    return x, bm, cm, adt, dt
+
+
+def test_ssd_scan_kernel_matches_plain_version():
+    """y and h_last within 1e-4·max(1, |plain|); bitwise repeatable; row
+    b of a batch equal to that row alone."""
+    _need_card()
+    from repro_torch.kernels.ssd_scan.cuda import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    for bt, s, h, p, n, q, steep in SSD_SHAPES:
+        args = _ssd_inputs(bt, s, h, p, n, steep, seed=s + q)
+        before = ssd_scan_cuda.launches
+        y, h_last = ssd_scan_cuda(*args, chunk=q)
+        again = ssd_scan_cuda(*args, chunk=q)
+        want = ssd_scan_ref(*args, chunk=q)
+        torch.cuda.synchronize()
+        assert ssd_scan_cuda.launches == before + 2
+        assert torch.equal(y, again[0]) and torch.equal(h_last, again[1])
+        for a, b in zip((y, h_last), want):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert torch.all((a - b).abs() <= 1e-4 * b.abs().clamp(min=1))
+        for row in range(bt):
+            solo = ssd_scan_cuda(*(t[row:row + 1].contiguous()
+                                   for t in args), chunk=q)
+            assert torch.equal(solo[0][0], y[row])
+            assert torch.equal(solo[1][0], h_last[row])
+
+
+def test_ssd_scan_kernel_rejects_what_it_cannot_take():
+    _need_card()
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ssd_scan.cuda import ssd_scan_cuda
+    x, bm, cm, adt, dt = _ssd_inputs(1, 64, 2, 16, 16, False, 0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_scan_cuda(x.cpu(), bm, cm, adt, dt, chunk=8)
+    with pytest.raises(ValueError, match="fp32 only"):
+        ssd_scan_cuda(x.bfloat16(), bm, cm, adt, dt, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), bm,
+                      cm, adt, dt, chunk=8)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ssd_scan_cuda(x, bm[:, :, :8].contiguous(), cm, adt, dt, chunk=8)
+    with pytest.raises(ValueError, match="S % chunk"):
+        ssd_scan_cuda(x, bm, cm, adt, dt, chunk=24)
+    with pytest.raises(ValueError, match="P <= 64"):
+        big = torch.zeros((1, 64, 2, 80), device="cuda")
+        ssd_scan_cuda(big, bm, cm, adt, dt, chunk=8)
+    before = ssd_scan_cuda.launches     # a CUDA tensor reaches the kernel
+    dispatch.ssd_scan(x, bm, cm, adt, dt, chunk=8)
+    assert ssd_scan_cuda.launches == before + 1
+
+
+def test_mamba2_serving_and_training_go_through_the_kernel():
+    """The reduced mamba2 on the card: serving (batched == solo) and two
+    training steps launch the scan kernel; one forward per layer."""
+    _need_card()
+    from repro_torch.kernels.ssd_scan.cuda import ssd_scan_cuda
+    from repro_torch.launch.train import train_loop
+    from repro_torch.serve import Engine, Request
+    cfg = get_config("mamba2-370m").reduced().with_serve(
+        max_slots=2, page_size=4, max_seq=32)
+    eng = Engine(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new=4, seed=1)
+            for i, n in enumerate((5, 16))]
+    before = ssd_scan_cuda.launches
+    res = eng.run(reqs)
+    assert ssd_scan_cuda.launches - before == 2 * cfg.num_layers
+    for r in reqs:
+        np.testing.assert_array_equal(res[r.rid].tokens, eng.replay_single(r))
+    before = ssd_scan_cuda.launches
+    _, _, _, hist = train_loop(cfg, steps=2, batch_size=2, seq_len=16,
+                               device="cuda", log_every=1000)
+    assert ssd_scan_cuda.launches - before == 2 * cfg.num_layers
+    assert np.all(np.isfinite(hist))

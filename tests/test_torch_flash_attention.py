@@ -263,8 +263,8 @@ def test_greedy_engine_after_a_2048_token_prompt_matches_jax():
 def test_train_cli_at_2048_takes_the_chunked_path(monkeypatch):
     """`launch.train --arch llama3.2-1b --reduced --seq 2048 --batch 2`
     trains through the chunked path, on `train_loop`'s default corpus,
-    which past seq 1024 is budgeted by tokens: max(4 x 2, 32 768 // 2049)
-    = 15 sequences of 2049."""
+    the reference's at every length: max(512, 4 x 2) = 512 sequences of
+    2049."""
     calls, drawn = [], []
     real_fa, real_sample = dispatch.flash_attention, train_cli.ZipfLM.sample
 
@@ -281,7 +281,7 @@ def test_train_cli_at_2048_takes_the_chunked_path(monkeypatch):
     _, _, _, hist = train_cli.main(["--arch", "llama3.2-1b", "--reduced",
                                     "--device", "cpu", "--seq", str(LONG),
                                     "--batch", "2", "--steps", "2"])
-    assert drawn == [(15, LONG + 1)]
+    assert drawn == [(512, LONG + 1)]
     assert len(calls) == 2 * 2 and set(calls) == {(2, LONG, 4, 16)}
     assert np.all(np.isfinite(hist))
 
