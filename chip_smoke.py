@@ -11,7 +11,12 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      flash_attention/csrc/flash_attention.cu`, `kernels/midx_probs/csrc/
      midx_probs.cu`, `kernels/sampled_ce/csrc/sampled_ce_pt.cu` and
      `sampled_ce.cu`, `kernels/rff_sample/csrc/rff_sample.cu`, `kernels/
-     ssd_scan/csrc/ssd_scan.cu`), and print what ptxas says;
+     ssd_scan/csrc/ssd_scan.cu`), and print what ptxas says; for the
+     flash library, each kernel's registers and spills (a spill in the bf16
+     tensor-core kernel fails the run) and, where `cuobjdump` is on the
+     machine, the count of HGMMA (wgmma) instructions in each kernel's SASS
+     (none in a bf16 kernel fails the run; without `cuobjdump`, "not
+     checked");
   3. hold each kernel against its plain torch version on the card, at the
      main paths' shapes and a sweep around them, with TF32 off; both
      sampled-CE backwards and the RFF sampler must also repeat bit for
@@ -27,7 +32,10 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      S=2048 and 4096; B=1, S=32768) batched == solo bit for bit, and the
      times of the kernel, its plain version and SDPA (the library call)
      beside the bound (bf16 operations at 989 TFLOP/s on the tensor
-     cores) and the bound at the fp32 rate outside them;
+     cores), with the kernel's achieved TFLOP/s (the bound's operations
+     over its time), its share of the bound and its time over SDPA's; the
+     bf16 kernel's two load routes (TMA, and plain loads for unaligned
+     tensors) give the same bits at hd 64 and 128;
  3c. hold the SSD scan against its plain version, TF32 off: a sweep (chunk
      Q in {8, 13, 64, 256} and Q = S; (N, P) in {16, 128} x {16, 64}; Bt
      1-4, H 3 and 32; adt as `tests/test_ssd_kernel.py` draws it, and a
@@ -109,6 +117,8 @@ import argparse
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -147,6 +157,63 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def check_flash_build(lib) -> None:
+    """Phase 2 for the flash library: each kernel's registers and spills
+    from ptxas (a spill in a bf16 tensor-core kernel fails the run), and
+    the count of HGMMA instructions in each kernel's SASS where cuobjdump
+    is on the machine (none in a bf16 kernel fails the run)."""
+    def label(mangled: str) -> str:
+        got = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", mangled)
+        if got:
+            return (f"bf16 wgmma hd<={got[1]} "
+                    f"{'TMA' if got[2] == '1' else 'plain loads'}")
+        got = re.search(r"flash_fwd_kernelILi(\d+)E", mangled)
+        return f"fp32 SIMT hd<={got[1]}" if got else mangled[:60]
+
+    kernels, name = {}, None
+    for line in lib.build_log.splitlines():
+        got = re.search(r"Compiling entry function '(\S+)'", line)
+        if got:
+            name = label(got[1])
+            kernels[name] = {}
+        got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if got and name:
+            kernels[name]["spills"] = int(got[1]) + int(got[2])
+        got = re.search(r"Used (\d+) registers", line)
+        if got and name:
+            kernels[name]["registers"] = int(got[1])
+    if not kernels:            # already built: nvcc printed nothing
+        log("[smoke] flash_attention ptxas: library was already built, "
+            "registers and spills not printed")
+    for name, k in kernels.items():
+        log(f"[smoke] flash_attention ptxas: {name}: {k.get('registers')} "
+            f"registers, {k.get('spills')} bytes of spill stores + loads")
+        if name.startswith("bf16") and k.get("spills", 0) > 0:
+            raise SystemExit(f"flash_attention: the {name} kernel spills")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("[smoke] flash_attention SASS: cuobjdump not found, HGMMA not "
+            "checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = label(line.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    log("[smoke] flash_attention SASS HGMMA instructions: " + ", ".join(
+        f"{n} {c}" for n, c in sorted(counts.items())))
+    bf16 = {n: c for n, c in counts.items() if n.startswith("bf16")}
+    if not bf16 or min(bf16.values()) == 0:
+        raise SystemExit("flash_attention: a bf16 kernel has no HGMMA "
+                         "instruction")
 
 
 def flush_l2(buf: torch.Tensor) -> None:
@@ -639,22 +706,25 @@ def flash_scores(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+def flash_ops(b: int, sq: int, sk: int, h: int, hd: int, causal: bool = True,
+              window=None, q_offset: int = 0) -> int:
+    """The function's operations: per allowed score the q.k dot and the
+    p.v update (4·hd, a multiply-add counted as two) and one exp."""
+    return b * h * flash_scores(sq, sk, causal, window, q_offset) * (4 * hd + 1)
+
+
 def flash_bound_ms(b: int, sq: int, sk: int, h: int, kv: int, hd: int,
                    elem: int, causal: bool = True, window=None,
                    q_offset: int = 0):
-    """Operations: per allowed score the q.k dot and the p.v update (4·hd,
-    a multiply-add counted as two) and one exp, at the card's peak rate for
-    the inputs' type: 989 TFLOP/s for bf16 (tensor cores), 67 TFLOP/s for
-    fp32. Bytes: q, k and v read once, out and lse written once, at
-    3.35 TB/s. Returns (bound ms, what bounds it, the bound at the fp32
-    rate outside the tensor cores in ms, which the kernel's fp32 FMAs are
-    held to)."""
-    ops = b * h * flash_scores(sq, sk, causal, window, q_offset) * (4 * hd + 1)
+    """Operations (`flash_ops`) at the card's peak rate for the inputs'
+    type: 989 TFLOP/s for bf16 (tensor cores), 67 TFLOP/s for fp32. Bytes:
+    q, k and v read once, out and lse written once, at 3.35 TB/s. Returns
+    (bound ms, what bounds it)."""
+    ops = flash_ops(b, sq, sk, h, hd, causal, window, q_offset)
     nbytes = elem * (2 * b * sq * h * hd + 2 * b * sk * kv * hd) + 4 * b * h * sq
     rate = TC_BF16_FLOP_S if elem == 2 else FP32_FLOP_S
     b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
-    return (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations",
-            max(b_ms, ops / FP32_FLOP_S * 1e3))
+    return max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations"
 
 
 def hold_flash(cuda_mod, ref_fn, q, k, v, *, causal: bool, window,
@@ -752,6 +822,24 @@ def check_flash_attention(cuda_mod, ref_fn, buf, card: str):
         f"1e-5 bf16, lse 1e-4*max(1,|ref|)); bf16 out elements differing at "
         f"all: {n_diff} of "
         f"{n_bf16}; every case bitwise repeatable")
+    for hd in (64, 128):       # TMA against plain loads, the same values
+        q, k, v = flash_inputs(2, 1024, 1024, 32, 8, hd, torch.bfloat16,
+                               seed=hd)
+        kw = dict(causal=True, window=None, q_offset=0)
+        tma = cuda_mod.flash_attention_cuda(q, k, v, **kw)
+        moved = []
+        for x in (q, k, v):    # data_ptr 2 bytes past a 16-byte boundary
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+            moved.append(flat[1:].view(x.shape).copy_(x))
+        plain = cuda_mod.flash_attention_cuda(*moved, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(tma[0], plain[0]) and torch.equal(tma[1],
+                                                              plain[1])):
+            raise SystemExit(f"flash_attention: the TMA and plain-load "
+                             f"routes differ at hd={hd}")
+    log("[smoke] flash_attention bf16 load routes (TMA; plain loads for a "
+        "tensor off a 16-byte boundary) agree bit for bit at B=2 S=1024 "
+        "H=32 KV=8 hd 64 and 128, causal")
     timings = {}
     for name, (b, s) in FLASH_MAIN.items():
         q, k, v = flash_inputs(b, s, s, 32, 8, 64, torch.bfloat16, seed=s)
@@ -780,15 +868,17 @@ def check_flash_attention(cuda_mod, ref_fn, buf, card: str):
         lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), buf, reps, warm)
         backend = sdpa_backend(qt, kt, vt)
-        bound, by, simt_bound = flash_bound_ms(b, s, s, 32, 8, 64, 2)
-        timings[name] = (ms, plain, bound, by, lib, simt_bound)
+        bound, by = flash_bound_ms(b, s, s, 32, 8, 64, 2)
+        tflops = flash_ops(b, s, s, 32, 64) / (ms * 1e-3) / 1e12
+        timings[name] = (ms, plain, bound, by, lib, tflops)
         log(f"[smoke] flash_attention {name} (H=32 KV=8 hd=64 bf16 causal; "
             f"out err {e_out:.3e}, {nd} elements differ, lse err "
             f"{e_lse:.3e}; batched == solo): kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound:.6f} ms ({by}, bf16 at 989 "
-            f"TFLOP/s; at the fp32 rate outside the tensor cores "
-            f"{simt_bound:.6f} ms), library (SDPA) {lib:.4f} ms [{backend}]"
-            f"; {reps} timed launches; on {card}")
+            f"TFLOP/s), library (SDPA) {lib:.4f} ms [{backend}]"
+            f"; achieved {tflops:.1f} TFLOP/s, {bound / ms:.3f} of the "
+            f"bound, kernel / SDPA {ms / lib:.3f}; {reps} timed launches; "
+            f"on {card}")
     return worst, n_diff, timings
 
 
@@ -1175,7 +1265,7 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in kernels if any(k in e.key for k in (
         "midx_probs", "fwd_kernel", "bwd_rows_kernel", "dtab_kernel",
-        "bwd_dh_kernel", "bwd_dne_kernel", "flash_fwd_kernel",
+        "bwd_dh_kernel", "bwd_dne_kernel", "flash_fwd",
         "ssd_scan_kernel"))]
     for e in top + [e for e in ours if e not in top]:
         log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
@@ -1345,6 +1435,7 @@ def main() -> None:
                     or "Compiling entry" in line:
                 log(f"[smoke]   ptxas: {line.strip()}")
     log(f"[smoke] built all kernels in {time.perf_counter() - t0:.1f}s")
+    check_flash_build(flash_cuda.LIBRARY)
     mark("build")
 
     buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -1592,7 +1683,7 @@ def main() -> None:
              "bound_by": rff_timings[name][3]}
             for name, (t, n, r2, m) in RFF_SHAPES.items()
             if name != "llama3.2-1b serve"]})
-    ms, plain, bound, by, lib, simt_bound = flash_timings[
+    ms, plain, bound, by, lib, tflops = flash_timings[
         "llama3.2-1b prefill B=4 S=4096"]
     rows.append({
         "name": "flash_attention", "route": "cuda",
@@ -1607,12 +1698,11 @@ def main() -> None:
         "max_abs_err_by_output": flash_worst,
         "bf16_out_elements_differing": flash_diff, "ms": ms,
         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-        "library_ms": lib, "fp32_simt_bound_ms": simt_bound,
+        "library_ms": lib, "achieved_tflops": tflops,
         "shape": "llama3.2-1b prefill B=4 S=4096 H=32 KV=8 hd=64 bf16 causal",
         "other_shapes": [
             {"shape": name, "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
-             "bound_by": t[3], "library_ms": t[4],
-             "fp32_simt_bound_ms": t[5]}
+             "bound_by": t[3], "library_ms": t[4], "achieved_tflops": t[5]}
             for name, t in flash_timings.items()
             if name != "llama3.2-1b prefill B=4 S=4096"]})
     ms, plain, bound, by = ssd_timings["mamba2-370m train 4x1024 Q=256"]

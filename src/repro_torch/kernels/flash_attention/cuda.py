@@ -44,8 +44,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int):
     """Launch the forward: q [B, Sq, H, hd], k / v [B, Sk, KV, hd], fp32 or
     bf16 alike, contiguous on one CUDA device, H a multiple of KV, hd <=
-    128, Sq and Sk multiples of 64 -> (out like q, lse [B, KV, H / KV, Sq]
-    fp32). The kernel walks its own 64-key blocks: the reference's chunk
+    128, Sq and Sk multiples of 128 -> (out like q, lse [B, KV, H / KV, Sq]
+    fp32). The kernel walks its own kv blocks: the reference's chunk
     sizes do not enter. Raises on anything the kernel does not take, and
     when a launch reports an error. Adds one to
     `flash_attention_cuda.launches` per call that launches."""

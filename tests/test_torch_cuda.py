@@ -347,7 +347,9 @@ FLASH_SHAPES = (   # B, Sq, Sk, H, KV, hd, dtype, causal, window, q_offset
     (1, 1024, 1024, 2, 1, 128, torch.float32, True, 16, 0),
     (2, 512, 2048, 32, 8, 64, torch.bfloat16, True, None, 1536),
     (1, 384, 384, 6, 3, 64, torch.float32, True, 16, -100),  # rows with no
-    (4, 2048, 2048, 32, 8, 64, torch.bfloat16, True, None, 0))  # allowed key
+    (4, 2048, 2048, 32, 8, 64, torch.bfloat16, True, None, 0),  # allowed key
+    (2, 256, 256, 6, 3, 50, torch.bfloat16, True, None, 0),   # plain loads
+    (2, 1024, 1024, 8, 2, 64, torch.bfloat16, True, 16, 0))   # G = 4
 
 
 def _flash_inputs(b, sq, sk, h, kv, hd, dtype, seed):
@@ -408,14 +410,40 @@ def test_flash_attention_kernel_rejects_what_it_cannot_take():
                              k, v, **kw)
     with pytest.raises(ValueError, match="bad shapes"):
         flash_attention_cuda(q, k[:, :, :1].contiguous(), v, **kw)
-    with pytest.raises(ValueError, match="multiples of 64"):
+    with pytest.raises(ValueError, match="multiples of 128"):
         flash_attention_cuda(q[:, :96].contiguous(), k, v, **kw)
+    big = _flash_inputs(1, 192, 192, 4, 2, 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        flash_attention_cuda(*big, **kw)     # 3 x 64 rows: no longer taken
     with pytest.raises(ValueError, match="hd <= 128"):
         big = torch.randn((1, 64, 2, 160), device="cuda")
         flash_attention_cuda(big, big, big, **kw)
     before = flash_attention_cuda.launches   # a CUDA tensor reaches the kernel
     dispatch.flash_attention(q, k, v, q_chunk=64, kv_chunk=128, **kw)
     assert flash_attention_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_load_routes_agree_bit_for_bit(hd):
+    """The bf16 route copies tiles with TMA when hd is a multiple of 8 and
+    q, k and v start on 16-byte boundaries, and with plain loads into the
+    same shared-memory layout otherwise: the same values one element past
+    such a boundary give the same bits."""
+    _need_card()
+    from repro_torch.kernels.flash_attention.cuda import flash_attention_cuda
+    q, k, v = _flash_inputs(2, 1024, 1024, 32, 8, hd, torch.bfloat16, hd)
+
+    def shifted(x):                          # data_ptr 2 bytes past 16
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = flat[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    kw = dict(causal=True, window=None, q_offset=0)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    out2, lse2 = flash_attention_cuda(*map(shifted, (q, k, v)), **kw)
+    assert shifted(q).data_ptr() % 16 == 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 def test_flash_attention_backward_on_the_card_matches_the_cpu():

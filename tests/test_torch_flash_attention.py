@@ -34,7 +34,8 @@ from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import cuda as flash_cuda
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
-from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+from repro_torch.kernels.flash_attention.ref import (NEG_INF, block_mask,
+                                                     flash_fwd_ref)
 from repro_torch.launch import train as train_cli
 from repro_torch.models import attention as tattn
 from repro_torch.models.decode import prefill as tprefill
@@ -107,6 +108,67 @@ def test_plain_version_with_fewer_queries_than_keys():
     for got in (out, tattn._direct_attention(tq, tk, tv, True, None,
                                              q_offset=256)):
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def _pv_emulated(q, k, v, rounding, kv_block=128):
+    """`ref.flash_fwd_ref`'s loop for causal attention in one query chunk
+    and kv blocks of `kv_block` keys (the CUDA kernel's at hd = 64), with
+    P . V done three ways: "fp32" keeps p (the plain version), "single"
+    rounds p once to bf16, "split" adds bf16(p) . V and bf16(p - bf16(p))
+    . V, as the kernel's tensor-core products do."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qs = q.reshape(b, s, kv, g, hd).float() * hd ** -0.5
+    acc = torch.zeros((b, kv, g, s, hd))
+    m = torch.full((b, kv, g, s), NEG_INF)
+    l = torch.zeros((b, kv, g, s))
+    for ik in range(s // kv_block):
+        cols = slice(ik * kv_block, (ik + 1) * kv_block)
+        ks, vs = k[:, cols].float(), v[:, cols].float()
+        sc = torch.einsum("bqkgh,bmkh->bkgqm", qs, ks)
+        ok = block_mask(0, ik, s, kv_block, 0, True, None, "cpu")
+        sc = torch.where(ok, sc, sc.new_tensor(NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        if rounding == "fp32":
+            terms = [p]
+        else:
+            hi = p.bfloat16().float()
+            terms = [hi] if rounding == "single" else \
+                [hi, (p - hi).bfloat16().float()]
+        acc = acc * alpha[..., None]
+        for t in terms:
+            acc = acc + torch.einsum("bkgqm,bmkh->bkgqh", t, vs)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def test_pv_rounding_meets_the_bf16_hold():
+    """How the CUDA kernel's bf16 route rounds p for its tensor-core P . V:
+    the hi/lo split meets the card's bf16 hold, 2^-7·|plain| + 1e-5, on
+    every element at B=1, S=1024, H=4, KV=1, hd=64, causal; one rounding
+    of p to bf16 does not. On these inputs (torch 2.13 on the CPU) the
+    single rounding puts 27 034 of 262 144 elements outside the hold, the
+    worst at 108x it (an error of 7.8e-3); the split's worst element uses
+    0.97 of it and fp32 (the kernel's 128-key blocks against the plain
+    version's single block) 0.84: a one-ulp bf16 difference just above a
+    power of two."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(0, 1, 1024, 1024, 4, 1, 64))
+    want, _ = flash_fwd_ref(q, k, v, causal=True, window=None, q_offset=0,
+                            q_chunk=512, kv_chunk=1024)
+    want = want.float()
+    worst = {}
+    for rounding in ("fp32", "single", "split"):
+        got = _pv_emulated(q, k, v, rounding).float()
+        worst[rounding] = float(((got - want).abs()
+                                 / (2.0 ** -7 * want.abs() + 1e-5)).max())
+    assert worst["split"] <= 1.0 and worst["fp32"] <= 1.0
+    assert worst["single"] > 1.0, "the single rounding would do"
 
 
 # ------------------------------------------------------- (b) chunked path
