@@ -12,19 +12,24 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      midx_probs.cu`, `kernels/sampled_ce/csrc/sampled_ce_pt.cu` and
      `sampled_ce.cu`, `kernels/rff_sample/csrc/rff_sample.cu`, `kernels/
      ssd_scan/csrc/ssd_scan.cu`), and print what ptxas says; for the
-     flash library, each kernel's registers and spills (a spill in the bf16
-     tensor-core kernel fails the run) and, where `cuobjdump` is on the
-     machine, the count of HGMMA (wgmma) instructions in each kernel's SASS
-     (none in a bf16 kernel fails the run; without `cuobjdump`, "not
-     checked");
+     flash, ssd_scan and shared-CE libraries, each kernel's registers and
+     spills (a spill in a tensor-core kernel fails the run: flash's bf16
+     kernels, the scan's kernels but its carry, the shared CE's backward)
+     and, where `cuobjdump` is on the machine, the count of HGMMA (wgmma;
+     flash) or HMMA (mma.sync; the 3xTF32 scan and CE backward)
+     instructions in each kernel's SASS (none in a tensor-core kernel fails
+     the run; without `cuobjdump`, "not checked");
   3. hold each kernel against its plain torch version on the card, at the
      main paths' shapes and a sweep around them, with TF32 off; both
      sampled-CE backwards and the RFF sampler must also repeat bit for
      bit, and the sampler's ids may differ from the plain version's only
      at near-ties; time each kernel and its plain version with CUDA
      events (median of 50 cold-L2 launches) beside the bound (bytes over
-     3.35 TB/s, operations over 67 TFLOP/s fp32), and the fp32 bmm of the
-     shared CE's logit product as a reference point;
+     3.35 TB/s, operations over 67 TFLOP/s fp32; for the shared CE and the
+     scan, matrix products over 3xTF32's 165 TFLOP/s, with the all-fp32
+     bound of PRs 11-17 beside it), the shared CE also at `train_4k`'s
+     shape (B=2, S=4096, M=1024, D=2048), and the fp32 bmm of the shared
+     CE's logit product as a reference point;
  3b. hold the flash-attention forward against its plain version, TF32 off:
      a sweep (fp32/bf16, hd 50/64/128, four (H, KV), S 128..2048, causal
      on/off, window None/16, Sq < Sk, rows with no allowed key), every
@@ -37,14 +42,16 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      bf16 kernel's two load routes (TMA, and plain loads for unaligned
      tensors) give the same bits at hd 64 and 128;
  3c. hold the SSD scan against its plain version, TF32 off: a sweep (chunk
-     Q in {8, 13, 64, 256} and Q = S; (N, P) in {16, 128} x {16, 64}; Bt
-     1-4, H 3 and 32; adt as `tests/test_ssd_kernel.py` draws it, and a
-     steep case, adt ~ -20 a step at Q = 256, where the masked
-     exponentials would overflow), y and h_last within
+     Q in {8, 13, 64, 256} and Q = S; (N, P) in {16, 128} x {16, 64}, and
+     N=30, P=50 (the plain-load route); Bt 1-4, H 3 and 32; adt as
+     `tests/test_ssd_kernel.py` draws it, and a steep case, adt ~ -20 a
+     step at Q = 256, where the masked exponentials would overflow), y and
+     h_last within
      1e-4·max(1, |plain|), every case bitwise repeatable and row b of a
      batch equal to that row alone; then the times of the kernel and its
-     plain version beside the bound (operations over 67 TFLOP/s fp32) at
-     mamba2-370m's training shape (Bt=4, S=1024, H=32, P=64, N=128,
+     plain version beside the bound (products over 165 TFLOP/s, the rest
+     over 67, with the all-fp32 bound beside it) at mamba2-370m's
+     training shape (Bt=4, S=1024, H=32, P=64, N=128,
      Q=256) and its prefill shapes (4 x 512, Q=256; 4 x 64, Q=64);
   4. check the port against itself on the CPU at a small input (prefill
      hidden states, fp32; paper-lm and the reduced mamba2);
@@ -132,6 +139,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOP_S = 67e12            # H100 SXM fp32 outside the tensor cores
+TF32X3_FLOP_S = 495e12 / 3     # H100 SXM TF32 tensor rate over 3xTF32's three
+                               # products: the fastest route known to hold 1e-4
 REL_TOL = 1e-4                 # |kernel - plain| <= 1e-4 * max(1, |plain|)
 LLAMA_STEPS, LLAMA_LR, LLAMA_REFRESH = 60, 1e-3, 25   # full-width training
 LLAMA_CORPUS = 32              # ZipfLM sequences (host time: O(V) per token)
@@ -159,19 +168,39 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_flash_build(lib) -> None:
-    """Phase 2 for the flash library: each kernel's registers and spills
-    from ptxas (a spill in a bf16 tensor-core kernel fails the run), and
-    the count of HGMMA instructions in each kernel's SASS where cuobjdump
-    is on the machine (none in a bf16 kernel fails the run)."""
-    def label(mangled: str) -> str:
-        got = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", mangled)
-        if got:
-            return (f"bf16 wgmma hd<={got[1]} "
-                    f"{'TMA' if got[2] == '1' else 'plain loads'}")
-        got = re.search(r"flash_fwd_kernelILi(\d+)E", mangled)
-        return f"fp32 SIMT hd<={got[1]}" if got else mangled[:60]
+def flash_label(mangled: str) -> str:
+    got = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", mangled)
+    if got:
+        return (f"bf16 wgmma hd<={got[1]} "
+                f"{'TMA' if got[2] == '1' else 'plain loads'}")
+    got = re.search(r"flash_fwd_kernelILi(\d+)E", mangled)
+    return f"fp32 SIMT hd<={got[1]}" if got else mangled[:60]
 
+
+def kernel_label(mangled: str) -> str:
+    """`ssd_out_kernel vec`, `bwd_w_kernel bf16 plain loads`, ... for the
+    ssd_scan and shared-CE libraries' templated kernels."""
+    got = re.search(r"\d((?:ssd|bwd)_[a-z]+_kernel|fwd_kernel)", mangled)
+    if not got:
+        return mangled[:60]
+    name = got[1]
+    if "bfloat16" in mangled:
+        name += " bf16"
+    elif re.search(r"kernelIf", mangled):
+        name += " fp32"
+    if "Lb1E" in mangled:
+        name += " vec"
+    elif "Lb0E" in mangled:
+        name += " plain loads"
+    return name
+
+
+def check_kernel_build(lib, label, tensor_core, instr: str) -> None:
+    """Phase 2 for a library: each kernel's registers and spills from ptxas
+    and, where cuobjdump is on the machine, the count of `instr` (HGMMA for
+    wgmma, HMMA for mma.sync) instructions in each kernel's SASS. A kernel
+    for which `tensor_core(name)` holds fails the run if it spills or has
+    no such instruction."""
     kernels, name = {}, None
     for line in lib.build_log.splitlines():
         got = re.search(r"Compiling entry function '(\S+)'", line)
@@ -186,16 +215,16 @@ def check_flash_build(lib) -> None:
         if got and name:
             kernels[name]["registers"] = int(got[1])
     if not kernels:            # already built: nvcc printed nothing
-        log("[smoke] flash_attention ptxas: library was already built, "
+        log(f"[smoke] {lib.name} ptxas: library was already built, "
             "registers and spills not printed")
     for name, k in kernels.items():
-        log(f"[smoke] flash_attention ptxas: {name}: {k.get('registers')} "
+        log(f"[smoke] {lib.name} ptxas: {name}: {k.get('registers')} "
             f"registers, {k.get('spills')} bytes of spill stores + loads")
-        if name.startswith("bf16") and k.get("spills", 0) > 0:
-            raise SystemExit(f"flash_attention: the {name} kernel spills")
+        if tensor_core(name) and k.get("spills", 0) > 0:
+            raise SystemExit(f"{lib.name}: the {name} kernel spills")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("[smoke] flash_attention SASS: cuobjdump not found, HGMMA not "
+        log(f"[smoke] {lib.name} SASS: cuobjdump not found, {instr} not "
             "checked")
         return
     sass = subprocess.run([tool, "-sass", str(lib.library_path())],
@@ -206,14 +235,26 @@ def check_flash_build(lib) -> None:
         if "Function :" in line:
             name = label(line.split("Function :")[1].strip())
             counts[name] = 0
-        elif name and "HGMMA" in line:
+        elif name and re.search(rf"\b{instr}\b", line):
             counts[name] += 1
-    log("[smoke] flash_attention SASS HGMMA instructions: " + ", ".join(
+    log(f"[smoke] {lib.name} SASS {instr} instructions: " + ", ".join(
         f"{n} {c}" for n, c in sorted(counts.items())))
-    bf16 = {n: c for n, c in counts.items() if n.startswith("bf16")}
-    if not bf16 or min(bf16.values()) == 0:
-        raise SystemExit("flash_attention: a bf16 kernel has no HGMMA "
+    tensor = {n: c for n, c in counts.items() if tensor_core(n)}
+    if not tensor or min(tensor.values()) == 0:
+        raise SystemExit(f"{lib.name}: a tensor-core kernel has no {instr} "
                          "instruction")
+
+
+def roofline_ms(nbytes: float, ops: float, product_ops: float = 0.0):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate, the matrix products' operations over 3xTF32's rate and the
+    other operations over the fp32 rate (the tensor and CUDA cores run side
+    by side); and which bounds it. Also the bound as PRs 11-17 took it, all
+    operations over the fp32 rate."""
+    b_ms = nbytes / HBM_BYTES_S * 1e3
+    f_ms = max(product_ops / TF32X3_FLOP_S, ops / FP32_FLOP_S) * 1e3
+    old = max(b_ms, (product_ops + ops) / FP32_FLOP_S * 1e3)
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations"), old
 
 
 def flush_l2(buf: torch.Tensor) -> None:
@@ -396,13 +437,16 @@ def hold_ce(label: str, kern_fwd, kern_bwd, ref_fwd, ref_bwd, args,
 
 
 def time_ce(label: str, where: str, kern, plain, bound_by, buf, card: str):
-    """Time a kernel and its plain version; log them beside the bound.
+    """Time a kernel and its plain version; log them beside the bound
+    (bound_by: (ms, by), or (ms, by, the all-fp32 bound of PRs 11-17)).
     Returns (ms, plain_ms, bound_ms, bound_by)."""
     ms, plain_ms = time_ms(kern, buf), time_ms(plain, buf)
-    bound, by = bound_by
+    bound, by = bound_by[:2]
+    old = (f"; all-fp32 bound {bound_by[2]:.6f} ms" if len(bound_by) > 2
+           else "")
     log(f"[smoke] {label} ({where}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); library: none; "
-        f"on {card}")
+        f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}){old}; library: "
+        f"none; on {card}")
     return ms, plain_ms, bound, by
 
 
@@ -466,7 +510,8 @@ SHAPE = (4, 256, 1024, 2048)   # llama3.2-1b training: B, S, M, D
 SHARED_TRAIN = {               # the training shapes: (B, S, M, D), V
     "llama3.2-1b train": (SHAPE, 128256),
     "llama3.2-1b train S=512": ((4, 512, 1024, 2048), 128256),
-    "mamba2-370m train": ((4, 1024, 1024, 1024), 50280)}
+    "mamba2-370m train": ((4, 1024, 1024, 1024), 50280),
+    "llama3.2-1b train_4k": ((2, TRAIN_4K, 1024, 2048), 128256)}
 
 
 def shared_inputs(b: int, s: int, m: int, d: int, v: int, dtype, seed: int):
@@ -492,22 +537,21 @@ def shared_bound_ms(b: int, s: int, m: int, d: int, elem: int,
                     backward: bool):
     """Bytes: each input read once (h, the gathered pe and ne rows, log_q,
     the ids; backward also g and lse) and each output written once (loss
-    and lse; backward dh, dpe, dne, dlq). FLOPs the function needs: the
-    [S, M] logit product over D per sequence and the positive dots; the
-    backward needs the logits once, w·ne and (g·w)ᵀ·h — three products —
-    and the positive terms (h·pe, (p_pos − 1)·pe into dh, dpe). The
-    kernels' second recompute of the logits (dh/dpe and dne/dlq each make
-    their own) is their overhead, not part of the bound."""
+    and lse; backward dh, dpe, dne, dlq). Operations the function needs:
+    the [S, M] logit product over D per sequence (a matrix product, at
+    3xTF32's rate) and the positive dots (fp32); the backward needs three
+    products — the logits once, w·ne and (g·w)ᵀ·h — and the positive terms
+    (h·pe, (p_pos − 1)·pe into dh, dpe). Returns `roofline_ms`'s (bound,
+    bound_by, all-fp32 bound)."""
     nbytes = (4 * b * s * d + elem * b * (s + m) * d + 4 * b * m + 8 * b * m
               + 8 * b * s)
     if backward:
         nbytes += 8 * b * s + 4 * b * (2 * s + m) * d + 4 * b * m
-        flops = 6 * b * s * m * d + 6 * b * s * d
+        products, other = 6 * b * s * m * d, 6 * b * s * d
     else:
         nbytes += 8 * b * s
-        flops = 2 * b * s * m * d + 2 * b * s * d
-    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
-    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+        products, other = 2 * b * s * m * d, 2 * b * s * d
+    return roofline_ms(nbytes, other, products)
 
 
 def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
@@ -515,8 +559,8 @@ def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     kernels: sweep S x M x D x row dtype against the plain version, a
     bitwise repeat of the backward, and, at the training shapes
     (`SHARED_TRAIN`: llama3.2-1b B=4, S=256 and 512, M=1024, D=2048;
-    mamba2-370m B=4, S=1024, M=1024, D=1024; fp32 rows), the same holds
-    and the times. Prints each output's error, size and err/limit at
+    mamba2-370m B=4, S=1024, M=1024, D=1024; `train_4k` B=2, S=4096,
+    M=1024, D=2048; fp32 rows), the same holds and the times. Prints each output's error, size and err/limit at
     S >= 256, M = 1024. Returns (worst errors, {shape: {"fwd", "bwd"}})."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     loosest = 0.0
@@ -565,8 +609,8 @@ def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     log(f"[smoke] sampled_ce vs plain: max_abs_err fwd={worst['fwd']:.3e} "
         f"bwd={worst['bwd']:.3e} over B=2, S in {{1,7,256}}, M in "
         f"{{20,1024}}, D in {{200,2048}}, fp32/bf16 rows, and B=4, M=1024, "
-        f"fp32 rows at (S, D) in {{(256,2048),(512,2048),(1024,1024)}} (the "
-        f"training shapes), with "
+        f"fp32 rows at (S, D) in {{(256,2048),(512,2048),(1024,1024)}} and "
+        f"B=2, S=4096, D=2048 (the training shapes), with "
         f"duplicate and colliding ids and an all-colliding token, g ~ "
         f"U(0,1) (tol {REL_TOL}*max(|ref|, min(1, max|ref|)) per tensor; "
         f"largest err/limit {loosest:.4f}); backward bitwise repeatable")
@@ -906,23 +950,24 @@ def ssd_inputs(bt: int, s: int, h: int, p: int, n: int, seed: int,
 
 
 def ssd_bound_ms(bt: int, s: int, h: int, p: int, n: int, q: int):
-    """Operations the function needs, per (b, h, chunk of Q): the causal
-    half of the intra-chunk product (Q(Q+1)/2 pairs: the decay's subtract,
-    exp and multiply into C·B, 3, and 2P for (CB ⊙ L)·(dt x)); dt·x (QP);
-    C·h (2QNP) and its e^cum scaling (Q + QP); y1 + y2 (QP); the prefix sum
-    (Q); the state update (2Q for e^(cum_Q - cum), QP for the weights,
-    2QNP for Bᵀ·w, 2NP for e^cum_Q h + s). C·B is shared by the heads:
-    Q(Q+1)/2 · 2N once per (b, chunk). Bytes: x, B, C, adt and dt read once,
-    y and h_last written once, fp32."""
+    """Operations the function needs, per (b, h, chunk of Q). Matrix
+    products (at 3xTF32's rate): 2P per pair of the causal half (Q(Q+1)/2
+    pairs) for (CB ⊙ L)·(dt x), 2QNP for C·h and 2QNP for Bᵀ·w; C·B is
+    shared by the heads, Q(Q+1)/2 · 2N once per (b, chunk). Other (fp32):
+    the decay's subtract, exp and multiply into C·B (3 a pair); dt·x (QP);
+    C·h's e^cum scaling (Q + QP); y1 + y2 (QP); the prefix sum (Q); the
+    state update's e^(cum_Q - cum) (2Q), weights (QP) and e^cum_Q h + s
+    (2NP). Bytes: x, B, C, adt and dt read once, y and h_last written once,
+    fp32. Returns `roofline_ms`'s (bound, bound_by, all-fp32 bound)."""
     nc = s // q
     pairs = q * (q + 1) // 2
-    per_head = (pairs * (3 + 2 * p) + q * p + 2 * q * n * p + q + q * p
-                + q * p + q + 2 * q + q * p + 2 * q * n * p + 2 * n * p)
-    ops = bt * nc * (h * per_head + pairs * 2 * n)
+    products = bt * nc * (h * (pairs * 2 * p + 4 * q * n * p)
+                          + pairs * 2 * n)
+    other = bt * nc * h * (pairs * 3 + q * p + q + q * p + q * p + q + 2 * q
+                           + q * p + 2 * n * p)
     nbytes = 4 * (2 * bt * s * h * p + 2 * bt * s * n + 2 * bt * s * h
                   + bt * h * n * p)
-    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
-    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+    return roofline_ms(nbytes, other, products)
 
 
 def hold_ssd(cuda_mod, ref_fn, args, q: int, where: str):
@@ -967,7 +1012,8 @@ def check_ssd_scan(cuda_mod, ref_fn, buf, card: str):
         cases.append((3, 200, 3, p, n, 200, False))           # Q = S
     cases += [(2, 512, 4, 64, 128, 256, True),                # steep
               (1, 104, 32, 64, 128, 13, False),
-              (4, 1024, 32, 64, 128, 256, False)]
+              (4, 1024, 32, 64, 128, 256, False),
+              (2, 80, 3, 50, 30, 40, False)]                  # plain loads
     for bt, s, h, p, n, q, steep in cases:
         where = (f"Bt={bt} S={s} H={h} P={p} N={n} Q={q}"
                  f"{' steep' if steep else ''}")
@@ -985,12 +1031,13 @@ def check_ssd_scan(cuda_mod, ref_fn, buf, card: str):
         e_y, e_h = hold_ssd(cuda_mod, ref_fn, args, q, name)
         ms = time_ms(lambda: cuda_mod.ssd_scan_cuda(*args, chunk=q), buf)
         plain = time_ms(lambda: ref_fn(*args, chunk=q), buf)
-        bound, by = ssd_bound_ms(bt, s, 32, 64, 128, q)
+        bound, by, old = ssd_bound_ms(bt, s, 32, 64, 128, q)
         timings[name] = (ms, plain, bound, by)
         log(f"[smoke] ssd_scan {name} (H=32 P=64 N=128 fp32; y err "
             f"{e_y:.3e}, h_last err {e_h:.3e}; batched == solo): kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms ({by}, "
-            f"fp32 at 67 TFLOP/s); library: none; on {card}")
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms ({by}: "
+            f"products at 3xTF32's 165 TFLOP/s, the rest at fp32's 67; "
+            f"all-fp32 bound {old:.6f} ms); library: none; on {card}")
     return worst, timings
 
 
@@ -1262,15 +1309,40 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
         if e.key.startswith("train.") and e.device_type.name == "CPU":
             log(f"[profile]   {e.key}: x{e.count}, host "
                 f"{e.cpu_time_total / 1e3 / e.count:.3f} ms each")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    ours = [e for e in kernels if any(k in e.key for k in (
-        "midx_probs", "fwd_kernel", "bwd_rows_kernel", "dtab_kernel",
-        "bwd_dh_kernel", "bwd_dne_kernel", "flash_fwd",
-        "ssd_scan_kernel"))]
-    for e in top + [e for e in ours if e not in top]:
-        log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
-            f"{e.self_device_time_total / 1e3:.2f} ms "
-            f"({e.self_device_time_total / max(busy_us, 1e-9):.3f} of busy)")
+    log_kernels(kernels, busy_us, 8)
+
+
+# The port's kernels in a profile, by library: (label, name fragments).
+PORT_KERNELS = (
+    ("midx_probs", ("midx_probs_kernel",)),
+    ("sampled_ce_pt", ("fwd_kernel<float, ", "bwd_rows_kernel",
+                       "dtab_kernel")),
+    ("sampled_ce fwd", ("fwd_kernel<float>", "fwd_kernel<__nv_bfloat16>")),
+    ("sampled_ce_bwd (3 kernels)", ("bwd_w_kernel", "bwd_dh_kernel",
+                                    "bwd_dne_kernel")),
+    ("flash_attention", ("flash_fwd",)),
+    ("ssd_scan (4 kernels)", ("ssd_prep_kernel", "ssd_state_kernel",
+                              "ssd_carry_kernel", "ssd_out_kernel")))
+
+
+def log_kernels(kernels, busy_us: float, n_top: int) -> None:
+    """The `n_top` kernels that took the most device time, then the port's
+    other kernels, each with its share of the busy time; then each of the
+    port's libraries that ran, summed."""
+    def line(name, count, us):
+        log(f"[profile]   {name}: x{count}, {us / 1e3:.2f} ms "
+            f"({us / max(busy_us, 1e-9):.3f} of busy)")
+
+    def ours(e):
+        return any(f in e.key for _, frags in PORT_KERNELS for f in frags)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n_top]
+    for e in top + [e for e in kernels if ours(e) and e not in top]:
+        line(f"kernel {e.key[:60]}", e.count, e.self_device_time_total)
+    for label, frags in PORT_KERNELS:
+        group = [e for e in kernels if any(f in e.key for f in frags)]
+        if group:
+            line(f"all of {label}", sum(e.count for e in group),
+                 sum(e.self_device_time_total for e in group))
 
 
 def profile_run(engine, label: str, *, prompt: int, tokens: int) -> None:
@@ -1305,14 +1377,7 @@ def profile_run(engine, label: str, *, prompt: int, tokens: int) -> None:
         if e.key.startswith("engine.") and e.device_type.name == "CPU":
             log(f"[profile]   {e.key}: x{e.count}, host "
                 f"{e.cpu_time_total / 1e3 / e.count:.3f} ms each")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    for e in top + [e for e in kernels if ("midx_probs" in e.key
-                                           or "flash_fwd" in e.key
-                                           or "ssd_scan" in e.key)
-                    and e not in top]:
-        log(f"[profile]   kernel {e.key[:60]}: x{e.count}, "
-            f"{e.self_device_time_total / 1e3:.2f} ms "
-            f"({e.self_device_time_total / max(busy_us, 1e-9):.3f} of busy)")
+    log_kernels(kernels, busy_us, 6)
 
 
 MAMBA_STEPS, MAMBA_LR, MAMBA_REFRESH = 30, 1e-3, 10  # full-width training
@@ -1435,7 +1500,12 @@ def main() -> None:
                     or "Compiling entry" in line:
                 log(f"[smoke]   ptxas: {line.strip()}")
     log(f"[smoke] built all kernels in {time.perf_counter() - t0:.1f}s")
-    check_flash_build(flash_cuda.LIBRARY)
+    check_kernel_build(flash_cuda.LIBRARY, flash_label,
+                       lambda n: n.startswith("bf16"), "HGMMA")
+    check_kernel_build(ssd_cuda.LIBRARY, kernel_label,
+                       lambda n: "carry" not in n, "HMMA")
+    check_kernel_build(sce_cuda.SHARED_LIBRARY, kernel_label,
+                       lambda n: n.startswith("bwd"), "HMMA")
     mark("build")
 
     buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")

@@ -3,9 +3,10 @@
 Every kernel library has a plain C interface: `nvcc` compiles its one
 source for sm_90a into a shared library at first use, from the checkout,
 into `build/kernels/` at the repository root (listed in .gitignore), and
-`ctypes` loads it. The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt; the build writes a temporary
-file and renames it, so concurrent builds agree.
+`ctypes` loads it. The library's file name carries a hash of the source,
+the headers it includes by quoted relative paths (`#include "..."`) and
+the flags, so an edited source or shared header is rebuilt; the build
+writes a temporary file and renames it, so concurrent builds agree.
 
 Nothing here runs at import time: the CPU test suite imports the kernel
 modules on a machine without nvcc or a card.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +26,14 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_QUOTED_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_files(source: Path) -> list:
+    """`source` and the files it includes by quoted paths relative to
+    itself (`#include "../../common/tf32x3.cuh"`)."""
+    return [source, *(source.parent / inc for inc in
+                      _QUOTED_INCLUDE.findall(source.read_text()))]
 
 
 def nvcc() -> str:
@@ -40,7 +50,9 @@ def nvcc() -> str:
 
 
 class KernelLibrary:
-    """One `csrc/*.cu` source, built once per source hash and loaded.
+    """One `csrc/*.cu` source, built once per hash of the source, the
+    headers it includes from the repository (`local_files`) and the flags,
+    and loaded.
 
     `declare(lib)` sets the `argtypes`/`restype` of the library's C
     functions. After `load()`, `build_log` holds what nvcc printed (ptxas:
@@ -58,8 +70,11 @@ class KernelLibrary:
         self.build_seconds = 0.0
 
     def library_path(self) -> Path:
-        tag = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        digest = hashlib.sha256()
+        for path in local_files(self.source):
+            digest.update(path.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        tag = digest.hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}_{tag}.so"
 
     def _tmp(self) -> Path:

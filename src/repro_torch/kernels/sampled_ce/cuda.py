@@ -5,8 +5,9 @@
 `::_bwd_kernel` (`sampled_ce_pt_bwd`); `csrc/sampled_ce.cu` replaces
 `kernels/sampled_ce/sampled_ce.py::_kernel` (`sampled_ce`) and
 `::_bwd_dh_kernel` / `::_bwd_dne_kernel` (`sampled_ce_bwd`), the
-shared-negative pair. Each header says what bounds its kernels on the card
-and how the design answers that. Both are built by `kernels/build.py`
+shared-negative pair, whose backward is three 3xTF32 tensor-core passes
+(`kernels/common/tf32x3.cuh`). Each header says what bounds its kernels on
+the card and how the design answers that. Both are built by `kernels/build.py`
 (nvcc for sm_90a at first use, into `build/kernels/`), one library per
 source, and loaded with `ctypes`.
 
@@ -175,7 +176,7 @@ sampled_ce_pt_bwd_cuda.launches = 0
 # ------------------------------------------------------ shared negatives
 def _declare_shared(lib: ctypes.CDLL) -> None:
     lib.sampled_ce_fwd_launch.argtypes = [_P] * 8 + [_I] * 5 + [_P]
-    lib.sampled_ce_bwd_launch.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.sampled_ce_bwd_launch.argtypes = [_P] * 14 + [_I] * 6 + [_P]
     lib.sampled_ce_fwd_launch.restype = ctypes.c_int
     lib.sampled_ce_bwd_launch.restype = ctypes.c_int
 
@@ -183,6 +184,9 @@ def _declare_shared(lib: ctypes.CDLL) -> None:
 SHARED_LIBRARY = KernelLibrary(
     "sampled_ce", Path(__file__).resolve().parent / "csrc" / "sampled_ce.cu",
     _declare_shared)
+
+
+_SHARED_TILE = 64       # the backward's tile; its W workspace is padded to it
 
 
 def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra):
@@ -260,8 +264,8 @@ def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
                         pos_ids: torch.Tensor, lse: torch.Tensor):
     """Backward from the forward's lse: g/lse [B, S] fp32, the rest as the
     forward -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32.
-    Adds one to `sampled_ce_bwd_cuda.launches` per backward (its two
-    kernels, dh/dpe then dne/dlq, launch together)."""
+    Adds one to `sampled_ce_bwd_cuda.launches` per backward (its three
+    kernels, W, dh/dpe and dne/dlq, launch together)."""
     b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
                                pos_ids, g, lse)
     lib = SHARED_LIBRARY.load()
@@ -272,13 +276,22 @@ def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
     dlq = torch.empty((b, m), dtype=torch.float32, device=dev)
     if b == 0:
         return dh, dpe, dne, dlq
+    pad = _SHARED_TILE
+    sp, mp = -(-s // pad) * pad, -(-m // pad) * pad
+    # workspaces in one allocation: W [B, Sp, Mp], the positive
+    # coefficients [B, S]
+    work = torch.empty(b * sp * mp + b * s, dtype=torch.float32, device=dev)
+    w = work.data_ptr()
+    coef = w + 4 * b * sp * mp
+    vec = _vec(d, _VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
     with torch.cuda.device(dev):
         err = lib.sampled_ce_bwd_launch(
             g.data_ptr(), hidden.data_ptr(), pos_emb.data_ptr(),
             neg_emb.data_ptr(), log_q.data_ptr(), neg_ids.data_ptr(),
             pos_ids.data_ptr(), lse.data_ptr(), dh.data_ptr(),
-            dpe.data_ptr(), dne.data_ptr(), dlq.data_ptr(), b, s, m, d,
-            int(pos_emb.dtype == torch.bfloat16),
+            dpe.data_ptr(), dne.data_ptr(), dlq.data_ptr(), w, coef, b, s, m,
+            d,
+            int(pos_emb.dtype == torch.bfloat16), vec,
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce_bwd")
     sampled_ce_bwd_cuda.launches += 1

@@ -176,8 +176,11 @@ def _shared_inputs(b, s, m, d, v, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_shared_sampled_ce_kernels_match_plain_version(dtype):
-    """Forward and both backward kernels within 1e-4·max(1, |plain|); the
-    backward bitwise repeatable; ragged S, M and D, and an empty S."""
+    """Forward and the backward's kernels within 1e-4·max(1, |plain|); the
+    backward bitwise repeatable, and each sequence of a batch equal to that
+    sequence alone; ragged S, M and D (S and M off the backward's 64-row
+    tiles, D = 200 and 30 off its 64-column tiles, D = 30 also off the
+    16-byte loads), and an empty S."""
     _need_card()
     from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
                                                      sampled_ce_cuda)
@@ -185,7 +188,7 @@ def test_shared_sampled_ce_kernels_match_plain_version(dtype):
                                                     sampled_ce_fwd_ref)
     for b, s, m, d, v in ((1, 1, 20, 200, 10000), (2, 7, 13, 30, 9),
                           (3, 70, 130, 2048, 5000), (2, 256, 1024, 200, 10000),
-                          (1, 0, 8, 16, 20)):
+                          (2, 100, 70, 200, 5000), (1, 0, 8, 16, 20)):
         h, pe, ne, lq, neg, pos, g = _shared_inputs(b, s, m, d, v, dtype,
                                                     seed=s + m + d)
         got_f = sampled_ce_cuda(h, pe, ne, lq, neg, pos)
@@ -198,6 +201,12 @@ def test_shared_sampled_ce_kernels_match_plain_version(dtype):
             assert a.shape == w.shape
             assert torch.all((a - w).abs() <= 1e-4 * w.abs().clamp(min=1))
         assert all(torch.equal(a, w) for a, w in zip(got_b, again))
+        for row in range(b if b > 1 else 0):
+            one = [t[row:row + 1].contiguous()
+                   for t in (g, h, pe, ne, lq, neg, pos, got_f[1])]
+            solo = sampled_ce_bwd_cuda(*one)
+            assert all(torch.equal(a[0], w[row])
+                       for a, w in zip(solo, got_b))
 
 
 def test_shared_sampled_ce_kernels_reject_what_they_cannot_take():
@@ -471,9 +480,12 @@ def test_flash_attention_backward_on_the_card_matches_the_cpu():
 SSD_SHAPES = (     # Bt, S, H, P, N, chunk, steep
     (2, 64, 3, 16, 16, 8, False),
     (1, 26, 2, 16, 16, 13, False),        # a ragged chunk
+    (2, 39, 3, 64, 128, 13, False),       # ragged chunks at full N and P
     (4, 1024, 32, 64, 128, 256, False),   # mamba2-370m training
     (2, 512, 4, 64, 128, 256, True),      # masked exps would overflow
-    (1, 200, 2, 64, 128, 200, False))     # one chunk of S
+    (1, 200, 2, 64, 128, 200, False),     # one chunk of S
+    (2, 400, 2, 64, 128, 200, False),     # ragged query tiles, carried
+    (2, 80, 3, 50, 30, 40, False))        # P, N off 16 bytes: plain loads
 
 
 def _ssd_inputs(bt, s, h, p, n, steep, seed):

@@ -408,3 +408,99 @@ def test_loss_midx_gradient_reaches_hidden_through_log_q(proposal):
                        draw.log_q.detach(), draw.ids, tl).mean()
     g2, = torch.autograd.grad(l2, hidden)
     assert float((g1 - g2).abs().max()) > 1e-6
+
+
+def _tf32(a: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """a cut to TF32 (a 10-bit mantissa): rounded to nearest, ties away
+    from 0, as the kernels round the big part; or truncated, as the tensor
+    core reads the fp32 small part."""
+    bits = a.float().contiguous().view(torch.int32)
+    return (((bits + 0x1000) if nearest else bits) & ~0x1FFF).view(
+        torch.float32)
+
+
+def _rz(a: torch.Tensor) -> torch.Tensor:
+    """a (fp64) to fp32 rounded toward zero, as the tensor core rounds the
+    sum it accumulates."""
+    r = a.float()
+    return torch.where(r.double().abs() > a.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _emulated(matmul, model: str):
+    """matmul over TF32 operands. "one": one product of the roundings,
+    exact. The rest are 3xTF32, small·big + big·small + big·big with the
+    small parts the TF32 parts of the remainders, as the kernels' `split`
+    and the tensor core form them, and differ in how the sums are kept:
+    "exact" sums them in fp64 and rounds once; "truncating" adds each
+    mma's 8-deep sum into an fp32 accumulator rounded toward zero, as the
+    tensor core does, over the whole depth; "slabs" does that within each
+    32-deep slab, from zero, and adds the slabs into an fp32 sum rounded to
+    nearest, as `kernels/common/tf32x3.cuh::product` does."""
+    def product(a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        if model == "one":
+            return matmul(ab.double(), bb.double()).float()
+        pairs = [(_tf32(a - ab, False), bb), (ab, _tf32(b - bb, False)),
+                 (ab, bb)]
+        if model == "exact":
+            return sum(matmul(u.double(), v.double())
+                       for u, v in pairs).float()
+        k = a.shape[-1]
+        slab = 32 if model == "slabs" else k
+        acc = 0.0
+        for kb in range(0, k, slab):
+            part = 0.0
+            for k0 in range(kb, min(kb + slab, k), 8):
+                for u, v in pairs:
+                    part = _rz(part + matmul(u[..., k0:k0 + 8].double(),
+                                             v[..., k0:k0 + 8, :].double()))
+            acc = acc + part
+        return acc
+    return product
+
+
+def test_tf32x3_products_meet_the_hold(monkeypatch):
+    """The precision design of the CUDA backward, on the CPU: the plain
+    backward with its three products (the logits h·neᵀ, w·ne and
+    (g·w)ᵀ·h) on TF32 operands, from the plain forward's lse, against the
+    plain fp32 backward, under the kernels' hold 1e-4·max(|plain|, min(1,
+    max |plain|)) per tensor. One sequence at llama3.2-1b's width (S=256,
+    M=1024, D=2048, inputs drawn as `chip_smoke.py` draws them). One TF32
+    product misses the hold in dh (~4x), dne (~14x) and dlq (~6x); 3xTF32
+    summed exactly meets it with a margin of 5x or more (0.02 of it). The
+    tensor core truncates as it accumulates: over the logits' 2048-deep
+    reduction (768 mma) that alone misses the hold in dne (~1.8x; an H100
+    read 1.6x before the kernels took slabs), and summing 32-deep slabs
+    into fp32, as the kernels do, brings it back inside by 5x (~0.05)."""
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
+                                                    sampled_ce_fwd_ref)
+    rng = np.random.default_rng(5)
+    s, m, d, v = 256, 1024, 2048, 5000
+    h = torch.from_numpy((0.5 * rng.standard_normal((1, s, d)))
+                         .astype(np.float32))
+    table = (0.1 * rng.standard_normal((v, d))).astype(np.float32)
+    neg = rng.integers(0, v, (1, m))
+    pos = rng.integers(0, v, (1, s))
+    neg[:, 2] = pos[:, -1]                         # a collision
+    lq = torch.from_numpy((-9.0 + 0.5 * rng.standard_normal((1, m)))
+                          .astype(np.float32))
+    g = torch.from_numpy(rng.random((1, s)).astype(np.float32))
+    args = (h, torch.from_numpy(table[pos]), torch.from_numpy(table[neg]), lq,
+            torch.from_numpy(neg), torch.from_numpy(pos))
+    lse = sampled_ce_fwd_ref(*args)[1]
+    want = sampled_ce_bwd_ref(g, *args, lse)
+    matmul = torch.matmul
+    ratios = {}
+    for model in ("one", "exact", "truncating", "slabs"):
+        monkeypatch.setattr(torch, "matmul", _emulated(matmul, model))
+        got = sampled_ce_bwd_ref(g, *args, lse)
+        monkeypatch.setattr(torch, "matmul", matmul)
+        ratios[model] = {}
+        for name, a, b in zip(("dh", "dpe", "dne", "dlq"), got, want):
+            limit = 1e-4 * b.abs().clamp(min=min(1.0, float(b.abs().max())))
+            ratios[model][name] = float(((a - b).abs() / limit).max())
+    assert ratios["one"]["dh"] > 2.0 and ratios["one"]["dne"] > 2.0, ratios
+    assert max(ratios["exact"].values()) < 0.2, ratios     # 5x inside
+    assert ratios["truncating"]["dne"] > 1.0, ratios       # misses
+    assert max(ratios["slabs"].values()) < 0.2, ratios     # 5x inside

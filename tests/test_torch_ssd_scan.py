@@ -168,3 +168,88 @@ def test_dispatch_by_device():
         dispatch.ssd_scan(*(a.to("meta") for a in args), chunk=8)
     with pytest.raises(ValueError, match="S % chunk"):
         ssd_scan_ref(*args, chunk=5)
+
+
+def _tf32(a: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """a cut to TF32 (a 10-bit mantissa): rounded to nearest, ties away
+    from 0, as the kernels round the big part; or truncated, as the tensor
+    core reads the fp32 small part."""
+    bits = a.float().contiguous().view(torch.int32)
+    return (((bits + 0x1000) if nearest else bits) & ~0x1FFF).view(
+        torch.float32)
+
+
+def _rz(a: torch.Tensor) -> torch.Tensor:
+    """a (fp64) to fp32 rounded toward zero, as the tensor core rounds the
+    sum it accumulates."""
+    r = a.float()
+    return torch.where(r.double().abs() > a.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _emulated(einsum, model: str):
+    """einsum over TF32 operands, for the plain version's products, each of
+    which reduces over one index. "one": one product of the roundings,
+    exact. The rest are 3xTF32, small·big + big·small + big·big with the
+    small parts the TF32 parts of the remainders, as the kernels' `split`
+    and the tensor core form them, and differ in how the sums are kept:
+    "exact" sums them in fp64 and rounds once; "truncating" adds each
+    mma's 8-deep sum into an fp32 accumulator rounded toward zero, as the
+    tensor core does, over the whole depth; "slabs" does that within each
+    32-deep slab, from zero, and adds the slabs into an fp32 sum rounded to
+    nearest, as `kernels/common/tf32x3.cuh::product` does."""
+    def product(eq, a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        if model == "one":
+            return einsum(eq, ab.double(), bb.double()).float()
+        pairs = [(_tf32(a - ab, False), bb), (ab, _tf32(b - bb, False)),
+                 (ab, bb)]
+        if model == "exact":
+            return sum(einsum(eq, u.double(), v.double())
+                       for u, v in pairs).float()
+        ins, out = eq.split("->")
+        ia, ib = ins.split(",")
+        (kl,) = set(ia) & set(ib) - set(out)
+        da, db, k = ia.index(kl), ib.index(kl), a.shape[ia.index(kl)]
+        slab = 32 if model == "slabs" else k
+        acc = 0.0
+        for kb in range(0, k, slab):
+            part = 0.0
+            for k0 in range(kb, min(kb + slab, k), 8):
+                w = min(8, k - k0)
+                for u, v in pairs:
+                    part = _rz(part + einsum(eq, u.narrow(da, k0, w).double(),
+                                             v.narrow(db, k0, w).double()))
+            acc = acc + part
+        return acc
+    return product
+
+
+@pytest.mark.parametrize("steep", [False, True])
+def test_tf32x3_products_meet_the_hold(monkeypatch, steep):
+    """The precision design of the CUDA kernels, on the CPU: the plain
+    version with its four products (C·Bᵀ, (CB ⊙ L)·(dt x), Bᵀ·w, C·h) on
+    TF32 operands, against the plain fp32 version, under the kernels' hold
+    1e-4·max(1, |plain|). One TF32 product misses it (y by 36-50x,
+    h_last by ~7x); 3xTF32 summed exactly meets it with a margin of 5x or
+    more (0.02-0.03 of it). The tensor core truncates as it accumulates;
+    at the scan's depths (N=128, Q=256: at most 96 mma a sum) that keeps
+    inside the margin (~0.1 of the hold) with or without the 32-deep slabs
+    the kernels sum into fp32 (~0.05 with them)."""
+    x, bm, cm, adt, dt = (torch.from_numpy(a) for a in
+                          _inputs(11, 1, 512, 2, 64, 128))
+    if steep:
+        adt = adt - 20.0
+    want = ssd_scan_ref(x, bm, cm, adt, dt, chunk=256)
+    einsum = torch.einsum
+    ratios = {}
+    for model in ("one", "exact", "truncating", "slabs"):
+        monkeypatch.setattr(torch, "einsum", _emulated(einsum, model))
+        got = ssd_scan_ref(x, bm, cm, adt, dt, chunk=256)
+        monkeypatch.setattr(torch, "einsum", einsum)
+        ratios[model] = [float(((a - b).abs() / b.abs().clamp(min=1)).max()
+                               / 1e-4) for a, b in zip(got, want)]
+    one = ratios.pop("one")
+    assert one[0] > 10.0 and one[1] > 2.0, one   # one TF32 product misses
+    for model, r in ratios.items():              # 3xTF32: 5x inside it
+        assert max(r) < 0.2, (model, r)
