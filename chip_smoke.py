@@ -14,22 +14,24 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      ssd_scan/csrc/ssd_scan.cu`), and print what ptxas says; for the
      flash, ssd_scan and shared-CE libraries, each kernel's registers and
      spills (a spill in a tensor-core kernel fails the run: flash's bf16
-     kernels, the scan's kernels but its carry, the shared CE's backward)
-     and, where `cuobjdump` is on the machine, the count of HGMMA (wgmma;
-     flash) or HMMA (mma.sync; the 3xTF32 scan and CE backward)
-     instructions in each kernel's SASS (none in a tensor-core kernel fails
-     the run; without `cuobjdump`, "not checked");
+     kernels, the scan's kernels but its carry, the shared CE's forward
+     partials and backward) and, where `cuobjdump` is on the machine, the
+     count of HGMMA (wgmma; flash) or HMMA (mma.sync; the 3xTF32 scan and
+     shared CE) instructions in each kernel's SASS (none in a tensor-core
+     kernel fails the run; without `cuobjdump`, "not checked");
   3. hold each kernel against its plain torch version on the card, at the
      main paths' shapes and a sweep around them, with TF32 off; both
-     sampled-CE backwards and the RFF sampler must also repeat bit for
-     bit, and the sampler's ids may differ from the plain version's only
-     at near-ties; time each kernel and its plain version with CUDA
+     sampled-CE backwards, the shared CE's forward and the RFF sampler
+     must also repeat bit for bit, the sampler's ids may differ from the
+     plain version's only at near-ties, and each row of a `midx_probs` call
+     must equal, bit for bit, that row alone (T = 1) inside calls of T = 4,
+     8, 33 and 512 rows; time each kernel and its plain version with CUDA
      events (median of 50 cold-L2 launches) beside the bound (bytes over
      3.35 TB/s, operations over 67 TFLOP/s fp32; for the shared CE and the
      scan, matrix products over 3xTF32's 165 TFLOP/s, with the all-fp32
-     bound of PRs 11-17 beside it), the shared CE also at `train_4k`'s
-     shape (B=2, S=4096, M=1024, D=2048), and the fp32 bmm of the shared
-     CE's logit product as a reference point;
+     bound beside it), the shared CE also at `train_4k`'s shape (B=2,
+     S=4096, M=1024, D=2048), and the fp32 bmm of the shared CE's logit
+     product as a reference point;
  3b. hold the flash-attention forward against its plain version, TF32 off:
      a sweep (fp32/bf16, hd 50/64/128, four (H, KV), S 128..2048, causal
      on/off, window None/16, Sq < Sk, rows with no allowed key), every
@@ -147,6 +149,7 @@ LLAMA_CORPUS = 32              # ZipfLM sequences (host time: O(V) per token)
 TRAIN_4K = 4096                # the repo's train_4k sequence length
 MIDX_TS = (1, 4, 8, 33, 512, 1024)   # decode, prefill and training rows
 MIDX_DK = ((200, 32), (1024, 64), (2048, 64))   # paper-lm, mamba2, llama
+MIDX_SOLO = (4, 8, 33, 512)    # calls whose rows must equal the rows alone
 
 
 def log(msg: str) -> None:
@@ -180,7 +183,7 @@ def flash_label(mangled: str) -> str:
 def kernel_label(mangled: str) -> str:
     """`ssd_out_kernel vec`, `bwd_w_kernel bf16 plain loads`, ... for the
     ssd_scan and shared-CE libraries' templated kernels."""
-    got = re.search(r"\d((?:ssd|bwd)_[a-z]+_kernel|fwd_kernel)", mangled)
+    got = re.search(r"\d((?:ssd|bwd|fwd)_[a-z]+_kernel)", mangled)
     if not got:
         return mangled[:60]
     name = got[1]
@@ -329,6 +332,25 @@ def check_midx_probs(cuda_mod, ref_fn, buf, card: str):
     log(f"[smoke] midx_probs vs plain: max_abs_err={worst:.3e} over "
         f"(D,K) in {set(MIDX_DK)}, pq/rq, T in {MIDX_TS} "
         f"(tol {REL_TOL}*max(1,|ref|))")
+    for d, k in MIDX_DK:       # a row's bits do not depend on T
+        for split in (True, False):
+            z, cb1, cb2, counts = midx_inputs(512, d, k, split, seed=d + k)
+            outs = {t: cuda_mod.midx_probs_cuda(z[:t], cb1, cb2, counts,
+                                                split=split)
+                    for t in MIDX_SOLO}
+            for r in (0, 3, 7, 32, 511):
+                solo = cuda_mod.midx_probs_cuda(z[r:r + 1], cb1, cb2, counts,
+                                                split=split)
+                for t, got in outs.items():
+                    if r < t and not all(torch.equal(a[0], b[r])
+                                         for a, b in zip(solo, got)):
+                        raise SystemExit(
+                            f"midx_probs: row {r} alone differs from row {r}"
+                            f" of a T={t} call at D={d} K={k} "
+                            f"{'pq' if split else 'rq'}")
+    log(f"[smoke] midx_probs: each row alone (T=1) equals that row of the "
+        f"T in {MIDX_SOLO} calls bit for bit, over (D,K) in {set(MIDX_DK)}, "
+        f"pq/rq")
     timings = {}
     for name, (t, d, k, split) in (
             ("paper-lm decode", (4, 200, 32, False)),
@@ -557,8 +579,8 @@ def shared_bound_ms(b: int, s: int, m: int, d: int, elem: int,
 def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     """Phase 3 for the shared-negative CE, forward and both backward
     kernels: sweep S x M x D x row dtype against the plain version, a
-    bitwise repeat of the backward, and, at the training shapes
-    (`SHARED_TRAIN`: llama3.2-1b B=4, S=256 and 512, M=1024, D=2048;
+    bitwise repeat of the forward and the backward, and, at the training
+    shapes (`SHARED_TRAIN`: llama3.2-1b B=4, S=256 and 512, M=1024, D=2048;
     mamba2-370m B=4, S=1024, M=1024, D=1024; `train_4k` B=2, S=4096,
     M=1024, D=2048; fp32 rows), the same holds and the times. Prints each output's error, size and err/limit at
     S >= 256, M = 1024. Returns (worst errors, {shape: {"fwd", "bwd"}})."""
@@ -572,6 +594,10 @@ def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
         (loss, lse), errs, ratio, readings = hold_ce(
             "sampled_ce", sce.sampled_ce_cuda, sce.sampled_ce_bwd_cuda,
             fwd_ref, bwd_ref, args[:-1], args[-1], bwd_names, where)
+        again = sce.sampled_ce_cuda(*args[:-1])
+        if not (torch.equal(loss, again[0]) and torch.equal(lse, again[1])):
+            raise SystemExit(f"sampled_ce is not bitwise repeatable at "
+                             f"{where}")
         nonlocal loosest
         for k in worst:
             worst[k] = max(worst[k], errs[k])
@@ -613,7 +639,8 @@ def check_shared_ce(sce, fwd_ref, bwd_ref, buf, card: str):
         f"B=2, S=4096, D=2048 (the training shapes), with "
         f"duplicate and colliding ids and an all-colliding token, g ~ "
         f"U(0,1) (tol {REL_TOL}*max(|ref|, min(1, max|ref|)) per tensor; "
-        f"largest err/limit {loosest:.4f}); backward bitwise repeatable")
+        f"largest err/limit {loosest:.4f}); forward and backward bitwise "
+        f"repeatable")
     b, s, m, d = SHAPE
     h, pe, ne, *_ = shared_inputs(b, s, m, d, 128256, torch.float32, seed=1)
     nt = ne.transpose(1, 2)
@@ -1314,10 +1341,10 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
 
 # The port's kernels in a profile, by library: (label, name fragments).
 PORT_KERNELS = (
-    ("midx_probs", ("midx_probs_kernel",)),
+    ("midx_probs (2 kernels)", ("midx_part_kernel", "midx_finish_kernel")),
     ("sampled_ce_pt", ("fwd_kernel<float, ", "bwd_rows_kernel",
                        "dtab_kernel")),
-    ("sampled_ce fwd", ("fwd_kernel<float>", "fwd_kernel<__nv_bfloat16>")),
+    ("sampled_ce fwd (2 kernels)", ("fwd_part_kernel", "fwd_merge_kernel")),
     ("sampled_ce_bwd (3 kernels)", ("bwd_w_kernel", "bwd_dh_kernel",
                                     "bwd_dne_kernel")),
     ("flash_attention", ("flash_fwd",)),
@@ -1505,7 +1532,7 @@ def main() -> None:
     check_kernel_build(ssd_cuda.LIBRARY, kernel_label,
                        lambda n: "carry" not in n, "HMMA")
     check_kernel_build(sce_cuda.SHARED_LIBRARY, kernel_label,
-                       lambda n: n.startswith("bwd"), "HMMA")
+                       lambda n: n.startswith(("bwd", "fwd_part")), "HMMA")
     mark("build")
 
     buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")

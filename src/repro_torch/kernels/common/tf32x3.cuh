@@ -1,8 +1,8 @@
 // 3xTF32 products on Hopper's tensor cores, and the cp.async staging that
 // feeds them. Shared by the port's kernels whose fp32 products must hold
 // 1e-4 of their plain fp32 versions (`ssd_scan/csrc/ssd_scan.cu`, the
-// shared-negative backward in `sampled_ce/csrc/sampled_ce.cu`); each
-// includes this header by a path relative to itself.
+// shared-negative forward and backward in `sampled_ce/csrc/sampled_ce.cu`);
+// each includes this header by a path relative to itself.
 //
 // Why three products. One TF32 product (10-bit mantissa operands) misses
 // those holds by 4-50x (`tests/test_torch_ssd_scan.py` and

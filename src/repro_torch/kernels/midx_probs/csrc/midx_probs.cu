@@ -10,202 +10,288 @@
 //   lse  = logsumexp_k1(s1 + logψ)   (max-shifted)
 // and writes s1, s2, logψ [T, K] and lse [T], all fp32.
 //
-// What bounds it on the card. At decode (T = 8 slots, D = 2048, K = 64, RQ)
+// What bounds it on the card. At decode (T = 4 slots, D = 2048, K = 64, RQ)
 // the call reads both codebooks (2·64·2048·4 B = 1 MB) and z, and does about
-// 4.2 MFLOP: it is bound by bytes and, at one or two CTAs, by latency; the
-// FLOPs are negligible. The TPU kernel kept both codebooks resident in VMEM
-// for the whole grid; 1 MB of fp32 codebooks does not fit the 227 KB of
-// shared memory a Hopper CTA has, so this kernel streams them. Measured on
-// an H100, this first version is far from that bound: one CTA per 16 rows
-// leaves a decode wave on a single SM, whose shared-memory load rate (two
-// operand loads per FMA) then sets the time.
+// 2 MFLOP: it is bound by bytes (0.3 µs at 3.35 TB/s), and in practice by
+// how many SMs share the reading and by the launch latency; at training
+// (T = 1024, D = 200, K = 32) by its FLOPs. The TPU kernel kept both
+// codebooks resident in VMEM for the whole grid; 1 MB of fp32 codebooks
+// does not fit a Hopper CTA's 227 KB of shared memory, and one CTA per
+// block of rows left a decode wave's reading to a single SM.
 //
-// Design (simple and right first; wgmma/TMA and more CTAs at tiny T are
-// later work):
-//   - one CTA of 256 threads per block of TB = 16 query rows; the ragged
-//     edge (t >= T) is masked in the kernel, T is never padded;
-//   - a loop over D in chunks of DC = 32 stages the z chunk(s) and both
-//     codebook chunks in shared memory (row stride DC + 1: no bank
-//     conflicts across codewords);
-//   - each thread owns up to 4 (row, codeword) outputs of s1 and of s2 and
-//     accumulates them in fp32 registers with FMA (no TF32), always in
-//     ascending d, so a row's result does not depend on T or on its block;
-//   - after the loop the [K, K] counts tile reuses the staging area; ψ is a
-//     sequential K-long FMA per (row, k1), and the row max and logsumexp
-//     are warp reductions.
-// Supports K <= 64 (the wrapper checks).
+// Design: two kernels, with the depth of the products split into fixed
+// slices.
+//   - partials (`midx_part_kernel`, grid (T/16, slices)): CTA (i, j) reads
+//     slice j (64 columns) of both codebooks and of the rows of z once,
+//     with 16-byte loads (plain loads where the widths or pointers do not
+//     allow them), into shared memory, and each thread accumulates 2 rows
+//     x 2 codewords of s1 and of s2 in registers over the slice, in
+//     ascending d (fp32 FMA, float4 shared reads: 8 FMA a read), into a
+//     workspace part [slices, T, 2K]. At llama decode that is 32 CTAs each
+//     reading 32 KB, where one SM read 1 MB;
+//   - finish (`midx_finish_kernel`, one warp per row): the row's partials
+//     summed in ascending slice order, then c2, ψ (a K-long FMA chain per
+//     k1, counts staged in shared memory), logψ and lse (warp reductions).
+// Why the order of sums keeps serving's guarantees. The slices are 64
+// columns wide and their number, ceil(Dc / 64), follows the codeword width
+// alone, never T: in a decode wave T is the number of live slots, which
+// differs between the batched run and the solo replay, and a slicing that
+// followed T would change a row's order of sums. Every other sum is the
+// row's own, in a fixed order. So a row's outputs are the same bits
+// whatever T is and whichever tile holds it: batched == solo, and bitwise
+// replay. The count is decided here alone (`midx_probs_slices`, which the
+// wrapper asks to size the workspace). Supports K <= 64 (the wrapper
+// checks).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TB = 16;                      // query rows per CTA
-constexpr int DC = 32;                      // D chunk per staging step
 constexpr int KMAX = 64;                    // largest codebook size
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int PER = (TB * KMAX + THREADS - 1) / THREADS;  // outputs/thread
-constexpr int LD = DC + 1;                  // padded row stride
-constexpr int STAGE = 2 * TB * LD + 2 * KMAX * LD;
-static_assert(KMAX * (KMAX + 1) <= STAGE,
-              "the counts tile must fit the staging area it reuses");
+constexpr int DS = 64;                      // columns of one slice
+constexpr int LDS = DS + 4;                 // shared row stride: 16-byte
+                                            // rows, conflict-free float4 reads
+constexpr int TR = 16;                      // query rows of a partials CTA
+constexpr int THREADS = 256;                // 8 warps of 2 rows
+constexpr int RW = TR / (THREADS / 32);     // rows of a warp
+constexpr int FR = 8;                       // rows of a finish CTA, a warp each
+constexpr int V4 = DS / 4;                  // float4 columns of a slice row
+// 16-byte chunks of the two codebooks' slices, per thread
+constexpr int CB_LOADS = 2 * KMAX * V4 / THREADS;
+// counts entries of the finish's staging, per thread
+constexpr int CNT_LOADS = KMAX * KMAX / (FR * 32);
+static_assert(2 * KMAX * V4 % THREADS == 0 && TR * V4 == THREADS &&
+                  KMAX * KMAX % (FR * 32) == 0,
+              "the staging loops assume these sizes");
 
+__device__ __forceinline__ float4 load4(const float* __restrict__ p,
+                                        bool ok) {
+  return ok ? *reinterpret_cast<const float4*>(p)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Slice blockIdx.y of the rows blockIdx.x of z against both codebooks:
+// part[slice, t, k] = Σ_d z1[t, d] C1[k, d], part[slice, t, K + k] = Σ_d
+// z2[t, d] C2[k, d], over the slice's columns d in ascending order. VEC:
+// 16-byte global loads (Dc and D multiples of 4, 16-byte aligned
+// pointers); else plain loads. Both stage the same shared tiles, zeros past
+// T, K and Dc, so both give the same bits.
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
-midx_probs_kernel(const float* __restrict__ z, const float* __restrict__ cb1,
-                  const float* __restrict__ cb2,
-                  const float* __restrict__ counts,
-                  float* __restrict__ s1_out, float* __restrict__ s2_out,
-                  float* __restrict__ lpsi_out, float* __restrict__ lse_out,
-                  int T, int D, int K, int split) {
-  __shared__ float stage[STAGE];
-  __shared__ float s1s[TB][KMAX];
-  __shared__ float s2s[TB][KMAX];           // s2, then exp(s2 - c2)
-  __shared__ float l1s[TB][KMAX];           // s1 + logψ
-  __shared__ float c2s[TB];
-
-  float* z1s = stage;                       // [TB][LD]
-  float* z2s = stage + TB * LD;             // [TB][LD] (PQ only)
-  float* cb1s = stage + 2 * TB * LD;        // [KMAX][LD]
-  float* cb2s = cb1s + KMAX * LD;           // [KMAX][LD]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int t0 = blockIdx.x * TB;
+midx_part_kernel(const float* __restrict__ z, const float* __restrict__ cb1,
+                 const float* __restrict__ cb2, float* __restrict__ part,
+                 int T, int D, int K, int split) {
+  __shared__ __align__(16) float cs[2][KMAX][LDS];   // C1, C2 slices
+  __shared__ __align__(16) float zs[2][TR][LDS];     // z1, z2 (PQ) slices
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t0 = blockIdx.x * TR, d0 = blockIdx.y * DS;
   const int dc = split ? D / 2 : D;         // codeword width
-  const int nout = TB * K;
-  const float* zq2 = split ? z2s : z1s;
-
-  float acc1[PER];
-  float acc2[PER];
+  if constexpr (VEC) {
+    float4 v[CB_LOADS];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    acc1[i] = 0.f;
-    acc2[i] = 0.f;
+    for (int i = 0; i < CB_LOADS; ++i) {    // every load in flight at once
+      const int idx = tid + i * THREADS, book = idx / (KMAX * V4);
+      const int k = idx / V4 % KMAX, c = 4 * (idx % V4);
+      v[i] = load4((book ? cb2 : cb1) + (size_t)k * dc + d0 + c,
+                   k < K && d0 + c < dc);
+    }
+    float4 w[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = tid / V4, c = 4 * (tid % V4), t = t0 + r;
+      w[q] = load4(z + (size_t)t * D + q * dc + d0 + c,
+                   (q == 0 || split) && t < T && d0 + c < dc);
+    }
+#pragma unroll
+    for (int i = 0; i < CB_LOADS; ++i) {
+      const int idx = tid + i * THREADS, book = idx / (KMAX * V4);
+      *reinterpret_cast<float4*>(&cs[book][idx / V4 % KMAX][4 * (idx % V4)]) =
+          v[i];
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      *reinterpret_cast<float4*>(&zs[q][tid / V4][4 * (tid % V4)]) = w[q];
+  } else {
+    for (int idx = tid; idx < 2 * KMAX * DS; idx += THREADS) {
+      const int book = idx / (KMAX * DS), k = idx / DS % KMAX, c = idx % DS;
+      const bool ok = k < K && d0 + c < dc;
+      cs[book][k][c] = ok ? (book ? cb2 : cb1)[(size_t)k * dc + d0 + c] : 0.f;
+    }
+    for (int idx = tid; idx < 2 * TR * DS; idx += THREADS) {
+      const int q = idx / (TR * DS), r = idx / DS % TR, c = idx % DS;
+      const int t = t0 + r;
+      const bool ok = (q == 0 || split) && t < T && d0 + c < dc;
+      zs[q][r][c] = ok ? z[(size_t)t * D + q * dc + d0 + c] : 0.f;
+    }
   }
-
-  for (int d0 = 0; d0 < dc; d0 += DC) {
-    for (int e = tid; e < TB * DC; e += THREADS) {
-      const int r = e / DC, d = e % DC;
-      const int t = t0 + r, dd = d0 + d;
-      const bool ok = t < T && dd < dc;
-      z1s[r * LD + d] = ok ? z[(size_t)t * D + dd] : 0.f;
-      if (split) z2s[r * LD + d] = ok ? z[(size_t)t * D + dc + dd] : 0.f;
-    }
-    for (int e = tid; e < K * DC; e += THREADS) {
-      const int k = e / DC, d = e % DC;
-      const int dd = d0 + d;
-      const bool ok = dd < dc;
-      cb1s[k * LD + d] = ok ? cb1[(size_t)k * dc + dd] : 0.f;
-      cb2s[k * LD + d] = ok ? cb2[(size_t)k * dc + dd] : 0.f;
-    }
-    __syncthreads();
+  __syncthreads();
+  const int r0 = warp * RW;
+  if (t0 + r0 >= T) return;                 // no live row in this warp
+  const int zq2 = split ? 1 : 0;
+  float a1[RW][2] = {}, a2[RW][2] = {};
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int o = tid + i * THREADS;
-      if (o < nout) {
-        const int r = o / K, k = o % K;
-        const float* za = z1s + r * LD;
-        const float* zb = zq2 + r * LD;
-        const float* ca = cb1s + k * LD;
-        const float* cb = cb2s + k * LD;
-        float a1 = acc1[i], a2 = acc2[i];
-#pragma unroll 8
-        for (int d = 0; d < DC; ++d) {
-          a1 = fmaf(za[d], ca[d], a1);
-          a2 = fmaf(zb[d], cb[d], a2);
-        }
-        acc1[i] = a1;
-        acc2[i] = a2;
+  for (int d = 0; d < DS; d += 4) {
+    float4 c1[2], c2[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      c1[c] = *reinterpret_cast<const float4*>(&cs[0][lane + 32 * c][d]);
+      c2[c] = *reinterpret_cast<const float4*>(&cs[1][lane + 32 * c][d]);
+    }
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float4 x1 = *reinterpret_cast<const float4*>(&zs[0][r0 + r][d]);
+      const float4 x2 = *reinterpret_cast<const float4*>(&zs[zq2][r0 + r][d]);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        a1[r][c] = fmaf(x1.x, c1[c].x, a1[r][c]);
+        a1[r][c] = fmaf(x1.y, c1[c].y, a1[r][c]);
+        a1[r][c] = fmaf(x1.z, c1[c].z, a1[r][c]);
+        a1[r][c] = fmaf(x1.w, c1[c].w, a1[r][c]);
+        a2[r][c] = fmaf(x2.x, c2[c].x, a2[r][c]);
+        a2[r][c] = fmaf(x2.y, c2[c].y, a2[r][c]);
+        a2[r][c] = fmaf(x2.z, c2[c].z, a2[r][c]);
+        a2[r][c] = fmaf(x2.w, c2[c].w, a2[r][c]);
       }
     }
-    __syncthreads();
   }
-
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int o = tid + i * THREADS;
-    if (o < nout) {
-      s1s[o / K][o % K] = acc1[i];
-      s2s[o / K][o % K] = acc2[i];
-    }
-  }
-  float* cnt = stage;                       // [K][K + 1], staging is free
-  for (int e = tid; e < K * K; e += THREADS) {
-    cnt[(e / K) * (K + 1) + e % K] = counts[e];
-  }
-  __syncthreads();
-
-  for (int r = warp; r < TB; r += WARPS) {  // c2 = row max of s2
-    float m = -INFINITY;
-    for (int k = lane; k < K; k += 32) m = fmaxf(m, s2s[r][k]);
+  for (int r = 0; r < RW; ++r) {
+    const int t = t0 + r0 + r;
+    if (t >= T) continue;
+    float* out = part + ((size_t)blockIdx.y * T + t) * 2 * K;
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
+    for (int c = 0; c < 2; ++c) {
+      const int k = lane + 32 * c;
+      if (k < K) {
+        out[k] = a1[r][c];
+        out[K + k] = a2[r][c];
+      }
     }
-    if (lane == 0) c2s[r] = m;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
+  return x;
+}
+
+// Row t = blockIdx.x FR + warp: s1, s2 as the sums of its `slices`
+// partials in ascending slice order, then c2, ψ, logψ and lse. Lane l owns
+// codewords l and l + 32.
+__global__ void __launch_bounds__(FR * 32)
+midx_finish_kernel(const float* __restrict__ part,
+                   const float* __restrict__ counts,
+                   float* __restrict__ s1_out, float* __restrict__ s2_out,
+                   float* __restrict__ lpsi_out, float* __restrict__ lse_out,
+                   int T, int K, int slices) {
+  __shared__ float cnt[KMAX][KMAX + 1];
+  __shared__ float e2s[FR][KMAX];           // exp(s2 - c2) of each warp's row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float cv[CNT_LOADS];
+#pragma unroll
+  for (int i = 0; i < CNT_LOADS; ++i) {     // every load in flight at once
+    const int e = tid + i * FR * 32;
+    cv[i] = e < K * K ? counts[e] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < CNT_LOADS; ++i) {
+    const int e = tid + i * FR * 32;
+    if (e < K * K) cnt[e / K][e % K] = cv[i];
   }
   __syncthreads();
-
-  for (int o = tid; o < nout; o += THREADS) {
-    const int r = o / K, k = o % K;
-    const int t = t0 + r;
-    const float v2 = s2s[r][k];
-    if (t < T) {
-      s1_out[(size_t)t * K + k] = s1s[r][k];
-      s2_out[(size_t)t * K + k] = v2;
+  const int t = blockIdx.x * FR + warp;
+  if (t >= T) return;
+  bool own[2];
+  float s1[2] = {}, s2[2] = {};
+#pragma unroll
+  for (int c = 0; c < 2; ++c) own[c] = lane + 32 * c < K;
+#pragma unroll 16
+  for (int j = 0; j < slices; ++j) {        // 16 slices' loads in flight
+    const float* p = part + ((size_t)j * T + t) * 2 * K;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (own[c]) {
+        s1[c] += p[lane + 32 * c];
+        s2[c] += p[K + lane + 32 * c];
+      }
     }
-    s2s[r][k] = expf(v2 - c2s[r]);          // same thread, same element
   }
-  __syncthreads();
-
-  for (int o = tid; o < nout; o += THREADS) {
-    const int r = o / K, k1 = o % K;
-    const float* crow = cnt + k1 * (K + 1);
+  float c2 = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    if (own[c]) c2 = fmaxf(c2, s2[c]);
+  c2 = warp_max(c2);
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    if (own[c]) e2s[warp][lane + 32 * c] = expf(s2[c] - c2);
+  __syncwarp();
+  float l1[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (!own[c]) continue;
+    const int k1 = lane + 32 * c;
     float psi = 0.f;
-    for (int k2 = 0; k2 < K; ++k2) psi = fmaf(s2s[r][k2], crow[k2], psi);
-    const float lp = logf(fmaxf(psi, 1e-30f)) + c2s[r];
-    const int t = t0 + r;
-    if (t < T) lpsi_out[(size_t)t * K + k1] = lp;
-    l1s[r][k1] = s1s[r][k1] + lp;
+    for (int k2 = 0; k2 < K; ++k2) psi = fmaf(e2s[warp][k2], cnt[k1][k2], psi);
+    const float lp = logf(fmaxf(psi, 1e-30f)) + c2;
+    const size_t o = (size_t)t * K + k1;
+    s1_out[o] = s1[c];
+    s2_out[o] = s2[c];
+    lpsi_out[o] = lp;
+    l1[c] = s1[c] + lp;
   }
-  __syncthreads();
-
-  for (int r = warp; r < TB; r += WARPS) {  // lse = logsumexp(s1 + logψ)
-    float m = -INFINITY;
-    for (int k = lane; k < K; k += 32) m = fmaxf(m, l1s[r][k]);
+  const float m = warp_max(fmaxf(l1[0], l1[1]));
+  float acc = 0.f;
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
-    }
-    float acc = 0.f;
-    for (int k = lane; k < K; k += 32) acc += expf(l1s[r][k] - m);
+  for (int c = 0; c < 2; ++c)
+    if (own[c]) acc += expf(l1[c] - m);
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    }
-    if (lane == 0 && t0 + r < T) lse_out[t0 + r] = logf(acc) + m;
-  }
+  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (lane == 0) lse_out[t] = logf(acc) + m;
 }
 
 }  // namespace
 
 extern "C" int midx_probs_max_k() { return KMAX; }
 
+// The number of slices of a row's products: ceil(Dc / 64), Dc = D/2 (PQ) or
+// D (RQ). It takes no T, so a row's order of sums is the same in a batched
+// decode wave and in its solo replay.
+extern "C" int midx_probs_slices(int D, int split) {
+  return ((split ? D / 2 : D) + DS - 1) / DS;
+}
+
 // Launches on `stream`; allocates nothing and does not synchronise.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launches (0 on success). part is
+// the workspace [midx_probs_slices(D, split), T, 2K] fp32. The partials
+// take 16-byte loads where Dc and D are multiples of 4 and z, cb1 and cb2
+// are 16-byte aligned, else plain loads (the same bits).
 extern "C" int midx_probs_launch(const float* z, const float* cb1,
                                  const float* cb2, const float* counts,
                                  float* s1, float* s2, float* lpsi,
-                                 float* lse, int T, int D, int K, int split,
-                                 void* stream) {
+                                 float* lse, float* part, int T, int D,
+                                 int K, int split, void* stream) {
   if (K < 1 || K > KMAX || T < 0 || D < 1 || (split && D % 2)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T == 0) return 0;
-  const dim3 grid((T + TB - 1) / TB);
-  midx_probs_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      z, cb1, cb2, counts, s1, s2, lpsi, lse, T, D, K, split);
+  const int dc = split ? D / 2 : D, slices = midx_probs_slices(D, split);
+  const bool vec = dc % 4 == 0 && D % 4 == 0 &&
+                   ((uintptr_t)z | (uintptr_t)cb1 | (uintptr_t)cb2) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((T + TR - 1) / TR, slices);
+  if (vec)
+    midx_part_kernel<true><<<grid, THREADS, 0, s>>>(z, cb1, cb2, part, T, D,
+                                                    K, split);
+  else
+    midx_part_kernel<false><<<grid, THREADS, 0, s>>>(z, cb1, cb2, part, T, D,
+                                                     K, split);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  midx_finish_kernel<<<(T + FR - 1) / FR, FR * 32, 0, s>>>(
+      part, counts, s1, s2, lpsi, lse, T, K, slices);
   return (int)cudaGetLastError();
 }

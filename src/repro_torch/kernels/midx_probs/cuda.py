@@ -2,9 +2,11 @@
 
 The kernel (`csrc/midx_probs.cu`) replaces the JAX package's TPU kernel
 `kernels/midx_probs/midx_probs.py::_kernel`; its header says what bounds it
-on the card and how the design answers that. It has a plain C interface and
-is built by `kernels/build.py` (nvcc for sm_90a at first use, into
-`build/kernels/`) and loaded with `ctypes`.
+on the card and how the design answers that: two launches, partial scores
+per fixed slice of the codewords' columns, then a finish that sums them in
+ascending slice order. It has a plain C interface and is built by
+`kernels/build.py` (nvcc for sm_90a at first use, into `build/kernels/`)
+and loaded with `ctypes`.
 
 Nothing here runs at import time: the CPU test suite imports this module
 on a machine without nvcc or a card.
@@ -20,11 +22,13 @@ from repro_torch.kernels.build import KernelLibrary
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.midx_probs_launch.argtypes = [ctypes.c_void_p] * 8 + \
+    lib.midx_probs_launch.argtypes = [ctypes.c_void_p] * 9 + \
         [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.midx_probs_launch.restype = ctypes.c_int
     lib.midx_probs_max_k.argtypes = []
     lib.midx_probs_max_k.restype = ctypes.c_int
+    lib.midx_probs_slices.argtypes = [ctypes.c_int] * 2
+    lib.midx_probs_slices.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary(
@@ -39,7 +43,8 @@ def midx_probs_cuda(z: torch.Tensor, cb1: torch.Tensor, cb2: torch.Tensor,
     fp32, contiguous, on one CUDA device -> (s1, s2, log_psi [T, K],
     lse [T]). Raises on anything the kernel does not take, and when the
     launch reports an error. Adds one to `midx_probs_cuda.launches` per
-    launch."""
+    call (its two kernels, the partials and the finish, launch
+    together)."""
     tensors = (z, cb1, cb2, counts)
     if not all(t.is_cuda and t.device == z.device for t in tensors):
         raise ValueError("midx_probs_cuda: every operand must be on z's "
@@ -67,12 +72,15 @@ def midx_probs_cuda(z: torch.Tensor, cb1: torch.Tensor, cb2: torch.Tensor,
     lse = torch.empty((t,), dtype=torch.float32, device=z.device)
     if t == 0:
         return s1, s2, lpsi, lse
+    # the partial scores [slices, T, 2K]; the kernel decides the slices
+    part = torch.empty((lib.midx_probs_slices(d, int(split)), t, 2 * k),
+                       dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.midx_probs_launch(
             z.data_ptr(), cb1.data_ptr(), cb2.data_ptr(), counts.data_ptr(),
             s1.data_ptr(), s2.data_ptr(), lpsi.data_ptr(), lse.data_ptr(),
-            t, d, k, int(split), stream)
+            part.data_ptr(), t, d, k, int(split), stream)
     if err != 0:
         raise RuntimeError(f"midx_probs kernel launch failed: cudaError {err}")
     midx_probs_cuda.launches += 1

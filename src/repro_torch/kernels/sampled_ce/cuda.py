@@ -5,11 +5,12 @@
 `::_bwd_kernel` (`sampled_ce_pt_bwd`); `csrc/sampled_ce.cu` replaces
 `kernels/sampled_ce/sampled_ce.py::_kernel` (`sampled_ce`) and
 `::_bwd_dh_kernel` / `::_bwd_dne_kernel` (`sampled_ce_bwd`), the
-shared-negative pair, whose backward is three 3xTF32 tensor-core passes
-(`kernels/common/tf32x3.cuh`). Each header says what bounds its kernels on
-the card and how the design answers that. Both are built by `kernels/build.py`
-(nvcc for sm_90a at first use, into `build/kernels/`), one library per
-source, and loaded with `ctypes`.
+shared-negative pair: a forward of two kernels (per-tile logsumexp
+partials on 3xTF32 tensor-core tiles, then their merge) and a backward of
+three 3xTF32 tensor-core passes (`kernels/common/tf32x3.cuh`). Each header
+says what bounds its kernels on the card and how the design answers that.
+Both are built by `kernels/build.py` (nvcc for sm_90a at first use, into
+`build/kernels/`), one library per source, and loaded with `ctypes`.
 
 The per-token backward is two launches: a per-token kernel (dh, dlq and the
 per-occurrence coefficients), then a deterministic segmented reduction for
@@ -175,7 +176,7 @@ sampled_ce_pt_bwd_cuda.launches = 0
 
 # ------------------------------------------------------ shared negatives
 def _declare_shared(lib: ctypes.CDLL) -> None:
-    lib.sampled_ce_fwd_launch.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.sampled_ce_fwd_launch.argtypes = [_P] * 10 + [_I] * 6 + [_P]
     lib.sampled_ce_bwd_launch.argtypes = [_P] * 14 + [_I] * 6 + [_P]
     lib.sampled_ce_fwd_launch.restype = ctypes.c_int
     lib.sampled_ce_bwd_launch.restype = ctypes.c_int
@@ -186,7 +187,7 @@ SHARED_LIBRARY = KernelLibrary(
     _declare_shared)
 
 
-_SHARED_TILE = 64       # the backward's tile; its W workspace is padded to it
+_SHARED_TILE = 64       # the kernels' tile; the workspaces are cut by it
 
 
 def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra):
@@ -235,20 +236,30 @@ def sampled_ce_cuda(hidden: torch.Tensor, pos_emb: torch.Tensor,
     """Forward: hidden [B, S, D] fp32, pos_emb [B, S, D] and neg_emb
     [B, M, D] both fp32 or both bf16, log_q [B, M] fp32, neg_ids [B, M] /
     pos_ids [B, S] int64, contiguous, on one CUDA device -> (loss [B, S],
-    lse [B, S]) fp32. Adds one to `sampled_ce_cuda.launches` per launch."""
+    lse [B, S]) fp32. Adds one to `sampled_ce_cuda.launches` per forward
+    (its two kernels, the partials and their merge, launch together)."""
     b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
                                pos_ids)
     lib = SHARED_LIBRARY.load()
-    loss = torch.empty((b, s), dtype=torch.float32, device=hidden.device)
+    dev = hidden.device
+    loss = torch.empty((b, s), dtype=torch.float32, device=dev)
     lse = torch.empty_like(loss)
     if loss.numel() == 0:
         return loss, lse
-    with torch.cuda.device(hidden.device):
+    nt = -(-m // _SHARED_TILE)
+    # workspaces in one allocation: the (m, l) partials [B, S, M/64] of
+    # float pairs, the positive logits [B, S]
+    work = torch.empty(2 * b * s * nt + b * s, dtype=torch.float32,
+                       device=dev)
+    part = work.data_ptr()
+    pos = part + 8 * b * s * nt
+    vec = _vec(d, _VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
+    with torch.cuda.device(dev):
         err = lib.sampled_ce_fwd_launch(
             hidden.data_ptr(), pos_emb.data_ptr(), neg_emb.data_ptr(),
             log_q.data_ptr(), neg_ids.data_ptr(), pos_ids.data_ptr(),
-            loss.data_ptr(), lse.data_ptr(), b, s, m, d,
-            int(pos_emb.dtype == torch.bfloat16),
+            loss.data_ptr(), lse.data_ptr(), part, pos, b, s, m, d,
+            int(pos_emb.dtype == torch.bfloat16), vec,
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce")
     sampled_ce_cuda.launches += 1

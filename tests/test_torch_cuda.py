@@ -42,6 +42,36 @@ def test_cuda_kernel_matches_plain_version(kind):
             assert torch.all((a - b).abs() <= 1e-4 * b.abs().clamp(min=1))
 
 
+@pytest.mark.parametrize("kind", ["pq", "rq"])
+def test_cuda_kernel_rows_do_not_depend_on_t(kind):
+    """A row's outputs are the same bits alone (T = 1) as inside calls of
+    T = 4, 8, 33 and 512 rows (the kernel slices the products by D alone),
+    and the 16-byte and plain-load routes (z off a 16-byte boundary) give
+    the same bits."""
+    _need_card()
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    for d, k in ((200, 32), (2048, 64)):
+        g = torch.Generator(device="cuda").manual_seed(d)
+        dc = d // 2 if kind == "pq" else d
+        z = torch.randn((512, d), generator=g, device="cuda")
+        cb1 = 0.1 * torch.randn((k, dc), generator=g, device="cuda")
+        cb2 = 0.1 * torch.randn((k, dc), generator=g, device="cuda")
+        cnt = torch.randint(0, 3, (k, k), generator=g, device="cuda").float()
+        outs = {t: midx_probs_cuda(z[:t], cb1, cb2, cnt, split=kind == "pq")
+                for t in (4, 8, 33, 512)}
+        for r in (0, 3, 7, 32, 511):
+            solo = midx_probs_cuda(z[r:r + 1], cb1, cb2, cnt,
+                                   split=kind == "pq")
+            for t, got in outs.items():
+                if r < t:
+                    assert all(torch.equal(a[0], b[r])
+                               for a, b in zip(solo, got)), (d, r, t)
+        shifted = torch.empty(512 * d + 1, device="cuda")[1:].view(512, d)
+        shifted.copy_(z)
+        plain = midx_probs_cuda(shifted, cb1, cb2, cnt, split=kind == "pq")
+        assert all(torch.equal(a, b) for a, b in zip(plain, outs[512]))
+
+
 def test_cuda_kernel_rejects_what_it_cannot_take():
     _need_card()
     from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
@@ -176,9 +206,9 @@ def _shared_inputs(b, s, m, d, v, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_shared_sampled_ce_kernels_match_plain_version(dtype):
-    """Forward and the backward's kernels within 1e-4·max(1, |plain|); the
-    backward bitwise repeatable, and each sequence of a batch equal to that
-    sequence alone; ragged S, M and D (S and M off the backward's 64-row
+    """Forward and the backward's kernels within 1e-4·max(1, |plain|); both
+    bitwise repeatable, and each sequence of a batch equal to that sequence
+    alone; the all-colliding token's loss exactly 0; ragged S, M and D (S and M off the backward's 64-row
     tiles, D = 200 and 30 off its 64-column tiles, D = 30 also off the
     16-byte loads), and an empty S."""
     _need_card()
@@ -192,6 +222,7 @@ def test_shared_sampled_ce_kernels_match_plain_version(dtype):
         h, pe, ne, lq, neg, pos, g = _shared_inputs(b, s, m, d, v, dtype,
                                                     seed=s + m + d)
         got_f = sampled_ce_cuda(h, pe, ne, lq, neg, pos)
+        again_f = sampled_ce_cuda(h, pe, ne, lq, neg, pos)
         want_f = sampled_ce_fwd_ref(h, pe, ne, lq, neg, pos)
         got_b = sampled_ce_bwd_cuda(g, h, pe, ne, lq, neg, pos, got_f[1])
         again = sampled_ce_bwd_cuda(g, h, pe, ne, lq, neg, pos, got_f[1])
@@ -201,12 +232,18 @@ def test_shared_sampled_ce_kernels_match_plain_version(dtype):
             assert a.shape == w.shape
             assert torch.all((a - w).abs() <= 1e-4 * w.abs().clamp(min=1))
         assert all(torch.equal(a, w) for a, w in zip(got_b, again))
+        assert all(torch.equal(a, w) for a, w in zip(got_f, again_f))
+        if s > 0 and m > 2:             # the all-colliding token
+            assert float(got_f[0][0, 0]) == 0.0
         for row in range(b if b > 1 else 0):
             one = [t[row:row + 1].contiguous()
                    for t in (g, h, pe, ne, lq, neg, pos, got_f[1])]
             solo = sampled_ce_bwd_cuda(*one)
             assert all(torch.equal(a[0], w[row])
                        for a, w in zip(solo, got_b))
+            solo_f = sampled_ce_cuda(*one[1:7])
+            assert all(torch.equal(a[0], w[row])
+                       for a, w in zip(solo_f, got_f))
 
 
 def test_shared_sampled_ce_kernels_reject_what_they_cannot_take():

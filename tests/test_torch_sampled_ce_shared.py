@@ -40,6 +40,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
                                                  sampled_ce_cuda)
 from repro_torch.kernels.sampled_ce.ops import sampled_ce_op
+from repro_torch.core.sampled_softmax import (NEG_INF, NEG_INF_THRESHOLD,
+                                              corrected_logits)
 from repro_torch.kernels.sampled_ce.ref import sampled_ce_ref
 from repro_torch.models import heads
 from repro_torch.models.model import forward as tforward
@@ -173,6 +175,79 @@ def test_dispatch_and_cuda_wrappers_refuse_what_they_cannot_take():
     g = torch.ones((2, 4))
     with pytest.raises(ValueError, match="CUDA device"):
         sampled_ce_bwd_cuda(g, *args, g)
+
+
+def _tiled_forward(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
+                   tile=64):
+    """The CUDA forward's order of operations on the CPU: per 64-negative
+    tile, each token's max m of its corrected, collision-masked logits and
+    its sum l of exp(corr − m) over the valid entries (corr >
+    NEG_INF_THRESHOLD); the tiles' (m, l) merged in ascending tile order
+    by the online rule; the positive joined last. -> (loss, lse) [B, S]."""
+    b, s, _ = hidden.shape
+    m = neg_emb.shape[1]
+    logits = torch.matmul(hidden.float(), neg_emb.float().transpose(-1, -2))
+    corr = corrected_logits(logits, log_q.float()[:, None, :], m)
+    corr = torch.where(neg_ids[:, None, :] == pos_ids[:, :, None],
+                       corr.new_tensor(NEG_INF), corr)
+    nt = -(-m // tile)
+    corr = torch.cat([corr, corr.new_full((b, s, nt * tile - m), NEG_INF)],
+                     dim=-1).reshape(b, s, nt, tile)
+    m_t = corr.amax(dim=-1)                                   # [B, S, nt]
+    l_t = torch.where(corr > NEG_INF_THRESHOLD,
+                      torch.exp(corr - m_t[..., None]),
+                      torch.zeros_like(corr)).sum(dim=-1)
+    run_m = torch.full((b, s), NEG_INF)
+    run_l = torch.zeros((b, s))
+    for k in range(nt):
+        new_m = torch.maximum(run_m, m_t[..., k])
+        run_l = (run_l * torch.exp(run_m - new_m)
+                 + l_t[..., k] * torch.exp(m_t[..., k] - new_m))
+        run_m = new_m
+    pos = torch.sum(hidden.float() * pos_emb.float(), dim=-1)
+    m_fin = torch.maximum(run_m, pos)
+    l_fin = run_l * torch.exp(run_m - m_fin) + torch.exp(pos - m_fin)
+    lse = torch.log(torch.clamp(l_fin, min=1e-30)) + m_fin
+    return lse - pos, lse
+
+
+TILED_CASES = [
+    (2, 5, 20, 24, 300, jnp.float32, "hot"),      # one ragged tile
+    (2, 9, 130, 16, 5000, jnp.float32, "tile"),   # three tiles, one masked
+    (1, 3, 64, 8, 900, jnp.bfloat16, "tile"),     # one whole tile, masked
+    (3, 7, 70, 40, 200, jnp.bfloat16, "hot"),
+]
+
+
+@pytest.mark.parametrize("b,s,m,d,v,dtype,mask", TILED_CASES)
+def test_tiled_forward_order_matches_jax_kernel_and_plain(b, s, m, d, v,
+                                                          dtype, mask):
+    """The forward's per-tile partials and their merge give the JAX
+    kernel's and the plain version's loss and lse within 1e-5, with a
+    ragged last tile (M = 20, 70, 130), a token whose negatives of one
+    whole tile all collide with it, and a token whose negatives all
+    collide (loss exactly 0)."""
+    h, table, lq, neg, pos = _case(b, s, m, d, v, seed=m + d, dtype=dtype,
+                                   hot=mask == "hot")
+    if mask == "tile":                  # tile 1 (or 0) of token (0, 1)
+        lo = 64 if m > 64 else 0
+        neg[0, lo:lo + 64] = pos[0, 1]
+    args = _torch(h, table, lq, neg, pos)
+    loss, lse = _tiled_forward(*args)
+    want_loss, want_lse = dispatch.sampled_ce(*args)
+    torch.testing.assert_close(loss, want_loss, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+    for i in range(b):
+        kl, klse = jkernel(*_jax_seq(h, table, lq, neg, pos, i), block_t=8,
+                           block_m=8, interpret=True)
+        np.testing.assert_allclose(loss[i].numpy(), np.asarray(kl), atol=TOL,
+                                   rtol=TOL)
+        np.testing.assert_allclose(lse[i].numpy(), np.asarray(klse),
+                                   atol=TOL, rtol=TOL)
+    if mask == "hot":                   # every negative of token (0, 0)
+        assert float(loss[0, 0]) == 0.0
+        assert float(lse[0, 0]) == float(torch.sum(args[0][0, 0]
+                                                   * args[1][0, 0].float()))
 
 
 # ------------------------------------------------------------- samplers
@@ -461,18 +536,22 @@ def _emulated(matmul, model: str):
 
 
 def test_tf32x3_products_meet_the_hold(monkeypatch):
-    """The precision design of the CUDA backward, on the CPU: the plain
+    """The precision design of the CUDA kernels, on the CPU: the plain
     backward with its three products (the logits h·neᵀ, w·ne and
     (g·w)ᵀ·h) on TF32 operands, from the plain forward's lse, against the
-    plain fp32 backward, under the kernels' hold 1e-4·max(|plain|, min(1,
+    plain fp32 backward, and the forward's per-tile partials and merge
+    (`_tiled_forward`) with its logit product on TF32 operands against the
+    plain fp32 forward, under the kernels' hold 1e-4·max(|plain|, min(1,
     max |plain|)) per tensor. One sequence at llama3.2-1b's width (S=256,
     M=1024, D=2048, inputs drawn as `chip_smoke.py` draws them). One TF32
-    product misses the hold in dh (~4x), dne (~14x) and dlq (~6x); 3xTF32
-    summed exactly meets it with a margin of 5x or more (0.02 of it). The
-    tensor core truncates as it accumulates: over the logits' 2048-deep
-    reduction (768 mma) that alone misses the hold in dne (~1.8x; an H100
-    read 1.6x before the kernels took slabs), and summing 32-deep slabs
-    into fp32, as the kernels do, brings it back inside by 5x (~0.05)."""
+    product misses the hold in dh (~4x), dne (~14x) and dlq (~6x), and
+    takes ~0.8 of it in the forward's loss and lse; 3xTF32 summed exactly
+    meets it with a margin of 5x or more (0.02 of it; the forward ~0.002).
+    The tensor core truncates as it accumulates: over the logits'
+    2048-deep reduction (768 mma) that alone misses the hold in dne
+    (~1.8x; an H100 read 1.6x before the kernels took slabs), and summing
+    32-deep slabs into fp32, as the kernels do, brings it back inside by 5x
+    (~0.05; the forward ~0.003)."""
     from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
                                                     sampled_ce_fwd_ref)
     rng = np.random.default_rng(5)
@@ -488,19 +567,29 @@ def test_tf32x3_products_meet_the_hold(monkeypatch):
     g = torch.from_numpy(rng.random((1, s)).astype(np.float32))
     args = (h, torch.from_numpy(table[pos]), torch.from_numpy(table[neg]), lq,
             torch.from_numpy(neg), torch.from_numpy(pos))
-    lse = sampled_ce_fwd_ref(*args)[1]
+    want_f = sampled_ce_fwd_ref(*args)
+    lse = want_f[1]
     want = sampled_ce_bwd_ref(g, *args, lse)
     matmul = torch.matmul
-    ratios = {}
+    ratios, fwd = {}, {}
     for model in ("one", "exact", "truncating", "slabs"):
         monkeypatch.setattr(torch, "matmul", _emulated(matmul, model))
         got = sampled_ce_bwd_ref(g, *args, lse)
+        got_f = _tiled_forward(*args)
         monkeypatch.setattr(torch, "matmul", matmul)
-        ratios[model] = {}
-        for name, a, b in zip(("dh", "dpe", "dne", "dlq"), got, want):
-            limit = 1e-4 * b.abs().clamp(min=min(1.0, float(b.abs().max())))
-            ratios[model][name] = float(((a - b).abs() / limit).max())
+        ratios[model], fwd[model] = {}, {}
+        for out, names, gots, wants in ((ratios, ("dh", "dpe", "dne", "dlq"),
+                                         got, want),
+                                        (fwd, ("loss", "lse"), got_f,
+                                         want_f)):
+            for name, a, b in zip(names, gots, wants):
+                limit = 1e-4 * b.abs().clamp(
+                    min=min(1.0, float(b.abs().max())))
+                out[model][name] = float(((a - b).abs() / limit).max())
     assert ratios["one"]["dh"] > 2.0 and ratios["one"]["dne"] > 2.0, ratios
     assert max(ratios["exact"].values()) < 0.2, ratios     # 5x inside
     assert ratios["truncating"]["dne"] > 1.0, ratios       # misses
     assert max(ratios["slabs"].values()) < 0.2, ratios     # 5x inside
+    assert min(fwd["one"].values()) > 0.3, fwd             # near the hold
+    assert max(fwd["exact"].values()) < 0.02, fwd          # 50x inside
+    assert max(fwd["slabs"].values()) < 0.02, fwd          # 50x inside
