@@ -20,7 +20,8 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      shared CE) instructions in each kernel's SASS (none in a tensor-core
      kernel fails the run; without `cuobjdump`, "not checked");
   3. hold each kernel against its plain torch version on the card, at the
-     main paths' shapes and a sweep around them, with TF32 off; both
+     main paths' shapes and a sweep around them (the per-token CE also
+     with one id taking about half of the occurrences), with TF32 off; both
      sampled-CE backwards, the shared CE's forward and the RFF sampler
      must also repeat bit for bit, the sampler's ids may differ from the
      plain version's only at near-ties, and each row of a `midx_probs` call
@@ -74,7 +75,10 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      refreshes after steps 49 and 99): every step finite and applied, the
      last 5 steps' mean loss more than 0.1 below the first 5's; then two
      more 30-step runs (refresh every 10) must agree bit for bit — losses,
-     params, optimizer state and index; serve the trained model (8
+     params, optimizer state and index; the per-token backward at the last
+     step's own inputs held to its plain version, repeated bit for bit and
+     timed beside it, and the step's ids saved (`TRAIN_IDS`) for
+     `scripts/head_kernel_times.py`; serve the trained model (8
      requests, 16 tokens), with batched == solo on 2;
   8. train `llama3.2-1b` at full width (16 layers, d=2048, V=128 256) with
      its own pooled head (RQ, K=64, M=1024) through `train_loop`: 60 steps
@@ -374,9 +378,13 @@ def check_midx_probs(cuda_mod, ref_fn, buf, card: str):
     return worst, timings
 
 
-def sce_inputs(t: int, d: int, m: int, v: int, dtype, seed: int):
+def sce_inputs(t: int, d: int, m: int, v: int, dtype, seed: int,
+               hot_row: bool = False):
     """Per-token sampled-CE inputs on the card, with duplicate ids within
-    rows, ids repeated across rows and negative == positive collisions."""
+    rows, ids repeated across rows and negative == positive collisions.
+    hot_row: one id also takes every other negative from column 3 on and
+    every other positive, about half of all occurrences: the long segment
+    of the d(table) reduction that a frequent class gives a real step."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     h = 0.5 * torch.randn((t, d), generator=g, device="cuda")
@@ -390,6 +398,9 @@ def sce_inputs(t: int, d: int, m: int, v: int, dtype, seed: int):
     neg[:, ::3] = hot[pick]                     # repeats across rows
     neg[:, 1] = neg[:, 0]                       # duplicates within a row
     neg[::2, 2] = pos[::2]                      # collisions with the positive
+    if hot_row:
+        neg[:, 3::2] = hot[0]
+        pos[1::2] = hot[0]
     grad = torch.rand((t,), generator=g, device="cuda")   # linear: order 1
     return h, table, log_q, neg, pos, grad
 
@@ -481,11 +492,14 @@ def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     loosest = 0.0
     for v, d, m in ((10000, 200, 20), (128256, 2048, 64)):
         for dtype in (torch.float32, torch.bfloat16):
-            for t in (1, 7, 1024):
+            for t, hot in ((1, False), (7, False), (1024, False),
+                           (1024, True)):
                 h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, dtype,
-                                                     seed=t + d + m)
+                                                     seed=t + d + m,
+                                                     hot_row=hot)
                 where = (f"T={t} D={d} M={m} V={v} "
-                         f"{str(dtype).split('.')[-1]}")
+                         f"{str(dtype).split('.')[-1]}"
+                         + (" one hot row" if hot else ""))
                 _, errs, ratio, readings = hold_ce(
                     "sampled_ce_pt", sce.sampled_ce_pt_cuda,
                     sce.sampled_ce_pt_bwd_cuda, fwd_ref, bwd_ref,
@@ -498,34 +512,105 @@ def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
     log(f"[smoke] sampled_ce_pt vs plain: max_abs_err fwd={worst['fwd']:.3e} "
         f"bwd={worst['bwd']:.3e} over (V,D,M) in {{(10000,200,20),"
         f"(128256,2048,64)}}, fp32/bf16 table, T in {{1,7,1024}}, with "
-        f"duplicate, repeated and colliding ids, g ~ U(0,1) (tol "
+        f"duplicate, repeated and colliding ids, and at T=1024 also with "
+        f"one id taking about half of the occurrences, g ~ U(0,1) (tol "
         f"{REL_TOL}*max(|ref|, min(1, max|ref|)) per tensor, for both table "
         f"dtypes: both sides upcast the same table values; largest "
         f"err/limit {loosest:.4f}); backward bitwise repeatable")
     timings = {}
-    for name, (t, d, m, v, dtype) in (
-            ("paper-lm train", (1024, 200, 20, 10000, torch.float32)),
-            ("llama3.2-1b width", (1024, 2048, 64, 128256, torch.bfloat16))):
-        h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, dtype, seed=1)
+    for name, (t, d, m, v, dtype), hot in SCE_PT_TIMED:
+        h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, dtype, seed=1,
+                                             hot_row=hot)
         _, lse = sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
         where = (f"{name}, T={t} D={d} M={m} V={v} "
-                 f"{str(dtype).split('.')[-1]}")
+                 f"{str(dtype).split('.')[-1]}, longest segment "
+                 f"{longest_segment(neg, pos, v)}")
         elem = tab.element_size()
-        timings[name] = {
-            "fwd": time_ce(
-                "sampled_ce_pt fwd", where,
-                lambda: sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos),
-                lambda: fwd_ref(h, tab, lq, neg, pos),
-                sce_bound_ms(t, d, m, v, elem, neg, pos, backward=False),
-                buf, card),
-            "bwd": time_ce(
-                "sampled_ce_pt bwd", where,
-                lambda: sce.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos,
-                                                   lse),
-                lambda: bwd_ref(g, h, tab, lq, neg, pos, lse),
-                sce_bound_ms(t, d, m, v, elem, neg, pos, backward=True),
-                buf, card)}
+        timings[name] = {} if hot else {"fwd": time_ce(
+            "sampled_ce_pt fwd", where,
+            lambda: sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos),
+            lambda: fwd_ref(h, tab, lq, neg, pos),
+            sce_bound_ms(t, d, m, v, elem, neg, pos, backward=False),
+            buf, card)}
+        timings[name]["bwd"] = time_ce(
+            "sampled_ce_pt bwd", where,
+            lambda: sce.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, lse),
+            lambda: bwd_ref(g, h, tab, lq, neg, pos, lse),
+            sce_bound_ms(t, d, m, v, elem, neg, pos, backward=True),
+            buf, card)
     return worst, timings
+
+
+SCE_PT_TIMED = (               # (name, (T, D, M, V, table dtype), hot row)
+    ("paper-lm train", (1024, 200, 20, 10000, torch.float32), False),
+    ("llama3.2-1b width", (1024, 2048, 64, 128256, torch.bfloat16), False),
+    ("paper-lm train, one hot row", (1024, 200, 20, 10000, torch.float32),
+     True))
+#: Where the smoke saves the ids of the last step of its paper-lm per-token
+#: training run, for `scripts/head_kernel_times.py`.
+TRAIN_IDS = os.path.join(HERE, "build", "sampled_ce_pt_train_ids.pt")
+
+
+def longest_segment(neg: torch.Tensor, pos: torch.Tensor, v: int) -> int:
+    """The most occurrences of one table row among a step's ids: the
+    longest segment of the d(table) reduction."""
+    ids = torch.cat([neg.reshape(-1), pos.reshape(-1)])
+    return int(torch.bincount(ids, minlength=v).max())
+
+
+def keep_last_call(module, name: str):
+    """Replace `module.name` by a wrapper that keeps the arguments of its
+    latest call (in `box["args"]`); returns (box, undo). Wrap a caller of a
+    kernel's wrapper (`kernels.dispatch`), not the wrapper, whose launch
+    count names itself."""
+    fn, box = getattr(module, name), {}
+
+    def wrapper(*args):
+        box["args"] = args
+        return fn(*args)
+    setattr(module, name, wrapper)
+    return box, lambda: setattr(module, name, fn)
+
+
+def check_train_step_bwd(sce, bwd_ref, args, card: str):
+    """The per-token backward at the inputs of one step of the paper-lm
+    training run (its ids, hidden rows, table, g and lse): held to the plain
+    version (`sce_limit`) and bitwise repeatable, timed beside it; the ids
+    saved to `TRAIN_IDS`. Returns (ms, plain_ms, bound_ms, bound_by,
+    longest segment, max_abs_err)."""
+    g, h, tab, lq, neg, pos, lse = args
+    t, d = h.shape
+    m, v = lq.shape[1], tab.shape[0]
+    got = sce.sampled_ce_pt_bwd_cuda(*args)
+    again = sce.sampled_ce_pt_bwd_cuda(*args)
+    want = bwd_ref(*args)
+    torch.cuda.synchronize()
+    where = f"paper-lm train step ids, T={t} D={d} M={m} V={v}"
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"sampled_ce_pt_bwd is not bitwise repeatable at "
+                         f"{where}")
+    worst = 0.0
+    for name, a, b in zip(("dh", "dtab", "dlq"), got, want):
+        err = (a - b).abs()
+        ratio = float((err / sce_limit(b)).max())
+        if not torch.isfinite(a).all() or ratio > 1.0:
+            raise SystemExit(f"sampled_ce_pt_bwd {name} disagrees with the "
+                             f"plain version at {where}: {ratio:.3f} of the "
+                             f"limit")
+        worst = max(worst, float(err.max()))
+    longest = longest_segment(neg, pos, v)
+    os.makedirs(os.path.dirname(TRAIN_IDS), exist_ok=True)
+    torch.save({"neg_ids": neg.cpu(), "pos_ids": pos.cpu(), "v": v, "d": d},
+               TRAIN_IDS)
+    buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    timing = time_ce(
+        "sampled_ce_pt bwd", f"{where}, longest segment {longest}",
+        lambda: sce.sampled_ce_pt_bwd_cuda(*args), lambda: bwd_ref(*args),
+        sce_bound_ms(t, d, m, v, tab.element_size(), neg, pos,
+                     backward=True), buf, card)
+    log(f"[smoke] sampled_ce_pt_bwd at {where}: max_abs_err {worst:.3e}, "
+        f"bitwise repeatable; ids saved to {TRAIN_IDS}")
+    return (*timing, longest, worst)
 
 
 SHAPE = (4, 256, 1024, 2048)   # llama3.2-1b training: B, S, M, D
@@ -1251,6 +1336,8 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
         f"{batch * seq / step_s:.0f} tokens/s; peak memory {peak_gib:.2f} "
         f"GiB; launches " + ", ".join(f"{n} {k}" for k, n in
                                       zip(names, launches)))
+    log(f"[smoke] train {cfg.name} head={cfg.head.mode} "
+        f"proposal={cfg.head.proposal} losses: {json.dumps(hist)}")
     return params, index, launches, summary
 
 
@@ -1342,8 +1429,11 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
 # The port's kernels in a profile, by library: (label, name fragments).
 PORT_KERNELS = (
     ("midx_probs (2 kernels)", ("midx_part_kernel", "midx_finish_kernel")),
-    ("sampled_ce_pt", ("fwd_kernel<float, ", "bwd_rows_kernel",
-                       "dtab_kernel")),
+    ("sampled_ce_pt fwd", ("fwd_kernel<float, ",
+                           "fwd_kernel<__nv_bfloat16, ")),
+    ("sampled_ce_pt_bwd", ("bwd_rows_kernel", "occ_scan_kernel",
+                           "occ_place_kernel", "dtab_kernel")),
+    ("rff_sample (2 kernels)", ("rff_part", "rff_merge_kernel")),
     ("sampled_ce fwd (2 kernels)", ("fwd_part_kernel", "fwd_merge_kernel")),
     ("sampled_ce_bwd (3 kernels)", ("bwd_w_kernel", "bwd_dh_kernel",
                                     "bwd_dne_kernel")),
@@ -1484,7 +1574,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also profile one llama3.2-1b run per head, 5 "
-                         "train steps each of paper-lm and llama3.2-1b, one "
+                         "train steps each of paper-lm (MIDX, then "
+                         "rff-fused) and llama3.2-1b, one "
                          "long-prompt prefill, 3 train_4k steps, one "
                          "mamba2-370m prefill and 3 of its train steps")
     args = ap.parse_args()
@@ -1493,6 +1584,7 @@ def main() -> None:
         sys.exit(2)
     import repro_torch  # noqa: F401  (fails without the repository)
     from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import cuda as flash_cuda
     from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
     from repro_torch.kernels.midx_probs import cuda as midx_cuda
@@ -1598,9 +1690,17 @@ def main() -> None:
     counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
                 sce_cuda.sampled_ce_pt_bwd_cuda)
     cfg = get_config("paper-lm")
-    params, index, n_train, _ = train(
-        cfg, counters, ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd"),
-        steps=120, batch=16, seq=64, lr=3e-3)
+    last_bwd, undo = keep_last_call(dispatch, "sampled_ce_pt_bwd")
+    try:
+        params, index, n_train, _ = train(
+            cfg, counters,
+            ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd"),
+            steps=120, batch=16, seq=64, lr=3e-3)
+    finally:
+        undo()
+    step_bwd = check_train_step_bwd(sce_cuda, sampled_ce_pt_bwd_ref,
+                                    last_bwd["args"], card)
+    del last_bwd
     replay(cfg, steps=30, batch=16, seq=64, lr=3e-3, refresh_every=10,
            corpus=ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64,
                          seq_len=65, seed=0).sample(64))
@@ -1661,6 +1761,9 @@ def main() -> None:
     params, state, n_rff_train, _ = train(
         rff_paper, (rff_counter,), ("rff_sample",), steps=120, batch=16,
         seq=64, lr=3e-3)
+    if args.profile:
+        profile_train(rff_paper, params, state,
+                      "paper-lm rff-fused train step")
     _, _, n_rff_trained = serve(
         rff_paper.with_serve(max_slots=4, page_size=16, max_seq=32),
         head="rff-fused", requests=8, prompt=8, tokens=16, verify=2,
@@ -1741,6 +1844,16 @@ def main() -> None:
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
             "shape": "paper-lm train T=1024 D=200 M=20 V=10000 fp32"})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    rows[-1]["other_shapes"] = [
+        {"shape": f"{name} T={t} D={d} M={m} V={v} "
+                  f"{str(dtype).split('.')[-1]}",
+         **dict(zip(keys, sce_timings[name]["bwd"]))}
+        for name, (t, d, m, v, dtype), _ in SCE_PT_TIMED
+        if name != "paper-lm train"] + [
+        {"shape": "paper-lm train step ids T=1024 D=200 M=20 V=10000 fp32",
+         **dict(zip(keys, step_bwd[:4])), "longest_segment": step_bwd[4],
+         "max_abs_err": step_bwd[5]}]
     src = "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce.cu"
     for i, (kname, kind, line) in enumerate((
             ("sampled_ce", "fwd", "33"), ("sampled_ce_bwd", "bwd", "205"))):

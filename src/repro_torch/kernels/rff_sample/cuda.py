@@ -2,8 +2,8 @@
 
 The kernel (`csrc/rff_sample.cu`) replaces the JAX package's TPU kernel
 `kernels/rff_sample/rff_sample.py::_kernel`; its header says what bounds it
-on the card and why it runs as two launches (per-chunk partials, then an
-ordered merge). It has a plain C interface and is built by
+on the card and why it runs as two kernels (per-chunk partials, then an
+ordered merge) over one workspace. It has a plain C interface and is built by
 `kernels/build.py` (nvcc for sm_90a at first use, into `build/kernels/`)
 and loaded with `ctypes`.
 
@@ -23,12 +23,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.rff_sample_launch.argtypes = [_P] * 11 + [_I] * 4 + [_P]
-    for fn in (lib.rff_sample_launch, lib.rff_sample_max_r2,
-               lib.rff_sample_chunk):
-        fn.restype = ctypes.c_int
+    lib.rff_sample_launch.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+    lib.rff_sample_launch.restype = ctypes.c_int
     lib.rff_sample_max_r2.argtypes = []
-    lib.rff_sample_chunk.argtypes = []
+    lib.rff_sample_max_r2.restype = ctypes.c_int
+    lib.rff_sample_workspace_bytes.argtypes = [_I] * 3
+    lib.rff_sample_workspace_bytes.restype = ctypes.c_longlong
+    lib.max_r2 = lib.rff_sample_max_r2()      # read once, not per call
 
 
 LIBRARY = KernelLibrary(
@@ -65,11 +66,13 @@ def rff_sample_cuda(phi_z: torch.Tensor, phi_c: torch.Tensor,
     t, r2 = phi_z.shape
     n = phi_c.shape[0]
     lib = load()
-    chunks = -(-n // lib.rff_sample_chunk())
-    if not 1 <= r2 <= lib.rff_sample_max_r2():
+    if not 1 <= r2 <= lib.max_r2:
         raise ValueError(f"rff_sample_cuda supports 1 <= R2 <= "
-                         f"{lib.rff_sample_max_r2()}, got {r2}")
-    if n < 1 or chunks > 65535 or m < 0 or t * m >= 2**31:
+                         f"{lib.max_r2}, got {r2}")
+    # the partials and the row sums, carved by the C call from one block
+    # whose size it states (-1: sizes past its grids)
+    nbytes = lib.rff_sample_workspace_bytes(t, n, m)
+    if nbytes < 0:
         raise ValueError(f"rff_sample_cuda: unsupported sizes T={t} N={n} "
                          f"m={m}")
     dev = phi_z.device
@@ -77,18 +80,13 @@ def rff_sample_cuda(phi_z: torch.Tensor, phi_c: torch.Tensor,
     log_q = torch.empty((t, m), dtype=torch.float32, device=dev)
     if t == 0 or m == 0:
         return ids, log_q
-    pmax = torch.empty((chunks, t, m), dtype=torch.float32, device=dev)
-    pcol = torch.empty((chunks, t, m), dtype=torch.int32, device=dev)
-    pscore = torch.empty_like(pmax)
-    lmax = torch.empty((chunks, t), dtype=torch.float32, device=dev)
-    lsum = torch.empty_like(lmax)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rff_sample_launch(
             phi_z.data_ptr(), phi_c.data_ptr(), seeds.data_ptr(),
             t_ids.data_ptr(), ids.data_ptr(), log_q.data_ptr(),
-            pmax.data_ptr(), pcol.data_ptr(), pscore.data_ptr(),
-            lmax.data_ptr(), lsum.data_ptr(), t, n, r2, m, stream)
+            work.data_ptr(), t, n, r2, m, stream)
     if err != 0:
         raise RuntimeError(f"rff_sample kernel launch failed: cudaError {err}")
     rff_sample_cuda.launches += 1

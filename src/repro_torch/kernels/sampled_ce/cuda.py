@@ -12,10 +12,11 @@ says what bounds its kernels on the card and how the design answers that.
 Both are built by `kernels/build.py` (nvcc for sm_90a at first use, into
 `build/kernels/`), one library per source, and loaded with `ctypes`.
 
-The per-token backward is two launches: a per-token kernel (dh, dlq and the
-per-occurrence coefficients), then a deterministic segmented reduction for
-d(table). The host glue between them — the stable sort of the occurrence
-ids and the segment offsets — is `segments`, plain torch ops.
+The per-token backward is one C call over one workspace: a per-token
+kernel (dh, dlq, the per-occurrence coefficients and the rows' occurrence
+counts), the segment offsets and the placement of each occurrence in its
+row's segment, built on the card, then a deterministic segmented reduction
+for d(table), each row in ascending occurrence index.
 
 Nothing here runs at import time: the CPU test suite imports this module
 on a machine without nvcc or a card.
@@ -34,12 +35,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.sampled_ce_pt_fwd_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
-    lib.sampled_ce_pt_bwd_rows_launch.argtypes = [_P] * 10 + [_I] * 5 + [_P]
-    lib.sampled_ce_pt_dtab_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
-    for fn in (lib.sampled_ce_pt_fwd_launch, lib.sampled_ce_pt_bwd_rows_launch,
-               lib.sampled_ce_pt_dtab_launch, lib.sampled_ce_pt_max_m):
+    lib.sampled_ce_pt_bwd_launch.argtypes = [_P] * 11 + [_I] * 7 + [_P]
+    for fn in (lib.sampled_ce_pt_fwd_launch, lib.sampled_ce_pt_bwd_launch,
+               lib.sampled_ce_pt_max_m):
         fn.restype = ctypes.c_int
     lib.sampled_ce_pt_max_m.argtypes = []
+    lib.max_m = lib.sampled_ce_pt_max_m()     # read once, not per call
 
 
 LIBRARY = KernelLibrary(
@@ -77,9 +78,9 @@ def _check(hidden, table, log_q, neg_ids, pos_ids, *extra):
                          f"pos_ids{tuple(pos_ids.shape)}")
     m = log_q.shape[1]
     lib = load()
-    if m > lib.sampled_ce_pt_max_m():
-        raise ValueError(f"sampled_ce_pt_cuda supports M <= "
-                         f"{lib.sampled_ce_pt_max_m()}, got {m}")
+    if m > lib.max_m:
+        raise ValueError(f"sampled_ce_pt_cuda supports M <= {lib.max_m}, "
+                         f"got {m}")
     return lib, t, d, m
 
 
@@ -122,51 +123,41 @@ def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
 sampled_ce_pt_cuda.launches = 0
 
 
-def segments(neg_ids: torch.Tensor, pos_ids: torch.Tensor, v: int):
-    """Host glue of the d(table) reduction. The occurrences of token t are
-    its M negatives then its positive, flat index t·(M+1) + j. Returns
-    (order, seg): the occurrence indices sorted stably by row id, and
-    seg [V+1] with row v's occurrences at order[seg[v] : seg[v+1]] — in
-    ascending occurrence index, so the sum order is fixed."""
-    ids = torch.cat([neg_ids, pos_ids[:, None]], dim=1).reshape(-1)
-    sorted_ids, order = torch.sort(ids, stable=True)
-    seg = torch.searchsorted(
-        sorted_ids, torch.arange(v + 1, device=ids.device, dtype=ids.dtype))
-    return order, seg
-
-
 def sampled_ce_pt_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
                            table: torch.Tensor, log_q: torch.Tensor,
                            neg_ids: torch.Tensor, pos_ids: torch.Tensor,
                            lse: torch.Tensor):
     """Backward from the forward's lse: g/lse [T] fp32, the rest as the
     forward -> (dh [T, D], dtab [V, D], dlq [T, M]), all fp32.
-    Adds one to `sampled_ce_pt_bwd_cuda.launches` per backward (its two
-    kernels launch together)."""
+    Adds one to `sampled_ce_pt_bwd_cuda.launches` per backward (its memset
+    and four kernels launch together, in one C call)."""
     lib, t, d, m = _check(hidden, table, log_q, neg_ids, pos_ids, g, lse)
     dev = hidden.device
-    v = table.shape[0]
+    v, nocc = table.shape[0], t * (m + 1)
+    if nocc >= 2**31:
+        raise ValueError(f"sampled_ce_pt_bwd_cuda: T·(M+1) must stay below "
+                         f"2^31, got T={t} M={m}")
     dh = torch.empty((t, d), dtype=torch.float32, device=dev)
     dlq = torch.empty((t, m), dtype=torch.float32, device=dev)
-    coef = torch.empty((t, m + 1), dtype=torch.float32, device=dev)
     dtab = torch.empty((v, d), dtype=torch.float32, device=dev)
     if t == 0:
         return dh, dtab.zero_(), dlq
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the C call's scratch, carved from one block (`sampled_ce_pt.cu`,
+    # `sampled_ce_pt_bwd_launch`): coef [T(M+1)] fp32, the row counts [V],
+    # the segment offsets [V+1], the placed and the sorted occurrences
+    # [T(M+1)] each, int32
+    work = torch.empty(4 * (3 * nocc + 2 * v + 1), dtype=torch.uint8,
+                       device=dev)
     with torch.cuda.device(dev):
-        err = lib.sampled_ce_pt_bwd_rows_launch(
+        err = lib.sampled_ce_pt_bwd_launch(
             g.data_ptr(), hidden.data_ptr(), table.data_ptr(),
             log_q.data_ptr(), neg_ids.data_ptr(), pos_ids.data_ptr(),
-            lse.data_ptr(), dh.data_ptr(), dlq.data_ptr(), coef.data_ptr(),
-            t, d, m, int(table.dtype == torch.bfloat16),
-            _vec(d, _VEC_ELEMS[table.dtype], hidden, table, dh), stream)
-        _raise(err, "sampled_ce_pt_bwd (rows)")
-        order, seg = segments(neg_ids, pos_ids, v)
-        err = lib.sampled_ce_pt_dtab_launch(
-            hidden.data_ptr(), coef.data_ptr(), order.data_ptr(),
-            seg.data_ptr(), dtab.data_ptr(), v, d, m,
-            _vec(d, 4, hidden, dtab), stream)
-        _raise(err, "sampled_ce_pt_bwd (dtab)")
+            lse.data_ptr(), dh.data_ptr(), dlq.data_ptr(), dtab.data_ptr(),
+            work.data_ptr(), t, d, m, v, int(table.dtype == torch.bfloat16),
+            _vec(d, _VEC_ELEMS[table.dtype], hidden, table, dh),
+            _vec(d, 4, hidden, dtab),
+            torch.cuda.current_stream().cuda_stream)
+    _raise(err, "sampled_ce_pt_bwd")
     sampled_ce_pt_bwd_cuda.launches += 1
     return dh, dtab, dlq
 

@@ -149,6 +149,72 @@ def test_sampled_ce_kernels_match_plain_version(dtype):
         assert all(torch.equal(a, b) for a, b in zip(got_b, again))
 
 
+def _hold_pt_bwd(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        scale = min(1.0, float(b.abs().max()))
+        assert torch.all((a - b).abs()
+                         <= 1e-4 * b.abs().clamp(min=max(scale, 1e-30)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampled_ce_bwd_with_one_hot_row(dtype):
+    """One id takes about half of all occurrences (every other negative
+    from column 3 on, every other positive): the long segment that the
+    d(table) reduction sorts through its bitmap and splits over warps. Held
+    to the plain version and bitwise repeatable."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_pt_bwd_cuda,
+                                                     sampled_ce_pt_cuda)
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_pt_bwd_ref,
+                                                    sampled_ce_pt_fwd_ref)
+    for t, d, m, v in ((1024, 200, 20, 10000), (96, 64, 20, 500),
+                       (300, 30, 9, 50)):
+        h, tab, lq, neg, pos, g = _sce_inputs(t, d, m, v, dtype, seed=t)
+        neg[:, 3::2] = 7
+        pos[1::2] = 7
+        _, lse = sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+        got = sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, lse)
+        again = sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, lse)
+        want = sampled_ce_pt_bwd_ref(g, h, tab, lq, neg, pos,
+                                     sampled_ce_pt_fwd_ref(h, tab, lq, neg,
+                                                           pos)[1])
+        torch.cuda.synchronize()
+        assert int(torch.bincount(torch.cat([neg.reshape(-1), pos]))[7]) \
+            > t * (m + 1) // 3
+        _hold_pt_bwd(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampled_ce_bwd_load_routes_hold(dtype):
+    """`bwd_rows_kernel`'s 16-byte-vector route at several widths, and its
+    scalar route (D not a multiple of the vector, or an unaligned table),
+    each held to the plain version and bitwise repeatable."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce import cuda as sce
+    from repro_torch.kernels.sampled_ce.ref import sampled_ce_pt_bwd_ref
+    for t, d, m, v in ((1024, 200, 20, 10000), (37, 64, 13, 7),
+                       (130, 128, 64, 300), (5, 16, 1, 10)):
+        h, tab, lq, neg, pos, g = _sce_inputs(t, d, m, v, dtype, seed=d + m)
+        _, lse = sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+        got = sce.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, lse)
+        again = sce.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos, lse)
+        want = sampled_ce_pt_bwd_ref(g, h, tab, lq, neg, pos, lse)
+        torch.cuda.synchronize()
+        _hold_pt_bwd(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    h, tab, lq, neg, pos, g = _sce_inputs(64, 30, 9, 50, dtype, seed=3)
+    shifted = torch.empty(tab.numel() + 1, dtype=dtype,
+                          device="cuda")[1:].view(tab.shape)
+    shifted.copy_(tab)
+    for table in (tab, shifted):               # D = 30: no vectors
+        _, lse = sce.sampled_ce_pt_cuda(h, table, lq, neg, pos)
+        got = sce.sampled_ce_pt_bwd_cuda(g, h, table, lq, neg, pos, lse)
+        _hold_pt_bwd(got, sampled_ce_pt_bwd_ref(g, h, table, lq, neg, pos,
+                                                lse))
+
+
 def test_sampled_ce_kernels_reject_what_they_cannot_take():
     _need_card()
     from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda
@@ -340,6 +406,53 @@ def test_rff_sample_kernel_matches_plain_version(form):
         want_lq = torch.gather(logits, 1, ids.long()) - lse[:, None]
         assert torch.all((lq - want_lq).abs()
                          <= 1e-5 * want_lq.abs().clamp(min=1))
+
+
+def test_rff_sample_kernel_on_equal_logits():
+    """φ(C) holds each of 50 rows 40 times over (N = 2000, four chunks), and
+    φ(z) of row 0 is 0, so that every logit of the row is log 1e-8: many
+    columns share a logit and only the noise (and, on an exact tie, the
+    minimum column) decides. The draws equal the plain version's but at
+    near-ties, at most 1e-3 of them; log q holds."""
+    _need_card()
+    from repro_torch.kernels.rff_sample.cuda import rff_sample_cuda
+    from repro_torch.kernels.rff_sample.ref import (perturbed_values,
+                                                    rff_gumbel_ref,
+                                                    rff_scores)
+    pz, pc, seeds, t_ids = _rff_inputs(16, 50, 64, "rows", seed=11)
+    pc = pc.repeat(40, 1).contiguous()
+    pz[0] = 0.0
+    ids, lq = rff_sample_cuda(pz, pc, seeds, t_ids, 256)
+    want, _, lse = rff_gumbel_ref(pz, pc, seeds, t_ids, 256)
+    torch.cuda.synchronize()
+    logits = rff_scores(pz, pc)
+    a = perturbed_values(logits, seeds, t_ids, ids)
+    b = perturbed_values(logits, seeds, t_ids, want)
+    same = ids == want
+    assert bool((same | ((a - b).abs() <= 1e-5 * b.abs().clamp(min=1))).all())
+    assert float((~same).float().mean()) <= 1e-3
+    want_lq = torch.gather(logits, 1, ids.long()) - lse[:, None]
+    assert torch.all((lq - want_lq).abs() <= 1e-5 * want_lq.abs().clamp(min=1))
+
+
+@pytest.mark.parametrize("m", [20, 64, 1024])
+def test_rff_sample_rows_do_not_depend_on_t(m):
+    """Each row of a T = 4, 8 and 33 call is, bit for bit, that row drawn
+    alone (T = 1): the chunks, the blocks' draws and the merge's order
+    follow N and m alone."""
+    _need_card()
+    from repro_torch.kernels.rff_sample.cuda import rff_sample_cuda
+    pz, pc, seeds, t_ids = _rff_inputs(33, 5000, 64, "rows", seed=m)
+    outs = {t: rff_sample_cuda(pz[:t].contiguous(), pc, seeds[:t].contiguous(),
+                               t_ids[:t].contiguous(), m) for t in (4, 8, 33)}
+    for r in (0, 3, 7, 32):
+        solo = rff_sample_cuda(pz[r:r + 1].contiguous(), pc,
+                               seeds[r:r + 1].contiguous(),
+                               t_ids[r:r + 1].contiguous(), m)
+        for t, got in outs.items():
+            if r < t:
+                assert torch.equal(got[0][r], solo[0][0]), (m, r, t)
+                assert torch.equal(got[1][r], solo[1][0]), (m, r, t)
 
 
 def test_rff_sample_kernel_rejects_what_it_cannot_take():

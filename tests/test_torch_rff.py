@@ -38,7 +38,8 @@ from repro_torch.bridge import (params_from_numpy, params_to_numpy,
 from repro_torch.core import noise
 from repro_torch.index.lifecycle import IndexLifecycle
 from repro_torch.kernels.rff_sample.ops import rff_gumbel_sample
-from repro_torch.kernels.rff_sample.ref import perturbed_values, rff_scores
+from repro_torch.kernels.rff_sample.ref import (perturbed_values,
+                                                rff_gumbel_ref, rff_scores)
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import steps
 from repro_torch.launch.train import main as train_main
@@ -144,6 +145,100 @@ def test_plain_sampler_matches_the_reference_kernel_and_oracle(t, n, r, m):
                                 jnp.int32(7), m, use_kernel=use_kernel,
                                 interpret=use_kernel)
         _assert_same_draws(ids, lq, jids, jlq, logits, seeds, t_ids)
+
+
+def _ratio_draws(pz, pc, seeds, t_ids, m, chunk=512):
+    """The CUDA sampler's argmax (`rff_sample/csrc/rff_sample.cu`), written
+    out in torch: in each chunk of `chunk` columns a scan in ascending order
+    keeps the first maximum of s / E, s = max(φ(z)·φ(c), 1e-8), E = −log u,
+    compared as s·E_best > s_best·E; the chunks' winners are then compared
+    by log s − log E, the earlier chunk kept on a tie."""
+    s = torch.clamp(pz @ pc.T, min=1e-8)                         # [T, N]
+    t, n = s.shape
+    e = -torch.log(noise.uniform_noise(
+        seeds.reshape(-1, 1, 1), t_ids.reshape(-1, 1, 1),
+        torch.arange(m).reshape(1, -1, 1), torch.arange(n).reshape(1, 1, -1)))
+    best_v = torch.full((t, m), -float("inf"))
+    best_c = torch.zeros((t, m), dtype=torch.int64)
+    for c0 in range(0, n, chunk):
+        bs, be = torch.zeros((t, m)), torch.ones((t, m))
+        bc = torch.full((t, m), c0)
+        for j in range(c0, min(n, c0 + chunk)):
+            sj, ej = s[:, j:j + 1].expand(t, m), e[:, :, j]
+            win = sj * be > bs * ej
+            bs, be = torch.where(win, sj, bs), torch.where(win, ej, be)
+            bc = torch.where(win, j, bc)
+        v = torch.log(bs) - torch.log(be)
+        take = v > best_v
+        best_v = torch.where(take, v, best_v)
+        best_c = torch.where(take, bc, best_c)
+    return best_c
+
+
+@pytest.mark.parametrize("t,n,r,m,form", [
+    (8, 128, 64, 16, "reference"), (13, 200, 32, 5, "reference"),
+    (1, 64, 16, 3, "reference"), (20, 130, 64, 17, "reference"),
+    (4, 2500, 64, 64, "rows"),              # five chunks of 512 columns
+    (3, 300, 16, 40, "duplicates"),         # equal logits: the first column
+])
+def test_ratio_argmax_draws_what_the_plain_sampler_draws(t, n, r, m, form):
+    """The kernel's form of the Gumbel-max — one log per evaluation, the
+    argmax of s / (−log u) by cross-multiplying — picks the plain
+    `rff_gumbel_ref`'s column except where the two columns' perturbed
+    values are within 1e-5·max(1, |v|) (a near-tie). "duplicates": φ(C)
+    repeats each of 30 rows 10 times, so equal logits must give the
+    minimum column among equal perturbed values."""
+    rng = np.random.default_rng(t * 1000 + n)
+    pz = torch.from_numpy((np.abs(rng.standard_normal((t, r))) * 0.3)
+                          .astype(np.float32))
+    pc = torch.from_numpy(np.abs(rng.standard_normal((n, r)))
+                          .astype(np.float32))
+    if form == "duplicates":
+        pc = pc[:30].repeat(10, 1)
+    if form == "reference":
+        seeds, t_ids = torch.full((t,), 7), torch.arange(t)
+    else:
+        seeds = torch.from_numpy(rng.integers(0, 2**32, t))
+        t_ids = torch.zeros(t, dtype=torch.int64)
+    got = _ratio_draws(pz, pc, seeds, t_ids, m)
+    want, _, _ = rff_gumbel_ref(pz, pc, seeds, t_ids, m)
+    logits = rff_scores(pz, pc)
+    a = perturbed_values(logits, seeds, t_ids, got)
+    b = perturbed_values(logits, seeds, t_ids, want)
+    same = got == want.long()
+    assert bool((same | ((a - b).abs() <= TOL * b.abs().clamp(min=1))).all())
+    assert float((~same).float().mean()) <= 1e-3
+
+
+def test_the_kernels_filter_lets_through_every_column_that_can_win():
+    """The CUDA sampler skips the log of a column unless u passes a cheap
+    bound, ub > 2^(−s·ρ − c) with ub = 1.m − (1 − 2^-22) from the hash's
+    top 23 bits, ρ = fl(fl(E_best / s_best) · SLOPE) and c = 2^-16
+    (`rff_sample.cu`, `consider`). It must never refuse a column that the
+    exact compare s·E_best > s_best·E takes: checked here at u within a few
+    24-bit steps of the boundary, with 2^x computed 2^-21 high (a worse
+    error than ex2.approx's) and the exponent rounded twice (the kernel
+    fuses it)."""
+    slope = np.float32(1.4426950408889634 * (1.0 + 2e-6))
+    rng = np.random.default_rng(9)
+    n = 200_000
+    s = np.float32(10.0) ** rng.uniform(-8, 0.5, n).astype(np.float32)
+    bs = np.float32(10.0) ** rng.uniform(-8, 0.5, n).astype(np.float32)
+    be = rng.uniform(1e-7, 17.5, n).astype(np.float32)
+    thr = np.exp(-s.astype(np.float64) * be / bs)       # u at the boundary
+    k = np.clip(np.floor((thr - 2.0**-25) * 2**24) + rng.integers(-3, 4, n),
+                0, 2**24 - 1).astype(np.uint32)
+    h = (k << np.uint32(8)) | rng.integers(0, 256, n).astype(np.uint32)
+    u = (k.astype(np.float32) * np.float32(2.0**-24)
+         + np.float32(2.0**-25))
+    e = -np.log(u)
+    exact = s * be > bs * e
+    ub = ((np.uint32(0x3F800000) | (h >> np.uint32(9))).view(np.float32)
+          - np.float32(1 - 2.0**-22))
+    rho = (be / bs) * slope
+    p = np.exp2(-s * rho - np.float32(2.0**-16)) * np.float32(1 + 2.0**-21)
+    assert exact.sum() > 1000 and (~exact).sum() > 1000
+    assert not np.any(exact & ~(ub > p))
 
 
 def test_sampler_seeds_decorrelate_and_repeat():

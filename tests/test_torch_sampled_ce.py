@@ -1,6 +1,6 @@
 """Per-token sampled CE: the port's plain version and differentiable wrapper
 against the JAX package's Pallas kernels (interpret mode) and its jnp
-oracle, plus the host glue of the CUDA backward's segmented reduction. The
+oracle, plus the order of the CUDA backward's segmented reduction. The
 CUDA kernels are held to the plain version in `test_torch_cuda.py`.
 
 Tolerances: 1e-5 (atol and rtol) on fp32 forward values; for a bf16 table
@@ -20,7 +20,7 @@ from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import sampled_softmax as tss
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_pt_bwd_cuda,
-                                                 sampled_ce_pt_cuda, segments)
+                                                 sampled_ce_pt_cuda)
 from repro_torch.kernels.sampled_ce.ops import sampled_ce_pt_op
 from repro_torch.kernels.sampled_ce.ref import sampled_ce_pt_ref
 
@@ -106,10 +106,26 @@ def test_collisions_contribute_nothing():
                                rtol=TOL)
 
 
+def segments(neg_ids: torch.Tensor, pos_ids: torch.Tensor, v: int):
+    """The order in which the CUDA backward sums d(table), stated plainly
+    (`csrc/sampled_ce_pt.cu` builds it on the card). The occurrences of
+    token t are its M negatives then its positive, flat index t·(M+1) + j.
+    Returns (order, seg): the occurrence indices sorted stably by row id,
+    and seg [V+1] with row v's occurrences at order[seg[v] : seg[v+1]], in
+    ascending occurrence index. A row of at most 64 occurrences is summed
+    in that order in one chain; a longer one in up to 8 runs of
+    consecutive ranks, whose sums are then added in rank order."""
+    ids = torch.cat([neg_ids, pos_ids[:, None]], dim=1).reshape(-1)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    seg = torch.searchsorted(
+        sorted_ids, torch.arange(v + 1, device=ids.device, dtype=ids.dtype))
+    return order, seg
+
+
 def test_segments_give_the_scatter_in_a_fixed_order():
-    """The host glue of the CUDA d(table) reduction: summing coef·h over
-    each row's segment, in the order `segments` returns, is the scatter-add
-    that autograd computes."""
+    """The order of the CUDA d(table) reduction, stated plainly: summing
+    coef·h over each row's segment, in the order `segments` returns, is the
+    scatter-add that autograd computes."""
     t, m, v, d = 16, 6, 10, 5
     rng = np.random.default_rng(0)
     neg = torch.from_numpy(rng.integers(0, v, (t, m)))
