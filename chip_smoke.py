@@ -12,10 +12,11 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      midx_probs.cu`, `kernels/sampled_ce/csrc/sampled_ce_pt.cu` and
      `sampled_ce.cu`, `kernels/rff_sample/csrc/rff_sample.cu`, `kernels/
      ssd_scan/csrc/ssd_scan.cu`), and print what ptxas says; for the
-     flash, ssd_scan and shared-CE libraries, each kernel's registers and
-     spills (a spill in a tensor-core kernel fails the run: flash's bf16
-     kernels, the scan's kernels but its carry, the shared CE's forward
-     partials and backward) and, where `cuobjdump` is on the machine, the
+     flash, ssd_scan, shared-CE and per-token CE libraries, each kernel's
+     registers and spills (a spill in a tensor-core kernel fails the run:
+     flash's bf16 kernels, the scan's kernels but its carry, the shared
+     CE's forward partials and backward; the per-token CE has none) and,
+     where `cuobjdump` is on the machine, the
      count of HGMMA (wgmma; flash) or HMMA (mma.sync; the 3xTF32 scan and
      shared CE) instructions in each kernel's SASS (none in a tensor-core
      kernel fails the run; without `cuobjdump`, "not checked");
@@ -24,9 +25,11 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      with one id taking about half of the occurrences), with TF32 off; both
      sampled-CE backwards, the shared CE's forward and the RFF sampler
      must also repeat bit for bit, the sampler's ids may differ from the
-     plain version's only at near-ties, and each row of a `midx_probs` call
+     plain version's only at near-ties, each row of a `midx_probs` call
      must equal, bit for bit, that row alone (T = 1) inside calls of T = 4,
-     8, 33 and 512 rows; time each kernel and its plain version with CUDA
+     8, 33 and 512 rows, and a token of the per-token CE forward alone
+     must give the loss and lse it gives in a call of T = 1024, whose
+     repeat agrees bit for bit; time each kernel and its plain version with CUDA
      events (median of 50 cold-L2 launches) beside the bound (bytes over
      3.35 TB/s, operations over 67 TFLOP/s fp32; for the shared CE and the
      scan, matrix products over 3xTF32's 165 TFLOP/s, with the all-fp32
@@ -202,12 +205,30 @@ def kernel_label(mangled: str) -> str:
     return name
 
 
-def check_kernel_build(lib, label, tensor_core, instr: str) -> None:
+def pt_label(mangled: str) -> str:
+    """`fwd_ring_kernel bf16 vec8 TMA`, `dtab_kernel vec4`, ... for the
+    per-token sampled-CE library's kernels."""
+    got = re.search(r"\d((?:fwd|bwd|occ|dtab)(?:_[a-z]+)*_kernel)", mangled)
+    if not got:
+        return mangled[:60]
+    name = got[1]
+    if "bfloat16" in mangled:
+        name += " bf16"
+    elif re.search(r"kernelIf", mangled):
+        name += " fp32"
+    vec = re.search(r"Li(\d+)E", mangled)
+    name += f" vec{vec[1]}" if vec else ""
+    return name + {"Lb1E": " TMA", "Lb0E": " cp.async"}.get(
+        (re.search(r"Lb[01]E", mangled) or [""])[0], "")
+
+
+def check_kernel_build(lib, label, tensor_core, instr) -> None:
     """Phase 2 for a library: each kernel's registers and spills from ptxas
     and, where cuobjdump is on the machine, the count of `instr` (HGMMA for
     wgmma, HMMA for mma.sync) instructions in each kernel's SASS. A kernel
     for which `tensor_core(name)` holds fails the run if it spills or has
-    no such instruction."""
+    no such instruction. instr None: a library without tensor-core kernels,
+    whose registers and spills are only logged."""
     kernels, name = {}, None
     for line in lib.build_log.splitlines():
         got = re.search(r"Compiling entry function '(\S+)'", line)
@@ -229,6 +250,8 @@ def check_kernel_build(lib, label, tensor_core, instr: str) -> None:
             f"registers, {k.get('spills')} bytes of spill stores + loads")
         if tensor_core(name) and k.get("spills", 0) > 0:
             raise SystemExit(f"{lib.name}: the {name} kernel spills")
+    if instr is None:
+        return
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log(f"[smoke] {lib.name} SASS: cuobjdump not found, {instr} not "
@@ -517,6 +540,7 @@ def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
         f"{REL_TOL}*max(|ref|, min(1, max|ref|)) per tensor, for both table "
         f"dtypes: both sides upcast the same table values; largest "
         f"err/limit {loosest:.4f}); backward bitwise repeatable")
+    check_pt_fwd_rows(sce)
     timings = {}
     for name, (t, d, m, v, dtype), hot in SCE_PT_TIMED:
         h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, dtype, seed=1,
@@ -539,6 +563,36 @@ def check_sampled_ce(sce, fwd_ref, bwd_ref, buf, card: str):
             sce_bound_ms(t, d, m, v, elem, neg, pos, backward=True),
             buf, card)
     return worst, timings
+
+
+def check_pt_fwd_rows(sce) -> None:
+    """The per-token forward's rows are free of T: the loss and lse of a
+    token computed alone (T = 1) are bit for bit that token's in a call of
+    T = 1024, at both widths and table dtypes; and two calls of T = 1024
+    agree bit for bit."""
+    for v, d, m in ((10000, 200, 20), (128256, 2048, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            h, tab, lq, neg, pos, _ = sce_inputs(1024, d, m, v, dtype,
+                                                 seed=d + m)
+            full = sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+            again = sce.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+            where = f"T=1024 D={d} M={m} {str(dtype).split('.')[-1]}"
+            if not all(torch.equal(a, b) for a, b in zip(full, again)):
+                raise SystemExit(f"sampled_ce_pt is not bitwise repeatable "
+                                 f"at {where}")
+            for r in (0, 2, 3, 511, 1023):
+                solo = sce.sampled_ce_pt_cuda(
+                    h[r:r + 1], tab, lq[r:r + 1], neg[r:r + 1],
+                    pos[r:r + 1])
+                if not all(torch.equal(a[0], b[r])
+                           for a, b in zip(solo, full)):
+                    raise SystemExit(f"sampled_ce_pt: token {r} alone "
+                                     f"differs from token {r} of a call at "
+                                     f"{where}")
+    log("[smoke] sampled_ce_pt: loss and lse of tokens 0, 2, 3, 511, 1023 "
+        "alone (T=1) equal theirs in a T=1024 call bit for bit, and two "
+        "T=1024 calls agree bit for bit, over (V,D,M) in {(10000,200,20),"
+        "(128256,2048,64)}, fp32/bf16 table")
 
 
 SCE_PT_TIMED = (               # (name, (T, D, M, V, table dtype), hot row)
@@ -1429,7 +1483,7 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
 # The port's kernels in a profile, by library: (label, name fragments).
 PORT_KERNELS = (
     ("midx_probs (2 kernels)", ("midx_part_kernel", "midx_finish_kernel")),
-    ("sampled_ce_pt fwd", ("fwd_kernel<float, ",
+    ("sampled_ce_pt fwd", ("fwd_ring_kernel", "fwd_kernel<float, ",
                            "fwd_kernel<__nv_bfloat16, ")),
     ("sampled_ce_pt_bwd", ("bwd_rows_kernel", "occ_scan_kernel",
                            "occ_place_kernel", "dtab_kernel")),
@@ -1625,6 +1679,7 @@ def main() -> None:
                        lambda n: "carry" not in n, "HMMA")
     check_kernel_build(sce_cuda.SHARED_LIBRARY, kernel_label,
                        lambda n: n.startswith(("bwd", "fwd_part")), "HMMA")
+    check_kernel_build(sce_cuda.LIBRARY, pt_label, lambda n: False, None)
     mark("build")
 
     buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -1845,6 +1900,12 @@ def main() -> None:
             "library_ms": None,
             "shape": "paper-lm train T=1024 D=200 M=20 V=10000 fp32"})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    rows[-2]["other_shapes"] = [
+        {"shape": f"{name} T={t} D={d} M={m} V={v} "
+                  f"{str(dtype).split('.')[-1]}",
+         **dict(zip(keys, sce_timings[name]["fwd"]))}
+        for name, (t, d, m, v, dtype), hot in SCE_PT_TIMED
+        if name != "paper-lm train" and not hot]
     rows[-1]["other_shapes"] = [
         {"shape": f"{name} T={t} D={d} M={m} V={v} "
                   f"{str(dtype).split('.')[-1]}",

@@ -1,14 +1,14 @@
 """Host and card time of the port's `midx_probs`, shared-negative
-sampled-CE forward, RFF sampler and per-token sampled-CE backward calls,
-and of their plain versions, on one CUDA card.
+sampled-CE forward, RFF sampler and per-token sampled-CE forward and
+backward calls, and of their plain versions, on one CUDA card.
 
 At the shapes at which `chip_smoke.py` times these functions (the seven
 `midx_probs` shapes, the four `SHARED_TRAIN` shapes, the three
-`RFF_SHAPES`, the per-token backward's `SCE_PT_TIMED` shapes), on the
-smoke's own inputs, and for the per-token backward also at the ids of one
-step of the smoke's paper-lm training run (`chip_smoke.TRAIN_IDS`, which
-the smoke writes; "not measured" without it), it reads each call and its
-plain version three ways:
+`RFF_SHAPES`, the per-token CE's `SCE_PT_TIMED` shapes), on the smoke's
+own inputs, and for the per-token forward and backward also at the ids of
+one step of the smoke's paper-lm training run (`chip_smoke.TRAIN_IDS`,
+which the smoke writes; "not measured" without it), it reads each call
+and its plain version three ways:
 
 - `smoke_ms`: `chip_smoke.time_ms`, the smoke's timer: the median of 50
   calls, each after a 128 MB write that flushes the L2, CUDA events
@@ -19,17 +19,26 @@ plain version three ways:
   whole call before the card reaches it: the card's time alone;
 - `host_us` and `card_us`: the host's time to issue one call, and the
   card's time per call, over `--calls` calls issued back to back;
-- for the per-token backward also `kernels_us`: each CUDA kernel's (and
-  memset's) device µs a call under `torch.profiler`, over 20 calls.
+- for the per-token forward and backward also `kernels_us`: each CUDA
+  kernel's (and memset's) device µs a call under `torch.profiler`, over
+  20 calls.
 
 A `torch.add` of a [4, 2048] fp32 tensor is the gauge of the host's speed
 in the process. One JSON object per run on stdout. `--save PATH` keeps
-the outputs of the `rff_sample` and per-token backward calls (on the
-CPU); `--against PATH` compares this run's outputs with a saved run's:
-bit for bit, or the count of differing elements and the largest
-difference.
+the outputs of the `rff_sample` and per-token forward (loss, lse) and
+backward calls (on the CPU); `--against PATH` compares this run's outputs
+with a saved run's: bit for bit, or the count of differing elements and
+the largest difference. `--only` reads some of the five functions.
+`--host-against <checkout>/src` loads that checkout's per-token forward
+wrapper beside this one and times the host's issue of the two in turns
+in this one process (`host_ab`: rounds of back-to-back calls, this tree
+then the other), so that the process's own speed, which moves between
+processes, is the same for both.
 
     PYTHONPATH=src python3 scripts/head_kernel_times.py
+    PYTHONPATH=src python3 scripts/head_kernel_times.py --only sampled_ce_pt
+    PYTHONPATH=src python3 scripts/head_kernel_times.py --only sampled_ce_pt \
+        --host-against <older checkout>/src
 
 It calls only entry points that every version of the port since these
 kernels were ported has, so the same file measures an older checkout:
@@ -38,6 +47,7 @@ kernels were ported has, so the same file measures an older checkout:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -47,6 +57,8 @@ import time
 import torch
 
 SPIN_CYCLES = 1_000_000        # ~0.5 ms of the card's clock
+FUNCTIONS = ("midx_probs", "sampled_ce", "rff_sample", "sampled_ce_pt",
+             "sampled_ce_pt_bwd")
 
 
 def device_ms(fn, buf, flush, reps: int = 50, warm: int = 5) -> float:
@@ -102,6 +114,30 @@ def kernels_us(fn, calls: int = 20) -> dict:
     return res
 
 
+def load_other_wrapper(src: str):
+    """Another checkout's `kernels/sampled_ce/cuda.py`, as a module of its
+    own; its kernels build from that checkout's source."""
+    path = os.path.join(src, "repro_torch", "kernels", "sampled_ce",
+                        "cuda.py")
+    spec = importlib.util.spec_from_file_location("other_sce_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_ab(this, other, args, rounds: int = 9, calls: int = 500) -> dict:
+    """Host µs to issue one per-token forward call through this tree's
+    wrapper and the other's, in turns, `rounds` times each: the medians
+    and every round."""
+    got = {"this": [], "other": []}
+    for _ in range(rounds):
+        for name, mod in (("this", this), ("other", other)):
+            got[name].append(issue_us(
+                lambda: mod.sampled_ce_pt_cuda(*args), calls)[0])
+    return {**{f"{k}_median_us": statistics.median(v)
+               for k, v in got.items()}, "rounds_us": got}
+
+
 def compare(got: dict, want: dict) -> dict:
     """Per call and output: "bitwise equal", or the count of elements that
     differ and the largest absolute difference."""
@@ -128,6 +164,11 @@ def main() -> None:
                          "chip_smoke.py saves)")
     ap.add_argument("--save", default=None)
     ap.add_argument("--against", default=None)
+    ap.add_argument("--only", nargs="+", choices=FUNCTIONS, default=FUNCTIONS,
+                    help="the functions to read (default: all)")
+    ap.add_argument("--host-against", default=None,
+                    help="another checkout's src: time the host's issue of "
+                         "its per-token forward and this one's in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("head_kernel_times: torch sees no CUDA device")
@@ -139,7 +180,8 @@ def main() -> None:
     from repro_torch.kernels.rff_sample.ref import rff_gumbel_ref
     from repro_torch.kernels.sampled_ce import cuda as sce_cuda
     from repro_torch.kernels.sampled_ce.ref import (sampled_ce_fwd_ref,
-                                                    sampled_ce_pt_bwd_ref)
+                                                    sampled_ce_pt_bwd_ref,
+                                                    sampled_ce_pt_fwd_ref)
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke as smoke
@@ -163,6 +205,93 @@ def main() -> None:
                          "host_us": host, "card_us": card}
         return got
 
+    outputs = {}
+    if "midx_probs" in args.only:
+        read_midx_probs(out, read, smoke, midx_cuda, midx_probs_ref)
+    if "sampled_ce" in args.only:
+        out["sampled_ce"] = {}
+        for name, ((b, s, m, d), v) in smoke.SHARED_TRAIN.items():
+            h, pe, ne, lq, neg, pos, _ = smoke.shared_inputs(
+                b, s, m, d, v, torch.float32, seed=1)
+            out["sampled_ce"][name] = read(
+                lambda: sce_cuda.sampled_ce_cuda(h, pe, ne, lq, neg, pos),
+                lambda: sampled_ce_fwd_ref(h, pe, ne, lq, neg, pos))
+            del h, pe, ne, lq, neg, pos
+    if "rff_sample" in args.only:
+        out["rff_sample"] = {}
+        for name, (t, n, r2, m) in smoke.RFF_SHAPES.items():
+            pz, pc, seeds, t_ids = smoke.rff_inputs(t, n, r2, "rows", seed=1)
+            out["rff_sample"][name] = read(
+                lambda: rff_cuda.rff_sample_cuda(pz, pc, seeds, t_ids, m),
+                lambda: rff_gumbel_ref(pz, pc, seeds, t_ids, m),
+                plain_reps=5)
+            outputs[f"rff_sample {name}"] = rff_cuda.rff_sample_cuda(
+                pz, pc, seeds, t_ids, m)
+    shapes = [(name, shape, hot, None)
+              for name, shape, hot in smoke.SCE_PT_TIMED]
+    ids_path = args.ids or smoke.TRAIN_IDS
+    step = "paper-lm train step ids"
+    if os.path.exists(ids_path):
+        ids = torch.load(ids_path)
+        shapes.append((step, (
+            ids["pos_ids"].numel(), ids["d"], ids["neg_ids"].shape[1],
+            ids["v"], torch.float32), False, ids))
+    for fn in ("sampled_ce_pt", "sampled_ce_pt_bwd"):
+        if fn not in args.only:
+            continue
+        out[fn] = {}
+        if not os.path.exists(ids_path):
+            out[fn][step] = (f"not measured: {ids_path} is missing "
+                             "(chip_smoke.py writes it)")
+        for name, (t, d, m, v, dtype), hot, ids in shapes:
+            h, tab, lq, neg, pos, g = smoke.sce_inputs(t, d, m, v, dtype,
+                                                       seed=1, hot_row=hot)
+            if ids is not None:
+                neg, pos = ids["neg_ids"].cuda(), ids["pos_ids"].cuda()
+            _, lse = sce_cuda.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+            if fn == "sampled_ce_pt":
+                def kern():
+                    return sce_cuda.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+
+                def plain():
+                    return sampled_ce_pt_fwd_ref(h, tab, lq, neg, pos)
+            else:
+                def kern():
+                    return sce_cuda.sampled_ce_pt_bwd_cuda(g, h, tab, lq,
+                                                           neg, pos, lse)
+
+                def plain():
+                    return sampled_ce_pt_bwd_ref(g, h, tab, lq, neg, pos,
+                                                 lse)
+            out[fn][name] = {
+                "longest_segment": smoke.longest_segment(neg, pos, v),
+                **read(kern, plain, plain_reps=20),
+                "kernels_us": kernels_us(kern)}
+            outputs[f"{fn} {name}"] = kern()
+            del h, tab, lq, neg, pos, g, lse
+    if args.host_against:
+        other = load_other_wrapper(args.host_against)
+        out["sampled_ce_pt host_ab"] = {"other": args.host_against}
+        for name, (t, d, m, v, dtype), hot in smoke.SCE_PT_TIMED:
+            h, tab, lq, neg, pos, _ = smoke.sce_inputs(t, d, m, v, dtype,
+                                                       seed=1, hot_row=hot)
+            out["sampled_ce_pt host_ab"][name] = host_ab(
+                sce_cuda, other, (h, tab, lq, neg, pos))
+            del h, tab, lq, neg, pos
+    outputs = {k: [x.cpu() for x in v] for k, v in outputs.items()}
+    if args.save:
+        torch.save(outputs, args.save)
+    if args.against:
+        out["against"] = {"file": args.against, **compare(
+            outputs, torch.load(args.against))}
+    x = torch.randn((4, 2048), device="cuda")
+    sink = torch.empty_like(x)
+    out["torch.add host_us"] = issue_us(
+        lambda: torch.add(x, 1.0, out=sink), args.calls)[0]
+    print(json.dumps(out))
+
+
+def read_midx_probs(out: dict, read, smoke, midx_cuda, midx_probs_ref):
     out["midx_probs"] = {}
     for name, (t, d, k, split) in (
             ("paper-lm decode", (4, 200, 32, False)),
@@ -177,65 +306,6 @@ def main() -> None:
             lambda: midx_cuda.midx_probs_cuda(z, cb1, cb2, counts,
                                               split=split),
             lambda: midx_probs_ref(z, cb1, cb2, counts, split=split))
-    out["sampled_ce"] = {}
-    for name, ((b, s, m, d), v) in smoke.SHARED_TRAIN.items():
-        h, pe, ne, lq, neg, pos, _ = smoke.shared_inputs(
-            b, s, m, d, v, torch.float32, seed=1)
-        out["sampled_ce"][name] = read(
-            lambda: sce_cuda.sampled_ce_cuda(h, pe, ne, lq, neg, pos),
-            lambda: sampled_ce_fwd_ref(h, pe, ne, lq, neg, pos))
-        del h, pe, ne, lq, neg, pos
-    outputs = {}
-    out["rff_sample"] = {}
-    for name, (t, n, r2, m) in smoke.RFF_SHAPES.items():
-        pz, pc, seeds, t_ids = smoke.rff_inputs(t, n, r2, "rows", seed=1)
-        out["rff_sample"][name] = read(
-            lambda: rff_cuda.rff_sample_cuda(pz, pc, seeds, t_ids, m),
-            lambda: rff_gumbel_ref(pz, pc, seeds, t_ids, m), plain_reps=5)
-        outputs[f"rff_sample {name}"] = rff_cuda.rff_sample_cuda(
-            pz, pc, seeds, t_ids, m)
-    out["sampled_ce_pt_bwd"] = {}
-    shapes = [(name, shape, hot, None)
-              for name, shape, hot in smoke.SCE_PT_TIMED]
-    ids_path = args.ids or smoke.TRAIN_IDS
-    if os.path.exists(ids_path):
-        ids = torch.load(ids_path)
-        shapes.append(("paper-lm train step ids", (
-            ids["pos_ids"].numel(), ids["d"], ids["neg_ids"].shape[1],
-            ids["v"], torch.float32), False, ids))
-    else:
-        out["sampled_ce_pt_bwd"]["paper-lm train step ids"] = (
-            f"not measured: {ids_path} is missing (chip_smoke.py writes "
-            "it)")
-    for name, (t, d, m, v, dtype), hot, ids in shapes:
-        h, tab, lq, neg, pos, g = smoke.sce_inputs(t, d, m, v, dtype,
-                                                   seed=1, hot_row=hot)
-        if ids is not None:
-            neg, pos = ids["neg_ids"].cuda(), ids["pos_ids"].cuda()
-        _, lse = sce_cuda.sampled_ce_pt_cuda(h, tab, lq, neg, pos)
-
-        def bwd():
-            return sce_cuda.sampled_ce_pt_bwd_cuda(g, h, tab, lq, neg, pos,
-                                                   lse)
-        out["sampled_ce_pt_bwd"][name] = {
-            "longest_segment": smoke.longest_segment(neg, pos, v),
-            **read(bwd, lambda: sampled_ce_pt_bwd_ref(g, h, tab, lq, neg,
-                                                      pos, lse),
-                   plain_reps=20),
-            "kernels_us": kernels_us(bwd)}
-        outputs[f"sampled_ce_pt_bwd {name}"] = bwd()
-        del h, tab, lq, neg, pos, g, lse
-    outputs = {k: [x.cpu() for x in v] for k, v in outputs.items()}
-    if args.save:
-        torch.save(outputs, args.save)
-    if args.against:
-        out["against"] = {"file": args.against, **compare(
-            outputs, torch.load(args.against))}
-    x = torch.randn((4, 2048), device="cuda")
-    sink = torch.empty_like(x)
-    out["torch.add host_us"] = issue_us(
-        lambda: torch.add(x, 1.0, out=sink), args.calls)[0]
-    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -17,14 +17,58 @@
 //   dE[v] = Σ over every occurrence of v (as a negative or a positive) of
 //           its coefficient (g w_j, or g (p_pos − 1)) times h of its token.
 //
-// What bounds it on the card: bytes. Each token gathers M + 1 random rows
-// of the table (at paper-lm: T = 1024, M = 20, D = 200 fp32, about 17 MB;
-// at llama width: M = 64, D = 2048 bf16, about 270 MB) and does 2·(M+1)·D
-// FLOPs per token on them — about one FLOP per byte, far below the card's
-// ratio; the backward also writes the dense d(table) [V, D] fp32 (8 MB at
-// paper-lm, 1.05 GB at llama width, where that write is most of the
-// bound). The design keeps the [T, M, D] gather and the [T, M] logits out
-// of device memory and keeps many row loads in flight:
+// The forward: what bounds it on this card. It reads, per token, M + 1
+// random table rows, h and M ids and log q, and writes two floats: at
+// paper-lm (T = 1024, M = 20, D = 200 fp32) about 7 MB of distinct bytes,
+// ~2 µs at 3.35 TB/s, for 2·(M+1)·D FLOPs a token — one FLOP per byte, so
+// bytes, not operations. At that size the card is never near its memory
+// rate: a call is a few round trips to memory, and what costs is how many
+// of them run one after the other. The first design (a warp per token, the
+// rows read in dependent rounds: the positive's, then groups of 8
+// negatives, each in ceil(D / (32·VEC)) rounds) made about 8 of them a
+// token at paper-lm and 72 at llama width (M = 64, D = 2048 bf16, where a
+// token's 65 rows are 266 KB and the call ~270 MB of gathers: there the
+// memory rate does bound it).
+//
+// How the design answers that (`fwd_ring_kernel`, one CTA of FW warps a
+// token): warp 0 loads the token's ids, log q and positive id in one round
+// trip into shared memory; then all of the token's rows that fit go into
+// shared memory in one flight, on mbarriers: h and the positive's row on
+// one, the negatives in groups of JG = 8, a group to a stage of a ring of
+// up to MAX_NS stages, each on its own. At paper-lm the whole token (h and
+// 21 rows, 18 KB) is one flight and all 1024 CTAs fit on the card at once;
+// at llama width three stages (96 KB, two CTAs an SM) keep groups in flight
+// while a group's dots run, and the CTA refills a stage as soon as every
+// warp is done with it (the only CTA barrier in the loop). Dead columns
+// past M load nothing. The FW warps share a group's dots (a warp a row),
+// put the corrected logits in shared memory, and warp 0 folds them at the
+// end. Two ways to copy a row, measured on the card (PERF.md §6): rows of
+// 2 KB and more go by one bulk copy each (`cp.async.bulk`, the TMA),
+// which keeps the most bytes in flight (1.3× the other way at llama
+// width); shorter rows go by 16-byte `cp.async.ca` copies from every
+// thread, through L1, so that a row many tokens of an SM draw (a frequent
+// class) comes from L2 once an SM: bulk copies of one hot 800-byte row
+// from every CTA queue on the same L2 lines (2× slower with one hot row
+// at paper-lm). Where D and the pointers allow no 16-byte copies, or a
+// stage does not fit in shared memory, the first design runs (`fwd_kernel`,
+// plain loads).
+//
+// Why the bits are the first design's: only where a row comes from
+// changes. Every dot keeps `row_dot`'s lane mapping and FMA order (lane l
+// takes elements l·VEC + k·32·VEC in ascending k, a fixed FMA chain inside
+// each vector, then `warp_sum`'s xor butterfly), reading the same values
+// from shared memory instead of global memory; the corrected logits are
+// the same expressions; and both kernels fold through the same routines
+// (`fold_group`: online (m, l) over groups of 8 in ascending j, then
+// `finish_lse` with the positive). So a token's loss and lse depend on
+// nothing but the token (not on T, not on its CTA, not on the copy route),
+// and the backward, which recomputes the logits with `row_dot` and
+// `group_corr`, reads the same lse as before.
+//
+// The backward: what bounds it is bytes too (it also writes the dense
+// d(table) [V, D] fp32: 8 MB at paper-lm, 1.05 GB at llama width, where
+// that write is most of the bound). It keeps the [T, M, D] gather and the
+// [T, M] logits out of device memory and keeps many row loads in flight:
 //   - one warp per token row, WARPS rows per CTA; lanes split D into
 //     16-byte vectors (4 fp32 or 8 bf16, converted to fp32 in registers;
 //     a scalar path when D or the pointers do not allow vectors);
@@ -73,6 +117,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -196,6 +242,33 @@ __device__ __forceinline__ void group_corr(
   }
 }
 
+// The online logsumexp over one group of JG corrected logits, in ascending
+// k. Both forward kernels fold through it (and `finish_lse`), so they
+// give the same bits.
+__device__ __forceinline__ void fold_group(float& m, float& l,
+                                           const float (&corr)[JG]) {
+  float m_new = m;
+#pragma unroll
+  for (int k = 0; k < JG; ++k) m_new = fmaxf(m_new, corr[k]);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < JG; ++k) {
+    s += corr[k] > NEG_INF_THRESHOLD ? expf(corr[k] - m_new) : 0.f;
+  }
+  l = l * expf(m - m_new) + s;
+  m = m_new;
+}
+
+// The positive folded last: lse over the positive and the groups' (m, l).
+__device__ __forceinline__ float finish_lse(float m, float l, float pos) {
+  const float m_fin = fmaxf(m, pos);
+  const float l_fin = l * expf(m - m_fin) + expf(pos - m_fin);
+  return logf(fmaxf(l_fin, 1e-30f)) + m_fin;
+}
+
+// The plain-load route: one warp per token, the rows read in rounds from
+// global memory. Runs where the ring cannot (no 16-byte copies, or a stage
+// too large for shared memory).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ h, const T* __restrict__ table,
@@ -215,23 +288,278 @@ fwd_kernel(const float* __restrict__ h, const T* __restrict__ table,
     float corr[JG];
     group_corr<T, VEC>(hrow, table, lq_row, id_row, pid, j0, M, D, log_m,
                        lane, corr);
-    float m_new = m;
-#pragma unroll
-    for (int k = 0; k < JG; ++k) m_new = fmaxf(m_new, corr[k]);
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < JG; ++k) {
-      s += corr[k] > NEG_INF_THRESHOLD ? expf(corr[k] - m_new) : 0.f;
-    }
-    l = l * expf(m - m_new) + s;
-    m = m_new;
+    fold_group(m, l, corr);
   }
-  const float m_fin = fmaxf(m, pos);
-  const float l_fin = l * expf(m - m_fin) + expf(pos - m_fin);
-  const float lse = logf(fmaxf(l_fin, 1e-30f)) + m_fin;
+  const float lse = finish_lse(m, l, pos);
   if (lane == 0) {
     loss[t] = lse - pos;
     lse_out[t] = lse;
+  }
+}
+
+// ------------------------------------------------- the forward's ring
+constexpr int FW = 4;                       // warps per token (ring route)
+constexpr int FTHREADS = 32 * FW;
+constexpr int MAX_NS = 8;                   // stages: M = 64 in one flight
+constexpr int RING_BUDGET = 110 * 1024;     // shared memory a CTA aims at:
+                                            // two CTAs an SM at llama width
+constexpr int BULK_ROW_BYTES = 2048;        // rows this long go by the TMA
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile("{\n\t.reg .pred p;\n\t"
+               "WAIT_%=:\n\t"
+               "mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n\t"
+               "@!p bra WAIT_%=;\n\t}"
+               ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// 16 bytes from global `src` to shared `dst`, both 16-byte aligned, through
+// L1 (`.ca`): a row that many tokens of an SM draw is fetched from L2 once.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
+               ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// This thread's arrival on `bar` once all its earlier cp.async copies have
+// landed (each of the CTA's threads arrives once a phase).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// The one arrival a bulk-copy phase waits for, besides its bytes (release:
+// the thread's shared-memory writes before it are seen by the waiters).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\t"
+               "mbarrier.arrive.shared.b64 st, [%0];\n\t}"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
+// aligned) by the TMA; completes its bytes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The CTA copies `n` rows of `cpr` 16-byte chunks, row r from src(r) to
+// dst + r·cpr·16, a chunk a thread in turn.
+template <typename Src>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int n, int cpr,
+                                          Src src) {
+  const int step_r = FTHREADS / cpr, step_q = FTHREADS % cpr;
+  int r = threadIdx.x / cpr, q = threadIdx.x % cpr;
+  while (r < n) {
+    cp_async16(dst + ((size_t)r * cpr + q) * 16,
+               reinterpret_cast<const unsigned char*>(src(r)) +
+                   (size_t)q * 16);
+    r += step_r;
+    q += step_q;
+    if (q >= cpr) {
+      q -= cpr;
+      ++r;
+    }
+  }
+}
+
+// One phase of `bar`: rows r < n of `rowb` bytes from src(r) to dst +
+// r·rowb. BULK: a bulk copy (TMA) a row from warp 0's lanes, the bytes
+// counted on the barrier; else 16-byte cp.async copies from every thread.
+template <bool BULK, typename Src>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int n,
+                                           int rowb, Src src,
+                                           uint64_t* bar) {
+  if constexpr (BULK) {
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0) mbar_expect_tx(bar, (uint32_t)(n * rowb));
+      __syncwarp();
+      for (int r = threadIdx.x; r < n; r += 32)
+        bulk_copy(dst + (size_t)r * rowb, src(r), (uint32_t)rowb, bar);
+      __syncwarp();
+      if (threadIdx.x == 0) mbar_arrive(bar);
+    }
+  } else {
+    copy_rows(dst, n, rowb / 16, src);
+    cp_async_arrive(bar);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_smem(const float* p, float (&out)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + i);
+    out[i] = v.x;
+    out[i + 1] = v.y;
+    out[i + 2] = v.z;
+    out[i + 3] = v.w;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_smem(const __nv_bfloat16* p,
+                                          float (&out)[VEC]) {
+  static_assert(VEC == 8, "bf16 vectors are 8 elements (16 bytes)");
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(b[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// `row_dot` on rows staged in shared memory: the same lane mapping, FMA
+// chain and butterfly, so the same bits.
+template <typename T, int VEC>
+__device__ __forceinline__ float smem_dot(const float* hs, const T* row,
+                                          int D, int lane) {
+  float acc = 0.f;
+  for (int base = lane * VEC; base < D; base += 32 * VEC) {
+    float hv[VEC], ev[VEC];
+    load_smem<VEC>(hs + base, hv);
+    load_smem<VEC>(row + base, ev);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc = fmaf(hv[e], ev[e], acc);
+  }
+  return warp_sum(acc);
+}
+
+// The ring's shared memory (dynamic), every piece on a 16-byte boundary
+// (D·elem is a multiple of 16 on this route): h [D] fp32, the positive's
+// row, ns stages of JG rows, then per column j < M its id, ln M + lq_j, a
+// collision flag and its corrected logit.
+template <typename T>
+size_t ring_bytes(int D, int M, int ns) {
+  return (size_t)D * sizeof(float) + (size_t)(1 + ns * JG) * D * sizeof(T) +
+         (size_t)M * (sizeof(int64_t) + 3 * sizeof(float));
+}
+
+// One CTA per token (see the header): the ids in one round trip, then all
+// the rows that fit in one flight of copies on mbarriers (BULK: a bulk
+// copy a row; else 16-byte cp.async), a group of JG to a stage; the FW
+// warps share the dots (a warp a row); a stage is refilled once every warp
+// is done with it; warp 0 folds in the first design's order.
+template <typename T, int VEC, bool BULK>
+__global__ void __launch_bounds__(FTHREADS)
+fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
+                const float* __restrict__ log_q,
+                const int64_t* __restrict__ neg_ids,
+                const int64_t* __restrict__ pos_ids, float* __restrict__ loss,
+                float* __restrict__ lse_out, int D, int M, int ns,
+                float log_m) {
+  __shared__ uint64_t bar[MAX_NS + 1];      // a barrier a stage; the last:
+                                            // h and the positive's row
+  __shared__ int64_t pid_s;
+  __shared__ float pos_s;
+  extern __shared__ __align__(16) unsigned char ring[];
+  float* hs = reinterpret_cast<float*>(ring);
+  T* prow = reinterpret_cast<T*>(hs + D);
+  T* stage = prow + D;                      // [ns][JG][D]
+  int64_t* ids = reinterpret_cast<int64_t*>(stage + (size_t)ns * JG * D);
+  float* sub = reinterpret_cast<float*>(ids + M);
+  int* hit = reinterpret_cast<int*>(sub + M);
+  float* corr = reinterpret_cast<float*>(hit + M);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t t = blockIdx.x;
+  const int G = (M + JG - 1) / JG;
+  if (warp == 0) {                          // the ids and pid: one round trip
+    const int64_t pid = pos_ids[t];
+    const float* lq_row = log_q + t * M;
+    const int64_t* id_row = neg_ids + t * M;
+#pragma unroll 2
+    for (int j = lane; j < M; j += 32) {
+      const int64_t id = id_row[j];
+      const float lq = lq_row[j];
+      ids[j] = id;
+      sub[j] = log_m + lq;
+      hit[j] = id == pid;
+    }
+    if (lane == 0) {
+      pid_s = pid;
+      for (int i = 0; i <= MAX_NS; ++i) mbar_init(&bar[i], BULK ? 1 : FTHREADS);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  __syncthreads();
+  const int64_t pid = pid_s;
+  // the first flight: h and the positive's row, then groups 0 .. ns-1
+  const int rowb = D * (int)sizeof(T);
+  if constexpr (BULK) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bar[MAX_NS], (uint32_t)(D * 4 + rowb));
+      bulk_copy(hs, h + t * D, (uint32_t)D * 4, &bar[MAX_NS]);
+      bulk_copy(prow, table + pid * D, (uint32_t)rowb, &bar[MAX_NS]);
+      mbar_arrive(&bar[MAX_NS]);
+    }
+  } else {
+    copy_rows(reinterpret_cast<unsigned char*>(hs), 1, D / 4,
+              [&](int) { return h + t * D; });
+    copy_rows(reinterpret_cast<unsigned char*>(prow), 1, rowb / 16,
+              [&](int) { return table + pid * D; });
+    cp_async_arrive(&bar[MAX_NS]);
+  }
+  for (int g = 0; g < min(G, ns); ++g) {
+    stage_rows<BULK>(
+        reinterpret_cast<unsigned char*>(stage + (size_t)g * JG * D),
+        min(JG, M - g * JG), rowb,
+        [&](int r) { return table + ids[g * JG + r] * D; }, &bar[g]);
+  }
+  mbar_wait(&bar[MAX_NS], 0);
+  if (warp == FW - 1) {
+    const float pos = smem_dot<T, VEC>(hs, prow, D, lane);
+    if (lane == 0) pos_s = pos;
+  }
+  for (int g = 0; g < G; ++g) {
+    const int s = g % ns, j0 = g * JG;
+    mbar_wait(&bar[s], (uint32_t)(g / ns) & 1u);
+    T* st = stage + (size_t)s * JG * D;
+    for (int k = warp; k < min(JG, M - j0); k += FW) {
+      const float dot = smem_dot<T, VEC>(hs, st + (size_t)k * D, D, lane);
+      if (lane == 0) corr[j0 + k] = hit[j0 + k] ? NEG_INF : dot - sub[j0 + k];
+    }
+    const int next = g + ns;
+    if (next < G) {                         // refill stage s with group next
+      __syncthreads();
+      stage_rows<BULK>(
+          reinterpret_cast<unsigned char*>(st), min(JG, M - next * JG), rowb,
+          [&](int r) { return table + ids[next * JG + r] * D; }, &bar[s]);
+    }
+  }
+  __syncthreads();                          // every logit and pos_s written
+  if (warp == 0) {
+    float m = NEG_INF, l = 0.f;
+    for (int j0 = 0; j0 < M; j0 += JG) {
+      float c[JG];
+#pragma unroll
+      for (int k = 0; k < JG; ++k) c[k] = j0 + k < M ? corr[j0 + k] : NEG_INF;
+      fold_group(m, l, c);
+    }
+    const float pos = pos_s;
+    const float lse = finish_lse(m, l, pos);
+    if (lane == 0) {
+      loss[t] = lse - pos;
+      lse_out[t] = lse;
+    }
   }
 }
 
@@ -510,13 +838,55 @@ int set_smem(const void* fn, size_t bytes) {
 
 float log_num_neg(int M) { return (float)log((double)(M > 0 ? M : 1)); }
 
+// The ring's stage count for (D, M): all of a token's groups where they fit
+// in RING_BUDGET (at most MAX_NS), else as many as fit, at least one; 0
+// where one stage does not fit in a CTA's shared memory.
+template <typename T>
+int ring_stages(int D, int M) {
+  const int groups = (M + JG - 1) / JG;
+  int ns = std::max(1, std::min(MAX_NS, groups));
+  while (ns > 1 && ring_bytes<T>(D, M, ns) > RING_BUDGET) --ns;
+  return ring_bytes<T>(D, M, ns) <= MAX_SMEM - 1024 ? ns : 0;
+}
+
+template <typename T, int VEC, bool BULK>
+int ring(const float* h, const void* table, const float* log_q,
+         const int64_t* neg_ids, const int64_t* pos_ids, float* loss,
+         float* lse, int nT, int D, int M, int ns, float log_m, size_t smem,
+         cudaStream_t stream) {
+  static size_t smem_set = 48 * 1024;       // the attribute, raised once
+  if (smem > smem_set) {
+    const int err =
+        set_smem((const void*)fwd_ring_kernel<T, VEC, BULK>, smem);
+    if (err) return err;
+    smem_set = smem;
+  }
+  fwd_ring_kernel<T, VEC, BULK><<<nT, FTHREADS, smem, stream>>>(
+      h, static_cast<const T*>(table), log_q, neg_ids, pos_ids, loss, lse, D,
+      M, ns, log_m);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int VEC>
 int fwd(const float* h, const void* table, const float* log_q,
         const int64_t* neg_ids, const int64_t* pos_ids, float* loss,
         float* lse, int nT, int D, int M, cudaStream_t stream) {
+  const float log_m = log_num_neg(M);
+  if constexpr (VEC > 1) {
+    const int ns = ring_stages<T>(D, M);
+    if (ns > 0) {
+      const size_t smem = ring_bytes<T>(D, M, ns);
+      if ((size_t)D * sizeof(T) >= BULK_ROW_BYTES) {
+        return ring<T, VEC, true>(h, table, log_q, neg_ids, pos_ids, loss,
+                                  lse, nT, D, M, ns, log_m, smem, stream);
+      }
+      return ring<T, VEC, false>(h, table, log_q, neg_ids, pos_ids, loss, lse,
+                                 nT, D, M, ns, log_m, smem, stream);
+    }
+  }
   fwd_kernel<T, VEC><<<(nT + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
       h, static_cast<const T*>(table), log_q, neg_ids, pos_ids, loss, lse, nT,
-      D, M, log_num_neg(M));
+      D, M, log_m);
   return (int)cudaGetLastError();
 }
 

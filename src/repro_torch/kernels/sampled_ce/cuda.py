@@ -12,6 +12,18 @@ says what bounds its kernels on the card and how the design answers that.
 Both are built by `kernels/build.py` (nvcc for sm_90a at first use, into
 `build/kernels/`), one library per source, and loaded with `ctypes`.
 
+The per-token forward is one C call and one CUDA kernel: a CTA a token
+whose rows are copied into shared memory (TMA bulk copies for rows of
+2 KB or more, 16-byte `cp.async` through L1 for shorter), all in one flight
+where they fit (paper-lm) and through a ring of 8-row groups where they
+do not (llama width); where D or the pointers allow no 16-byte copies, or
+a stage does not fit in shared memory, the first design's warp-per-token
+kernel with plain loads runs. Both fold in one order, so a token's loss
+and lse are the first design's bit for bit. The wrapper's host issue is
+kept short: the checks compare device indices, loss and lse come from one
+allocation, the stream is read as a raw handle, and the device is
+switched only when the operands are not on the current one.
+
 The per-token backward is one C call over one workspace: a per-token
 kernel (dh, dlq, the per-occurrence coefficients and the rows' occurrence
 counts), the segment offsets and the placement of each occurrence in its
@@ -52,25 +64,35 @@ _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}   # 16 bytes
 
 
 def _check(hidden, table, log_q, neg_ids, pos_ids, *extra):
+    """Raises on what the per-token kernels do not take; returns (lib, T, D,
+    M). The cheapest tests first: the device index (-1 off the card),
+    contiguity and dtypes, then the shapes."""
     tensors = (hidden, table, log_q, neg_ids, pos_ids, *extra)
-    if not all(x.is_cuda and x.device == hidden.device for x in tensors):
-        raise ValueError("sampled_ce_pt_cuda: every operand must be on "
-                         "hidden's CUDA device")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("sampled_ce_pt_cuda: operands must be contiguous")
+    dev = hidden.get_device()
+    for x in tensors:
+        if x.get_device() != dev or dev < 0 or not x.is_cuda:
+            raise ValueError("sampled_ce_pt_cuda: every operand must be on "
+                             "hidden's CUDA device")
+    for x in tensors:
+        if not x.is_contiguous():
+            raise ValueError("sampled_ce_pt_cuda: operands must be "
+                             "contiguous")
     if table.dtype not in _VEC_ELEMS:
         raise ValueError(f"sampled_ce_pt_cuda: table must be fp32 or bf16, "
                          f"got {table.dtype}")
-    if not all(x.dtype == torch.float32 for x in (hidden, log_q, *extra)):
+    f32 = torch.float32
+    if hidden.dtype != f32 or log_q.dtype != f32 \
+            or any(x.dtype != f32 for x in extra):
         raise ValueError("sampled_ce_pt_cuda: hidden, log_q, g and lse must "
                          "be fp32")
     if neg_ids.dtype != torch.int64 or pos_ids.dtype != torch.int64:
         raise ValueError("sampled_ce_pt_cuda: ids must be int64")
     t, d = hidden.shape
+    tshape = (t,)
     if (table.dim() != 2 or table.shape[1] != d or log_q.dim() != 2
-            or log_q.shape[0] != t or tuple(neg_ids.shape) != tuple(log_q.shape)
-            or tuple(pos_ids.shape) != (t,)
-            or any(tuple(x.shape) != (t,) for x in extra)):
+            or log_q.shape[0] != t or neg_ids.shape != log_q.shape
+            or pos_ids.shape != tshape
+            or any(x.shape != tshape for x in extra)):
         raise ValueError(f"sampled_ce_pt_cuda: bad shapes hidden"
                          f"{tuple(hidden.shape)} table{tuple(table.shape)} "
                          f"log_q{tuple(log_q.shape)} "
@@ -101,20 +123,27 @@ def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
                        pos_ids: torch.Tensor):
     """Forward: hidden [T, D] fp32, table [V, D] fp32/bf16, log_q [T, M]
     fp32, neg_ids [T, M] / pos_ids [T] int64 (ids in [0, V)), contiguous,
-    on one CUDA device -> (loss [T], lse [T]) fp32. Adds one to
-    `sampled_ce_pt_cuda.launches` per launch."""
+    on one CUDA device -> (loss [T], lse [T]) fp32, two rows of one
+    allocation. Adds one to `sampled_ce_pt_cuda.launches` per launch (one
+    C call, one CUDA kernel)."""
     lib, t, d, m = _check(hidden, table, log_q, neg_ids, pos_ids)
-    loss = torch.empty((t,), dtype=torch.float32, device=hidden.device)
-    lse = torch.empty_like(loss)
+    out = torch.empty((2, t), dtype=torch.float32, device=hidden.device)
+    loss, lse = out.unbind(0)
     if t == 0:
         return loss, lse
-    vec = _vec(d, _VEC_ELEMS[table.dtype], hidden, table)
-    with torch.cuda.device(hidden.device):
-        err = lib.sampled_ce_pt_fwd_launch(
-            hidden.data_ptr(), table.data_ptr(), log_q.data_ptr(),
-            neg_ids.data_ptr(), pos_ids.data_ptr(), loss.data_ptr(),
-            lse.data_ptr(), t, d, m, int(table.dtype == torch.bfloat16), vec,
-            torch.cuda.current_stream().cuda_stream)
+    dev = hidden.get_device()
+    op = out.data_ptr()
+    args = (hidden.data_ptr(), table.data_ptr(), log_q.data_ptr(),
+            neg_ids.data_ptr(), pos_ids.data_ptr(), op, op + 4 * t, t, d, m,
+            int(table.dtype == torch.bfloat16),
+            _vec(d, _VEC_ELEMS[table.dtype], hidden, table),
+            # the current stream's handle, without building a Stream object
+            torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch.cuda.current_device():
+        err = lib.sampled_ce_pt_fwd_launch(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.sampled_ce_pt_fwd_launch(*args)
     _raise(err, "sampled_ce_pt")
     sampled_ce_pt_cuda.launches += 1
     return loss, lse

@@ -46,6 +46,35 @@ def sampled_ce_pt_fwd_ref(hidden, table, log_q, neg_ids, pos_ids):
     return lse - pos_logit, lse
 
 
+def sampled_ce_pt_fold(hidden, table, log_q, neg_ids, pos_ids,
+                       group: int = 8):
+    """The forward kernels' order of the logsumexp, stated plainly
+    (`csrc/sampled_ce_pt.cu::fold_group`, `finish_lse`): an online (m, l)
+    over groups of `group` corrected logits in ascending j — m the running
+    max, each group's exponentials summed in ascending j, l rescaled by
+    exp(m_old − m_new) — then the positive folded last. A masked column
+    (a collision) adds 0; a token whose every column is masked gets
+    lse = pos. -> (loss [T], lse [T]) fp32."""
+    pos, logits = _all_logits(hidden, table, log_q, neg_ids, pos_ids)
+    corr = logits[:, 1:]
+    m = torch.full_like(pos, NEG_INF)
+    l = torch.zeros_like(pos)
+    zero = torch.zeros_like(pos)
+    for j0 in range(0, corr.shape[1], group):
+        c = corr[:, j0:j0 + group]
+        m_new = torch.maximum(m, c.max(dim=1).values)
+        s = zero
+        for k in range(c.shape[1]):
+            s = s + torch.where(c[:, k] > NEG_INF_THRESHOLD,
+                                torch.exp(c[:, k] - m_new), zero)
+        l = l * torch.exp(m - m_new) + s
+        m = m_new
+    m_fin = torch.maximum(m, pos)
+    l_fin = l * torch.exp(m - m_fin) + torch.exp(pos - m_fin)
+    lse = torch.log(torch.clamp(l_fin, min=1e-30)) + m_fin
+    return lse - pos, lse
+
+
 def sampled_ce_pt_bwd_ref(g, hidden, table, log_q, neg_ids, pos_ids, lse):
     """The backward kernels' outputs, by autograd through the plain forward
     (which recomputes lse, so `lse` is unused): (dh [T, D], dtab [V, D],

@@ -215,6 +215,63 @@ def test_sampled_ce_bwd_load_routes_hold(dtype):
                                                 lse))
 
 
+def _hold_pt_fwd(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert torch.all((a - b).abs() <= 1e-4 * b.abs().clamp(min=1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampled_ce_fwd_routes_hold(dtype):
+    """The forward against its plain version, bitwise repeatable, on each
+    route: the ring of bulk copies (all of a token's rows in one flight; a
+    ring that refills its stages, M = 64 at D = 128 and 2048), and the
+    plain-load kernel (D not a multiple of the vector, a table off a
+    16-byte boundary, a stage too large for shared memory at D = 8192
+    fp32); M = 1, JG = 8, JG + 1 and 64; T = 1 and 1024."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda
+    from repro_torch.kernels.sampled_ce.ref import sampled_ce_pt_fwd_ref
+    for t, d, m, v in ((1024, 200, 20, 10000), (1, 200, 20, 10000),
+                       (33, 64, 1, 50), (40, 64, 8, 100), (40, 64, 9, 100),
+                       (130, 128, 64, 300), (64, 2048, 64, 5000),
+                       (1024, 2048, 64, 128256), (5, 8192, 20, 100),
+                       (37, 30, 13, 7), (1, 30, 64, 90), (0, 16, 4, 10)):
+        h, tab, lq, neg, pos, _ = _sce_inputs(t, d, m, v, dtype, seed=d + m)
+        got = sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+        again = sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+        want = sampled_ce_pt_fwd_ref(h, tab, lq, neg, pos)
+        torch.cuda.synchronize()
+        _hold_pt_fwd(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    h, tab, lq, neg, pos, _ = _sce_inputs(64, 64, 20, 50, dtype, seed=5)
+    shifted = torch.empty(tab.numel() + 1, dtype=dtype,
+                          device="cuda")[1:].view(tab.shape)
+    shifted.copy_(tab)                          # D = 64, unaligned rows
+    got = sampled_ce_pt_cuda(h, shifted, lq, neg, pos)
+    again = sampled_ce_pt_cuda(h, shifted, lq, neg, pos)
+    _hold_pt_fwd(got, sampled_ce_pt_fwd_ref(h, shifted, lq, neg, pos))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampled_ce_fwd_rows_do_not_depend_on_t(dtype):
+    """A token's loss and lse alone (T = 1), and inside a call of 7 tokens,
+    are bit for bit those it gets in a call of T = 1024."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda
+    for d, m, v in ((200, 20, 10000), (2048, 64, 128256), (30, 13, 50)):
+        h, tab, lq, neg, pos, _ = _sce_inputs(1024, d, m, v, dtype, seed=m)
+        full = sampled_ce_pt_cuda(h, tab, lq, neg, pos)
+        for r in (0, 1, 2, 500, 1023):
+            solo = sampled_ce_pt_cuda(h[r:r + 1], tab, lq[r:r + 1],
+                                      neg[r:r + 1], pos[r:r + 1])
+            assert all(torch.equal(a[0], b[r]) for a, b in zip(solo, full))
+        part = sampled_ce_pt_cuda(h[9:16], tab, lq[9:16], neg[9:16],
+                                  pos[9:16])
+        assert all(torch.equal(a, b[9:16]) for a, b in zip(part, full))
+
+
 def test_sampled_ce_kernels_reject_what_they_cannot_take():
     _need_card()
     from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda

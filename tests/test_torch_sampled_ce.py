@@ -15,6 +15,7 @@ import torch
 
 from repro.core import sampled_softmax as jss
 from repro.kernels.sampled_ce.ops import sampled_ce_pt_op as jop
+from repro.kernels.sampled_ce.per_token import sampled_ce_pt as jkernel
 from repro.kernels.sampled_ce.ref import sampled_ce_pt_ref as jref
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import sampled_softmax as tss
@@ -22,7 +23,9 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_pt_bwd_cuda,
                                                  sampled_ce_pt_cuda)
 from repro_torch.kernels.sampled_ce.ops import sampled_ce_pt_op
-from repro_torch.kernels.sampled_ce.ref import sampled_ce_pt_ref
+from repro_torch.kernels.sampled_ce.ref import (sampled_ce_pt_fold,
+                                                sampled_ce_pt_fwd_ref,
+                                                sampled_ce_pt_ref)
 
 TOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
@@ -104,6 +107,42 @@ def test_collisions_contribute_nothing():
                             tneg[:, keep], tpos)
     np.testing.assert_allclose(loss.detach().numpy(), ref.numpy(), atol=TOL,
                                rtol=TOL)
+
+
+@pytest.mark.parametrize("t,d,m,v,dtype,hot,all_masked", [
+    (24, 16, 20, 300, jnp.float32, False, False),   # groups of 8, 8 and 4
+    (17, 32, 13, 40, jnp.float32, True, True),      # ragged M, collisions
+    (9, 8, 1, 20, jnp.float32, False, False),       # M = 1
+    (12, 16, 8, 30, jnp.bfloat16, True, False),     # M = 8: one group
+    (12, 16, 9, 30, jnp.float32, True, True),       # M = 9: a group of one
+])
+def test_fold_order_matches_plain_and_jax(t, d, m, v, dtype, hot,
+                                          all_masked):
+    """The CUDA forward's order of the logsumexp (`sampled_ce_pt_fold`:
+    (m, l) over groups of 8 in ascending j, then the positive) gives the
+    plain forward's and the JAX kernel's (interpret mode, chunks of 8)
+    loss and lse within 1e-5, with ragged M, collisions and a token whose
+    every negative is its positive (loss exactly 0, lse its positive
+    logit)."""
+    h, table, lq, neg, pos = _case(t, d, m, v, seed=t + m, dtype=dtype,
+                                   hot=hot)
+    if all_masked:
+        neg[0] = pos[0]
+    args = _torch(h, table, lq, neg, pos)
+    loss, lse = sampled_ce_pt_fold(*args)
+    want_loss, want_lse = sampled_ce_pt_fwd_ref(*args)
+    j_loss, j_lse = jkernel(*(jnp.asarray(x) for x in (h, table, lq, neg,
+                                                       pos)),
+                            interpret=True, block_t=8, chunk=8)
+    for got, want in ((loss, want_loss), (lse, want_lse),
+                      (loss, np.asarray(j_loss)), (lse, np.asarray(j_lse))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                                   rtol=TOL)
+    if all_masked:
+        assert float(loss[0]) == 0.0
+        pos_logit = (args[0][0] * args[1][args[4][0]].float()).sum()
+        np.testing.assert_allclose(float(lse[0]), float(pos_logit),
+                                   atol=TOL, rtol=TOL)
 
 
 def segments(neg_ids: torch.Tensor, pos_ids: torch.Tensor, v: int):
