@@ -107,6 +107,20 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      tokens/s and peak memory; `flash_attention`, `sampled_ce` and
      `sampled_ce_bwd` all launched; two 5-step runs at 2 layers and seq
      4096 (refresh every 3) agree bit for bit;
+10b. checkpoints and recovery, in the reference's format, under a
+     temporary directory removed at the end: `paper-lm` at full width with
+     its per-token MIDX head, 40 steps of 16 x 64 (checkpoints every 20,
+     refresh every 10) against 20 steps and a fresh `train_loop` that
+     resumes from the step-20 checkpoint to 40, all at total_steps=40:
+     losses, params, m, v and the index bitwise equal, `midx_probs`,
+     `sampled_ce_pt` and `sampled_ce_pt_bwd` launched in every leg; the
+     same for `llama3.2-1b` cut to 2 layers with its pooled head (10 + 10
+     against 20 steps of 4 x 256, refresh every 5; `sampled_ce` and
+     `sampled_ce_bwd`); then `paper-lm`'s chaos checks: a NaN step skipped
+     with params, m and v unchanged, a save killed at each of its four
+     phases leaving the previous checkpoint restorable bit for bit, and a
+     bit flip in the newest checkpoint walking resume back, with a NaN
+     step rolled back and replayed to the fault-free run's bits;
  11. serve `mamba2-370m` at full width (48 layers, d=1024, V=50 280,
      N=128, P=64, H=32, chunk 256, tied embeddings) from random weights, 4
      slots: the MIDX head with 2 prompts of 64 tokens (one chunk of 64)
@@ -120,7 +134,11 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      refresh every 10, with the same finite / applied / loss-drop checks,
      the median step, tokens/s and peak memory, `ssd_scan` launched 48
      times a step and both shared-CE kernels launched; serve the trained params and index with batched == solo
-     on 2; two 5-step runs cut to 2 layers agree bit for bit;
+     on 2; save that engine's serving checkpoint, restore it with
+     `Engine.from_checkpoint` (params bitwise equal) and serve the same 4
+     requests token for token (`ssd_scan` and `midx_probs` launched),
+     with the export's GiB and the save and restore seconds; two 5-step
+     runs cut to 2 layers agree bit for bit;
  13. print the kernels' JSON line, then the result line.
 Each main-path run sets the kernels' launch counters to 0 just before it
 and reads them just after; a kernel of the path that was never launched
@@ -612,15 +630,21 @@ def longest_segment(neg: torch.Tensor, pos: torch.Tensor, v: int) -> int:
     return int(torch.bincount(ids, minlength=v).max())
 
 
-def keep_last_call(module, name: str):
-    """Replace `module.name` by a wrapper that keeps the arguments of its
-    latest call (in `box["args"]`); returns (box, undo). Wrap a caller of a
-    kernel's wrapper (`kernels.dispatch`), not the wrapper, whose launch
-    count names itself."""
-    fn, box = getattr(module, name), {}
+def keep_call(module, name: str, at: int):
+    """Replace `module.name` by a wrapper that keeps copies of the arguments
+    of its call number `at` (from 0; in `box["args"]`; copies, because the
+    optimizer then updates the table in place) and counts its calls (in
+    `box["calls"]`); returns (box, undo). Wrap a caller of a kernel's
+    wrapper (`kernels.dispatch`), not the wrapper, whose launch count names
+    itself."""
+    fn, box = getattr(module, name), {"calls": 0}
 
     def wrapper(*args):
-        box["args"] = args
+        if box["calls"] == at:
+            box["args"] = tuple(a.detach().clone()
+                                if isinstance(a, torch.Tensor) else a
+                                for a in args)
+        box["calls"] += 1
         return fn(*args)
     setattr(module, name, wrapper)
     return box, lambda: setattr(module, name, fn)
@@ -1395,14 +1419,32 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
     return params, index, launches, summary
 
 
+def same_state(a, b) -> bool:
+    """Two train_loop results hold the same bits: params, the optimizer's
+    step and moments, and the head state (the MIDX index or the
+    proposal's state)."""
+    from repro_torch.index.build import MultiIndex
+    from repro_torch.optim.optimizers import tree_leaves
+
+    def leaves(run):
+        params, opt, index, _ = run
+        head = ([index.codebook1, index.codebook2, index.sorted_ids]
+                if isinstance(index, MultiIndex)
+                else [index[k] for k in sorted(index)])
+        return (tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
+                + head)
+
+    la, lb = leaves(a), leaves(b)
+    return a[1].step == b[1].step and len(la) == len(lb) and all(
+        torch.equal(x, y) for x, y in zip(la, lb))
+
+
 def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
            refresh_every: int, counter=None) -> list:
     """Two runs from one seed agree bit for bit: losses, params, optimizer
     state and head state (the MIDX index or the proposal's state). With a
     counter, its kernel must launch in each run. Returns the launches."""
-    from repro_torch.index.build import MultiIndex
     from repro_torch.launch.train import train_loop
-    from repro_torch.optim.optimizers import tree_leaves
     runs, launches = [], []
     for _ in range(2):
         if counter is not None:
@@ -1414,17 +1456,7 @@ def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
         if counter is not None:
             launches.append(counter.launches)
 
-    def state(run):
-        params, opt, index, _ = run
-        head = ([index.codebook1, index.codebook2, index.sorted_ids]
-                if isinstance(index, MultiIndex)
-                else [index[k] for k in sorted(index)])
-        return (tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
-                + head)
-
-    if runs[0][3] != runs[1][3] or not all(
-            torch.equal(a, b) for a, b in zip(state(runs[0]),
-                                              state(runs[1]))):
+    if runs[0][3] != runs[1][3] or not same_state(runs[0], runs[1]):
         raise SystemExit(f"{cfg.name} ({cfg.head.mode}, {cfg.head.proposal})"
                          f" training does not replay bit for bit on the card")
     if counter is not None and min(launches) <= 0:
@@ -1438,6 +1470,250 @@ def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
     return launches
 
 
+def ckpt_gib(root: str) -> float:
+    """The bytes of every file under `root`, in GiB."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files) / 2**30
+
+
+def train_leg(cfg, counters, **kw):
+    """One `train_loop` on the card with the counters set to 0 just before
+    and read just after. Returns (run, launches, seconds)."""
+    from repro_torch.launch.train import train_loop
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    run = train_loop(cfg, log_every=1000, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return run, [c.launches for c in counters], time.perf_counter() - t0
+
+
+def resume(cfg, counters, names, root: str, *, steps: int, every: int,
+           straight_ckpt: bool, **kw) -> dict:
+    """Phase 10b's resume: `steps` steps straight (checkpointed every
+    `every` when `straight_ckpt`) against steps/2, then a fresh train_loop
+    that resumes from the checkpoint to `steps`, all at the horizon
+    total_steps=steps. Losses, params, optimizer state and head state must
+    be bitwise equal, and every counter's kernel must launch in each leg.
+    Returns {"launches": [...], "seconds": [...], "gib": ...}."""
+    label = f"{cfg.name} L={cfg.num_layers} proposal={cfg.head.proposal}"
+    kw = dict(total_steps=steps, ckpt_every=every, **kw)
+    straight, n0, t0 = train_leg(
+        cfg, counters, steps=steps,
+        ckpt_dir=os.path.join(root, "straight") if straight_ckpt else None,
+        **kw)
+    leg_dir = os.path.join(root, "legs")
+    first, n1, t1 = train_leg(cfg, counters, steps=steps // 2,
+                              ckpt_dir=leg_dir, **kw)
+    gib = ckpt_gib(leg_dir)
+    second, n2, t2 = train_leg(cfg, counters, steps=steps, ckpt_dir=leg_dir,
+                               **kw)
+    if first[3] + second[3] != straight[3] or not same_state(second,
+                                                             straight):
+        raise SystemExit(f"{label}: {steps // 2} + {steps // 2} steps "
+                         f"resumed from a checkpoint != {steps} straight")
+    for leg, n in (("straight", n0), ("first leg", n1), ("resumed leg", n2)):
+        for name, k in zip(names, n):
+            if k <= 0:
+                raise SystemExit(f"{label} resume, {leg}: {name} was never "
+                                 f"launched on the main path")
+    log(f"[smoke] checkpoints: {label} {steps // 2} + {steps // 2} steps "
+        f"(resumed from the step-{steps // 2} checkpoint in a fresh "
+        f"train_loop) == {steps} straight, bit for bit: losses, params, "
+        f"m, v, head state (final loss {straight[3][-1]:.6f}); legs "
+        f"{t0:.1f}s / {t1:.1f}s / {t2:.1f}s; the first leg's checkpoint "
+        f"and serving export {gib:.3f} GiB; launches "
+        + ", ".join(f"{name} {a}/{b}/{c}" for name, a, b, c
+                    in zip(names, n0, n1, n2)))
+    return {"launches": [sum(x) for x in zip(n0, n1, n2)],
+            "seconds": [t0, t1, t2], "gib": gib}
+
+
+def chaos(cfg, counters, names, root: str, corpus) -> list:
+    """Phase 10b's chaos checks on `cfg` at full width: a NaN step is
+    skipped with params and moments unchanged; a save killed at each of
+    its four phases leaves the previous checkpoint restorable bit for bit;
+    a bit flip in the newest checkpoint makes resume walk back, and a NaN
+    step mid-run rolls back and replays to the fault-free run's bits.
+    Returns the launches of the recovered run."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import noise
+    from repro_torch.data import make_lm_stream
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import heads, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.resilience import (FaultInjector, FaultSpec,
+                                        GuardrailConfig, InjectedFault)
+    opt = adamw(1e-3)
+    params = init_params(cfg, device="cuda")
+    state = opt.init(params)
+    index = heads.init_head_state(cfg, params,
+                                  torch.Generator(device="cuda").manual_seed(1))
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in
+             make_lm_stream(corpus, 16, seed=0).batch_at(0).items()}
+    b, s = batch["tokens"].shape
+    keys = noise.train_keys(0, 0, b * s, "cuda")
+    step = steps_mod.make_train_step(cfg, opt)
+    before = tree_map(torch.clone, [params, state.mu, state.nu])
+    bad = {**batch, "_fault_scale": torch.full((b,), float("nan"),
+                                               device="cuda")}
+    _, state, m = step(params, state, index, bad, keys)
+    if m["skipped"] != 1.0 or state.step != 0 or not all(
+            torch.equal(x, y) for x, y in zip(
+                tree_leaves([params, state.mu, state.nu]),
+                tree_leaves(before))):
+        raise SystemExit(f"{cfg.name}: a NaN step was not skipped with "
+                         "params and moments unchanged")
+    params, state, m = step(params, state, index,
+                            {**batch, "_fault_scale": torch.ones(b,
+                                                                 device="cuda")},
+                            keys)
+    if m["skipped"] != 0.0 or state.step != 1:
+        raise SystemExit(f"{cfg.name}: the healthy step after the NaN one "
+                         "was not applied")
+    live = (params, state, index)
+    mgr = CheckpointManager(os.path.join(root, "kill"))
+    mgr.save(1, live)
+    for phase in ("arrays", "tree", "committed", "swap"):
+        inj = FaultInjector(0, [FaultSpec("kill_mid_save", step=2,
+                                          mode=phase)])
+        inj.attach_checkpoint(mgr)
+        try:
+            mgr.save(2, live)
+        except InjectedFault:
+            pass
+        else:
+            raise SystemExit(f"kill_mid_save at {phase!r} did not fire")
+        restarted = CheckpointManager(os.path.join(root, "kill"))
+        if restarted.latest_step() != 1 or not same_state(
+                (*restarted.restore(1, live, device="cuda"), None),
+                (*live, None)):
+            raise SystemExit(f"{cfg.name}: a save killed at {phase!r} did "
+                             "not leave the previous checkpoint restorable")
+    mgr.fault_hook = None
+    kw = dict(batch_size=16, seq_len=64, corpus=corpus, lr=3e-3,
+              total_steps=16, refresh_every=5)
+    clean, _, _ = train_leg(cfg, counters, steps=16, **kw)
+    ck = os.path.join(root, "walk")
+    train_leg(cfg, counters, steps=8, ckpt_dir=ck, ckpt_every=4, **kw)
+    inj = FaultInjector(7, [FaultSpec("nan_loss", step=11)])
+    if inj.corrupt_checkpoint(ck, mode="bitflip") != 8:
+        raise SystemExit("the bit flip did not land on the newest checkpoint")
+    recovered, n, t = train_leg(
+        cfg, counters, steps=16, ckpt_dir=ck, ckpt_every=4, injector=inj,
+        guardrails=GuardrailConfig(max_consecutive_bad=1,
+                                   warmup_steps=10 ** 6), **kw)
+    if ("nan_loss", 11) not in inj.fired or recovered[3] != clean[3][4:] \
+            or not same_state(recovered, clean):
+        raise SystemExit(f"{cfg.name}: walk-back past a corrupt checkpoint "
+                         "and rollback of a NaN step did not end bitwise "
+                         "the fault-free run")
+    for name, k in zip(names, n):
+        if k <= 0:
+            raise SystemExit(f"{cfg.name} recovery: {name} was never "
+                             "launched on the main path")
+    log(f"[smoke] chaos {cfg.name} L={cfg.num_layers} d={cfg.d_model}: a NaN "
+        f"step skipped with params, m and v unchanged; a save killed at "
+        f"each of arrays/tree/committed/swap left step 1 restorable bit for "
+        f"bit; a bit flip in the step-8 checkpoint walked resume back to "
+        f"step 4, a NaN at step 11 rolled back to step 8 and replayed: "
+        f"steps 4-15 equal the fault-free run bit for bit ({t:.1f}s); "
+        f"launches " + ", ".join(f"{name} {k}" for name, k in zip(names, n)))
+    return n
+
+
+def checkpoint_phase(get_config, midx_cuda, sce_cuda, short, corpus,
+                     card: str) -> None:
+    """Phase 10b, checkpoints and recovery, under a temporary directory
+    that is removed at the end: resume paper-lm at full width (per-token
+    MIDX head, 20 + 20 against 40 steps of 16 x 64) and llama3.2-1b cut to
+    2 layers (pooled, 10 + 10 against 20 of 4 x 256), then paper-lm's
+    chaos checks."""
+    import tempfile
+    from repro_torch.data import ZipfLM
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        paper = get_config("paper-lm")
+        counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
+                    sce_cuda.sampled_ce_pt_bwd_cuda)
+        names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+        pz = ZipfLM(vocab_size=paper.vocab_size, num_clusters=64,
+                    seq_len=65, seed=0).sample(64)
+        t0 = time.perf_counter()
+        resume(paper, counters, names, os.path.join(root, "paper"), steps=40,
+               every=20, straight_ckpt=True, batch_size=16, seq_len=64,
+               corpus=pz, lr=3e-3, refresh_every=10)
+        b, s, _, _ = SHAPE
+        resume(short, (sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda),
+               ("sampled_ce", "sampled_ce_bwd"), os.path.join(root, "llama"),
+               steps=20, every=10, straight_ckpt=False, batch_size=b,
+               seq_len=s, corpus=corpus, lr=LLAMA_LR, refresh_every=5)
+        torch.cuda.empty_cache()
+        chaos(paper, counters, names, os.path.join(root, "chaos"), pz)
+        log(f"[smoke] checkpoints and recovery (phase 10b): "
+            f"{time.perf_counter() - t0:.1f}s on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_from_checkpoint(engine, counters, names, step: int,
+                          card: str) -> list:
+    """Phase 12's serving checkpoint: the engine saves its params and
+    index, `Engine.from_checkpoint` restores them into a new engine, and
+    the same requests (4 prompts of up to 64 tokens, 16 tokens each) come
+    back token for token; the restored params equal the saved ones bit for
+    bit. Counters are set to 0 just before the restored engine's run and
+    read just after. Returns the launches."""
+    import tempfile
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.serve import Engine
+    cfg = engine.cfg
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        t0 = time.perf_counter()
+        engine.save_checkpoint(root, step=step)
+        t_save = time.perf_counter() - t0
+        gib = ckpt_gib(root)
+        t0 = time.perf_counter()
+        restored = Engine.from_checkpoint(cfg, root, head=engine.head,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(engine.params), tree_leaves(restored.params))):
+        raise SystemExit(f"{cfg.name}: restored params differ from the "
+                         "saved ones")
+    reqs = synthetic_requests(cfg, num=4, prompt=64, max_new=16, rate=0.0,
+                              seed=0)
+    want = engine.run(reqs)
+    for c in counters:
+        c.launches = 0
+    got = restored.run(reqs)
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    for r in reqs:
+        if got[r.rid].status != "ok" or not np.array_equal(
+                got[r.rid].tokens, want[r.rid].tokens):
+            raise SystemExit(f"{cfg.name}: rid {r.rid} from the checkpoint "
+                             f"{got[r.rid].tokens.tolist()} != in memory "
+                             f"{want[r.rid].tokens.tolist()}")
+    for name, n in zip(names, launches):
+        if n <= 0:
+            raise SystemExit(f"{cfg.name} served from a checkpoint: {name} "
+                             "was never launched on the main path")
+    log(f"[smoke] serve {cfg.name} from a checkpoint (head={engine.head}): "
+        f"export {gib:.3f} GiB, save {t_save:.2f}s, restore {t_restore:.2f}s; "
+        f"{len(reqs)} requests x 16 tokens token-identical to the in-memory "
+        f"engine; launches " + ", ".join(f"{n} {k}" for k, n in
+                                         zip(names, launches))
+        + f"; on {card}")
+    return launches
+
+
 def profile_train(cfg, params, index, label: str, b: int = 16,
                   s: int = 64, steps: int = 5) -> None:
     """Where a training step's time goes: `steps` steps of the trained model
@@ -1447,6 +1723,8 @@ def profile_train(cfg, params, index, label: str, b: int = 16,
     from repro_torch.core import noise
     from repro_torch.launch import steps as steps_mod
     from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_map
+    params = tree_map(torch.clone, params)   # the update is in place
     opt = adamw(1e-4)
     step = steps_mod.make_train_step(cfg, opt)
     gen = torch.Generator(device="cuda")
@@ -1600,10 +1878,14 @@ def mamba_phases(get_config, ssd, midx_cuda, sce_cuda, profile: bool,
         profile_train(cfg, params, index, "mamba2-370m train step", b=b, s=s,
                       steps=3)
     served = cfg.with_serve(max_slots=4, page_size=16, max_seq=96)
-    _, _, n_trained = serve(served, head="midx", requests=4, prompt=64,
-                            tokens=16, verify=2, params=params, index=index,
-                            counter=ssd)
+    eng, _, n_trained = serve(served, head="midx", requests=4, prompt=64,
+                              tokens=16, verify=2, params=params, index=index,
+                              counter=ssd)
     del params, index
+    serve_from_checkpoint(
+        eng, (ssd, midx_cuda.midx_probs_cuda), ("ssd_scan", "midx_probs"),
+        MAMBA_STEPS, card)
+    del eng
     torch.cuda.empty_cache()
     from repro_torch.data import ZipfLM
     corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64,
@@ -1745,7 +2027,8 @@ def main() -> None:
     counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
                 sce_cuda.sampled_ce_pt_bwd_cuda)
     cfg = get_config("paper-lm")
-    last_bwd, undo = keep_last_call(dispatch, "sampled_ce_pt_bwd")
+    # the backward's inputs at the last step (one backward a step)
+    last_bwd, undo = keep_call(dispatch, "sampled_ce_pt_bwd", at=119)
     try:
         params, index, n_train, _ = train(
             cfg, counters,
@@ -1753,6 +2036,10 @@ def main() -> None:
             steps=120, batch=16, seq=64, lr=3e-3)
     finally:
         undo()
+    if last_bwd["calls"] != 120:
+        raise SystemExit(f"paper-lm training ran the per-token backward "
+                         f"{last_bwd['calls']} times in 120 steps, not once "
+                         "a step")
     step_bwd = check_train_step_bwd(sce_cuda, sampled_ce_pt_bwd_ref,
                                     last_bwd["args"], card)
     del last_bwd
@@ -1846,9 +2133,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     n_4k_replay = replay(short, steps=5, batch=2, seq=TRAIN_4K, lr=LLAMA_LR,
                          corpus=long_corpus, refresh_every=3, counter=flash)
+    mark("train_4k (phase 10)")
+    checkpoint_phase(get_config, midx_cuda, sce_cuda, short, corpus, card)
     del corpus, long_corpus
     torch.cuda.empty_cache()
-    mark("train_4k (phase 10)")
+    mark("checkpoints and recovery (phase 10b)")
     n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
                            sce_cuda, args.profile, card)
     n_ssd = n_mamba["ssd_scan"]

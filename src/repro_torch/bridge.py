@@ -18,6 +18,14 @@ bf16 leaves come out of JAX as `ml_dtypes.bfloat16` numpy arrays, which
 viewed back as torch.bfloat16, so no value is rounded on the way; going
 back, bf16 tensors leave as `ml_dtypes.bfloat16` arrays (the numpy dtype
 JAX uses), imported only when a bf16 tensor is met.
+
+`to_reference` / `from_reference` carry a whole training state, the
+`(params, opt_state, head_state)` tuple or any tree of the port's, into
+the reference's layout and back: `blocks` stacked [L, ...], `OptState`'s
+step a 0-d int32, a `MultiIndex`'s index fields int32 (the layout
+`src/repro/launch/train.py:203-213` checkpoints). The leaves stay torch
+tensors, on the host, so a bf16 or fp8 leaf keeps its dtype without
+`ml_dtypes`; `checkpoint.manager` writes them in the reference's format.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.index.build import MultiIndex
+from repro_torch.optim.optimizers import OptState
 
 _INDEX_FIELDS = ("codebook1", "codebook2", "assign1", "assign2", "residuals",
                  "sorted_ids", "offsets", "counts", "log_counts")
@@ -128,3 +137,108 @@ def proposal_state_from_numpy(d: Mapping, *, device=None) -> dict:
 def proposal_state_to_numpy(state: Mapping) -> dict:
     """A port proposal state -> its leaves as numpy, for the JAX package."""
     return {k: tensor_to_numpy(v) for k, v in state.items()}
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    return np.asarray(x)
+
+
+def _stack_host(xs):
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack([x.detach().cpu() for x in xs])
+    return np.stack([np.asarray(x) for x in xs])
+
+
+def _int32(x):
+    return x.to(torch.int32) if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.int32)
+
+
+def _layout(tree, leaf, stack, int32):
+    """The port's tree in the reference's structure: `leaf` maps a leaf,
+    `stack` a list of one leaf per layer, `int32` an integer field."""
+    def go(t):
+        if isinstance(t, OptState):
+            return OptState(int32(leaf(t.step)), go(t.mu), go(t.nu))
+        if isinstance(t, MultiIndex):
+            return MultiIndex(kind=t.kind, **{
+                f: (int32 if f in _INT_FIELDS else (lambda x: x))(
+                    leaf(getattr(t, f))) for f in _INDEX_FIELDS})
+        if isinstance(t, Mapping):
+            return {k: (zip_layers(v) if k == "blocks" and isinstance(v, list)
+                        else go(v)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(go(v) for v in t)
+        return None if t is None else leaf(t)
+
+    def zip_layers(layers):
+        first = layers[0]
+        if isinstance(first, Mapping):
+            return {k: zip_layers([l[k] for l in layers]) for k in first}
+        return stack(layers)
+
+    return go(tree)
+
+
+def to_reference(tree):
+    """A tree of the port's (the training tuple `(params, opt_state,
+    head_state)`, a `{"params", "index"}` serving tree, or any dict / list /
+    tuple / `OptState` / `MultiIndex` tree of tensors, numpy arrays or
+    numbers) -> the same values in the reference's layout, on the host."""
+    return _layout(tree, _host, _stack_host, _int32)
+
+
+def reference_structure(tree):
+    """`to_reference(tree)`'s structure without moving or stacking a
+    value (its leaves are placeholders): what a restore target needs."""
+    return _layout(tree, lambda x: 0, lambda xs: 0, lambda x: x)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) \
+        else getattr(torch, np.dtype(dtype).name)
+
+
+def from_reference(ref, like, *, device=None):
+    """Inverse of `to_reference`: values in the reference's layout (torch
+    or numpy leaves) -> the port's structure of `like`, each tensor on
+    `device` (default: the card) in the dtype of `like`'s leaf. `blocks`
+    unstacks into as many layers as the values hold; a MultiIndex takes
+    `like`'s kind."""
+    device = resolve_device(device)
+
+    def leaf(x, lk):
+        t = x if isinstance(x, torch.Tensor) else tensor_from_numpy(x, "cpu")
+        if isinstance(lk, (bool, int, float)):
+            return type(lk)(t.item())
+        dtype = _torch_dtype(lk.dtype) if hasattr(lk, "dtype") else t.dtype
+        return t.to(device=device, dtype=dtype, copy=True)
+
+    def go(r, lk):
+        if isinstance(lk, OptState):
+            return OptState(int(leaf(r.step, 0)), go(r.mu, lk.mu),
+                            go(r.nu, lk.nu))
+        if isinstance(lk, MultiIndex):
+            return MultiIndex(kind=lk.kind, **{
+                f: go(getattr(r, f), getattr(lk, f)) for f in _INDEX_FIELDS})
+        if isinstance(lk, Mapping):
+            return {k: (unstack(r[k], v) if k == "blocks"
+                        and isinstance(v, list) else go(r[k], v))
+                    for k, v in lk.items()}
+        if isinstance(lk, (list, tuple)):
+            return type(lk)(go(a, b) for a, b in zip(r, lk))
+        return None if lk is None else leaf(r, lk)
+
+    def layer(r, i):
+        return {k: layer(v, i) for k, v in r.items()} \
+            if isinstance(r, Mapping) else r[i]
+
+    def unstack(r, like_layers):
+        first = r
+        while isinstance(first, Mapping):
+            first = next(iter(first.values()))
+        return [go(layer(r, i), like_layers[0]) for i in range(len(first))]
+
+    return go(ref, like)

@@ -2,7 +2,8 @@
 
 Mirrors `src/repro/index/lifecycle.py` (`drift_metrics` :41,
 `refresh_with_policy` :112 with `_refresh_fixed` :131, `RefreshEvent` :146,
-`IndexLifecycle` :163, over any head state) for what single-device
+`IndexLifecycle` :163 with `abort` :202 and `flush` :255, over any head
+state) for what single-device
 training needs: the `fixed`
 policy (a warm-started full refit at every event) and the synchronous swap
 (`lag=0`). The `drift` policy (reassign-only with escalation) and `lag>0`
@@ -141,3 +142,15 @@ class IndexLifecycle:
                           rejected=bool(reasons), reasons=reasons)
         self.events.append(ev)
         return (index if reasons else new_index), ev
+
+    def abort(self) -> None:
+        """Discard an in-flight refresh (rollback). At lag 0 a refresh
+        completes within `step`, so nothing is ever in flight; the train
+        loop calls it where the reference does."""
+
+    def flush(self, step: int,
+              index: Any) -> tuple[Any, Optional[RefreshEvent]]:
+        """Force-complete an in-flight refresh before a checkpoint; at lag 0
+        there is none, so the live state comes back unchanged."""
+        del step
+        return index, None

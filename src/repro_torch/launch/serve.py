@@ -17,13 +17,17 @@ t0); reports tokens/s and p50/p95/p99 per-token latency, and replays
 
 The flags are the reference's for what this slice supports: --arch
 --reduced --requests --rate --prompt --tokens --max-slots --page-size
---head --num-candidates --temperature --greedy --seed --verify --warmup,
-plus --device (default: the card). Any other flag is rejected.
+--head --num-candidates --temperature --greedy --seed --ckpt --verify
+--warmup, plus --device (default: the card). Any other flag is rejected.
+--ckpt restores params and head state from a serving checkpoint dir, e.g.
+the `<ckpt>/serve` export of either package's `train_loop` (reference
+`launch/serve.py:168-169`, `:213-214`).
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --head midx
   python -m repro_torch.launch.serve --arch llama3.2-1b --head rff-fused
   python -m repro_torch.launch.serve --arch mamba2-370m --prompt 512
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --ckpt build/ck-cpu/serve
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --device cpu --reduced
 """
 from __future__ import annotations
@@ -106,6 +110,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--greedy", action="store_true",
                     help="temperature-0 decoding (needs --head full)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="restore params+index from a serving checkpoint dir")
     ap.add_argument("--verify", type=int, default=2,
                     help="replay N requests solo and require identical output")
     ap.add_argument("--warmup", type=int, default=1,
@@ -120,7 +126,12 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {"summary", "results", "verified"}."""
     args = parser().parse_args(argv)
     cfg = build_config(args)
-    engine = Engine(cfg, head=args.head, device=args.device, seed=args.seed)
+    if args.ckpt:
+        engine = Engine.from_checkpoint(cfg, args.ckpt, head=args.head,
+                                        device=args.device, seed=args.seed)
+    else:
+        engine = Engine(cfg, head=args.head, device=args.device,
+                        seed=args.seed)
     reqs = synthetic_requests(cfg, num=args.requests, prompt=args.prompt,
                               max_new=args.tokens, rate=args.rate,
                               seed=args.seed)

@@ -2,17 +2,18 @@
 
 Mirrors `src/repro/launch/steps.py`: `resolve_proposal` (:55),
 `make_loss_fn` (:70; modes `midx`, `full` and the ported registry
-contenders, which route through `heads.loss_sampled`) and
-`make_train_step` (:129, the non-trainable branch :188-202 with its
-non-finite skip guard). The unported registry contenders (ROADMAP.md
-Queue 1 item 10), the sharded and vocab-parallel steps (item 13) and the
-fault seam (item 11) raise NotImplementedError.
+contenders, which route through `heads.loss_sampled`; the fault seam
+`_apply_fault` :33) and `make_train_step` (:129, the non-trainable branch
+:188-202 with its non-finite skip guard). The unported registry
+contenders (ROADMAP.md Queue 1 item 10) and the sharded and
+vocab-parallel steps (item 13) raise NotImplementedError.
 
 Departures: torch runs eagerly, so there is no jit; a step is a function
 of (params, opt state, head state, batch, keys) — `keys` [B·S] are the
 tokens' counter-hash stream keys (`core.noise.train_keys`) where the
 reference passes a JAX key. Params are a dict of leaf tensors; the step
-differentiates a fresh requires-grad view of them and returns new tensors.
+differentiates a fresh requires-grad view of them and the optimizer then
+updates them in place (`optim.optimizers`).
 Trace ranges `train.forward`, `train.head`, `train.backward` and
 `train.optimizer` (torch.profiler) split a step's host time.
 """
@@ -29,6 +30,18 @@ from repro_torch.models.model import forward
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           tree_leaves, tree_map)
 from repro_torch.proposals import registry as proposals_registry
+
+def _apply_fault(loss: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Resilience seam: when the batch carries `_fault_scale` ([B] fp32,
+    normally all ones; the train loop adds it when a fault injector is
+    armed), the loss is scaled by its mean. Multiplying by 1.0 is
+    IEEE-exact, so a quiet injector leaves the run's bits unchanged, while
+    a NaN/Inf/spike scale poisons the loss and, through the chain rule,
+    every gradient, where the non-finite guard must catch them."""
+    if "_fault_scale" in batch:
+        return loss * torch.mean(batch["_fault_scale"].float())
+    return loss
+
 
 def resolve_proposal(cfg: ModelConfig, head_mode: Optional[str] = None):
     """(mode, Proposal-or-None) for a head config, validated at step-build
@@ -64,7 +77,7 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
                 ce = heads.loss_sampled(cfg, params, proposal, state,
                                         out["hidden"], batch["labels"], keys)
         loss = ce + cfg.router_aux_weight * out["aux_loss"]
-        return loss, {"ce": ce, "aux": out["aux_loss"]}
+        return _apply_fault(loss, batch), {"ce": ce, "aux": out["aux_loss"]}
 
     return loss_fn
 
@@ -74,9 +87,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                     window: Optional[int] = None,
                     clip_norm: float = 1.0) -> Callable:
     """step(params, opt_state, state, batch, keys) -> (params, opt_state,
-    metrics). When the loss or the gradient's global norm is NaN/Inf, the
-    params and optimizer state come back unchanged and metrics['skipped']
-    is 1: a poisoned step never reaches the optimizer. The guard reads one
+    metrics); params and the optimizer state are updated in place and come
+    back as the same objects. When the loss or the gradient's global norm
+    is NaN/Inf, nothing is written to them and metrics['skipped'] is 1: a
+    poisoned step never reaches the optimizer. The guard reads one
     flag on the host (a sync the train loop makes anyway to log the loss);
     the reference selects leafwise inside its jitted step instead."""
     loss_fn = make_loss_fn(cfg, head_mode=head_mode, window=window)

@@ -1,22 +1,38 @@
-"""Training loop and CLI: the MIDX head first-class, on one card.
+"""Training loop and CLI: the MIDX head first-class, on one card,
+checkpointed and fault-tolerant.
 
-Mirrors `src/repro/launch/train.py`: `train_loop` (:68) on a single device
-with the `midx` and `full` heads and the ported registry proposals (`rff`,
-`rff-fused`; their state initialised as at :172-177 and refreshed by the
-lifecycle when adaptive, :200-201 — the RFF refresh re-maps φ(C) from the
-current table), the head-state refresh lifecycle, the loss history and
-the step log, and the CLI (`main` :348) with the flags --arch
---steps --batch --seq --lr --head --reduced --refresh-every, plus --device
-(default: the card; 'cpu' must be asked for). The reference's other flags
-are accepted and raise NotImplementedError with a pointer to ROADMAP.md
-Queue 1: --dp, --vocab-parallel and --grad-transport (item 13), --chaos
-(item 11), --ckpt (item 5), --refresh-policy drift and --refresh-lag > 0
-(item 9), --table-dtype int8/fp8 (item 8).
+Mirrors `src/repro/launch/train.py`: `StragglerWatchdog` (:40),
+`train_loop` (:68) on a single device with the `midx` and `full` heads and
+the ported registry proposals (`rff`, `rff-fused`; their state initialised
+as at :172-177 and refreshed by the lifecycle when adaptive, :200-201 —
+the RFF refresh re-maps φ(C) from the current table), the head-state
+refresh lifecycle, checkpoints and resume (:203-215: the restore-fallback
+walk, `next_step` from the metadata; a save every `ckpt_every` steps after
+the lifecycle's flush, :299-310; the final save and the serving export to
+`<ckpt>/serve`, :325-344; the final save is skipped where the loop's
+last save or the resume already wrote that step, where the reference
+writes it again), the fault injector's seams and the guardrails'
+rollback and replay (:217-280), the loss history and the step log, and
+the CLI (`main` :348, `_parse_chaos` :438) with the flags --arch --steps
+--batch --seq --lr --head --reduced --refresh-every --ckpt --chaos
+--chaos-seed --seed, plus --device (default: the card; 'cpu' must be
+asked for). The reference's other flags are accepted and raise
+NotImplementedError with a pointer to ROADMAP.md Queue 1: --dp,
+--vocab-parallel and --grad-transport (item 13), --refresh-policy drift
+and --refresh-lag > 0 (item 9), --table-dtype int8/fp8 (item 8).
+
+Checkpoints are the reference's format (`checkpoint.manager`): a run of
+either package resumes from the other's. `total_steps` is the job's
+schedule horizon and must stay fixed across resume legs, so that a
+resumed run is bit for bit the uninterrupted one. A `full`-head run
+builds and checkpoints a MultiIndex it never reads, as the reference's
+does, so that its checkpoints cross too.
 
 Every random choice is a pure function of (seed, step): the batches
 (`TokenStream.batch_at`), the negatives (counter-hash keys per token, see
 `core.noise.train_keys`) and the refresh's K-means generator. Two runs
-with one seed on one device therefore agree bit for bit.
+with one seed on one device therefore agree bit for bit, and so do a run
+and its resume from a checkpoint, and a rollback's replay.
 
 The head trains with the config's proposal: per-token for `paper-lm`,
 the shared-negative `pooled` default (`HeadConfig.proposal`) for the other
@@ -32,16 +48,22 @@ item 12b).
 CLI's data.
 
   python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3
+  rm -rf build/ck-paper-lm build/ck-chaos    # a --ckpt dir that exists is resumed
+  python -m repro_torch.launch.train --arch paper-lm --steps 120 --ckpt build/ck-paper-lm   # rerun: resumes
+  python -m repro_torch.launch.train --arch paper-lm --steps 60 --ckpt build/ck-chaos --chaos nan_loss@30,kill_mid_save@40:committed
   python -m repro_torch.launch.train --arch llama3.2-1b --steps 40 --batch 4 --seq 256
   python -m repro_torch.launch.train --arch llama3.2-1b --seq 4096 --batch 2 --steps 20 --lr 1e-3
   python -m repro_torch.launch.train --arch paper-lm --head rff-fused --steps 120 --lr 3e-3
   python -m repro_torch.launch.train --arch mamba2-370m --steps 30 --batch 4 --seq 1024 --lr 1e-3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 4 --ckpt build/ck-cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m --device cpu --reduced
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
@@ -49,6 +71,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import (CheckpointError, CheckpointManager,
+                                    save_serving_state)
 from repro_torch.configs import get_config
 from repro_torch.core import noise
 from repro_torch.data import ZipfLM, make_lm_stream
@@ -57,6 +81,9 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.models import heads, init_params
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.proposals import registry as proposals_registry
+from repro_torch.resilience import (FaultInjector, FaultSpec, InjectedFault,
+                                    TrainGuardrails)
+from repro_torch.utils import metrics as metrics_mod
 
 # Generator streams derived from the run's seed.
 _STREAM_INIT, _STREAM_INDEX, _STREAM_REFRESH = range(3)
@@ -73,7 +100,35 @@ def _generator(device: torch.device, seed: int, stream: int):
     return gen
 
 
+@dataclasses.dataclass
+class StragglerWatchdog:
+    """EWMA step-time monitor. At scale each host reports its step time; a
+    host whose EWMA exceeds `threshold` x the fleet median gets its
+    grad-accum microbatches re-balanced. Here: detection and the
+    re-balance decision, which the single-process loop logs."""
+    alpha: float = 0.2
+    threshold: float = 1.8
+    ewma: Optional[float] = None
+    trips: int = 0
+
+    def observe(self, dt: float, fleet_median: Optional[float] = None) -> bool:
+        self.ewma = dt if self.ewma is None else \
+            (1 - self.alpha) * self.ewma + self.alpha * dt
+        ref = fleet_median if fleet_median is not None else self.ewma
+        slow = dt > self.threshold * max(ref, 1e-9)
+        if slow:
+            self.trips += 1
+        return slow
+
+    def rebalance_plan(self, num_microbatches: int) -> dict:
+        """Shed one microbatch to the fastest peer (returned as a plan; a
+        multi-host launcher applies it via the deterministic pipeline)."""
+        return {"shed_microbatches": 1 if self.trips > 0 else 0,
+                "of": num_microbatches}
+
+
 def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
+               ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
                corpus: Optional[np.ndarray] = None, lr: float = 3e-4,
                head_mode: Optional[str] = None, log_every: int = 20,
                seed: int = 0, total_steps: Optional[int] = None,
@@ -81,15 +136,25 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                refresh_policy: Optional[str] = None,
                refresh_lag: Optional[int] = None,
                on_metrics: Optional[Callable[[int, dict], None]] = None,
-               device=None):
+               device=None, injector: Optional[FaultInjector] = None,
+               guardrails=None):
     """Single-device training loop. Returns (params, opt_state, index,
     history): params detached, ready for `serve.Engine(cfg, params,
     index=index, head=mode)`; index the head state (the MultiIndex, or the
-    proposal's state for a registry mode); history the per-step losses.
+    proposal's state for a registry mode); history the per-step losses of
+    this leg (a resumed run's start at its checkpoint).
 
-    total_steps: the schedule horizon (default `steps`). on_metrics(step,
-    metrics) also receives `step_s`, the host time of the step (which ends
-    in a device sync). device: default the card."""
+    total_steps: the job's schedule horizon (default `steps`), fixed across
+    resume legs. ckpt_dir: resume from the newest checkpoint there that
+    verifies, save every `ckpt_every` steps and at the end, and export
+    `{"params", "index"}` to `<ckpt_dir>/serve` for `Engine.
+    from_checkpoint`. injector: a `resilience.FaultInjector`, clocked by
+    the step, whose faults reach the loss (`_fault_scale`), the refresh
+    and the checkpoint's save phases. guardrails: a `resilience.
+    GuardrailConfig`; a 'rollback' restores the newest checkpoint that
+    verifies and replays from its step. on_metrics(step, metrics) also
+    receives `step_s`, the host time of the step (which ends in a device
+    sync), `guard_action` and `straggler`. device: default the card."""
     refresh_kw = {k: v for k, v in (("refresh_every", refresh_every),
                                     ("refresh_policy", refresh_policy),
                                     ("refresh_lag", refresh_lag))
@@ -114,12 +179,13 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     stream = make_lm_stream(corpus, batch_size, seed=seed)
 
     train_step = steps_mod.make_train_step(cfg, optimizer, head_mode=mode)
-    index = None
     gen_index = _generator(device, seed, _STREAM_INDEX)
-    if mode == "midx":
-        index = heads.init_head_state(cfg, params, gen_index)
-    elif proposal is not None:
+    if proposal is not None:
         index = heads.init_proposal_state(cfg, params, gen_index, proposal)
+    else:
+        # the full head trains without it, but its checkpoints carry a
+        # MultiIndex, as the reference's do (reference :180)
+        index = heads.init_head_state(cfg, params, gen_index)
 
     def refresh(p, state, step_seed):
         gen = torch.Generator(device=device)
@@ -129,25 +195,77 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         # drift probes are a MultiIndex notion: a proposal reports none
         return heads.refresh_proposal_state(cfg, p, proposal, state, gen), {}
 
+    if injector is not None:
+        refresh = injector.wrap_refresh(refresh)
     lifecycle = IndexLifecycle(
         refresh, every=cfg.head.refresh_every, lag=cfg.head.refresh_lag,
         base_seed=int(noise.hash_bits(seed, _STREAM_REFRESH, 0, 0)),
         enabled=mode == "midx" or (proposal is not None
                                    and proposal.adaptive))
 
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    if ckpt is not None and injector is not None:
+        injector.attach_checkpoint(ckpt)
+    start_step, saved = 0, None
+    if ckpt is not None:
+        # restore-fallback walk: resume from the newest checkpoint that
+        # passes verification, skipping corrupt or mismatched step dirs
+        s = ckpt.latest_verified_step((params, opt_state, index))
+        if s is not None:
+            params, opt_state, index = ckpt.restore(
+                s, (params, opt_state, index), device=device)
+            start_step = saved = ckpt.metadata(s).get("next_step", s)
+            print(f"[train] resumed from step {start_step}")
+
+    guard = TrainGuardrails(guardrails)
+    watchdog = StragglerWatchdog()
     history = []
-    for step in range(steps):
+    leg_start = step = start_step
+    while step < steps:
+        if injector is not None:
+            injector.note_step(step)
         batch = {k: torch.from_numpy(v).long().to(device)
                  for k, v in stream.batch_at(step).items()}
+        if injector is not None:
+            batch["_fault_scale"] = torch.full(
+                (batch_size,), injector.loss_scale(step),
+                dtype=torch.float32, device=device)
         keys = noise.train_keys(seed, step, batch_size * seq_len, device)
         t0 = time.perf_counter()
+        if injector is not None:
+            injector.maybe_sleep(step)
         params, opt_state, metrics = train_step(params, opt_state, index,
                                                 batch, keys)
         loss = float(metrics["loss"])                  # sync point
         dt = time.perf_counter() - t0
-        if metrics["skipped"]:
+        skipped = metrics["skipped"] > 0.5
+        slow = watchdog.observe(dt)
+        if slow:
+            print(f"[train] straggler warning at step {step}: {dt:.3f}s "
+                  f"(ewma {watchdog.ewma:.3f}s) -> "
+                  f"{watchdog.rebalance_plan(batch_size)}")
+        action = guard.observe(step, loss, skipped=skipped)
+        if skipped:
             print(f"[train] step {step}: non-finite update skipped "
                   f"(loss {loss}, params/opt state unchanged)")
+        if action == "rollback":
+            if ckpt is None:
+                print(f"[train] guardrails requested rollback at step {step} "
+                      "but no ckpt_dir is set — continuing degraded")
+            else:
+                try:
+                    lifecycle.abort()
+                    s, (params, opt_state, index) = \
+                        ckpt.restore_latest_verified(
+                            (params, opt_state, index), device=device)
+                    resume = ckpt.metadata(s).get("next_step", s)
+                    print(f"[train] rollback at step {step}: restored "
+                          f"checkpoint {s}, replaying from step {resume}")
+                    del history[max(0, resume - leg_start):]
+                    step = resume
+                    continue
+                except CheckpointError as e:
+                    print(f"[train] rollback impossible ({e}) — continuing")
         index, ev = lifecycle.step(step, params, index)
         if ev is not None:
             drift = "".join(f" {name}={ev.metrics[key]:.3f}" for name, key
@@ -165,12 +283,40 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                   f"gnorm {float(metrics['grad_norm']):.3f} ({dt:.3f}s)")
         history.append(loss)
         if on_metrics:
-            on_metrics(step, {**metrics, "step_s": dt})
+            on_metrics(step, {**metrics, "step_s": dt, "guard_action": action,
+                              "straggler": 1.0 if slow else 0.0})
+        if ckpt is not None and (step + 1) % ckpt_every == 0:
+            # the saved head state is never mid-flight
+            index, _ = lifecycle.flush(step, index)
+            try:
+                ckpt.save(step + 1, (params, opt_state, index),
+                          metadata={"next_step": step + 1})
+                saved = step + 1
+            except InjectedFault as e:
+                print(f"[train] checkpoint save at step {step + 1} "
+                      f"killed: {e} — previous checkpoint still intact")
+        step += 1
+    index, _ = lifecycle.flush(steps - 1, index)
     if lifecycle.events:
         ev = lifecycle.events
         print(f"[train] refresh summary: {len(ev)} events "
               f"({sum(e.rejected for e in ev)} rejected) "
               f"{sum(e.seconds for e in ev):.2f}s total")
+    if guard.events:
+        gs = metrics_mod.guardrail_summary(guard.events)
+        print(f"[train] guardrail summary: {gs['skips']} skips, "
+              f"{gs['spikes']} spikes, {gs['rollbacks']} rollbacks")
+    if ckpt is not None:
+        try:
+            if saved != steps:      # the loop's last save may have been it
+                ckpt.save(steps, (params, opt_state, index),
+                          metadata={"next_step": steps})
+        except InjectedFault as e:
+            print(f"[train] final checkpoint save killed: {e}")
+        # serving export: {"params", "index"}, no optimizer state — what
+        # `serve.Engine.from_checkpoint` restores
+        save_serving_state(os.path.join(ckpt_dir, "serve"), steps, params,
+                           index, metadata={"arch": cfg.name})
     return params, opt_state, index, history
 
 
@@ -192,12 +338,19 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' must be asked)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint dir: resume from it, save to it every "
+                         "100 steps and at the end, export <ckpt>/serve")
+    ap.add_argument("--chaos", default=None,
+                    help="fault plan, comma-separated 'kind@step[:mode_or_"
+                         "arg]' specs, e.g. 'nan_loss@10,"
+                         "slow_step@5:0.2,kill_mid_save@100:committed'")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the injector's (seed, step) fault streams")
     unported = ap.add_argument_group("not ported yet (raise)")
-    unported.add_argument("--ckpt", default=None)
     unported.add_argument("--dp", type=int, default=0)
     unported.add_argument("--vocab-parallel", type=int, default=1)
     unported.add_argument("--grad-transport", default="fp32")
-    unported.add_argument("--chaos", default=None)
     unported.add_argument("--refresh-policy", default=None)
     unported.add_argument("--refresh-lag", type=int, default=None)
     unported.add_argument("--table-dtype", default=None)
@@ -209,22 +362,45 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.ckpt is not None:
-        raise _unported("checkpointing (--ckpt)", 5)
     if (args.dp > 0 or args.vocab_parallel > 1
             or args.grad_transport != "fp32"):
         raise _unported("data- and vocab-parallel training and gradient "
                         "transports", 13)
-    if args.chaos:
-        raise _unported("fault injection (--chaos)", 11)
     if args.table_dtype is not None:
         cfg = cfg.with_head(table_dtype=args.table_dtype)
-    return train_loop(cfg, steps=args.steps, batch_size=args.batch,
-                      seq_len=args.seq, head_mode=args.head, lr=args.lr,
-                      refresh_every=args.refresh_every,
-                      refresh_policy=args.refresh_policy,
-                      refresh_lag=args.refresh_lag, seed=args.seed,
-                      device=args.device)
+    injector = _parse_chaos(args.chaos, args.chaos_seed) if args.chaos \
+        else None
+    out = train_loop(cfg, steps=args.steps, batch_size=args.batch,
+                     seq_len=args.seq, ckpt_dir=args.ckpt,
+                     head_mode=args.head, lr=args.lr,
+                     refresh_every=args.refresh_every,
+                     refresh_policy=args.refresh_policy,
+                     refresh_lag=args.refresh_lag, seed=args.seed,
+                     device=args.device, injector=injector)
+    if injector is not None:
+        print(f"[train] chaos report: {injector.summary()}")
+    return out
+
+
+def _parse_chaos(plan: str, seed: int) -> FaultInjector:
+    """'kind@step[:mode_or_arg]' specs -> a FaultInjector. A numeric suffix
+    becomes FaultSpec.arg (spike factor, sleep seconds); anything else
+    becomes FaultSpec.mode (refresh degeneracy, save phase)."""
+    specs = []
+    for item in plan.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        kind, _, rest = item.partition("@")
+        step_s, _, extra = rest.partition(":")
+        spec = FaultSpec(kind=kind, step=int(step_s) if step_s else -1)
+        if extra:
+            try:
+                spec = dataclasses.replace(spec, arg=float(extra))
+            except ValueError:
+                spec = dataclasses.replace(spec, mode=extra)
+        specs.append(spec)
+    return FaultInjector(seed, specs)
 
 
 if __name__ == "__main__":

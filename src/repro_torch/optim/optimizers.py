@@ -1,14 +1,24 @@
 """Optimizers built from scratch over the port's params dict: AdamW, SGD.
 
 Mirrors `src/repro/optim/optimizers.py` (`clip_by_global_norm` :34,
-`adamw` :43, `sgd` :97). Functional, like the reference: `update(grads,
-state, params)` returns new params and a new state and leaves its inputs
-alone. The moments are fp32 whatever the params' dtype, and AdamW applies
-the reference's formula, decay inside the step:
+`adamw` :43, `sgd` :97). The moments are fp32 whatever the params' dtype,
+and AdamW applies the reference's formula, decay inside the step:
     p ← p − lr · (m̂ / (√v̂ + eps) + wd · p)
 (`torch.optim.AdamW` decays p before the step, so it does not stand in).
 A params tree is a dict whose values are tensors, dicts or lists of them;
 `None` leaves (sgd's missing second moment) are skipped.
+
+Departure: `update(grads, state, params)` works in place. It writes the
+new values into `params` and the moments and returns those same objects
+(with the step counter advanced); `clip_by_global_norm` scales the
+gradients in place. So an update holds params, m, v and the gradients plus
+one group's temporaries, where a functional update also holds new copies
+of the first three. The ops are `torch._foreach_*` over groups of leaves
+of at most `GROUP_ELEMS` elements (a larger leaf is a group alone), one
+launch per op per group rather than per leaf. Each op rounds once, in the
+reference's order, so the bits are those of the functional formula
+evaluated leaf by leaf with torch's elementwise ops on the same device:
+no `alpha=`, `addcmul` or `addcdiv` forms, which would fuse two roundings.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+GROUP_ELEMS = 1 << 26          # 256 MB of fp32 temporaries a group
 
 
 class OptState(NamedTuple):
@@ -60,22 +72,51 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def _groups(*trees) -> list:
+    """The leaves of same-structured trees, cut in tree order into groups
+    of at most GROUP_ELEMS elements: [[leaves of tree 0, of tree 1, ...],
+    ...]."""
+    cols = [tree_leaves(t) for t in trees]
+    cuts, n = [0], 0
+    for i, leaf in enumerate(cols[0]):
+        if i > cuts[-1] and n + leaf.numel() > GROUP_ELEMS:
+            cuts.append(i)
+            n = 0
+        n += leaf.numel()
+    cuts.append(len(cols[0]))
+    return [[c[a:b] for c in cols] for a, b in zip(cuts, cuts[1:]) if b > a]
+
+
+def _div(xs: list, s: float) -> list:
+    """[x / s] with the rounding of torch's `x / s` on the xs' device: the
+    CUDA kernel multiplies by the fp32 reciprocal of a host scalar, the
+    CPU kernel divides."""
+    if xs[0].is_cuda:
+        return torch._foreach_mul(xs, float(_f32(1.0) / _f32(s)))
+    return torch._foreach_div(xs, s)
+
+
+def _write_back(ps: list, p32: list) -> None:
+    """Round the fp32 results into params of a narrower dtype."""
+    for p, q in zip(ps, p32):
+        if q is not p:
+            p.copy_(q)
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to a global L2 norm <= max_norm, the norm before)."""
+    """Scale grads in place to a global L2 norm <= max_norm; returns
+    (grads, the norm before)."""
     leaves = tree_leaves(grads)
     norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
-
-
-def _pick(out, i: int):
-    """Element i of every tuple leaf of a tree of tuples."""
-    if isinstance(out, dict):
-        return {k: _pick(v, i) for k, v in out.items()}
-    if isinstance(out, list):
-        return [_pick(v, i) for v in out]
-    return None if out is None else out[i]
+    f32 = [g for g in leaves if g.dtype == torch.float32]
+    if f32:
+        torch._foreach_mul_(f32, scale)
+    for g in leaves:
+        if g.dtype != torch.float32:
+            g.copy_(g.float() * scale)
+    return grads, norm
 
 
 def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -92,19 +133,29 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         lr_t = lr_fn(step)
         b1c = float(1.0 - _f32(b1) ** _f32(step))
         b2c = float(1.0 - _f32(b2) ** _f32(step))
-
-        def upd(g, m, v, p):
-            g = g.float()
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mh = m / b1c
-            vh = v / b2c
-            delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
-            return (p.float() - lr_t * delta).to(p.dtype), m, v
-
-        out = tree_map(upd, grads, state.mu, state.nu, params)
-        new_params, mu, nu = (_pick(out, i) for i in range(3))
-        return new_params, OptState(step, mu, nu)
+        for gs, ms, vs, ps in _groups(grads, state.mu, state.nu, params):
+            gs = [g.float() for g in gs]
+            p32 = [p.float() for p in ps]
+            t = torch._foreach_mul(gs, 1 - b1)          # m ← b1·m + (1−b1)·g
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, t)
+            t = torch._foreach_mul(gs, 1 - b2)          # v ← b2·v + (1−b2)·g·g
+            torch._foreach_mul_(t, gs)
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, t)
+            del t
+            delta = _div(ms, b1c)                      # m̂
+            den = _div(vs, b2c)                        # v̂, then √v̂ + eps
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(delta, den)
+            den = torch._foreach_mul(p32, weight_decay)
+            torch._foreach_add_(delta, den)
+            del den
+            torch._foreach_mul_(delta, lr_t)
+            torch._foreach_sub_(p32, delta)
+            _write_back(ps, p32)
+        return params, OptState(step, state.mu, state.nu)
 
     return Optimizer(init, update)
 
@@ -119,15 +170,19 @@ def sgd(lr, *, momentum: float = 0.9, nesterov: bool = False) -> Optimizer:
     def update(grads, state, params):
         step = state.step + 1
         lr_t = lr_fn(step)
-
-        def upd(g, m, p):
-            g = g.float()
-            m = momentum * m + g
-            d = g + momentum * m if nesterov else m
-            return (p.float() - lr_t * d).to(p.dtype), m
-
-        out = tree_map(upd, grads, state.mu, params)
-        new_params, mu = (_pick(out, i) for i in range(2))
-        return new_params, OptState(step, mu, None)
+        for gs, ms, ps in _groups(grads, state.mu, params):
+            gs = [g.float() for g in gs]
+            p32 = [p.float() for p in ps]
+            torch._foreach_mul_(ms, momentum)           # m ← momentum·m + g
+            torch._foreach_add_(ms, gs)
+            if nesterov:                                # d = g + momentum·m
+                d = torch._foreach_mul(ms, momentum)
+                torch._foreach_add_(d, gs)
+                torch._foreach_mul_(d, lr_t)
+            else:
+                d = torch._foreach_mul(ms, lr_t)
+            torch._foreach_sub_(p32, d)
+            _write_back(ps, p32)
+        return params, OptState(step, state.mu, None)
 
     return Optimizer(init, update)

@@ -66,5 +66,7 @@ def no_refresh(state, gen, class_emb):
 
 
 def emb_refresh(state, gen, class_emb):
-    """Refresh for proposals whose only table-dependence is state['emb']."""
-    return {**state, "emb": class_emb}
+    """Refresh for proposals whose only table-dependence is state['emb']:
+    a copy, since the table can be the params' tensor the optimizer
+    updates in place."""
+    return {**state, "emb": class_emb.detach().clone()}

@@ -15,6 +15,11 @@ Two contenders share the state {emb, w, tau, phi_c}:
              score matrix never reaches device memory on the card, and log
              q is a constant, as the reference's stop-gradient makes it.
 
+The state's `emb` is a copy of the table at init / refresh: the class
+table can be the params' own tensor, which the optimizer updates in place,
+and the state holds the table its φ(C) was mapped from, as the
+reference's immutable arrays do.
+
 Departures: `rff_init` draws W from an explicit `torch.Generator`; the
 fused sampler seeds each row by its own stream key with row counter 0
 (`kernels/rff_sample/ref.py`), where the reference folds one key into one
@@ -48,7 +53,8 @@ def rff_init(gen: torch.Generator, class_emb: torch.Tensor, class_freq=None,
                     device=class_emb.device)
     tau_t = torch.tensor(tau, dtype=torch.float32, device=class_emb.device)
     phi_c = rff_map(class_emb.float(), w, tau_t)                 # [N, 2R]
-    return {"emb": class_emb, "w": w, "tau": tau_t, "phi_c": phi_c}
+    return {"emb": class_emb.detach().clone(), "w": w, "tau": tau_t,
+            "phi_c": phi_c}
 
 
 def rff_log_p(state: dict, z: torch.Tensor) -> torch.Tensor:
@@ -71,7 +77,7 @@ def rff_log_prob(state: dict, z: torch.Tensor,
 def rff_refresh(state: dict, gen: torch.Generator,
                 class_emb: torch.Tensor) -> dict:
     phi_c = rff_map(class_emb.float(), state["w"], state["tau"])
-    return {**state, "emb": class_emb, "phi_c": phi_c}
+    return {**state, "emb": class_emb.detach().clone(), "phi_c": phi_c}
 
 
 def rff_fused_sample(state: dict, keys: torch.Tensor, z: torch.Tensor,

@@ -12,8 +12,11 @@ ride along masked and write only the trash page; an ssm state has no page
 table, and its inactive slots' carries are overwritten at admission, as
 in the reference, :444, :498). The loop is factored as
 in the reference: `start_run` / `tick` / `finish_run`, composed by `run`.
-Speculative decoding, chunked prefill, the prefix cache, index hot-swap,
-checkpoints and the unported proposals raise NotImplementedError (see
+`from_checkpoint` / `save_checkpoint` (:327-352) restore and write a
+serving checkpoint, `{"params", "index"}` in the reference's format, so
+the engine serves what either package's `train_loop` exported to
+`<ckpt>/serve`. Speculative decoding, chunked prefill, the prefix cache,
+index hot-swap and the unported proposals raise NotImplementedError (see
 ROADMAP.md). The greedy rule of the reference (:188-191) is kept:
 temperature <= 0 needs head='full'.
 
@@ -30,7 +33,15 @@ Departures:
     max_slots (the reference uses max_slots=1): every launch then has the
     batched run's shapes, so a GEMM library cannot pick another algorithm
     for another row count and change a row's rounding;
-  - `device=None` means the card, and the engine raises without one.
+  - `device=None` means the card, and the engine raises without one;
+  - the engine shares the params tensors it is given (block weights in
+    the compute dtype are cast copies): a train step updates params in
+    place (`launch/steps.py`), so a caller that trains on after handing
+    params to an engine clones them first;
+  - `save_checkpoint` writes the engine's params as it serves them: block
+    matmul weights in the compute dtype (bf16 for llama3.2-1b and
+    mamba2-370m; tree.json records it), which a restore casts back to
+    fp32 exactly.
 """
 from __future__ import annotations
 
@@ -43,8 +54,11 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import (CheckpointManager, restore_serving_state,
+                                   save_serving_state)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import noise
+from repro_torch.index.build import MultiIndex
 from repro_torch.models import (cast_blocks, heads, init_paged_state,
                                 init_params, logits_full, paged_decode_step,
                                 params_to, prefill, reset_slot, write_prefill)
@@ -343,14 +357,49 @@ class Engine:
         res = self._solo.run([dataclasses.replace(req, arrival=0.0)])
         return res[req.rid].tokens
 
-    # ------------------------------------------------------------ unported
+    # ------------------------------------------------------------ checkpoints
     @classmethod
-    def from_checkpoint(cls, *args, **kw):
-        raise _unported("serving checkpoints (Engine.from_checkpoint)")
+    def from_checkpoint(cls, cfg: ModelConfig, root: str, *,
+                        step: Optional[int] = None, **kw) -> "Engine":
+        """Restore params and head state saved by `save_checkpoint` (or by
+        either package's `train_loop` serving export) and build an engine
+        around them; `kw` as for `Engine` (head, window, device, seed).
+        With step=None the newest checkpoint that verifies is used."""
+        head = kw.get("head", "midx")
+        proposals_registry.validate_mode(head)
+        device = resolve_device(kw.get("device"))
+        # restore targets: only their structure and dtypes are read, so
+        # they are built on the meta device
+        like_p = init_params(cfg, torch.Generator(), device="meta")
+        if head in ("midx", "full"):
+            f32, i64 = torch.float32, torch.int64
+            like_i = MultiIndex(cfg.head.quantizer, *(
+                torch.empty(0, dtype=d, device="meta")
+                for d in (f32, f32, i64, i64, f32, i64, i64, i64, f32)))
+            # the full head reads no index: a training run's export carries
+            # the run's MultiIndex, as the reference's does, while an
+            # engine serving the full head saves none
+            mgr = CheckpointManager(root)
+            newest = mgr.latest_step() if step is None else step
+            if head == "full" and newest is not None and not mgr.matches(
+                    newest, {"params": like_p, "index": like_i}):
+                like_i = None
+        else:
+            like_i = heads.init_proposal_state(
+                cfg, like_p, torch.Generator(),
+                proposals_registry.from_config(cfg.head, head))
+        params, index, _ = restore_serving_state(root, like_p, like_i, step,
+                                                 device=device)
+        return cls(cfg, params, index=index, **{**kw, "device": device})
 
-    def save_checkpoint(self, *args, **kw):
-        raise _unported("serving checkpoints (Engine.save_checkpoint)")
+    def save_checkpoint(self, root: str, step: int = 0) -> str:
+        """Write the engine's params and head state as serving checkpoint
+        `step` under `root`."""
+        return save_serving_state(root, step, self.params, self.index,
+                                  metadata={"arch": self.cfg.name,
+                                            "head": self.head})
 
+    # ------------------------------------------------------------ unported
     def swap_index(self, *args, **kw):
         raise _unported("index hot-swap (Engine.swap_index)")
 

@@ -1,8 +1,9 @@
-"""Serving latency metrics.
+"""Serving latency and training guardrail metrics.
 
-Mirrors `src/repro/utils/metrics.py`: `percentiles` (:37) and
-`latency_summary` (:45) only — the ranking, load-test, speculative and
-refresh summaries arrive with the slices that need them.
+Mirrors `src/repro/utils/metrics.py`: `percentiles` (:37),
+`latency_summary` (:45) and `guardrail_summary` (:123) only — the ranking,
+load-test, speculative and refresh summaries arrive with the slices that
+need them.
 """
 from __future__ import annotations
 
@@ -26,3 +27,16 @@ def latency_summary(latencies_s, qs=(50, 95, 99),
     if counters:
         out.update({k: float(v) for k, v in counters.items()})
     return out
+
+
+def guardrail_summary(events) -> dict[str, float]:
+    """Aggregate TrainGuardrails events: how many updates the non-finite
+    guard skipped, how many finite losses tripped the EWMA spike detector,
+    and how many streaks escalated to a rollback."""
+    kinds = [e.kind for e in events]
+    return {
+        "guard_events": len(kinds),
+        "skips": kinds.count("skip"),
+        "spikes": kinds.count("spike"),
+        "rollbacks": kinds.count("rollback"),
+    }

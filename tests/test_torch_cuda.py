@@ -782,3 +782,64 @@ def test_mamba2_serving_and_training_go_through_the_kernel():
                                device="cuda", log_every=1000)
     assert ssd_scan_cuda.launches - before == 2 * cfg.num_layers
     assert np.all(np.isfinite(hist))
+
+
+def _functional_update(name, grads, state, params, lr_t, step):
+    """One step of the port's optimizers as they were before they updated
+    in place: the formula leaf by leaf with torch's elementwise ops, new
+    tensors out. Returns (params, mu, nu)."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)      # noqa: E731
+    b1c = float(1.0 - f32(0.9) ** f32(step))
+    b2c = float(1.0 - f32(0.999) ** f32(step))
+    out = []
+    for i, (g, p) in enumerate(zip(grads, params)):
+        g, m = g.float(), state.mu[i]
+        if name == "adamw":
+            m = 0.9 * m + (1 - 0.9) * g
+            v = 0.999 * state.nu[i] + (1 - 0.999) * g * g
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + 1e-8) \
+                + 0.01 * p.float()
+        else:
+            m, v = 0.9 * m + g, None
+            delta = m
+        out.append(((p.float() - lr_t * delta).to(p.dtype), m, v))
+    return [list(x) for x in zip(*out)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["adamw", "sgd"])
+def test_in_place_optimizer_gives_the_functional_bits_on_the_card(
+        monkeypatch, name, dtype):
+    """On the card, five clipped in-place steps (`torch._foreach_*` over
+    groups, a division by a host scalar as the multiplication by its fp32
+    reciprocal that torch's CUDA kernel does) give the bits of the
+    functional update."""
+    _need_card()
+    from repro_torch.optim import adamw, clip_by_global_norm, optimizers, sgd
+    monkeypatch.setattr(optimizers, "GROUP_ELEMS", 1 << 12)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = ((64, 200), (200,), (3000,), (5, 7), (4096,))
+    params = [torch.randn(s, generator=g, device="cuda").to(dtype)
+              for s in shapes]
+    ref = [p.clone() for p in params]
+    opt = (adamw if name == "adamw" else sgd)(lambda s: 1e-2 / s)
+    state = opt.init(params)
+    mu = [m.clone() for m in state.mu]
+    nu = None if state.nu is None else [v.clone() for v in state.nu]
+    for step in range(1, 6):
+        grads = [3 * torch.randn(s, generator=g, device="cuda").to(dtype)
+                 for s in shapes]
+        norm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in grads))
+        scale = torch.clamp(1.0 / torch.clamp(norm, min=1e-9), max=1.0)
+        want = [(x.float() * scale).to(x.dtype) for x in grads]
+        got, got_norm = clip_by_global_norm(grads, 1.0)
+        assert torch.equal(got_norm, norm)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        ref, mu, nu = _functional_update(
+            name, want, optimizers.OptState(step - 1, mu, nu), ref,
+            1e-2 / step, step)
+        params, state = opt.update(got, state, params)
+    for a, b in zip(params + state.mu + (state.nu or []),
+                    ref + mu + (nu if name == "adamw" else [])):
+        assert a.dtype == b.dtype and torch.equal(a, b)

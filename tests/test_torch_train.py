@@ -9,6 +9,7 @@ on fp32 losses and gradients given the same negatives, the bar of
 1e-5 on params after one full-head train step; exact on integer index
 fields, batches and the corpus."""
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from repro.resilience.validate import validate_index as jvalidate_index
 from repro_torch import configs as tcfg
 from repro_torch.bridge import (index_from_numpy, index_to_numpy,
                                 params_from_numpy, params_to_numpy)
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import midx, noise
 from repro_torch.data import ZipfLM, make_lm_stream
 from repro_torch.index import lifecycle
@@ -51,6 +53,7 @@ from repro_torch.models.model import forward as tforward
 from repro_torch.optim import (adamw, clip_by_global_norm, cosine_schedule,
                                sgd)
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.proposals import registry as proposals_registry
 from repro_torch.resilience.validate import validate_index, validate_state
 
 TOL = 1e-5
@@ -251,6 +254,122 @@ def test_optimizer_schedule_and_clip_match_over_five_steps(name):
                                    rtol=1e-6)
 
 
+# The functional AdamW and SGD the port had before its optimizer updated in
+# place (`src/repro_torch/optim/optimizers.py` of that tree): the oracle
+# the in-place update must equal bit for bit.
+def _oracle_adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01):
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)      # noqa: E731
+
+    def update(grads, state, params):
+        step = state.step + 1
+        lr_t = lr(step)
+        b1c = float(1.0 - f32(b1) ** f32(step))
+        b2c = float(1.0 - f32(b2) ** f32(step))
+
+        def upd(g, m, v, p):
+            g = g.float()
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mh = m / b1c
+            vh = v / b2c
+            delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
+            return (p.float() - lr_t * delta).to(p.dtype), m, v
+
+        out = tree_map(upd, grads, state.mu, state.nu, params)
+        pick = lambda i: tree_map(lambda o: o[i], out)      # noqa: E731
+        return pick(0), type(state)(step, pick(1), pick(2))
+
+    return update
+
+
+def _oracle_sgd(lr, momentum=0.9, nesterov=False):
+    def update(grads, state, params):
+        step = state.step + 1
+        lr_t = lr(step)
+
+        def upd(g, m, p):
+            g = g.float()
+            m = momentum * m + g
+            d = g + momentum * m if nesterov else m
+            return (p.float() - lr_t * d).to(p.dtype), m
+
+        out = tree_map(upd, grads, state.mu, params)
+        pick = lambda i: tree_map(lambda o: o[i], out)      # noqa: E731
+        return pick(0), type(state)(step, pick(1), None)
+
+    return update
+
+
+def _oracle_clip(grads, max_norm):
+    leaves = tree_leaves(grads)
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["adamw", "sgd", "sgd-nesterov"])
+def test_in_place_optimizer_equals_the_functional_one_bitwise(
+        monkeypatch, name, dtype):
+    """Five clipped steps of the in-place update, in groups small enough
+    that the leaves split over several, give the functional version's
+    bits: params, moments and the clip's norm; the update returns the
+    objects it was given."""
+    from repro_torch.optim import optimizers
+    monkeypatch.setattr(optimizers, "GROUP_ELEMS", 50)
+    rng = np.random.default_rng(4)
+
+    def tree(scale):
+        def leaf(*shape):
+            return torch.from_numpy((scale * rng.standard_normal(shape))
+                                    .astype(np.float32)).to(dtype)
+        return {"a": leaf(3, 40), "blocks": [{"w": leaf(5)}, {"w": leaf(70)}],
+                "c": leaf(2)}
+
+    sched = cosine_schedule(1e-2, warmup_steps=2, total_steps=5)
+    opt, oracle = {
+        "adamw": (adamw(sched), _oracle_adamw(sched)),
+        "sgd": (sgd(sched), _oracle_sgd(sched)),
+        "sgd-nesterov": (sgd(sched, nesterov=True),
+                         _oracle_sgd(sched, nesterov=True))}[name]
+    p0 = tree(1.0)
+    tp, op = tree_map(torch.clone, p0), tree_map(torch.clone, p0)
+    ts, os_ = opt.init(tp), opt.init(op)
+    for _ in range(5):
+        g = tree(3.0)
+        og, on = _oracle_clip(g, 1.0)
+        tg, tn = clip_by_global_norm(tree_map(torch.clone, g), 1.0)
+        assert torch.equal(tn, on)
+        mu, nu = ts.mu, ts.nu
+        tp2, ts = opt.update(tg, ts, tp)
+        assert tp2 is tp and ts.mu is mu and ts.nu is nu
+        op, os_ = oracle(og, os_, op)
+    assert ts.step == os_.step == 5
+    for a, b in zip(tree_leaves([tp, ts.mu, ts.nu]),
+                    tree_leaves([op, os_.mu, os_.nu])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_rff_state_does_not_follow_the_table_updated_in_place():
+    """The RFF state keeps the class table of its init / refresh: an
+    in-place update of params["embed"] leaves state["emb"] unchanged."""
+    _, tc, _, tp, _, _, _, _ = _setup(seed=5)
+    prop = proposals_registry.from_config(tc.head, "rff")
+    state = heads.init_proposal_state(tc, tp, torch.Generator().manual_seed(0),
+                                      prop)
+    emb0 = state["emb"].clone()
+    opt = adamw(1e-2)
+    grads = tree_map(torch.ones_like, tp)
+    opt.update(grads, opt.init(tp), tp)
+    assert not torch.equal(tp["embed"], emb0)
+    assert torch.equal(state["emb"], emb0)
+    state = heads.refresh_proposal_state(tc, tp, prop, state,
+                                         torch.Generator().manual_seed(1))
+    emb1 = state["emb"].clone()
+    opt.update(grads, opt.init(tp), tp)
+    assert torch.equal(state["emb"], emb1)
+
+
 def test_full_head_train_step_matches():
     jc, tc, jp, tp, _, _, toks, labels = _setup(seed=3)
     sched = dict(warmup_steps=2, total_steps=10)
@@ -438,9 +557,23 @@ def test_cli_defaults_to_the_card_and_refuses_unported_flags():
             train_main(["--reduced", "--steps", "1"])
     base = ["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
             "--seq", "8"]
-    for flags, item in ((["--ckpt", "x"], "item 5"), (["--dp", "2"], "item 13"),
-                        (["--chaos", "nan_loss@1"], "item 11"),
+    for flags, item in ((["--dp", "2"], "item 13"),
                         (["--refresh-lag", "2"], "item 9"),
                         (["--table-dtype", "int8"], "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             train_main(base + flags)
+
+
+def test_cli_resumes_from_ckpt(tmp_path, capsys):
+    """`--ckpt <dir>` twice: the second run resumes from the first's final
+    checkpoint, and both export <ckpt>/serve."""
+    base = ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "2",
+            "--seq", "8", "--ckpt", str(tmp_path)]
+    train_main(base)
+    assert "resumed" not in capsys.readouterr().out
+    train_main(base + ["--chaos", "slow_step@3:0.01"])
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 2" in out and "chaos report" in out
+    assert CheckpointManager(str(tmp_path)).all_steps() == [2]
+    assert CheckpointManager(os.path.join(str(tmp_path), "serve")
+                             ).all_steps() == [2]
