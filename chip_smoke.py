@@ -59,6 +59,16 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      over 67, with the all-fp32 bound beside it) at mamba2-370m's
      training shape (Bt=4, S=1024, H=32, P=64, N=128,
      Q=256) and its prefill shapes (4 x 512, Q=256; 4 x 64, Q=64);
+ 3d. the quantized kernel modes (int8 and fp8 class tables, DESIGN §12),
+     each held to its plain version and timed beside it and its bound
+     (1-byte rows and codebooks, 4-byte scales, in the byte count):
+     `midx_probs` at llama decode (T=4, D=2048, K=64) and paper-lm
+     training (T=1024, D=200, K=32), each row alone equal to that row in
+     the call bit for bit; the per-token CE forward and backward at
+     paper-lm (M=20, D=200, V=10 000), at llama width (M=64, D=2048,
+     V=128 256) and with one hot row, the backward bitwise repeatable and
+     a token alone equal to itself in the call; the shared CE at llama
+     4 x 256 (M=1024, D=2048), bitwise repeatable;
   4. check the port against itself on the CPU at a small input (prefill
      hidden states, fp32; paper-lm and the reduced mamba2);
   5. serve `paper-lm` at full width through the MIDX head (16 requests,
@@ -139,7 +149,18 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      requests token for token (`ssd_scan` and `midx_probs` launched),
      with the export's GiB and the save and restore seconds; two 5-step
      runs cut to 2 layers agree bit for bit;
- 13. print the kernels' JSON line, then the result line.
+ 13. the quantized head on its paths: `paper-lm` at full width trained 30
+     steps through the per-token MIDX head at bf16, int8 and fp8 (refresh
+     every 10: the twins re-quantized), finite, applied and falling, with
+     `midx_probs`, `sampled_ce_pt` and `sampled_ce_pt_bwd` launched in the
+     run's format, and the gap to the bf16 curve printed; the int8 run's
+     serving export restored bit for bit and served (batched == solo);
+     `llama3.2-1b` at full width served through the MIDX head from an int8
+     state by code rescoring (batched == solo); `llama3.2-1b` pooled
+     trained 3 steps at int8 (full width) and at fp8 (2 layers), both
+     shared-CE kernels launched in the format;
+ 14. print the kernels' JSON line (a row per kernel and per quantized mode,
+     e.g. `midx_probs[int8]`), then the result line.
 Each main-path run sets the kernels' launch counters to 0 just before it
 and reads them just after; a kernel of the path that was never launched
 fails the run. Exits non-zero, with no result line, without a CUDA device
@@ -447,14 +468,16 @@ def sce_inputs(t: int, d: int, m: int, v: int, dtype, seed: int,
 
 
 def sce_bound_ms(t: int, d: int, m: int, v: int, elem: int, neg, pos,
-                 backward: bool):
+                 backward: bool, row_extra: int = 0):
     """Bytes: each input read once — the distinct table rows this run's ids
-    gather, h, log_q, the ids (and g, lse) — and each output written once
+    gather (row_extra more bytes a row: the quantized mode's 4-byte
+    scale), h, log_q, the ids (and g, lse) — and each output written once
     (loss and lse; or dh, dlq and the dense [V, D] fp32 d(table)). FLOPs:
     the (M+1)·D-long dots of every token, fp32 FMA (and, backward, the dh
     and d(table) sums, three times as many)."""
     rows = int(torch.unique(torch.cat([neg.reshape(-1), pos])).numel())
-    nbytes = rows * d * elem + 4 * t * d + 4 * t * m + 8 * t * m + 8 * t
+    nbytes = rows * (d * elem + row_extra) + 4 * t * d + 4 * t * m \
+        + 8 * t * m + 8 * t
     if backward:
         nbytes += 8 * t + 4 * t * d + 4 * t * m + 4 * v * d
     else:
@@ -719,17 +742,18 @@ def shared_inputs(b: int, s: int, m: int, d: int, v: int, dtype, seed: int):
 
 
 def shared_bound_ms(b: int, s: int, m: int, d: int, elem: int,
-                    backward: bool):
+                    backward: bool, row_extra: int = 0):
     """Bytes: each input read once (h, the gathered pe and ne rows, log_q,
     the ids; backward also g and lse) and each output written once (loss
     and lse; backward dh, dpe, dne, dlq). Operations the function needs:
     the [S, M] logit product over D per sequence (a matrix product, at
     3xTF32's rate) and the positive dots (fp32); the backward needs three
     products — the logits once, w·ne and (g·w)ᵀ·h — and the positive terms
-    (h·pe, (p_pos − 1)·pe into dh, dpe). Returns `roofline_ms`'s (bound,
-    bound_by, all-fp32 bound)."""
-    nbytes = (4 * b * s * d + elem * b * (s + m) * d + 4 * b * m + 8 * b * m
-              + 8 * b * s)
+    (h·pe, (p_pos − 1)·pe into dh, dpe). row_extra: bytes a gathered row
+    carries beside its elements (the quantized mode's 4-byte scale).
+    Returns `roofline_ms`'s (bound, bound_by, all-fp32 bound)."""
+    nbytes = (4 * b * s * d + (elem * d + row_extra) * b * (s + m)
+              + 4 * b * m + 8 * b * m + 8 * b * s)
     if backward:
         nbytes += 8 * b * s + 4 * b * (2 * s + m) * d + 4 * b * m
         products, other = 6 * b * s * m * d, 6 * b * s * d
@@ -1269,9 +1293,10 @@ def serve(cfg, *, head: str, requests: int, prompt: int, tokens: int,
                               max_new=tokens, rate=0.0, seed=0)
     engine.warmup(prompt_buckets(prompt))
     if counter is not None:
-        counter.launches = 0
+        zero_counts((counter,))
     results = engine.run(reqs)
     launches = counter.launches if counter is not None else 0
+    quant = dict(getattr(counter, "quant_launches", {}))
     s = engine.stats.summary()
     vocab = cfg.vocab_size
     for r in reqs:
@@ -1289,7 +1314,7 @@ def serve(cfg, *, head: str, requests: int, prompt: int, tokens: int,
                              f"{solo.tolist()}")
     torch.cuda.synchronize()
     s = {**s, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-         "base_gib": base}
+         "base_gib": base, "quant_launches": quant}
     kname = counter.__name__.removesuffix("_cuda") if counter else "kernel"
     log(f"[smoke] serve {cfg.name} head={head} L={cfg.num_layers} "
         f"d={cfg.d_model} V={vocab}: setup {setup:.1f}s, "
@@ -1367,21 +1392,31 @@ def serve_prompts(cfg, params, index, counters, names, prompts, *,
     return engine, s, launches
 
 
+def zero_counts(counters) -> None:
+    """Set the wrappers' launch counts to 0, and their counts by quantized
+    format where they keep them."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "quant_launches"):
+            c.quant_launches = dict.fromkeys(c.quant_launches, 0)
+
+
 def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
-          lr: float, corpus=None, refresh_every=None):
+          lr: float, corpus=None, refresh_every=None, ckpt_dir=None,
+          check_drop: bool = True):
     """Drive `launch.train.train_loop` on the card with the counters set to
-    0 just before; every step must be finite and applied and the last 5
-    steps' mean loss more than 0.1 below the first 5's. Returns (params,
-    index, launches per counter, summary)."""
+    0 just before; every step must be finite and applied and (check_drop)
+    the last 5 steps' mean loss more than 0.1 below the first 5's. Returns
+    (params, index, launches per counter, summary); the summary also has
+    the losses (`hist`)."""
     from repro_torch.launch.train import train_loop
     seen = []
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     params, _, index, hist = train_loop(
         cfg, steps=steps, batch_size=batch, seq_len=seq, lr=lr,
         corpus=corpus, refresh_every=refresh_every, log_every=20,
-        device="cuda",
+        device="cuda", ckpt_dir=ckpt_dir,
         on_metrics=lambda step, m: seen.append(
             (step, float(m["loss"]), float(m["grad_norm"]),
              float(m["skipped"]), m["step_s"])))
@@ -1393,7 +1428,7 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
         raise SystemExit(f"{cfg.name} training: {len(seen)} steps logged, "
                          f"skipped or non-finite: {bad[:3]}")
     first, last = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
-    if not last < first - 0.1:
+    if check_drop and not last < first - 0.1:
         raise SystemExit(f"{cfg.name} training: loss did not drop by > 0.1 "
                          f"(first 5 mean {first:.4f}, last 5 mean "
                          f"{last:.4f})")
@@ -1404,10 +1439,10 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
     step_s = statistics.median(s[4] for s in seen[1:])
     summary = {"first5": first, "last5": last, "median_step_ms":
                step_s * 1e3, "tok_s": batch * seq / step_s,
-               "peak_gib": peak_gib}
+               "peak_gib": peak_gib, "hist": hist}
     log(f"[smoke] train {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
         f"V={cfg.vocab_size} head={cfg.head.mode} "
-        f"proposal={cfg.head.proposal} "
+        f"proposal={cfg.head.proposal} table={cfg.head.table_dtype} "
         f"M={cfg.head.num_negatives} K={cfg.head.midx_k}: {steps} steps x "
         f"{batch}x{seq} tokens, lr {lr}, loss first-5 mean {first:.4f} -> "
         f"last-5 mean {last:.4f}; median step {step_s * 1e3:.2f} ms, "
@@ -1906,6 +1941,327 @@ def mamba_phases(get_config, ssd, midx_cuda, sce_cuda, profile: bool,
             "sampled_ce": n_train[1], "sampled_ce_bwd": n_train[2]}
 
 
+# ------------------------------------------------ the quantized head (3d, 13)
+QFMTS = ("int8", "fp8")
+QMIDX_SHAPES = (               # (name, (T, D, K, split)); the first is timed
+    ("llama3.2-1b decode", (4, 2048, 64, False)),   # for the kernels line
+    ("paper-lm train", (1024, 200, 32, False)))
+QSCE_PT_SHAPES = (             # (name, (T, D, M, V), hot row)
+    ("paper-lm train", (1024, 200, 20, 10000), False),
+    ("llama3.2-1b width", (1024, 2048, 64, 128256), False),
+    ("paper-lm train, one hot row", (1024, 200, 20, 10000), True))
+QPATH_STEPS = 30               # paper-lm steps at each table format
+
+
+def midx_q_bound_ms(t: int, d: int, k: int, split: bool):
+    """`midx_bound_ms` with 1-byte codebooks and their [K] fp32 scales."""
+    dc = d // 2 if split else d
+    nbytes = 4 * (t * d + k * k + 3 * t * k + t) + 2 * k * dc + 2 * 4 * k
+    flops = 2 * t * k * dc * 2 + 2 * t * k * k
+    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def hold_close(label: str, got, want, where: str) -> float:
+    """Outputs within REL_TOL * max(1, |plain|), finite; returns the
+    largest error."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = (a - b).abs()
+        if a.shape != b.shape or not torch.isfinite(a).all() or bool(
+                (err > REL_TOL * torch.clamp(b.abs(), min=1.0)).any()):
+            raise SystemExit(f"{label} output {i} disagrees with the plain "
+                             f"version at {where}: max err "
+                             f"{float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def check_quantized_kernels(midx_cuda, midx_ref, sce, pt_fwd, pt_bwd,
+                            sh_fwd, sh_bwd, buf, card: str) -> dict:
+    """Phase 3d: each quantized kernel mode, int8 and fp8, held to its
+    plain version and timed beside it and its bound (1-byte rows or
+    codebooks in the byte count): midx_probs at llama decode and paper-lm
+    training (each row alone equal bit for bit to that row in the call),
+    the per-token CE forward and backward at paper-lm, at llama width and
+    with one hot row (backward bitwise repeatable; a token alone equal to
+    itself in the call), the shared CE at llama 4 x 256. Returns {row name:
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, shape,
+    other_shapes}}."""
+    import functools
+    from repro_torch.index.quantized import quantize_rows
+    out = {}
+
+    def put(name, shape, err, ms, plain, bound, by):
+        row = out.setdefault(name, {"max_abs_err": 0.0, "other_shapes": []})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        t = {"shape": shape, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+             "bound_by": by}
+        if "ms" in row:
+            row["other_shapes"].append(t)
+        else:
+            row.update(t)
+
+    for fmt in QFMTS:
+        for name, (t, d, k, split) in QMIDX_SHAPES:
+            z, cb1, cb2, counts = midx_inputs(t, d, k, split, seed=t + d)
+            (q1, s1), (q2, s2) = quantize_rows(cb1, fmt), quantize_rows(
+                cb2, fmt)
+            s1, s2 = s1.reshape(-1), s2.reshape(-1)
+            kw = dict(split=split, scale1=s1, scale2=s2)
+            where = f"{name} T={t} D={d} K={k} {fmt}"
+            got = midx_cuda.midx_probs_cuda(z, q1, q2, counts, **kw)
+            err = hold_close(f"midx_probs[{fmt}]", got,
+                             midx_ref(z, q1, q2, counts, **kw), where)
+            for r in {0, t - 1}:
+                solo = midx_cuda.midx_probs_cuda(z[r:r + 1], q1, q2, counts,
+                                                 **kw)
+                if not all(torch.equal(a[0], b[r]) for a, b in zip(solo,
+                                                                   got)):
+                    raise SystemExit(f"midx_probs[{fmt}]: row {r} alone "
+                                     f"differs from row {r} at {where}")
+            ms = time_ms(lambda: midx_cuda.midx_probs_cuda(
+                z, q1, q2, counts, **kw), buf)
+            plain = time_ms(lambda: midx_ref(z, q1, q2, counts, **kw), buf)
+            bound, by = midx_q_bound_ms(t, d, k, split)
+            put(f"midx_probs[{fmt}]", where, err, ms, plain, bound, by)
+            log(f"[smoke] midx_probs[{fmt}] ({where}): max_abs_err "
+                f"{err:.3e}; rows alone bit for bit; kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {bound:.6f} ms ({by}); "
+                f"library: none; on {card}")
+        for name, (t, d, m, v), hot in QSCE_PT_SHAPES:
+            h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, torch.float32,
+                                                 seed=t + d + m, hot_row=hot)
+            q, sc = quantize_rows(tab, fmt)
+            del tab
+            where = (f"{name}, T={t} D={d} M={m} V={v} {fmt}"
+                     f", longest segment {longest_segment(neg, pos, v)}")
+            kf = functools.partial(sce.sampled_ce_pt_cuda, scale=sc)
+            kb = functools.partial(sce.sampled_ce_pt_bwd_cuda, scale=sc)
+            rf = functools.partial(pt_fwd, scale=sc)
+            rb = functools.partial(pt_bwd, scale=sc)
+            args = (h, q, lq, neg, pos)
+            (loss, lse), errs, ratio, readings = hold_ce(
+                f"sampled_ce_pt[{fmt}]", kf, kb, rf, rb, args, g,
+                ("dh", "dtab", "dlq"), where)
+            r = t // 2
+            solo = kf(h[r:r + 1], q, lq[r:r + 1], neg[r:r + 1],
+                      pos[r:r + 1])
+            if not (torch.equal(solo[0][0], loss[r])
+                    and torch.equal(solo[1][0], lse[r])):
+                raise SystemExit(f"sampled_ce_pt[{fmt}]: token {r} alone "
+                                 f"differs from itself in the call at "
+                                 f"{where}")
+            log(f"[smoke] sampled_ce_pt[{fmt}] at {where}: "
+                + "; ".join(readings) + f"; largest err/limit {ratio:.4f}; "
+                "backward bitwise repeatable; a token alone bit for bit")
+            for kind, kern, plain, back in (
+                    ("fwd", lambda: kf(*args), lambda: rf(*args), False),
+                    ("bwd", lambda: kb(g, *args, lse),
+                     lambda: rb(g, *args, lse), True)):
+                tm = time_ce(f"sampled_ce_pt {kind} [{fmt}]", where, kern,
+                             plain, sce_bound_ms(t, d, m, v, 1, neg, pos,
+                                                 backward=back, row_extra=4),
+                             buf, card)
+                label = "sampled_ce_pt" + ("_bwd" if back else "")
+                put(f"{label}[{fmt}]", where, errs[kind], *tm)
+        b, s_, m, d = SHAPE
+        v = 128256
+        h, pe, ne, lq, neg, pos, g = shared_inputs(b, s_, m, d, v,
+                                                   torch.float32, seed=1)
+        (pq, ps), (nq, ns) = quantize_rows(pe.reshape(-1, d), fmt), \
+            quantize_rows(ne.reshape(-1, d), fmt)
+        pq, ps = pq.reshape(b, s_, d), ps.reshape(b, s_, 1)
+        nq, ns = nq.reshape(b, m, d), ns.reshape(b, m, 1)
+        del pe, ne
+        kw = dict(pos_scale=ps, neg_scale=ns)
+        where = f"llama3.2-1b train, B={b} S={s_} M={m} D={d} V={v} {fmt}"
+        kf = functools.partial(sce.sampled_ce_cuda, **kw)
+        kb = functools.partial(sce.sampled_ce_bwd_cuda, **kw)
+        rf = functools.partial(sh_fwd, **kw)
+        rb = functools.partial(sh_bwd, **kw)
+        args = (h, pq, nq, lq, neg, pos)
+        (loss, lse), errs, ratio, readings = hold_ce(
+            f"sampled_ce[{fmt}]", kf, kb, rf, rb, args, g,
+            ("dh", "dpe", "dne", "dlq"), where)
+        again = kf(*args)
+        if not (torch.equal(loss, again[0]) and torch.equal(lse, again[1])):
+            raise SystemExit(f"sampled_ce[{fmt}] is not bitwise repeatable "
+                             f"at {where}")
+        log(f"[smoke] sampled_ce[{fmt}] at {where}: " + "; ".join(readings)
+            + f"; largest err/limit {ratio:.4f}; forward and backward "
+            "bitwise repeatable")
+        for kind, kern, plain, back in (
+                ("fwd", lambda: kf(*args), lambda: rf(*args), False),
+                ("bwd", lambda: kb(g, *args, lse), lambda: rb(g, *args, lse),
+                 True)):
+            tm = time_ce(f"sampled_ce {kind} [{fmt}]", where, kern, plain,
+                         shared_bound_ms(b, s_, m, d, 1, backward=back,
+                                         row_extra=4), buf, card)
+            label = "sampled_ce" + ("_bwd" if back else "")
+            put(f"{label}[{fmt}]", where, errs[kind], *tm)
+    return out
+
+
+def same_served(params_a, state_a, params_b, state_b) -> bool:
+    """Params and a QuantHeadState equal bit for bit: every param leaf,
+    every field of the index, every low-bit twin (fp8 by its bits)."""
+    from repro_torch.bridge import _INDEX_FIELDS
+    from repro_torch.index.quantized import QUANT_FIELDS
+    from repro_torch.optim.optimizers import tree_leaves
+
+    def leaves(params, st):
+        out = tree_leaves(params) + [getattr(st.index, f)
+                                     for f in _INDEX_FIELDS]
+        out += [getattr(st, f) for f in QUANT_FIELDS[1:]]
+        return [x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn
+                else x for x in out]
+    la, lb = leaves(params_a, state_a), leaves(params_b, state_b)
+    return state_a.fmt == state_b.fmt and len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def quantized_phases(get_config, midx_cuda, sce_cuda, corpus) -> dict:
+    """Phase 13, the quantized head on its main paths, each run with the
+    counters set to 0 just before it and read just after:
+      - `paper-lm` at full width trained QPATH_STEPS steps with the
+        per-token MIDX head at bf16, int8 and fp8 (refresh every 10, so the
+        twins are re-quantized twice); each quantized run must be finite,
+        applied and falling and launch midx_probs, sampled_ce_pt and
+        sampled_ce_pt_bwd in its format; the gap to the bf16 curve printed;
+      - the int8 run's serving export restored with `Engine.
+        from_checkpoint`: params and quantized state bit for bit, then
+        served (8 requests, 16 tokens) with batched == solo;
+      - `llama3.2-1b` at full width served through the MIDX head from an
+        int8 state (code rescoring; 8 requests, prompt 64, 32 tokens),
+        batched == solo;
+      - `llama3.2-1b` pooled at full width trained 3 steps of 4 x 256 at
+        int8, and cut to 2 layers 3 steps at fp8: finite, applied, both
+        shared-CE kernels launched in the format.
+    Returns {kernels-line row name: launches}."""
+    import tempfile
+    from repro_torch.serve import Engine
+    midx = midx_cuda.midx_probs_cuda
+    pt = (midx, sce_cuda.sampled_ce_pt_cuda, sce_cuda.sampled_ce_pt_bwd_cuda)
+    names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+    launches = {}
+    paper = get_config("paper-lm")
+    hists = {}
+    tmp = tempfile.mkdtemp(prefix="smoke-quant-")
+    try:
+        for fmt in ("bf16",) + QFMTS:
+            cfg = paper.with_head(table_dtype=fmt)
+            params, index, n, summary = train(
+                cfg, pt, names, steps=QPATH_STEPS, batch=16, seq=64,
+                lr=3e-3, refresh_every=10,
+                ckpt_dir=os.path.join(tmp, fmt) if fmt == "int8" else None)
+            hists[fmt] = summary["hist"]
+            if fmt == "bf16":
+                continue
+            q = [c.quant_launches[fmt] for c in pt]
+            if q != n or min(q) <= 0:
+                raise SystemExit(f"paper-lm {fmt} training: quantized "
+                                 f"launches {q} of {n}")
+            for name, k in zip(names, q):
+                launches[f"{name}[{fmt}]"] = k
+            gap = [a - b for a, b in zip(hists[fmt], hists["bf16"])]
+            log(f"[smoke] paper-lm {fmt} against bf16 over {QPATH_STEPS} "
+                f"steps: loss gap (q - bf16) first {gap[0]:+.5f}, last "
+                f"{gap[-1]:+.5f}, max |gap| {max(map(abs, gap)):.5f}; "
+                f"last-5 means {np.mean(hists[fmt][-5:]):.4f} / "
+                f"{np.mean(hists['bf16'][-5:]):.4f}")
+            if fmt == "int8":
+                trained = (params, index)
+        served = paper.with_head(table_dtype="int8").with_serve(
+            max_slots=4, page_size=16, max_seq=32)
+        t0 = time.perf_counter()
+        eng = Engine.from_checkpoint(served, os.path.join(tmp, "int8",
+                                                          "serve"),
+                                     head="midx", device="cuda")
+        from repro_torch.models import cast_blocks
+        if not same_served(eng.params, eng.index,
+                           cast_blocks(served, trained[0]), trained[1]):
+            raise SystemExit("paper-lm int8 serving export: the restored "
+                             "params or quantized state differ from the "
+                             "trained ones")
+        log(f"[smoke] paper-lm int8: serving export restored bit for bit "
+            f"(params as the engine serves them, the index, the int8 table, "
+            f"codebooks, scales and residual codes) in "
+            f"{time.perf_counter() - t0:.2f}s")
+        _, s, n_srv = serve(served, head="midx", requests=8, prompt=8,
+                            tokens=16, verify=2, params=eng.params,
+                            index=eng.index, counter=midx)
+        n_q = s["quant_launches"]["int8"]
+        if n_q != n_srv or n_q <= 0:
+            raise SystemExit(f"paper-lm int8 serve: midx_probs launches "
+                             f"{n_srv}, int8 {n_q}")
+        launches["midx_probs[int8]"] += n_q
+        del eng, trained, params, index
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    llama = get_config("llama3.2-1b").with_head(table_dtype="int8")
+    _, s, n_srv = serve(llama.with_serve(max_slots=4, page_size=16,
+                                         max_seq=112),
+                        head="midx", requests=8, prompt=64, tokens=32,
+                        verify=2, counter=midx)
+    n_q = s["quant_launches"]["int8"]
+    if n_q != n_srv or n_q <= 0:
+        raise SystemExit(f"llama3.2-1b int8 serve: midx_probs launches "
+                         f"{n_srv}, int8 {n_q}")
+    launches["midx_probs[int8]"] += n_q
+    torch.cuda.empty_cache()
+    shared = (sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda)
+    b, s, _, _ = SHAPE
+    for fmt, cfg in (("int8", llama),
+                     ("fp8", dataclasses.replace(llama, num_layers=2)
+                      .with_head(table_dtype="fp8"))):
+        _, _, n, _ = train(cfg, shared, ("sampled_ce", "sampled_ce_bwd"),
+                           steps=3, batch=b, seq=s, lr=LLAMA_LR,
+                           corpus=corpus, check_drop=False)
+        q = [c.quant_launches[fmt] for c in shared]
+        if q != n or min(q) <= 0:
+            raise SystemExit(f"llama3.2-1b {fmt} pooled training: quantized "
+                             f"launches {q} of {n}")
+        launches[f"sampled_ce[{fmt}]"] = q[0]
+        launches[f"sampled_ce_bwd[{fmt}]"] = q[1]
+        torch.cuda.empty_cache()
+    return launches
+
+
+QROWS = (                      # kernels-line rows: (name, source, replaces)
+    ("midx_probs", "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
+     "src/repro/kernels/midx_probs/midx_probs.py:23"),
+    ("sampled_ce_pt",
+     "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce_pt.cu",
+     "src/repro/kernels/sampled_ce/per_token.py:74"),
+    ("sampled_ce_pt_bwd",
+     "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce_pt.cu",
+     "src/repro/kernels/sampled_ce/per_token.py:217"),
+    ("sampled_ce", "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce.cu",
+     "src/repro/kernels/sampled_ce/sampled_ce.py:33"),
+    ("sampled_ce_bwd", "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce.cu",
+     "src/repro/kernels/sampled_ce/sampled_ce.py:205"))
+
+
+def quantized_rows(holds: dict, launches: dict) -> list:
+    """The kernels line's rows of the quantized modes, e.g.
+    `midx_probs[int8]`: the holds' numbers, the main paths' launches."""
+    rows = []
+    for kname, source, replaces in QROWS:
+        for fmt in QFMTS:
+            name = f"{kname}[{fmt}]"
+            h = holds[name]
+            rows.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+                "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+                "bound_by": h["bound_by"], "library_ms": None,
+                "shape": h["shape"], "other_shapes": h["other_shapes"]})
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1976,8 +2332,12 @@ def main() -> None:
     flash_worst, flash_diff, flash_timings = check_flash_attention(
         flash_cuda, flash_fwd_ref, buf, card)
     ssd_worst, ssd_timings = check_ssd_scan(ssd_cuda, ssd_scan_ref, buf, card)
+    qholds = check_quantized_kernels(
+        midx_cuda, midx_probs_ref, sce_cuda, sampled_ce_pt_fwd_ref,
+        sampled_ce_pt_bwd_ref, sampled_ce_fwd_ref, sampled_ce_bwd_ref, buf,
+        card)
     del buf
-    mark("kernel checks (phases 3-3c)")
+    mark("kernel checks (phases 3-3d)")
     check_against_cpu("paper-lm")
     check_against_cpu("mamba2-370m")
 
@@ -2135,9 +2495,12 @@ def main() -> None:
                          corpus=long_corpus, refresh_every=3, counter=flash)
     mark("train_4k (phase 10)")
     checkpoint_phase(get_config, midx_cuda, sce_cuda, short, corpus, card)
-    del corpus, long_corpus
     torch.cuda.empty_cache()
     mark("checkpoints and recovery (phase 10b)")
+    n_quant = quantized_phases(get_config, midx_cuda, sce_cuda, corpus)
+    del corpus, long_corpus
+    torch.cuda.empty_cache()
+    mark("the quantized head (phase 13)")
     n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
                            sce_cuda, args.profile, card)
     n_ssd = n_mamba["ssd_scan"]
@@ -2280,6 +2643,7 @@ def main() -> None:
              "bound_by": t[3]}
             for name, t in ssd_timings.items()
             if name != "mamba2-370m train 4x1024 Q=256"]})
+    rows += quantized_rows(qholds, n_quant)
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

@@ -28,7 +28,11 @@ in the process. One JSON object per run on stdout. `--save PATH` keeps
 the outputs of the `rff_sample` and per-token forward (loss, lse) and
 backward calls (on the CPU); `--against PATH` compares this run's outputs
 with a saved run's: bit for bit, or the count of differing elements and
-the largest difference. `--only` reads some of the five functions.
+the largest difference. `--only` reads some of the five functions, or
+`quantized`: the quantized modes (int8 and fp8) of `midx_probs`, the
+per-token CE forward and backward and the shared CE forward and backward,
+at `chip_smoke.py`'s phase 3d shapes (`QMIDX_SHAPES`, `QSCE_PT_SHAPES`,
+llama 4 x 256), on a port that has them.
 `--host-against <checkout>/src` loads that checkout's per-token forward
 wrapper beside this one and times the host's issue of the two in turns
 in this one process (`host_ab`: rounds of back-to-back calls, this tree
@@ -41,7 +45,9 @@ processes, is the same for both.
         --host-against <older checkout>/src
 
 It calls only entry points that every version of the port since these
-kernels were ported has, so the same file measures an older checkout:
+kernels were ported has (the quantized modes: since they were; an older
+port reads them as "not measured"), so the same file measures an older
+checkout:
 `PYTHONPATH=<checkout>/src python3 scripts/head_kernel_times.py`.
 """
 from __future__ import annotations
@@ -58,7 +64,7 @@ import torch
 
 SPIN_CYCLES = 1_000_000        # ~0.5 ms of the card's clock
 FUNCTIONS = ("midx_probs", "sampled_ce", "rff_sample", "sampled_ce_pt",
-             "sampled_ce_pt_bwd")
+             "sampled_ce_pt_bwd", "quantized")
 
 
 def device_ms(fn, buf, flush, reps: int = 50, warm: int = 5) -> float:
@@ -269,6 +275,8 @@ def main() -> None:
                 "kernels_us": kernels_us(kern)}
             outputs[f"{fn} {name}"] = kern()
             del h, tab, lq, neg, pos, g, lse
+    if "quantized" in args.only:
+        read_quantized(out, read, smoke, midx_cuda, midx_probs_ref, sce_cuda)
     if args.host_against:
         other = load_other_wrapper(args.host_against)
         out["sampled_ce_pt host_ab"] = {"other": args.host_against}
@@ -306,6 +314,64 @@ def read_midx_probs(out: dict, read, smoke, midx_cuda, midx_probs_ref):
             lambda: midx_cuda.midx_probs_cuda(z, cb1, cb2, counts,
                                               split=split),
             lambda: midx_probs_ref(z, cb1, cb2, counts, split=split))
+
+
+def read_quantized(out: dict, read, smoke, midx_cuda, midx_probs_ref,
+                   sce_cuda):
+    """The quantized modes at the smoke's phase 3d shapes, int8 and fp8."""
+    try:
+        from repro_torch.index.quantized import quantize_rows
+    except ImportError:
+        out["quantized"] = "not measured: this port has no quantized modes"
+        return
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
+                                                    sampled_ce_fwd_ref,
+                                                    sampled_ce_pt_bwd_ref,
+                                                    sampled_ce_pt_fwd_ref)
+    got = out["quantized"] = {}
+    for fmt in smoke.QFMTS:
+        for name, (t, d, k, split) in smoke.QMIDX_SHAPES:
+            z, cb1, cb2, counts = smoke.midx_inputs(t, d, k, split, seed=1)
+            (q1, s1), (q2, s2) = quantize_rows(cb1, fmt), quantize_rows(
+                cb2, fmt)
+            kw = dict(split=split, scale1=s1.reshape(-1),
+                      scale2=s2.reshape(-1))
+            got[f"midx_probs[{fmt}] {name}"] = read(
+                lambda: midx_cuda.midx_probs_cuda(z, q1, q2, counts, **kw),
+                lambda: midx_probs_ref(z, q1, q2, counts, **kw))
+        for name, (t, d, m, v), hot in smoke.QSCE_PT_SHAPES:
+            h, tab, lq, neg, pos, g = smoke.sce_inputs(
+                t, d, m, v, torch.float32, seed=1, hot_row=hot)
+            q, sc = quantize_rows(tab, fmt)
+            del tab
+            args = (h, q, lq, neg, pos)
+            _, lse = sce_cuda.sampled_ce_pt_cuda(*args, scale=sc)
+            got[f"sampled_ce_pt[{fmt}] {name}"] = read(
+                lambda: sce_cuda.sampled_ce_pt_cuda(*args, scale=sc),
+                lambda: sampled_ce_pt_fwd_ref(*args, scale=sc),
+                plain_reps=20)
+            got[f"sampled_ce_pt_bwd[{fmt}] {name}"] = read(
+                lambda: sce_cuda.sampled_ce_pt_bwd_cuda(g, *args, lse,
+                                                        scale=sc),
+                lambda: sampled_ce_pt_bwd_ref(g, *args, lse, scale=sc),
+                plain_reps=20)
+            del h, q, sc, lq, neg, pos, g, lse, args
+        b, s_, m, d = smoke.SHAPE
+        h, pe, ne, lq, neg, pos, g = smoke.shared_inputs(
+            b, s_, m, d, 128256, torch.float32, seed=1)
+        (pq, ps), (nq, ns) = (quantize_rows(x.reshape(-1, d), fmt)
+                              for x in (pe, ne))
+        args = (h, pq.reshape(pe.shape), nq.reshape(ne.shape), lq, neg, pos)
+        kw = dict(pos_scale=ps.reshape(b, s_, 1),
+                  neg_scale=ns.reshape(b, m, 1))
+        _, lse = sce_cuda.sampled_ce_cuda(*args, **kw)
+        got[f"sampled_ce[{fmt}] llama3.2-1b train"] = read(
+            lambda: sce_cuda.sampled_ce_cuda(*args, **kw),
+            lambda: sampled_ce_fwd_ref(*args, **kw))
+        got[f"sampled_ce_bwd[{fmt}] llama3.2-1b train"] = read(
+            lambda: sce_cuda.sampled_ce_bwd_cuda(g, *args, lse, **kw),
+            lambda: sampled_ce_bwd_ref(g, *args, lse, **kw))
+        del h, pe, ne, pq, nq, lq, neg, pos, g, lse, args
 
 
 if __name__ == "__main__":

@@ -63,7 +63,8 @@ def variants(src_dir: str, against: str | None) -> dict:
                                                 "BULK_ROW_BYTES = 1 << 30")
     out["TMA every row"] = text.replace(CHOICE, "BULK_ROW_BYTES = 0")
     out["cp.async.cg every row"] = out["cp.async.ca every row"].replace(
-        "cp.async.ca.shared.global", "cp.async.cg.shared.global")
+        "cp.async.ca.shared.global [%0], [%1], 16;",
+        "cp.async.cg.shared.global [%0], [%1], 16;")
     return out
 
 

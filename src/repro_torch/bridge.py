@@ -11,7 +11,11 @@ index is the numpy fields of a `MultiIndex` (`src/repro/index/build.py:36`);
 index fields become int64, the port's indexing type. A proposal's state is
 a flat dict of arrays (the RFF state `{emb, w, tau, phi_c}`,
 `src/repro/proposals/rff.py:36`) and crosses leaf by leaf,
-`proposal_state_from_numpy` / `proposal_state_to_numpy`.
+`proposal_state_from_numpy` / `proposal_state_to_numpy`. A quantized head
+state (`src/repro/index/quantized.py:259`) crosses as its index's fields
+under `index` and its other data fields, `quant_state_from_numpy` /
+`quant_state_to_numpy`; fp8 leaves keep their dtype both ways (torch's
+`float8_e4m3fn` and `ml_dtypes.float8_e4m3fn` share their bits).
 
 bf16 leaves come out of JAX as `ml_dtypes.bfloat16` numpy arrays, which
 `torch.from_numpy` rejects: they cross as their uint16 bit pattern and are
@@ -37,6 +41,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.index.build import MultiIndex
+from repro_torch.index.quantized import QUANT_FIELDS, QuantHeadState
 from repro_torch.optim.optimizers import OptState
 
 _INDEX_FIELDS = ("codebook1", "codebook2", "assign1", "assign2", "residuals",
@@ -44,11 +49,17 @@ _INDEX_FIELDS = ("codebook1", "codebook2", "assign1", "assign2", "residuals",
 _INT_FIELDS = ("assign1", "assign2", "sorted_ids", "offsets", "counts")
 
 
+# ml_dtypes' extension dtypes: (the same-width unsigned view, torch's dtype)
+_EXT = {"bfloat16": (np.uint16, torch.bfloat16),
+        "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def tensor_from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
-                                .copy()).view(torch.bfloat16).to(device)
+    if a.dtype.name in _EXT:
+        raw, dtype = _EXT[a.dtype.name]
+        return torch.from_numpy(np.ascontiguousarray(a).view(raw)
+                                .copy()).view(dtype).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -88,9 +99,11 @@ def index_from_numpy(d: Mapping, *, kind: str | None = None,
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    for name, (raw, dtype) in _EXT.items():
+        if t.dtype == dtype:
+            import ml_dtypes
+            bits = t.view(torch.uint16 if raw == np.uint16 else torch.uint8)
+            return bits.numpy().view(getattr(ml_dtypes, name))
     return t.numpy()
 
 
@@ -124,6 +137,25 @@ def index_to_numpy(index: MultiIndex) -> dict:
     for name in _INDEX_FIELDS:
         a = tensor_to_numpy(getattr(index, name))
         out[name] = a.astype(np.int32) if name in _INT_FIELDS else a
+    return out
+
+
+def quant_state_from_numpy(d: Mapping, *, device=None) -> QuantHeadState:
+    """A JAX `QuantHeadState` as numpy (`fmt`, `index` the mapping of its
+    MultiIndex's fields with `kind`, and the other data fields) -> the
+    port's `QuantHeadState` on `device`."""
+    device = resolve_device(device)
+    return QuantHeadState(
+        str(d["fmt"]), index_from_numpy(d["index"], device=device),
+        **{f: tensor_from_numpy(d[f], device) for f in QUANT_FIELDS[1:]})
+
+
+def quant_state_to_numpy(state: QuantHeadState) -> dict:
+    """A port `QuantHeadState` -> `fmt`, `index` (`index_to_numpy`) and
+    its other data fields as numpy, in the JAX package's dtypes."""
+    out = {"fmt": state.fmt, "index": index_to_numpy(state.index)}
+    for f in QUANT_FIELDS[1:]:
+        out[f] = tensor_to_numpy(getattr(state, f))
     return out
 
 
@@ -166,6 +198,9 @@ def _layout(tree, leaf, stack, int32):
             return MultiIndex(kind=t.kind, **{
                 f: (int32 if f in _INT_FIELDS else (lambda x: x))(
                     leaf(getattr(t, f))) for f in _INDEX_FIELDS})
+        if isinstance(t, QuantHeadState):
+            return QuantHeadState(t.fmt, **{f: go(getattr(t, f))
+                                            for f in QUANT_FIELDS})
         if isinstance(t, Mapping):
             return {k: (zip_layers(v) if k == "blocks" and isinstance(v, list)
                         else go(v)) for k, v in t.items()}
@@ -185,7 +220,8 @@ def _layout(tree, leaf, stack, int32):
 def to_reference(tree):
     """A tree of the port's (the training tuple `(params, opt_state,
     head_state)`, a `{"params", "index"}` serving tree, or any dict / list /
-    tuple / `OptState` / `MultiIndex` tree of tensors, numpy arrays or
+    tuple / `OptState` / `MultiIndex` / `QuantHeadState` tree of tensors,
+    numpy arrays or
     numbers) -> the same values in the reference's layout, on the host."""
     return _layout(tree, _host, _stack_host, _int32)
 
@@ -223,6 +259,9 @@ def from_reference(ref, like, *, device=None):
         if isinstance(lk, MultiIndex):
             return MultiIndex(kind=lk.kind, **{
                 f: go(getattr(r, f), getattr(lk, f)) for f in _INDEX_FIELDS})
+        if isinstance(lk, QuantHeadState):
+            return QuantHeadState(lk.fmt, **{
+                f: go(getattr(r, f), getattr(lk, f)) for f in QUANT_FIELDS})
         if isinstance(lk, Mapping):
             return {k: (unstack(r[k], v) if k == "blocks"
                         and isinstance(v, list) else go(r[k], v))

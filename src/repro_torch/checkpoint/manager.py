@@ -29,7 +29,9 @@ stacked [L, ...], the optimizer step a 0-d int32, index fields int32);
 `_treedef_str` prints JAX's `str(treedef)` for that layout (dicts by
 sorted key, `OptState` as `CustomNode(namedtuple[OptState], [...])`, a
 `MultiIndex` as `CustomNode(MultiIndex[('rq',)], [...])` over the data
-fields in the order of `src/repro/index/build.py:30-33`); bf16 and fp8
+fields in the order of `src/repro/index/build.py:30-33`, a quantized head
+state as `CustomNode(QuantHeadState[('int8',)], [...])` over its index
+and its low-bit twins, `src/repro/index/quantized.py:255-258`); bf16 and fp8
 leaves are stored as same-width unsigned raw bits with their true dtype's
 name in tree.json, as the reference stores them, without `ml_dtypes`.
 `restore(step, like, device=...)` takes `like` in the port's structure
@@ -53,6 +55,7 @@ import torch
 from repro_torch.bridge import (_INDEX_FIELDS, from_reference,
                                 reference_structure, to_reference)
 from repro_torch.index.build import MultiIndex
+from repro_torch.index.quantized import QUANT_FIELDS, QuantHeadState
 
 # torch dtypes numpy cannot hold: stored as their raw bits
 _RAW_BITS = {torch.bfloat16: (torch.uint16, np.uint16),
@@ -69,6 +72,8 @@ def _children(t) -> Optional[list]:
     """A node's children in JAX's flatten order; None for a leaf."""
     if isinstance(t, MultiIndex):
         return [getattr(t, f) for f in _INDEX_FIELDS]
+    if isinstance(t, QuantHeadState):
+        return [getattr(t, f) for f in QUANT_FIELDS]
     if isinstance(t, dict):
         return [t[k] for k in sorted(t)]
     if isinstance(t, (list, tuple)):
@@ -91,6 +96,10 @@ def _unflatten(structure, leaves):
         return MultiIndex(kind=structure.kind, **{
             f: _unflatten(getattr(structure, f), leaves)
             for f in _INDEX_FIELDS})
+    if isinstance(structure, QuantHeadState):
+        return QuantHeadState(structure.fmt, **{
+            f: _unflatten(getattr(structure, f), leaves)
+            for f in QUANT_FIELDS})
     if isinstance(structure, dict):
         out = {k: _unflatten(structure[k], leaves) for k in sorted(structure)}
         return {k: out[k] for k in structure}
@@ -109,6 +118,9 @@ def _treedef_str(tree) -> str:
             return "None"
         if isinstance(t, MultiIndex):
             return (f"CustomNode(MultiIndex[{(t.kind,)!r}], "
+                    f"[{', '.join(go(c) for c in _children(t))}])")
+        if isinstance(t, QuantHeadState):
+            return (f"CustomNode(QuantHeadState[{(t.fmt,)!r}], "
                     f"[{', '.join(go(c) for c in _children(t))}])")
         if isinstance(t, dict):
             return "{" + ", ".join(f"{k!r}: {go(t[k])}"

@@ -3,8 +3,9 @@
 Mirrors `src/repro/core/midx.py`: `log_prob` (:59), `_member_uniform`
 (:51), `twostage_tables` (:110), `sample_twostage` (:127), and the
 shared-negative samplers `_inverse_cdf_sample` (:168), `_shared_draw`
-(:177), `sample_pooled` (:201) and `sample_mixture` (:210), the latter two
-with the plain scores only (the quantized `scores_fn` is not ported).
+(:177), `_joint_from_scores` (:191), `sample_pooled` (:201) and
+`sample_mixture` (:210), with the quantized head's `scores_fn` hook and
+`sample_twostage`'s `return_tables`.
 For a query z the proposal is Q(i|z) ∝ exp(s1[k1(i)] + s2[k2(i)]), drawn
 as k1 ~ Cat(s1 + logψ), then k2 ~ Cat(s2 + log|Ω(k1,:)|), then a uniform
 member of Ω(k1,k2) through the CSR layout.
@@ -115,12 +116,16 @@ def twostage_tables(index: MultiIndex, z: torch.Tensor):
 
 
 def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
-                    keys: torch.Tensor, *, tables_fn=None) -> Draw:
+                    keys: torch.Tensor, *, tables_fn=None,
+                    return_tables: bool = False):
     """z [T, D], keys [T] per-row stream keys -> Draw of [T, m].
 
     `tables_fn(index, z) -> (s1, s2, log_psi, lse)` replaces
     `twostage_tables` — the hook through which the decode head runs the
-    midx_probs kernel (`kernels.midx_probs.ops.proposal_tables`)."""
+    midx_probs kernel (`kernels.midx_probs.ops.proposal_tables`).
+    `return_tables=True` also returns the (s1, s2, log_psi, lse) the draw
+    consumed, from which the quantized decode head rescores candidates
+    (`index.quantized.code_scores`)."""
     s1, s2, log_psi, lse = (tables_fn or twostage_tables)(index, z)
     kk = index.num_codewords
     dev = z.device
@@ -136,6 +141,8 @@ def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
     ids = _member_uniform(index, u, k1 * kk + k2)
     log_q = (_PickRows.apply(s1, k1) + _PickRows.apply(s2, k2)
              - lse[:, None])
+    if return_tables:
+        return Draw(ids, log_q), (s1, s2, log_psi, lse)
     return Draw(ids, log_q)
 
 
@@ -168,22 +175,32 @@ def _shared_draw(index: MultiIndex, flat_log: torch.Tensor, m: int,
     return Draw(ids, log_q)
 
 
+def _joint_from_scores(index: MultiIndex, z: torch.Tensor, scores_fn):
+    """`joint_logits` with an optional (index, z) -> (s1, s2) replacement,
+    the hook through which the quantized head scores its low-bit
+    codebooks."""
+    if scores_fn is None:
+        return joint_logits(index, z)
+    s1, s2 = scores_fn(index, z)
+    return s1[..., :, None] + s2[..., None, :] + index.log_counts, s1, s2
+
+
 def sample_pooled(index: MultiIndex, z_seq: torch.Tensor, m: int,
-                  keys: torch.Tensor) -> Draw:
+                  keys: torch.Tensor, *, scores_fn=None) -> Draw:
     """Pooled proposal: one proposal per sequence from its mean query.
     z_seq [B, S, D], keys [B] -> Draw of [B, m]."""
     z_bar = torch.mean(z_seq.float(), dim=-2)                    # [B,D]
-    j, _, _ = joint_logits(index, z_bar)
+    j, _, _ = _joint_from_scores(index, z_bar, scores_fn)
     return _shared_draw(index, j.reshape(j.shape[0], -1), m, keys)
 
 
 def sample_mixture(index: MultiIndex, z_seq: torch.Tensor, m: int,
-                   keys: torch.Tensor) -> Draw:
+                   keys: torch.Tensor, *, scores_fn=None) -> Draw:
     """Exact token-mixture proposal per sequence:
     P̄[k,k'] ∝ |Ω| ⊙ Σ_t a_t[k] b_t[k'],  a_t = exp(s1_t)/Z_t, b_t = exp(s2_t),
     Z_t the token's joint normaliser — one K×S @ S×K product per sequence.
     z_seq [B, S, D], keys [B] -> Draw of [B, m], log q under the mixture."""
-    j, s1, s2 = joint_logits(index, z_seq)                       # [B,S,K,K]
+    j, s1, s2 = _joint_from_scores(index, z_seq, scores_fn)      # [B,S,K,K]
     log_z = torch.logsumexp(j.reshape(*j.shape[:-2], -1), dim=-1)  # [B,S]
     c2 = torch.amax(s2, dim=-1, keepdim=True)
     a = torch.exp(s1 - log_z[..., None] + c2)

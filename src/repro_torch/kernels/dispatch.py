@@ -32,62 +32,76 @@ def _unsupported(name: str, x: torch.Tensor):
 
 
 def midx_probs(z: torch.Tensor, cb1: torch.Tensor, cb2: torch.Tensor,
-               counts: torch.Tensor, *, split: bool):
-    """(s1, s2, log_psi [T, K], lse [T]) for z [T, D]."""
+               counts: torch.Tensor, *, split: bool, scale1=None,
+               scale2=None):
+    """(s1, s2, log_psi [T, K], lse [T]) for z [T, D]. scale1/scale2 [K]
+    fp32 given: the quantized mode over int8 / fp8 codebooks."""
     if z.is_cuda:
         from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
-        return midx_probs_cuda(z, cb1, cb2, counts, split=split)
+        return midx_probs_cuda(z, cb1, cb2, counts, split=split,
+                               scale1=scale1, scale2=scale2)
     if z.device.type == "cpu":
-        return midx_probs_ref(z, cb1, cb2, counts, split=split)
+        return midx_probs_ref(z, cb1, cb2, counts, split=split,
+                              scale1=scale1, scale2=scale2)
     raise _unsupported("midx_probs", z)
 
 
-def sampled_ce_pt(hidden, table, log_q, neg_ids, pos_ids):
-    """Per-token sampled CE forward: (loss [T], lse [T])."""
+def sampled_ce_pt(hidden, table, log_q, neg_ids, pos_ids, scale=None):
+    """Per-token sampled CE forward: (loss [T], lse [T]). scale [V, 1]
+    fp32 given: the quantized mode over an int8 / fp8 table."""
     if hidden.is_cuda:
         from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda
-        return sampled_ce_pt_cuda(hidden, table, log_q, neg_ids, pos_ids)
+        return sampled_ce_pt_cuda(hidden, table, log_q, neg_ids, pos_ids,
+                                  scale=scale)
     if hidden.device.type == "cpu":
-        return sampled_ce_pt_fwd_ref(hidden, table, log_q, neg_ids, pos_ids)
+        return sampled_ce_pt_fwd_ref(hidden, table, log_q, neg_ids, pos_ids,
+                                     scale=scale)
     raise _unsupported("sampled_ce_pt", hidden)
 
 
-def sampled_ce_pt_bwd(g, hidden, table, log_q, neg_ids, pos_ids, lse):
+def sampled_ce_pt_bwd(g, hidden, table, log_q, neg_ids, pos_ids, lse,
+                      scale=None):
     """Its backward from the saved lse: (dh [T, D], dtab [V, D] fp32,
-    dlq [T, M])."""
+    dlq [T, M]); in the quantized mode dtab is scale-unaware."""
     if hidden.is_cuda:
         from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_bwd_cuda
         return sampled_ce_pt_bwd_cuda(g, hidden, table, log_q, neg_ids,
-                                      pos_ids, lse)
+                                      pos_ids, lse, scale=scale)
     if hidden.device.type == "cpu":
         return sampled_ce_pt_bwd_ref(g, hidden, table, log_q, neg_ids,
-                                     pos_ids, lse)
+                                     pos_ids, lse, scale=scale)
     raise _unsupported("sampled_ce_pt_bwd", hidden)
 
 
-def sampled_ce(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids):
-    """Shared-negative sampled CE forward: (loss [B, S], lse [B, S])."""
+def sampled_ce(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
+               pos_scale=None, neg_scale=None):
+    """Shared-negative sampled CE forward: (loss [B, S], lse [B, S]).
+    pos_scale [B, S, 1] / neg_scale [B, M, 1] fp32 given: the quantized
+    mode over gathered int8 / fp8 rows."""
     if hidden.is_cuda:
         from repro_torch.kernels.sampled_ce.cuda import sampled_ce_cuda
         return sampled_ce_cuda(hidden, pos_emb, neg_emb, log_q, neg_ids,
-                               pos_ids)
+                               pos_ids, pos_scale=pos_scale,
+                               neg_scale=neg_scale)
     if hidden.device.type == "cpu":
         return sampled_ce_fwd_ref(hidden, pos_emb, neg_emb, log_q, neg_ids,
-                                  pos_ids)
+                                  pos_ids, pos_scale, neg_scale)
     raise _unsupported("sampled_ce", hidden)
 
 
 def sampled_ce_bwd(g, hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
-                   lse):
+                   lse, pos_scale=None, neg_scale=None):
     """Its backward from the saved lse: (dh, dpe [B, S, D], dne [B, M, D],
-    dlq [B, M]), all fp32."""
+    dlq [B, M]), all fp32; dpe and dne scale-unaware in the quantized
+    mode."""
     if hidden.is_cuda:
         from repro_torch.kernels.sampled_ce.cuda import sampled_ce_bwd_cuda
         return sampled_ce_bwd_cuda(g, hidden, pos_emb, neg_emb, log_q,
-                                   neg_ids, pos_ids, lse)
+                                   neg_ids, pos_ids, lse,
+                                   pos_scale=pos_scale, neg_scale=neg_scale)
     if hidden.device.type == "cpu":
         return sampled_ce_bwd_ref(g, hidden, pos_emb, neg_emb, log_q, neg_ids,
-                                  pos_ids, lse)
+                                  pos_ids, lse, pos_scale, neg_scale)
     raise _unsupported("sampled_ce_bwd", hidden)
 
 

@@ -42,10 +42,24 @@
 // replay. The count is decided here alone (`midx_probs_slices`, which the
 // wrapper asks to size the workspace). Supports K <= 64 (the wrapper
 // checks).
+//
+// Quantized mode (the TPU kernel's `quantized` branch, DESIGN §12): the
+// codebooks are int8 or fp8-e4m3 [K, Dc] with [K] fp32 per-codeword
+// scales. The partials read the 1-byte codewords and convert them to fp32
+// in registers on their way to shared memory (a 16-byte load carries 16
+// codebook elements where Dc is a multiple of 16, an 8-byte load 8 where
+// it is a multiple of 8, e.g. paper-lm's Dc = 200; plain loads else), so
+// the products and the slicing are the fp32 mode's. The finish multiplies
+// s1 and s2 by the scales after the ascending-slice sum and before c2:
+// the plain version's order, (z · qᵀ) · s. At llama decode the codebook
+// reads shrink from 1 MB to 256 KB; a row's bits still follow D alone.
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,12 +72,9 @@ constexpr int THREADS = 256;                // 8 warps of 2 rows
 constexpr int RW = TR / (THREADS / 32);     // rows of a warp
 constexpr int FR = 8;                       // rows of a finish CTA, a warp each
 constexpr int V4 = DS / 4;                  // float4 columns of a slice row
-// 16-byte chunks of the two codebooks' slices, per thread
-constexpr int CB_LOADS = 2 * KMAX * V4 / THREADS;
 // counts entries of the finish's staging, per thread
 constexpr int CNT_LOADS = KMAX * KMAX / (FR * 32);
-static_assert(2 * KMAX * V4 % THREADS == 0 && TR * V4 == THREADS &&
-                  KMAX * KMAX % (FR * 32) == 0,
+static_assert(TR * V4 == THREADS && KMAX * KMAX % (FR * 32) == 0,
               "the staging loops assume these sizes");
 
 __device__ __forceinline__ float4 load4(const float* __restrict__ p,
@@ -72,30 +83,68 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p,
             : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// A codebook element as fp32: fp32 as is, int8 and fp8-e4m3 exactly.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return (float)x; }
+
+// EC consecutive codebook elements, EC·sizeof(C) = 16 or 8 bytes, as one
+// load (zeros where !ok), and their conversion to fp32.
+template <typename C, int EC>
+struct CbChunk {
+  using Raw = typename std::conditional<EC * sizeof(C) == 16, uint4,
+                                        uint2>::type;
+  static_assert(EC * sizeof(C) == 16 || EC * sizeof(C) == 8,
+                "a codebook load is 16 or 8 bytes");
+  Raw raw;
+  __device__ __forceinline__ void load(const C* __restrict__ p, bool ok) {
+    if (ok) {
+      raw = *reinterpret_cast<const Raw*>(p);
+    } else {
+      raw = Raw{};
+    }
+  }
+  __device__ __forceinline__ void store(float* dst) const {
+    const C* e = reinterpret_cast<const C*>(&raw);
+#pragma unroll
+    for (int i = 0; i < EC; i += 4) {
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(to_f(e[i]), to_f(e[i + 1]), to_f(e[i + 2]),
+                      to_f(e[i + 3]));
+    }
+  }
+};
+
 // Slice blockIdx.y of the rows blockIdx.x of z against both codebooks:
 // part[slice, t, k] = Σ_d z1[t, d] C1[k, d], part[slice, t, K + k] = Σ_d
-// z2[t, d] C2[k, d], over the slice's columns d in ascending order. VEC:
-// 16-byte global loads (Dc and D multiples of 4, 16-byte aligned
-// pointers); else plain loads. Both stage the same shared tiles, zeros past
-// T, K and Dc, so both give the same bits.
-template <bool VEC>
+// z2[t, d] C2[k, d], over the slice's columns d in ascending order. C: the
+// codebooks' element type (fp32, or int8 / fp8 in the quantized mode),
+// converted to fp32 as it is staged. EC > 0: vector global loads, EC
+// codebook elements (16 or 8 bytes) a load and float4 loads of z (Dc a
+// multiple of EC, D of 4, aligned pointers); EC = 0: plain loads. Every
+// route stages the same shared tiles, zeros past T, K and Dc, so all give
+// the same bits.
+template <typename C, int EC>
 __global__ void __launch_bounds__(THREADS)
-midx_part_kernel(const float* __restrict__ z, const float* __restrict__ cb1,
-                 const float* __restrict__ cb2, float* __restrict__ part,
+midx_part_kernel(const float* __restrict__ z, const C* __restrict__ cb1,
+                 const C* __restrict__ cb2, float* __restrict__ part,
                  int T, int D, int K, int split) {
   __shared__ __align__(16) float cs[2][KMAX][LDS];   // C1, C2 slices
   __shared__ __align__(16) float zs[2][TR][LDS];     // z1, z2 (PQ) slices
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t0 = blockIdx.x * TR, d0 = blockIdx.y * DS;
   const int dc = split ? D / 2 : D;         // codeword width
-  if constexpr (VEC) {
-    float4 v[CB_LOADS];
+  if constexpr (EC > 0) {
+    constexpr int CR = DS / EC;             // loads of a slice row
+    constexpr int CB_LOADS = 2 * KMAX * CR / THREADS;
+    static_assert(2 * KMAX * CR % THREADS == 0, "whole loads per thread");
+    CbChunk<C, EC> v[CB_LOADS];
 #pragma unroll
     for (int i = 0; i < CB_LOADS; ++i) {    // every load in flight at once
-      const int idx = tid + i * THREADS, book = idx / (KMAX * V4);
-      const int k = idx / V4 % KMAX, c = 4 * (idx % V4);
-      v[i] = load4((book ? cb2 : cb1) + (size_t)k * dc + d0 + c,
-                   k < K && d0 + c < dc);
+      const int idx = tid + i * THREADS, book = idx / (KMAX * CR);
+      const int k = idx / CR % KMAX, c = EC * (idx % CR);
+      v[i].load((book ? cb2 : cb1) + (size_t)k * dc + d0 + c,
+                k < K && d0 + c < dc);
     }
     float4 w[2];
 #pragma unroll
@@ -106,9 +155,8 @@ midx_part_kernel(const float* __restrict__ z, const float* __restrict__ cb1,
     }
 #pragma unroll
     for (int i = 0; i < CB_LOADS; ++i) {
-      const int idx = tid + i * THREADS, book = idx / (KMAX * V4);
-      *reinterpret_cast<float4*>(&cs[book][idx / V4 % KMAX][4 * (idx % V4)]) =
-          v[i];
+      const int idx = tid + i * THREADS, book = idx / (KMAX * CR);
+      v[i].store(&cs[book][idx / CR % KMAX][EC * (idx % CR)]);
     }
 #pragma unroll
     for (int q = 0; q < 2; ++q)
@@ -117,7 +165,8 @@ midx_part_kernel(const float* __restrict__ z, const float* __restrict__ cb1,
     for (int idx = tid; idx < 2 * KMAX * DS; idx += THREADS) {
       const int book = idx / (KMAX * DS), k = idx / DS % KMAX, c = idx % DS;
       const bool ok = k < K && d0 + c < dc;
-      cs[book][k][c] = ok ? (book ? cb2 : cb1)[(size_t)k * dc + d0 + c] : 0.f;
+      cs[book][k][c] =
+          ok ? to_f((book ? cb2 : cb1)[(size_t)k * dc + d0 + c]) : 0.f;
     }
     for (int idx = tid; idx < 2 * TR * DS; idx += THREADS) {
       const int q = idx / (TR * DS), r = idx / DS % TR, c = idx % DS;
@@ -180,11 +229,14 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 // Row t = blockIdx.x FR + warp: s1, s2 as the sums of its `slices`
-// partials in ascending slice order, then c2, ψ, logψ and lse. Lane l owns
-// codewords l and l + 32.
+// partials in ascending slice order (times the codewords' scales sc1, sc2
+// in the quantized mode; null pointers else), then c2, ψ, logψ and lse.
+// Lane l owns codewords l and l + 32.
 __global__ void __launch_bounds__(FR * 32)
 midx_finish_kernel(const float* __restrict__ part,
                    const float* __restrict__ counts,
+                   const float* __restrict__ sc1,
+                   const float* __restrict__ sc2,
                    float* __restrict__ s1_out, float* __restrict__ s2_out,
                    float* __restrict__ lpsi_out, float* __restrict__ lse_out,
                    int T, int K, int slices) {
@@ -217,6 +269,15 @@ midx_finish_kernel(const float* __restrict__ part,
       if (own[c]) {
         s1[c] += p[lane + 32 * c];
         s2[c] += p[K + lane + 32 * c];
+      }
+    }
+  }
+  if (sc1 != nullptr) {                     // quantized: (z · qᵀ) · s
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (own[c]) {
+        s1[c] *= sc1[lane + 32 * c];
+        s2[c] *= sc2[lane + 32 * c];
       }
     }
   }
@@ -253,6 +314,31 @@ midx_finish_kernel(const float* __restrict__ part,
   if (lane == 0) lse_out[t] = logf(acc) + m;
 }
 
+template <typename C, int EC>
+void launch_part(const float* z, const void* cb1, const void* cb2,
+                 float* part, int T, int D, int K, int split, dim3 grid,
+                 cudaStream_t s) {
+  midx_part_kernel<C, EC><<<grid, THREADS, 0, s>>>(
+      z, static_cast<const C*>(cb1), static_cast<const C*>(cb2), part, T, D,
+      K, split);
+}
+
+// The partials of 1-byte codebooks: 16-byte loads where Dc is a multiple
+// of 16 and the codebooks 16-byte aligned, 8-byte loads where Dc is a
+// multiple of 8 and they are 8-byte aligned, else plain loads.
+template <typename C>
+void launch_part_bytes(const float* z, const void* cb1, const void* cb2,
+                       float* part, int T, int D, int K, int split, int dc,
+                       bool zvec, dim3 grid, cudaStream_t s) {
+  const uintptr_t a = (uintptr_t)cb1 | (uintptr_t)cb2;
+  if (zvec && dc % 16 == 0 && a % 16 == 0)
+    launch_part<C, 16>(z, cb1, cb2, part, T, D, K, split, grid, s);
+  else if (zvec && dc % 8 == 0 && a % 8 == 0)
+    launch_part<C, 8>(z, cb1, cb2, part, T, D, K, split, grid, s);
+  else
+    launch_part<C, 0>(z, cb1, cb2, part, T, D, K, split, grid, s);
+}
+
 }  // namespace
 
 extern "C" int midx_probs_max_k() { return KMAX; }
@@ -266,32 +352,43 @@ extern "C" int midx_probs_slices(int D, int split) {
 
 // Launches on `stream`; allocates nothing and does not synchronise.
 // Returns cudaGetLastError() after the launches (0 on success). part is
-// the workspace [midx_probs_slices(D, split), T, 2K] fp32. The partials
-// take 16-byte loads where Dc and D are multiples of 4 and z, cb1 and cb2
-// are 16-byte aligned, else plain loads (the same bits).
-extern "C" int midx_probs_launch(const float* z, const float* cb1,
-                                 const float* cb2, const float* counts,
+// the workspace [midx_probs_slices(D, split), T, 2K] fp32. cb_kind: 0 =
+// fp32 codebooks (sc1 and sc2 null), 1 = int8, 2 = fp8-e4m3 (the quantized
+// mode: sc1 and sc2 the [K] fp32 scales). fp32 partials take 16-byte loads
+// where Dc and D are multiples of 4 and z, cb1 and cb2 are 16-byte
+// aligned, else plain loads (the same bits); 1-byte codebooks as
+// `launch_part_bytes` says.
+extern "C" int midx_probs_launch(const float* z, const void* cb1,
+                                 const void* cb2, const float* counts,
+                                 const float* sc1, const float* sc2,
                                  float* s1, float* s2, float* lpsi,
                                  float* lse, float* part, int T, int D,
-                                 int K, int split, void* stream) {
-  if (K < 1 || K > KMAX || T < 0 || D < 1 || (split && D % 2)) {
+                                 int K, int split, int cb_kind,
+                                 void* stream) {
+  if (K < 1 || K > KMAX || T < 0 || D < 1 || (split && D % 2) ||
+      cb_kind < 0 || cb_kind > 2 || (cb_kind > 0) != (sc1 != nullptr) ||
+      (sc1 == nullptr) != (sc2 == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (T == 0) return 0;
   const int dc = split ? D / 2 : D, slices = midx_probs_slices(D, split);
-  const bool vec = dc % 4 == 0 && D % 4 == 0 &&
-                   ((uintptr_t)z | (uintptr_t)cb1 | (uintptr_t)cb2) % 16 == 0;
+  const bool zvec = dc % 4 == 0 && D % 4 == 0 && (uintptr_t)z % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((T + TR - 1) / TR, slices);
-  if (vec)
-    midx_part_kernel<true><<<grid, THREADS, 0, s>>>(z, cb1, cb2, part, T, D,
-                                                    K, split);
-  else
-    midx_part_kernel<false><<<grid, THREADS, 0, s>>>(z, cb1, cb2, part, T, D,
-                                                     K, split);
+  if (cb_kind == 1) {
+    launch_part_bytes<int8_t>(z, cb1, cb2, part, T, D, K, split, dc, zvec,
+                              grid, s);
+  } else if (cb_kind == 2) {
+    launch_part_bytes<__nv_fp8_e4m3>(z, cb1, cb2, part, T, D, K, split, dc,
+                                     zvec, grid, s);
+  } else if (zvec && ((uintptr_t)cb1 | (uintptr_t)cb2) % 16 == 0) {
+    launch_part<float, 4>(z, cb1, cb2, part, T, D, K, split, grid, s);
+  } else {
+    launch_part<float, 0>(z, cb1, cb2, part, T, D, K, split, grid, s);
+  }
   const int err = (int)cudaGetLastError();
   if (err) return err;
   midx_finish_kernel<<<(T + FR - 1) / FR, FR * 32, 0, s>>>(
-      part, counts, s1, s2, lpsi, lse, T, K, slices);
+      part, counts, sc1, sc2, s1, s2, lpsi, lse, T, K, slices);
   return (int)cudaGetLastError();
 }

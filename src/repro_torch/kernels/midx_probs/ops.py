@@ -9,6 +9,12 @@ transients only — so d(tables)/dz and d(tables)/d(codebooks) are ready for
 the training slice. Unlike the reference there is no `use_kernel` or
 `interpret` switch and no padding of T: the device decides, and the kernel
 masks the ragged edge itself.
+
+`proposal_tables_q` mirrors the quantized twin (reference `ops.py:94-148`,
+`_tables_q_op` / `_tables_q_bwd`): the low-bit codebooks and their [K, 1]
+scales go to the kernel, and the backward gives d(tables)/dz only,
+through the plain version; the low-bit codebooks and their scales are
+quantization artifacts, not trained, and get no gradient.
 """
 from __future__ import annotations
 
@@ -51,6 +57,46 @@ def proposal_tables(index: MultiIndex, z: torch.Tensor):
     s1, s2, lpsi, lse = TablesFn.apply(
         z2d, index.codebook1.float().contiguous(),
         index.codebook2.float().contiguous(),
+        index.counts.float().contiguous(), index.kind == "pq")
+    k = s1.shape[-1]
+    return (s1.reshape(*lead, k), s2.reshape(*lead, k),
+            lpsi.reshape(*lead, k), lse.reshape(lead))
+
+
+class TablesQFn(torch.autograd.Function):
+    """(z2d [T,D], qcb1, sc1, qcb2, sc2, counts, split) -> (s1, s2,
+    log_psi, lse); the gradient reaches z2d alone."""
+
+    @staticmethod
+    def forward(ctx, z2d, qcb1, sc1, qcb2, sc2, counts, split: bool):
+        ctx.save_for_backward(z2d, qcb1, sc1, qcb2, sc2, counts)
+        ctx.split = split
+        return dispatch.midx_probs(z2d, qcb1, qcb2, counts, split=split,
+                                   scale1=sc1, scale2=sc2)
+
+    @staticmethod
+    def backward(ctx, g1, g2, g3, g4):
+        z2d, qcb1, sc1, qcb2, sc2, counts = ctx.saved_tensors
+        with torch.enable_grad():
+            z = z2d.detach().requires_grad_(True)
+            outs = midx_probs_ref(z, qcb1, qcb2, counts, split=ctx.split,
+                                  scale1=sc1, scale2=sc2)
+            dz, = torch.autograd.grad(outs, (z,), (g1, g2, g3, g4))
+        return dz, None, None, None, None, None, None
+
+
+def proposal_tables_q(index: MultiIndex, qcb1: torch.Tensor,
+                      sc1: torch.Tensor, qcb2: torch.Tensor,
+                      sc2: torch.Tensor, z: torch.Tensor):
+    """Quantized-codebook proposal tables: `index` gives the kind and the
+    counts, qcb1/qcb2 are the low-bit codebooks with [K, 1] fp32 scales.
+    z [..., D] -> (s1, s2, log_psi [..., K], lse [...]), differentiable
+    w.r.t. z."""
+    lead = z.shape[:-1]
+    z2d = z.reshape(-1, z.shape[-1]).float().contiguous()
+    s1, s2, lpsi, lse = TablesQFn.apply(
+        z2d, qcb1.contiguous(), sc1.float().reshape(-1).contiguous(),
+        qcb2.contiguous(), sc2.float().reshape(-1).contiguous(),
         index.counts.float().contiguous(), index.kind == "pq")
     k = s1.shape[-1]
     return (s1.reshape(*lead, k), s2.reshape(*lead, k),

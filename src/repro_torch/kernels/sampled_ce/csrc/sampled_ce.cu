@@ -66,8 +66,22 @@
 // results are the same alone or in a batch. Ragged S, M and D are masked
 // in the kernels (zero-filled loads, a zero-padded W, unwritten rows);
 // nothing is padded on the host.
+//
+// Quantized mode (the TPU kernels' `quantized` branch, DESIGN §12): the
+// gathered rows pe and ne are int8 or fp8-e4m3 with fp32 scales per row,
+// [B, S] and [B, M]. The rows are staged as they are (1 byte an element:
+// 16-byte cp.async chunks of 16 elements where D is a multiple of 16), and
+// every element is dequantized in registers as it leaves shared memory,
+// x = float(q) · s, the reference's `ne * ns` before the dot, so the
+// 3xTF32 split takes the dequantized fp32 value. A tile's negative scales
+// are staged in shared memory beside it (the logit tile: its 64 columns'
+// scales; the dh pass: each 32-deep slab's). pos_t and dh's c·pe use the
+// dequantized positive row. dpe = c h and dne = W^T H never read a row:
+// they are the scale-unaware gradients that the straight-through
+// estimator hands to the master rows.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -92,15 +106,48 @@ constexpr int BT = 128;                // threads of a tile CTA: 2 x 2 warps
 constexpr int BK = 32;                 // depth of one staged slab
 constexpr int MERGE_THREADS = 256;
 // Row strides of the staged slabs (elements), free of bank conflicts for
-// the fragments' reads: along a row of 32 (fp32 36, bf16 40), down a
-// column of 64 (72 for both).
+// the fragments' reads: along a row of 32 (fp32 36, bf16 40; 1-byte rows
+// 48, the least 16-byte multiple past 32), down a column of 64 (72 for
+// fp32 and bf16, 80 for 1-byte rows).
 template <typename T>
-constexpr int ALONG = sizeof(T) == 4 ? BK + 4 : BK + 8;
+constexpr int ALONG = sizeof(T) == 4   ? BK + 4
+                      : sizeof(T) == 2 ? BK + 8
+                                       : BK + 16;
 constexpr int DOWN = TILE + 8;
+template <typename T>
+constexpr int DOWN_OF = sizeof(T) == 1 ? TILE + 16 : DOWN;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return (float)x; }
+
+// 1-byte rows are the quantized mode's: each carries an fp32 scale.
+template <typename T>
+constexpr bool kQuant = sizeof(T) == 1;
+
+// A row element as fp32: dequantized (times its row's scale s) in the
+// quantized mode; s is not read else.
+template <typename T>
+__device__ __forceinline__ float deq(T x, float s) {
+  if constexpr (kQuant<T>) {
+    return to_f(x) * s;
+  } else {
+    return to_f(x);
+  }
+}
+
+// The scale of row `row` of `scale` in the quantized mode, else 1.
+template <typename T>
+__device__ __forceinline__ float scale_of(const float* __restrict__ scale,
+                                          size_t row) {
+  if constexpr (kQuant<T>) {
+    return scale[row];
+  } else {
+    return 1.f;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -110,13 +157,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // h · pe for one row, by one warp: a lane-strided FMA chain and an xor
-// butterfly (every lane ends with the same bits).
+// butterfly (every lane ends with the same bits); s the row's scale in the
+// quantized mode.
 template <typename T>
 __device__ __forceinline__ float row_dot(const float* __restrict__ h,
-                                         const T* __restrict__ pe, int D,
-                                         int lane) {
+                                         const T* __restrict__ pe, float s,
+                                         int D, int lane) {
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(h[d], to_f(pe[d]), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(h[d], deq(pe[d], s), acc);
   return warp_sum(acc);
 }
 
@@ -124,19 +172,28 @@ __device__ __forceinline__ float row_dot(const float* __restrict__ h,
 // (blockIdx.y, blockIdx.x) of sequence blockIdx.z, over D in 3xTF32:
 // acc[mi][ni][i] of warp (wm, wn) holds token row 32 wm + 16 mi +
 // acc_row(i) and negative column 32 wn + 8 ni + acc_col(i) of the tile.
-// Rows past S and M read as zeros. Ends with a barrier.
+// Rows past S and M read as zeros. nsc: the negatives' scales [B, M] in
+// the quantized mode (the tile's staged in shared memory; null else).
+// Ends with a barrier.
 template <typename T, bool VEC>
 __device__ __forceinline__ void logit_tile(const float* __restrict__ h,
-                                           const T* __restrict__ ne, int S,
-                                           int M, int D,
+                                           const T* __restrict__ ne,
+                                           const float* __restrict__ nsc,
+                                           int S, int M, int D,
                                            float (&acc)[2][4][4]) {
   constexpr int HS = ALONG<float>, NS = ALONG<T>;
   __shared__ __align__(16) float hs[2][TILE][HS];
   __shared__ __align__(16) T ns[2][TILE][NS];
+  __shared__ float sc[TILE];                // the tile's negative scales
   const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
   const int b = blockIdx.z, t0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
   const float* hb = h + ((size_t)b * S + t0) * D;
   const T* nb = ne + ((size_t)b * M + j0) * D;
+  if constexpr (kQuant<T>) {                // published by the first barrier
+    for (int i = threadIdx.x; i < TILE; i += BT)
+      sc[i] = j0 + i < M ? nsc[(size_t)b * M + j0 + i] : 0.f;
+  }
+  const float* scw = &sc[32 * wn];
   tf32x3::zero(acc);
   pipeline(
       (D + BK - 1) / BK,
@@ -151,7 +208,7 @@ __device__ __forceinline__ void logit_tile(const float* __restrict__ h,
         const float* a = &hs[buf][32 * wm][0];
         const T* bm = &ns[buf][32 * wn][0];
         product(acc, 0, BK, [&](int r, int k) { return a[r * HS + k]; },
-                [&](int k, int c) { return to_f(bm[c * NS + k]); });
+                [&](int k, int c) { return deq(bm[c * NS + k], scw[c]); });
       });
 }
 
@@ -173,7 +230,9 @@ __device__ __forceinline__ float corrected(float x, bool live, int j, int M,
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(BT)
 fwd_part_kernel(const float* __restrict__ h, const T* __restrict__ pe,
-                const T* __restrict__ ne, const float* __restrict__ log_q,
+                const T* __restrict__ ne, const float* __restrict__ psc,
+                const float* __restrict__ nsc,
+                const float* __restrict__ log_q,
                 const int64_t* __restrict__ neg_ids,
                 const int64_t* __restrict__ pos_ids,
                 float2* __restrict__ part, float* __restrict__ pos, int S,
@@ -184,7 +243,7 @@ fwd_part_kernel(const float* __restrict__ h, const T* __restrict__ pe,
   const int lane = tid & 31;
   const int b = blockIdx.z, t0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
   float acc[2][4][4];
-  logit_tile<T, VEC>(h, ne, S, M, D, acc);
+  logit_tile<T, VEC>(h, ne, nsc, S, M, D, acc);
   const float* lq = log_q + (size_t)b * M;
   const int64_t* nid = neg_ids + (size_t)b * M;
 #pragma unroll
@@ -236,7 +295,8 @@ fwd_part_kernel(const float* __restrict__ h, const T* __restrict__ pe,
   if (blockIdx.x == 0) {
     for (int r = warp; r < min(TILE, S - t0); r += BT / 32) {
       const size_t row = (size_t)b * S + t0 + r;
-      const float p = row_dot<T>(h + row * D, pe + row * D, D, lane);
+      const float p = row_dot<T>(h + row * D, pe + row * D,
+                                 scale_of<T>(psc, row), D, lane);
       if (lane == 0) pos[row] = p;
     }
   }
@@ -275,6 +335,7 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(BT)
 bwd_w_kernel(const float* __restrict__ grad, const float* __restrict__ h,
              const T* __restrict__ pe, const T* __restrict__ ne,
+             const float* __restrict__ psc, const float* __restrict__ nsc,
              const float* __restrict__ log_q,
              const int64_t* __restrict__ neg_ids,
              const int64_t* __restrict__ pos_ids,
@@ -284,7 +345,7 @@ bwd_w_kernel(const float* __restrict__ grad, const float* __restrict__ h,
   const int tid = threadIdx.x, warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
   const int b = blockIdx.z, t0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
   float acc[2][4][4];
-  logit_tile<T, VEC>(h, ne, S, M, D, acc);
+  logit_tile<T, VEC>(h, ne, nsc, S, M, D, acc);
   const float* lq = log_q + (size_t)b * M;
   const int64_t* nid = neg_ids + (size_t)b * M;
   float* wo = w_out + ((size_t)b * Sp + t0) * Mp + j0;
@@ -312,23 +373,28 @@ bwd_w_kernel(const float* __restrict__ grad, const float* __restrict__ h,
     const int lane = tid & 31;
     for (int r = warp; r < min(TILE, S - t0); r += BT / 32) {
       const size_t row = (size_t)b * S + t0 + r;
-      const float pos = row_dot<T>(h + row * D, pe + row * D, D, lane);
+      const float pos = row_dot<T>(h + row * D, pe + row * D,
+                                   scale_of<T>(psc, row), D, lane);
       if (lane == 0) cpos[row] = grad[row] * (expf(pos - lse[row]) - 1.f);
     }
   }
 }
 
 // dh, dpe: the [64 tokens x 64 columns] tile (blockIdx.y, blockIdx.x) of
-// sequence blockIdx.z: dh = W . NE + c pe, dpe = c h, over M ascending.
+// sequence blockIdx.z: dh = W . NE + c pe, dpe = c h, over M ascending
+// (rows dequantized in the quantized mode: each slab's 32 negative scales
+// staged beside it).
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(BT)
 bwd_dh_kernel(const float* __restrict__ h, const T* __restrict__ pe,
-              const T* __restrict__ ne, const float* __restrict__ w_in,
+              const T* __restrict__ ne, const float* __restrict__ psc,
+              const float* __restrict__ nsc, const float* __restrict__ w_in,
               const float* __restrict__ cpos, float* __restrict__ dh,
               float* __restrict__ dpe, int S, int M, int D, int Sp, int Mp) {
-  constexpr int WS = ALONG<float>;
+  constexpr int WS = ALONG<float>, NDOWN = DOWN_OF<T>;
   __shared__ __align__(16) float ws[2][TILE][WS];
-  __shared__ __align__(16) T ns[2][BK][DOWN];
+  __shared__ __align__(16) T ns[2][BK][NDOWN];
+  __shared__ float scs[2][BK];              // a slab's negative scales
   const int tid = threadIdx.x, warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
   const int b = blockIdx.z, t0 = blockIdx.y * TILE, d0 = blockIdx.x * TILE;
   const float* wb = w_in + ((size_t)b * Sp + t0) * Mp;
@@ -340,15 +406,22 @@ bwd_dh_kernel(const float* __restrict__ h, const T* __restrict__ pe,
       [&](int kk, int buf) {
         stage<float, TILE, BK, WS, BT, true>(&ws[buf][0][0], wb, Mp, 0, TILE,
                                              kk * BK, Mp);
-        stage<T, BK, TILE, DOWN, BT, VEC>(&ns[buf][0][0], nb, D, kk * BK, M,
-                                          d0, D);
+        stage<T, BK, TILE, NDOWN, BT, VEC>(&ns[buf][0][0], nb, D, kk * BK,
+                                           M, d0, D);
+        if constexpr (kQuant<T>) {
+          if (tid < BK) {
+            const int j = kk * BK + tid;
+            scs[buf][tid] = j < M ? nsc[(size_t)b * M + j] : 0.f;
+          }
+        }
         cp_async_commit();
       },
       [&](int, int buf) {
         const float* a = &ws[buf][32 * wm][0];
         const T* bm = &ns[buf][0][32 * wn];
+        const float* sk = scs[buf];
         product(acc, 0, BK, [&](int r, int k) { return a[r * WS + k]; },
-                [&](int k, int c) { return to_f(bm[k * DOWN + c]); });
+                [&](int k, int c) { return deq(bm[k * NDOWN + c], sk[k]); });
       });
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -357,7 +430,7 @@ bwd_dh_kernel(const float* __restrict__ h, const T* __restrict__ pe,
       const int t = t0 + 32 * wm + 16 * mi + acc_row(2 * half);
       if (t >= S) continue;
       const size_t row = (size_t)b * S + t;
-      const float c = cpos[row];
+      const float c = cpos[row], ps = scale_of<T>(psc, row);
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -365,7 +438,7 @@ bwd_dh_kernel(const float* __restrict__ h, const T* __restrict__ pe,
           const int d = d0 + 32 * wn + 8 * ni + acc_col(e);
           if (d >= D) continue;
           const size_t idx = row * D + d;
-          dh[idx] = acc[mi][ni][2 * half + e] + c * to_f(pe[idx]);
+          dh[idx] = acc[mi][ni][2 * half + e] + c * deq(pe[idx], ps);
           dpe[idx] = c * h[idx];
         }
     }
@@ -427,15 +500,15 @@ bwd_dne_kernel(const float* __restrict__ h, const float* __restrict__ w_in,
 float log_num_neg(int M) { return (float)log((double)M); }
 
 template <typename T, bool VEC>
-int fwd(const float* h, const void* pe, const void* ne, const float* log_q,
-        const int64_t* neg_ids, const int64_t* pos_ids, float* loss,
-        float* lse, float2* part, float* pos, int B, int S, int M, int D,
-        cudaStream_t stream) {
+int fwd(const float* h, const void* pe, const void* ne, const float* psc,
+        const float* nsc, const float* log_q, const int64_t* neg_ids,
+        const int64_t* pos_ids, float* loss, float* lse, float2* part,
+        float* pos, int B, int S, int M, int D, cudaStream_t stream) {
   const int nt = (M + TILE - 1) / TILE;
   fwd_part_kernel<T, VEC>
       <<<dim3(nt, (S + TILE - 1) / TILE, B), BT, 0, stream>>>(
-          h, static_cast<const T*>(pe), static_cast<const T*>(ne), log_q,
-          neg_ids, pos_ids, part, pos, S, M, D, log_num_neg(M));
+          h, static_cast<const T*>(pe), static_cast<const T*>(ne), psc, nsc,
+          log_q, neg_ids, pos_ids, part, pos, S, M, D, log_num_neg(M));
   const int err = (int)cudaGetLastError();
   if (err) return err;
   const int n = B * S;
@@ -446,10 +519,10 @@ int fwd(const float* h, const void* pe, const void* ne, const float* log_q,
 
 template <typename T, bool VEC>
 int bwd(const float* g, const float* h, const void* pe, const void* ne,
-        const float* log_q, const int64_t* neg_ids, const int64_t* pos_ids,
-        const float* lse, float* dh, float* dpe, float* dne, float* dlq,
-        float* w, float* cpos, int B, int S, int M, int D,
-        cudaStream_t stream) {
+        const float* psc, const float* nsc, const float* log_q,
+        const int64_t* neg_ids, const int64_t* pos_ids, const float* lse,
+        float* dh, float* dpe, float* dne, float* dlq, float* w, float* cpos,
+        int B, int S, int M, int D, cudaStream_t stream) {
   const int Sp = (S + TILE - 1) / TILE * TILE;
   const int Mp = (M + TILE - 1) / TILE * TILE;
   const int Dt = (D + TILE - 1) / TILE;
@@ -457,12 +530,12 @@ int bwd(const float* g, const float* h, const void* pe, const void* ne,
   const T* ne_t = static_cast<const T*>(ne);
   if (S > 0) {
     bwd_w_kernel<T, VEC><<<dim3(Mp / TILE, Sp / TILE, B), BT, 0, stream>>>(
-        g, h, pe_t, ne_t, log_q, neg_ids, pos_ids, lse, w, cpos, S, M, D, Sp,
-        Mp, log_num_neg(M));
+        g, h, pe_t, ne_t, psc, nsc, log_q, neg_ids, pos_ids, lse, w, cpos, S,
+        M, D, Sp, Mp, log_num_neg(M));
     int err = (int)cudaGetLastError();
     if (err) return err;
     bwd_dh_kernel<T, VEC><<<dim3(Dt, Sp / TILE, B), BT, 0, stream>>>(
-        h, pe_t, ne_t, w, cpos, dh, dpe, S, M, D, Sp, Mp);
+        h, pe_t, ne_t, psc, nsc, w, cpos, dh, dpe, S, M, D, Sp, Mp);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -471,40 +544,60 @@ int bwd(const float* g, const float* h, const void* pe, const void* ne,
   return (int)cudaGetLastError();
 }
 
+// The row type of `rows_kind` (0 = fp32, 1 = bf16, 2 = int8, 3 = fp8-e4m3)
+// and `vec`: calls f(T{}, std::integral_constant<bool, vec>{}).
+template <typename F>
+int by_rows(int rows_kind, int vec, F&& f) {
+  using Yes = std::true_type;
+  using No = std::false_type;
+  switch (rows_kind) {
+    case 0:
+      return vec ? f(float{}, Yes{}) : f(float{}, No{});
+    case 1:
+      return vec ? f(__nv_bfloat16{}, Yes{}) : f(__nv_bfloat16{}, No{});
+    case 2:
+      return vec ? f(int8_t{}, Yes{}) : f(int8_t{}, No{});
+    case 3:
+      return vec ? f(__nv_fp8_e4m3{}, Yes{}) : f(__nv_fp8_e4m3{}, No{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // All launches are on `stream`; nothing is allocated and nothing waits.
 // Each returns cudaGetLastError() after its launches (0 on success).
 // Operands are contiguous, with M >= 1: h [B, S, D] fp32; pe [B, S, D] and
-// ne [B, M, D] in one row dtype (rows_bf16: 0 = fp32, 1 = bf16); log_q
-// [B, M] fp32; neg_ids [B, M] and pos_ids [B, S] int64; g, lse [B, S] fp32.
-// vec = 1 when D is a multiple of the 16-byte vector of the row dtype and
-// h, pe and ne are 16-byte aligned.
+// ne [B, M, D] in one row dtype (rows_kind: 0 = fp32, 1 = bf16, and the
+// quantized mode's 2 = int8, 3 = fp8-e4m3, whose row scales are psc
+// [B, S] and nsc [B, M] fp32, null else); log_q [B, M] fp32; neg_ids
+// [B, M] and pos_ids [B, S] int64; g, lse [B, S] fp32. vec = 1 when D is a
+// multiple of the 16-byte vector of the row dtype and h, pe and ne are
+// 16-byte aligned.
 
 // Writes loss and lse [B, S] fp32: two kernels, the partials, then their
 // merge. Workspaces, fp32: part [B, S, ceil(M / 64)] (m, l) pairs, 8-byte
 // aligned, and pos [B, S].
 extern "C" int sampled_ce_fwd_launch(const float* h, const void* pe,
-                                     const void* ne, const float* log_q,
+                                     const void* ne, const float* psc,
+                                     const float* nsc, const float* log_q,
                                      const int64_t* neg_ids,
                                      const int64_t* pos_ids, float* loss,
                                      float* lse, float* part, float* pos,
                                      int B, int S, int M, int D,
-                                     int rows_bf16, int vec, void* stream) {
-  if (B < 0 || S < 0 || M < 1 || D < 1 || B > 65535)
+                                     int rows_kind, int vec, void* stream) {
+  if (B < 0 || S < 0 || M < 1 || D < 1 || B > 65535 || rows_kind < 0 ||
+      rows_kind > 3 || (rows_kind >= 2) != (nsc != nullptr) ||
+      (psc == nullptr) != (nsc == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   float2* p = reinterpret_cast<float2*>(part);
-  auto run = [&](auto bf16, auto v) {
-    using T = std::conditional_t<decltype(bf16)::value, __nv_bfloat16, float>;
-    return fwd<T, decltype(v)::value>(h, pe, ne, log_q, neg_ids, pos_ids,
-                                      loss, lse, p, pos, B, S, M, D, s);
-  };
-  using Yes = std::true_type;
-  using No = std::false_type;
-  if (rows_bf16) return vec ? run(Yes{}, Yes{}) : run(Yes{}, No{});
-  return vec ? run(No{}, Yes{}) : run(No{}, No{});
+  return by_rows(rows_kind, vec, [&](auto t, auto v) {
+    return fwd<decltype(t), decltype(v)::value>(h, pe, ne, psc, nsc, log_q,
+                                                neg_ids, pos_ids, loss, lse,
+                                                p, pos, B, S, M, D, s);
+  });
 }
 
 // Writes dh, dpe [B, S, D], dne [B, M, D] and dlq [B, M], all fp32: three
@@ -512,25 +605,23 @@ extern "C" int sampled_ce_fwd_launch(const float* h, const void* pe,
 // [B, Sp, Mp] (S and M rounded up to 64) and cpos [B, S].
 extern "C" int sampled_ce_bwd_launch(const float* g, const float* h,
                                      const void* pe, const void* ne,
+                                     const float* psc, const float* nsc,
                                      const float* log_q,
                                      const int64_t* neg_ids,
                                      const int64_t* pos_ids, const float* lse,
                                      float* dh, float* dpe, float* dne,
                                      float* dlq, float* w, float* cpos, int B,
-                                     int S, int M, int D, int rows_bf16,
+                                     int S, int M, int D, int rows_kind,
                                      int vec, void* stream) {
-  if (B < 0 || S < 0 || M < 1 || D < 1 || B > 65535)
+  if (B < 0 || S < 0 || M < 1 || D < 1 || B > 65535 || rows_kind < 0 ||
+      rows_kind > 3 || (rows_kind >= 2) != (nsc != nullptr) ||
+      (psc == nullptr) != (nsc == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  auto run = [&](auto bf16, auto v) {
-    using T = std::conditional_t<decltype(bf16)::value, __nv_bfloat16, float>;
-    return bwd<T, decltype(v)::value>(g, h, pe, ne, log_q, neg_ids, pos_ids,
-                                      lse, dh, dpe, dne, dlq, w, cpos, B, S,
-                                      M, D, s);
-  };
-  using Yes = std::true_type;
-  using No = std::false_type;
-  if (rows_bf16) return vec ? run(Yes{}, Yes{}) : run(Yes{}, No{});
-  return vec ? run(No{}, Yes{}) : run(No{}, No{});
+  return by_rows(rows_kind, vec, [&](auto t, auto v) {
+    return bwd<decltype(t), decltype(v)::value>(
+        g, h, pe, ne, psc, nsc, log_q, neg_ids, pos_ids, lse, dh, dpe, dne,
+        dlq, w, cpos, B, S, M, D, s);
+  });
 }

@@ -112,13 +112,34 @@
 //       L = 64), so a hot row's sum runs on up to 8 warps, not one.
 //   The atomics are on integers only, and every float sum has an order
 //   fixed by the ids alone: the result is bitwise repeatable.
+//
+// Quantized mode (the TPU kernels' `quantized` branch, DESIGN §12): the
+// table is int8 or fp8-e4m3 [V, D] with a [V] fp32 per-row scale, and a
+// row is dequantized in registers as it is read, e = float(q) · s, before
+// its products (the plain version's `rows · s`, then the dot). A row's
+// scale is read with its id: by `group_corr` beside the row's loads, and
+// in the ring by every thread while the first flight of row copies is in
+// the air (one load a column into shared memory, then a CTA barrier
+// before the first dot). A 1-byte row goes in 8-byte vectors (8 elements,
+// D a multiple of 8; a scalar path else). Copy routes of the ring for
+// 1-byte rows: a row of 2 KB or more whose length is a multiple of 16
+// (llama width, D = 2048: exactly 2 KB) goes by one TMA bulk copy; a
+// shorter row a multiple of 16 by 16-byte `cp.async.ca`; a row that is a
+// multiple of 8 bytes only (paper-lm, D = 200: 200 B) by 8-byte
+// `cp.async.ca` pieces, as a bulk copy needs 16-byte sizes. The backward
+// dequantizes for its logits and dh the same way; d(table) stays
+// scale-unaware (Σ coef · h, written unscaled into the master's fp32
+// [V, D] gradient): under the straight-through estimator that is the
+// master rows' gradient.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -133,6 +154,32 @@ constexpr int MAX_M = MAX_SMEM / (4 * WARPS);
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return (float)x; }
+
+// 1-byte rows are the quantized mode's: they carry a per-row scale.
+template <typename T>
+constexpr bool kQuant = sizeof(T) == 1;
+
+// A row's scale: its entry of `scale` in the quantized mode, else 1 (and
+// never read).
+template <typename T>
+__device__ __forceinline__ float row_scale(const float* __restrict__ scale,
+                                           int64_t id) {
+  if constexpr (kQuant<T>) {
+    return __ldg(scale + id);
+  } else {
+    return 1.f;
+  }
+}
+
+// 8 one-byte elements (an 8-byte word) as fp32.
+template <typename T>
+__device__ __forceinline__ void bytes8(uint2 v, float (&out)[8]) {
+  const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = to_f(e[i]);
 }
 
 // VEC consecutive elements starting at p, as fp32. VEC is 1, or the number
@@ -171,6 +218,29 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p,
   }
 }
 
+template <int VEC, typename T>
+__device__ __forceinline__
+    typename std::enable_if<sizeof(T) == 1>::type
+    load(const T* p, float (&out)[VEC]) {
+  if constexpr (VEC == 1) {
+    out[0] = to_f(p[0]);
+  } else {
+    static_assert(VEC == 8, "1-byte vectors are 8 elements (8 bytes)");
+    bytes8<T>(__ldg(reinterpret_cast<const uint2*>(p)), out);
+  }
+}
+
+// A row's VEC elements, dequantized in the quantized mode (· s).
+template <int VEC, typename T>
+__device__ __forceinline__ void load_row(const T* p, float s,
+                                         float (&out)[VEC]) {
+  load<VEC>(p, out);
+  if constexpr (kQuant<T>) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out[e] *= s;
+  }
+}
+
 template <int VEC>
 __device__ __forceinline__ void store(float* p, const float (&v)[VEC]) {
   if constexpr (VEC == 1) {
@@ -191,15 +261,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// h · E[row], full fp32, the same order for every caller.
+// h · E[row], full fp32, the same order for every caller; s: the row's
+// scale (the quantized mode).
 template <typename T, int VEC>
 __device__ __forceinline__ float row_dot(const float* hrow, const T* erow,
-                                         int D, int lane) {
+                                         float s, int D, int lane) {
   float acc = 0.f;
   for (int base = lane * VEC; base < D; base += 32 * VEC) {
     float hv[VEC], ev[VEC];
     load<VEC>(hrow + base, hv);
-    load<VEC>(erow + base, ev);
+    load_row<VEC>(erow + base, s, ev);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc = fmaf(hv[e], ev[e], acc);
   }
@@ -211,22 +282,25 @@ __device__ __forceinline__ float row_dot(const float* hrow, const T* erow,
 template <typename T, int VEC>
 __device__ __forceinline__ void group_corr(
     const float* hrow, const T* __restrict__ table,
-    const float* __restrict__ lq_row, const int64_t* __restrict__ id_row,
-    int64_t pid, int j0, int M, int D, float log_m, int lane,
-    float (&corr)[JG]) {
+    const float* __restrict__ scale, const float* __restrict__ lq_row,
+    const int64_t* __restrict__ id_row, int64_t pid, int j0, int M, int D,
+    float log_m, int lane, float (&corr)[JG]) {
   int64_t rid[JG];
-  float acc[JG];
+  float acc[JG], sc[JG];
 #pragma unroll
   for (int k = 0; k < JG; ++k) {
     rid[k] = (j0 + k < M) ? id_row[j0 + k] : pid;  // dead columns: a real row
     acc[k] = 0.f;
   }
+#pragma unroll
+  for (int k = 0; k < JG; ++k) sc[k] = row_scale<T>(scale, rid[k]);
   for (int base = lane * VEC; base < D; base += 32 * VEC) {
     float hv[VEC];
     load<VEC>(hrow + base, hv);
     float ev[JG][VEC];
 #pragma unroll
-    for (int k = 0; k < JG; ++k) load<VEC>(table + rid[k] * D + base, ev[k]);
+    for (int k = 0; k < JG; ++k)
+      load_row<VEC>(table + rid[k] * D + base, sc[k], ev[k]);
 #pragma unroll
     for (int k = 0; k < JG; ++k) {
 #pragma unroll
@@ -272,6 +346,7 @@ __device__ __forceinline__ float finish_lse(float m, float l, float pos) {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ h, const T* __restrict__ table,
+           const float* __restrict__ scale,
            const float* __restrict__ log_q, const int64_t* __restrict__ neg_ids,
            const int64_t* __restrict__ pos_ids, float* __restrict__ loss,
            float* __restrict__ lse_out, int nT, int D, int M, float log_m) {
@@ -280,14 +355,15 @@ fwd_kernel(const float* __restrict__ h, const T* __restrict__ table,
   if (t >= nT) return;                      // the whole warp leaves together
   const float* hrow = h + (size_t)t * D;
   const int64_t pid = pos_ids[t];
-  const float pos = row_dot<T, VEC>(hrow, table + pid * D, D, lane);
+  const float pos = row_dot<T, VEC>(hrow, table + pid * D,
+                                    row_scale<T>(scale, pid), D, lane);
   const float* lq_row = log_q + (size_t)t * M;
   const int64_t* id_row = neg_ids + (size_t)t * M;
   float m = NEG_INF, l = 0.f;
   for (int j0 = 0; j0 < M; j0 += JG) {
     float corr[JG];
-    group_corr<T, VEC>(hrow, table, lq_row, id_row, pid, j0, M, D, log_m,
-                       lane, corr);
+    group_corr<T, VEC>(hrow, table, scale, lq_row, id_row, pid, j0, M, D,
+                       log_m, lane, corr);
     fold_group(m, l, corr);
   }
   const float lse = finish_lse(m, l, pos);
@@ -322,11 +398,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
                ::"r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
-// 16 bytes from global `src` to shared `dst`, both 16-byte aligned, through
-// L1 (`.ca`): a row that many tokens of an SM draw is fetched from L2 once.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
-               ::"r"(smem_u32(dst)), "l"(src) : "memory");
+// P (16 or 8) bytes from global `src` to shared `dst`, both P-byte
+// aligned, through L1 (`.ca`): a row that many tokens of an SM draw is
+// fetched from L2 once.
+template <int P>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(P == 16 || P == 8, "cp.async.ca copies 16 or 8 bytes here");
+  if constexpr (P == 16) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
+                 ::"r"(smem_u32(dst)), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                 ::"r"(smem_u32(dst)), "l"(src) : "memory");
+  }
 }
 
 // This thread's arrival on `bar` once all its earlier cp.async copies have
@@ -360,17 +444,17 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// The CTA copies `n` rows of `cpr` 16-byte chunks, row r from src(r) to
-// dst + r·cpr·16, a chunk a thread in turn.
-template <typename Src>
+// The CTA copies `n` rows of `cpr` P-byte chunks, row r from src(r) to
+// dst + r·cpr·P, a chunk a thread in turn.
+template <int P, typename Src>
 __device__ __forceinline__ void copy_rows(unsigned char* dst, int n, int cpr,
                                           Src src) {
   const int step_r = FTHREADS / cpr, step_q = FTHREADS % cpr;
   int r = threadIdx.x / cpr, q = threadIdx.x % cpr;
   while (r < n) {
-    cp_async16(dst + ((size_t)r * cpr + q) * 16,
-               reinterpret_cast<const unsigned char*>(src(r)) +
-                   (size_t)q * 16);
+    cp_async<P>(dst + ((size_t)r * cpr + q) * P,
+                reinterpret_cast<const unsigned char*>(src(r)) +
+                    (size_t)q * P);
     r += step_r;
     q += step_q;
     if (q >= cpr) {
@@ -380,14 +464,19 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int n, int cpr,
   }
 }
 
+// How the ring copies a row: a TMA bulk copy, or `cp.async.ca` pieces of
+// 16 or 8 bytes.
+constexpr int ROUTE_BULK = 0;
+
 // One phase of `bar`: rows r < n of `rowb` bytes from src(r) to dst +
-// r·rowb. BULK: a bulk copy (TMA) a row from warp 0's lanes, the bytes
-// counted on the barrier; else 16-byte cp.async copies from every thread.
-template <bool BULK, typename Src>
+// r·rowb. ROUTE_BULK: a bulk copy (TMA) a row from warp 0's lanes, the
+// bytes counted on the barrier; else ROUTE-byte cp.async copies from
+// every thread.
+template <int ROUTE, typename Src>
 __device__ __forceinline__ void stage_rows(unsigned char* dst, int n,
                                            int rowb, Src src,
                                            uint64_t* bar) {
-  if constexpr (BULK) {
+  if constexpr (ROUTE == ROUTE_BULK) {
     if (threadIdx.x < 32) {
       if (threadIdx.x == 0) mbar_expect_tx(bar, (uint32_t)(n * rowb));
       __syncwarp();
@@ -397,7 +486,7 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int n,
       if (threadIdx.x == 0) mbar_arrive(bar);
     }
   } else {
-    copy_rows(dst, n, rowb / 16, src);
+    copy_rows<ROUTE>(dst, n, rowb / ROUTE, src);
     cp_async_arrive(bar);
   }
 }
@@ -428,40 +517,54 @@ __device__ __forceinline__ void load_smem(const __nv_bfloat16* p,
   }
 }
 
+template <int VEC, typename T>
+__device__ __forceinline__
+    typename std::enable_if<sizeof(T) == 1>::type
+    load_smem(const T* p, float (&out)[VEC]) {
+  static_assert(VEC == 8, "1-byte vectors are 8 elements (8 bytes)");
+  bytes8<T>(*reinterpret_cast<const uint2*>(p), out);
+}
+
 // `row_dot` on rows staged in shared memory: the same lane mapping, FMA
-// chain and butterfly, so the same bits.
+// chain (dequantized as `load_row` does) and butterfly, so the same bits.
 template <typename T, int VEC>
 __device__ __forceinline__ float smem_dot(const float* hs, const T* row,
-                                          int D, int lane) {
+                                          float s, int D, int lane) {
   float acc = 0.f;
   for (int base = lane * VEC; base < D; base += 32 * VEC) {
     float hv[VEC], ev[VEC];
     load_smem<VEC>(hs + base, hv);
     load_smem<VEC>(row + base, ev);
+    if constexpr (kQuant<T>) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ev[e] *= s;
+    }
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc = fmaf(hv[e], ev[e], acc);
   }
   return warp_sum(acc);
 }
 
-// The ring's shared memory (dynamic), every piece on a 16-byte boundary
-// (D·elem is a multiple of 16 on this route): h [D] fp32, the positive's
-// row, ns stages of JG rows, then per column j < M its id, ln M + lq_j, a
-// collision flag and its corrected logit.
+// The ring's shared memory (dynamic), every piece on a boundary of its
+// route's copy (D·elem is a multiple of 16, or of 8 for 1-byte rows): h
+// [D] fp32, the positive's row, ns stages of JG rows, then per column
+// j < M its id, ln M + lq_j, a collision flag, its corrected logit and,
+// in the quantized mode, its row's scale.
 template <typename T>
 size_t ring_bytes(int D, int M, int ns) {
   return (size_t)D * sizeof(float) + (size_t)(1 + ns * JG) * D * sizeof(T) +
-         (size_t)M * (sizeof(int64_t) + 3 * sizeof(float));
+         (size_t)M * (sizeof(int64_t) + (kQuant<T> ? 4 : 3) * sizeof(float));
 }
 
 // One CTA per token (see the header): the ids in one round trip, then all
-// the rows that fit in one flight of copies on mbarriers (BULK: a bulk
-// copy a row; else 16-byte cp.async), a group of JG to a stage; the FW
-// warps share the dots (a warp a row); a stage is refilled once every warp
-// is done with it; warp 0 folds in the first design's order.
-template <typename T, int VEC, bool BULK>
+// the rows that fit in one flight of copies on mbarriers (ROUTE_BULK: a
+// bulk copy a row; else ROUTE-byte cp.async), a group of JG to a stage; the
+// FW warps share the dots (a warp a row); a stage is refilled once every
+// warp is done with it; warp 0 folds in the first design's order.
+template <typename T, int VEC, int ROUTE>
 __global__ void __launch_bounds__(FTHREADS)
 fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
+                const float* __restrict__ scale,
                 const float* __restrict__ log_q,
                 const int64_t* __restrict__ neg_ids,
                 const int64_t* __restrict__ pos_ids, float* __restrict__ loss,
@@ -470,7 +573,8 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
   __shared__ uint64_t bar[MAX_NS + 1];      // a barrier a stage; the last:
                                             // h and the positive's row
   __shared__ int64_t pid_s;
-  __shared__ float pos_s;
+  __shared__ float pos_s, psc_s;            // the positive's logit, scale
+  constexpr bool BULK = ROUTE == ROUTE_BULK;
   extern __shared__ __align__(16) unsigned char ring[];
   float* hs = reinterpret_cast<float*>(ring);
   T* prow = reinterpret_cast<T*>(hs + D);
@@ -479,6 +583,7 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
   float* sub = reinterpret_cast<float*>(ids + M);
   int* hit = reinterpret_cast<int*>(sub + M);
   float* corr = reinterpret_cast<float*>(hit + M);
+  float* scs = corr + M;                    // the rows' scales (quantized)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t t = blockIdx.x;
   const int G = (M + JG - 1) / JG;
@@ -512,21 +617,27 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
       mbar_arrive(&bar[MAX_NS]);
     }
   } else {
-    copy_rows(reinterpret_cast<unsigned char*>(hs), 1, D / 4,
-              [&](int) { return h + t * D; });
-    copy_rows(reinterpret_cast<unsigned char*>(prow), 1, rowb / 16,
-              [&](int) { return table + pid * D; });
+    copy_rows<16>(reinterpret_cast<unsigned char*>(hs), 1, D / 4,
+                  [&](int) { return h + t * D; });
+    copy_rows<ROUTE>(reinterpret_cast<unsigned char*>(prow), 1,
+                     rowb / ROUTE, [&](int) { return table + pid * D; });
     cp_async_arrive(&bar[MAX_NS]);
   }
   for (int g = 0; g < min(G, ns); ++g) {
-    stage_rows<BULK>(
+    stage_rows<ROUTE>(
         reinterpret_cast<unsigned char*>(stage + (size_t)g * JG * D),
         min(JG, M - g * JG), rowb,
         [&](int r) { return table + ids[g * JG + r] * D; }, &bar[g]);
   }
+  if constexpr (kQuant<T>) {                // the scales, while rows fly
+    for (int j = threadIdx.x; j < M; j += FTHREADS)
+      scs[j] = __ldg(scale + ids[j]);
+    if (threadIdx.x == 0) psc_s = __ldg(scale + pid);
+    __syncthreads();
+  }
   mbar_wait(&bar[MAX_NS], 0);
   if (warp == FW - 1) {
-    const float pos = smem_dot<T, VEC>(hs, prow, D, lane);
+    const float pos = smem_dot<T, VEC>(hs, prow, psc_s, D, lane);
     if (lane == 0) pos_s = pos;
   }
   for (int g = 0; g < G; ++g) {
@@ -534,13 +645,15 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
     mbar_wait(&bar[s], (uint32_t)(g / ns) & 1u);
     T* st = stage + (size_t)s * JG * D;
     for (int k = warp; k < min(JG, M - j0); k += FW) {
-      const float dot = smem_dot<T, VEC>(hs, st + (size_t)k * D, D, lane);
+      const float dot = smem_dot<T, VEC>(hs, st + (size_t)k * D,
+                                         kQuant<T> ? scs[j0 + k] : 1.f, D,
+                                         lane);
       if (lane == 0) corr[j0 + k] = hit[j0 + k] ? NEG_INF : dot - sub[j0 + k];
     }
     const int next = g + ns;
     if (next < G) {                         // refill stage s with group next
       __syncthreads();
-      stage_rows<BULK>(
+      stage_rows<ROUTE>(
           reinterpret_cast<unsigned char*>(st), min(JG, M - next * JG), rowb,
           [&](int r) { return table + ids[next * JG + r] * D; }, &bar[s]);
     }
@@ -572,7 +685,8 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
 bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
-                const T* __restrict__ table, const float* __restrict__ log_q,
+                const T* __restrict__ table, const float* __restrict__ scale,
+                const float* __restrict__ log_q,
                 const int64_t* __restrict__ neg_ids,
                 const int64_t* __restrict__ pos_ids,
                 const float* __restrict__ lse_in, float* __restrict__ dh,
@@ -591,12 +705,13 @@ bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
   for (int j = lane; j <= M; j += 32)
     atomicAdd(cnt + (j < M ? id_row[j] : pid), 1);
   const float gt = g[t], lse = lse_in[t];
-  const float pos = row_dot<T, VEC>(hrow, prow, D, lane);
+  const float psc = row_scale<T>(scale, pid);
+  const float pos = row_dot<T, VEC>(hrow, prow, psc, D, lane);
   const float cpos = gt * (expf(pos - lse) - 1.f);
   for (int j0 = 0; j0 < M; j0 += JG) {
     float corr[JG];
-    group_corr<T, VEC>(hrow, table, lq_row, id_row, pid, j0, M, D, log_m,
-                       lane, corr);
+    group_corr<T, VEC>(hrow, table, scale, lq_row, id_row, pid, j0, M, D,
+                       log_m, lane, corr);
     if (lane == 0) {
 #pragma unroll
       for (int k = 0; k < JG; ++k) {
@@ -614,10 +729,11 @@ bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
   }
   if (lane == 0) coef[(size_t)t * (M + 1) + M] = cpos;
   __syncwarp();
-  // dh: positive first, then the negatives in ascending j.
+  // dh: positive first, then the negatives in ascending j (rows
+  // dequantized in the quantized mode).
   for (int base = lane * VEC; base < D; base += 32 * VEC) {
     float acc[VEC], ev[VEC];
-    load<VEC>(prow + base, ev);
+    load_row<VEC>(prow + base, psc, ev);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = cpos * ev[e];
     for (int j0 = 0; j0 < M; j0 += JG) {
@@ -628,7 +744,8 @@ bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
         const bool live = j0 + k < M;
         c[k] = live ? cw[j0 + k] : 0.f;
         const int64_t rid = live ? id_row[j0 + k] : pid;
-        load<VEC>(table + rid * D + base, er[k]);
+        load_row<VEC>(table + rid * D + base, row_scale<T>(scale, rid),
+                      er[k]);
       }
 #pragma unroll
       for (int k = 0; k < JG; ++k) {
@@ -849,50 +966,69 @@ int ring_stages(int D, int M) {
   return ring_bytes<T>(D, M, ns) <= MAX_SMEM - 1024 ? ns : 0;
 }
 
-template <typename T, int VEC, bool BULK>
-int ring(const float* h, const void* table, const float* log_q,
-         const int64_t* neg_ids, const int64_t* pos_ids, float* loss,
-         float* lse, int nT, int D, int M, int ns, float log_m, size_t smem,
-         cudaStream_t stream) {
+template <typename T, int VEC, int ROUTE>
+int ring(const float* h, const void* table, const float* scale,
+         const float* log_q, const int64_t* neg_ids, const int64_t* pos_ids,
+         float* loss, float* lse, int nT, int D, int M, int ns, float log_m,
+         size_t smem, cudaStream_t stream) {
   static size_t smem_set = 48 * 1024;       // the attribute, raised once
   if (smem > smem_set) {
     const int err =
-        set_smem((const void*)fwd_ring_kernel<T, VEC, BULK>, smem);
+        set_smem((const void*)fwd_ring_kernel<T, VEC, ROUTE>, smem);
     if (err) return err;
     smem_set = smem;
   }
-  fwd_ring_kernel<T, VEC, BULK><<<nT, FTHREADS, smem, stream>>>(
-      h, static_cast<const T*>(table), log_q, neg_ids, pos_ids, loss, lse, D,
-      M, ns, log_m);
+  fwd_ring_kernel<T, VEC, ROUTE><<<nT, FTHREADS, smem, stream>>>(
+      h, static_cast<const T*>(table), scale, log_q, neg_ids, pos_ids, loss,
+      lse, D, M, ns, log_m);
   return (int)cudaGetLastError();
 }
 
+// The ring's copy route for rows of `rowb` bytes (a multiple of 16, or of
+// 8 for 1-byte rows): the TMA from 2 KB where the length is a multiple of
+// 16, else cp.async pieces of 16 bytes where it allows them, else of 8.
+inline int ring_route(size_t rowb) {
+  if (rowb % 16 != 0) return 8;
+  return rowb >= BULK_ROW_BYTES ? ROUTE_BULK : 16;
+}
+
 template <typename T, int VEC>
-int fwd(const float* h, const void* table, const float* log_q,
-        const int64_t* neg_ids, const int64_t* pos_ids, float* loss,
-        float* lse, int nT, int D, int M, cudaStream_t stream) {
+int fwd(const float* h, const void* table, const float* scale,
+        const float* log_q, const int64_t* neg_ids, const int64_t* pos_ids,
+        float* loss, float* lse, int nT, int D, int M, cudaStream_t stream) {
   const float log_m = log_num_neg(M);
   if constexpr (VEC > 1) {
     const int ns = ring_stages<T>(D, M);
     if (ns > 0) {
       const size_t smem = ring_bytes<T>(D, M, ns);
-      if ((size_t)D * sizeof(T) >= BULK_ROW_BYTES) {
-        return ring<T, VEC, true>(h, table, log_q, neg_ids, pos_ids, loss,
-                                  lse, nT, D, M, ns, log_m, smem, stream);
+      switch (ring_route((size_t)D * sizeof(T))) {
+        case ROUTE_BULK:
+          return ring<T, VEC, ROUTE_BULK>(h, table, scale, log_q, neg_ids,
+                                          pos_ids, loss, lse, nT, D, M, ns,
+                                          log_m, smem, stream);
+        case 16:
+          return ring<T, VEC, 16>(h, table, scale, log_q, neg_ids, pos_ids,
+                                  loss, lse, nT, D, M, ns, log_m, smem,
+                                  stream);
+        default:
+          if constexpr (kQuant<T>) {
+            return ring<T, VEC, 8>(h, table, scale, log_q, neg_ids, pos_ids,
+                                   loss, lse, nT, D, M, ns, log_m, smem,
+                                   stream);
+          }
+          break;
       }
-      return ring<T, VEC, false>(h, table, log_q, neg_ids, pos_ids, loss, lse,
-                                 nT, D, M, ns, log_m, smem, stream);
     }
   }
   fwd_kernel<T, VEC><<<(nT + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
-      h, static_cast<const T*>(table), log_q, neg_ids, pos_ids, loss, lse, nT,
-      D, M, log_m);
+      h, static_cast<const T*>(table), scale, log_q, neg_ids, pos_ids, loss,
+      lse, nT, D, M, log_m);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int VEC>
 int bwd_rows(const float* g, const float* h, const void* table,
-             const float* log_q, const int64_t* neg_ids,
+             const float* scale, const float* log_q, const int64_t* neg_ids,
              const int64_t* pos_ids, const float* lse, float* dh, float* dlq,
              float* coef, int* cnt, int nT, int D, int M,
              cudaStream_t stream) {
@@ -900,9 +1036,65 @@ int bwd_rows(const float* g, const float* h, const void* table,
   const int err = set_smem((const void*)bwd_rows_kernel<T, VEC>, smem);
   if (err) return err;
   bwd_rows_kernel<T, VEC><<<(nT + WARPS - 1) / WARPS, THREADS, smem, stream>>>(
-      g, h, static_cast<const T*>(table), log_q, neg_ids, pos_ids, lse, dh,
-      dlq, coef, cnt, nT, D, M, log_num_neg(M));
+      g, h, static_cast<const T*>(table), scale, log_q, neg_ids, pos_ids,
+      lse, dh, dlq, coef, cnt, nT, D, M, log_num_neg(M));
   return (int)cudaGetLastError();
+}
+
+// The row type of `table_kind`, with its vector width where `vec`
+// (16 bytes: 4 fp32 or 8 bf16; 8 bytes: 8 int8 / fp8), else 1: calls
+// f.template operator()<T, VEC>().
+enum TableKind { K_F32 = 0, K_BF16 = 1, K_I8 = 2, K_FP8 = 3 };
+
+struct FwdCall {
+  const float *h;
+  const void* table;
+  const float *scale, *log_q;
+  const int64_t *neg_ids, *pos_ids;
+  float *loss, *lse;
+  int nT, D, M;
+  cudaStream_t s;
+  template <typename T, int VEC>
+  int operator()() const {
+    return fwd<T, VEC>(h, table, scale, log_q, neg_ids, pos_ids, loss, lse,
+                       nT, D, M, s);
+  }
+};
+
+struct BwdRowsCall {
+  const float *g, *h;
+  const void* table;
+  const float *scale, *log_q;
+  const int64_t *neg_ids, *pos_ids;
+  const float* lse;
+  float *dh, *dlq, *coef;
+  int* cnt;
+  int nT, D, M;
+  cudaStream_t s;
+  template <typename T, int VEC>
+  int operator()() const {
+    return bwd_rows<T, VEC>(g, h, table, scale, log_q, neg_ids, pos_ids, lse,
+                            dh, dlq, coef, cnt, nT, D, M, s);
+  }
+};
+
+template <typename F>
+int by_table(int table_kind, int vec, const F& f) {
+  switch (table_kind) {
+    case K_F32:
+      return vec ? f.template operator()<float, 4>()
+                 : f.template operator()<float, 1>();
+    case K_BF16:
+      return vec ? f.template operator()<__nv_bfloat16, 8>()
+                 : f.template operator()<__nv_bfloat16, 1>();
+    case K_I8:
+      return vec ? f.template operator()<int8_t, 8>()
+                 : f.template operator()<int8_t, 1>();
+    case K_FP8:
+      return vec ? f.template operator()<__nv_fp8_e4m3, 8>()
+                 : f.template operator()<__nv_fp8_e4m3, 1>();
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -911,45 +1103,47 @@ extern "C" int sampled_ce_pt_max_m() { return MAX_M; }
 
 // All launches are on `stream`; nothing is allocated and nothing waits.
 // Returns cudaGetLastError() after the launches (0 on success).
-// table_bf16: 0 = fp32 table, 1 = bf16 table. vec: 1 = 16-byte vector
-// loads (D a multiple of 4 (fp32) or 8 (bf16) and 16-byte aligned rows).
+// table_kind: 0 = fp32, 1 = bf16, 2 = int8, 3 = fp8-e4m3 table; the last
+// two are the quantized mode, `scale` the [V] fp32 row scales (null
+// else). vec: 1 = vector loads (D a multiple of 4 (fp32) or 8 (the
+// others) and 16-byte aligned rows).
 extern "C" int sampled_ce_pt_fwd_launch(const float* h, const void* table,
+                                        const float* scale,
                                         const float* log_q,
                                         const int64_t* neg_ids,
                                         const int64_t* pos_ids, float* loss,
                                         float* lse, int nT, int D, int M,
-                                        int table_bf16, int vec,
+                                        int table_kind, int vec,
                                         void* stream) {
-  if (nT < 0 || D < 1 || M < 0 || M > MAX_M) return (int)cudaErrorInvalidValue;
+  if (nT < 0 || D < 1 || M < 0 || M > MAX_M || table_kind < K_F32 ||
+      table_kind > K_FP8 || (table_kind >= K_I8) != (scale != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (nT == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (table_bf16) {
-    return vec ? fwd<__nv_bfloat16, 8>(h, table, log_q, neg_ids, pos_ids,
-                                       loss, lse, nT, D, M, s)
-               : fwd<__nv_bfloat16, 1>(h, table, log_q, neg_ids, pos_ids,
-                                       loss, lse, nT, D, M, s);
-  }
-  return vec ? fwd<float, 4>(h, table, log_q, neg_ids, pos_ids, loss, lse, nT,
-                             D, M, s)
-             : fwd<float, 1>(h, table, log_q, neg_ids, pos_ids, loss, lse, nT,
-                             D, M, s);
+  return by_table(table_kind, vec,
+                  FwdCall{h, table, scale, log_q, neg_ids, pos_ids, loss, lse,
+                          nT, D, M, s});
 }
 
 // The backward in one call: a memset and four kernels on `stream`, nothing
 // allocated, nothing waited for. ws: 4 * (3 * T(M+1) + 2 * V + 1) bytes,
 // 4-byte aligned: coef [T(M+1)] fp32, the row counts cnt [V], the segment
 // offsets seg [V+1], the placed occurrences order [T(M+1)] and the sorted
-// long segments sorted [T(M+1)], int32. table_bf16: 0 = fp32 table, 1 =
-// bf16. vec: 16-byte vectors over h, the table and dh. vec_tab: 16-byte
+// long segments sorted [T(M+1)], int32. table_kind and scale as the
+// forward's. vec: vectors over h, the table and dh. vec_tab: 16-byte
 // vectors over h and dtab (D % 4 == 0, aligned). Returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int sampled_ce_pt_bwd_launch(
-    const float* g, const float* h, const void* table, const float* log_q,
-    const int64_t* neg_ids, const int64_t* pos_ids, const float* lse,
-    float* dh, float* dlq, float* dtab, void* ws, int nT, int D, int M,
-    int V, int table_bf16, int vec, int vec_tab, void* stream) {
+    const float* g, const float* h, const void* table, const float* scale,
+    const float* log_q, const int64_t* neg_ids, const int64_t* pos_ids,
+    const float* lse, float* dh, float* dlq, float* dtab, void* ws, int nT,
+    int D, int M, int V, int table_kind, int vec, int vec_tab,
+    void* stream) {
   const long long nocc = (long long)nT * (M + 1);
-  if (nT < 0 || D < 1 || M < 0 || M > MAX_M || V < 1 || nocc >= (1LL << 31)) {
+  if (nT < 0 || D < 1 || M < 0 || M > MAX_M || V < 1 || nocc >= (1LL << 31) ||
+      table_kind < K_F32 || table_kind > K_FP8 ||
+      (table_kind >= K_I8) != (scale != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (nT == 0) return 0;
@@ -961,20 +1155,10 @@ extern "C" int sampled_ce_pt_bwd_launch(
   int* sorted = order + nocc;
   cudaError_t e = cudaMemsetAsync(cnt, 0, (size_t)V * sizeof(int), s);
   if (e != cudaSuccess) return (int)e;
-  int err;
-  if (table_bf16) {
-    err = vec ? bwd_rows<__nv_bfloat16, 8>(g, h, table, log_q, neg_ids,
-                                           pos_ids, lse, dh, dlq, coef, cnt,
-                                           nT, D, M, s)
-              : bwd_rows<__nv_bfloat16, 1>(g, h, table, log_q, neg_ids,
-                                           pos_ids, lse, dh, dlq, coef, cnt,
-                                           nT, D, M, s);
-  } else {
-    err = vec ? bwd_rows<float, 4>(g, h, table, log_q, neg_ids, pos_ids, lse,
-                                   dh, dlq, coef, cnt, nT, D, M, s)
-              : bwd_rows<float, 1>(g, h, table, log_q, neg_ids, pos_ids, lse,
-                                   dh, dlq, coef, cnt, nT, D, M, s);
-  }
+  const int err = by_table(table_kind, vec,
+                           BwdRowsCall{g, h, table, scale, log_q, neg_ids,
+                                       pos_ids, lse, dh, dlq, coef, cnt, nT,
+                                       D, M, s});
   if (err) return err;
   occ_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(cnt, seg, V);
   occ_place_kernel<<<(unsigned)((nocc + THREADS - 1) / THREADS), THREADS, 0,

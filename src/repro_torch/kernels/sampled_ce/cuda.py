@@ -24,6 +24,13 @@ kept short: the checks compare device indices, loss and lse come from one
 allocation, the stream is read as a raw handle, and the device is
 switched only when the operands are not on the current one.
 
+Both pairs also have a quantized mode, the TPU kernels' `quantized`
+branch: int8 or fp8-e4m3 rows with fp32 per-row scales, dequantized in
+registers as they are read (before the 3xTF32 split in the shared
+kernels), and d(table) / dpe / dne scale-unaware, the master rows'
+straight-through gradients. `quant_launches[fmt]` counts each wrapper's
+launches in that mode.
+
 The per-token backward is one C call over one workspace: a per-token
 kernel (dh, dlq, the per-occurrence coefficients and the rows' occurrence
 counts), the segment offsets and the placement of each occurrence in its
@@ -46,8 +53,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.sampled_ce_pt_fwd_launch.argtypes = [_P] * 7 + [_I] * 5 + [_P]
-    lib.sampled_ce_pt_bwd_launch.argtypes = [_P] * 11 + [_I] * 7 + [_P]
+    lib.sampled_ce_pt_fwd_launch.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.sampled_ce_pt_bwd_launch.argtypes = [_P] * 12 + [_I] * 7 + [_P]
     for fn in (lib.sampled_ce_pt_fwd_launch, lib.sampled_ce_pt_bwd_launch,
                lib.sampled_ce_pt_max_m):
         fn.restype = ctypes.c_int
@@ -61,13 +68,31 @@ LIBRARY = KernelLibrary(
 load = LIBRARY.load
 
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}   # 16 bytes
+# the quantized mode's 1-byte rows: 8-byte vectors of 8 elements
+_Q_VEC_ELEMS = {torch.int8: 8, torch.float8_e4m3fn: 8}
+_PT_VEC_ELEMS = {**_VEC_ELEMS, **_Q_VEC_ELEMS}
+# table dtypes -> the C calls' `table_kind`
+_TABLE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
+_Q_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 
-def _check(hidden, table, log_q, neg_ids, pos_ids, *extra):
+def _count(fn, table: torch.Tensor) -> None:
+    """One launch of `fn`, and of its quantized mode by format."""
+    fn.launches += 1
+    if table.dtype in _Q_NAMES:
+        fn.quant_launches[_Q_NAMES[table.dtype]] += 1
+
+
+def _check(hidden, table, scale, log_q, neg_ids, pos_ids, *extra):
     """Raises on what the per-token kernels do not take; returns (lib, T, D,
     M). The cheapest tests first: the device index (-1 off the card),
-    contiguity and dtypes, then the shapes."""
-    tensors = (hidden, table, log_q, neg_ids, pos_ids, *extra)
+    contiguity and dtypes, then the shapes. `scale` is None, or the
+    quantized mode's [V, 1] (or [V]) fp32 row scales of an int8 / fp8
+    table."""
+    quant = scale is not None
+    tensors = (hidden, table, log_q, neg_ids, pos_ids, *extra,
+               *((scale,) if quant else ()))
     dev = hidden.get_device()
     for x in tensors:
         if x.get_device() != dev or dev < 0 or not x.is_cuda:
@@ -77,14 +102,16 @@ def _check(hidden, table, log_q, neg_ids, pos_ids, *extra):
         if not x.is_contiguous():
             raise ValueError("sampled_ce_pt_cuda: operands must be "
                              "contiguous")
-    if table.dtype not in _VEC_ELEMS:
+    if table.dtype not in (_Q_VEC_ELEMS if quant else _VEC_ELEMS):
         raise ValueError(f"sampled_ce_pt_cuda: table must be fp32 or bf16, "
-                         f"got {table.dtype}")
+                         f"or int8 / fp8-e4m3 with scales; got {table.dtype}"
+                         f" with scales={quant}")
     f32 = torch.float32
     if hidden.dtype != f32 or log_q.dtype != f32 \
-            or any(x.dtype != f32 for x in extra):
-        raise ValueError("sampled_ce_pt_cuda: hidden, log_q, g and lse must "
-                         "be fp32")
+            or any(x.dtype != f32 for x in extra) \
+            or (quant and scale.dtype != f32):
+        raise ValueError("sampled_ce_pt_cuda: hidden, log_q, g, lse and the "
+                         "scales must be fp32")
     if neg_ids.dtype != torch.int64 or pos_ids.dtype != torch.int64:
         raise ValueError("sampled_ce_pt_cuda: ids must be int64")
     t, d = hidden.shape
@@ -92,7 +119,8 @@ def _check(hidden, table, log_q, neg_ids, pos_ids, *extra):
     if (table.dim() != 2 or table.shape[1] != d or log_q.dim() != 2
             or log_q.shape[0] != t or neg_ids.shape != log_q.shape
             or pos_ids.shape != tshape
-            or any(x.shape != tshape for x in extra)):
+            or any(x.shape != tshape for x in extra)
+            or (quant and scale.numel() != table.shape[0])):
         raise ValueError(f"sampled_ce_pt_cuda: bad shapes hidden"
                          f"{tuple(hidden.shape)} table{tuple(table.shape)} "
                          f"log_q{tuple(log_q.shape)} "
@@ -120,23 +148,26 @@ def _raise(err: int, what: str) -> None:
 
 def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
                        log_q: torch.Tensor, neg_ids: torch.Tensor,
-                       pos_ids: torch.Tensor):
-    """Forward: hidden [T, D] fp32, table [V, D] fp32/bf16, log_q [T, M]
-    fp32, neg_ids [T, M] / pos_ids [T] int64 (ids in [0, V)), contiguous,
-    on one CUDA device -> (loss [T], lse [T]) fp32, two rows of one
-    allocation. Adds one to `sampled_ce_pt_cuda.launches` per launch (one
-    C call, one CUDA kernel)."""
-    lib, t, d, m = _check(hidden, table, log_q, neg_ids, pos_ids)
+                       pos_ids: torch.Tensor, scale=None):
+    """Forward: hidden [T, D] fp32, table [V, D] fp32/bf16 (or, with
+    `scale` [V, 1] fp32, the quantized mode's int8 / fp8-e4m3), log_q
+    [T, M] fp32, neg_ids [T, M] / pos_ids [T] int64 (ids in [0, V)),
+    contiguous, on one CUDA device -> (loss [T], lse [T]) fp32, two rows
+    of one allocation. Adds one to `sampled_ce_pt_cuda.launches` per
+    launch (one C call, one CUDA kernel), and, in the quantized mode, to
+    `quant_launches[fmt]`."""
+    lib, t, d, m = _check(hidden, table, scale, log_q, neg_ids, pos_ids)
     out = torch.empty((2, t), dtype=torch.float32, device=hidden.device)
     loss, lse = out.unbind(0)
     if t == 0:
         return loss, lse
     dev = hidden.get_device()
     op = out.data_ptr()
-    args = (hidden.data_ptr(), table.data_ptr(), log_q.data_ptr(),
+    elems = _PT_VEC_ELEMS[table.dtype]
+    args = (hidden.data_ptr(), table.data_ptr(),
+            None if scale is None else scale.data_ptr(), log_q.data_ptr(),
             neg_ids.data_ptr(), pos_ids.data_ptr(), op, op + 4 * t, t, d, m,
-            int(table.dtype == torch.bfloat16),
-            _vec(d, _VEC_ELEMS[table.dtype], hidden, table),
+            _TABLE_KIND[table.dtype], _vec(d, elems, hidden, table),
             # the current stream's handle, without building a Stream object
             torch._C._cuda_getCurrentRawStream(dev))
     if dev == torch.cuda.current_device():
@@ -145,22 +176,26 @@ def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
         with torch.cuda.device(dev):
             err = lib.sampled_ce_pt_fwd_launch(*args)
     _raise(err, "sampled_ce_pt")
-    sampled_ce_pt_cuda.launches += 1
+    _count(sampled_ce_pt_cuda, table)
     return loss, lse
 
 
 sampled_ce_pt_cuda.launches = 0
+sampled_ce_pt_cuda.quant_launches = {"int8": 0, "fp8": 0}
 
 
 def sampled_ce_pt_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
                            table: torch.Tensor, log_q: torch.Tensor,
                            neg_ids: torch.Tensor, pos_ids: torch.Tensor,
-                           lse: torch.Tensor):
+                           lse: torch.Tensor, scale=None):
     """Backward from the forward's lse: g/lse [T] fp32, the rest as the
-    forward -> (dh [T, D], dtab [V, D], dlq [T, M]), all fp32.
+    forward -> (dh [T, D], dtab [V, D], dlq [T, M]), all fp32; in the
+    quantized mode dtab is scale-unaware (the master's gradient).
     Adds one to `sampled_ce_pt_bwd_cuda.launches` per backward (its memset
-    and four kernels launch together, in one C call)."""
-    lib, t, d, m = _check(hidden, table, log_q, neg_ids, pos_ids, g, lse)
+    and four kernels launch together, in one C call), and, in the
+    quantized mode, to `quant_launches[fmt]`."""
+    lib, t, d, m = _check(hidden, table, scale, log_q, neg_ids, pos_ids, g,
+                          lse)
     dev = hidden.device
     v, nocc = table.shape[0], t * (m + 1)
     if nocc >= 2**31:
@@ -177,27 +212,30 @@ def sampled_ce_pt_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
     # [T(M+1)] each, int32
     work = torch.empty(4 * (3 * nocc + 2 * v + 1), dtype=torch.uint8,
                        device=dev)
+    elems = _PT_VEC_ELEMS[table.dtype]
     with torch.cuda.device(dev):
         err = lib.sampled_ce_pt_bwd_launch(
             g.data_ptr(), hidden.data_ptr(), table.data_ptr(),
+            None if scale is None else scale.data_ptr(),
             log_q.data_ptr(), neg_ids.data_ptr(), pos_ids.data_ptr(),
             lse.data_ptr(), dh.data_ptr(), dlq.data_ptr(), dtab.data_ptr(),
-            work.data_ptr(), t, d, m, v, int(table.dtype == torch.bfloat16),
-            _vec(d, _VEC_ELEMS[table.dtype], hidden, table, dh),
+            work.data_ptr(), t, d, m, v, _TABLE_KIND[table.dtype],
+            _vec(d, elems, hidden, table, dh),
             _vec(d, 4, hidden, dtab),
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce_pt_bwd")
-    sampled_ce_pt_bwd_cuda.launches += 1
+    _count(sampled_ce_pt_bwd_cuda, table)
     return dh, dtab, dlq
 
 
 sampled_ce_pt_bwd_cuda.launches = 0
+sampled_ce_pt_bwd_cuda.quant_launches = {"int8": 0, "fp8": 0}
 
 
 # ------------------------------------------------------ shared negatives
 def _declare_shared(lib: ctypes.CDLL) -> None:
-    lib.sampled_ce_fwd_launch.argtypes = [_P] * 10 + [_I] * 6 + [_P]
-    lib.sampled_ce_bwd_launch.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+    lib.sampled_ce_fwd_launch.argtypes = [_P] * 12 + [_I] * 6 + [_P]
+    lib.sampled_ce_bwd_launch.argtypes = [_P] * 16 + [_I] * 6 + [_P]
     lib.sampled_ce_fwd_launch.restype = ctypes.c_int
     lib.sampled_ce_bwd_launch.restype = ctypes.c_int
 
@@ -208,24 +246,34 @@ SHARED_LIBRARY = KernelLibrary(
 
 
 _SHARED_TILE = 64       # the kernels' tile; the workspaces are cut by it
+# the shared kernels' 16-byte vectors, 1-byte rows included
+_SHARED_VEC_ELEMS = {**_VEC_ELEMS, torch.int8: 16, torch.float8_e4m3fn: 16}
 
 
-def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra):
+def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra,
+                  scales=()):
     """Raises on what the shared-negative kernels do not take; returns
-    (B, S, M, D). extra: the backward's g and lse [B, S] fp32."""
-    tensors = (hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra)
+    (B, S, M, D). extra: the backward's g and lse [B, S] fp32. scales: the
+    quantized mode's (pos_scale [B, S, 1], neg_scale [B, M, 1]) fp32 of
+    int8 / fp8 rows, or ()."""
+    quant = bool(scales)
+    tensors = (hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra,
+               *scales)
     if not all(x.is_cuda and x.device == hidden.device for x in tensors):
         raise ValueError("sampled_ce_cuda: every operand must be on "
                          "hidden's CUDA device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("sampled_ce_cuda: operands must be contiguous")
-    if pos_emb.dtype not in _VEC_ELEMS or neg_emb.dtype != pos_emb.dtype:
+    if pos_emb.dtype not in (_Q_VEC_ELEMS if quant else _VEC_ELEMS) \
+            or neg_emb.dtype != pos_emb.dtype:
         raise ValueError(f"sampled_ce_cuda: pos_emb and neg_emb must be both "
-                         f"fp32 or both bf16, got {pos_emb.dtype} and "
-                         f"{neg_emb.dtype}")
-    if not all(x.dtype == torch.float32 for x in (hidden, log_q, *extra)):
-        raise ValueError("sampled_ce_cuda: hidden, log_q, g and lse must be "
-                         "fp32")
+                         f"fp32 or both bf16, or both int8 / fp8-e4m3 with "
+                         f"scales; got {pos_emb.dtype} and {neg_emb.dtype} "
+                         f"with scales={quant}")
+    if not all(x.dtype == torch.float32
+               for x in (hidden, log_q, *extra, *scales)):
+        raise ValueError("sampled_ce_cuda: hidden, log_q, g, lse and the "
+                         "scales must be fp32")
     if neg_ids.dtype != torch.int64 or pos_ids.dtype != torch.int64:
         raise ValueError("sampled_ce_cuda: ids must be int64")
     if hidden.dim() != 3 or neg_emb.dim() != 3:
@@ -237,7 +285,9 @@ def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra):
     if (tuple(pos_emb.shape) != (b, s, d) or tuple(neg_emb.shape) != (b, m, d)
             or tuple(log_q.shape) != (b, m) or tuple(neg_ids.shape) != (b, m)
             or tuple(pos_ids.shape) != (b, s)
-            or any(tuple(x.shape) != (b, s) for x in extra)):
+            or any(tuple(x.shape) != (b, s) for x in extra)
+            or (quant and (scales[0].numel() != b * s
+                           or scales[1].numel() != b * m))):
         raise ValueError(f"sampled_ce_cuda: bad shapes hidden"
                          f"{tuple(hidden.shape)} pos_emb"
                          f"{tuple(pos_emb.shape)} neg_emb"
@@ -250,16 +300,31 @@ def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra):
     return b, s, m, d
 
 
+def _scales(pos_scale, neg_scale):
+    if (pos_scale is None) != (neg_scale is None):
+        raise ValueError("sampled_ce_cuda: give both scales or neither")
+    return () if pos_scale is None else (pos_scale, neg_scale)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def sampled_ce_cuda(hidden: torch.Tensor, pos_emb: torch.Tensor,
                     neg_emb: torch.Tensor, log_q: torch.Tensor,
-                    neg_ids: torch.Tensor, pos_ids: torch.Tensor):
+                    neg_ids: torch.Tensor, pos_ids: torch.Tensor,
+                    pos_scale=None, neg_scale=None):
     """Forward: hidden [B, S, D] fp32, pos_emb [B, S, D] and neg_emb
-    [B, M, D] both fp32 or both bf16, log_q [B, M] fp32, neg_ids [B, M] /
-    pos_ids [B, S] int64, contiguous, on one CUDA device -> (loss [B, S],
-    lse [B, S]) fp32. Adds one to `sampled_ce_cuda.launches` per forward
-    (its two kernels, the partials and their merge, launch together)."""
+    [B, M, D] both fp32 or both bf16 (or, with pos_scale [B, S, 1] and
+    neg_scale [B, M, 1] fp32, the quantized mode's gathered int8 / fp8-e4m3
+    rows), log_q [B, M] fp32, neg_ids [B, M] / pos_ids [B, S] int64,
+    contiguous, on one CUDA device -> (loss [B, S], lse [B, S]) fp32. Adds
+    one to `sampled_ce_cuda.launches` per forward (its two kernels, the
+    partials and their merge, launch together), and, in the quantized
+    mode, to `quant_launches[fmt]`."""
+    scales = _scales(pos_scale, neg_scale)
     b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
-                               pos_ids)
+                               pos_ids, scales=scales)
     lib = SHARED_LIBRARY.load()
     dev = hidden.device
     loss = torch.empty((b, s), dtype=torch.float32, device=dev)
@@ -273,32 +338,38 @@ def sampled_ce_cuda(hidden: torch.Tensor, pos_emb: torch.Tensor,
                        device=dev)
     part = work.data_ptr()
     pos = part + 8 * b * s * nt
-    vec = _vec(d, _VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
+    vec = _vec(d, _SHARED_VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
     with torch.cuda.device(dev):
         err = lib.sampled_ce_fwd_launch(
             hidden.data_ptr(), pos_emb.data_ptr(), neg_emb.data_ptr(),
+            _ptr(pos_scale), _ptr(neg_scale),
             log_q.data_ptr(), neg_ids.data_ptr(), pos_ids.data_ptr(),
             loss.data_ptr(), lse.data_ptr(), part, pos, b, s, m, d,
-            int(pos_emb.dtype == torch.bfloat16), vec,
+            _TABLE_KIND[pos_emb.dtype], vec,
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce")
-    sampled_ce_cuda.launches += 1
+    _count(sampled_ce_cuda, pos_emb)
     return loss, lse
 
 
 sampled_ce_cuda.launches = 0
+sampled_ce_cuda.quant_launches = {"int8": 0, "fp8": 0}
 
 
 def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
                         pos_emb: torch.Tensor, neg_emb: torch.Tensor,
                         log_q: torch.Tensor, neg_ids: torch.Tensor,
-                        pos_ids: torch.Tensor, lse: torch.Tensor):
+                        pos_ids: torch.Tensor, lse: torch.Tensor,
+                        pos_scale=None, neg_scale=None):
     """Backward from the forward's lse: g/lse [B, S] fp32, the rest as the
-    forward -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32.
-    Adds one to `sampled_ce_bwd_cuda.launches` per backward (its three
-    kernels, W, dh/dpe and dne/dlq, launch together)."""
+    forward -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32;
+    dpe and dne scale-unaware in the quantized mode. Adds one to
+    `sampled_ce_bwd_cuda.launches` per backward (its three kernels, W,
+    dh/dpe and dne/dlq, launch together), and, in the quantized mode, to
+    `quant_launches[fmt]`."""
+    scales = _scales(pos_scale, neg_scale)
     b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
-                               pos_ids, g, lse)
+                               pos_ids, g, lse, scales=scales)
     lib = SHARED_LIBRARY.load()
     dev = hidden.device
     dh = torch.empty((b, s, d), dtype=torch.float32, device=dev)
@@ -314,19 +385,20 @@ def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
     work = torch.empty(b * sp * mp + b * s, dtype=torch.float32, device=dev)
     w = work.data_ptr()
     coef = w + 4 * b * sp * mp
-    vec = _vec(d, _VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
+    vec = _vec(d, _SHARED_VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
     with torch.cuda.device(dev):
         err = lib.sampled_ce_bwd_launch(
             g.data_ptr(), hidden.data_ptr(), pos_emb.data_ptr(),
-            neg_emb.data_ptr(), log_q.data_ptr(), neg_ids.data_ptr(),
+            neg_emb.data_ptr(), _ptr(pos_scale), _ptr(neg_scale),
+            log_q.data_ptr(), neg_ids.data_ptr(),
             pos_ids.data_ptr(), lse.data_ptr(), dh.data_ptr(),
             dpe.data_ptr(), dne.data_ptr(), dlq.data_ptr(), w, coef, b, s, m,
-            d,
-            int(pos_emb.dtype == torch.bfloat16), vec,
+            d, _TABLE_KIND[pos_emb.dtype], vec,
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce_bwd")
-    sampled_ce_bwd_cuda.launches += 1
+    _count(sampled_ce_bwd_cuda, pos_emb)
     return dh, dpe, dne, dlq
 
 
 sampled_ce_bwd_cuda.launches = 0
+sampled_ce_bwd_cuda.quant_launches = {"int8": 0, "fp8": 0}

@@ -5,6 +5,14 @@ memory-hungry formulation the kernels replace — the [T, M, D] negative
 gather and the [T, M] corrected logits are materialized here. The CPU path
 runs these; `chip_smoke.py` holds the CUDA kernels against them on the
 card. Autograd through `sampled_ce_pt_ref` is the plain backward.
+
+The quantized mode (reference `per_token.py:99-111`, `:255-262`, and
+`sampled_ce.py:49-50`, `:190-270`): `scale` [V, 1] fp32 makes `table` the
+int8 / fp8 copy, a gathered row is dequantized as `rows · s` before the
+dot, and the backward's d(table) is scale-unaware, the gradient with
+respect to the dequantized rows, which the straight-through estimator
+hands to the master table. The shared-negative twins take the gathered
+rows' scales, [B, S, 1] and [B, M, 1].
 """
 from __future__ import annotations
 
@@ -15,14 +23,22 @@ from repro_torch.core.sampled_softmax import (NEG_INF, NEG_INF_THRESHOLD,
                                               corrected_logits)
 
 
-def _all_logits(hidden, table, log_q, neg_ids, pos_ids):
-    # Rows are gathered with F.embedding: on the CPU its backward sums
-    # duplicate ids in a fixed order, where `table[ids]`'s backward
-    # (index_put_ with accumulate) uses atomics across threads.
+def _rows(table, ids, scale):
+    """fp32 rows table[ids], dequantized (· scale[ids]) where scale is
+    given. Rows are gathered with F.embedding: on the CPU its backward sums
+    duplicate ids in a fixed order, where `table[ids]`'s backward
+    (index_put_ with accumulate) uses atomics across threads. A low-bit
+    table is data, never differentiated: it is indexed."""
+    if scale is None:
+        return F.embedding(ids, table).float()
+    return table[ids].float() * scale.float().reshape(-1, 1)[ids]
+
+
+def _all_logits(hidden, table, log_q, neg_ids, pos_ids, scale=None):
     h = hidden.float()
     m = neg_ids.shape[-1]
-    pos_logit = torch.sum(h * F.embedding(pos_ids, table).float(), dim=-1)
-    neg_e = F.embedding(neg_ids, table).float()                      # [T,M,D]
+    pos_logit = torch.sum(h * _rows(table, pos_ids, scale), dim=-1)
+    neg_e = _rows(table, neg_ids, scale)                             # [T,M,D]
     neg_logits = torch.einsum("td,tmd->tm", h, neg_e)
     corr = corrected_logits(neg_logits, log_q.float(), m)
     corr = torch.where(neg_ids == pos_ids[:, None],
@@ -39,9 +55,12 @@ def sampled_ce_pt_ref(hidden: torch.Tensor, table: torch.Tensor,
     return torch.logsumexp(logits, dim=-1) - pos_logit
 
 
-def sampled_ce_pt_fwd_ref(hidden, table, log_q, neg_ids, pos_ids):
-    """The forward kernel's outputs: (loss [T], lse [T]) fp32."""
-    pos_logit, logits = _all_logits(hidden, table, log_q, neg_ids, pos_ids)
+def sampled_ce_pt_fwd_ref(hidden, table, log_q, neg_ids, pos_ids,
+                          scale=None):
+    """The forward kernel's outputs: (loss [T], lse [T]) fp32; `scale`
+    [V, 1] given: the quantized mode."""
+    pos_logit, logits = _all_logits(hidden, table, log_q, neg_ids, pos_ids,
+                                    scale)
     lse = torch.logsumexp(logits, dim=-1)
     return lse - pos_logit, lse
 
@@ -75,16 +94,20 @@ def sampled_ce_pt_fold(hidden, table, log_q, neg_ids, pos_ids,
     return lse - pos, lse
 
 
-def sampled_ce_pt_bwd_ref(g, hidden, table, log_q, neg_ids, pos_ids, lse):
+def sampled_ce_pt_bwd_ref(g, hidden, table, log_q, neg_ids, pos_ids, lse,
+                          scale=None):
     """The backward kernels' outputs, by autograd through the plain forward
     (which recomputes lse, so `lse` is unused): (dh [T, D], dtab [V, D],
     dlq [T, M]), all fp32. dtab is taken against an fp32 copy of the
-    table, as the kernel accumulates it."""
+    table, as the kernel accumulates it; in the quantized mode against the
+    dequantized table, so it is scale-unaware."""
     del lse
     with torch.enable_grad():
         h = hidden.detach().float().requires_grad_(True)
         lq = log_q.detach().float().requires_grad_(True)
-        tab = table.detach().float().requires_grad_(True)
+        tab = table.detach().float() if scale is None else \
+            table.detach().float() * scale.detach().float().reshape(-1, 1)
+        tab.requires_grad_(True)
         loss = sampled_ce_pt_ref(h, tab, lq, neg_ids, pos_ids)
         dh, dtab, dlq = torch.autograd.grad(loss, (h, tab, lq), g.float())
     return dh, dtab, dlq
@@ -105,8 +128,19 @@ def _shared_corr(hidden, neg_emb, log_q, neg_ids, pos_ids):
     return torch.where(hit, corr.new_tensor(NEG_INF), corr)
 
 
-def sampled_ce_fwd_ref(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids):
-    """The forward kernel's outputs: (loss [B, S], lse [B, S]) fp32."""
+def _dequant(rows, scale):
+    """Gathered low-bit rows times their [..., 1] scales (fp32); rows as
+    they are where no scale is given."""
+    return rows if scale is None else rows.float() * scale.float()
+
+
+def sampled_ce_fwd_ref(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
+                       pos_scale=None, neg_scale=None):
+    """The forward kernel's outputs: (loss [B, S], lse [B, S]) fp32.
+    pos_scale [B, S, 1] / neg_scale [B, M, 1] given: the quantized mode,
+    pos_emb / neg_emb gathered int8 / fp8 rows."""
+    pos_emb = _dequant(pos_emb, pos_scale)
+    neg_emb = _dequant(neg_emb, neg_scale)
     pos_logit = torch.sum(hidden.float() * pos_emb.float(), dim=-1)
     corr = _shared_corr(hidden, neg_emb, log_q, neg_ids, pos_ids)
     lse = torch.logsumexp(torch.cat([pos_logit[..., None], corr], dim=-1),
@@ -122,13 +156,17 @@ def sampled_ce_ref(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids):
 
 
 def sampled_ce_bwd_ref(g, hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
-                       lse):
+                       lse, pos_scale=None, neg_scale=None):
     """The backward kernels' outputs from the saved lse, as
     `sampled_ce.py::sampled_ce_bwd` (:277-372) computes them:
       w   = exp(corr − lse) on valid entries, else 0     [B, S, M]
       dh  = g·(w @ ne + (p_pos − 1)·pe),  dpe = g·(p_pos − 1)·h
       dne = (g·w)ᵀ @ h,                   dlq = −Σ_s g·w
-    -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32."""
+    -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32. In the
+    quantized mode pe and ne are the dequantized rows, and dpe / dne stay
+    scale-unaware (the master rows' straight-through gradients)."""
+    pos_emb = _dequant(pos_emb, pos_scale)
+    neg_emb = _dequant(neg_emb, neg_scale)
     h, pe, ne = hidden.float(), pos_emb.float(), neg_emb.float()
     g = g.float()[..., None]                                     # [B,S,1]
     lse = lse[..., None]

@@ -17,14 +17,19 @@ t0); reports tokens/s and p50/p95/p99 per-token latency, and replays
 
 The flags are the reference's for what this slice supports: --arch
 --reduced --requests --rate --prompt --tokens --max-slots --page-size
---head --num-candidates --temperature --greedy --seed --ckpt --verify
---warmup, plus --device (default: the card). Any other flag is rejected.
+--head --table-dtype --num-candidates --temperature --greedy --seed --ckpt
+--verify --warmup, plus --device (default: the card). Any other flag is
+rejected. --table-dtype int8 / fp8 serves the MIDX head from a quantized
+state (reference `launch/serve.py:139`, `:192`): the draw scores the
+low-bit codebooks (the midx_probs kernel's quantized mode on the card) and
+the candidates are rescored from residual PQ codes, not [V, D] rows.
 --ckpt restores params and head state from a serving checkpoint dir, e.g.
 the `<ckpt>/serve` export of either package's `train_loop` (reference
 `launch/serve.py:168-169`, `:213-214`).
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --head midx
   python -m repro_torch.launch.serve --arch llama3.2-1b --head rff-fused
+  python -m repro_torch.launch.serve --arch llama3.2-1b --head midx --table-dtype int8
   python -m repro_torch.launch.serve --arch mamba2-370m --prompt 512
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --ckpt build/ck-cpu/serve
@@ -75,6 +80,8 @@ def build_config(args):
     if args.reduced:
         cfg = cfg.reduced()
     head_kw = {}
+    if args.table_dtype is not None:
+        head_kw["table_dtype"] = args.table_dtype
     if args.num_candidates:
         head_kw["decode_candidates"] = args.num_candidates
     if args.temperature:
@@ -103,6 +110,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--head", default="midx",
                     choices=proposals_registry.PORTED_MODES)
+    ap.add_argument("--table-dtype", default=None,
+                    help="hot-path class-table format (bf16|int8|fp8, "
+                         "DESIGN §12): the two-stage draw reads quantized "
+                         "codebooks and the rescore reads PQ residual "
+                         "codes instead of [V,D] rows")
     ap.add_argument("--num-candidates", type=int, default=0,
                     help="MIDX decode candidates (0 = cfg.head default)")
     ap.add_argument("--temperature", type=float, default=0.0,

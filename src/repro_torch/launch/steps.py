@@ -3,7 +3,8 @@
 Mirrors `src/repro/launch/steps.py`: `resolve_proposal` (:55),
 `make_loss_fn` (:70; modes `midx`, `full` and the ported registry
 contenders, which route through `heads.loss_sampled`; the fault seam
-`_apply_fault` :33) and `make_train_step` (:129, the non-trainable branch
+`_apply_fault` :33; an unknown `head.table_dtype` raises when the loss is
+built, :96) and `make_train_step` (:129, the non-trainable branch
 :188-202 with its non-finite skip guard). The unported registry
 contenders (ROADMAP.md Queue 1 item 10) and the sharded and
 vocab-parallel steps (item 13) raise NotImplementedError.
@@ -25,6 +26,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.index.quantized import resolve_table_dtype
 from repro_torch.models import heads
 from repro_torch.models.model import forward
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
@@ -62,6 +64,7 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
     a registry contender; batch holds int64 `tokens` and `labels` [B, S] on
     the params' device."""
     mode, proposal = resolve_proposal(cfg, head_mode)
+    resolve_table_dtype(cfg.head.table_dtype)
 
     def loss_fn(params, state, batch, keys):
         with record_function("train.forward"):

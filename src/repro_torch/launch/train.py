@@ -15,11 +15,13 @@ writes it again), the fault injector's seams and the guardrails'
 rollback and replay (:217-280), the loss history and the step log, and
 the CLI (`main` :348, `_parse_chaos` :438) with the flags --arch --steps
 --batch --seq --lr --head --reduced --refresh-every --ckpt --chaos
---chaos-seed --seed, plus --device (default: the card; 'cpu' must be
-asked for). The reference's other flags are accepted and raise
-NotImplementedError with a pointer to ROADMAP.md Queue 1: --dp,
---vocab-parallel and --grad-transport (item 13), --refresh-policy drift
-and --refresh-lag > 0 (item 9), --table-dtype int8/fp8 (item 8).
+--chaos-seed --seed --table-dtype (bf16, or the quantized head's int8 /
+fp8: the low-bit class table, codebooks and residual codes, DESIGN §12),
+plus --device (default: the card; 'cpu' must be asked for). The
+reference's other flags are accepted and raise NotImplementedError with
+a pointer to ROADMAP.md Queue 1: --dp, --vocab-parallel and
+--grad-transport (item 13), --refresh-policy drift and --refresh-lag > 0
+(item 9).
 
 Checkpoints are the reference's format (`checkpoint.manager`): a run of
 either package resumes from the other's. `total_steps` is the job's
@@ -54,6 +56,8 @@ CLI's data.
   python -m repro_torch.launch.train --arch llama3.2-1b --steps 40 --batch 4 --seq 256
   python -m repro_torch.launch.train --arch llama3.2-1b --seq 4096 --batch 2 --steps 20 --lr 1e-3
   python -m repro_torch.launch.train --arch paper-lm --head rff-fused --steps 120 --lr 3e-3
+  python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3 --table-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 2 --table-dtype fp8
   python -m repro_torch.launch.train --arch mamba2-370m --steps 30 --batch 4 --seq 1024 --lr 1e-3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 4 --ckpt build/ck-cpu
@@ -347,13 +351,17 @@ def parser() -> argparse.ArgumentParser:
                          "slow_step@5:0.2,kill_mid_save@100:committed'")
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="seed of the injector's (seed, step) fault streams")
+    ap.add_argument("--table-dtype", default=None,
+                    help="class-table storage on the head's hot path "
+                         "(DESIGN §12): bf16 = master precision (default), "
+                         "int8/fp8 = per-row-scaled low-bit table + "
+                         "quantized proposal codebooks + PQ-code residual")
     unported = ap.add_argument_group("not ported yet (raise)")
     unported.add_argument("--dp", type=int, default=0)
     unported.add_argument("--vocab-parallel", type=int, default=1)
     unported.add_argument("--grad-transport", default="fp32")
     unported.add_argument("--refresh-policy", default=None)
     unported.add_argument("--refresh-lag", type=int, default=None)
-    unported.add_argument("--table-dtype", default=None)
     return ap
 
 

@@ -1,14 +1,16 @@
 """LM heads: the training losses, the MIDX decode head and its index state.
 
-Mirrors `src/repro/models/heads.py`: `init_head_state` (:39, the bf16 table
-path only — int8/fp8 tables are a later slice), `refresh_head_state` (:71),
+Mirrors `src/repro/models/heads.py`: `init_head_state` (:39-54, the bare
+MultiIndex for a bf16 table, a `QuantHeadState` for int8 / fp8),
+`_requantized` (:56), `refresh_head_state` (:71),
 `refresh_head_state_with_policy` (:86), `loss_full` (:106), `loss_midx`
 (:113, the fused lane: per-token, pooled and mixture proposals, with the
-table in its native dtype),
-`_masked_mean` (:232), the generic proposal heads `_midx_index_of`
-(:239), `init_proposal_state` (:253), `refresh_proposal_state` (:260),
-`loss_sampled` (:267), `proposal_decode_head` (:538), and
-`midx_decode_head` (:316, the unquantized branch).
+table in its native dtype or, over a quantized state, its int8 / fp8
+twin), `_gathered_rows` (:219), `_masked_mean` (:232), the generic proposal
+heads `_midx_index_of` (:239), `init_proposal_state` (:253),
+`refresh_proposal_state` (:260), `loss_sampled` (:267),
+`proposal_decode_head` (:538), and `midx_decode_head` (:316, both
+branches).
 
 `loss_midx` is the reference's fused lane. Per-token proposals: the
 proposal tables come from the midx_probs kernel and the CE from the
@@ -21,12 +23,26 @@ the positives' are gathered in the table's native dtype, and the CE runs
 in the shared-negative kernels (`sampled_ce_op`) — the [B, S, M] logits
 never reach device memory. log q stays attached to the graph, as in the
 reference, so d(loss)/d log q flows back through the proposal into the
-hidden states. Quantized states (ROADMAP.md Queue 1 item 8) raise
-NotImplementedError. The kernels always mask collisions, so, as in the
+hidden states. The kernels always mask collisions, so, as in the
 reference (`kernels/dispatch.py:55-56`), a head with `mask_collisions`
 False takes the plain lane instead (reference :214-215): the same draws,
-the rows gathered with `F.embedding`, and `sampled_softmax_loss` with
-collisions left unmasked.
+the rows gathered with `F.embedding` (dequantized through `dequant_rows`
+over a quantized state), and `sampled_softmax_loss` with collisions left
+unmasked.
+
+Over a `QuantHeadState` (cfg.head.table_dtype int8 / fp8, DESIGN §12)
+the whole hot path reads the low-bit twins: the proposal scores the
+quantized codebooks (`proposal_tables_q`, the midx_probs kernel's
+quantized mode; `quantized_query_scores` for the shared draws), the
+per-token CE reads int8 / fp8 rows and their scales in the kernels
+(`sampled_ce_pt_q_op`), and the shared CE the gathered low-bit rows
+(`sampled_ce_q_op`). The master table's gradient is the straight-through
+one: the kernels' scale-unaware row gradients. Departure in the shared
+lane: the master rows `pos_emb` / `neg_emb` are gathered (torch removes no
+dead read; the kernels never read them), as the reference writes
+`table[labels]`. The decode head rescores its candidates from the stage
+tables of its own draw and the residual PQ codes (`code_scores`), never
+from [V, D] rows.
 
 `loss_sampled` and `proposal_decode_head` run any ported registry
 proposal (`repro_torch.proposals`): the draws come from the proposal (for
@@ -55,6 +71,7 @@ matrix. Departures:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -67,45 +84,76 @@ from repro_torch.core.sampled_softmax import (full_softmax_loss,
                                               sampled_softmax_loss)
 from repro_torch.index import lifecycle as lifecycle_mod
 from repro_torch.index.build import MultiIndex, build, refresh
-from repro_torch.kernels.midx_probs.ops import proposal_tables
+from repro_torch.index.quantized import (QuantHeadState, code_scores,
+                                         dequant_rows, quantize_head_state,
+                                         quantized_query_scores,
+                                         resolve_table_dtype, unwrap_index)
+from repro_torch.kernels.midx_probs.ops import (proposal_tables,
+                                                proposal_tables_q)
 from repro_torch.kernels.sampled_ce.ops import (sampled_ce_op,
-                                                sampled_ce_pt_op)
+                                                sampled_ce_pt_op,
+                                                sampled_ce_pt_q_op,
+                                                sampled_ce_q_op)
 from repro_torch.models.model import class_embeddings, logits_full
 
 
 @torch.no_grad()
-def init_head_state(cfg: ModelConfig, params: dict,
-                    gen: torch.Generator) -> MultiIndex:
-    """Build the inverted multi-index over the class-embedding table."""
-    if cfg.head.table_dtype != "bf16":
-        raise NotImplementedError(
-            f"table_dtype={cfg.head.table_dtype!r}: the quantized hot path "
-            "is not ported yet (ROADMAP.md Queue 1 item 8)")
+def init_head_state(cfg: ModelConfig, params: dict, gen: torch.Generator):
+    """Build the inverted multi-index over the class-embedding table: the
+    bare MultiIndex for table_dtype 'bf16', a QuantHeadState (the index,
+    the low-bit table and codebooks, the residual PQ codes) for 'int8' /
+    'fp8'. The codes' k-means draw from `gen` after the index's."""
+    fmt = resolve_table_dtype(cfg.head.table_dtype)
     table = class_embeddings(cfg, params).float()
-    return build(gen, table, kind=cfg.head.quantizer, k=cfg.head.midx_k,
-                 iters=cfg.head.kmeans_iters, keep_residuals=False)
+    index = build(gen, table, kind=cfg.head.quantizer, k=cfg.head.midx_k,
+                  iters=cfg.head.kmeans_iters, keep_residuals=False)
+    if fmt == "bf16":
+        return index
+    return quantize_head_state(index, table, fmt, gen=gen)
+
+
+def _requantized(cfg: ModelConfig, state: QuantHeadState,
+                 new_index: MultiIndex, table: torch.Tensor,
+                 gen: torch.Generator) -> QuantHeadState:
+    """The low-bit twins rebuilt around a refreshed index. With
+    quantize_on_refresh False only the index swaps and the twins stay as
+    they were (an approximation knob; the draws use the fresh index)."""
+    if not cfg.head.quantize_on_refresh:
+        return dataclasses.replace(state, index=new_index)
+    rc = state.residual_codes
+    return quantize_head_state(new_index, table, state.fmt, gen=gen,
+                               n_sub=rc.n_sub, ksub=rc.ksub)
 
 
 @torch.no_grad()
-def refresh_head_state(cfg: ModelConfig, params: dict, state: MultiIndex,
-                       gen: torch.Generator) -> MultiIndex:
-    """Full refit against the current class table, warm-started."""
+def refresh_head_state(cfg: ModelConfig, params: dict, state,
+                       gen: torch.Generator):
+    """Full refit against the current class table, warm-started; a
+    quantized state re-derives its twins (`_requantized`)."""
     table = class_embeddings(cfg, params).float()
-    return refresh(state, gen, table, iters=cfg.head.kmeans_iters)
+    new_index = refresh(unwrap_index(state), gen, table,
+                        iters=cfg.head.kmeans_iters)
+    if isinstance(state, QuantHeadState):
+        return _requantized(cfg, state, new_index, table, gen)
+    return new_index
 
 
 @torch.no_grad()
-def refresh_head_state_with_policy(cfg: ModelConfig, params: dict,
-                                   state: MultiIndex, gen: torch.Generator,
+def refresh_head_state_with_policy(cfg: ModelConfig, params: dict, state,
+                                   gen: torch.Generator,
                                    policy: Optional[str] = None):
     """One refresh event under cfg.head.refresh_policy (or an override).
     Returns (new_state, metrics): reassigned_frac, codeword_drift, did_full,
-    distortion."""
+    distortion. A quantized state re-derives its twins here, riding the
+    lifecycle's swap with its index."""
     table = class_embeddings(cfg, params).float()
-    return lifecycle_mod.refresh_with_policy(
-        state, gen, table, iters=cfg.head.kmeans_iters,
+    new_index, metrics = lifecycle_mod.refresh_with_policy(
+        unwrap_index(state), gen, table, iters=cfg.head.kmeans_iters,
         policy=policy or cfg.head.refresh_policy,
         threshold=cfg.head.refresh_drift_threshold)
+    if isinstance(state, QuantHeadState):
+        return _requantized(cfg, state, new_index, table, gen), metrics
+    return new_index, metrics
 
 
 def _masked_mean(loss: torch.Tensor,
@@ -123,17 +171,27 @@ def loss_full(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
     return _masked_mean(full_softmax_loss(logits, labels), mask)
 
 
-def loss_midx(cfg: ModelConfig, params: dict, index: MultiIndex,
-              hidden: torch.Tensor, labels: torch.Tensor, keys: torch.Tensor,
+def quantized_tables_fn(qs: QuantHeadState):
+    """The `tables_fn` hook of a quantized state: the proposal tables from
+    its low-bit codebooks (the midx_probs kernel's quantized mode on the
+    card, its plain version on the CPU), so that training and serving draw
+    from the same distribution."""
+    def tables_fn(index, z):
+        return proposal_tables_q(index, qs.qcb1, qs.qcb1_scale, qs.qcb2,
+                                 qs.qcb2_scale, z)
+    return tables_fn
+
+
+def loss_midx(cfg: ModelConfig, params: dict, index, hidden: torch.Tensor,
+              labels: torch.Tensor, keys: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """MIDX sampled-softmax CE. hidden [B,S,D], labels [B,S], keys [B·S]
-    the tokens' stream keys (`noise.train_keys(seed, step, B·S)`); the
-    shared proposals key sequence b by keys[b·S]."""
-    if not isinstance(index, MultiIndex):
-        raise NotImplementedError(
-            f"loss_midx over a {type(index).__name__} head state: the "
-            "quantized hot path is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
+    """MIDX sampled-softmax CE. `index` is the head state: a MultiIndex,
+    or a QuantHeadState whose low-bit twins the whole path then reads.
+    hidden [B,S,D], labels [B,S], keys [B·S] the tokens' stream keys
+    (`noise.train_keys(seed, step, B·S)`); the shared proposals key
+    sequence b by keys[b·S]."""
+    qs = index if isinstance(index, QuantHeadState) else None
+    index = unwrap_index(index)
     table = class_embeddings(cfg, params)
     m = cfg.head.num_negatives
     b, s, d = hidden.shape
@@ -141,15 +199,21 @@ def loss_midx(cfg: ModelConfig, params: dict, index: MultiIndex,
     masked = cfg.head.mask_collisions
     if proposal == "per_token":
         h32 = hidden.float().reshape(b * s, d)
+        tables_fn = proposal_tables if qs is None else quantized_tables_fn(qs)
         draw = midx_mod.sample_twostage(index, h32, m, keys,
-                                        tables_fn=proposal_tables)  # [T,M]
+                                        tables_fn=tables_fn)        # [T,M]
         if masked:
-            loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
-                                    labels.reshape(b * s)).reshape(b, s)
-            return _masked_mean(loss, mask)
-        neg_logits = torch.einsum("td,tmd->tm", h32,
-                                  F.embedding(draw.ids, table).float())
-        loss = _unmasked_loss(h32.reshape(b, s, d), table, labels,
+            if qs is None:
+                loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
+                                        labels.reshape(b * s))
+            else:
+                loss = sampled_ce_pt_q_op(h32, table, qs.qdata, qs.qscale,
+                                          draw.log_q, draw.ids,
+                                          labels.reshape(b * s))
+            return _masked_mean(loss.reshape(b, s), mask)
+        pos_e, neg_e = _gathered_rows(table, qs, labels, draw.ids)
+        neg_logits = torch.einsum("td,tmd->tm", h32, neg_e)
+        loss = _unmasked_loss(h32.reshape(b, s, d), pos_e, labels,
                               neg_logits.reshape(b, s, m),
                               draw.log_q.reshape(b, s, m),
                               draw.ids.reshape(b, s, m))
@@ -158,25 +222,50 @@ def loss_midx(cfg: ModelConfig, params: dict, index: MultiIndex,
         raise ValueError(f"unknown proposal {proposal!r}")
     sampler = (midx_mod.sample_pooled if proposal == "pooled"
                else midx_mod.sample_mixture)
+    scores_fn = None
+    if qs is not None:
+        def scores_fn(idx, z):
+            return quantized_query_scores(idx.kind, qs.qcb1, qs.qcb1_scale,
+                                          qs.qcb2, qs.qcb2_scale, z)
     h32 = hidden.float()
-    draw = sampler(index, h32, m, noise.sequence_keys(keys, s))  # [B,M]
+    draw = sampler(index, h32, m, noise.sequence_keys(keys, s),
+                   scores_fn=scores_fn)                           # [B,M]
     if masked:
         pos_emb = F.embedding(labels, table)              # [B,S,D] native
         neg_emb = F.embedding(draw.ids, table)            # [B,M,D] native
-        loss = sampled_ce_op(h32, pos_emb, neg_emb, draw.log_q, draw.ids,
-                             labels)
+        if qs is None:
+            loss = sampled_ce_op(h32, pos_emb, neg_emb, draw.log_q, draw.ids,
+                                 labels)
+        else:
+            loss = sampled_ce_q_op(h32, pos_emb, neg_emb, qs.qdata[labels],
+                                   qs.qscale[labels], qs.qdata[draw.ids],
+                                   qs.qscale[draw.ids], draw.log_q,
+                                   draw.ids, labels)
         return _masked_mean(loss, mask)
-    neg_logits = torch.einsum("bsd,bmd->bsm", h32,
-                              F.embedding(draw.ids, table).float())
-    loss = _unmasked_loss(h32, table, labels, neg_logits,
+    pos_e, neg_e = _gathered_rows(table, qs, labels, draw.ids)
+    neg_logits = torch.einsum("bsd,bmd->bsm", h32, neg_e)
+    loss = _unmasked_loss(h32, pos_e, labels, neg_logits,
                           draw.log_q[:, None, :], draw.ids[:, None, :])
     return _masked_mean(loss, mask)
 
 
-def _unmasked_loss(h32, table, labels, neg_logits, log_q, neg_ids):
+def _gathered_rows(table: torch.Tensor, qs: Optional[QuantHeadState],
+                   labels: torch.Tensor, neg_ids: torch.Tensor):
+    """fp32 (pos_rows, neg_rows) for the plain lane: a quantized state's
+    rows dequantized per gathered row with straight-through gradients onto
+    the master table; else the rows cast per gathered row (never the whole
+    [V, D] table)."""
+    if qs is not None:
+        return (dequant_rows(table, qs.qdata, qs.qscale, labels),
+                dequant_rows(table, qs.qdata, qs.qscale, neg_ids))
+    return (F.embedding(labels, table).float(),
+            F.embedding(neg_ids, table).float())
+
+
+def _unmasked_loss(h32, pos_e, labels, neg_logits, log_q, neg_ids):
     """The plain lane of `loss_midx` for `mask_collisions` False: per-token
     sampled CE [B, S] with a negative equal to the positive left in."""
-    pos_logit = torch.sum(h32 * F.embedding(labels, table).float(), dim=-1)
+    pos_logit = torch.sum(h32 * pos_e, dim=-1)
     return sampled_softmax_loss(pos_logit, neg_logits, log_q, neg_ids,
                                 labels, mask_collisions=False)
 
@@ -197,12 +286,16 @@ def candidate_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
     return logits - log_q
 
 
-def midx_decode_head(cfg: ModelConfig, params: dict, index: MultiIndex,
+def midx_decode_head(cfg: ModelConfig, params: dict, index,
                      hidden: torch.Tensor, keys: torch.Tensor,
                      num_candidates: Optional[int] = None,
                      temperature: Optional[float] = None) -> MidxDecodeOut:
     """Next-token sampling for T rows at once. hidden [T, D]; keys [T] the
-    rows' stream keys (`noise.row_keys(seed, rid, pos)`).
+    rows' stream keys (`noise.row_keys(seed, rid, pos)`). Over a
+    QuantHeadState the draw scores the low-bit codebooks and the candidates
+    are rescored from codes: o_i ≈ s1[k1(i)] + s2[k2(i)] + ADC(z, codes_i)
+    from the draw's own stage tables, 2 assignments and n_sub code bytes a
+    candidate instead of a D-wide row.
 
     `num_candidates` / `temperature` default to `cfg.head.decode_candidates`
     / `cfg.head.decode_temperature`."""
@@ -211,10 +304,18 @@ def midx_decode_head(cfg: ModelConfig, params: dict, index: MultiIndex,
     if temperature is None:
         temperature = cfg.head.decode_temperature
     h = hidden.float()
-    draw = midx_mod.sample_twostage(index, h, num_candidates, keys,
-                                    tables_fn=proposal_tables)      # [T,M]
-    corrected = candidate_logits(cfg, params, h, draw.ids, draw.log_q,
-                                 temperature)
+    if isinstance(index, QuantHeadState):
+        qs, index = index, index.index
+        draw, (s1, s2, _, _) = midx_mod.sample_twostage(
+            index, h, num_candidates, keys, tables_fn=quantized_tables_fn(qs),
+            return_tables=True)                                     # [T,M]
+        scores = code_scores(index, qs.residual_codes, h, draw.ids, s1, s2)
+        corrected = scores / temperature - draw.log_q
+    else:
+        draw = midx_mod.sample_twostage(index, h, num_candidates, keys,
+                                        tables_fn=proposal_tables)  # [T,M]
+        corrected = candidate_logits(cfg, params, h, draw.ids, draw.log_q,
+                                     temperature)
     return _pick(draw, corrected, keys)
 
 

@@ -23,7 +23,9 @@ Fault surface:
   serve        `flood` / `oversized_request`, deterministic traffic.
 
 `poison_state` maps the port's head states: a `MultiIndex` (int64 index
-fields) or a proposal's dict of tensors.
+fields), a quantized head's `QuantHeadState` (its index and its low-bit
+twins: fp8 leaves are floats, int8 ones integers, as in the reference's
+tree map) or a proposal's dict of tensors.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.index.build import MultiIndex
+from repro_torch.index.quantized import QUANT_FIELDS, QuantHeadState
 
 
 class InjectedFault(RuntimeError):
@@ -90,6 +93,9 @@ def poison_state(state, mode: str = "nan"):
             return dataclasses.replace(t, **{
                 f.name: go(getattr(t, f.name))
                 for f in dataclasses.fields(t) if f.name != "kind"})
+        if isinstance(t, QuantHeadState):
+            return dataclasses.replace(t, **{f: go(getattr(t, f))
+                                             for f in QUANT_FIELDS})
         if isinstance(t, dict):
             return {k: go(v) for k, v in t.items()}
         if isinstance(t, (list, tuple)):

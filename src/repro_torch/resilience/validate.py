@@ -1,15 +1,16 @@
 """Head-state validation: reject degenerate indexes before they go live.
 
 Mirrors `src/repro/resilience/validate.py` (`validate_index` :29,
-`_validate_generic` :71, `_validate_like` :85, `validate_state` :108) for
-the port's head states: the `MultiIndex` and any proposal's state dict
+`_validate_generic` :71, `_validate_like` :85, `validate_state` :108,
+`_validate_quant` :120-143) for the port's head states: the `MultiIndex`,
+the quantized head's `QuantHeadState` and any proposal's state dict
 (e.g. the RFF state). A silently broken index (NaN codebooks after a diverged
 refit, a CSR that lost classes) does not crash training — it biases every
 sampled-softmax step — so the index lifecycle checks each rebuilt index
-before swapping it in. Each check returns human-readable reasons; an empty
-list means the state is safe to install. Checks run on host copies, once
-per refresh, off the hot path. Quantized head states (ROADMAP.md Queue 1
-item 8) are not ported.
+before swapping it in; a zero or NaN scale of a quantized state would
+silently zero every logit of its row. Each check returns human-readable
+reasons; an empty list means the state is safe to install. Checks run on
+host copies, once per refresh, off the hot path.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.index.build import MultiIndex
+from repro_torch.index.quantized import QUANT_FIELDS, QuantHeadState
 
 
 def _np(x) -> np.ndarray:
@@ -71,6 +73,9 @@ def _leaves(tree, path: str = ""):
         for f in dataclasses.fields(MultiIndex):
             if f.name != "kind":
                 yield from _leaves(getattr(tree, f.name), f"{path}.{f.name}")
+    elif isinstance(tree, QuantHeadState):
+        for name in QUANT_FIELDS:
+            yield from _leaves(getattr(tree, name), f"{path}.{name}")
     elif isinstance(tree, Mapping):
         for k in sorted(tree):
             yield from _leaves(tree[k], f"{path}[{k!r}]")
@@ -82,6 +87,9 @@ def _structure(tree) -> str:
     paths = ", ".join(p for p, _ in _leaves(tree))
     if isinstance(tree, MultiIndex):
         return f"MultiIndex(kind={tree.kind!r}: {paths})"
+    if isinstance(tree, QuantHeadState):
+        return (f"QuantHeadState(fmt={tree.fmt!r}, "
+                f"kind={tree.index.kind!r}: {paths})")
     return f"{type(tree).__name__}({paths})"
 
 
@@ -123,4 +131,20 @@ def validate_state(state: Any, like: Any = None) -> list[str]:
             return reasons          # structure is broken; leaf checks moot
     if isinstance(state, MultiIndex):
         return validate_index(state)
+    if isinstance(state, QuantHeadState):
+        return validate_index(state.index) + _validate_quant(state)
     return _validate_generic(state)
+
+
+def _validate_quant(state: QuantHeadState) -> list[str]:
+    """The quantized head's checks on top of its index's: every scale
+    finite and strictly positive (a zero or NaN scale silently zeroes each
+    logit of its row), the residual sub-codebooks NaN-free."""
+    reasons = []
+    for name in ("qscale", "qcb1_scale", "qcb2_scale"):
+        arr = _np(getattr(state, name))
+        if arr.size and (not np.all(np.isfinite(arr)) or np.any(arr <= 0)):
+            reasons.append(f"{name} has non-finite or non-positive scales")
+    if not np.all(np.isfinite(_np(state.sub_codebooks))):
+        reasons.append("sub_codebooks have non-finite entries")
+    return reasons

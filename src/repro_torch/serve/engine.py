@@ -15,7 +15,10 @@ in the reference: `start_run` / `tick` / `finish_run`, composed by `run`.
 `from_checkpoint` / `save_checkpoint` (:327-352) restore and write a
 serving checkpoint, `{"params", "index"}` in the reference's format, so
 the engine serves what either package's `train_loop` exported to
-`<ckpt>/serve`. Speculative decoding, chunked prefill, the prefix cache,
+`<ckpt>/serve`; with cfg.head.table_dtype int8 / fp8 the MIDX head serves
+from a `QuantHeadState` (its draw scores the low-bit codebooks, its
+candidates are rescored from PQ codes) and `from_checkpoint` restores
+one. Speculative decoding, chunked prefill, the prefix cache,
 index hot-swap and the unported proposals raise NotImplementedError (see
 ROADMAP.md). The greedy rule of the reference (:188-191) is kept:
 temperature <= 0 needs head='full'.
@@ -59,6 +62,8 @@ from repro_torch.checkpoint import (CheckpointManager, restore_serving_state,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import noise
 from repro_torch.index.build import MultiIndex
+from repro_torch.index.quantized import (QuantHeadState, resolve_table_dtype,
+                                         storage_dtype)
 from repro_torch.models import (cast_blocks, heads, init_paged_state,
                                 init_params, logits_full, paged_decode_step,
                                 params_to, prefill, reset_slot, write_prefill)
@@ -376,6 +381,12 @@ class Engine:
             like_i = MultiIndex(cfg.head.quantizer, *(
                 torch.empty(0, dtype=d, device="meta")
                 for d in (f32, f32, i64, i64, f32, i64, i64, i64, f32)))
+            fmt = resolve_table_dtype(cfg.head.table_dtype)
+            if fmt != "bf16":       # the quantized head's state around it
+                q = storage_dtype(fmt)
+                like_i = QuantHeadState(fmt, like_i, *(
+                    torch.empty(0, dtype=d, device="meta")
+                    for d in (q, f32, q, f32, q, f32, f32, torch.int8)))
             # the full head reads no index: a training run's export carries
             # the run's MultiIndex, as the reference's does, while an
             # engine serving the full head saves none

@@ -843,3 +843,162 @@ def test_in_place_optimizer_gives_the_functional_bits_on_the_card(
     for a, b in zip(params + state.mu + (state.nu or []),
                     ref + mu + (nu if name == "adamw" else [])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# --------------------------------------------- the quantized kernel modes
+def _quantized(x, fmt):
+    from repro_torch.index.quantized import quantize_rows
+    return quantize_rows(x, fmt)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("kind", ["pq", "rq"])
+def test_quantized_midx_probs_matches_plain_version(fmt, kind):
+    """The quantized mode (1-byte codebooks, [K] scales after the slices'
+    sum) against its plain version, over 16-byte, 8-byte and plain codebook
+    loads (Dc 1024, 100, 10), and a row alone equal to that row inside a
+    call bit for bit."""
+    _need_card()
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    split = kind == "pq"
+    for t, d, k in ((1, 2048, 64), (33, 200, 32), (130, 20, 8),
+                    (1024, 200, 32)):
+        g = torch.Generator(device="cuda").manual_seed(t + d)
+        dc = d // 2 if split else d
+        z = torch.randn((t, d), generator=g, device="cuda")
+        (q1, s1), (q2, s2) = (_quantized(0.1 * torch.randn(
+            (k, dc), generator=g, device="cuda"), fmt) for _ in range(2))
+        cnt = torch.randint(0, 3, (k, k), generator=g, device="cuda").float()
+        kw = dict(split=split, scale1=s1.reshape(-1), scale2=s2.reshape(-1))
+        got = midx_probs_cuda(z, q1, q2, cnt, **kw)
+        want = midx_probs_ref(z, q1, q2, cnt, **kw)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            assert torch.all((a - b).abs() <= 1e-4 * b.abs().clamp(min=1))
+        solo = midx_probs_cuda(z[t - 1:], q1, q2, cnt, **kw)
+        assert all(torch.equal(a[0], b[t - 1]) for a, b in zip(solo, got))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_sampled_ce_pt_kernels_match_plain_version(fmt):
+    """The per-token forward and backward over an int8 / fp8 table with row
+    scales, at every copy route of the forward (D = 2048: a 2 KB row, the
+    TMA; 48: 16-byte cp.async; 200: 8-byte cp.async; 44: the plain-load
+    kernel), with duplicate and colliding ids and one hot row; the
+    backward's d(table) is scale-unaware and bitwise repeatable."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_pt_bwd_cuda,
+                                                     sampled_ce_pt_cuda)
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_pt_bwd_ref,
+                                                    sampled_ce_pt_fwd_ref)
+    for t, d, m, v in ((64, 2048, 64, 5000), (300, 48, 20, 700),
+                       (1024, 200, 20, 10000), (7, 44, 12, 50)):
+        h, tab, lq, neg, pos, g = _sce_inputs(t, d, m, v, torch.float32,
+                                              seed=d)
+        neg[:, 3::2] = 7                         # one hot row
+        q, sc = _quantized(tab, fmt)
+        loss, lse = sampled_ce_pt_cuda(h, q, lq, neg, pos, scale=sc)
+        wl, wlse = sampled_ce_pt_fwd_ref(h, q, lq, neg, pos, scale=sc)
+        _hold_pt_fwd((loss, lse), (wl, wlse))
+        got = sampled_ce_pt_bwd_cuda(g, h, q, lq, neg, pos, lse, scale=sc)
+        again = sampled_ce_pt_bwd_cuda(g, h, q, lq, neg, pos, lse, scale=sc)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _hold_pt_bwd(got, sampled_ce_pt_bwd_ref(g, h, q, lq, neg, pos, wlse,
+                                                scale=sc))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_shared_sampled_ce_kernels_match_plain_version(fmt):
+    """The shared-negative forward and backward over gathered int8 / fp8
+    rows with their scales, dequantized before the 3xTF32 split: D = 2048
+    (16-byte staging) and D = 40 (plain loads), duplicates, collisions and
+    an all-colliding token; dpe and dne scale-unaware."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
+                                                     sampled_ce_cuda)
+    from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
+                                                    sampled_ce_fwd_ref)
+    for b, s, m, d in ((2, 70, 100, 2048), (3, 5, 7, 40)):
+        h, pe, ne, lq, neg, pos, g = _shared_inputs(b, s, m, d, 500,
+                                                    torch.float32, seed=d)
+        (pq, ps), (nq, ns) = (_quantized(x.reshape(-1, d), fmt)
+                              for x in (pe, ne))
+        args = (h, pq.reshape(pe.shape), nq.reshape(ne.shape), lq, neg, pos)
+        kw = dict(pos_scale=ps.reshape(b, s, 1), neg_scale=ns.reshape(b, m, 1))
+        loss, lse = sampled_ce_cuda(*args, **kw)
+        wl, wlse = sampled_ce_fwd_ref(*args, **kw)
+        assert torch.all((loss - wl).abs() <= 1e-4 * wl.abs().clamp(min=1))
+        assert torch.all((lse - wlse).abs() <= 1e-4 * wlse.abs().clamp(min=1))
+        got = sampled_ce_bwd_cuda(g, *args, lse, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(
+            got, sampled_ce_bwd_cuda(g, *args, lse, **kw)))
+        for x, y in zip(got, sampled_ce_bwd_ref(g, *args, wlse, **kw)):
+            s_ = min(1.0, float(y.abs().max()))
+            assert torch.all((x - y).abs()
+                             <= 1e-4 * y.abs().clamp(min=max(s_, 1e-30)))
+
+
+def test_quantized_kernels_reject_what_they_cannot_take():
+    _need_card()
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_cuda,
+                                                     sampled_ce_pt_cuda)
+    z = torch.randn((4, 16), device="cuda")
+    q, sc = _quantized(torch.randn((8, 16), device="cuda"), "int8")
+    cnt = torch.ones((8, 8), device="cuda")
+    with pytest.raises(ValueError, match="both scales"):
+        midx_probs_cuda(z, q, q, cnt, split=False, scale1=sc.reshape(-1))
+    with pytest.raises(ValueError, match="codebooks"):
+        midx_probs_cuda(z, q, q, cnt, split=False)        # no scales
+    with pytest.raises(ValueError, match="bad shapes"):
+        midx_probs_cuda(z, q, q, cnt, split=False, scale1=sc[:4].reshape(-1),
+                        scale2=sc[:4].reshape(-1))
+    h, tab, lq, neg, pos, _ = _sce_inputs(4, 16, 5, 20, torch.float32, 0)
+    tq, tsc = _quantized(tab, "fp8")
+    with pytest.raises(ValueError, match="with scales"):
+        sampled_ce_pt_cuda(h, tq, lq, neg, pos)           # no scales
+    with pytest.raises(ValueError, match="with scales"):
+        sampled_ce_pt_cuda(h, tab, lq, neg, pos, scale=tsc)
+    with pytest.raises(ValueError, match="bad shapes"):
+        sampled_ce_pt_cuda(h, tq, lq, neg, pos, scale=tsc[:5])
+    h, pe, ne, lq, neg, pos, _ = _shared_inputs(2, 4, 5, 16, 20,
+                                                torch.float32, 0)
+    with pytest.raises(ValueError, match="both scales"):
+        sampled_ce_cuda(h, pe, ne, lq, neg, pos,
+                        pos_scale=torch.ones((2, 4, 1), device="cuda"))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_training_and_serving_go_through_the_kernels(fmt):
+    """The reduced paper-lm trained 3 steps over an int8 / fp8 table
+    (per-token head), then served from the trained quantized state
+    (batched == solo); and the reduced llama pooled 2 steps: every
+    quantized kernel mode launched in the run's format, losses finite."""
+    _need_card()
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    from repro_torch.kernels.sampled_ce import cuda as sce
+    from repro_torch.launch.train import train_loop
+    from repro_torch.serve import Engine, Request
+    counters = (midx_probs_cuda, sce.sampled_ce_pt_cuda,
+                sce.sampled_ce_pt_bwd_cuda)
+    for c in counters + (sce.sampled_ce_cuda, sce.sampled_ce_bwd_cuda):
+        c.quant_launches = {"int8": 0, "fp8": 0}
+    cfg = get_config("paper-lm").reduced().with_head(table_dtype=fmt)
+    params, _, index, hist = train_loop(cfg, steps=3, batch_size=4,
+                                        seq_len=16, log_every=1000,
+                                        device="cuda")
+    assert np.all(np.isfinite(hist)) and index.fmt == fmt
+    assert all(c.quant_launches[fmt] >= 3 for c in counters)
+    served = cfg.with_serve(max_slots=2, page_size=4, max_seq=16)
+    eng = Engine(served, params, index=index, head="midx", device="cuda")
+    reqs = [Request(rid=i, tokens=np.arange(3 + i, dtype=np.int32),
+                    max_new=4, seed=1) for i in range(3)]
+    res = eng.run(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(res[r.rid].tokens, eng.replay_single(r))
+    llama = get_config("llama3.2-1b").reduced().with_head(table_dtype=fmt)
+    _, _, _, hist = train_loop(llama, steps=2, batch_size=2, seq_len=16,
+                               log_every=1000, device="cuda")
+    assert np.all(np.isfinite(hist))
+    assert sce.sampled_ce_cuda.quant_launches[fmt] >= 2
+    assert sce.sampled_ce_bwd_cuda.quant_launches[fmt] >= 2

@@ -212,10 +212,10 @@ def test_loss_full_and_every_grad_match_jax():
 
 
 def test_unported_heads_raise():
-    _, tc, _, tp, _, _, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        heads.init_head_state(tc.with_head(table_dtype="int8"), tp,
-                              torch.Generator().manual_seed(0))
+    _, tc, _, tp, _, tidx, _, _ = _setup()
+    with pytest.raises(NotImplementedError, match="item 9"):
+        heads.refresh_head_state_with_policy(
+            tc, tp, tidx, torch.Generator().manual_seed(0), policy="drift")
     with pytest.raises(NotImplementedError, match="item 10"):
         steps.make_loss_fn(tc, head_mode="uniform")
 
@@ -559,7 +559,8 @@ def test_cli_defaults_to_the_card_and_refuses_unported_flags():
             "--seq", "8"]
     for flags, item in ((["--dp", "2"], "item 13"),
                         (["--refresh-lag", "2"], "item 9"),
-                        (["--table-dtype", "int8"], "item 8")):
+                        (["--refresh-policy", "drift", "--refresh-every",
+                          "1"], "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             train_main(base + flags)
 
