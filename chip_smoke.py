@@ -69,6 +69,19 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      V=128 256) and with one hot row, the backward bitwise repeatable and
      a token alone equal to itself in the call; the shared CE at llama
      4 x 256 (M=1024, D=2048), bitwise repeatable;
+ 3e. the partial modes of the four sampled-CE kernels (the vocab-parallel
+     head's: a shard's rows, owner-masked ids, the global M), TF32 off,
+     each shard held to its plain version, forward and backward bitwise
+     repeatable, a token (sequence) with no owned negative at exactly
+     NEG_INF with zero gradients, a token alone equal to itself in the
+     call, and the shards' partials merged equal to the full-mode kernel's
+     loss within 1e-5 max(1, |loss|): the per-token CE at paper-lm (T=1024,
+     M=20, D=200, V=10 000, R=2 and 4) and llama width (M=64, D=2048,
+     V=128 256, R=2), the shared CE at llama 4 x 256 (R=2), int8 and fp8
+     at paper-lm and llama 4 x 256; each timed beside its plain version,
+     its bound and the full mode at the same shape, and the per-token
+     backward also with the non-owned negatives spread over the shard's
+     rows instead of clipped to row 0 (the cost of row 0's hot segment);
   4. check the port against itself on the CPU at a small input (prefill
      hidden states, fp32; paper-lm and the reduced mamba2);
   5. serve `paper-lm` at full width through the MIDX head (16 requests,
@@ -159,8 +172,23 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      state by code rescoring (batched == solo); `llama3.2-1b` pooled
      trained 3 steps at int8 (full width) and at fp8 (2 layers), both
      shared-CE kernels launched in the format;
- 14. print the kernels' JSON line (a row per kernel and per quantized mode,
-     e.g. `midx_probs[int8]`), then the result line.
+ 15. vocab-parallel training, two ranks sharing the card (spawned
+     processes, gloo with CUDA tensors): `paper-lm` at full config with
+     its per-token head, the first step's draws bit for bit the
+     replicated step's and its loss, grad norm, d(table) and d(hidden)
+     within 1e-5 max(1, |x|) (backbone in fp32 for this check), then 120
+     steps at phase 7's settings (refreshes after steps 49 and 99) with
+     the same finite / applied / loss-drop checks, the backbone bitwise
+     equal on both ranks at the end, the replicated run's curve and step
+     time beside it, two 10-step runs bit for bit, 30 steps at int8 and 5
+     at fp8, every partial per-token mode launched; the run's serving
+     export served (8 requests, batched == solo on 2); `llama3.2-1b` at
+     full width cut to 2 layers with its pooled head: the same first-step
+     parity, 10 steps finite and applied, 3 at int8 and fp8, every
+     partial shared-CE mode launched, each rank's peak memory;
+ 14. print the kernels' JSON line (a row per kernel and per quantized and
+     partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
+     then the result line.
 Each main-path run sets the kernels' launch counters to 0 just before it
 and reads them just after; a kernel of the path that was never launched
 fails the run. Exits non-zero, with no result line, without a CUDA device
@@ -1394,11 +1422,12 @@ def serve_prompts(cfg, params, index, counters, names, prompts, *,
 
 def zero_counts(counters) -> None:
     """Set the wrappers' launch counts to 0, and their counts by quantized
-    format where they keep them."""
+    format and of the partial mode where they keep them."""
     for c in counters:
         c.launches = 0
-        if hasattr(c, "quant_launches"):
-            c.quant_launches = dict.fromkeys(c.quant_launches, 0)
+        for mode in ("quant_launches", "partial_launches"):
+            if hasattr(c, mode):
+                setattr(c, mode, dict.fromkeys(getattr(c, mode), 0))
 
 
 def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
@@ -2262,6 +2291,711 @@ def quantized_rows(holds: dict, launches: dict) -> list:
     return rows
 
 
+# ------------------------------------- vocab-parallel MIDX training (15a-c)
+VP_RANKS = 2                   # ranks sharing the one card (gloo)
+VP_PT_SHAPES = (               # (name, (T, D, M, V), R); the first is timed
+    ("paper-lm train", (1024, 200, 20, 10000), 2),    # for the kernels line
+    ("paper-lm train", (1024, 200, 20, 10000), 4),
+    ("llama3.2-1b width", (1024, 2048, 64, 128256), 2))
+VP_SHARED = ("llama3.2-1b train", SHAPE, 128256, 2)
+VP_STEPS = 120                 # paper-lm vp steps, phase 7's settings
+VP_LLAMA_STEPS = 10
+VP_INT8_STEPS = 30
+
+
+def vp_owner_mask(neg, lq, pos, r: int, rows: int):
+    """Shard r's view of global draws, as `loss_midx_vp` builds it: local
+    ids (a non-owned negative clipped to row 0 with log q = -NEG_INF), the
+    local positive or -1, and the owned mask."""
+    from repro_torch.core.sampled_softmax import NEG_INF
+    lneg = neg - r * rows
+    okn = (lneg >= 0) & (lneg < rows)
+    lpos = pos - r * rows
+    okp = (lpos >= 0) & (lpos < rows)
+    return (torch.where(okn, lneg, 0).contiguous(),
+            torch.where(okn, lq, -NEG_INF).contiguous(),
+            torch.where(okp, lpos, -1).contiguous(), okn)
+
+
+def vp_pt_bound_ms(t, d, m, rows, elem, nid, backward, row_extra=0):
+    """`sce_bound_ms` of the partial mode: the distinct local rows its ids
+    gather, no positive row (the positive ids are still read)."""
+    return sce_bound_ms(t, d, m, rows, elem, nid, nid.new_empty(0),
+                        backward, row_extra)
+
+
+def vp_shared_bound_ms(b, s, m, d, elem, backward, row_extra=0):
+    """`shared_bound_ms` of the partial mode: no positive rows read, no
+    positive dots, no dpe written."""
+    nbytes = (4 * b * s * d + (elem * d + row_extra) * b * m + 4 * b * m
+              + 8 * b * m + 8 * b * s)
+    if backward:
+        nbytes += 8 * b * s + 4 * b * (s + m) * d + 4 * b * m
+        products = 6 * b * s * m * d
+    else:
+        nbytes += 8 * b * s
+        products = 2 * b * s * m * d
+    return roofline_ms(nbytes, 0.0, products)
+
+
+def hold_merge(label, partials, pos_logit, full_loss, where) -> float:
+    """The shards' partial lses merged with the positive logit equal the
+    full-mode kernel's loss within 1e-5 max(1, |loss|); returns the
+    largest error."""
+    from repro_torch.core.sampled_softmax import merge_sampled_softmax_loss
+    merged = merge_sampled_softmax_loss(pos_logit, torch.stack(partials, -1))
+    err = (merged - full_loss).abs()
+    if not torch.isfinite(merged).all() or bool(
+            (err > 1e-5 * torch.clamp(full_loss.abs(), min=1.0)).any()):
+        raise SystemExit(f"{label}: the shards' partials merged differ from "
+                         f"the full-mode loss at {where}: max err "
+                         f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def check_partial_kernels(sce, buf, card: str) -> dict:
+    """Phase 15a: the partial modes of the four sampled-CE kernels (the
+    vocab-parallel head's), TF32 off, each shard of R held to its plain
+    version (`hold_ce`: sce_limit per output, the backward bitwise
+    repeatable), the forward bitwise repeatable, a token (sequence) with
+    no owned negative at exactly NEG_INF with zero gradients, a token
+    alone equal to itself in the call, and the R shards' partials merged
+    equal to the full-mode kernel's loss within 1e-5 max(1, |loss|); then
+    each timed beside its plain version, its bound and the full mode at
+    the same shape. Per-token at paper-lm (R = 2 and 4) and llama width
+    (R = 2), the shared CE at llama 4 x 256 (R = 2); int8 and fp8 at
+    paper-lm and llama 4 x 256. The per-token backward is also timed with
+    the non-owned negatives spread over the shard's rows instead of
+    clipped to row 0: the cost of row 0's hot segment. Returns {row name:
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, full_ms, shape,
+    other_shapes}}."""
+    import functools
+    from repro_torch.core.sampled_softmax import NEG_INF
+    from repro_torch.index.quantized import quantize_rows
+    from repro_torch.kernels.sampled_ce.ref import (
+        sampled_ce_partial_bwd_ref, sampled_ce_partial_fwd_ref,
+        sampled_ce_pt_partial_bwd_ref, sampled_ce_pt_partial_ref)
+    out = {}
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32)
+
+    def put(name, shape, err, ms, plain, bound, by, full):
+        row = out.setdefault(name, {"max_abs_err": 0.0, "other_shapes": []})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        t = {"shape": shape, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+             "bound_by": by, "full_ms": full}
+        if "ms" in row:
+            row["other_shapes"].append(t)
+        else:
+            row.update(t)
+
+    def pt_pair(m, scale=None):
+        kf = functools.partial(sce.sampled_ce_pt_cuda, scale=scale,
+                               include_pos=False, num_neg=m)
+        kb = functools.partial(sce.sampled_ce_pt_bwd_cuda, scale=scale,
+                               include_pos=False, num_neg=m)
+
+        def rf(*a):
+            lse = sampled_ce_pt_partial_ref(*a, m, scale=scale)
+            return lse, lse
+
+        def rb(g, *a):
+            return sampled_ce_pt_partial_bwd_ref(g, *a, m, scale=scale)
+        return kf, kb, rf, rb
+
+    def check_empty(label, lse, grads, empty, where):
+        """A token (a sequence) with no owned negative: lse exactly
+        NEG_INF, its gradients exactly zero."""
+        if bool(empty.any()) and not (
+                bool((lse[empty] == neg_inf.to(lse.device)).all())
+                and all(not bool(x[empty].any()) for x in grads)):
+            raise SystemExit(f"{label}: a token with no owned negative is "
+                             f"not NEG_INF with zero gradients at {where}")
+
+    for (name, (t, d, m, v), nsh), fmt in [(x, "fp32") for x in VP_PT_SHAPES] \
+            + [(VP_PT_SHAPES[0], f) for f in QFMTS]:
+        h, table, lq, neg, pos, g = sce_inputs(t, d, m, v, torch.float32,
+                                               seed=t + d + m + nsh)
+        rows = v // nsh
+        neg[5] = torch.randint(0, rows, (m,), device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(5))
+        neg[7, 2] = pos[7]
+        full_loss = sce.sampled_ce_pt_cuda(h, table, lq, neg, pos)[0]
+        pos_logit = torch.sum(h * table[pos], -1)
+        partials, worst = [], {"fwd": 0.0, "bwd": 0.0}
+        tag = "partial" if fmt == "fp32" else f"partial,{fmt}"
+        for r in range(nsh):
+            tab = table[r * rows:(r + 1) * rows].contiguous()
+            nid, lqm, pid, okn = vp_owner_mask(neg, lq, pos, r, rows)
+            scale = None
+            if fmt != "fp32":
+                tab, scale = quantize_rows(tab, fmt)
+            kf, kb, rf, rb = pt_pair(m, scale)
+            args = (h, tab, lqm, nid, pid)
+            where = (f"{name}, T={t} D={d} M={m} V={v} {fmt}, shard {r} of "
+                     f"{nsh}, longest segment "
+                     f"{longest_segment(nid, nid.new_empty(0), rows)}")
+            (loss, lse), errs, ratio, readings = hold_ce(
+                f"sampled_ce_pt[{tag}]", kf, kb, rf, rb, args, g,
+                ("dh", "dtab", "dlq"), where)
+            again = kf(*args)
+            grads = kb(g, *args, lse)
+            if not (torch.equal(again[1], lse) and torch.equal(loss, lse)):
+                raise SystemExit(f"sampled_ce_pt[{tag}] forward is not "
+                                 f"bitwise repeatable (or loss != lse) at "
+                                 f"{where}")
+            check_empty(f"sampled_ce_pt[{tag}]", lse, (grads[0], grads[2]),
+                        ~okn.any(1), where)
+            for k in (t // 2, 5):
+                solo = kf(h[k:k + 1], tab, lqm[k:k + 1], nid[k:k + 1],
+                          pid[k:k + 1])[1]
+                if not torch.equal(solo[0], lse[k]):
+                    raise SystemExit(f"sampled_ce_pt[{tag}]: token {k} alone "
+                                     f"differs from itself in the call at "
+                                     f"{where}")
+            for k in worst:
+                worst[k] = max(worst[k], errs[k])
+            partials.append(lse)
+            log(f"[smoke] sampled_ce_pt[{tag}] at {where}: "
+                + "; ".join(readings) + f"; largest err/limit {ratio:.4f}; "
+                "forward and backward bitwise repeatable; no-owned token "
+                "NEG_INF, zero gradients; a token alone bit for bit")
+            if r:
+                continue
+            full_args = (h, tab, lqm, nid, pid.clamp(min=0))
+            elem = 4 if fmt == "fp32" else 1
+            extra = 0 if fmt == "fp32" else 4
+            for kind, kern, plain, full, back in (
+                    ("fwd", lambda: kf(*args), lambda: rf(*args),
+                     lambda: sce.sampled_ce_pt_cuda(*full_args, scale=scale),
+                     False),
+                    ("bwd", lambda: kb(g, *args, lse),
+                     lambda: rb(g, *args, lse),
+                     lambda: sce.sampled_ce_pt_bwd_cuda(
+                         g, *full_args, lse, scale=scale), True)):
+                tm = time_ce(f"sampled_ce_pt {kind} [{tag}]", where, kern,
+                             plain, vp_pt_bound_ms(t, d, m, rows, elem, nid,
+                                                   back, extra), buf, card)
+                full_ms = time_ms(full, buf)
+                log(f"[smoke] sampled_ce_pt {kind} [{tag}] ({where}): the "
+                    f"full mode at the same shape {full_ms:.4f} ms; on {card}")
+                label = "sampled_ce_pt" + ("_bwd" if back else "")
+                put(f"{label}[{tag}]", where, errs[kind], *tm, full_ms)
+            if fmt == "fp32" and nsh == 2:
+                spread = torch.where(okn, nid, torch.randint(
+                    0, rows, nid.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(9)))
+                ms_hot = time_ms(lambda: kb(g, *args, lse), buf)
+                ms_spread = time_ms(lambda: kb(g, h, tab, lqm, spread, pid,
+                                               lse), buf)
+                log(f"[smoke] sampled_ce_pt bwd [partial] row-0 hot segment "
+                    f"({name}, R={nsh}): non-owned clipped to row 0 "
+                    f"(longest segment {longest_segment(nid, nid[:0], rows)})"
+                    f" {ms_hot:.4f} ms, spread over the shard's rows "
+                    f"(longest {longest_segment(spread, nid[:0], rows)}) "
+                    f"{ms_spread:.4f} ms; on {card}")
+                out.setdefault("row0", {})[f"{name} R={nsh}"] = {
+                    "clipped_ms": ms_hot, "spread_ms": ms_spread}
+        if fmt == "fp32":
+            err = hold_merge("sampled_ce_pt[partial]", partials, pos_logit,
+                             full_loss, f"{name} R={nsh}")
+            log(f"[smoke] sampled_ce_pt[partial] {name} T={t} M={m} D={d}: "
+                f"{nsh} shards' partials merged vs the full-mode kernel's "
+                f"loss: max err {err:.3e} (tol 1e-5 max(1,|loss|))")
+        del h, table, lq, neg, pos, g
+    # the shared CE at llama 4 x 256, R = 2: fp32 rows, then int8 / fp8
+    name, (b, s, m, d), v, nsh = VP_SHARED
+    rows = v // nsh
+    h, pe, ne, lq, neg, pos, g = shared_inputs(b, s, m, d, v, torch.float32,
+                                               seed=2)
+    del pe, ne
+    gen = torch.Generator("cuda").manual_seed(3)
+    table = 0.1 * torch.randn((v, d), generator=gen, device="cuda")
+    neg[1] = torch.randint(0, rows, (m,), device="cuda", generator=gen)
+    full_loss = sce.sampled_ce_cuda(h, table[pos], table[neg], lq, neg,
+                                    pos)[0]
+    pos_logit = torch.sum(h * table[pos], -1)
+    for fmt in ("fp32",) + QFMTS:
+        tag = "partial" if fmt == "fp32" else f"partial,{fmt}"
+        partials = []
+        for r in range(nsh):
+            tab = table[r * rows:(r + 1) * rows]
+            nid, lqm, pid, okn = vp_owner_mask(neg, lq, pos, r, rows)
+            ne = tab[nid].contiguous()
+            ns = None
+            if fmt != "fp32":
+                ne, ns = quantize_rows(ne.reshape(-1, d), fmt)
+                ne, ns = ne.reshape(b, m, d), ns.reshape(b, m, 1)
+
+            def kf(hh, e, l_, n_, p_, ns=ns):
+                return sce.sampled_ce_cuda(hh, None, e, l_, n_, p_,
+                                           neg_scale=ns, include_pos=False,
+                                           num_neg=m)
+
+            def kb(gg, hh, e, l_, n_, p_, lse_, ns=ns):
+                dh, _, dne, dlq = sce.sampled_ce_bwd_cuda(
+                    gg, hh, None, e, l_, n_, p_, lse_, neg_scale=ns,
+                    include_pos=False, num_neg=m)
+                return dh, dne, dlq
+
+            def rf(*a, ns=ns):
+                lse_ = sampled_ce_partial_fwd_ref(*a, m, ns)
+                return lse_, lse_
+
+            def rb(gg, *a, ns=ns):
+                return sampled_ce_partial_bwd_ref(gg, *a, m, ns)
+
+            args = (h, ne, lqm, nid, pid)
+            where = (f"{name}, B={b} S={s} M={m} D={d} V={v} {fmt}, shard "
+                     f"{r} of {nsh}")
+            (loss, lse), errs, ratio, readings = hold_ce(
+                f"sampled_ce[{tag}]", kf, kb, rf, rb, args, g,
+                ("dh", "dne", "dlq"), where)
+            again = kf(*args)
+            if not (torch.equal(again[1], lse) and torch.equal(loss, lse)):
+                raise SystemExit(f"sampled_ce[{tag}] forward is not bitwise "
+                                 f"repeatable (or loss != lse) at {where}")
+            grads = kb(g, *args, lse)
+            check_empty(f"sampled_ce[{tag}]", lse, (grads[0],),
+                        ~okn.any(1), where)
+            partials.append(lse)
+            log(f"[smoke] sampled_ce[{tag}] at {where}: "
+                + "; ".join(readings) + f"; largest err/limit {ratio:.4f}; "
+                "forward and backward bitwise repeatable; no-owned sequence "
+                "NEG_INF, zero dh")
+            if r:
+                continue
+            pe = tab[pid.clamp(min=0)].contiguous()
+            ps = None
+            if fmt != "fp32":
+                pe, ps = quantize_rows(pe.reshape(-1, d), fmt)
+                pe, ps = pe.reshape(b, s, d), ps.reshape(b, s, 1)
+            full_args = (h, pe, ne, lqm, nid, pid.clamp(min=0))
+            fkw = dict(pos_scale=ps, neg_scale=ns)
+            elem, extra = (4, 0) if fmt == "fp32" else (1, 4)
+            for kind, kern, plain, full, back in (
+                    ("fwd", lambda: kf(*args), lambda: rf(*args),
+                     lambda: sce.sampled_ce_cuda(*full_args, **fkw), False),
+                    ("bwd", lambda: kb(g, *args, lse),
+                     lambda: rb(g, *args, lse),
+                     lambda: sce.sampled_ce_bwd_cuda(g, *full_args, lse,
+                                                     **fkw), True)):
+                tm = time_ce(f"sampled_ce {kind} [{tag}]", where, kern,
+                             plain, vp_shared_bound_ms(b, s, m, d, elem,
+                                                       back, extra), buf,
+                             card)
+                full_ms = time_ms(full, buf)
+                log(f"[smoke] sampled_ce {kind} [{tag}] ({where}): the full "
+                    f"mode at the same shape {full_ms:.4f} ms; on {card}")
+                label = "sampled_ce" + ("_bwd" if back else "")
+                put(f"{label}[{tag}]", where, errs[kind], *tm, full_ms)
+        if fmt == "fp32":
+            err = hold_merge("sampled_ce[partial]", partials, pos_logit,
+                             full_loss, f"{name} R={nsh}")
+            log(f"[smoke] sampled_ce[partial] {name}: {nsh} shards' partials "
+                f"merged vs the full-mode kernel's loss: max err {err:.3e} "
+                f"(tol 1e-5 max(1,|loss|))")
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
+def vp_close(label: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| <= 1e-5 max(1, |b|) elementwise, or the run fails; returns
+    the largest error."""
+    err = (a.float() - b.float()).abs()
+    if a.shape != b.shape or bool(
+            (err > 1e-5 * torch.clamp(b.float().abs(), min=1.0)).any()):
+        raise SystemExit(f"vocab-parallel {label} differs from the "
+                         f"replicated path: max err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def vp_first_step(cfg, group, tokens, labels) -> dict:
+    """The vp step's parity with the replicated step on this rank's rows:
+    the draws' ids bit for bit, then the loss, d(table) and d(hidden), then
+    one train step's loss and grad norm, each within 1e-5 max(1, |x|); the
+    updated params' largest difference is reported, not held: AdamW's
+    first step divides each gradient by its own size, so a row whose
+    gradient nearly cancels (a reassociated sum) moves by up to the
+    learning rate either way. The backbone computes in fp32 here, as in
+    the reference's parity tests: in bf16 a 1e-7 difference of the
+    hidden's cotangent (the ranks' partial sums against one chain) flips
+    bf16 roundings in the backbone's backward, a bf16 ulp of some
+    gradients. Returns the largest errors."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    from repro_torch.core import midx, noise
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import vocab_parallel as vp
+    from repro_torch.kernels.midx_probs.ops import proposal_tables
+    from repro_torch.launch import steps
+    from repro_torch.models import heads, init_params
+    from repro_torch.models.model import class_embeddings, forward
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_leaves
+    dev, pg, n, r = group.device, group.pg, group.size, group.rank
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    index = heads.init_head_state(cfg, params,
+                                  torch.Generator(dev).manual_seed(1))
+    local = vp.local_index(vp.shard_index(index, n), r)
+    b, s = tokens.shape
+    m = cfg.head.num_negatives
+    keys = noise.train_keys(0, 0, b * s, dev)
+    errs = {}
+    with torch.no_grad():
+        hid = forward(cfg, params, tokens)["hidden"].float()
+        if cfg.head.proposal == "per_token":
+            z = hid.reshape(b * s, -1)
+            got = vp.sample_twostage_vp(local, z, m, keys, group=pg,
+                                        tables_fn=proposal_tables)
+            want = midx.sample_twostage(index, z, m, keys,
+                                        tables_fn=proposal_tables)
+        else:
+            prop = vp.proposal_index(local, pg)
+            seq = noise.sequence_keys(keys, s)
+            got = midx.sample_pooled(prop, hid, m, seq, member_fn=vp.
+                                     make_member_fn(local, prop.counts, pg))
+            want = midx.sample_pooled(index, hid, m, seq)
+    if not torch.equal(got.ids, want.ids):
+        raise SystemExit(f"vocab-parallel {cfg.name}: the draws' ids differ "
+                         f"from the replicated draws")
+    errs["log_q"] = vp_close("log_q", got.log_q, want.log_q)
+    rows = cfg.padded_vocab // n
+    table = class_embeddings(cfg, params).detach()
+    t_loc = table[r * rows:(r + 1) * rows].clone().requires_grad_(True)
+    h1 = hid.clone().requires_grad_(True)
+    loss = vp.loss_midx_vp(cfg, t_loc, local, h1, labels, keys, group=pg)
+    dt, dh = torch.autograd.grad(loss, (t_loc, h1))
+    t_all = table.clone().requires_grad_(True)
+    h2 = hid.clone().requires_grad_(True)
+    ref = heads.loss_midx(cfg, {**params, "embed": t_all}, index, h2, labels,
+                          keys)
+    rdt, rdh = torch.autograd.grad(ref, (t_all, h2))
+    errs["loss"] = vp_close("loss", loss.detach(), ref.detach())
+    errs["dtable"] = vp_close("d(table)", dt, rdt[r * rows:(r + 1) * rows])
+    errs["dhidden"] = vp_close("d(hidden)", dh, rdh)
+    del dt, dh, rdt, rdh, t_all, h1, h2
+    opt = adamw(1e-3)
+    batch = {"tokens": tokens, "labels": labels}
+    p_loc = vp_clone(shd.shard_params(params, n, r))
+    step = steps.make_vocab_parallel_train_step(cfg, opt, group)
+    p_loc, _, met = step(p_loc, opt.init(p_loc), local, batch, keys)
+    ref_step = steps.make_train_step(cfg, opt)
+    p_ref, _, rmet = ref_step(params, opt.init(params), index, batch, keys)
+    errs["step_loss"] = vp_close("step loss", met["loss"], rmet["loss"])
+    errs["grad_norm"] = vp_close("grad norm", met["grad_norm"],
+                                 rmet["grad_norm"])
+    p_ref = shd.shard_params(p_ref, n, r)
+    errs["params (reported)"] = max(
+        float((a - b_).abs().max()) for a, b_ in zip(tree_leaves(p_loc),
+                                                     tree_leaves(p_ref)))
+    return errs
+
+
+def vp_clone(tree):
+    """A copy of a params tree (dicts and lists of tensors): an optimizer
+    step updates its leaves in place."""
+    if isinstance(tree, dict):
+        return {k: vp_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [vp_clone(v) for v in tree]
+    return tree.detach().clone()
+
+
+def vp_replicas_equal(params, group) -> bool:
+    """The backbone (every param but the class tables) bitwise the same on
+    every rank: each rank's bytes gathered and compared."""
+    from repro_torch.dist.collectives import all_gather_stack
+    from repro_torch.dist.sharding import vocab_param_names
+    from repro_torch.optim.optimizers import tree_leaves
+    names = vocab_param_names(params)
+    flat = torch.cat([x.detach().reshape(-1).view(torch.uint8) for k, v in
+                      sorted(params.items()) if k not in names
+                      for x in tree_leaves(v)])
+    allb = all_gather_stack(flat, group.pg)
+    return all(torch.equal(allb[0], allb[i]) for i in range(1, group.size))
+
+
+def vp_train(cfg, group, counters, *, steps: int, batch: int, seq: int,
+             lr: float, refresh_every: int, corpus=None, ckpt_dir=None,
+             check_drop: bool = True):
+    """One vocab-parallel `train_loop` on this rank, counters set to 0
+    just before and read just after; every step finite and applied and
+    (check_drop) the last 5 steps' mean loss more than 0.1 below the first
+    5's. Returns (run, {counter: (launches, partial launches)}, summary)."""
+    from repro_torch.launch.train import train_loop
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    run = train_loop(cfg, steps=steps, batch_size=batch, seq_len=seq, lr=lr,
+                     corpus=corpus, refresh_every=refresh_every,
+                     log_every=1000, ckpt_dir=ckpt_dir, group=group,
+                     on_metrics=lambda st, mt: seen.append(
+                         (float(mt["loss"]), float(mt["grad_norm"]),
+                          float(mt["skipped"]), mt["step_s"])))
+    torch.cuda.synchronize()
+    launches = {c.__name__.removesuffix("_cuda"): (
+        c.launches, dict(getattr(c, "partial_launches", {})))
+        for c in counters}
+    hist = run[3]
+    bad = [x for x in seen if x[2] or not np.isfinite(x[:2]).all()]
+    if len(seen) != steps or bad:
+        raise SystemExit(f"vocab-parallel {cfg.name}: {len(seen)} steps, "
+                         f"skipped or non-finite: {bad[:3]}")
+    first, last = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
+    if check_drop and not last < first - 0.1:
+        raise SystemExit(f"vocab-parallel {cfg.name}: loss did not drop by "
+                         f"> 0.1 ({first:.4f} -> {last:.4f})")
+    step_ms = 1e3 * statistics.median(x[3] for x in seen[1:])
+    return run, launches, {
+        "first5": first, "last5": last, "median_step_ms": step_ms,
+        "tok_s": batch * seq / step_ms * 1e3, "hist": hist,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def vp_same(a, b) -> bool:
+    """Two vp runs of one rank hold the same bits: losses, params, moments
+    and the local index."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    def leaves(run):
+        p, o, i, _ = run
+        return (tree_leaves(p) + tree_leaves(o.mu) + tree_leaves(o.nu)
+                + [i.codebook1, i.codebook2, i.sorted_ids, i.counts])
+    return a[3] == b[3] and all(torch.equal(x, y) for x, y in
+                                zip(leaves(a), leaves(b)))
+
+
+def vp_rank(group, outdir: str, llama_corpus) -> None:
+    """One rank of phases 15b-c (spawned; the kernels were built by the
+    parent). Rank 0 logs (the other ranks' standard output is dropped);
+    every rank writes its readings to `<outdir>/rank<r>.json`, and a failed
+    check fails the process."""
+    import contextlib
+    if group.rank == 0:
+        vp_rank_body(group, outdir, llama_corpus)
+        return
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        vp_rank_body(group, outdir, llama_corpus)
+
+
+def vp_rank_body(group, outdir: str, llama_corpus) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.midx_probs import cuda as midx_cuda
+    from repro_torch.kernels.sampled_ce import cuda as sce
+    from repro_torch.dist.collectives import pmax
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r, pg = group.rank, group.pg
+    say = log
+    tag = f"[smoke] vp rank {r}/{group.size} ({group.backend}, {group.device})"
+    res = {}
+    pt = (midx_cuda.midx_probs_cuda, sce.sampled_ce_pt_cuda,
+          sce.sampled_ce_pt_bwd_cuda)
+    shared = (sce.sampled_ce_cuda, sce.sampled_ce_bwd_cuda)
+
+    def agree(errs):
+        """The largest error over the ranks (every rank must pass)."""
+        return {k: float(pmax(torch.tensor(v, device=group.device), pg))
+                for k, v in errs.items()}
+
+    # (b) paper-lm, per-token MIDX, at full config
+    cfg = get_config("paper-lm")
+    gen = np.random.default_rng(0)
+    toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (16, 64))).to(
+        group.device)
+    labels = torch.from_numpy(gen.integers(0, cfg.vocab_size, (16, 64))).to(
+        group.device)
+    res["paper_first_step"] = agree(vp_first_step(cfg, group, toks, labels))
+    say(f"{tag}: paper-lm first vp step vs the replicated step: ids bit for "
+        f"bit; largest errors {json.dumps(res['paper_first_step'])} (tol "
+        f"1e-5 max(1,|x|))")
+    ck = os.path.join(outdir, "paper")
+    run, launches, summ = vp_train(cfg, group, pt, steps=VP_STEPS, batch=16,
+                                   seq=64, lr=3e-3, refresh_every=50,
+                                   ckpt_dir=ck)
+    if not vp_replicas_equal(run[0], group):
+        raise SystemExit("vocab-parallel paper-lm: the backbone replicas "
+                         "differ across ranks after training")
+    for kname in ("sampled_ce_pt", "sampled_ce_pt_bwd"):
+        if launches[kname][1]["float"] <= 0:
+            raise SystemExit(f"vocab-parallel paper-lm: {kname}'s partial "
+                             f"mode was never launched: {launches}")
+    res["paper"] = {**{k: v for k, v in summ.items() if k != "hist"},
+                    "launches": launches}
+    say(f"{tag}: train paper-lm vp={group.size} per-token: {VP_STEPS} steps "
+        f"x 16x64, loss first-5 {summ['first5']:.4f} -> last-5 "
+        f"{summ['last5']:.4f}; median step {summ['median_step_ms']:.2f} ms, "
+        f"{summ['tok_s']:.0f} tokens/s; peak memory {summ['peak_gib']:.3f} "
+        f"GiB; backbone replicas bitwise equal; launches "
+        f"{json.dumps(launches)}")
+    say(f"{tag}: losses {json.dumps(summ['hist'])}")
+    res["paper_peak_gib"] = summ["peak_gib"]
+    vp_hist = summ["hist"]
+    runs = [vp_train(cfg, group, pt, steps=10, batch=16, seq=64, lr=3e-3,
+                     refresh_every=5, check_drop=False)[0] for _ in range(2)]
+    if not vp_same(*runs):
+        raise SystemExit("vocab-parallel paper-lm: two 10-step runs differ")
+    say(f"{tag}: two 10-step vp runs (refresh every 5) agree bit for bit "
+        f"(final loss {runs[0][3][-1]:.6f})")
+    del runs
+    if r == 0:                 # the replicated run at the same settings
+        from repro_torch.launch.train import train_loop
+        seen = []
+        *_, hist = train_loop(cfg, steps=VP_STEPS, batch_size=16, seq_len=64,
+                              lr=3e-3, refresh_every=50, log_every=1000,
+                              device=group.device,
+                              on_metrics=lambda st, mt: seen.append(
+                                  mt["step_s"]))
+        res["paper_replicated_step_ms"] = 1e3 * statistics.median(seen[1:])
+        gap = np.abs(np.array(vp_hist) - np.array(hist))
+        res["paper_loss_gap"] = {"max": float(gap.max()),
+                                 "at_step": int(gap.argmax()),
+                                 "last5_vp": float(np.mean(vp_hist[-5:])),
+                                 "last5_replicated": float(np.mean(hist[-5:]))}
+        say(f"{tag}: the replicated paper-lm run alone on the card (rank 1 "
+            f"idle): median step {res['paper_replicated_step_ms']:.2f} ms; "
+            f"its losses against the vp run's: "
+            f"{json.dumps(res['paper_loss_gap'])}; replicated losses "
+            f"{json.dumps(hist)}")
+    torch.distributed.barrier(pg)
+    q8 = cfg.with_head(table_dtype="int8")
+    run, launches, summ = vp_train(q8, group, pt, steps=VP_INT8_STEPS,
+                                   batch=16, seq=64, lr=3e-3,
+                                   refresh_every=10)
+    for kname in ("sampled_ce_pt", "sampled_ce_pt_bwd"):
+        if launches[kname][1]["int8"] <= 0:
+            raise SystemExit(f"vocab-parallel paper-lm int8: {kname}'s "
+                             f"quantized partial mode was never launched")
+    res["paper_int8"] = {**{k: v for k, v in summ.items() if k != "hist"},
+                         "launches": launches}
+    say(f"{tag}: train paper-lm vp={group.size} int8: {VP_INT8_STEPS} steps, "
+        f"loss {summ['first5']:.4f} -> {summ['last5']:.4f}; launches "
+        f"{json.dumps(launches)}")
+    run, launches, summ = vp_train(cfg.with_head(table_dtype="fp8"), group,
+                                   pt, steps=5, batch=16, seq=64, lr=3e-3,
+                                   refresh_every=10, check_drop=False)
+    res["paper_fp8"] = {"launches": launches}
+    say(f"{tag}: train paper-lm vp={group.size} fp8: 5 steps finite and "
+        f"applied; launches {json.dumps(launches)}")
+    del run
+    torch.cuda.empty_cache()
+    # (c) llama3.2-1b at full width, 2 layers, its pooled head
+    llama = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    b, s = SHAPE[:2]
+    toks = torch.from_numpy(llama_corpus[:b, :s]).long().to(group.device)
+    labels = torch.from_numpy(llama_corpus[:b, 1:s + 1]).long().to(
+        group.device)
+    res["llama_first_step"] = agree(vp_first_step(llama, group, toks, labels))
+    say(f"{tag}: llama3.2-1b (2 layers) first vp step vs the replicated "
+        f"step: ids bit for bit; largest errors "
+        f"{json.dumps(res['llama_first_step'])}")
+    torch.cuda.empty_cache()
+    run, launches, summ = vp_train(llama, group, shared,
+                                   steps=VP_LLAMA_STEPS, batch=b, seq=s,
+                                   lr=1e-3, refresh_every=5,
+                                   corpus=llama_corpus, check_drop=False)
+    for kname in ("sampled_ce", "sampled_ce_bwd"):
+        if launches[kname][1]["float"] <= 0:
+            raise SystemExit(f"vocab-parallel llama3.2-1b: {kname}'s partial "
+                             f"mode was never launched")
+    res["llama"] = {**{k: v for k, v in summ.items() if k != "hist"},
+                    "launches": launches}
+    log(f"{tag}: train llama3.2-1b L=2 d=2048 V=128256 pooled vp="
+        f"{group.size}: {VP_LLAMA_STEPS} steps x {b}x{s} finite and applied "
+        f"(loss {summ['hist'][0]:.4f} -> {summ['hist'][-1]:.4f}); median "
+        f"step {summ['median_step_ms']:.2f} ms; peak memory of this rank "
+        f"{summ['peak_gib']:.3f} GiB; launches {json.dumps(launches)}")
+    del run
+    torch.cuda.empty_cache()
+    for fmt in QFMTS:
+        run, launches, _ = vp_train(llama.with_head(table_dtype=fmt), group,
+                                    shared, steps=3, batch=b, seq=s, lr=1e-3,
+                                    refresh_every=5, corpus=llama_corpus,
+                                    check_drop=False)
+        for kname in ("sampled_ce", "sampled_ce_bwd"):
+            if launches[kname][1][fmt] <= 0:
+                raise SystemExit(f"vocab-parallel llama3.2-1b {fmt}: "
+                                 f"{kname}'s quantized partial mode was "
+                                 f"never launched")
+        res[f"llama_{fmt}"] = {"launches": launches}
+        say(f"{tag}: train llama3.2-1b L=2 pooled vp={group.size} {fmt}: 3 "
+            f"steps finite and applied; launches {json.dumps(launches)}")
+        del run
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def vp_phases(get_config, midx_cuda, corpus, card: str) -> dict:
+    """Phases 15b-c: VP_RANKS ranks sharing the card (gloo, CUDA tensors),
+    spawned once for both; then the paper-lm export served from the
+    parent. Returns rank 0's readings with every rank's peak memory."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serve import Engine
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-vp-") as tmp:
+        spawn_ranks(vp_rank, VP_RANKS, (tmp, corpus), device="cuda",
+                    backend="gloo")
+        ranks = []
+        for r in range(VP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"[smoke] vocab-parallel ranks done in "
+            f"{time.perf_counter() - t0:.1f}s (spawn included); peak memory "
+            f"per rank: paper-lm "
+            + ", ".join(f"{x['paper_peak_gib']:.3f}" for x in ranks)
+            + " GiB; llama3.2-1b L=2 "
+            + ", ".join(f"{x['llama']['peak_gib']:.3f}" for x in ranks)
+            + f" GiB; on {card}")
+        cfg = get_config("paper-lm").with_serve(max_slots=4, page_size=16,
+                                                max_seq=32)
+        eng = Engine.from_checkpoint(cfg, os.path.join(tmp, "paper",
+                                                       "serve"),
+                                     head="midx", device="cuda")
+        _, _, n_served = serve(cfg, head="midx", requests=8, prompt=8,
+                               tokens=16, verify=2, params=eng.params,
+                               index=eng.index, counter=midx_cuda.
+                               midx_probs_cuda)
+        del eng
+    if n_served <= 0:
+        raise SystemExit("the vp export's serve never launched midx_probs")
+    out = dict(ranks[0])
+    out["peak_gib_by_rank"] = {
+        "paper-lm": [x["paper_peak_gib"] for x in ranks],
+        "llama3.2-1b L=2": [x["llama"]["peak_gib"] for x in ranks]}
+    out["served_midx_launches"] = n_served
+    torch.cuda.empty_cache()
+    return out
+
+
+def partial_rows(holds: dict, vp: dict) -> list:
+    """The kernels line's rows of the partial modes: launches from the vp
+    main paths (rank 0's counts; every rank launches alike)."""
+    src = "src/repro_torch/kernels/sampled_ce/csrc/"
+    base = {"sampled_ce_pt": ("sampled_ce_pt.cu", "per_token.py:144"),
+            "sampled_ce_pt_bwd": ("sampled_ce_pt.cu", "per_token.py:297"),
+            "sampled_ce": ("sampled_ce.cu", "sampled_ce.py:115"),
+            "sampled_ce_bwd": ("sampled_ce.cu", "sampled_ce.py:277")}
+    path = {"sampled_ce_pt": "paper", "sampled_ce_pt_bwd": "paper",
+            "sampled_ce": "llama", "sampled_ce_bwd": "llama"}
+    rows = []
+    for name, h in holds.items():
+        if "[" not in name:
+            continue
+        kname, mode = name.split("[")
+        fmt = mode.rstrip("]").split(",")[1] if "," in mode else "float"
+        run = vp[path[kname] + ("" if fmt == "float" else f"_{fmt}")]
+        n = run["launches"][kname][1][fmt]
+        rows.append({"name": name, "route": "cuda",
+                     "source": src + base[kname][0],
+                     "replaces": "src/repro/kernels/sampled_ce/"
+                                 + base[kname][1],
+                     "launches": n, "library_ms": None, **h})
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -2336,8 +3070,9 @@ def main() -> None:
         midx_cuda, midx_probs_ref, sce_cuda, sampled_ce_pt_fwd_ref,
         sampled_ce_pt_bwd_ref, sampled_ce_fwd_ref, sampled_ce_bwd_ref, buf,
         card)
+    partial_holds = check_partial_kernels(sce_cuda, buf, card)
     del buf
-    mark("kernel checks (phases 3-3d)")
+    mark("kernel checks (phases 3-3e)")
     check_against_cpu("paper-lm")
     check_against_cpu("mamba2-370m")
 
@@ -2498,9 +3233,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("checkpoints and recovery (phase 10b)")
     n_quant = quantized_phases(get_config, midx_cuda, sce_cuda, corpus)
-    del corpus, long_corpus
     torch.cuda.empty_cache()
     mark("the quantized head (phase 13)")
+    vp = vp_phases(get_config, midx_cuda, corpus, card)
+    del corpus, long_corpus
+    mark("vocab-parallel training (phase 15)")
     n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
                            sce_cuda, args.profile, card)
     n_ssd = n_mamba["ssd_scan"]
@@ -2644,6 +3381,10 @@ def main() -> None:
             for name, t in ssd_timings.items()
             if name != "mamba2-370m train 4x1024 Q=256"]})
     rows += quantized_rows(qholds, n_quant)
+    rows += partial_rows({k: v for k, v in partial_holds.items()
+                          if k != "row0"}, vp)
+    log(f"[smoke] vocab-parallel: {json.dumps(vp)}; row-0 hot segment "
+        f"{json.dumps(partial_holds.get('row0'))}; on {card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

@@ -30,6 +30,13 @@ step a 0-d int32, a `MultiIndex`'s index fields int32 (the layout
 `src/repro/launch/train.py:203-213` checkpoints). The leaves stay torch
 tensors, on the host, so a bf16 or fp8 leaf keeps its dtype without
 `ml_dtypes`; `checkpoint.manager` writes them in the reference's format.
+
+The vocab-parallel index (`dist.vocab_parallel.VocabShardedIndex`,
+reference `src/repro/dist/vocab_parallel.py:55`) crosses in the
+reference's stacked layout: replicated codebooks, CSR leaves [n, ...],
+int32 index fields on the reference's side
+(`sharded_index_from_numpy` / `sharded_index_to_numpy`, and as a node of
+`to_reference` / `from_reference`).
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.vocab_parallel import (SHARDED_FIELDS,
+                                             VocabShardedIndex)
 from repro_torch.index.build import MultiIndex
 from repro_torch.index.quantized import QUANT_FIELDS, QuantHeadState
 from repro_torch.optim.optimizers import OptState
@@ -140,6 +149,34 @@ def index_to_numpy(index: MultiIndex) -> dict:
     return out
 
 
+def sharded_index_from_numpy(d: Mapping, *, kind: str | None = None,
+                             num_shards: int | None = None,
+                             device=None) -> VocabShardedIndex:
+    """The fields of a JAX `VocabShardedIndex` as numpy (a mapping of its
+    data fields, plus `kind` / `num_shards` unless given) -> the port's,
+    index fields int64."""
+    device = resolve_device(device)
+    fields = {}
+    for name in SHARDED_FIELDS:
+        t = tensor_from_numpy(d[name], device)
+        fields[name] = t.long() if name in _INT_FIELDS else t
+    return VocabShardedIndex(
+        kind=kind or str(d["kind"]),
+        num_shards=int(num_shards or d.get("num_shards",
+                                           fields["sorted_ids"].shape[0])),
+        **fields)
+
+
+def sharded_index_to_numpy(index: VocabShardedIndex) -> dict:
+    """A port `VocabShardedIndex` -> its fields as numpy in the JAX
+    package's dtypes (int32 index fields), plus `kind` and `num_shards`."""
+    out = {"kind": index.kind, "num_shards": index.num_shards}
+    for name in SHARDED_FIELDS:
+        a = tensor_to_numpy(getattr(index, name))
+        out[name] = a.astype(np.int32) if name in _INT_FIELDS else a
+    return out
+
+
 def quant_state_from_numpy(d: Mapping, *, device=None) -> QuantHeadState:
     """A JAX `QuantHeadState` as numpy (`fmt`, `index` the mapping of its
     MultiIndex's fields with `kind`, and the other data fields) -> the
@@ -198,6 +235,10 @@ def _layout(tree, leaf, stack, int32):
             return MultiIndex(kind=t.kind, **{
                 f: (int32 if f in _INT_FIELDS else (lambda x: x))(
                     leaf(getattr(t, f))) for f in _INDEX_FIELDS})
+        if isinstance(t, VocabShardedIndex):
+            return VocabShardedIndex(t.kind, t.num_shards, **{
+                f: (int32 if f in _INT_FIELDS else (lambda x: x))(
+                    leaf(getattr(t, f))) for f in SHARDED_FIELDS})
         if isinstance(t, QuantHeadState):
             return QuantHeadState(t.fmt, **{f: go(getattr(t, f))
                                             for f in QUANT_FIELDS})
@@ -259,6 +300,10 @@ def from_reference(ref, like, *, device=None):
         if isinstance(lk, MultiIndex):
             return MultiIndex(kind=lk.kind, **{
                 f: go(getattr(r, f), getattr(lk, f)) for f in _INDEX_FIELDS})
+        if isinstance(lk, VocabShardedIndex):
+            return VocabShardedIndex(lk.kind, lk.num_shards, **{
+                f: go(getattr(r, f), getattr(lk, f))
+                for f in SHARDED_FIELDS})
         if isinstance(lk, QuantHeadState):
             return QuantHeadState(lk.fmt, **{
                 f: go(getattr(r, f), getattr(lk, f)) for f in QUANT_FIELDS})

@@ -31,7 +31,9 @@ sorted key, `OptState` as `CustomNode(namedtuple[OptState], [...])`, a
 `MultiIndex` as `CustomNode(MultiIndex[('rq',)], [...])` over the data
 fields in the order of `src/repro/index/build.py:30-33`, a quantized head
 state as `CustomNode(QuantHeadState[('int8',)], [...])` over its index
-and its low-bit twins, `src/repro/index/quantized.py:255-258`); bf16 and fp8
+and its low-bit twins, `src/repro/index/quantized.py:255-258`; a
+vocab-parallel run's stacked index as `CustomNode(VocabShardedIndex[('rq',
+2)], [...])`, `src/repro/dist/vocab_parallel.py:50-56`); bf16 and fp8
 leaves are stored as same-width unsigned raw bits with their true dtype's
 name in tree.json, as the reference stores them, without `ml_dtypes`.
 `restore(step, like, device=...)` takes `like` in the port's structure
@@ -54,6 +56,8 @@ import torch
 
 from repro_torch.bridge import (_INDEX_FIELDS, from_reference,
                                 reference_structure, to_reference)
+from repro_torch.dist.vocab_parallel import (SHARDED_FIELDS,
+                                             VocabShardedIndex)
 from repro_torch.index.build import MultiIndex
 from repro_torch.index.quantized import QUANT_FIELDS, QuantHeadState
 
@@ -72,6 +76,8 @@ def _children(t) -> Optional[list]:
     """A node's children in JAX's flatten order; None for a leaf."""
     if isinstance(t, MultiIndex):
         return [getattr(t, f) for f in _INDEX_FIELDS]
+    if isinstance(t, VocabShardedIndex):
+        return [getattr(t, f) for f in SHARDED_FIELDS]
     if isinstance(t, QuantHeadState):
         return [getattr(t, f) for f in QUANT_FIELDS]
     if isinstance(t, dict):
@@ -96,6 +102,10 @@ def _unflatten(structure, leaves):
         return MultiIndex(kind=structure.kind, **{
             f: _unflatten(getattr(structure, f), leaves)
             for f in _INDEX_FIELDS})
+    if isinstance(structure, VocabShardedIndex):
+        return VocabShardedIndex(structure.kind, structure.num_shards, **{
+            f: _unflatten(getattr(structure, f), leaves)
+            for f in SHARDED_FIELDS})
     if isinstance(structure, QuantHeadState):
         return QuantHeadState(structure.fmt, **{
             f: _unflatten(getattr(structure, f), leaves)
@@ -118,6 +128,10 @@ def _treedef_str(tree) -> str:
             return "None"
         if isinstance(t, MultiIndex):
             return (f"CustomNode(MultiIndex[{(t.kind,)!r}], "
+                    f"[{', '.join(go(c) for c in _children(t))}])")
+        if isinstance(t, VocabShardedIndex):
+            return (f"CustomNode(VocabShardedIndex"
+                    f"[{(t.kind, t.num_shards)!r}], "
                     f"[{', '.join(go(c) for c in _children(t))}])")
         if isinstance(t, QuantHeadState):
             return (f"CustomNode(QuantHeadState[{(t.fmt,)!r}], "

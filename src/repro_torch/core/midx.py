@@ -4,8 +4,12 @@ Mirrors `src/repro/core/midx.py`: `log_prob` (:59), `_member_uniform`
 (:51), `twostage_tables` (:110), `sample_twostage` (:127), and the
 shared-negative samplers `_inverse_cdf_sample` (:168), `_shared_draw`
 (:177), `_joint_from_scores` (:191), `sample_pooled` (:201) and
-`sample_mixture` (:210), with the quantized head's `scores_fn` hook and
-`sample_twostage`'s `return_tables`.
+`sample_mixture` (:210), with the quantized head's `scores_fn` hook,
+`sample_twostage`'s `return_tables` and the vocab-parallel head's
+`member_fn` hook (:118, :161): `member_fn(u, flat_cluster) -> ids`
+replaces the CSR member draw, so that a vocab shard can locate each draw
+on its owner (`dist.vocab_parallel.make_member_fn`) while the proposal
+math stays as it is.
 For a query z the proposal is Q(i|z) ∝ exp(s1[k1(i)] + s2[k2(i)]), drawn
 as k1 ~ Cat(s1 + logψ), then k2 ~ Cat(s2 + log|Ω(k1,:)|), then a uniform
 member of Ω(k1,k2) through the CSR layout.
@@ -61,15 +65,19 @@ def log_prob(index: MultiIndex, z: torch.Tensor,
             - lse[..., None])
 
 
+def member_rank(u: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """The rank r < max(cnt, 1) of a uniform draw in a cluster of cnt
+    members, from u in (0, 1)."""
+    n = torch.clamp(cnt, min=1)
+    return torch.minimum((u * n).long(), n - 1)
+
+
 def _member_uniform(index: MultiIndex, u: torch.Tensor,
                     flat_cluster: torch.Tensor) -> torch.Tensor:
     """Uniform member of each joint cluster id (CSR O(1) draw), from
     uniforms u in (0, 1) of the same shape."""
-    cnt = index.counts.reshape(-1)[flat_cluster]
-    off = index.offsets[flat_cluster]
-    n = torch.clamp(cnt, min=1)
-    r = torch.minimum((u * n).long(), n - 1)
-    return index.sorted_ids[off + r]
+    r = member_rank(u, index.counts.reshape(-1)[flat_cluster])
+    return index.sorted_ids[index.offsets[flat_cluster] + r]
 
 
 class _PickRows(torch.autograd.Function):
@@ -116,7 +124,7 @@ def twostage_tables(index: MultiIndex, z: torch.Tensor):
 
 
 def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
-                    keys: torch.Tensor, *, tables_fn=None,
+                    keys: torch.Tensor, *, tables_fn=None, member_fn=None,
                     return_tables: bool = False):
     """z [T, D], keys [T] per-row stream keys -> Draw of [T, m].
 
@@ -125,7 +133,8 @@ def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
     midx_probs kernel (`kernels.midx_probs.ops.proposal_tables`).
     `return_tables=True` also returns the (s1, s2, log_psi, lse) the draw
     consumed, from which the quantized decode head rescores candidates
-    (`index.quantized.code_scores`)."""
+    (`index.quantized.code_scores`). `member_fn(u, flat_cluster)` replaces
+    the CSR member draw."""
     s1, s2, log_psi, lse = (tables_fn or twostage_tables)(index, z)
     kk = index.num_codewords
     dev = z.device
@@ -138,7 +147,8 @@ def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,
     g2 = noise.gumbel_noise(key, noise.ROLE_K2, draw, col)
     k2 = torch.argmax(l2 + g2, dim=-1)                           # [T,m]
     u = noise.uniform_noise(key[..., 0], noise.ROLE_MEMBER, draw[..., 0], 0)
-    ids = _member_uniform(index, u, k1 * kk + k2)
+    ids = (member_fn or (lambda u_, c: _member_uniform(index, u_, c)))(
+        u, k1 * kk + k2)
     log_q = (_PickRows.apply(s1, k1) + _PickRows.apply(s2, k2)
              - lse[:, None])
     if return_tables:
@@ -159,7 +169,7 @@ def inverse_cdf_sample(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def _shared_draw(index: MultiIndex, flat_log: torch.Tensor, m: int,
-                 keys: torch.Tensor) -> Draw:
+                 keys: torch.Tensor, member_fn=None) -> Draw:
     """m (cluster, member) draws per row of flat_log [B, K²] (log weights,
     −inf on empty clusters), row b keyed by keys[b] -> Draw of [B, m]."""
     lse = torch.logsumexp(flat_log, dim=-1, keepdim=True)
@@ -169,7 +179,8 @@ def _shared_draw(index: MultiIndex, flat_log: torch.Tensor, m: int,
     u = noise.uniform_noise(key, noise.ROLE_SHARED_PAIR, draw, 0)
     cluster = inverse_cdf_sample(probs.detach(), u)
     u = noise.uniform_noise(key, noise.ROLE_SHARED_MEMBER, draw, 0)
-    ids = _member_uniform(index, u, cluster)
+    ids = (member_fn or (lambda u_, c: _member_uniform(index, u_, c)))(
+        u, cluster)
     log_q = (_PickRows.apply(flat_log, cluster)
              - index.log_counts.reshape(-1)[cluster] - lse)
     return Draw(ids, log_q)
@@ -186,16 +197,19 @@ def _joint_from_scores(index: MultiIndex, z: torch.Tensor, scores_fn):
 
 
 def sample_pooled(index: MultiIndex, z_seq: torch.Tensor, m: int,
-                  keys: torch.Tensor, *, scores_fn=None) -> Draw:
+                  keys: torch.Tensor, *, scores_fn=None,
+                  member_fn=None) -> Draw:
     """Pooled proposal: one proposal per sequence from its mean query.
     z_seq [B, S, D], keys [B] -> Draw of [B, m]."""
     z_bar = torch.mean(z_seq.float(), dim=-2)                    # [B,D]
     j, _, _ = _joint_from_scores(index, z_bar, scores_fn)
-    return _shared_draw(index, j.reshape(j.shape[0], -1), m, keys)
+    return _shared_draw(index, j.reshape(j.shape[0], -1), m, keys,
+                        member_fn)
 
 
 def sample_mixture(index: MultiIndex, z_seq: torch.Tensor, m: int,
-                   keys: torch.Tensor, *, scores_fn=None) -> Draw:
+                   keys: torch.Tensor, *, scores_fn=None,
+                   member_fn=None) -> Draw:
     """Exact token-mixture proposal per sequence:
     P̄[k,k'] ∝ |Ω| ⊙ Σ_t a_t[k] b_t[k'],  a_t = exp(s1_t)/Z_t, b_t = exp(s2_t),
     Z_t the token's joint normaliser — one K×S @ S×K product per sequence.
@@ -207,4 +221,5 @@ def sample_mixture(index: MultiIndex, z_seq: torch.Tensor, m: int,
     b = torch.exp(s2 - c2)
     mix = torch.einsum("bsk,bsl->bkl", a, b)                     # [B,K,K]
     mix_log = torch.log(torch.clamp(mix, min=1e-30)) + index.log_counts
-    return _shared_draw(index, mix_log.reshape(mix.shape[0], -1), m, keys)
+    return _shared_draw(index, mix_log.reshape(mix.shape[0], -1), m, keys,
+                        member_fn)

@@ -112,16 +112,19 @@ class IndexLifecycle:
     `every`-th step with seed = hash(base_seed, step). The state is any
     head state: the MIDX index or a proposal's state (the RFF feature
     re-map). Each rebuilt state passes `resilience.validate_state` against
-    the live one before it is swapped in; a degenerate one is rejected and
-    the old state kept."""
+    the live one before it is swapped in (or `validate(new, like)`, the
+    vocab-parallel run's check, which every rank must agree on); a
+    degenerate one is rejected and the old state kept."""
 
     def __init__(self, refresh_fn: Callable, *, every: int, base_seed: int,
-                 lag: int = 0, enabled: bool = True):
+                 lag: int = 0, enabled: bool = True,
+                 validate: Optional[Callable] = None):
         if lag < 0:
             raise ValueError(f"lag must be >= 0, got {lag}")
         if lag > 0:
             raise _unported("an overlapped refresh (refresh_lag > 0)")
         self.refresh_fn = refresh_fn
+        self.validate = validate or validate_state
         self.every = every
         self.base_seed = base_seed
         self.enabled = enabled and bool(every)
@@ -137,7 +140,7 @@ class IndexLifecycle:
         seed = int(noise.hash_bits(self.base_seed, step, 0, 0))
         new_index, metrics = self.refresh_fn(params, index, seed)
         metrics = {k: float(v) for k, v in metrics.items()}
-        reasons = tuple(validate_state(new_index, like=index))
+        reasons = tuple(self.validate(new_index, like=index))
         ev = RefreshEvent(step, time.perf_counter() - t0, metrics,
                           rejected=bool(reasons), reasons=reasons)
         self.events.append(ev)

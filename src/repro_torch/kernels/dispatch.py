@@ -20,10 +20,10 @@ import torch
 from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 from repro_torch.kernels.midx_probs.ref import midx_probs_ref
 from repro_torch.kernels.rff_sample.ref import rff_gumbel_ref
-from repro_torch.kernels.sampled_ce.ref import (sampled_ce_bwd_ref,
-                                                sampled_ce_fwd_ref,
-                                                sampled_ce_pt_bwd_ref,
-                                                sampled_ce_pt_fwd_ref)
+from repro_torch.kernels.sampled_ce.ref import (
+    sampled_ce_bwd_ref, sampled_ce_fwd_ref, sampled_ce_partial_bwd_ref,
+    sampled_ce_partial_fwd_ref, sampled_ce_pt_bwd_ref, sampled_ce_pt_fwd_ref,
+    sampled_ce_pt_partial_bwd_ref, sampled_ce_pt_partial_ref)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 
@@ -102,6 +102,68 @@ def sampled_ce_bwd(g, hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
     if hidden.device.type == "cpu":
         return sampled_ce_bwd_ref(g, hidden, pos_emb, neg_emb, log_q, neg_ids,
                                   pos_ids, lse, pos_scale, neg_scale)
+    raise _unsupported("sampled_ce_bwd", hidden)
+
+
+def sampled_ce_pt_partial(hidden, table, log_q, neg_ids, pos_ids,
+                          num_neg: int, scale=None):
+    """The per-token forward's partial mode (a vocab shard's negatives,
+    pos_ids local or -1, ln M from num_neg): the partial lse [T]."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_cuda
+        return sampled_ce_pt_cuda(hidden, table, log_q, neg_ids, pos_ids,
+                                  scale=scale, include_pos=False,
+                                  num_neg=num_neg)[1]
+    if hidden.device.type == "cpu":
+        return sampled_ce_pt_partial_ref(hidden, table, log_q, neg_ids,
+                                         pos_ids, num_neg, scale=scale)
+    raise _unsupported("sampled_ce_pt", hidden)
+
+
+def sampled_ce_pt_partial_bwd(g, hidden, table, log_q, neg_ids, pos_ids,
+                              lse, num_neg: int, scale=None):
+    """Its backward from the saved partial lse: (dh [T, D], dtab [V, D],
+    dlq [T, M]) fp32, with no positive term."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_pt_bwd_cuda
+        return sampled_ce_pt_bwd_cuda(g, hidden, table, log_q, neg_ids,
+                                      pos_ids, lse, scale=scale,
+                                      include_pos=False, num_neg=num_neg)
+    if hidden.device.type == "cpu":
+        return sampled_ce_pt_partial_bwd_ref(g, hidden, table, log_q,
+                                             neg_ids, pos_ids, lse, num_neg,
+                                             scale=scale)
+    raise _unsupported("sampled_ce_pt_bwd", hidden)
+
+
+def sampled_ce_partial(hidden, neg_emb, log_q, neg_ids, pos_ids,
+                       num_neg: int, neg_scale=None):
+    """The shared-negative forward's partial mode: the partial lse
+    [B, S]. neg_scale [B, M, 1] given: gathered int8 / fp8 rows."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_cuda
+        return sampled_ce_cuda(hidden, None, neg_emb, log_q, neg_ids,
+                               pos_ids, neg_scale=neg_scale,
+                               include_pos=False, num_neg=num_neg)[1]
+    if hidden.device.type == "cpu":
+        return sampled_ce_partial_fwd_ref(hidden, neg_emb, log_q, neg_ids,
+                                          pos_ids, num_neg, neg_scale)
+    raise _unsupported("sampled_ce", hidden)
+
+
+def sampled_ce_partial_bwd(g, hidden, neg_emb, log_q, neg_ids, pos_ids, lse,
+                           num_neg: int, neg_scale=None):
+    """Its backward from the saved partial lse: (dh [B, S, D], dne
+    [B, M, D], dlq [B, M]) fp32; there are no positive rows, so no dpe."""
+    if hidden.is_cuda:
+        from repro_torch.kernels.sampled_ce.cuda import sampled_ce_bwd_cuda
+        dh, _, dne, dlq = sampled_ce_bwd_cuda(
+            g, hidden, None, neg_emb, log_q, neg_ids, pos_ids, lse,
+            neg_scale=neg_scale, include_pos=False, num_neg=num_neg)
+        return dh, dne, dlq
+    if hidden.device.type == "cpu":
+        return sampled_ce_partial_bwd_ref(g, hidden, neg_emb, log_q, neg_ids,
+                                          pos_ids, lse, num_neg, neg_scale)
     raise _unsupported("sampled_ce_bwd", hidden)
 
 

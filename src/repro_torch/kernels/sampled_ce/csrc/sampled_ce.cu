@@ -79,6 +79,17 @@
 // dequantized positive row. dpe = c h and dne = W^T H never read a row:
 // they are the scale-unaware gradients that the straight-through
 // estimator hands to the master rows.
+//
+// Partial mode (the TPU kernels' `include_pos=False`, the vocab-parallel
+// head's shard of the loss): the negatives are this shard's (a negative
+// it does not own comes as a zero-weight row, lq = +1e30, so its corrected
+// logit is NEG_INF), p_t is the local positive on its owner and -1
+// elsewhere, used only to mask collisions, and there are no positive rows
+// (pe and psc are null). The forward's merge ends without the positive:
+// loss = lse = the negatives-only lse, NEG_INF for a token with no valid
+// entry. The backward reads that partial lse; the W pass writes no c_t,
+// the dh pass writes dh = W . NE alone (no dpe), and dne/dlq are as in
+// the full mode. ln M is the global negative count `num_neg`.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -236,7 +247,7 @@ fwd_part_kernel(const float* __restrict__ h, const T* __restrict__ pe,
                 const int64_t* __restrict__ neg_ids,
                 const int64_t* __restrict__ pos_ids,
                 float2* __restrict__ part, float* __restrict__ pos, int S,
-                int M, int D, float log_m) {
+                int M, int D, float log_m, int include_pos) {
   __shared__ float red_m[2][TILE];     // per row, the max of each warp's half
   __shared__ float red_l[2][TILE];     // ... and its sum
   const int tid = threadIdx.x, warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
@@ -292,7 +303,7 @@ fwd_part_kernel(const float* __restrict__ h, const T* __restrict__ pe,
     part[((size_t)b * S + t0 + tid) * nt + blockIdx.x] =
         make_float2(fmaxf(red_m[0][tid], red_m[1][tid]),
                     red_l[0][tid] + red_l[1][tid]);
-  if (blockIdx.x == 0) {
+  if (blockIdx.x == 0 && include_pos) {
     for (int r = warp; r < min(TILE, S - t0); r += BT / 32) {
       const size_t row = (size_t)b * S + t0 + r;
       const float p = row_dot<T>(h + row * D, pe + row * D,
@@ -304,11 +315,12 @@ fwd_part_kernel(const float* __restrict__ h, const T* __restrict__ pe,
 
 // Forward, pass 2: token idx = b S + t merges its nt partials in ascending
 // tile order (the online logsumexp of `_kernel`), then joins the positive
-// as `_kernel`'s `_finish` does.
+// as `_kernel`'s `_finish` does (the partial mode: no positive).
 __global__ void __launch_bounds__(MERGE_THREADS)
 fwd_merge_kernel(const float2* __restrict__ part,
                  const float* __restrict__ pos, float* __restrict__ loss,
-                 float* __restrict__ lse_out, int n, int nt) {
+                 float* __restrict__ lse_out, int n, int nt,
+                 int include_pos) {
   const int idx = blockIdx.x * MERGE_THREADS + threadIdx.x;
   if (idx >= n) return;
   const float2* p = part + (size_t)idx * nt;
@@ -318,6 +330,12 @@ fwd_merge_kernel(const float2* __restrict__ part,
     const float m_new = fmaxf(m, q.x);
     l = l * expf(m - m_new) + q.y * expf(q.x - m_new);
     m = m_new;
+  }
+  if (!include_pos) {
+    const float lse = logf(fmaxf(l, 1e-30f)) + m;
+    loss[idx] = lse;
+    lse_out[idx] = lse;
+    return;
   }
   const float ps = pos[idx];
   const float m_fin = fmaxf(m, ps);
@@ -341,7 +359,7 @@ bwd_w_kernel(const float* __restrict__ grad, const float* __restrict__ h,
              const int64_t* __restrict__ pos_ids,
              const float* __restrict__ lse, float* __restrict__ w_out,
              float* __restrict__ cpos, int S, int M, int D, int Sp, int Mp,
-             float log_m) {
+             float log_m, int include_pos) {
   const int tid = threadIdx.x, warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
   const int b = blockIdx.z, t0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
   float acc[2][4][4];
@@ -369,7 +387,7 @@ bwd_w_kernel(const float* __restrict__ grad, const float* __restrict__ h,
               corr > NEG_INF_THRESHOLD ? gt * expf(corr - ls) : 0.f;
         }
     }
-  if (blockIdx.x == 0) {
+  if (blockIdx.x == 0 && include_pos) {
     const int lane = tid & 31;
     for (int r = warp; r < min(TILE, S - t0); r += BT / 32) {
       const size_t row = (size_t)b * S + t0 + r;
@@ -383,14 +401,15 @@ bwd_w_kernel(const float* __restrict__ grad, const float* __restrict__ h,
 // dh, dpe: the [64 tokens x 64 columns] tile (blockIdx.y, blockIdx.x) of
 // sequence blockIdx.z: dh = W . NE + c pe, dpe = c h, over M ascending
 // (rows dequantized in the quantized mode: each slab's 32 negative scales
-// staged beside it).
+// staged beside it); the partial mode: dh = W . NE, no dpe.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(BT)
 bwd_dh_kernel(const float* __restrict__ h, const T* __restrict__ pe,
               const T* __restrict__ ne, const float* __restrict__ psc,
               const float* __restrict__ nsc, const float* __restrict__ w_in,
               const float* __restrict__ cpos, float* __restrict__ dh,
-              float* __restrict__ dpe, int S, int M, int D, int Sp, int Mp) {
+              float* __restrict__ dpe, int S, int M, int D, int Sp, int Mp,
+              int include_pos) {
   constexpr int WS = ALONG<float>, NDOWN = DOWN_OF<T>;
   __shared__ __align__(16) float ws[2][TILE][WS];
   __shared__ __align__(16) T ns[2][BK][NDOWN];
@@ -430,7 +449,8 @@ bwd_dh_kernel(const float* __restrict__ h, const T* __restrict__ pe,
       const int t = t0 + 32 * wm + 16 * mi + acc_row(2 * half);
       if (t >= S) continue;
       const size_t row = (size_t)b * S + t;
-      const float c = cpos[row], ps = scale_of<T>(psc, row);
+      const float c = include_pos ? cpos[row] : 0.f;
+      const float ps = include_pos ? scale_of<T>(psc, row) : 0.f;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -438,8 +458,12 @@ bwd_dh_kernel(const float* __restrict__ h, const T* __restrict__ pe,
           const int d = d0 + 32 * wn + 8 * ni + acc_col(e);
           if (d >= D) continue;
           const size_t idx = row * D + d;
-          dh[idx] = acc[mi][ni][2 * half + e] + c * deq(pe[idx], ps);
-          dpe[idx] = c * h[idx];
+          if (include_pos) {
+            dh[idx] = acc[mi][ni][2 * half + e] + c * deq(pe[idx], ps);
+            dpe[idx] = c * h[idx];
+          } else {
+            dh[idx] = acc[mi][ni][2 * half + e];
+          }
         }
     }
 }
@@ -497,23 +521,29 @@ bwd_dne_kernel(const float* __restrict__ h, const float* __restrict__ w_in,
   if (sums && j0 + tid < M) dlq[(size_t)b * M + j0 + tid] = -lq_acc;
 }
 
-float log_num_neg(int M) { return (float)log((double)M); }
+// ln of the correction's negative count: `num_neg` (the global M of the
+// partial mode) where given (> 0), else M.
+float log_num_neg(int M, int num_neg) {
+  return (float)log((double)(num_neg > 0 ? num_neg : M));
+}
 
 template <typename T, bool VEC>
 int fwd(const float* h, const void* pe, const void* ne, const float* psc,
         const float* nsc, const float* log_q, const int64_t* neg_ids,
         const int64_t* pos_ids, float* loss, float* lse, float2* part,
-        float* pos, int B, int S, int M, int D, cudaStream_t stream) {
+        float* pos, int B, int S, int M, int D, int include_pos, int num_neg,
+        cudaStream_t stream) {
   const int nt = (M + TILE - 1) / TILE;
   fwd_part_kernel<T, VEC>
       <<<dim3(nt, (S + TILE - 1) / TILE, B), BT, 0, stream>>>(
           h, static_cast<const T*>(pe), static_cast<const T*>(ne), psc, nsc,
-          log_q, neg_ids, pos_ids, part, pos, S, M, D, log_num_neg(M));
+          log_q, neg_ids, pos_ids, part, pos, S, M, D,
+          log_num_neg(M, num_neg), include_pos);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   const int n = B * S;
   fwd_merge_kernel<<<(n + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS,
-                     0, stream>>>(part, pos, loss, lse, n, nt);
+                     0, stream>>>(part, pos, loss, lse, n, nt, include_pos);
   return (int)cudaGetLastError();
 }
 
@@ -522,7 +552,8 @@ int bwd(const float* g, const float* h, const void* pe, const void* ne,
         const float* psc, const float* nsc, const float* log_q,
         const int64_t* neg_ids, const int64_t* pos_ids, const float* lse,
         float* dh, float* dpe, float* dne, float* dlq, float* w, float* cpos,
-        int B, int S, int M, int D, cudaStream_t stream) {
+        int B, int S, int M, int D, int include_pos, int num_neg,
+        cudaStream_t stream) {
   const int Sp = (S + TILE - 1) / TILE * TILE;
   const int Mp = (M + TILE - 1) / TILE * TILE;
   const int Dt = (D + TILE - 1) / TILE;
@@ -531,11 +562,12 @@ int bwd(const float* g, const float* h, const void* pe, const void* ne,
   if (S > 0) {
     bwd_w_kernel<T, VEC><<<dim3(Mp / TILE, Sp / TILE, B), BT, 0, stream>>>(
         g, h, pe_t, ne_t, psc, nsc, log_q, neg_ids, pos_ids, lse, w, cpos, S,
-        M, D, Sp, Mp, log_num_neg(M));
+        M, D, Sp, Mp, log_num_neg(M, num_neg), include_pos);
     int err = (int)cudaGetLastError();
     if (err) return err;
     bwd_dh_kernel<T, VEC><<<dim3(Dt, Sp / TILE, B), BT, 0, stream>>>(
-        h, pe_t, ne_t, psc, nsc, w, cpos, dh, dpe, S, M, D, Sp, Mp);
+        h, pe_t, ne_t, psc, nsc, w, cpos, dh, dpe, S, M, D, Sp, Mp,
+        include_pos);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -573,7 +605,10 @@ int by_rows(int rows_kind, int vec, F&& f) {
 // [B, S] and nsc [B, M] fp32, null else); log_q [B, M] fp32; neg_ids
 // [B, M] and pos_ids [B, S] int64; g, lse [B, S] fp32. vec = 1 when D is a
 // multiple of the 16-byte vector of the row dtype and h, pe and ne are
-// 16-byte aligned.
+// 16-byte aligned. include_pos = 0: the partial mode (pe and psc null,
+// pos_ids local or -1; loss = lse = the negatives-only lse; the backward
+// takes that lse and writes no dpe, which is null). num_neg: the M of
+// ln(M·q), 0 for this call's M.
 
 // Writes loss and lse [B, S] fp32: two kernels, the partials, then their
 // merge. Workspaces, fp32: part [B, S, ceil(M / 64)] (m, l) pairs, 8-byte
@@ -585,10 +620,16 @@ extern "C" int sampled_ce_fwd_launch(const float* h, const void* pe,
                                      const int64_t* pos_ids, float* loss,
                                      float* lse, float* part, float* pos,
                                      int B, int S, int M, int D,
-                                     int rows_kind, int vec, void* stream) {
+                                     int rows_kind, int vec, int include_pos,
+                                     int num_neg, void* stream) {
+  include_pos = include_pos ? 1 : 0;
+  // the positive rows and scales: given in the full mode, null in the
+  // partial mode (an empty S may pass null either way)
   if (B < 0 || S < 0 || M < 1 || D < 1 || B > 65535 || rows_kind < 0 ||
       rows_kind > 3 || (rows_kind >= 2) != (nsc != nullptr) ||
-      (psc == nullptr) != (nsc == nullptr))
+      (S > 0 && ((include_pos && rows_kind >= 2) != (psc != nullptr) ||
+                 (include_pos != 0) != (pe != nullptr))) ||
+      num_neg < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -596,7 +637,8 @@ extern "C" int sampled_ce_fwd_launch(const float* h, const void* pe,
   return by_rows(rows_kind, vec, [&](auto t, auto v) {
     return fwd<decltype(t), decltype(v)::value>(h, pe, ne, psc, nsc, log_q,
                                                 neg_ids, pos_ids, loss, lse,
-                                                p, pos, B, S, M, D, s);
+                                                p, pos, B, S, M, D,
+                                                include_pos, num_neg, s);
   });
 }
 
@@ -612,16 +654,21 @@ extern "C" int sampled_ce_bwd_launch(const float* g, const float* h,
                                      float* dh, float* dpe, float* dne,
                                      float* dlq, float* w, float* cpos, int B,
                                      int S, int M, int D, int rows_kind,
-                                     int vec, void* stream) {
+                                     int vec, int include_pos, int num_neg,
+                                     void* stream) {
+  include_pos = include_pos ? 1 : 0;
   if (B < 0 || S < 0 || M < 1 || D < 1 || B > 65535 || rows_kind < 0 ||
       rows_kind > 3 || (rows_kind >= 2) != (nsc != nullptr) ||
-      (psc == nullptr) != (nsc == nullptr))
+      (S > 0 && ((include_pos && rows_kind >= 2) != (psc != nullptr) ||
+                 (include_pos != 0) != (pe != nullptr) ||
+                 (include_pos != 0) != (dpe != nullptr))) ||
+      num_neg < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return by_rows(rows_kind, vec, [&](auto t, auto v) {
     return bwd<decltype(t), decltype(v)::value>(
         g, h, pe, ne, psc, nsc, log_q, neg_ids, pos_ids, lse, dh, dpe, dne,
-        dlq, w, cpos, B, S, M, D, s);
+        dlq, w, cpos, B, S, M, D, include_pos, num_neg, s);
   });
 }

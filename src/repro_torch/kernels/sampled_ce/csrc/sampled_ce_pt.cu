@@ -109,7 +109,9 @@
 //       CTA through a bitmap of occurrence indices and cut into
 //       p = min(8, ceil(L / 64)) runs of consecutive ranks, one warp each,
 //       the runs' sums then added in rank order (p = 1, one chain, up to
-//       L = 64), so a hot row's sum runs on up to 8 warps, not one.
+//       L = 64), so a hot row's sum runs on up to 8 warps, not one; each
+//       warp first compacts its run to the occurrences of nonzero weight
+//       (a zero weight adds nothing, so the bits stay the full chain's).
 //   The atomics are on integers only, and every float sum has an order
 //   fixed by the ids alone: the result is bitwise repeatable.
 //
@@ -131,6 +133,21 @@
 // scale-unaware (Σ coef · h, written unscaled into the master's fp32
 // [V, D] gradient): under the straight-through estimator that is the
 // master rows' gradient.
+//
+// Partial mode (the TPU kernels' `include_pos=False`, the vocab-parallel
+// head's shard of the loss): the table is this shard's rows, a negative
+// the shard does not own comes clipped to local row 0 with lq = +1e30 (so
+// its corrected logit is NEG_INF and its weight 0), and p_t is the local
+// positive on its owner and -1 elsewhere, used only to mask collisions.
+// The positive never joins: the forward writes the negatives-only lse
+// (loss = lse; NEG_INF for a token with no valid column), the backward
+// reads that partial lse, writes no positive coefficient (coef has M
+// columns a token, not M + 1), starts dh at zero and never reads row p_t.
+// ln M is the global negative count `num_neg`, not the shard's M. The
+// clipped negatives are occurrences of row 0 of coefficient 0: row 0 is a
+// hot segment of about T·M·(R−1)/R entries, ordered like any other, so
+// d(table) stays bitwise repeatable; `sum_occurrences` skips the reads of
+// h for zero coefficients, which add exactly nothing (the same bits).
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -287,9 +304,10 @@ __device__ __forceinline__ void group_corr(
     float log_m, int lane, float (&corr)[JG]) {
   int64_t rid[JG];
   float acc[JG], sc[JG];
+  const int64_t dead = pid >= 0 ? pid : 0;  // partial mode: pid may be -1
 #pragma unroll
   for (int k = 0; k < JG; ++k) {
-    rid[k] = (j0 + k < M) ? id_row[j0 + k] : pid;  // dead columns: a real row
+    rid[k] = (j0 + k < M) ? id_row[j0 + k] : dead;  // dead columns: a real row
     acc[k] = 0.f;
   }
 #pragma unroll
@@ -340,6 +358,12 @@ __device__ __forceinline__ float finish_lse(float m, float l, float pos) {
   return logf(fmaxf(l_fin, 1e-30f)) + m_fin;
 }
 
+// Partial mode: the negatives-only lse from the groups' (m, l); NEG_INF
+// when no column was valid (m = NEG_INF, l = 0).
+__device__ __forceinline__ float partial_lse(float m, float l) {
+  return logf(fmaxf(l, 1e-30f)) + m;
+}
+
 // The plain-load route: one warp per token, the rows read in rounds from
 // global memory. Runs where the ring cannot (no 16-byte copies, or a stage
 // too large for shared memory).
@@ -349,14 +373,17 @@ fwd_kernel(const float* __restrict__ h, const T* __restrict__ table,
            const float* __restrict__ scale,
            const float* __restrict__ log_q, const int64_t* __restrict__ neg_ids,
            const int64_t* __restrict__ pos_ids, float* __restrict__ loss,
-           float* __restrict__ lse_out, int nT, int D, int M, float log_m) {
+           float* __restrict__ lse_out, int nT, int D, int M, float log_m,
+           int include_pos) {
   const int lane = threadIdx.x % 32;
   const int t = blockIdx.x * WARPS + threadIdx.x / 32;
   if (t >= nT) return;                      // the whole warp leaves together
   const float* hrow = h + (size_t)t * D;
   const int64_t pid = pos_ids[t];
-  const float pos = row_dot<T, VEC>(hrow, table + pid * D,
-                                    row_scale<T>(scale, pid), D, lane);
+  const float pos = include_pos
+                        ? row_dot<T, VEC>(hrow, table + pid * D,
+                                          row_scale<T>(scale, pid), D, lane)
+                        : 0.f;
   const float* lq_row = log_q + (size_t)t * M;
   const int64_t* id_row = neg_ids + (size_t)t * M;
   float m = NEG_INF, l = 0.f;
@@ -366,9 +393,9 @@ fwd_kernel(const float* __restrict__ h, const T* __restrict__ table,
                        log_m, lane, corr);
     fold_group(m, l, corr);
   }
-  const float lse = finish_lse(m, l, pos);
+  const float lse = include_pos ? finish_lse(m, l, pos) : partial_lse(m, l);
   if (lane == 0) {
-    loss[t] = lse - pos;
+    loss[t] = include_pos ? lse - pos : lse;
     lse_out[t] = lse;
   }
 }
@@ -569,7 +596,7 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
                 const int64_t* __restrict__ neg_ids,
                 const int64_t* __restrict__ pos_ids, float* __restrict__ loss,
                 float* __restrict__ lse_out, int D, int M, int ns,
-                float log_m) {
+                float log_m, int include_pos) {
   __shared__ uint64_t bar[MAX_NS + 1];      // a barrier a stage; the last:
                                             // h and the positive's row
   __shared__ int64_t pid_s;
@@ -607,20 +634,24 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
   }
   __syncthreads();
   const int64_t pid = pid_s;
-  // the first flight: h and the positive's row, then groups 0 .. ns-1
+  // the first flight: h and the positive's row (none in the partial
+  // mode), then groups 0 .. ns-1
   const int rowb = D * (int)sizeof(T);
   if constexpr (BULK) {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&bar[MAX_NS], (uint32_t)(D * 4 + rowb));
+      mbar_expect_tx(&bar[MAX_NS],
+                     (uint32_t)(D * 4 + (include_pos ? rowb : 0)));
       bulk_copy(hs, h + t * D, (uint32_t)D * 4, &bar[MAX_NS]);
-      bulk_copy(prow, table + pid * D, (uint32_t)rowb, &bar[MAX_NS]);
+      if (include_pos)
+        bulk_copy(prow, table + pid * D, (uint32_t)rowb, &bar[MAX_NS]);
       mbar_arrive(&bar[MAX_NS]);
     }
   } else {
     copy_rows<16>(reinterpret_cast<unsigned char*>(hs), 1, D / 4,
                   [&](int) { return h + t * D; });
-    copy_rows<ROUTE>(reinterpret_cast<unsigned char*>(prow), 1,
-                     rowb / ROUTE, [&](int) { return table + pid * D; });
+    if (include_pos)
+      copy_rows<ROUTE>(reinterpret_cast<unsigned char*>(prow), 1,
+                       rowb / ROUTE, [&](int) { return table + pid * D; });
     cp_async_arrive(&bar[MAX_NS]);
   }
   for (int g = 0; g < min(G, ns); ++g) {
@@ -632,11 +663,11 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
   if constexpr (kQuant<T>) {                // the scales, while rows fly
     for (int j = threadIdx.x; j < M; j += FTHREADS)
       scs[j] = __ldg(scale + ids[j]);
-    if (threadIdx.x == 0) psc_s = __ldg(scale + pid);
+    if (threadIdx.x == 0 && include_pos) psc_s = __ldg(scale + pid);
     __syncthreads();
   }
   mbar_wait(&bar[MAX_NS], 0);
-  if (warp == FW - 1) {
+  if (warp == FW - 1 && include_pos) {
     const float pos = smem_dot<T, VEC>(hs, prow, psc_s, D, lane);
     if (lane == 0) pos_s = pos;
   }
@@ -667,10 +698,10 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
       for (int k = 0; k < JG; ++k) c[k] = j0 + k < M ? corr[j0 + k] : NEG_INF;
       fold_group(m, l, c);
     }
-    const float pos = pos_s;
-    const float lse = finish_lse(m, l, pos);
+    const float pos = include_pos ? pos_s : 0.f;
+    const float lse = include_pos ? finish_lse(m, l, pos) : partial_lse(m, l);
     if (lane == 0) {
-      loss[t] = lse - pos;
+      loss[t] = include_pos ? lse - pos : lse;
       lse_out[t] = lse;
     }
   }
@@ -678,8 +709,9 @@ fwd_ring_kernel(const float* __restrict__ h, const T* __restrict__ table,
 
 // ------------------------------------------------------------- backward
 // One warp per token: the logits again (`row_dot`, `group_corr`: the
-// forward's bits), then dlq, dh and the coefficients coef [T, M+1] of the
-// d(table) sum (column M: the positive); and the count of every
+// forward's bits), then dlq, dh and the coefficients coef [T, M1] of the
+// d(table) sum (M1 = M + 1, column M the positive; M1 = M in the partial
+// mode, which has no positive column); and the count of every
 // occurrence's row, by integer atomics (the counts come out the same in
 // any order).
 template <typename T, int VEC>
@@ -691,7 +723,8 @@ bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
                 const int64_t* __restrict__ pos_ids,
                 const float* __restrict__ lse_in, float* __restrict__ dh,
                 float* __restrict__ dlq, float* __restrict__ coef,
-                int* __restrict__ cnt, int nT, int D, int M, float log_m) {
+                int* __restrict__ cnt, int nT, int D, int M, float log_m,
+                int include_pos) {
   extern __shared__ float smem[];           // [WARPS][M]: g·w_j per column
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = blockIdx.x * WARPS + warp;
@@ -699,15 +732,18 @@ bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
   float* cw = smem + (size_t)warp * M;
   const float* hrow = h + (size_t)t * D;
   const int64_t pid = pos_ids[t];
-  const T* prow = table + pid * D;
+  const int64_t dead = pid >= 0 ? pid : 0;  // a real row for dead columns
+  const int M1 = M + (include_pos ? 1 : 0);
+  const T* prow = table + dead * D;
   const float* lq_row = log_q + (size_t)t * M;
   const int64_t* id_row = neg_ids + (size_t)t * M;
-  for (int j = lane; j <= M; j += 32)
+  for (int j = lane; j < M1; j += 32)
     atomicAdd(cnt + (j < M ? id_row[j] : pid), 1);
   const float gt = g[t], lse = lse_in[t];
-  const float psc = row_scale<T>(scale, pid);
-  const float pos = row_dot<T, VEC>(hrow, prow, psc, D, lane);
-  const float cpos = gt * (expf(pos - lse) - 1.f);
+  const float psc = include_pos ? row_scale<T>(scale, pid) : 0.f;
+  const float pos =
+      include_pos ? row_dot<T, VEC>(hrow, prow, psc, D, lane) : 0.f;
+  const float cpos = include_pos ? gt * (expf(pos - lse) - 1.f) : 0.f;
   for (int j0 = 0; j0 < M; j0 += JG) {
     float corr[JG];
     group_corr<T, VEC>(hrow, table, scale, lq_row, id_row, pid, j0, M, D,
@@ -722,20 +758,26 @@ bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
           const float c = gt * w;
           cw[j] = c;
           dlq[(size_t)t * M + j] = -c;
-          coef[(size_t)t * (M + 1) + j] = c;
+          coef[(size_t)t * M1 + j] = c;
         }
       }
     }
   }
-  if (lane == 0) coef[(size_t)t * (M + 1) + M] = cpos;
+  if (lane == 0 && include_pos) coef[(size_t)t * M1 + M] = cpos;
   __syncwarp();
-  // dh: positive first, then the negatives in ascending j (rows
-  // dequantized in the quantized mode).
+  // dh: positive first (zero in the partial mode), then the negatives in
+  // ascending j (rows dequantized in the quantized mode).
   for (int base = lane * VEC; base < D; base += 32 * VEC) {
-    float acc[VEC], ev[VEC];
-    load_row<VEC>(prow + base, psc, ev);
+    float acc[VEC];
+    if (include_pos) {
+      float ev[VEC];
+      load_row<VEC>(prow + base, psc, ev);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = cpos * ev[e];
+      for (int e = 0; e < VEC; ++e) acc[e] = cpos * ev[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    }
     for (int j0 = 0; j0 < M; j0 += JG) {
       float er[JG][VEC];
       float c[JG];
@@ -743,7 +785,7 @@ bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ h,
       for (int k = 0; k < JG; ++k) {
         const bool live = j0 + k < M;
         c[k] = live ? cw[j0 + k] : 0.f;
-        const int64_t rid = live ? id_row[j0 + k] : pid;
+        const int64_t rid = live ? id_row[j0 + k] : dead;
         load_row<VEC>(table + rid * D + base, row_scale<T>(scale, rid),
                       er[k]);
       }
@@ -809,7 +851,7 @@ occ_scan_kernel(const int* __restrict__ cnt, int* __restrict__ seg, int V) {
   if (threadIdx.x == 0) seg[V] = total;
 }
 
-// Each occurrence o = t·(M+1) + j (j = M: the positive) into its row's
+// Each occurrence o = t·M1 + j (j = M: the positive) into its row's
 // segment of `order`, at a slot taken by an integer atomic: the segment
 // holds the right occurrences in an order that may change from run to run;
 // `dtab_kernel` sums them in ascending o.
@@ -817,10 +859,10 @@ __global__ void __launch_bounds__(THREADS)
 occ_place_kernel(const int64_t* __restrict__ neg_ids,
                  const int64_t* __restrict__ pos_ids, int* __restrict__ cnt,
                  const int* __restrict__ seg, int* __restrict__ order,
-                 int nocc, int M) {
+                 int nocc, int M, int M1) {
   const int o = blockIdx.x * THREADS + threadIdx.x;
   if (o >= nocc) return;
-  const int t = o / (M + 1), j = o - t * (M + 1);
+  const int t = o / M1, j = o - t * M1;
   const int64_t v = j < M ? neg_ids[(size_t)t * M + j] : pos_ids[t];
   order[seg[v] + atomicSub(cnt + v, 1) - 1] = o;
 }
@@ -832,7 +874,13 @@ constexpr int PIECE = 64;                   // ranks per warp of a long segment
 constexpr int BM_WORDS = 4096;              // the bitmap window: 131 072 bits
 
 // acc += Σ coef[o] · h[o / M1][base ..] over o = occ[p], p in [p0, p1), in
-// ascending p: one FMA chain per element.
+// ascending p: one FMA chain per element. An occurrence of weight 0 (a
+// masked collision, or a negative another vocab shard owns, clipped to
+// row 0) is skipped without reading its h: fmaf(±0, h, acc) == acc for a
+// finite h, as acc starts at +0 and a sum in round-to-nearest never
+// becomes −0, so the bits are those of the full chain. This keeps the
+// partial mode's row 0, a segment of about T·M·(R−1)/R such entries, from
+// reading a row of h for each.
 template <int VEC>
 __device__ __forceinline__ void sum_occurrences(
     const int* occ, int p0, int p1, const float* __restrict__ coef,
@@ -840,6 +888,7 @@ __device__ __forceinline__ void sum_occurrences(
   for (int p = p0; p < p1; ++p) {
     const int o = occ[p];
     const float c = coef[o];
+    if (c == 0.f) continue;
     float hv[VEC];
     load<VEC>(h + (size_t)(o / M1) * D + base, hv);
 #pragma unroll
@@ -923,6 +972,24 @@ dtab_kernel(const float* __restrict__ h, const float* __restrict__ coef,
     const int pieces = min(DT_WARPS, (len + PIECE - 1) / PIECE);
     const int run = (len + pieces - 1) / pieces;
     const int r0 = warp * run, r1 = min(len, r0 + run);
+    // each warp compacts its run in place to the occurrences of nonzero
+    // weight, in rank order (a ballot a 32-entry chunk): the zero-weight
+    // ones add nothing (`sum_occurrences`), and the run's bounds stay
+    // those of the full segment, so the bits are unchanged; the column
+    // loop below then reads no index or weight of a zero occurrence.
+    int kept = 0;
+    if (warp < pieces) {
+      int* mine = sorted + o0 + r0;
+      for (int b = 0; b < r1 - r0; b += 32) {
+        const int p = b + lane;
+        const int o = p < r1 - r0 ? mine[p] : 0;
+        const bool nz = p < r1 - r0 && coef[o] != 0.f;
+        const unsigned mask = __ballot_sync(0xffffffffu, nz);
+        if (nz) mine[kept + __popc(mask & ((1u << lane) - 1u))] = o;
+        kept += __popc(mask);
+      }
+      __syncwarp();
+    }
     for (int db = 0; db < D; db += 32 * VEC) {
       if (warp < pieces) {
         const int base = db + lane * VEC;
@@ -930,8 +997,8 @@ dtab_kernel(const float* __restrict__ h, const float* __restrict__ coef,
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
         if (base < D) {
-          sum_occurrences<VEC>(sorted + o0, r0, r1, coef, h, D, M1, base,
-                               acc);
+          sum_occurrences<VEC>(sorted + o0 + r0, 0, kept, coef, h, D, M1,
+                               base, acc);
         }
 #pragma unroll
         for (int e = 0; e < VEC; ++e) part[warp][lane * VEC + e] = acc[e];
@@ -953,7 +1020,12 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-float log_num_neg(int M) { return (float)log((double)(M > 0 ? M : 1)); }
+// ln of the correction's negative count: `num_neg` (the global M of the
+// partial mode) where given (> 0), else M.
+float log_num_neg(int M, int num_neg = 0) {
+  const int n = num_neg > 0 ? num_neg : M;
+  return (float)log((double)(n > 0 ? n : 1));
+}
 
 // The ring's stage count for (D, M): all of a token's groups where they fit
 // in RING_BUDGET (at most MAX_NS), else as many as fit, at least one; 0
@@ -970,7 +1042,7 @@ template <typename T, int VEC, int ROUTE>
 int ring(const float* h, const void* table, const float* scale,
          const float* log_q, const int64_t* neg_ids, const int64_t* pos_ids,
          float* loss, float* lse, int nT, int D, int M, int ns, float log_m,
-         size_t smem, cudaStream_t stream) {
+         int include_pos, size_t smem, cudaStream_t stream) {
   static size_t smem_set = 48 * 1024;       // the attribute, raised once
   if (smem > smem_set) {
     const int err =
@@ -980,7 +1052,7 @@ int ring(const float* h, const void* table, const float* scale,
   }
   fwd_ring_kernel<T, VEC, ROUTE><<<nT, FTHREADS, smem, stream>>>(
       h, static_cast<const T*>(table), scale, log_q, neg_ids, pos_ids, loss,
-      lse, D, M, ns, log_m);
+      lse, D, M, ns, log_m, include_pos);
   return (int)cudaGetLastError();
 }
 
@@ -995,8 +1067,9 @@ inline int ring_route(size_t rowb) {
 template <typename T, int VEC>
 int fwd(const float* h, const void* table, const float* scale,
         const float* log_q, const int64_t* neg_ids, const int64_t* pos_ids,
-        float* loss, float* lse, int nT, int D, int M, cudaStream_t stream) {
-  const float log_m = log_num_neg(M);
+        float* loss, float* lse, int nT, int D, int M, int include_pos,
+        int num_neg, cudaStream_t stream) {
+  const float log_m = log_num_neg(M, num_neg);
   if constexpr (VEC > 1) {
     const int ns = ring_stages<T>(D, M);
     if (ns > 0) {
@@ -1005,16 +1078,16 @@ int fwd(const float* h, const void* table, const float* scale,
         case ROUTE_BULK:
           return ring<T, VEC, ROUTE_BULK>(h, table, scale, log_q, neg_ids,
                                           pos_ids, loss, lse, nT, D, M, ns,
-                                          log_m, smem, stream);
+                                          log_m, include_pos, smem, stream);
         case 16:
           return ring<T, VEC, 16>(h, table, scale, log_q, neg_ids, pos_ids,
-                                  loss, lse, nT, D, M, ns, log_m, smem,
-                                  stream);
+                                  loss, lse, nT, D, M, ns, log_m,
+                                  include_pos, smem, stream);
         default:
           if constexpr (kQuant<T>) {
             return ring<T, VEC, 8>(h, table, scale, log_q, neg_ids, pos_ids,
-                                   loss, lse, nT, D, M, ns, log_m, smem,
-                                   stream);
+                                   loss, lse, nT, D, M, ns, log_m,
+                                   include_pos, smem, stream);
           }
           break;
       }
@@ -1022,7 +1095,7 @@ int fwd(const float* h, const void* table, const float* scale,
   }
   fwd_kernel<T, VEC><<<(nT + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
       h, static_cast<const T*>(table), scale, log_q, neg_ids, pos_ids, loss,
-      lse, nT, D, M, log_m);
+      lse, nT, D, M, log_m, include_pos);
   return (int)cudaGetLastError();
 }
 
@@ -1030,14 +1103,15 @@ template <typename T, int VEC>
 int bwd_rows(const float* g, const float* h, const void* table,
              const float* scale, const float* log_q, const int64_t* neg_ids,
              const int64_t* pos_ids, const float* lse, float* dh, float* dlq,
-             float* coef, int* cnt, int nT, int D, int M,
-             cudaStream_t stream) {
+             float* coef, int* cnt, int nT, int D, int M, int include_pos,
+             int num_neg, cudaStream_t stream) {
   const size_t smem = (size_t)WARPS * M * sizeof(float);
   const int err = set_smem((const void*)bwd_rows_kernel<T, VEC>, smem);
   if (err) return err;
   bwd_rows_kernel<T, VEC><<<(nT + WARPS - 1) / WARPS, THREADS, smem, stream>>>(
       g, h, static_cast<const T*>(table), scale, log_q, neg_ids, pos_ids,
-      lse, dh, dlq, coef, cnt, nT, D, M, log_num_neg(M));
+      lse, dh, dlq, coef, cnt, nT, D, M, log_num_neg(M, num_neg),
+      include_pos);
   return (int)cudaGetLastError();
 }
 
@@ -1052,12 +1126,12 @@ struct FwdCall {
   const float *scale, *log_q;
   const int64_t *neg_ids, *pos_ids;
   float *loss, *lse;
-  int nT, D, M;
+  int nT, D, M, include_pos, num_neg;
   cudaStream_t s;
   template <typename T, int VEC>
   int operator()() const {
     return fwd<T, VEC>(h, table, scale, log_q, neg_ids, pos_ids, loss, lse,
-                       nT, D, M, s);
+                       nT, D, M, include_pos, num_neg, s);
   }
 };
 
@@ -1069,12 +1143,13 @@ struct BwdRowsCall {
   const float* lse;
   float *dh, *dlq, *coef;
   int* cnt;
-  int nT, D, M;
+  int nT, D, M, include_pos, num_neg;
   cudaStream_t s;
   template <typename T, int VEC>
   int operator()() const {
     return bwd_rows<T, VEC>(g, h, table, scale, log_q, neg_ids, pos_ids, lse,
-                            dh, dlq, coef, cnt, nT, D, M, s);
+                            dh, dlq, coef, cnt, nT, D, M, include_pos,
+                            num_neg, s);
   }
 };
 
@@ -1106,7 +1181,10 @@ extern "C" int sampled_ce_pt_max_m() { return MAX_M; }
 // table_kind: 0 = fp32, 1 = bf16, 2 = int8, 3 = fp8-e4m3 table; the last
 // two are the quantized mode, `scale` the [V] fp32 row scales (null
 // else). vec: 1 = vector loads (D a multiple of 4 (fp32) or 8 (the
-// others) and 16-byte aligned rows).
+// others) and 16-byte aligned rows). include_pos: 1 = the full loss, 0 =
+// the partial mode (pos_ids local or -1, only masking collisions; loss =
+// lse = the negatives-only lse). num_neg: the M of ln(M·q), 0 for this
+// call's M.
 extern "C" int sampled_ce_pt_fwd_launch(const float* h, const void* table,
                                         const float* scale,
                                         const float* log_q,
@@ -1114,36 +1192,42 @@ extern "C" int sampled_ce_pt_fwd_launch(const float* h, const void* table,
                                         const int64_t* pos_ids, float* loss,
                                         float* lse, int nT, int D, int M,
                                         int table_kind, int vec,
+                                        int include_pos, int num_neg,
                                         void* stream) {
   if (nT < 0 || D < 1 || M < 0 || M > MAX_M || table_kind < K_F32 ||
-      table_kind > K_FP8 || (table_kind >= K_I8) != (scale != nullptr)) {
+      table_kind > K_FP8 || (table_kind >= K_I8) != (scale != nullptr) ||
+      num_neg < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (nT == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return by_table(table_kind, vec,
                   FwdCall{h, table, scale, log_q, neg_ids, pos_ids, loss, lse,
-                          nT, D, M, s});
+                          nT, D, M, include_pos ? 1 : 0, num_neg, s});
 }
 
 // The backward in one call: a memset and four kernels on `stream`, nothing
-// allocated, nothing waited for. ws: 4 * (3 * T(M+1) + 2 * V + 1) bytes,
-// 4-byte aligned: coef [T(M+1)] fp32, the row counts cnt [V], the segment
-// offsets seg [V+1], the placed occurrences order [T(M+1)] and the sorted
-// long segments sorted [T(M+1)], int32. table_kind and scale as the
-// forward's. vec: vectors over h, the table and dh. vec_tab: 16-byte
-// vectors over h and dtab (D % 4 == 0, aligned). Returns
-// cudaGetLastError() after the launches (0 on success).
+// allocated, nothing waited for. With M1 = M + 1 (M in the partial mode,
+// include_pos = 0), ws: 4 * (3 * T·M1 + 2 * V + 1) bytes, 4-byte aligned:
+// coef [T·M1] fp32, the row counts cnt [V], the segment offsets seg
+// [V+1], the placed occurrences order [T·M1] and the sorted long segments
+// sorted [T·M1], int32. table_kind, scale, include_pos and num_neg as the
+// forward's; in the partial mode lse is the forward's partial lse. vec:
+// vectors over h, the table and dh. vec_tab: 16-byte vectors over h and
+// dtab (D % 4 == 0, aligned). Returns cudaGetLastError() after the
+// launches (0 on success).
 extern "C" int sampled_ce_pt_bwd_launch(
     const float* g, const float* h, const void* table, const float* scale,
     const float* log_q, const int64_t* neg_ids, const int64_t* pos_ids,
     const float* lse, float* dh, float* dlq, float* dtab, void* ws, int nT,
     int D, int M, int V, int table_kind, int vec, int vec_tab,
-    void* stream) {
-  const long long nocc = (long long)nT * (M + 1);
+    int include_pos, int num_neg, void* stream) {
+  include_pos = include_pos ? 1 : 0;
+  const int M1 = M + include_pos;
+  const long long nocc = (long long)nT * M1;
   if (nT < 0 || D < 1 || M < 0 || M > MAX_M || V < 1 || nocc >= (1LL << 31) ||
       table_kind < K_F32 || table_kind > K_FP8 ||
-      (table_kind >= K_I8) != (scale != nullptr)) {
+      (table_kind >= K_I8) != (scale != nullptr) || num_neg < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (nT == 0) return 0;
@@ -1158,18 +1242,20 @@ extern "C" int sampled_ce_pt_bwd_launch(
   const int err = by_table(table_kind, vec,
                            BwdRowsCall{g, h, table, scale, log_q, neg_ids,
                                        pos_ids, lse, dh, dlq, coef, cnt, nT,
-                                       D, M, s});
+                                       D, M, include_pos, num_neg, s});
   if (err) return err;
   occ_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(cnt, seg, V);
-  occ_place_kernel<<<(unsigned)((nocc + THREADS - 1) / THREADS), THREADS, 0,
-                     s>>>(neg_ids, pos_ids, cnt, seg, order, (int)nocc, M);
+  if (nocc > 0)
+    occ_place_kernel<<<(unsigned)((nocc + THREADS - 1) / THREADS), THREADS,
+                       0, s>>>(neg_ids, pos_ids, cnt, seg, order, (int)nocc,
+                               M, M1);
   const dim3 grid((V + DT_WARPS - 1) / DT_WARPS);
   if (vec_tab) {
     dtab_kernel<4><<<grid, DT_THREADS, 0, s>>>(h, coef, order, seg, sorted,
-                                               dtab, V, D, M + 1, (int)nocc);
+                                               dtab, V, D, M1, (int)nocc);
   } else {
     dtab_kernel<1><<<grid, DT_THREADS, 0, s>>>(h, coef, order, seg, sorted,
-                                               dtab, V, D, M + 1, (int)nocc);
+                                               dtab, V, D, M1, (int)nocc);
   }
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,16 @@ kernels), and d(table) / dpe / dne scale-unaware, the master rows'
 straight-through gradients. `quant_launches[fmt]` counts each wrapper's
 launches in that mode.
 
+All four kernels also have the partial mode of the vocab-parallel head,
+the TPU kernels' `include_pos=False` (`include_pos=False, num_neg=M` on
+the wrappers): the table (or the gathered rows) is one shard's, the
+positive id is local on its owner and -1 elsewhere and only masks
+collisions, the forward returns the negatives-only lse (loss = lse), the
+backward takes it and has no positive term (no positive scatter into
+d(table), dh from zero, no dpe), and ln(M·q) uses the global M,
+`num_neg`. `partial_launches[fmt]` counts each wrapper's launches in that
+mode, by row format ("float": fp32 or bf16 rows, "int8", "fp8").
+
 The per-token backward is one C call over one workspace: a per-token
 kernel (dh, dlq, the per-occurrence coefficients and the rows' occurrence
 counts), the segment offsets and the placement of each occurrence in its
@@ -53,8 +63,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.sampled_ce_pt_fwd_launch.argtypes = [_P] * 8 + [_I] * 5 + [_P]
-    lib.sampled_ce_pt_bwd_launch.argtypes = [_P] * 12 + [_I] * 7 + [_P]
+    lib.sampled_ce_pt_fwd_launch.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+    lib.sampled_ce_pt_bwd_launch.argtypes = [_P] * 12 + [_I] * 9 + [_P]
     for fn in (lib.sampled_ce_pt_fwd_launch, lib.sampled_ce_pt_bwd_launch,
                lib.sampled_ce_pt_max_m):
         fn.restype = ctypes.c_int
@@ -77,11 +87,25 @@ _TABLE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 _Q_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 
-def _count(fn, table: torch.Tensor) -> None:
-    """One launch of `fn`, and of its quantized mode by format."""
+def _count(fn, table: torch.Tensor, include_pos: bool = True) -> None:
+    """One launch of `fn`, of its quantized mode by format, and of its
+    partial mode by row format."""
     fn.launches += 1
-    if table.dtype in _Q_NAMES:
-        fn.quant_launches[_Q_NAMES[table.dtype]] += 1
+    fmt = _Q_NAMES.get(table.dtype)
+    if fmt is not None:
+        fn.quant_launches[fmt] += 1
+    if not include_pos:
+        fn.partial_launches[fmt or "float"] += 1
+
+
+def _num_neg(num_neg, m: int) -> int:
+    """The C calls' num_neg: the global M of the partial mode, 0 (this
+    call's M) where not given."""
+    if num_neg is None:
+        return 0
+    if num_neg < 1:
+        raise ValueError(f"num_neg must be >= 1, got {num_neg}")
+    return int(num_neg)
 
 
 def _check(hidden, table, scale, log_q, neg_ids, pos_ids, *extra):
@@ -148,14 +172,17 @@ def _raise(err: int, what: str) -> None:
 
 def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
                        log_q: torch.Tensor, neg_ids: torch.Tensor,
-                       pos_ids: torch.Tensor, scale=None):
+                       pos_ids: torch.Tensor, scale=None, *,
+                       include_pos: bool = True, num_neg=None):
     """Forward: hidden [T, D] fp32, table [V, D] fp32/bf16 (or, with
     `scale` [V, 1] fp32, the quantized mode's int8 / fp8-e4m3), log_q
-    [T, M] fp32, neg_ids [T, M] / pos_ids [T] int64 (ids in [0, V)),
-    contiguous, on one CUDA device -> (loss [T], lse [T]) fp32, two rows
-    of one allocation. Adds one to `sampled_ce_pt_cuda.launches` per
-    launch (one C call, one CUDA kernel), and, in the quantized mode, to
-    `quant_launches[fmt]`."""
+    [T, M] fp32, neg_ids [T, M] / pos_ids [T] int64 (ids in [0, V);
+    pos_ids -1 allowed in the partial mode), contiguous, on one CUDA
+    device -> (loss [T], lse [T]) fp32, two rows of one allocation;
+    include_pos=False: the partial mode, loss = lse = the negatives-only
+    lse, ln M from `num_neg`. Adds one to `sampled_ce_pt_cuda.launches`
+    per launch (one C call, one CUDA kernel), and, in the quantized and
+    partial modes, to `quant_launches[fmt]` and `partial_launches[fmt]`."""
     lib, t, d, m = _check(hidden, table, scale, log_q, neg_ids, pos_ids)
     out = torch.empty((2, t), dtype=torch.float32, device=hidden.device)
     loss, lse = out.unbind(0)
@@ -168,6 +195,7 @@ def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
             None if scale is None else scale.data_ptr(), log_q.data_ptr(),
             neg_ids.data_ptr(), pos_ids.data_ptr(), op, op + 4 * t, t, d, m,
             _TABLE_KIND[table.dtype], _vec(d, elems, hidden, table),
+            int(include_pos), _num_neg(num_neg, m),
             # the current stream's handle, without building a Stream object
             torch._C._cuda_getCurrentRawStream(dev))
     if dev == torch.cuda.current_device():
@@ -176,28 +204,32 @@ def sampled_ce_pt_cuda(hidden: torch.Tensor, table: torch.Tensor,
         with torch.cuda.device(dev):
             err = lib.sampled_ce_pt_fwd_launch(*args)
     _raise(err, "sampled_ce_pt")
-    _count(sampled_ce_pt_cuda, table)
+    _count(sampled_ce_pt_cuda, table, include_pos)
     return loss, lse
 
 
 sampled_ce_pt_cuda.launches = 0
 sampled_ce_pt_cuda.quant_launches = {"int8": 0, "fp8": 0}
+sampled_ce_pt_cuda.partial_launches = {"float": 0, "int8": 0, "fp8": 0}
 
 
 def sampled_ce_pt_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
                            table: torch.Tensor, log_q: torch.Tensor,
                            neg_ids: torch.Tensor, pos_ids: torch.Tensor,
-                           lse: torch.Tensor, scale=None):
+                           lse: torch.Tensor, scale=None, *,
+                           include_pos: bool = True, num_neg=None):
     """Backward from the forward's lse: g/lse [T] fp32, the rest as the
     forward -> (dh [T, D], dtab [V, D], dlq [T, M]), all fp32; in the
-    quantized mode dtab is scale-unaware (the master's gradient).
+    quantized mode dtab is scale-unaware (the master's gradient); in the
+    partial mode (include_pos=False, lse the partial lse) no positive term.
     Adds one to `sampled_ce_pt_bwd_cuda.launches` per backward (its memset
     and four kernels launch together, in one C call), and, in the
-    quantized mode, to `quant_launches[fmt]`."""
+    quantized and partial modes, to `quant_launches[fmt]` and
+    `partial_launches[fmt]`."""
     lib, t, d, m = _check(hidden, table, scale, log_q, neg_ids, pos_ids, g,
                           lse)
     dev = hidden.device
-    v, nocc = table.shape[0], t * (m + 1)
+    v, nocc = table.shape[0], t * (m + int(include_pos))
     if nocc >= 2**31:
         raise ValueError(f"sampled_ce_pt_bwd_cuda: T·(M+1) must stay below "
                          f"2^31, got T={t} M={m}")
@@ -221,21 +253,22 @@ def sampled_ce_pt_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
             lse.data_ptr(), dh.data_ptr(), dlq.data_ptr(), dtab.data_ptr(),
             work.data_ptr(), t, d, m, v, _TABLE_KIND[table.dtype],
             _vec(d, elems, hidden, table, dh),
-            _vec(d, 4, hidden, dtab),
+            _vec(d, 4, hidden, dtab), int(include_pos), _num_neg(num_neg, m),
             torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce_pt_bwd")
-    _count(sampled_ce_pt_bwd_cuda, table)
+    _count(sampled_ce_pt_bwd_cuda, table, include_pos)
     return dh, dtab, dlq
 
 
 sampled_ce_pt_bwd_cuda.launches = 0
 sampled_ce_pt_bwd_cuda.quant_launches = {"int8": 0, "fp8": 0}
+sampled_ce_pt_bwd_cuda.partial_launches = {"float": 0, "int8": 0, "fp8": 0}
 
 
 # ------------------------------------------------------ shared negatives
 def _declare_shared(lib: ctypes.CDLL) -> None:
-    lib.sampled_ce_fwd_launch.argtypes = [_P] * 12 + [_I] * 6 + [_P]
-    lib.sampled_ce_bwd_launch.argtypes = [_P] * 16 + [_I] * 6 + [_P]
+    lib.sampled_ce_fwd_launch.argtypes = [_P] * 12 + [_I] * 8 + [_P]
+    lib.sampled_ce_bwd_launch.argtypes = [_P] * 16 + [_I] * 8 + [_P]
     lib.sampled_ce_fwd_launch.restype = ctypes.c_int
     lib.sampled_ce_bwd_launch.restype = ctypes.c_int
 
@@ -255,23 +288,25 @@ def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra,
     """Raises on what the shared-negative kernels do not take; returns
     (B, S, M, D). extra: the backward's g and lse [B, S] fp32. scales: the
     quantized mode's (pos_scale [B, S, 1], neg_scale [B, M, 1]) fp32 of
-    int8 / fp8 rows, or ()."""
+    int8 / fp8 rows, or (). The partial mode has no positive rows: pos_emb
+    None, and pos_scale None in its quantized mode."""
     quant = bool(scales)
-    tensors = (hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra,
-               *scales)
-    if not all(x.is_cuda and x.device == hidden.device for x in tensors):
+    given = [x for x in (hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
+                         *extra, *scales) if x is not None]
+    if not all(x.is_cuda and x.device == hidden.device for x in given):
         raise ValueError("sampled_ce_cuda: every operand must be on "
                          "hidden's CUDA device")
-    if not all(x.is_contiguous() for x in tensors):
+    if not all(x.is_contiguous() for x in given):
         raise ValueError("sampled_ce_cuda: operands must be contiguous")
-    if pos_emb.dtype not in (_Q_VEC_ELEMS if quant else _VEC_ELEMS) \
-            or neg_emb.dtype != pos_emb.dtype:
+    rows = [x for x in (pos_emb, neg_emb) if x is not None]
+    if neg_emb.dtype not in (_Q_VEC_ELEMS if quant else _VEC_ELEMS) \
+            or any(x.dtype != neg_emb.dtype for x in rows):
         raise ValueError(f"sampled_ce_cuda: pos_emb and neg_emb must be both "
                          f"fp32 or both bf16, or both int8 / fp8-e4m3 with "
-                         f"scales; got {pos_emb.dtype} and {neg_emb.dtype} "
-                         f"with scales={quant}")
-    if not all(x.dtype == torch.float32
-               for x in (hidden, log_q, *extra, *scales)):
+                         f"scales; got {[x.dtype for x in rows]} with "
+                         f"scales={quant}")
+    if not all(x.dtype == torch.float32 for x in (hidden, log_q, *extra,
+                                                  *scales) if x is not None):
         raise ValueError("sampled_ce_cuda: hidden, log_q, g, lse and the "
                          "scales must be fp32")
     if neg_ids.dtype != torch.int64 or pos_ids.dtype != torch.int64:
@@ -282,25 +317,33 @@ def _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids, *extra,
                          f"{tuple(neg_emb.shape)}")
     b, s, d = hidden.shape
     m = neg_emb.shape[1]
-    if (tuple(pos_emb.shape) != (b, s, d) or tuple(neg_emb.shape) != (b, m, d)
+    if ((pos_emb is not None and tuple(pos_emb.shape) != (b, s, d))
+            or tuple(neg_emb.shape) != (b, m, d)
             or tuple(log_q.shape) != (b, m) or tuple(neg_ids.shape) != (b, m)
             or tuple(pos_ids.shape) != (b, s)
             or any(tuple(x.shape) != (b, s) for x in extra)
-            or (quant and (scales[0].numel() != b * s
+            or (quant and ((scales[0] is not None
+                            and scales[0].numel() != b * s)
                            or scales[1].numel() != b * m))):
         raise ValueError(f"sampled_ce_cuda: bad shapes hidden"
                          f"{tuple(hidden.shape)} pos_emb"
-                         f"{tuple(pos_emb.shape)} neg_emb"
-                         f"{tuple(neg_emb.shape)} log_q{tuple(log_q.shape)} "
-                         f"neg_ids{tuple(neg_ids.shape)} "
-                         f"pos_ids{tuple(pos_ids.shape)}")
+                         f"{None if pos_emb is None else tuple(pos_emb.shape)}"
+                         f" neg_emb{tuple(neg_emb.shape)} log_q"
+                         f"{tuple(log_q.shape)} neg_ids"
+                         f"{tuple(neg_ids.shape)} pos_ids"
+                         f"{tuple(pos_ids.shape)}")
     if d < 1 or m < 1 or b > 65535:
         raise ValueError(f"sampled_ce_cuda takes D >= 1, M >= 1 and "
                          f"B <= 65535, got D={d} M={m} B={b}")
     return b, s, m, d
 
 
-def _scales(pos_scale, neg_scale):
+def _scales(pos_scale, neg_scale, include_pos: bool = True):
+    if not include_pos:
+        if pos_scale is not None:
+            raise ValueError("sampled_ce_cuda: the partial mode takes no "
+                             "positive rows or scales")
+        return () if neg_scale is None else (None, neg_scale)
     if (pos_scale is None) != (neg_scale is None):
         raise ValueError("sampled_ce_cuda: give both scales or neither")
     return () if pos_scale is None else (pos_scale, neg_scale)
@@ -310,19 +353,25 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def sampled_ce_cuda(hidden: torch.Tensor, pos_emb: torch.Tensor,
-                    neg_emb: torch.Tensor, log_q: torch.Tensor,
-                    neg_ids: torch.Tensor, pos_ids: torch.Tensor,
-                    pos_scale=None, neg_scale=None):
+def sampled_ce_cuda(hidden: torch.Tensor, pos_emb, neg_emb: torch.Tensor,
+                    log_q: torch.Tensor, neg_ids: torch.Tensor,
+                    pos_ids: torch.Tensor, pos_scale=None, neg_scale=None,
+                    *, include_pos: bool = True, num_neg=None):
     """Forward: hidden [B, S, D] fp32, pos_emb [B, S, D] and neg_emb
     [B, M, D] both fp32 or both bf16 (or, with pos_scale [B, S, 1] and
     neg_scale [B, M, 1] fp32, the quantized mode's gathered int8 / fp8-e4m3
     rows), log_q [B, M] fp32, neg_ids [B, M] / pos_ids [B, S] int64,
-    contiguous, on one CUDA device -> (loss [B, S], lse [B, S]) fp32. Adds
-    one to `sampled_ce_cuda.launches` per forward (its two kernels, the
-    partials and their merge, launch together), and, in the quantized
-    mode, to `quant_launches[fmt]`."""
-    scales = _scales(pos_scale, neg_scale)
+    contiguous, on one CUDA device -> (loss [B, S], lse [B, S]) fp32;
+    include_pos=False: the partial mode (pos_emb and pos_scale None,
+    pos_ids local or -1, loss = lse = the negatives-only lse, ln M from
+    `num_neg`). Adds one to `sampled_ce_cuda.launches` per forward (its two
+    kernels, the partials and their merge, launch together), and, in the
+    quantized and partial modes, to `quant_launches[fmt]` and
+    `partial_launches[fmt]`."""
+    scales = _scales(pos_scale, neg_scale, include_pos)
+    if include_pos == (pos_emb is None):
+        raise ValueError("sampled_ce_cuda: pos_emb is given in the full "
+                         "mode and None in the partial mode")
     b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
                                pos_ids, scales=scales)
     lib = SHARED_LIBRARY.load()
@@ -338,42 +387,49 @@ def sampled_ce_cuda(hidden: torch.Tensor, pos_emb: torch.Tensor,
                        device=dev)
     part = work.data_ptr()
     pos = part + 8 * b * s * nt
-    vec = _vec(d, _SHARED_VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
+    rows = (hidden, neg_emb) if pos_emb is None else (hidden, pos_emb,
+                                                        neg_emb)
+    vec = _vec(d, _SHARED_VEC_ELEMS[neg_emb.dtype], *rows)
     with torch.cuda.device(dev):
         err = lib.sampled_ce_fwd_launch(
-            hidden.data_ptr(), pos_emb.data_ptr(), neg_emb.data_ptr(),
+            hidden.data_ptr(), _ptr(pos_emb), neg_emb.data_ptr(),
             _ptr(pos_scale), _ptr(neg_scale),
             log_q.data_ptr(), neg_ids.data_ptr(), pos_ids.data_ptr(),
             loss.data_ptr(), lse.data_ptr(), part, pos, b, s, m, d,
-            _TABLE_KIND[pos_emb.dtype], vec,
-            torch.cuda.current_stream().cuda_stream)
+            _TABLE_KIND[neg_emb.dtype], vec, int(include_pos),
+            _num_neg(num_neg, m), torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce")
-    _count(sampled_ce_cuda, pos_emb)
+    _count(sampled_ce_cuda, neg_emb, include_pos)
     return loss, lse
 
 
 sampled_ce_cuda.launches = 0
 sampled_ce_cuda.quant_launches = {"int8": 0, "fp8": 0}
+sampled_ce_cuda.partial_launches = {"float": 0, "int8": 0, "fp8": 0}
 
 
-def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
-                        pos_emb: torch.Tensor, neg_emb: torch.Tensor,
-                        log_q: torch.Tensor, neg_ids: torch.Tensor,
-                        pos_ids: torch.Tensor, lse: torch.Tensor,
-                        pos_scale=None, neg_scale=None):
+def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor, pos_emb,
+                        neg_emb: torch.Tensor, log_q: torch.Tensor,
+                        neg_ids: torch.Tensor, pos_ids: torch.Tensor,
+                        lse: torch.Tensor, pos_scale=None, neg_scale=None,
+                        *, include_pos: bool = True, num_neg=None):
     """Backward from the forward's lse: g/lse [B, S] fp32, the rest as the
     forward -> (dh, dpe [B, S, D], dne [B, M, D], dlq [B, M]), all fp32;
-    dpe and dne scale-unaware in the quantized mode. Adds one to
+    dpe and dne scale-unaware in the quantized mode; in the partial mode
+    (lse the partial lse) dpe is None. Adds one to
     `sampled_ce_bwd_cuda.launches` per backward (its three kernels, W,
-    dh/dpe and dne/dlq, launch together), and, in the quantized mode, to
-    `quant_launches[fmt]`."""
-    scales = _scales(pos_scale, neg_scale)
+    dh/dpe and dne/dlq, launch together), and, in the quantized and
+    partial modes, to `quant_launches[fmt]` and `partial_launches[fmt]`."""
+    scales = _scales(pos_scale, neg_scale, include_pos)
+    if include_pos == (pos_emb is None):
+        raise ValueError("sampled_ce_bwd_cuda: pos_emb is given in the full "
+                         "mode and None in the partial mode")
     b, s, m, d = _check_shared(hidden, pos_emb, neg_emb, log_q, neg_ids,
                                pos_ids, g, lse, scales=scales)
     lib = SHARED_LIBRARY.load()
     dev = hidden.device
     dh = torch.empty((b, s, d), dtype=torch.float32, device=dev)
-    dpe = torch.empty_like(dh)
+    dpe = torch.empty_like(dh) if include_pos else None
     dne = torch.empty((b, m, d), dtype=torch.float32, device=dev)
     dlq = torch.empty((b, m), dtype=torch.float32, device=dev)
     if b == 0:
@@ -385,20 +441,23 @@ def sampled_ce_bwd_cuda(g: torch.Tensor, hidden: torch.Tensor,
     work = torch.empty(b * sp * mp + b * s, dtype=torch.float32, device=dev)
     w = work.data_ptr()
     coef = w + 4 * b * sp * mp
-    vec = _vec(d, _SHARED_VEC_ELEMS[pos_emb.dtype], hidden, pos_emb, neg_emb)
+    rows = (hidden, neg_emb) if pos_emb is None else (hidden, pos_emb,
+                                                        neg_emb)
+    vec = _vec(d, _SHARED_VEC_ELEMS[neg_emb.dtype], *rows)
     with torch.cuda.device(dev):
         err = lib.sampled_ce_bwd_launch(
-            g.data_ptr(), hidden.data_ptr(), pos_emb.data_ptr(),
+            g.data_ptr(), hidden.data_ptr(), _ptr(pos_emb),
             neg_emb.data_ptr(), _ptr(pos_scale), _ptr(neg_scale),
             log_q.data_ptr(), neg_ids.data_ptr(),
             pos_ids.data_ptr(), lse.data_ptr(), dh.data_ptr(),
-            dpe.data_ptr(), dne.data_ptr(), dlq.data_ptr(), w, coef, b, s, m,
-            d, _TABLE_KIND[pos_emb.dtype], vec,
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(dpe), dne.data_ptr(), dlq.data_ptr(), w, coef, b, s, m,
+            d, _TABLE_KIND[neg_emb.dtype], vec, int(include_pos),
+            _num_neg(num_neg, m), torch.cuda.current_stream().cuda_stream)
     _raise(err, "sampled_ce_bwd")
-    _count(sampled_ce_bwd_cuda, pos_emb)
+    _count(sampled_ce_bwd_cuda, neg_emb, include_pos)
     return dh, dpe, dne, dlq
 
 
 sampled_ce_bwd_cuda.launches = 0
 sampled_ce_bwd_cuda.quant_launches = {"int8": 0, "fp8": 0}
+sampled_ce_bwd_cuda.partial_launches = {"float": 0, "int8": 0, "fp8": 0}

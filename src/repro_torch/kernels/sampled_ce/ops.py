@@ -180,3 +180,156 @@ def sampled_ce_q_op(hidden: torch.Tensor, pos_emb: torch.Tensor,
         pos_scale.float().contiguous(), neg_q.contiguous(),
         neg_scale.float().contiguous(), log_q.float().contiguous(),
         neg_ids.long().contiguous(), pos_ids.long().contiguous())
+
+
+# ------------------------------------------------------------ partial mode
+# Mirrors the reference's partial ops (`ops.py:93-208`, `:211-245` and
+# `:287-322`: `sampled_ce_partial_op`, `sampled_ce_pt_partial_op`,
+# `sampled_ce_pt_q_partial_op`, `sampled_ce_q_partial_op`): each returns a
+# vocab shard's partial lse [T] (or [B, S]) and saves it; its backward runs
+# the kernels' partial mode, whose weights are exp(corr − partial), and the
+# cross-shard merge (`core.sampled_softmax.merge_sampled_softmax_loss`)
+# supplies the cotangent exp(partial − lse), so the chain rule gives the
+# global softmax weights. `num_neg` is the global M. The shared twins take
+# no positive rows (the reference passes zeros and gets a zero dpe back).
+
+class SampledCEPerTokenPartialFn(torch.autograd.Function):
+    """(hidden [T,D], table [rows,D], log_q [T,M], neg_ids, pos_ids,
+    num_neg) -> partial lse [T]. Gradients: hidden, table and log_q."""
+
+    @staticmethod
+    def forward(ctx, hidden, table, log_q, neg_ids, pos_ids, num_neg):
+        lse = dispatch.sampled_ce_pt_partial(hidden, table, log_q, neg_ids,
+                                             pos_ids, num_neg)
+        ctx.save_for_backward(hidden, table, log_q, neg_ids, pos_ids, lse)
+        ctx.num_neg = num_neg
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, table, log_q, neg_ids, pos_ids, lse = ctx.saved_tensors
+        dh, dtab, dlq = dispatch.sampled_ce_pt_partial_bwd(
+            g.float().contiguous(), hidden, table, log_q, neg_ids, pos_ids,
+            lse, ctx.num_neg)
+        return (dh.to(hidden.dtype), dtab.to(table.dtype),
+                dlq.to(log_q.dtype), None, None, None)
+
+
+def sampled_ce_pt_partial_op(hidden, table, log_q, neg_ids, pos_ids,
+                             num_neg: int) -> torch.Tensor:
+    """Per-token partial lse. table [rows, D] this shard's rows in their
+    native dtype; neg_ids [T, M] local rows (a non-owned negative clipped
+    to 0 with log_q = −NEG_INF); pos_ids [T] local or −1 -> [T] fp32."""
+    return SampledCEPerTokenPartialFn.apply(
+        hidden.float().contiguous(), table.contiguous(),
+        log_q.float().contiguous(), neg_ids.long().contiguous(),
+        pos_ids.long().contiguous(), int(num_neg))
+
+
+class SampledCEPerTokenQPartialFn(torch.autograd.Function):
+    """(hidden, table, qdata, qscale, log_q, neg_ids, pos_ids, num_neg) ->
+    partial lse [T]; `table` (the master) is a dead input that receives
+    the scale-unaware d(table)."""
+
+    @staticmethod
+    def forward(ctx, hidden, table, qdata, qscale, log_q, neg_ids, pos_ids,
+                num_neg):
+        lse = dispatch.sampled_ce_pt_partial(hidden, qdata, log_q, neg_ids,
+                                             pos_ids, num_neg, scale=qscale)
+        ctx.save_for_backward(hidden, qdata, qscale, log_q, neg_ids,
+                              pos_ids, lse)
+        ctx.table_dtype, ctx.num_neg = table.dtype, num_neg
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, qdata, qscale, log_q, neg_ids, pos_ids, lse = \
+            ctx.saved_tensors
+        dh, dtab, dlq = dispatch.sampled_ce_pt_partial_bwd(
+            g.float().contiguous(), hidden, qdata, log_q, neg_ids, pos_ids,
+            lse, ctx.num_neg, scale=qscale)
+        return (dh.to(hidden.dtype), dtab.to(ctx.table_dtype), None, None,
+                dlq.to(log_q.dtype), None, None, None)
+
+
+def sampled_ce_pt_q_partial_op(hidden, table, qdata, qscale, log_q, neg_ids,
+                               pos_ids, num_neg: int) -> torch.Tensor:
+    """Quantized per-token partial lse: qdata [rows, D] int8 / fp8 and
+    qscale [rows, 1] this shard's; the rest as sampled_ce_pt_partial_op."""
+    return SampledCEPerTokenQPartialFn.apply(
+        hidden.float().contiguous(), table, qdata.contiguous(),
+        qscale.float().contiguous(), log_q.float().contiguous(),
+        neg_ids.long().contiguous(), pos_ids.long().contiguous(),
+        int(num_neg))
+
+
+class SampledCEPartialFn(torch.autograd.Function):
+    """(hidden [B,S,D], neg_emb [B,M,D], log_q [B,M], neg_ids, pos_ids,
+    num_neg) -> partial lse [B,S]. Gradients: hidden, neg_emb, log_q."""
+
+    @staticmethod
+    def forward(ctx, hidden, neg_emb, log_q, neg_ids, pos_ids, num_neg):
+        lse = dispatch.sampled_ce_partial(hidden, neg_emb, log_q, neg_ids,
+                                          pos_ids, num_neg)
+        ctx.save_for_backward(hidden, neg_emb, log_q, neg_ids, pos_ids, lse)
+        ctx.num_neg = num_neg
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, neg_emb, log_q, neg_ids, pos_ids, lse = ctx.saved_tensors
+        dh, dne, dlq = dispatch.sampled_ce_partial_bwd(
+            g.float().contiguous(), hidden, neg_emb, log_q, neg_ids, pos_ids,
+            lse, ctx.num_neg)
+        return (dh.to(hidden.dtype), dne.to(neg_emb.dtype),
+                dlq.to(log_q.dtype), None, None, None)
+
+
+def sampled_ce_partial_op(hidden, neg_emb, log_q, neg_ids, pos_ids,
+                          num_neg: int) -> torch.Tensor:
+    """Shared-negative partial lse. neg_emb [B, M, D] this shard's
+    gathered rows (native dtype; a non-owned draw's row is local row 0
+    with log_q = −NEG_INF); pos_ids [B, S] local or −1 -> [B, S] fp32."""
+    return SampledCEPartialFn.apply(
+        hidden.float().contiguous(), neg_emb.contiguous(),
+        log_q.float().contiguous(), neg_ids.long().contiguous(),
+        pos_ids.long().contiguous(), int(num_neg))
+
+
+class SampledCEQPartialFn(torch.autograd.Function):
+    """(hidden, neg_emb, neg_q, neg_scale, log_q, neg_ids, pos_ids,
+    num_neg) -> partial lse [B,S]; neg_emb (the gathered master rows) is a
+    dead input that receives the scale-unaware dne."""
+
+    @staticmethod
+    def forward(ctx, hidden, neg_emb, neg_q, neg_scale, log_q, neg_ids,
+                pos_ids, num_neg):
+        lse = dispatch.sampled_ce_partial(hidden, neg_q, log_q, neg_ids,
+                                          pos_ids, num_neg,
+                                          neg_scale=neg_scale)
+        ctx.save_for_backward(hidden, neg_q, neg_scale, log_q, neg_ids,
+                              pos_ids, lse)
+        ctx.dtype, ctx.num_neg = neg_emb.dtype, num_neg
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, neg_q, neg_scale, log_q, neg_ids, pos_ids, lse = \
+            ctx.saved_tensors
+        dh, dne, dlq = dispatch.sampled_ce_partial_bwd(
+            g.float().contiguous(), hidden, neg_q, log_q, neg_ids, pos_ids,
+            lse, ctx.num_neg, neg_scale=neg_scale)
+        return (dh.to(hidden.dtype), dne.to(ctx.dtype), None, None,
+                dlq.to(log_q.dtype), None, None, None)
+
+
+def sampled_ce_q_partial_op(hidden, neg_emb, neg_q, neg_scale, log_q,
+                            neg_ids, pos_ids, num_neg: int) -> torch.Tensor:
+    """Quantized shared-negative partial lse: neg_q [B, M, D] the gathered
+    int8 / fp8 rows, neg_scale [B, M, 1] fp32; neg_emb the gathered master
+    rows (a dead input)."""
+    return SampledCEQPartialFn.apply(
+        hidden.float().contiguous(), neg_emb, neg_q.contiguous(),
+        neg_scale.float().contiguous(), log_q.float().contiguous(),
+        neg_ids.long().contiguous(), pos_ids.long().contiguous(),
+        int(num_neg))

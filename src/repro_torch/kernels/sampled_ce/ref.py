@@ -179,3 +179,92 @@ def sampled_ce_bwd_ref(g, hidden, pos_emb, neg_emb, log_q, neg_ids, pos_ids,
     gw = g * w
     return (dh, dpe, torch.matmul(gw.transpose(-1, -2), h),
             -torch.sum(gw, dim=-2))
+
+
+# ------------------------------------------------------------ partial mode
+# The vocab-parallel head's shard of the loss, the TPU kernels'
+# `include_pos=False` (reference `per_token.py:125-132`, `:246-249`,
+# `sampled_ce.py:70-77`, `:229-231`): the negatives are one shard's (a
+# negative it does not own comes clipped to local row 0 with lq = +1e30,
+# so its corrected logit is NEG_INF), the positive id is local on its
+# owner and -1 elsewhere and only masks collisions, ln M uses the global
+# negative count `num_neg`, and the result is the negatives-only lse.
+
+def partial_lse(corr: torch.Tensor) -> torch.Tensor:
+    """The kernels' partial lse of corrected logits [..., M]: m the max of
+    every column (a masked one is ~NEG_INF), the valid columns'
+    exp(corr − m) summed into l, then log(max(l, 1e-30)) + m; NEG_INF
+    where no column is valid. m is detached: the gradient is exp(corr −
+    lse) on the valid columns, 0 elsewhere and on an all-masked row."""
+    m = torch.clamp(corr.max(dim=-1, keepdim=True).values.detach(),
+                    min=NEG_INF)
+    term = torch.where(corr > NEG_INF_THRESHOLD, torch.exp(corr - m),
+                       torch.zeros_like(corr))
+    return torch.log(torch.clamp(term.sum(-1), min=1e-30)) + m[..., 0]
+
+
+def sampled_ce_pt_partial_ref(hidden, table, log_q, neg_ids, pos_ids,
+                              num_neg: int, scale=None) -> torch.Tensor:
+    """Per-token partial lse [T] fp32: hidden [T, D]; table [V, D] a
+    shard's rows (int8 / fp8 with `scale` [V, 1]); log_q/neg_ids [T, M]
+    (local rows); pos_ids [T] local or -1. Autograd through it is the
+    plain backward."""
+    neg_e = _rows(table, neg_ids, scale)                            # [T,M,D]
+    corr = corrected_logits(torch.einsum("td,tmd->tm", hidden.float(),
+                                         neg_e), log_q.float(), num_neg)
+    corr = torch.where(neg_ids == pos_ids[:, None], corr.new_tensor(NEG_INF),
+                       corr)
+    return partial_lse(corr)
+
+
+def sampled_ce_pt_partial_bwd_ref(g, hidden, table, log_q, neg_ids, pos_ids,
+                                  lse, num_neg: int, scale=None):
+    """The partial backward kernel's outputs, by autograd through the plain
+    partial forward (`lse` unused): (dh [T, D], dtab [V, D], dlq [T, M])
+    fp32; dtab scale-unaware in the quantized mode, as in the full mode."""
+    del lse
+    with torch.enable_grad():
+        h = hidden.detach().float().requires_grad_(True)
+        lq = log_q.detach().float().requires_grad_(True)
+        tab = table.detach().float() if scale is None else \
+            table.detach().float() * scale.detach().float().reshape(-1, 1)
+        tab.requires_grad_(True)
+        out = sampled_ce_pt_partial_ref(h, tab, lq, neg_ids, pos_ids,
+                                        num_neg)
+        return torch.autograd.grad(out, (h, tab, lq), g.float())
+
+
+def _shared_partial_corr(hidden, neg_emb, log_q, neg_ids, pos_ids, num_neg,
+                         neg_scale):
+    neg_emb = _dequant(neg_emb, neg_scale)
+    logits = torch.matmul(hidden.float(), neg_emb.float().transpose(-1, -2))
+    corr = corrected_logits(logits, log_q.float()[:, None, :], num_neg)
+    hit = neg_ids[:, None, :] == pos_ids[:, :, None]
+    return torch.where(hit, corr.new_tensor(NEG_INF), corr), neg_emb
+
+
+def sampled_ce_partial_fwd_ref(hidden, neg_emb, log_q, neg_ids, pos_ids,
+                               num_neg: int, neg_scale=None) -> torch.Tensor:
+    """Shared-negative partial lse [B, S] fp32: hidden [B, S, D]; neg_emb
+    [B, M, D] a shard's gathered rows (int8 / fp8 with neg_scale
+    [B, M, 1]); log_q/neg_ids [B, M]; pos_ids [B, S] local or -1."""
+    corr, _ = _shared_partial_corr(hidden, neg_emb, log_q, neg_ids, pos_ids,
+                                   num_neg, neg_scale)
+    return partial_lse(corr)
+
+
+def sampled_ce_partial_bwd_ref(g, hidden, neg_emb, log_q, neg_ids, pos_ids,
+                               lse, num_neg: int, neg_scale=None):
+    """The partial backward kernels' outputs from the saved partial lse,
+    as `sampled_ce.py::sampled_ce_bwd` (:323-372) computes them with
+    include_pos=False: w = exp(corr − lse) on valid entries, else 0;
+    dh = g·(w @ ne), dne = (g·w)ᵀ @ h (scale-unaware), dlq = −Σ_s g·w.
+    -> (dh [B, S, D], dne [B, M, D], dlq [B, M]), fp32."""
+    corr, ne = _shared_partial_corr(hidden, neg_emb, log_q, neg_ids, pos_ids,
+                                    num_neg, neg_scale)
+    w = torch.where(corr > NEG_INF_THRESHOLD, torch.exp(corr - lse[..., None]),
+                    torch.zeros_like(corr))
+    gw = g.float()[..., None] * w
+    return (torch.matmul(gw, ne.float()),
+            torch.matmul(gw.transpose(-1, -2), hidden.float()),
+            -torch.sum(gw, dim=-2))

@@ -4,10 +4,23 @@ Mirrors `src/repro/launch/steps.py`: `resolve_proposal` (:55),
 `make_loss_fn` (:70; modes `midx`, `full` and the ported registry
 contenders, which route through `heads.loss_sampled`; the fault seam
 `_apply_fault` :33; an unknown `head.table_dtype` raises when the loss is
-built, :96) and `make_train_step` (:129, the non-trainable branch
-:188-202 with its non-finite skip guard). The unported registry
-contenders (ROADMAP.md Queue 1 item 10) and the sharded and
-vocab-parallel steps (item 13) raise NotImplementedError.
+built, :96), `make_train_step` (:129, the non-trainable branch
+:188-202 with its non-finite skip guard) and the vocab-parallel family
+(DESIGN §9): `make_vocab_parallel_train_step` (:305),
+`make_vocab_index_init` (:417) and `make_vocab_refresh_step` (:451, the
+`fixed` policy). The unported registry contenders (ROADMAP.md Queue 1
+item 10) raise NotImplementedError; the data-parallel step
+(`make_sharded_train_step`, item 13) is not ported yet.
+
+The vocab-parallel step runs on every rank of a `launch.mesh.VocabGroup`
+with the same batch and keys (data degree 1): the class table (`embed`,
+and `head` where untied) is the rank's rows, the backbone and its
+optimizer state replicate, and the index is the rank's local view
+(`dist.vocab_parallel`). Its gradients need no scaling (the collectives'
+backwards hand each rank its own inputs' gradients, `dist.collectives`);
+the global-norm clip sums the sharded leaves' squares over the ranks with
+one all-reduce, so every rank scales by the same factor and the
+replicated leaves stay the same on every rank.
 
 Departures: torch runs eagerly, so there is no jit; a step is a function
 of (params, opt state, head state, batch, keys) — `keys` [B·S] are the
@@ -118,3 +131,108 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ------------------------------------------------------------ vocab parallel
+def _vp_loss_fn(cfg: ModelConfig, pg, window: Optional[int]):
+    from repro_torch.dist import vocab_parallel as vp_mod
+    from repro_torch.models.model import class_embeddings
+
+    def loss_fn(params, local_idx, batch, keys):
+        with record_function("train.forward"):
+            emb = vp_mod.embed_lookup(params["embed"], batch["tokens"], pg)
+            out = forward(cfg, params, batch["tokens"], window=window,
+                          inputs_embeds=emb)
+        with record_function("train.head"):
+            ce = vp_mod.loss_midx_vp(cfg, class_embeddings(cfg, params),
+                                     local_idx, out["hidden"],
+                                     batch["labels"], keys, group=pg)
+        loss = ce + cfg.router_aux_weight * out["aux_loss"]
+        return _apply_fault(loss, batch), {"ce": ce, "aux": out["aux_loss"]}
+
+    return loss_fn
+
+
+def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
+                                   group, *, window: Optional[int] = None,
+                                   clip_norm: float = 1.0) -> Callable:
+    """step(params, opt_state, local_index, batch, keys) -> (params,
+    opt_state, metrics) on one rank of `group` (a `launch.mesh.
+    VocabGroup`): params and opt state hold the rank's rows of the class
+    tables and the whole backbone, updated in place; the loss, the grad
+    norm and the skip decision are the same on every rank. Parity
+    contract (tests/test_torch_vocab_parallel.py): loss, grad norm and
+    every updated param within 1e-5 of `make_train_step` on the
+    replicated layout with the same keys."""
+    from repro_torch.dist.collectives import psum_no_grad
+    from repro_torch.dist.sharding import vocab_param_names
+
+    if (cfg.head.mode or "midx") != "midx":
+        raise ValueError("vocab-parallel training requires the MIDX head")
+    pg = group.pg
+    loss_fn = _vp_loss_fn(cfg, pg, window)
+
+    def train_step(params, opt_state, local_idx, batch, keys):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, metrics = loss_fn(leaves, local_idx, batch, keys)
+        flat = tree_leaves(leaves)
+        with record_function("train.backward"):
+            it = iter(torch.autograd.grad(loss, flat))
+        grads = tree_map(lambda _: next(it), leaves)
+        with record_function("train.optimizer"):
+            sharded = vocab_param_names(grads)
+            rep = [g for k, v in grads.items() if k not in sharded
+                   for g in tree_leaves(v)]
+            sq_local = sum(torch.sum(torch.square(grads[k].float()))
+                           for k in sharded)
+            sq_rep = sum(torch.sum(torch.square(g.float())) for g in rep)
+            gnorm = torch.sqrt(sq_rep + psum_no_grad(sq_local, pg))
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=gnorm)
+            loss = loss.detach()
+            ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+            if ok:
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params)
+        metrics = {**{k: v.detach() for k, v in metrics.items()},
+                   "loss": loss, "grad_norm": gnorm,
+                   "skipped": 0.0 if ok else 1.0}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_vocab_index_init(cfg: ModelConfig, group) -> Callable:
+    """init(params, gen) -> this rank's local index view, built natively
+    (`index.sharded.build_vocab_sharded`): codebook statistics all-reduced,
+    the CSR never leaving its rank. `params` hold the rank's table rows;
+    `gen` is seeded alike on every rank."""
+    from repro_torch.index.sharded import build_vocab_sharded
+    from repro_torch.models.model import class_embeddings
+
+    def init(params, gen):
+        return build_vocab_sharded(
+            gen, class_embeddings(cfg, params).detach().float(),
+            kind=cfg.head.quantizer, k=cfg.head.midx_k,
+            iters=cfg.head.kmeans_iters, group=group.pg)
+
+    return init
+
+
+def make_vocab_refresh_step(cfg: ModelConfig, group, *,
+                            policy: Optional[str] = None) -> Callable:
+    """refresh(params, local_index, gen) -> (local_index, metrics): the
+    all-reduced drift probe and the warm-started sharded refit, each rank
+    rebuilding only its own CSR (`index.sharded.refresh_vocab_sharded`;
+    the `fixed` policy, 'drift' raises: ROADMAP.md Queue 1 item 9)."""
+    from repro_torch.index.sharded import refresh_vocab_sharded
+    from repro_torch.models.model import class_embeddings
+
+    pol = policy or cfg.head.refresh_policy
+
+    def refresh(params, local_idx, gen):
+        return refresh_vocab_sharded(
+            local_idx, gen, class_embeddings(cfg, params).detach().float(),
+            group=group.pg, iters=cfg.head.kmeans_iters, policy=pol,
+            threshold=cfg.head.refresh_drift_threshold)
+
+    return refresh

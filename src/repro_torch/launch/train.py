@@ -17,11 +17,25 @@ the CLI (`main` :348, `_parse_chaos` :438) with the flags --arch --steps
 --batch --seq --lr --head --reduced --refresh-every --ckpt --chaos
 --chaos-seed --seed --table-dtype (bf16, or the quantized head's int8 /
 fp8: the low-bit class table, codebooks and residual codes, DESIGN §12),
-plus --device (default: the card; 'cpu' must be asked for). The
-reference's other flags are accepted and raise NotImplementedError with
-a pointer to ROADMAP.md Queue 1: --dp, --vocab-parallel and
+plus --device (default: the card; 'cpu' must be asked for) and
+--vocab-parallel N (below). The reference's other flags are accepted and
+raise NotImplementedError with a pointer to ROADMAP.md Queue 1: --dp and
 --grad-transport (item 13), --refresh-policy drift and --refresh-lag > 0
 (item 9).
+
+Vocab-parallel training (DESIGN §9; reference :137-160, :169, :187,
+:236, :333-340): `--vocab-parallel N` spawns N rank processes
+(`launch.mesh.spawn_ranks`), one shard of the class table and the index
+each, every rank reading the same batch (data degree 1). Ranks share the
+card when there is one (gloo, CUDA tensors staged through the host) or
+take one card each (NCCL), `--vp-backend` overriding the choice; with
+`--device cpu` they run on the CPU over gloo. `train_loop(group=...)` is
+one rank: the index is built natively per rank and refreshed by the
+sharded refit, checkpoints are the reference's vocab-parallel format
+(rank 0 writes the gathered params and optimizer state and the stacked
+index; a run resumes on the same N), and the serving export unshards the
+index, so `Engine.from_checkpoint` serves the model. Fault injection is
+not wired into the vocab-parallel run yet (item 13).
 
 Checkpoints are the reference's format (`checkpoint.manager`): a run of
 either package resumes from the other's. `total_steps` is the job's
@@ -62,6 +76,8 @@ CLI's data.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 4 --ckpt build/ck-cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m --device cpu --reduced
+  python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3 --vocab-parallel 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --vocab-parallel 2 --steps 4 --ckpt build/ck-vp
 """
 from __future__ import annotations
 
@@ -80,13 +96,18 @@ from repro_torch.checkpoint import (CheckpointError, CheckpointManager,
 from repro_torch.configs import get_config
 from repro_torch.core import noise
 from repro_torch.data import ZipfLM, make_lm_stream
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as shard_mod
+from repro_torch.dist import vocab_parallel as vp_mod
 from repro_torch.index.lifecycle import IndexLifecycle
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models import heads, init_params
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.proposals import registry as proposals_registry
 from repro_torch.resilience import (FaultInjector, FaultSpec, InjectedFault,
                                     TrainGuardrails)
+from repro_torch.resilience.validate import validate_state
 from repro_torch.utils import metrics as metrics_mod
 
 # Generator streams derived from the run's seed.
@@ -102,6 +123,45 @@ def _generator(device: torch.device, seed: int, stream: int):
     gen = torch.Generator(device=device)
     gen.manual_seed(int(noise.hash_bits(seed, stream, 0, 0)))
     return gen
+
+
+class VocabState:
+    """A vocab-parallel run's replicated views of its state, for the
+    checkpoints and the serving export. `full` is a collective (every rank
+    calls it in turn); `local` cuts the replicated state back to this
+    rank's rows."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def full(self, params, opt_state, index):
+        pg = self.group.pg
+        return (shard_mod.gather_params(params, pg),
+                shard_mod.map_opt_state(
+                    opt_state, lambda t: shard_mod.gather_params(t, pg)),
+                vp_mod.stack_local_indexes(index, pg))
+
+    def local(self, state):
+        params, opt_state, sharded = state
+        n, r = self.group.size, self.group.rank
+        return (shard_mod.shard_params(params, n, r),
+                shard_mod.map_opt_state(
+                    opt_state, lambda t: shard_mod.shard_params(t, n, r)),
+                vp_mod.local_index(sharded, r))
+
+    def barrier(self):
+        if self.group.size > 1:
+            torch.distributed.barrier(self.group.pg)
+
+    def validate(self, new, like):
+        """`validate_state` on this rank, with the verdict all-reduced: a
+        refresh any rank rejects is rejected on every rank."""
+        reasons = list(validate_state(new, like=like))
+        bad = coll.psum_no_grad(torch.tensor(
+            [int(bool(reasons))], device=new.counts.device), self.group.pg)
+        if int(bad.item()) and not reasons:
+            reasons = ["another vocab-parallel rank rejected its refresh"]
+        return reasons
 
 
 @dataclasses.dataclass
@@ -141,7 +201,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                refresh_lag: Optional[int] = None,
                on_metrics: Optional[Callable[[int, dict], None]] = None,
                device=None, injector: Optional[FaultInjector] = None,
-               guardrails=None):
+               guardrails=None, group=None):
     """Single-device training loop. Returns (params, opt_state, index,
     history): params detached, ready for `serve.Engine(cfg, params,
     index=index, head=mode)`; index the head state (the MultiIndex, or the
@@ -158,7 +218,12 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     GuardrailConfig`; a 'rollback' restores the newest checkpoint that
     verifies and replays from its step. on_metrics(step, metrics) also
     receives `step_s`, the host time of the step (which ends in a device
-    sync), `guard_action` and `straggler`. device: default the card."""
+    sync), `guard_action` and `straggler`. device: default the card.
+
+    group: a `launch.mesh.VocabGroup`; this process is then one rank of a
+    vocab-parallel run on the group's device, and params, opt_state and
+    index come back as its shard (the rows of the class table, the local
+    index view). Every rank must call with the same arguments."""
     refresh_kw = {k: v for k, v in (("refresh_every", refresh_every),
                                     ("refresh_policy", refresh_policy),
                                     ("refresh_lag", refresh_lag))
@@ -166,11 +231,20 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     if refresh_kw:
         cfg = cfg.with_head(**refresh_kw)
     mode, proposal = steps_mod.resolve_proposal(cfg, head_mode)
+    vstate = VocabState(group) if group is not None else None
+    if vstate is not None:
+        if mode != "midx":
+            raise ValueError("vocab-parallel training requires the midx head")
+        if injector is not None:
+            raise _unported("fault injection in vocab-parallel training", 13)
+        device = group.device
     device = resolve_device(device)
     horizon = total_steps or steps
 
     params = init_params(cfg, _generator(device, seed, _STREAM_INIT),
                          device=device)
+    if vstate is not None:
+        params = shard_mod.shard_params(params, group.size, group.rank)
     optimizer = adamw(cosine_schedule(lr,
                                       warmup_steps=min(100, horizon // 10 + 1),
                                       total_steps=horizon))
@@ -182,11 +256,20 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         corpus = gen.sample(max(512, batch_size * 4))
     stream = make_lm_stream(corpus, batch_size, seed=seed)
 
-    train_step = steps_mod.make_train_step(cfg, optimizer, head_mode=mode)
     gen_index = _generator(device, seed, _STREAM_INDEX)
-    if proposal is not None:
+    if vstate is not None:
+        train_step = steps_mod.make_vocab_parallel_train_step(cfg, optimizer,
+                                                              group)
+        index = steps_mod.make_vocab_index_init(cfg, group)(params,
+                                                            gen_index)
+        vp_refresh = steps_mod.make_vocab_refresh_step(cfg, group)
+    elif proposal is not None:
+        train_step = steps_mod.make_train_step(cfg, optimizer,
+                                               head_mode=mode)
         index = heads.init_proposal_state(cfg, params, gen_index, proposal)
     else:
+        train_step = steps_mod.make_train_step(cfg, optimizer,
+                                               head_mode=mode)
         # the full head trains without it, but its checkpoints carry a
         # MultiIndex, as the reference's do (reference :180)
         index = heads.init_head_state(cfg, params, gen_index)
@@ -194,6 +277,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     def refresh(p, state, step_seed):
         gen = torch.Generator(device=device)
         gen.manual_seed(step_seed)
+        if vstate is not None:
+            return vp_refresh(p, state, gen)
         if proposal is None:
             return heads.refresh_head_state_with_policy(cfg, p, state, gen)
         # drift probes are a MultiIndex notion: a proposal reports none
@@ -205,19 +290,52 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         refresh, every=cfg.head.refresh_every, lag=cfg.head.refresh_lag,
         base_seed=int(noise.hash_bits(seed, _STREAM_REFRESH, 0, 0)),
         enabled=mode == "midx" or (proposal is not None
-                                   and proposal.adaptive))
+                                   and proposal.adaptive),
+        validate=None if vstate is None else vstate.validate)
 
-    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    ckpt = None
+    if ckpt_dir and vstate is not None:
+        # rank 0 heals a half-done swap before the others look
+        if group.rank == 0:
+            ckpt = CheckpointManager(ckpt_dir)
+        vstate.barrier()
+        if group.rank != 0:
+            ckpt = CheckpointManager(ckpt_dir)
+    elif ckpt_dir:
+        ckpt = CheckpointManager(ckpt_dir)
     if ckpt is not None and injector is not None:
         injector.attach_checkpoint(ckpt)
+
+    def ckpt_tree(p, o, i):
+        """What a checkpoint holds: the state, replicated in a
+        vocab-parallel run (a collective)."""
+        return (p, o, i) if vstate is None else vstate.full(p, o, i)
+
+    def restore(fn, *a):
+        """`ckpt.restore` / `restore_latest_verified`, on this rank's
+        shard in a vocab-parallel run."""
+        like = ckpt_tree(params, opt_state, index)
+        out = fn(*a, like, device=device)
+        if vstate is None:
+            return out
+        if isinstance(out[0], int):          # (step, state)
+            return out[0], vstate.local(out[1])
+        return vstate.local(out)
+
+    def save(step_n: int, p, o, i) -> None:
+        tree = ckpt_tree(p, o, i)
+        if vstate is None or group.rank == 0:
+            ckpt.save(step_n, tree, metadata={"next_step": step_n})
+        if vstate is not None:
+            vstate.barrier()
+
     start_step, saved = 0, None
     if ckpt is not None:
         # restore-fallback walk: resume from the newest checkpoint that
         # passes verification, skipping corrupt or mismatched step dirs
-        s = ckpt.latest_verified_step((params, opt_state, index))
+        s = ckpt.latest_verified_step(ckpt_tree(params, opt_state, index))
         if s is not None:
-            params, opt_state, index = ckpt.restore(
-                s, (params, opt_state, index), device=device)
+            params, opt_state, index = restore(ckpt.restore, s)
             start_step = saved = ckpt.metadata(s).get("next_step", s)
             print(f"[train] resumed from step {start_step}")
 
@@ -259,9 +377,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
             else:
                 try:
                     lifecycle.abort()
-                    s, (params, opt_state, index) = \
-                        ckpt.restore_latest_verified(
-                            (params, opt_state, index), device=device)
+                    s, (params, opt_state, index) = restore(
+                        ckpt.restore_latest_verified)
                     resume = ckpt.metadata(s).get("next_step", s)
                     print(f"[train] rollback at step {step}: restored "
                           f"checkpoint {s}, replaying from step {resume}")
@@ -293,8 +410,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
             # the saved head state is never mid-flight
             index, _ = lifecycle.flush(step, index)
             try:
-                ckpt.save(step + 1, (params, opt_state, index),
-                          metadata={"next_step": step + 1})
+                save(step + 1, params, opt_state, index)
                 saved = step + 1
             except InjectedFault as e:
                 print(f"[train] checkpoint save at step {step + 1} "
@@ -313,14 +429,23 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     if ckpt is not None:
         try:
             if saved != steps:      # the loop's last save may have been it
-                ckpt.save(steps, (params, opt_state, index),
-                          metadata={"next_step": steps})
+                save(steps, params, opt_state, index)
         except InjectedFault as e:
             print(f"[train] final checkpoint save killed: {e}")
         # serving export: {"params", "index"}, no optimizer state — what
-        # `serve.Engine.from_checkpoint` restores
-        save_serving_state(os.path.join(ckpt_dir, "serve"), steps, params,
-                           index, metadata={"arch": cfg.name})
+        # `serve.Engine.from_checkpoint` restores; a vocab-parallel run
+        # gathers its params and unshards its index (replicated layout)
+        export_params, export_index = params, index
+        if vstate is not None:
+            export_params = shard_mod.gather_params(params, group.pg)
+            export_index = vp_mod.unshard_index(
+                vp_mod.stack_local_indexes(index, group.pg))
+        if vstate is None or group.rank == 0:
+            save_serving_state(os.path.join(ckpt_dir, "serve"), steps,
+                               export_params, export_index,
+                               metadata={"arch": cfg.name})
+        if vstate is not None:
+            vstate.barrier()
     return params, opt_state, index, history
 
 
@@ -356,9 +481,17 @@ def parser() -> argparse.ArgumentParser:
                          "(DESIGN §12): bf16 = master precision (default), "
                          "int8/fp8 = per-row-scaled low-bit table + "
                          "quantized proposal codebooks + PQ-code residual")
+    ap.add_argument("--vocab-parallel", type=int, default=1,
+                    help="vocab-parallel degree: >1 spawns that many ranks, "
+                         "each training a row shard of the class table and "
+                         "the MIDX index (DESIGN §9)")
+    ap.add_argument("--vp-backend", default=None, choices=(None, "gloo",
+                                                           "nccl"),
+                    help="the ranks' collective backend (default: gloo "
+                         "where ranks share a card or run on the CPU, NCCL "
+                         "where each has its own card)")
     unported = ap.add_argument_group("not ported yet (raise)")
     unported.add_argument("--dp", type=int, default=0)
-    unported.add_argument("--vocab-parallel", type=int, default=1)
     unported.add_argument("--grad-transport", default="fp32")
     unported.add_argument("--refresh-policy", default=None)
     unported.add_argument("--refresh-lag", type=int, default=None)
@@ -370,24 +503,41 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if (args.dp > 0 or args.vocab_parallel > 1
-            or args.grad_transport != "fp32"):
-        raise _unported("data- and vocab-parallel training and gradient "
-                        "transports", 13)
+    if args.dp > 0 or args.grad_transport != "fp32":
+        raise _unported("data-parallel training and gradient transports", 13)
     if args.table_dtype is not None:
         cfg = cfg.with_head(table_dtype=args.table_dtype)
     injector = _parse_chaos(args.chaos, args.chaos_seed) if args.chaos \
         else None
-    out = train_loop(cfg, steps=args.steps, batch_size=args.batch,
-                     seq_len=args.seq, ckpt_dir=args.ckpt,
-                     head_mode=args.head, lr=args.lr,
-                     refresh_every=args.refresh_every,
-                     refresh_policy=args.refresh_policy,
-                     refresh_lag=args.refresh_lag, seed=args.seed,
-                     device=args.device, injector=injector)
+    kw = dict(steps=args.steps, batch_size=args.batch, seq_len=args.seq,
+              ckpt_dir=args.ckpt, head_mode=args.head, lr=args.lr,
+              refresh_every=args.refresh_every,
+              refresh_policy=args.refresh_policy,
+              refresh_lag=args.refresh_lag, seed=args.seed)
+    if args.vocab_parallel > 1:
+        if injector is not None:
+            raise _unported("fault injection in vocab-parallel training", 13)
+        # each rank a share of this process's intra-op threads on the CPU
+        threads = max(1, torch.get_num_threads() // args.vocab_parallel) \
+            if args.device == "cpu" else 0
+        spawn_ranks(_vp_rank, args.vocab_parallel, (cfg, kw),
+                    device=args.device, backend=args.vp_backend,
+                    threads=threads)
+        return None
+    out = train_loop(cfg, device=args.device, injector=injector, **kw)
     if injector is not None:
         print(f"[train] chaos report: {injector.summary()}")
     return out
+
+
+def _vp_rank(group, cfg, kw) -> None:
+    """One rank of `--vocab-parallel`: rank 0 prints the run's log."""
+    if group.rank != 0:
+        import contextlib
+        with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+            train_loop(cfg, group=group, **kw)
+        return
+    train_loop(cfg, group=group, **kw)
 
 
 def _parse_chaos(plan: str, seed: int) -> FaultInjector:

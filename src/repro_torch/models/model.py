@@ -162,13 +162,18 @@ def apply_mamba_part(cfg: ModelConfig, bp: dict, x, *,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            window: Optional[int] = None) -> dict:
-    """tokens [B,S] int -> {"hidden": [B,S,D], "aux_loss": scalar}."""
+            window: Optional[int] = None,
+            inputs_embeds: Optional[torch.Tensor] = None) -> dict:
+    """tokens [B,S] int -> {"hidden": [B,S,D], "aux_loss": scalar}.
+    inputs_embeds [B,S,D]: the token embeddings, computed by the caller
+    (the vocab-parallel lookup, `dist.vocab_parallel.embed_lookup`), in
+    place of the lookup in `params["embed"]` (reference :223-236)."""
     require_ported(cfg)
     s = tokens.shape[1]
     # F.embedding, not params["embed"][tokens]: the same rows, and on the
     # CPU a backward that sums repeated tokens in a fixed order.
-    x = F.embedding(tokens, params["embed"]).to(torch_dtype(cfg))
+    x = (inputs_embeds if inputs_embeds is not None
+         else F.embedding(tokens, params["embed"])).to(torch_dtype(cfg))
     if cfg.family == "ssm":
         for bp in params["blocks"]:
             x = apply_mamba_part(cfg, bp, x)

@@ -104,11 +104,14 @@ def _write_back(ps: list, p32: list) -> None:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale grads in place to a global L2 norm <= max_norm; returns
-    (grads, the norm before)."""
+    (grads, the norm before). `norm`: the global norm where the caller
+    computed it (the vocab-parallel step sums its shards' squares)."""
     leaves = tree_leaves(grads)
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     f32 = [g for g in leaves if g.dtype == torch.float32]
     if f32:

@@ -1002,3 +1002,107 @@ def test_quantized_training_and_serving_go_through_the_kernels(fmt):
     assert np.all(np.isfinite(hist))
     assert sce.sampled_ce_cuda.quant_launches[fmt] >= 2
     assert sce.sampled_ce_bwd_cuda.quant_launches[fmt] >= 2
+
+
+def _owner_masked(neg, lq, pos, r, rows):
+    """Shard r's view of global draws, as `loss_midx_vp` builds it."""
+    lneg = neg - r * rows
+    okn = (lneg >= 0) & (lneg < rows)
+    lpos = pos - r * rows
+    okp = (lpos >= 0) & (lpos < rows)
+    return (torch.where(okn, lneg, 0).contiguous(),
+            torch.where(okn, lq, 1e30).contiguous(),
+            torch.where(okp, lpos, -1).contiguous(), okn)
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "bf16", "int8", "fp8"])
+def test_partial_sampled_ce_pt_kernels_match_plain_version(fmt):
+    """The per-token forward and backward in the partial mode (a vocab
+    shard's rows, owner-masked ids, the global M), each shard of two, at
+    the TMA, 16-byte and 8-byte copy routes and the plain-load kernel: held
+    to the plain partial versions, the backward bitwise repeatable, a token
+    with no owned negative at exactly NEG_INF with zero gradients."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_pt_bwd_cuda,
+                                                     sampled_ce_pt_cuda)
+    from repro_torch.kernels.sampled_ce.ref import (
+        sampled_ce_pt_partial_bwd_ref, sampled_ce_pt_partial_ref)
+    for t, d, m, v in ((64, 2048, 64, 5000), (300, 48, 20, 700),
+                       (1024, 200, 20, 10000), (7, 44, 12, 50)):
+        h, tab, lq, neg, pos, g = _sce_inputs(t, d, m, v, torch.float32,
+                                              seed=d)
+        rows = v // 2
+        neg[1] = torch.arange(m, device="cuda") % rows   # shard 0's only
+        for r in range(2):
+            part = tab[r * rows:(r + 1) * rows].contiguous()
+            sc = None
+            if fmt == "bf16":
+                part = part.to(torch.bfloat16)
+            elif fmt != "fp32":
+                part, sc = _quantized(part, fmt)
+            nid, lqm, pid, okn = _owner_masked(neg, lq, pos, r, rows)
+            args = (h, part, lqm, nid, pid)
+            loss, lse = sampled_ce_pt_cuda(*args, scale=sc,
+                                           include_pos=False, num_neg=m)
+            want = sampled_ce_pt_partial_ref(*args, m, scale=sc)
+            assert torch.equal(loss, lse)
+            _hold_pt_fwd((lse,), (want,))
+            got = sampled_ce_pt_bwd_cuda(g, *args, lse, scale=sc,
+                                         include_pos=False, num_neg=m)
+            again = sampled_ce_pt_bwd_cuda(g, *args, lse, scale=sc,
+                                           include_pos=False, num_neg=m)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            _hold_pt_bwd(got, sampled_ce_pt_partial_bwd_ref(
+                g, *args, want, m, scale=sc))
+            empty = ~okn.any(1)
+            assert bool(empty.any()) == (r == 1)
+            assert bool((lse[empty] == -1e30).all())
+            assert not got[0][empty].any() and not got[2][empty].any()
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8"])
+def test_partial_shared_sampled_ce_kernels_match_plain_version(fmt):
+    """The shared-negative forward and backward in the partial mode (no
+    positive rows, owner-masked ids, the global M), each shard of two, at
+    D = 2048 and D = 40: held to the plain partial versions, both bitwise
+    repeatable, a sequence with no owned negative at exactly NEG_INF."""
+    _need_card()
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
+                                                     sampled_ce_cuda)
+    from repro_torch.kernels.sampled_ce.ref import (
+        sampled_ce_partial_bwd_ref, sampled_ce_partial_fwd_ref)
+    for b, s, m, d in ((2, 70, 100, 2048), (3, 5, 7, 40)):
+        v = 500
+        g0 = torch.Generator(device="cuda").manual_seed(d)
+        table = 0.2 * torch.randn((v, d), generator=g0, device="cuda")
+        h = torch.randn((b, s, d), generator=g0, device="cuda")
+        lq = -6.0 + 0.5 * torch.randn((b, m), generator=g0, device="cuda")
+        neg = torch.randint(0, v, (b, m), generator=g0, device="cuda")
+        pos = torch.randint(0, v, (b, s), generator=g0, device="cuda")
+        neg[0, 1] = pos[0, 2]                    # a colliding positive
+        neg[1] = torch.arange(m, device="cuda") % (v // 2)
+        g = torch.rand((b, s), generator=g0, device="cuda")
+        for r in range(2):
+            nid, lqm, pid, okn = _owner_masked(neg, lq, pos, r, v // 2)
+            ne = table[r * (v // 2):(r + 1) * (v // 2)][nid].contiguous()
+            ns = None
+            if fmt != "fp32":
+                ne, ns = _quantized(ne.reshape(-1, d), fmt)
+                ne, ns = ne.reshape(b, m, d), ns.reshape(b, m, 1)
+            args = (h, ne, lqm, nid, pid)
+            kw = dict(neg_scale=ns, include_pos=False, num_neg=m)
+            loss, lse = sampled_ce_cuda(h, None, *args[1:], **kw)
+            want = sampled_ce_partial_fwd_ref(*args, m, ns)
+            assert torch.equal(loss, lse) and torch.equal(
+                lse, sampled_ce_cuda(h, None, *args[1:], **kw)[1])
+            _hold_pt_fwd((lse,), (want,))
+            dh, dpe, dne, dlq = sampled_ce_bwd_cuda(g, h, None, *args[1:],
+                                                    lse, **kw)
+            assert dpe is None
+            again = sampled_ce_bwd_cuda(g, h, None, *args[1:], lse, **kw)
+            assert torch.equal(dh, again[0]) and torch.equal(dne, again[2])
+            _hold_pt_bwd((dh, dne, dlq), sampled_ce_partial_bwd_ref(
+                g, *args, want, m, ns))
+            empty = ~okn.any(1)
+            assert bool((lse[empty] == -1e30).all())
+            assert not dh[empty].any()

@@ -48,6 +48,16 @@ LONG = 2048                    # > direct_threshold 1024, a multiple of both
                                # default chunks (512, 1024)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: when test files run in parallel worker
+    processes, torch's thread pools oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(seed, b, sq, sk, h, kv, hd):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(shape).astype(np.float32)

@@ -48,6 +48,16 @@ FIELDS = ("kind", "codebook1", "codebook2", "assign1", "assign2",
           "residuals", "sorted_ids", "offsets", "counts", "log_counts")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: when test files run in parallel worker
+    processes, torch's thread pools oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(**kw):
     out = []
     for mod in (jcfg, tcfg):

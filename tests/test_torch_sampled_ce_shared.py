@@ -53,6 +53,17 @@ FIELDS = ("kind", "codebook1", "codebook2", "assign1", "assign2",
           "residuals", "sorted_ids", "offsets", "counts", "log_counts")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: when test files run in parallel worker
+    processes, torch's thread pools oversubscribe the cores, and the TF32
+    emulation test's deep products slow down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(b, s, m, d, v, seed, dtype=jnp.float32, hot=False):
     """Numpy inputs of one shared-negative CE call. hot=True forces
     duplicate negatives, negatives that collide with positives, and a

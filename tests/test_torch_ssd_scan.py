@@ -30,6 +30,18 @@ from repro_torch.kernels.ssd_scan import cuda as ssd_cuda
 from repro_torch.kernels.ssd_scan.ops import SsdScanFn, ssd_scan_op as tssd_op
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: when test files run in parallel worker
+    processes, torch's thread pools oversubscribe the cores, and the TF32
+    emulation test's deep products slow down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 
 

@@ -62,6 +62,16 @@ FIELDS = ("kind", "codebook1", "codebook2", "assign1", "assign2",
 B, S = 2, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: when test files run in parallel worker
+    processes, torch's thread pools oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(**head):
     j = jcfg.get_config("paper-lm").reduced()
     t = tcfg.get_config("paper-lm").reduced()
