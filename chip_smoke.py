@@ -186,6 +186,27 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      full width cut to 2 layers with its pooled head: the same first-step
      parity, 10 steps finite and applied, 3 at int8 and fp8, every
      partial shared-CE mode launched, each rank's peak memory;
+ 16. the serving tier (right after phase 6b; ~60 s): (a) `paper-lm` at
+     full config in fp32: greedy speculative decoding (k=4) token for
+     token the greedy full head (8 x 16 tokens), sampled speculative
+     decoding batched == solo on 2, and the rejection sampler over 16 384
+     rows of one hidden (T=0.25): the committed tokens' TV to the target
+     within 0.02 of 16 384 i.i.d. target draws' and 0.1 below the raw
+     drafts'; (b) `llama3.2-1b` at full width, bf16: spec k=4 at T=1 on
+     phase 6's 8 x 32 requests (accept rate, tok/s, p50 beside phase 6's
+     plain MIDX serve), batched == solo on 2; the same over an int8 state
+     (midx_probs' int8 launches > 0, batched == solo on 1); greedy spec
+     against the greedy full head, agreement and the first divergence's
+     top-2 logit gap reported; (c) 6 slots: 4 requests (prompt 64) decode
+     64 tokens while prompts of 2048 and 4096 arrive 0.2 s in, prefilled
+     whole or in chunks of 512 (the flash kernel at the chunk's offset):
+     first-token latency per length and the decodes' inter-token p50 /
+     p99, flash and midx_probs launched; (d) the prefix cache, chunk 512:
+     8 requests share a 2048-token prefix, one donor first, then 7 hits
+     (one resuming at 2064): hits counted, the donor's pages byte for byte
+     unchanged, two hits bitwise their cold runs, first-token latency hit
+     against cold; (e) two llama replicas behind the router on the card,
+     16 requests x 16 tokens, every result bitwise one engine's;
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -1418,6 +1439,423 @@ def serve_prompts(cfg, params, index, counters, names, prompts, *,
         + f"; peak memory {s['peak_gib']:.2f} GiB ({base:.2f} GiB allocated "
         f"before)")
     return engine, s, launches
+
+
+# ------------------------------------------------------- the serving tier (16)
+SPEC_K = 4                     # draft tokens a speculative wave
+TV_DRAWS = 16384               # the rejection sampler's draws (16a)
+TV_TEMP = 0.25                 # its target's temperature: q and p far apart
+TIER_CHUNK = 512               # prefill chunk of 16c and 16d
+TIER_LONG = (2048, 4096)       # 16c's long prompts, beside 4 decoding
+PREFIX_LEN = 2048              # 16d's shared prefix
+
+
+def drive(engine, reqs):
+    """Run `reqs` through `engine` tick by tick, as `Engine.run` does, and
+    note each token's wall time (seconds since the run's start, taken
+    after the tick that produced it). Returns (results, {rid: times})."""
+    engine.start_run(reqs)
+    times: dict = {}
+
+    def note(rid, n, t):
+        got = times.setdefault(rid, [])
+        got.extend([t] * (n - len(got)))
+
+    while not engine.sched.done:
+        now = time.perf_counter() - engine._t_start
+        act = engine.tick(now)
+        t = time.perf_counter() - engine._t_start
+        for ss in engine.sched.active.values():
+            note(ss.request.rid, len(ss.out), t)
+        for rid, res in engine._results.items():
+            note(rid, len(res.tokens), t)
+        if act == "idle":
+            nxt = engine.sched.next_arrival()
+            if nxt is not None and nxt > now:
+                time.sleep(min(nxt - now, 0.01))
+    return engine.finish_run(), times
+
+
+def check_results(label: str, cfg, reqs, results) -> None:
+    for r in reqs:
+        res = results[r.rid]
+        if res.status != "ok" or len(res.tokens) != r.max_new \
+                or res.tokens.min() < 0 \
+                or res.tokens.max() >= cfg.padded_vocab:
+            raise SystemExit(f"{label}: request {r.rid} came back "
+                             f"{res.status} with {res.tokens.tolist()}")
+
+
+def need_launches(label: str, counts: dict) -> None:
+    for name, n in counts.items():
+        if n <= 0:
+            raise SystemExit(f"{label}: {name} was never launched on the "
+                             "main path")
+
+
+def same_solo(label: str, engine, reqs, results) -> None:
+    for r in reqs:
+        solo = engine.replay_single(r)
+        if not np.array_equal(results[r.rid].tokens, solo):
+            raise SystemExit(f"{label}: rid {r.rid} batched "
+                             f"{results[r.rid].tokens.tolist()} != solo "
+                             f"{solo.tolist()}")
+
+
+def tier_paper(get_config, midx) -> dict:
+    """16a: paper-lm at full config, fp32: greedy spec (k=4) token for
+    token the greedy full head; sampled spec batched == solo; the
+    rejection sampler's committed tokens over TV_DRAWS draws as close to
+    the target as TV_DRAWS i.i.d. draws of it (+0.02), and 0.1 closer than
+    the raw drafts."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import heads, logits_full, prefill
+    from repro_torch.core import noise
+    from repro_torch.serve import Engine, Request
+    cfg = dataclasses.replace(get_config("paper-lm"), dtype="float32") \
+        .with_serve(max_slots=4, page_size=16, max_seq=48)
+    greedy = cfg.with_head(decode_temperature=0.0)
+    base = Engine(cfg, head="midx", device="cuda", seed=0)
+    params, index = base.params, base.index
+    reqs = synthetic_requests(cfg, num=8, prompt=8, max_new=16, rate=0.0,
+                              seed=0)
+    zero_counts((midx,))
+    spec = Engine(greedy.with_serve(spec_decode=SPEC_K), params,
+                  index=index, head="midx", device="cuda")
+    rs = spec.run(reqs)
+    torch.cuda.synchronize()
+    launches = midx.launches
+    need_launches("paper-lm greedy spec", {"midx_probs": launches})
+    rf = Engine(greedy, params, index=index, head="full",
+                device="cuda").run(reqs)
+    check_results("paper-lm greedy spec", cfg, reqs, rs)
+    for r in reqs:
+        if not np.array_equal(rs[r.rid].tokens, rf[r.rid].tokens):
+            raise SystemExit(f"paper-lm fp32: greedy spec rid {r.rid} "
+                             f"{rs[r.rid].tokens.tolist()} != greedy full "
+                             f"head {rf[r.rid].tokens.tolist()}")
+    zero_counts((midx,))
+    sampled = Engine(cfg.with_serve(spec_decode=SPEC_K), params,
+                     index=index, head="midx", device="cuda")
+    res = sampled.run(reqs)
+    torch.cuda.synchronize()
+    launches += midx.launches
+    need_launches("paper-lm sampled spec", {"midx_probs": midx.launches})
+    check_results("paper-lm sampled spec", cfg, reqs, res)
+    same_solo("paper-lm sampled spec", sampled, reqs[:2], res)
+    accept = sampled.stats.accept_rate()
+    # the rejection sampler: TV_DRAWS rows of one hidden, each its own key
+    tok = torch.as_tensor(reqs[0].tokens[None], device="cuda").long()
+    hidden = prefill(cfg, params, tok)[0][:, -1]
+    v, n = cfg.vocab_size, TV_DRAWS
+    p = torch.softmax(logits_full(cfg, params, hidden)[0, :v].double()
+                      / TV_TEMP, -1)
+    h = hidden.expand(n, -1)
+    keys = noise.row_keys(7, torch.arange(n, device="cuda"), 0)
+    d = heads.midx_spec_draft(cfg, params, index, h, keys, 1)
+    ver = heads.spec_verify(cfg, params, index, h[None], d.tokens.T,
+                            d.log_q.T, d.s1, d.s2, d.lse, keys,
+                            temperature=TV_TEMP)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    iid = torch.multinomial(p, n, replacement=True, generator=gen)
+
+    def tv(ids):
+        hist = torch.bincount(ids, minlength=cfg.padded_vocab)[:v] / n
+        return float(0.5 * (hist - p).abs().sum())
+
+    tvs = {"committed": tv(ver.tokens[0]), "draft": tv(d.tokens[:, 0]),
+           "iid": tv(iid)}
+    if not (tvs["committed"] < tvs["iid"] + 0.02
+            and tvs["committed"] < tvs["draft"] - 0.1):
+        raise SystemExit(f"paper-lm rejection sampler over {n} draws at T="
+                         f"{TV_TEMP}: TV {tvs}")
+    log(f"[smoke] 16a paper-lm fp32, k={SPEC_K}: greedy spec == greedy "
+        f"full head on {len(reqs)} x 16 tokens; sampled spec batched == "
+        f"solo on 2, accept rate {accept:.4f}; rejection sampler over {n} "
+        f"draws at T={TV_TEMP}: TV(committed, p) {tvs['committed']:.4f}, "
+        f"TV(i.i.d. p draws, p) {tvs['iid']:.4f}, TV(drafts, p) "
+        f"{tvs['draft']:.4f}; midx_probs launches {launches}")
+    return {"launches": launches, "accept_rate": accept, "tv": tvs}
+
+
+def top2_gap(cfg, params, prompt, out) -> float:
+    """The top-2 logit gap of the full head after prompt + out."""
+    from repro_torch.models import logits_full, prefill
+    seq = np.concatenate([prompt, out]).astype(np.int64)
+    h = prefill(cfg, params, torch.as_tensor(seq[None], device="cuda"))[0]
+    top = torch.topk(logits_full(cfg, params, h[:, -1])[0, :cfg.vocab_size],
+                     2).values
+    return float(top[0] - top[1])
+
+
+def tier_llama_spec(get_config, midx, params, index, plain) -> dict:
+    """16b: llama3.2-1b at full width, bf16: spec k=4 at T=1 on phase 6's
+    8 x 32 requests (accept rate, tok/s, p50 beside phase 6's plain MIDX
+    serve `plain`), batched == solo on 2; spec over an int8 state
+    (midx_probs' int8 launches > 0); greedy spec against the greedy full
+    head: agreement and the first divergence's top-2 logit gap, reported;
+    TV(p, q) at one hidden, which bounds the accept rate, reported."""
+    from repro_torch.core import midx as midx_core
+    from repro_torch.index.quantized import quantize_head_state
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import logits_full, prefill
+    from repro_torch.models.model import class_embeddings
+    from repro_torch.serve import Engine
+    cfg = get_config("llama3.2-1b").with_serve(max_slots=4, page_size=16,
+                                               max_seq=112)
+    reqs = synthetic_requests(cfg, num=8, prompt=64, max_new=32, rate=0.0,
+                              seed=0)
+    out = {}
+    spec = Engine(cfg.with_serve(spec_decode=SPEC_K), params, index=index,
+                  head="midx", device="cuda")
+    spec.warmup([32, 48, 64])
+    zero_counts((midx,))
+    res = spec.run(reqs)
+    torch.cuda.synchronize()
+    out["launches"] = midx.launches
+    need_launches("llama3.2-1b spec", {"midx_probs": midx.launches})
+    check_results("llama3.2-1b spec", cfg, reqs, res)
+    same_solo("llama3.2-1b spec", spec, reqs[:2], res)
+    s = spec.stats.summary()
+    out["spec"] = {k: s[k] for k in ("accept_rate", "tok_s", "p50_ms",
+                                     "p99_ms", "spec_waves", "generated")}
+    # what bounds the rate: TV between the target and the index's proposal
+    # at one prompt's last hidden (a first draft is accepted with
+    # probability 1 - TV)
+    v = cfg.vocab_size
+    tok = torch.as_tensor(reqs[0].tokens[None], device="cuda").long()
+    h = prefill(cfg, params, tok)[0][:, -1].float()
+    p = torch.softmax(logits_full(cfg, params, h)[0, :v].double(), -1)
+    q = torch.exp(midx_core.log_prob(index, h, torch.arange(
+        v, device="cuda")[None])[0].double())
+    out["spec"]["tv_q_p"] = float(0.5 * (p - q).abs().sum())
+    out["plain"] = {k: plain[k] for k in ("tok_s", "p50_ms", "p99_ms")}
+    del spec
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qcfg = cfg.with_head(table_dtype="int8").with_serve(spec_decode=SPEC_K)
+    qs = quantize_head_state(index, class_embeddings(qcfg, params).float(),
+                             "int8", gen=gen)
+    qspec = Engine(qcfg, params, index=qs, head="midx", device="cuda")
+    qspec.warmup([32, 48, 64])
+    zero_counts((midx,))
+    qres = qspec.run(reqs)
+    torch.cuda.synchronize()
+    n_q = midx.quant_launches["int8"]
+    if n_q <= 0 or n_q != midx.launches:
+        raise SystemExit(f"llama3.2-1b spec over an int8 state: midx_probs "
+                         f"launches {midx.launches}, int8 {n_q}")
+    check_results("llama3.2-1b int8 spec", qcfg, reqs, qres)
+    same_solo("llama3.2-1b int8 spec", qspec, reqs[:1], qres)
+    out["int8"] = {"launches": n_q,
+                   "accept_rate": qspec.stats.accept_rate(),
+                   "tok_s": qspec.stats.summary()["tok_s"]}
+    del qspec, qs
+    greedy = cfg.with_head(decode_temperature=0.0)
+    zero_counts((midx,))
+    gs = Engine(greedy.with_serve(spec_decode=SPEC_K), params, index=index,
+                head="midx", device="cuda").run(reqs)
+    torch.cuda.synchronize()
+    out["launches"] += midx.launches
+    gf = Engine(greedy, params, index=index, head="full",
+                device="cuda").run(reqs)
+    agree = total = 0
+    first = None
+    for r in reqs:
+        a, b = gs[r.rid].tokens, gf[r.rid].tokens
+        same = a == b
+        agree += int(same.sum())
+        total += len(a)
+        if first is None and not same.all():
+            i = int(np.argmin(same))
+            first = {"rid": r.rid, "at": i, "top2_gap": top2_gap(
+                greedy, params, r.tokens, b[:i])}
+    out["greedy"] = {"agree": agree, "total": total, "first": first}
+    log(f"[smoke] 16b llama3.2-1b bf16 spec k={SPEC_K} T=1, {len(reqs)} x "
+        f"32 tokens: {json.dumps(out['spec'])} against the plain MIDX wave "
+        f"{json.dumps(out['plain'])}; batched == solo on 2; over an int8 "
+        f"state {json.dumps(out['int8'])}; greedy spec vs greedy full head "
+        f"{agree}/{total} tokens agree, first divergence "
+        f"{json.dumps(first)}; midx_probs launches {out['launches']}")
+    return out
+
+
+def tier_chunked(get_config, midx, flash, params, index) -> dict:
+    """16c: llama3.2-1b, 6 slots: 4 requests (prompt 64) decode 64 tokens
+    while prompts of 2048 and 4096 arrive 0.2 s in; chunked prefill (512,
+    the flash kernel at q_offset) against whole-prompt prefill: first-token
+    latency per length (the engine's prefill time and the wall time from
+    arrival) and the in-flight decodes' inter-token p50 / p99."""
+    from repro_torch.serve import Engine, Request
+    base = get_config("llama3.2-1b").with_serve(
+        max_slots=6, page_size=16, max_seq=max(TIER_LONG) + 96)
+    v = base.vocab_size
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, tokens=rng.integers(0, v, size=64)
+                    .astype(np.int32), max_new=64, seed=3)
+            for i in range(4)]
+    reqs += [Request(rid=4 + i, tokens=rng.integers(0, v, size=n)
+                     .astype(np.int32), max_new=16, seed=3, arrival=0.2)
+             for i, n in enumerate(TIER_LONG)]
+    out, tokens = {}, {}
+    for mode, cfg in (("whole", base),
+                      ("chunked", base.with_serve(prefill_chunk=TIER_CHUNK))):
+        eng = Engine(cfg, params, index=index, head="midx", device="cuda")
+        eng.warmup([64, *TIER_LONG])
+        zero_counts((midx, flash))
+        res, times = drive(eng, reqs)
+        torch.cuda.synchronize()
+        n = {"midx_probs": midx.launches, "flash_attention": flash.launches}
+        need_launches(f"llama3.2-1b {mode} prefill beside decodes", n)
+        check_results(f"llama3.2-1b {mode} prefill", cfg, reqs, res)
+        gaps = np.concatenate([np.diff(times[r.rid]) for r in reqs[:4]])
+        out[mode] = {
+            "prefill_ms": {len(r.tokens): 1e3 * res[r.rid].latencies_s[0]
+                           for r in reqs[4:]},
+            "ttft_wall_ms": {len(r.tokens): 1e3 * (times[r.rid][0]
+                                                   - r.arrival)
+                             for r in reqs[4:]},
+            "decode_gap_p50_ms": 1e3 * float(np.percentile(gaps, 50)),
+            "decode_gap_p99_ms": 1e3 * float(np.percentile(gaps, 99)),
+            "decode_gap_max_ms": 1e3 * float(gaps.max()),
+            "prefill_chunks": eng.stats.prefill_chunks, "launches": n}
+        tokens[mode] = res
+        del eng
+        torch.cuda.empty_cache()
+    agree = sum(int((tokens["whole"][r.rid].tokens
+                     == tokens["chunked"][r.rid].tokens).sum()) for r in reqs)
+    out["agree"] = [agree, sum(r.max_new for r in reqs)]
+    log(f"[smoke] 16c llama3.2-1b chunked prefill ({TIER_CHUNK}) of "
+        f"{list(TIER_LONG)} beside 4 decoding requests: "
+        f"{json.dumps(out['chunked'])}; whole-prompt prefill: "
+        f"{json.dumps(out['whole'])}; tokens equal {agree}/"
+        f"{out['agree'][1]} (reported: bf16 GEMMs of another shape)")
+    return out
+
+
+def tier_prefix(get_config, midx, flash, params, index) -> dict:
+    """16d: llama3.2-1b, prefix cache, chunk 512: 8 requests share a
+    2048-token prefix. Request 0 runs alone (the donor), then 1-7 hit its
+    pages (request 1 also its first 16 tail tokens: a resume at 2064, not
+    a multiple of the flash tile). The donor's pages stay byte for byte;
+    hits 1 and 2 give their cold runs' tokens bit for bit; first-token
+    latency hit against cold."""
+    from repro_torch.serve import Engine, Request
+    cfg = get_config("llama3.2-1b").with_serve(
+        max_slots=4, page_size=16, max_seq=PREFIX_LEN + 96,
+        prefill_chunk=TIER_CHUNK, prefix_cache=True)
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, cfg.vocab_size, size=PREFIX_LEN)
+    tails = [rng.integers(0, cfg.vocab_size, size=64) for _ in range(8)]
+    tails[1][:16] = tails[0][:16]
+    reqs = [Request(rid=i, tokens=np.concatenate([prefix, t])
+                    .astype(np.int32), max_new=16, seed=3)
+            for i, t in enumerate(tails)]
+    eng = Engine(cfg, params, index=index, head="midx", device="cuda")
+    eng.warmup([64, PREFIX_LEN + 64])
+    eng.cache.drop()
+    zero_counts((midx, flash))
+    res = eng.run(reqs[:1])
+    cached = sorted({node.page for node in eng.cache._nodes.values()})
+    before = [eng.state[name][:, cached].clone() for name in ("k", "v")]
+    res.update(eng.run(reqs[1:]))
+    torch.cuda.synchronize()
+    n = {"midx_probs": midx.launches, "flash_attention": flash.launches}
+    need_launches("llama3.2-1b prefix cache", n)
+    check_results("llama3.2-1b prefix cache", cfg, reqs, res)
+    hits = eng.cache.counters()
+    if hits["cache_hits"] < 7 * (PREFIX_LEN // 16):
+        raise SystemExit(f"llama3.2-1b prefix cache: {hits}")
+    for name, b in zip(("k", "v"), before):
+        if not torch.equal(eng.state[name][:, cached], b):
+            raise SystemExit(f"llama3.2-1b prefix cache: the donor's "
+                             f"cached {name} pages changed")
+    cold = Engine(cfg.with_serve(prefix_cache=False), params, index=index,
+                  head="midx", device="cuda")
+    cold.warmup([64, PREFIX_LEN + 64])
+    cres = cold.run(reqs[:3])
+    for r in reqs[1:3]:
+        if not np.array_equal(res[r.rid].tokens, cres[r.rid].tokens):
+            raise SystemExit(f"llama3.2-1b prefix cache: hit rid {r.rid} "
+                             f"{res[r.rid].tokens.tolist()} != its cold run "
+                             f"{cres[r.rid].tokens.tolist()}")
+    out = {"cache": hits, "launches": n,
+           "hit_prefill_ms": [1e3 * res[r.rid].latencies_s[0]
+                              for r in reqs[1:]],
+           "cold_prefill_ms": [1e3 * cres[r.rid].latencies_s[0]
+                               for r in reqs[:3]],
+           "donor_prefill_ms": 1e3 * res[0].latencies_s[0]}
+    log(f"[smoke] 16d llama3.2-1b prefix cache ({PREFIX_LEN}-token shared "
+        f"prefix, chunk {TIER_CHUNK}): {json.dumps(out)}; the donor's pages "
+        f"unchanged byte for byte; hits 1 (resume at {PREFIX_LEN + 16}) and "
+        f"2 (at {PREFIX_LEN}) bitwise their cold runs")
+    return out
+
+
+def tier_router(get_config, midx, params, index) -> dict:
+    """16e: 2 llama3.2-1b replicas behind the router on the one card, 16
+    requests x 16 tokens: every result bitwise one engine's."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve import Engine, Router
+    cfg = get_config("llama3.2-1b").with_serve(max_slots=4, page_size=16,
+                                               max_seq=96)
+    reqs = synthetic_requests(cfg, num=16, prompt=64, max_new=16, rate=0.0,
+                              seed=1)
+    replicas = [Engine(cfg, params, index=index, head="midx", device="cuda")
+                for _ in range(2)]
+    for e in replicas:
+        e.warmup([32, 48, 64])
+    router = Router(replicas)
+    zero_counts((midx,))
+    res = router.run(reqs)
+    torch.cuda.synchronize()
+    n = midx.launches
+    need_launches("llama3.2-1b router", {"midx_probs": n})
+    check_results("llama3.2-1b router", cfg, reqs, res)
+    one = Engine(cfg, params, index=index, head="midx", device="cuda")
+    one.warmup([32, 48, 64])
+    ores = one.run(reqs)
+    for r in reqs:
+        if not np.array_equal(res[r.rid].tokens, ores[r.rid].tokens):
+            raise SystemExit(f"router rid {r.rid} {res[r.rid].tokens.tolist()}"
+                             f" != one engine's {ores[r.rid].tokens.tolist()}")
+    s, o = router.summary(), one.stats.summary()
+    out = {"launches": n, "routed": s["routed_per_replica"],
+           "router": {k: s[k] for k in ("tok_s", "p50_ms", "p99_ms")},
+           "one_engine": {k: o[k] for k in ("tok_s", "p50_ms", "p99_ms")}}
+    log(f"[smoke] 16e router, 2 llama3.2-1b replicas on one card, 16 x 16 "
+        f"tokens: every result bitwise one engine's; {json.dumps(out)}")
+    return out
+
+
+def serving_tier(get_config, midx_cuda, flash_cuda, params, index, plain,
+                 card) -> dict:
+    """Phase 16: the serving tier on the card (16a-e). Returns the phase's
+    numbers and its launches of midx_probs (bf16 / fp32 and int8) and of
+    the flash forward."""
+    midx, flash = midx_cuda.midx_probs_cuda, flash_cuda.flash_attention_cuda
+    t0 = time.perf_counter()
+    out = {"paper": tier_paper(get_config, midx)}
+    torch.cuda.empty_cache()
+    out["spec"] = tier_llama_spec(get_config, midx, params, index, plain)
+    torch.cuda.empty_cache()
+    out["chunked"] = tier_chunked(get_config, midx, flash, params, index)
+    out["prefix"] = tier_prefix(get_config, midx, flash, params, index)
+    torch.cuda.empty_cache()
+    out["router"] = tier_router(get_config, midx, params, index)
+    torch.cuda.empty_cache()
+    out["midx_probs"] = (out["paper"]["launches"] + out["spec"]["launches"]
+                         + out["prefix"]["launches"]["midx_probs"]
+                         + out["router"]["launches"]
+                         + sum(out["chunked"][m]["launches"]["midx_probs"]
+                               for m in ("whole", "chunked")))
+    out["midx_probs_int8"] = out["spec"]["int8"]["launches"]
+    out["flash_attention"] = (
+        out["chunked"]["chunked"]["launches"]["flash_attention"]
+        + out["prefix"]["launches"]["flash_attention"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] phase 16 (serving tier) took {out['seconds']:.1f}s on "
+        f"{card}")
+    return out
 
 
 def zero_counts(counters) -> None:
@@ -3105,8 +3543,14 @@ def main() -> None:
     if args.profile:
         profile_run(eng_long, "llama3.2-1b head=midx, one prefill of 4 x "
                     "4096-token prompts", prompt=max(LONG_PROMPTS), tokens=1)
-    del eng_long, llama_params, llama_index
+    del eng_long
     torch.cuda.empty_cache()
+    mark("serving (phases 5-6b)")
+    tier = serving_tier(get_config, midx_cuda, flash_cuda, llama_params,
+                        llama_index, midx_serve, card)
+    del llama_params, llama_index
+    torch.cuda.empty_cache()
+    mark("the serving tier (phase 16)")
     rff_counter = rff_cuda.rff_sample_cuda
     _, rff_serve, n_rff_llama = serve(llama, head="rff-fused", requests=8,
                                       prompt=64, tokens=32, verify=2,
@@ -3116,7 +3560,7 @@ def main() -> None:
         f"{rff_serve['peak_gib']:.3f} GiB (allocated before each: "
         f"{midx_serve['base_gib']:.3f} / {rff_serve['base_gib']:.3f} GiB)")
     torch.cuda.empty_cache()
-    mark("serving (phases 5-6b)")
+    mark("rff-fused serve (phase 6)")
 
     from repro_torch.data import ZipfLM
     counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
@@ -3266,7 +3710,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/midx_probs/midx_probs.py:23",
         "launches": n_paper + n_llama + n_train[0] + n_trained
                     + n_llama_trained + n_long_serve[1]
-                    + n_mamba["midx_probs"],
+                    + n_mamba["midx_probs"] + tier["midx_probs"],
+        "launches_serving_tier": tier["midx_probs"],
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
         "bound_by": by, "library_ms": None,
         "shape": "llama3.2-1b decode T=4 D=2048 K=64 rq",
@@ -3350,10 +3795,12 @@ def main() -> None:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:25",
-        "launches": n_long_serve[0] + n_4k[0] + sum(n_4k_replay),
+        "launches": n_long_serve[0] + n_4k[0] + sum(n_4k_replay)
+                    + tier["flash_attention"],
         "launches_by_path": {"long-prompt serve": n_long_serve[0],
                              "train_4k": n_4k[0],
-                             "train_4k replay": n_4k_replay},
+                             "train_4k replay": n_4k_replay,
+                             "serving tier": tier["flash_attention"]},
         "max_abs_err": max(flash_worst.values()),
         "max_abs_err_by_output": flash_worst,
         "bf16_out_elements_differing": flash_diff, "ms": ms,
@@ -3380,11 +3827,13 @@ def main() -> None:
              "bound_by": t[3]}
             for name, t in ssd_timings.items()
             if name != "mamba2-370m train 4x1024 Q=256"]})
+    n_quant["midx_probs[int8]"] += tier["midx_probs_int8"]
     rows += quantized_rows(qholds, n_quant)
     rows += partial_rows({k: v for k, v in partial_holds.items()
                           if k != "row0"}, vp)
     log(f"[smoke] vocab-parallel: {json.dumps(vp)}; row-0 hot segment "
         f"{json.dumps(partial_holds.get('row0'))}; on {card}")
+    log(f"[smoke] serving tier (phase 16): {json.dumps(tier)}; on {card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

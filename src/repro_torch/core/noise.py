@@ -32,9 +32,15 @@ _M2 = -2073287029 & _M32
 
 #: Roles salt the draws of one (request, position) apart. ROLE_SHARED_*
 #: salt a sequence's shared negatives (pooled and mixture proposals),
-#: ROLE_CATEGORICAL the generic proposals' categorical draws.
+#: ROLE_CATEGORICAL the generic proposals' categorical draws. A speculative
+#: wave salts its wave key (the row key of the wave's start position) by
+#: ROLE_SPEC_DRAFT for its k draft draws, ROLE_SPEC_ACCEPT for the accept
+#: test's uniform of draft j and ROLE_SPEC_CORRECT for the correction draw
+#: at the first rejected draft. Roles are appended, never renumbered: a
+#: new number would change every existing draw's bits.
 (ROLE_K1, ROLE_K2, ROLE_MEMBER, ROLE_PICK, ROLE_FULL, ROLE_SHARED_PAIR,
- ROLE_SHARED_MEMBER, ROLE_CATEGORICAL) = range(8)
+ ROLE_SHARED_MEMBER, ROLE_CATEGORICAL, ROLE_SPEC_DRAFT, ROLE_SPEC_ACCEPT,
+ ROLE_SPEC_CORRECT) = range(11)
 #: Elements of the [T, draws, N] noise block one step of
 #: `gumbel_max_draws` materialises.
 DRAW_CHUNK = 1 << 22

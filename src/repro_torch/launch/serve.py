@@ -15,23 +15,47 @@ Synthetic open-loop traffic (Poisson arrivals at --rate req/s; 0 = all at
 t0); reports tokens/s and p50/p95/p99 per-token latency, and replays
 --verify requests alone, requiring identical tokens.
 
-The flags are the reference's for what this slice supports: --arch
---reduced --requests --rate --prompt --tokens --max-slots --page-size
---head --table-dtype --num-candidates --temperature --greedy --seed --ckpt
---verify --warmup, plus --device (default: the card). Any other flag is
-rejected. --table-dtype int8 / fp8 serves the MIDX head from a quantized
-state (reference `launch/serve.py:139`, `:192`): the draw scores the
-low-bit codebooks (the midx_probs kernel's quantized mode on the card) and
-the candidates are rescored from residual PQ codes, not [V, D] rows.
---ckpt restores params and head state from a serving checkpoint dir, e.g.
-the `<ckpt>/serve` export of either package's `train_loop` (reference
-`launch/serve.py:168-169`, `:213-214`).
+The serving tier (reference :15-23, dense family only):
+  --spec-decode K    MIDX-draft speculative decoding: K drafts a wave from
+                     the midx_probs kernel's tables, one chunked backbone
+                     pass and one batched full-head verify; reports the
+                     acceptance rate (--head midx; with --greedy the
+                     greedy verify, token-identical to greedy full head)
+  --prefill-chunk N  page-aligned prefill chunks of N tokens interleaved
+                     with decode waves (a chunk of a multiple of 128 runs
+                     its attention in the flash kernel)
+  --prefix-cache     refcounted prompt-prefix page sharing (chunked, by
+                     default one page a chunk)
+  --shared-prefix F  that fraction of requests starts with one page-aligned
+                     common prefix of ~half the prompt (the same traffic as
+                     the reference's generator for the same seed)
+  --replicas N       N engine replicas behind the load-weighted router,
+                     sharing params and index (on one card, they share it)
+  --max-seq, --num-pages, --window  per-slot capacity, pool size and the
+                     sliding window, as in the reference.
+
+The other flags are the reference's: --arch --reduced --requests --rate
+--prompt --tokens --max-slots --page-size --head --table-dtype
+--num-candidates --temperature --greedy --seed --ckpt --verify --warmup,
+plus --device (default: the card). --swap-step and --stale-sigma (index
+hot-swap) refuse until ROADMAP.md Queue 1 item 9 is ported.
+--table-dtype int8 / fp8 serves the MIDX head from a quantized state
+(reference `launch/serve.py:139`, `:192`): the draw scores the low-bit
+codebooks (the midx_probs kernel's quantized mode on the card, also for
+the speculative draft) and the candidates are rescored from residual PQ
+codes, not [V, D] rows. --ckpt restores params and head state from a
+serving checkpoint dir, e.g. the `<ckpt>/serve` export of either
+package's `train_loop` (reference `launch/serve.py:168-169`, `:213-214`).
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --head midx
+  python -m repro_torch.launch.serve --arch llama3.2-1b --spec-decode 4
+  python -m repro_torch.launch.serve --arch llama3.2-1b --prompt 2048 --prefill-chunk 512 --prefix-cache --shared-prefix 0.8
+  python -m repro_torch.launch.serve --arch llama3.2-1b --replicas 2 --requests 16
   python -m repro_torch.launch.serve --arch llama3.2-1b --head rff-fused
   python -m repro_torch.launch.serve --arch llama3.2-1b --head midx --table-dtype int8
   python -m repro_torch.launch.serve --arch mamba2-370m --prompt 512
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --spec-decode 4 --prefix-cache --shared-prefix 0.8 --replicas 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --ckpt build/ck-cpu/serve
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --device cpu --reduced
 """
@@ -45,7 +69,7 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.configs.base import pad_to
 from repro_torch.proposals import registry as proposals_registry
-from repro_torch.serve import Engine, Request
+from repro_torch.serve import Engine, Request, Router
 
 
 def prompt_buckets(prompt: int) -> list[int]:
@@ -55,21 +79,28 @@ def prompt_buckets(prompt: int) -> list[int]:
 
 
 def synthetic_requests(cfg, *, num: int, prompt: int, max_new: int,
-                       rate: float, seed: int) -> list[Request]:
+                       rate: float, seed: int,
+                       shared_prefix: float = 0.0) -> list[Request]:
     """Open-loop synthetic traffic: prompt lengths from a small bucket set,
-    Poisson arrivals at `rate` req/s. The same seed gives the same traffic
-    as the reference's generator without a shared prefix."""
+    Poisson arrivals at `rate` req/s. With `shared_prefix` in (0, 1] that
+    fraction of the requests longer than the prefix start with one
+    page-aligned common prefix of ~half the prompt (a shared system
+    prompt). The generator is drawn from exactly as the reference's
+    (reference :86-113), so a seed gives the reference's traffic."""
     rng = np.random.default_rng(seed)
     buckets = prompt_buckets(prompt)
     arrivals = (np.cumsum(rng.exponential(1.0 / rate, size=num))
                 if rate > 0 else np.zeros(num))
     pfx_len = max(cfg.serve.page_size, (prompt // 2)
                   // cfg.serve.page_size * cfg.serve.page_size)
-    rng.integers(0, cfg.vocab_size, size=pfx_len)   # the reference's prefix
+    prefix = rng.integers(0, cfg.vocab_size, size=pfx_len).astype(np.int32)
     reqs = []
     for i in range(num):
         plen = int(rng.choice(buckets))
         toks = rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32)
+        if shared_prefix > 0 and rng.random() < shared_prefix \
+                and plen > pfx_len:
+            toks[:pfx_len] = prefix
         reqs.append(Request(rid=i, tokens=toks, max_new=max_new, seed=seed,
                             arrival=float(arrivals[i])))
     return reqs
@@ -90,9 +121,15 @@ def build_config(args):
         head_kw["decode_temperature"] = 0.0
     if head_kw:
         cfg = cfg.with_head(**head_kw)
-    max_seq = pad_to(args.prompt + args.tokens + 1, args.page_size)
+    # a speculative wave writes up to spec_decode - 1 scratch positions past
+    # the committed token, so the fitted per-slot budget covers them too
+    max_seq = args.max_seq or pad_to(
+        args.prompt + args.tokens + max(args.spec_decode, 1), args.page_size)
     return cfg.with_serve(max_slots=args.max_slots, page_size=args.page_size,
-                          max_seq=max_seq)
+                          max_seq=max_seq, num_pages=args.num_pages,
+                          spec_decode=args.spec_decode,
+                          prefill_chunk=args.prefill_chunk,
+                          prefix_cache=args.prefix_cache)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -108,6 +145,10 @@ def parser() -> argparse.ArgumentParser:
                     help="tokens per request")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=0,
+                    help="per-slot capacity (0 = fit prompt+tokens)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="physical pool size (0 = full residency)")
     ap.add_argument("--head", default="midx",
                     choices=proposals_registry.PORTED_MODES)
     ap.add_argument("--table-dtype", default=None,
@@ -120,12 +161,37 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = cfg.head default)")
     ap.add_argument("--greedy", action="store_true",
-                    help="temperature-0 decoding (needs --head full)")
+                    help="temperature-0 decoding; with --spec-decode the "
+                         "greedy verify is token-identical to full-head "
+                         "greedy decode (needs --head full or --spec-decode)")
+    ap.add_argument("--spec-decode", type=int, default=0,
+                    help="speculative decoding: K MIDX drafts per wave, one "
+                         "batched full-head verify (0 = off)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prefill-token budget per wave: prompts prefill in "
+                         "page-aligned chunks interleaved with decode waves "
+                         "(0 = whole-prompt batched prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix KV pages across requests via "
+                         "the refcounted prefix trie")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the load-weighted router; "
+                         "replicas share params + index")
+    ap.add_argument("--shared-prefix", type=float, default=0.0,
+                    help="fraction of requests whose prompt starts with a "
+                         "common prefix (exercises --prefix-cache)")
+    ap.add_argument("--window", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None,
                     help="restore params+index from a serving checkpoint dir")
     ap.add_argument("--verify", type=int, default=2,
                     help="replay N requests solo and require identical output")
+    ap.add_argument("--swap-step", type=int, default=-1,
+                    help="index hot-swap before this decode step (not "
+                         "ported: ROADMAP.md Queue 1 item 9)")
+    ap.add_argument("--stale-sigma", type=float, default=0.0,
+                    help="serve against a stale index (not ported: "
+                         "ROADMAP.md Queue 1 item 9)")
     ap.add_argument("--warmup", type=int, default=1,
                     help="run a warmup first so reported latency percentiles "
                          "are steady-state (0 disables)")
@@ -137,28 +203,64 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI; returns {"summary", "results", "verified"}."""
     args = parser().parse_args(argv)
+    if args.swap_step >= 0 or args.stale_sigma > 0:
+        raise SystemExit("--swap-step / --stale-sigma: index hot-swap is not "
+                         "ported to repro_torch yet; see ROADMAP.md Queue 1 "
+                         "item 9")
     cfg = build_config(args)
+    window = args.window or None
     if args.ckpt:
         engine = Engine.from_checkpoint(cfg, args.ckpt, head=args.head,
-                                        device=args.device, seed=args.seed)
+                                        window=window, device=args.device,
+                                        seed=args.seed)
     else:
-        engine = Engine(cfg, head=args.head, device=args.device,
-                        seed=args.seed)
+        engine = Engine(cfg, head=args.head, window=window,
+                        device=args.device, seed=args.seed)
+    replicas = [engine] + [
+        Engine(cfg, engine.params, index=engine.index, head=args.head,
+               window=window, device=engine.device)
+        for _ in range(1, max(args.replicas, 1))]
+    router = Router(replicas) if len(replicas) > 1 else None
     reqs = synthetic_requests(cfg, num=args.requests, prompt=args.prompt,
                               max_new=args.tokens, rate=args.rate,
-                              seed=args.seed)
+                              seed=args.seed,
+                              shared_prefix=args.shared_prefix)
     if not reqs:
         print("[serve] no requests to run")
         return {"summary": {}, "results": {}, "verified": 0}
     if args.warmup:
-        engine.warmup(prompt_buckets(args.prompt))
-    results = engine.run(reqs)
-    s = engine.stats.summary()
+        for eng in replicas:
+            eng.warmup(prompt_buckets(args.prompt))
+    if router is not None:
+        results = router.run(reqs)
+        s, stats = router.summary(), router.stats()
+    else:
+        results = engine.run(reqs)
+        s, stats = engine.stats.summary(), engine.stats
     print(f"[serve] head={args.head} arch={cfg.name} device={engine.device} "
           f"requests={args.requests} slots={args.max_slots} "
+          f"replicas={len(replicas)} "
           f"waves={s['waves']} generated={s['generated']} "
           f"tok/s={s['tok_s']} p50={s['p50_ms']}ms p95={s['p95_ms']}ms "
           f"p99={s['p99_ms']}ms")
+    if args.spec_decode:
+        print(f"[serve] speculative: k={args.spec_decode} "
+              f"waves={stats.spec_waves} drafted={stats.spec_drafted} "
+              f"accepted={stats.spec_accepted} "
+              f"acceptance={stats.accept_rate():.3f}")
+    if args.prefix_cache:
+        counters = {}
+        for eng in replicas:
+            for k, v in eng.cache.counters().items():
+                counters[k] = counters.get(k, 0) + v
+        hits, misses = counters["cache_hits"], counters["cache_misses"]
+        print(f"[serve] prefix cache: hits={hits} misses={misses} "
+              f"hit_rate={hits / max(hits + misses, 1):.3f} "
+              f"evictions={counters['cache_evictions']} "
+              f"cached_pages={counters['cached_pages']}")
+    if router is not None:
+        print(f"[serve] router: routed_per_replica="
+              f"{router.rstats.per_replica} shed={router.rstats.shed}")
     n_verify = min(args.verify, len(reqs))
     bad = 0
     for r in reqs[:n_verify]:

@@ -7,5 +7,5 @@ from repro_torch.models.model import (init_params, forward, logits_full,
 from repro_torch.models.decode import (init_decode_state, decode_step,
                                        prefill, init_paged_state,
                                        paged_decode_step, reset_slot,
-                                       write_prefill)
+                                       write_prefill, chunk_prefill_step)
 from repro_torch.models import heads

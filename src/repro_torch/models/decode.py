@@ -4,8 +4,9 @@ Mirrors `src/repro/models/decode.py` for the `dense` and `ssm` families:
 `_ssm_cache` (:52), `init_decode_state` (:79), `_mamba_decode` (:156),
 `decode_step` (:164), `prefill` (:314, with its chunk rule :341),
 `init_paged_state` (:464), `paged_decode_step` (:502, an ssm state with no
-page table passing straight through, :515-517), `reset_slot` (:619) and
-`write_prefill` (:642). Layouts are the reference's:
+page table passing straight through, :515-517), `chunk_prefill_step`
+(:540-616, the dense family), `reset_slot` (:619) and `write_prefill`
+(:642). Layouts are the reference's:
   slot-major  k/v [L, B, Smax, KV, hd]
   paged       k/v [L, P, page, KV, hd] + page_table [B, pages_per_slot]
   ssm         conv_x [L, B, W-1, d_inner], conv_b / conv_c [L, B, W-1, N]
@@ -21,7 +22,20 @@ reference returns a new pytree and relies on buffer donation
 so call sites read like the reference's. The paged step also writes each
 layer's new K/V into the pool before gathering that layer's page view,
 instead of gathering all layers, writing the view and scattering back:
-the same values are attended either way.
+the same values are attended either way. `chunk_prefill_step` does the
+same per layer (the reference scans all layers over a gathered
+[L, B, Smax, KV, hd] view). Two further departures:
+  - `paged_decode_step(active=...)` routes the writes of inactive slots to
+    the trash page. The reference's decode wave packs a slot that is
+    still prefilling in chunks at position 0 (`serve/engine.py:651-668`)
+    and so writes a garbage row into position 0 of its first page, which
+    may be a prefix-cache page another request reads;
+  - in `chunk_prefill_step` an invalid row (past a slot's `length`) is
+    written to the trash page only, so it is absent from the view the
+    valid rows attend over (the reference writes it into the view too).
+    Valid rows never attend to it (it lies past them), so their hidden
+    states are unchanged; an invalid row's own hidden is not the
+    reference's, and no caller reads it.
 """
 from __future__ import annotations
 
@@ -30,6 +44,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.layers import apply_norm, rope_angles
@@ -38,6 +53,11 @@ from repro_torch.models.model import (apply_attn_part, apply_ffn_part,
                                       torch_dtype)
 
 SSM_KEYS = ("conv_x", "conv_b", "conv_c", "ssm")
+#: The flash forward's tile (`flash_attention_block()` and
+#: `flash_attention_max_hd()` of `kernels/flash_attention/csrc/
+#: flash_attention.cu`): a prefill chunk takes the kernel when the chunk
+#: is a multiple of the tile and hd fits it.
+FLASH_TILE, FLASH_MAX_HD = 128, 128
 
 
 def _ssm_cache(cfg: ModelConfig, n_layers: int, bsz: int, *,
@@ -194,13 +214,15 @@ def init_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
 
 def paged_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                       pos: torch.Tensor, state: dict, *,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None,
+                      active: Optional[torch.Tensor] = None):
     """`decode_step` against the paged layout. pos: per-slot [B].
 
     Per layer: write the slot's new K/V at (page_table[b, pos // page],
     pos % page) of the pool, then gather the slot's pages into a
-    logically-contiguous [B, Smax, KV, hd] view and attend. Inactive slots
-    (page table pointing at the trash page, pos 0) write trash offset 0.
+    logically-contiguous [B, Smax, KV, hd] view and attend. A slot with
+    `active[b]` False (or, without `active`, a page table pointing at the
+    trash page and pos 0) writes trash offset 0 and nothing of its own.
     A state without a page table (ssm) passes straight to `decode_step`.
     """
     if "page_table" not in state:
@@ -211,6 +233,8 @@ def paged_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     b, npages = pt.shape
     rows = torch.arange(b, device=pt.device)
     phys, off = pt[rows, pos // page], pos % page
+    if active is not None:
+        phys, off = torch.where(active, phys, 0), torch.where(active, off, 0)
 
     def kv_at(li, k, v):
         pool_k[li, phys, off] = k.to(pool_k.dtype)
@@ -219,6 +243,120 @@ def paged_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 pool_v[li][pt].reshape(b, npages * page, kvh, hd))
 
     return _decode_layers(cfg, params, token, pos, kv_at, window), state
+
+
+def _chunk_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                     ok: torch.Tensor) -> torch.Tensor:
+    """The reference's masked fp32 attention of a chunk over its slots'
+    views: q [B, C, H, hd], kc / vc [B, Smax, KV, hd], ok [B, C, Smax]."""
+    b, c, h, hd = q.shape
+    kvh = kc.shape[2]
+    qg = q.reshape(b, c, kvh, h // kvh, hd).float() * hd ** -0.5
+    scores = torch.einsum("bqkgh,bmkh->bkgqm", qg, kc.float())
+    scores = torch.where(ok[:, None, None], scores,
+                         scores.new_tensor(attn_mod.NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqm,bmkh->bqkgh", probs.to(vc.dtype), vc)
+    return o.reshape(b, c, h, hd)
+
+
+def _flash_chunk(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                 pages: torch.Tensor, q_offset: int, window) -> torch.Tensor:
+    """One slot's chunk through the flash forward: q [1, C, H, hd] at
+    absolute offset `q_offset`, against the slot's pages `pages` [np] of
+    one layer's pool [P, page, KV, hd], cut (or zero-padded) to the
+    smallest multiple of FLASH_TILE that covers q_offset + C. The causal
+    mask keeps every key past the chunk out, whatever it holds."""
+    page, kvh, hd = pool_k.shape[1:]
+    c = q.shape[1]
+    sk = -(-(q_offset + c) // FLASH_TILE) * FLASH_TILE
+    n = min(pages.shape[0], -(-sk // page))
+
+    def view(pool):
+        x = pool[pages[:n]].reshape(1, n * page, kvh, hd)
+        if n * page >= sk:
+            return x[:, :sk]
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, sk - n * page))
+
+    return flash_attention_op(q, view(pool_k), view(pool_v), True, window,
+                              c, FLASH_TILE, q_offset)
+
+
+def chunk_prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                       start: torch.Tensor, length: torch.Tensor,
+                       state: dict, *, window: Optional[int] = None,
+                       solo: Optional[tuple[int, int]] = None):
+    """Prefill one page-aligned chunk per slot against the paged layout.
+    tokens [B, C]; start [B] absolute position of tokens[:, 0]; length [B]
+    valid token count this wave (0 = slot idle). Returns (hidden [B, C, D]
+    final-normed, state); only valid rows of hidden are defined.
+
+    Queries carry their absolute positions (RoPE, causal and window mask).
+    Per layer, the valid (slot, position) rows write their K/V into the
+    pool in place (invalid rows: the trash page, offset 0), then the chunk
+    attends over its slots' gathered page views: the cached prefix plus
+    itself. Masked scores contribute exact zeros, so a position's
+    arithmetic depends only on the tokens at and before it, never on which
+    physical pages hold the prefix: a prefix-cache hit resumed on the
+    absolute chunk grid is bitwise the cold run.
+
+    `solo = (slot, start)` says that `slot` alone has length > 0, at host
+    position `start` (a chunk wave of the engine). Where the flash kernel
+    takes the shapes (C a multiple of FLASH_TILE, hd <= FLASH_MAX_HD), that
+    slot's attention goes through `flash_attention_op` with q_offset =
+    start over its own pages, and the other rows attend to nothing (zeros;
+    they are invalid). On the CPU the op runs its plain version. A
+    speculative verify pass (C = k) passes no `solo` and stays plain.
+    Dense only: an ssm state carries sequential state that cannot resume
+    mid-prompt (ValueError, as the reference); moe and hybrid raise item
+    12b's NotImplementedError.
+    """
+    require_ported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"chunked prefill supports the dense family, not "
+                         f"{cfg.family}")
+    b, c = tokens.shape
+    dev = tokens.device
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    pt = state["page_table"]                       # [B, np]
+    pool_k, pool_v = state["k"], state["v"]        # [L, P, page, KV, hd]
+    page = pool_k.shape[2]
+    npages = pt.shape[1]
+    smax = npages * page
+    rows = torch.arange(b, device=dev)
+    col = torch.arange(c, device=dev)
+    positions = start[:, None] + col[None, :]                       # [B, C]
+    valid = col[None, :] < length[:, None]
+    phys = torch.where(valid, pt[rows[:, None],
+                                 torch.clamp(positions // page,
+                                             max=npages - 1)], 0)
+    off = torch.where(valid, positions % page, 0)
+    flash = solo is not None and c % FLASH_TILE == 0 and hd <= FLASH_MAX_HD
+    if not flash:
+        j = torch.arange(smax, device=dev)
+        ok = j[None, None, :] <= positions[:, :, None]              # [B,C,Sm]
+        if window is not None:
+            ok &= j[None, None, :] > positions[:, :, None] - window
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    x = params["embed"][tokens].to(torch_dtype(cfg))                # [B,C,D]
+    for li, bp in enumerate(params["blocks"]):
+        h = apply_norm(bp["ln1"], x, eps=cfg.norm_eps, kind=cfg.norm)
+        q, k, v = attn_mod.project_qkv(bp["attn"], h, cfg.num_heads, kvh, hd,
+                                       cos, sin, cfg.qk_norm, cfg.norm_eps)
+        pool_k[li, phys, off] = k.to(pool_k.dtype)
+        pool_v[li, phys, off] = v.to(pool_v.dtype)
+        if flash:
+            slot, q_offset = solo
+            o = torch.zeros_like(q)
+            o[slot] = _flash_chunk(q[slot:slot + 1], pool_k[li], pool_v[li],
+                                   pt[slot], int(q_offset), window)[0]
+        else:
+            o = _chunk_attention(q, pool_k[li][pt].reshape(b, smax, kvh, hd),
+                                 pool_v[li][pt].reshape(b, smax, kvh, hd), ok)
+        x = x + o.reshape(b, c, -1) @ bp["attn"]["wo"].to(x.dtype)
+        x = apply_ffn_part(cfg, bp, x)
+    x = apply_norm(params["final_norm"], x, eps=cfg.norm_eps, kind=cfg.norm)
+    return x, state
 
 
 def reset_slot(state: dict, slot: int) -> dict:

@@ -9,8 +9,9 @@ table in its native dtype or, over a quantized state, its int8 / fp8
 twin), `_gathered_rows` (:219), `_masked_mean` (:232), the generic proposal
 heads `_midx_index_of` (:239), `init_proposal_state` (:253),
 `refresh_proposal_state` (:260), `loss_sampled` (:267),
-`proposal_decode_head` (:538), and `midx_decode_head` (:316, both
-branches).
+`proposal_decode_head` (:538), `midx_decode_head` (:316, both
+branches), and speculative decoding's `_spec_tables_fn` (:377),
+`midx_spec_draft` (:401) and `spec_verify` (:442).
 
 `loss_midx` is the reference's fused lane. Per-token proposals: the
 proposal tables come from the midx_probs kernel and the CE from the
@@ -67,7 +68,15 @@ matrix. Departures:
     with atomics;
   - the proposal tables always come through `proposal_tables` and
     `kernels.dispatch` (the CUDA kernel on the card, the plain version on
-    the CPU); there is no `fused`/`interpret` switch.
+    the CPU); there is no `fused`/`interpret` switch;
+  - speculative decoding: `midx_spec_draft` draws all B rows' k drafts in
+    one `sample_twostage` call (the reference vmaps a one-row draw per
+    slot), under the wave key salted by ROLE_SPEC_DRAFT; `spec_verify`'s
+    accept uniforms and correction Gumbels are counter noise of the wave
+    key under ROLE_SPEC_ACCEPT / ROLE_SPEC_CORRECT and the draft index j
+    (the reference folds 2 and 3 into a JAX key). Every random number of
+    a wave is so a function of (seed, rid, the wave's start position,
+    role, j) alone.
 """
 from __future__ import annotations
 
@@ -327,6 +336,118 @@ def _pick(draw, corrected: torch.Tensor, keys: torch.Tensor) -> MidxDecodeOut:
     pick = torch.argmax(corrected + g, dim=-1, keepdim=True)         # [T,1]
     return MidxDecodeOut(torch.gather(draw.ids, 1, pick)[:, 0],
                          torch.gather(draw.log_q, 1, pick)[:, 0])
+
+
+# ------------------------------------------------------ speculative decoding
+def _spec_tables_fn(qs: Optional[QuantHeadState]):
+    """The stage-table hook of `midx_decode_head`: the speculative draft
+    then draws from exactly the distribution the serving head samples
+    (the midx_probs kernel, or its int8 / fp8 mode over a quantized
+    state, on the card)."""
+    return proposal_tables if qs is None else quantized_tables_fn(qs)
+
+
+class SpecDraftOut(NamedTuple):
+    tokens: torch.Tensor     # [B, k] draft tokens, i.i.d. ~ q(.|h)
+    log_q: torch.Tensor      # [B, k] their proposal log-probs
+    s1: torch.Tensor         # [B, K] stage-1 scores (shared by the k drafts)
+    s2: torch.Tensor         # [B, K] stage-2 scores
+    lse: torch.Tensor        # [B]    Eq.(6) normaliser
+
+
+def midx_spec_draft(cfg: ModelConfig, params: dict, index,
+                    hidden: torch.Tensor, keys: torch.Tensor,
+                    k: int = 1) -> SpecDraftOut:
+    """k MIDX draft tokens per row for speculative decoding.
+
+    The whole wave drafts from ONE hidden per slot, the backbone state
+    that predicted the slot's last committed token: one stage-table build
+    and k two-stage draws, no backbone step. The draws are i.i.d. given
+    `hidden`; q is one position stale past the first draft, which costs
+    acceptance, not correctness (the verifier scores each draft under the
+    q it was drawn from). The stage tables come back so that the verify
+    pass rebuilds log q over the whole vocabulary from two assignment
+    gathers. hidden [B, D]; keys [B] the wave keys (`noise.row_keys` of
+    the wave's start position); the draws run under hash(key,
+    ROLE_SPEC_DRAFT, 0, 0), a key no other draw of the wave uses."""
+    qs = index if isinstance(index, QuantHeadState) else None
+    draw, (s1, s2, _, lse) = midx_mod.sample_twostage(
+        unwrap_index(index), hidden.float(), k,
+        noise.hash_bits(keys, noise.ROLE_SPEC_DRAFT, 0, 0),
+        tables_fn=_spec_tables_fn(qs), return_tables=True)
+    return SpecDraftOut(draw.ids, draw.log_q, s1, s2, lse)
+
+
+class SpecVerifyOut(NamedTuple):
+    tokens: torch.Tensor     # [k, B] committed tokens (rows < n_commit)
+    n_commit: torch.Tensor   # [B] tokens to commit this wave (1..k)
+    n_accept: torch.Tensor   # [B] accepted drafts
+
+
+def spec_verify(cfg: ModelConfig, params: dict, index, hiddens: torch.Tensor,
+                drafts: torch.Tensor, log_q: torch.Tensor, s1: torch.Tensor,
+                s2: torch.Tensor, lse: torch.Tensor, keys: torch.Tensor,
+                temperature: Optional[float] = None) -> SpecVerifyOut:
+    """Batched full-head verification of k MIDX drafts per slot.
+
+    hiddens [k, B, D] the backbone states at the drafted positions (the
+    wave's one chunked backbone pass); drafts / log_q [k, B] from
+    `midx_spec_draft`; s1 / s2 [B, K] and lse [B] its stage tables; keys
+    [B] the wave keys. One `logits_full` product over the k·B rows gives
+    the target p(.|h_j) = softmax(logits[:V] / T). Leviathan-style
+    rejection sampling: draft d_j is accepted with probability
+    min(1, p(d_j) / q(d_j)) (uniform of draft j under ROLE_SPEC_ACCEPT);
+    at the first rejection j* a token ~ max(p − q, 0) / Z is emitted
+    (Gumbel-max under ROLE_SPEC_CORRECT and j*) and the wave stops, so the
+    committed prefix is distributed exactly as sequential sampling from p.
+    The accept tests read two scalars a draft (its target log-prob and the
+    row's lse), never a [k, B, V] softmax; the residual is built at j*
+    only, with log q over the vocabulary from two assignment gathers of
+    s1 / s2. A padded-vocabulary draft (id >= V) has p = 0 and always
+    rejects. temperature <= 0 is the greedy verify: accept iff the draft
+    is the argmax, else commit the argmax, token-identical to greedy
+    full-head decoding."""
+    if temperature is None:
+        temperature = cfg.head.decode_temperature
+    index = unwrap_index(index)
+    v = cfg.vocab_size
+    k, b = drafts.shape
+    dev = hiddens.device
+    logits = logits_full(cfg, params, hiddens)[..., :v]            # [k,B,V]
+    jrow = torch.arange(k, device=dev)[:, None]                     # [k,1]
+    cols = torch.arange(b, device=dev)
+    if temperature > 0:
+        scaled = logits / temperature
+        lse_p = torch.logsumexp(scaled, dim=-1)                     # [k,B]
+        dc = torch.clamp(drafts, max=v - 1)[..., None]
+        logp_d = torch.gather(scaled, -1, dc)[..., 0] - lse_p
+        logp_d = torch.where(drafts < v, logp_d,
+                             logp_d.new_tensor(float("-inf")))
+        u = noise.uniform_noise(keys[None, :], noise.ROLE_SPEC_ACCEPT, jrow,
+                                0)                                  # [k,B]
+        accept = torch.log(u) < logp_d - log_q
+        n_acc = torch.cumprod(accept.long(), dim=0).sum(dim=0)      # [B]
+        jstar = torch.clamp(n_acc, max=k - 1)
+        logp_row = scaled[jstar, cols] - lse_p[jstar, cols][:, None]  # [B,V]
+        logq_row = (s1[:, index.assign1[:v]] + s2[:, index.assign2[:v]]
+                    - lse[:, None])
+        resid = torch.clamp(torch.exp(logp_row) - torch.exp(logq_row),
+                            min=0.0)
+        g = noise.gumbel_noise(keys[:, None], noise.ROLE_SPEC_CORRECT,
+                               jstar[:, None],
+                               torch.arange(v, device=dev)[None, :])
+        c_r = torch.argmax(torch.log(resid) + g, dim=-1)
+        # a float-degenerate residual (p <= q everywhere, probability ~0)
+        # falls back to the exact target
+        c_f = torch.argmax(logp_row + g, dim=-1)
+        corr = torch.where(resid.sum(dim=-1) > 0, c_r, c_f)
+    else:
+        best = torch.argmax(logits, dim=-1)                         # [k,B]
+        n_acc = torch.cumprod((drafts == best).long(), dim=0).sum(dim=0)
+        corr = best[torch.clamp(n_acc, max=k - 1), cols]
+    toks = torch.where(jrow < n_acc[None, :], drafts,
+                       torch.where(jrow == n_acc[None, :], corr[None, :], 0))
+    return SpecVerifyOut(toks, torch.clamp(n_acc + 1, max=k), n_acc)
 
 
 # --------------------------------------------------------- generic proposals

@@ -2,40 +2,69 @@
 
 Mirrors `src/repro/serve/engine.py` (`Engine` :153) for what the port
 serves: the dense and ssm (mamba2) families, `head` 'midx', 'full' or a
-ported registry
-proposal ('rff', 'rff-fused': the generic candidate-rescore head
-`heads.proposal_decode_head`, its state initialised from the params when
-none is given, reference :159-166, :200-202), whole-prompt batched
-prefill (one `prefill` per prompt-length group, padded to max_slots rows)
-and single-token decode waves over all `max_slots` slots (inactive slots
-ride along masked and write only the trash page; an ssm state has no page
-table, and its inactive slots' carries are overwritten at admission, as
-in the reference, :444, :498). The loop is factored as
-in the reference: `start_run` / `tick` / `finish_run`, composed by `run`.
-`from_checkpoint` / `save_checkpoint` (:327-352) restore and write a
-serving checkpoint, `{"params", "index"}` in the reference's format, so
-the engine serves what either package's `train_loop` exported to
-`<ckpt>/serve`; with cfg.head.table_dtype int8 / fp8 the MIDX head serves
-from a `QuantHeadState` (its draw scores the low-bit codebooks, its
-candidates are rescored from PQ codes) and `from_checkpoint` restores
-one. Speculative decoding, chunked prefill, the prefix cache,
-index hot-swap and the unported proposals raise NotImplementedError (see
-ROADMAP.md). The greedy rule of the reference (:188-191) is kept:
-temperature <= 0 needs head='full'.
+ported registry proposal ('rff', 'rff-fused': the generic candidate-rescore
+head `heads.proposal_decode_head`, its state initialised from the params
+when none is given, reference :159-166, :200-202), and single-token decode
+waves over all `max_slots` slots (inactive slots ride along masked and
+write only the trash page; an ssm state has no page table, and its
+inactive slots' carries are overwritten at admission, as in the reference,
+:444, :498). Prefill runs two ways, as in the reference (:169-191,
+:494-548):
+  - whole-prompt batched prefill, one `prefill` per prompt-length group
+    padded to max_slots rows;
+  - with `cfg.serve.prefill_chunk` (or the prefix cache, whose chunk
+    defaults to the page size), page-aligned chunks on the absolute token
+    grid through `decode.chunk_prefill_step`, one chunk a wave, each
+    followed by the wave of the slots already decoding, so a long prompt
+    never stalls them (`tick`, :590-629). A chunk of a multiple of 128
+    tokens runs its attention through the flash kernel at q_offset =
+    the chunk's start. The dense family only (mamba2: ValueError).
+With `cfg.serve.prefix_cache` the scheduler matches each prompt against
+the refcounted `kv_pool.PrefixCache`: a hit maps the donor's full prompt
+pages read-only into the slot's page table and starts its prefill at the
+end of them; a prompt's pages are inserted at its last chunk. With
+`cfg.serve.spec_decode = k` (head 'midx', dense), each wave drafts k
+tokens a slot from ONE two-stage MIDX draw on the hidden that predicted
+the slot's last committed token (`heads.midx_spec_draft`: the midx_probs
+kernel, or its int8 / fp8 mode), runs them through one chunked backbone
+pass and verifies them with one batched full-head pass
+(`heads.spec_verify`), committing 1..k tokens (`_spec_wave`, :679-709);
+the first token then comes from the full head (:242-248), and greedy
+decoding (temperature <= 0) is allowed. The scheduler budgets k − 1
+scratch positions a request (`token_slack`). Otherwise greedy decoding
+needs head='full' (:188-191). The loop is factored as in the reference:
+`start_run` / `tick` / `finish_run`, composed by `run`, which
+`serve.router.Router` drives for several replicas. `from_checkpoint` /
+`save_checkpoint` (:327-352) restore and write a serving checkpoint,
+`{"params", "index"}` in the reference's format, so the engine serves
+what either package's `train_loop` exported to `<ckpt>/serve`; with
+cfg.head.table_dtype int8 / fp8 the MIDX head serves from a
+`QuantHeadState` (its draw scores the low-bit codebooks, its candidates
+are rescored from PQ codes) and `from_checkpoint` restores one. Index
+hot-swap and the unported proposals raise NotImplementedError (ROADMAP.md
+Queue 1 items 9 and 10).
 
 Departures:
   - randomness: the token drawn after consuming position p of request r is
     keyed by `core.noise.row_keys(seed, r.rid, p)` — counter-based noise in
     place of fold_in(fold_in(PRNGKey(seed), rid), p) — and every draw is a
     function of that key alone, so batch composition never changes a
-    request's tokens;
-  - the MIDX and proposal heads run once per wave over all max_slots rows
-    (one midx_probs or rff_sample launch), not vmapped per slot;
+    request's tokens; a speculative wave salts the key of its start
+    position by role (`noise.ROLE_SPEC_*`) where the reference folds 1, 2
+    and 3 into its wave key (:292-294);
+  - the MIDX and proposal heads, the speculative draft and the verify run
+    once per wave over all max_slots rows (one midx_probs or rff_sample
+    launch), not vmapped per slot; a chunked prompt's first token is
+    sampled from its last hidden repeated over max_slots rows, so every
+    head call has the shape of a decode wave's;
   - the KV pool is updated in place (`models/decode.py`), not donated;
+  - the decode wave routes the rows of slots still prefilling in chunks to
+    the trash page (`paged_decode_step(active=...)`): the reference packs
+    them at position 0 (:651-668) and writes into their first page;
   - `replay_single` replays a request alone in an engine of the SAME
-    max_slots (the reference uses max_slots=1): every launch then has the
-    batched run's shapes, so a GEMM library cannot pick another algorithm
-    for another row count and change a row's rounding;
+    config and max_slots (the reference uses max_slots=1): every launch
+    then has the batched run's shapes, so a GEMM library cannot pick
+    another algorithm for another row count and change a row's rounding;
   - `device=None` means the card, and the engine raises without one;
   - the engine shares the params tensors it is given (block weights in
     the compute dtype are cast copies): a train step updates params in
@@ -44,7 +73,8 @@ Departures:
   - `save_checkpoint` writes the engine's params as it serves them: block
     matmul weights in the compute dtype (bf16 for llama3.2-1b and
     mamba2-370m; tree.json records it), which a restore casts back to
-    fp32 exactly.
+    fp32 exactly;
+  - EngineStats has no swap counters: index hot-swap is item 9.
 """
 from __future__ import annotations
 
@@ -59,19 +89,26 @@ from torch.profiler import record_function
 from repro_torch import resolve_device
 from repro_torch.checkpoint import (CheckpointManager, restore_serving_state,
                                    save_serving_state)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, pad_to
 from repro_torch.core import noise
 from repro_torch.index.build import MultiIndex
 from repro_torch.index.quantized import (QuantHeadState, resolve_table_dtype,
                                          storage_dtype)
-from repro_torch.models import (cast_blocks, heads, init_paged_state,
-                                init_params, logits_full, paged_decode_step,
-                                params_to, prefill, reset_slot, write_prefill)
-from repro_torch.models.model import require_ported
+from repro_torch.models import (cast_blocks, chunk_prefill_step, heads,
+                                init_paged_state, init_params, logits_full,
+                                paged_decode_step, params_to, prefill,
+                                reset_slot, write_prefill)
+from repro_torch.models.model import require_ported, torch_dtype
 from repro_torch.proposals import registry as proposals_registry
-from repro_torch.serve.kv_pool import PagePool
+from repro_torch.serve.kv_pool import PagePool, PrefixCache
 from repro_torch.serve.scheduler import Request, Scheduler, SlotState
 from repro_torch.utils import metrics as metrics_mod
+
+#: families whose paged attention cache makes speculative rollback free
+#: (stale draft K/V past the committed position is overwritten before it
+#: is ever attended) and that run the chunked backbone pass the verify and
+#: the chunked prefill go through (the reference adds moe, item 12b)
+_CHUNK_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass
@@ -91,6 +128,10 @@ class EngineStats:
     steps: int = 0
     shed: int = 0                   # structured admission rejections
     timeouts: int = 0               # deadline retirements (partial results)
+    spec_waves: int = 0             # speculative waves run
+    spec_drafted: int = 0           # draft tokens proposed
+    spec_accepted: int = 0          # draft tokens accepted by the verifier
+    prefill_chunks: int = 0         # chunked-prefill waves run
     latencies_s: list = dataclasses.field(default_factory=list)
 
     def counters(self) -> dict:
@@ -101,10 +142,18 @@ class EngineStats:
         reset."""
         return {"ok": not (self.shed or self.timeouts), **self.counters()}
 
+    def accept_rate(self) -> float:
+        return self.spec_accepted / max(self.spec_drafted, 1)
+
     def summary(self) -> dict:
         out = {"generated": self.generated, "wall_s": round(self.wall_s, 3),
                "waves": self.waves, "steps": self.steps,
                "tok_s": round(self.generated / max(self.wall_s, 1e-9), 1)}
+        if self.spec_drafted:
+            out["accept_rate"] = round(self.accept_rate(), 4)
+            out["spec_waves"] = self.spec_waves
+        if self.prefill_chunks:
+            out["prefill_chunks"] = self.prefill_chunks
         out.update({k: round(v, 3) for k, v in metrics_mod.latency_summary(
             self.latencies_s, counters=self.counters()).items()})
         return out
@@ -112,7 +161,7 @@ class EngineStats:
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               "see ROADMAP.md Queue 1 item 6")
+                               "see ROADMAP.md Queue 1 item 9")
 
 
 class Engine:
@@ -128,15 +177,27 @@ class Engine:
                          else proposals_registry.from_config(cfg.head, head))
         require_ported(cfg)
         sv = cfg.serve
-        if sv.spec_decode:
-            raise _unported("speculative decoding (spec_decode)")
-        if sv.prefill_chunk:
-            raise _unported("chunked prefill (prefill_chunk)")
-        if sv.prefix_cache:
-            raise _unported("the prompt-prefix cache")
-        if cfg.head.decode_temperature <= 0 and head != "full":
+        self.spec_k = int(sv.spec_decode or 0)
+        chunk = int(sv.prefill_chunk or 0)
+        if sv.prefix_cache and chunk == 0:
+            chunk = sv.page_size   # a cache hit resumes mid-prompt: chunked
+        self.chunk = pad_to(chunk, sv.page_size) if chunk else 0
+        if self.spec_k:
+            if head != "midx":
+                raise ValueError("spec_decode drafts through the MIDX index; "
+                                 f"head={head!r} has no two-stage draw")
+            if cfg.family not in _CHUNK_FAMILIES:
+                raise ValueError(
+                    f"spec_decode needs a rollback-free paged attention "
+                    f"cache ({'/'.join(_CHUNK_FAMILIES)}), not {cfg.family}")
+        if self.chunk and cfg.family not in _CHUNK_FAMILIES:
+            raise ValueError(f"chunked prefill / prefix cache support the "
+                             f"{'/'.join(_CHUNK_FAMILIES)} family, not "
+                             f"{cfg.family}")
+        if (cfg.head.decode_temperature <= 0 and self.spec_k == 0
+                and head != "full"):
             raise ValueError("greedy decoding (decode_temperature <= 0) "
-                             "needs head='full'")
+                             "needs head='full' or spec_decode > 0")
         self.cfg = cfg
         self.head = head
         self.window = window
@@ -154,8 +215,11 @@ class Engine:
                                                    self.proposal)
         self.pool = PagePool(sv.resolved_num_pages, sv.page_size,
                              sv.pages_per_slot, sv.max_slots)
+        self.cache = PrefixCache(self.pool) if sv.prefix_cache else None
         self.sched = Scheduler(sv.max_slots, self.pool,
-                               max_queue=sv.max_queue or None)
+                               max_queue=sv.max_queue or None,
+                               cache=self.cache,
+                               token_slack=max(0, self.spec_k - 1))
         self.state = init_paged_state(cfg, sv.max_slots,
                                       sv.resolved_num_pages, sv.page_size,
                                       sv.pages_per_slot, device=self.device)
@@ -164,18 +228,26 @@ class Engine:
         self._t_start = 0.0
         self._waves0 = 0
         self._solo: Optional["Engine"] = None
+        self._prefill_fifo: list[int] = []   # chunked-prefill slot order
         # per-slot stream identity (seed, rid), bound at admission
         self._seed = np.zeros(sv.max_slots, np.int64)
         self._rid = np.zeros(sv.max_slots, np.int64)
+        # per-slot draft hidden of a speculative engine: the backbone state
+        # that predicted the slot's last committed token (set at prefill,
+        # moved by each wave)
+        self._hdraft = torch.zeros((sv.max_slots, cfg.d_model),
+                                   dtype=torch_dtype(cfg), device=self.device)
 
     # ------------------------------------------------------------ sampling
-    def _sample(self, hidden: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-        """Next token per row. hidden [B, D], keys [B] row stream keys."""
+    def _sample(self, hidden: torch.Tensor, keys: torch.Tensor, *,
+                full: bool = False) -> torch.Tensor:
+        """Next token per row. hidden [B, D], keys [B] row stream keys;
+        `full` samples the exact full head whatever the engine's head."""
         cfg = self.cfg
-        if self.proposal is not None:
+        if not full and self.proposal is not None:
             return heads.proposal_decode_head(cfg, self.params, self.proposal,
                                               self.index, hidden, keys).token
-        if self.head == "midx":
+        if not full and self.head == "midx":
             return heads.midx_decode_head(cfg, self.params, self.index,
                                           hidden, keys).token
         logits = logits_full(cfg, self.params, hidden)[:, : cfg.vocab_size]
@@ -191,17 +263,21 @@ class Engine:
         return torch.as_tensor(np.stack(rows).astype(np.int64),
                                device=self.device)
 
-    # ------------------------------------------------------------ admission
-    def _prefill_wave(self, admitted: list[SlotState]) -> None:
-        """Prefill newly admitted slots: one batched `prefill` per
-        prompt-length group, padded to max_slots rows, written straight into
-        the paged pool. First-token latency is charged per group."""
+    def _bind(self, admitted: list[SlotState]) -> None:
+        """Push the host page table and bind the admitted slots' streams."""
         if "page_table" in self.state:
             self.state["page_table"].copy_(torch.from_numpy(
                 self.pool.table.astype(np.int64)))
         for ss in admitted:
             self._seed[ss.slot] = ss.request.seed
             self._rid[ss.slot] = ss.request.rid
+
+    # ------------------------------------------------------------ admission
+    def _prefill_wave(self, admitted: list[SlotState]) -> None:
+        """Prefill newly admitted slots: one batched `prefill` per
+        prompt-length group, padded to max_slots rows, written straight into
+        the paged pool. First-token latency is charged per group."""
+        self._bind(admitted)
         groups: dict[int, list[SlotState]] = {}
         for ss in admitted:
             groups.setdefault(len(ss.request.tokens), []).append(ss)
@@ -219,8 +295,11 @@ class Engine:
                                [ss.request.seed for ss in pad],
                                [ss.request.rid for ss in pad])
             write_prefill(self.cfg, self.state, cache, ids[0], plen=plen)
+            if self.spec_k:    # the last prompt hidden seeds the first draft
+                self._hdraft[ids[0]] = hidden[:, -1].to(self._hdraft.dtype)
             keys = noise.row_keys(ids[1], ids[2], plen - 1)
-            first = self._sample(hidden[:, -1], keys).cpu().numpy()
+            first = self._sample(hidden[:, -1], keys,
+                                 full=bool(self.spec_k)).cpu().numpy()
             for ss, tok in zip(sss, first):
                 ss.out.append(int(tok))
                 ss.prefill_pos = plen
@@ -230,12 +309,68 @@ class Engine:
             self.stats.latencies_s.extend(dt for _ in sss)
         self.stats.generated += len(admitted)
 
+    def _admit_chunked(self, admitted: list[SlotState]) -> None:
+        """Chunked-mode admission: bind streams and queue the slots for
+        prefill chunks; no forward work happens here. A cache hit starts
+        the slot's `prefill_pos` at the end of the reused prefix."""
+        self._bind(admitted)
+        self._prefill_fifo.extend(ss.slot for ss in admitted)
+
+    def _chunk_wave(self) -> None:
+        """One page-aligned prefill chunk (<= `self.chunk` tokens) for the
+        oldest prefilling slot. Chunk boundaries live on the absolute token
+        grid, so a cache-hit resume replays exactly the chunk shapes a cold
+        run uses for the same suffix: bitwise the same output."""
+        slot = self._prefill_fifo[0]
+        ss = self.sched.active[slot]
+        req = ss.request
+        plen = len(req.tokens)
+        start = ss.prefill_pos
+        end = min(plen, (start // self.chunk + 1) * self.chunk)
+        b = self.cfg.serve.max_slots
+        toks = np.zeros((b, self.chunk), np.int64)
+        toks[slot, :end - start] = req.tokens[start:end]
+        starts = np.zeros(b, np.int64)
+        starts[slot] = start
+        lens = np.zeros(b, np.int64)
+        lens[slot] = end - start
+        t0 = time.perf_counter()
+        meta = self._upload(starts, lens)
+        toks = torch.as_tensor(toks, device=self.device)
+        with record_function("engine.prefill_chunk"):
+            hidden, self.state = chunk_prefill_step(
+                self.cfg, self.params, toks, meta[0], meta[1], self.state,
+                window=self.window, solo=(slot, start))
+        ss.prefill_pos = end
+        self.stats.prefill_chunks += 1
+        if end == plen:
+            self._prefill_fifo.pop(0)
+            if self.cache is not None:
+                self.cache.insert(req.tokens, self.pool.table[slot])
+            h = hidden[slot, end - start - 1]
+            if self.spec_k:
+                self._hdraft[slot] = h.to(self._hdraft.dtype)
+            key = noise.row_keys(req.seed, req.rid, plen - 1).to(self.device)
+            # the last hidden repeated over max_slots rows: the head runs at
+            # a decode wave's shape
+            first = self._sample(h.expand(b, -1), key.expand(b),
+                                 full=bool(self.spec_k))[0]
+            ss.out.append(int(first))
+            self.stats.generated += 1
+        dt = time.perf_counter() - t0
+        ss.prefill_s += dt
+        if not ss.prefilling:
+            # first-token latency spans every chunk wave the prompt took
+            ss.latencies.append(ss.prefill_s)
+            self.stats.latencies_s.append(ss.prefill_s)
+
     def warmup(self, prompt_lens) -> None:
-        """One prefill per prompt-length bucket plus decode waves (and, on
-        the card, the kernel build and first launches), then reset stats so
-        later runs report steady-state throughput and latency."""
+        """One prefill per prompt-length bucket plus decode (or speculative)
+        waves (and, on the card, the kernel build and first launches), then
+        reset stats so later runs report steady-state throughput and
+        latency."""
         reqs = [Request(rid=0x7FFF0000 + i, tokens=np.zeros(plen, np.int32),
-                        max_new=2)
+                        max_new=max(2, self.spec_k + 1))
                 for i, plen in enumerate(sorted(set(prompt_lens)))]
         self.run(reqs)
         self.stats = EngineStats()
@@ -258,8 +393,9 @@ class Engine:
 
     def tick(self, now: float) -> str:
         """One engine iteration at wall-time `now` (seconds since
-        `start_run`): 'prefill', 'work' (a decode wave), 'idle' (waiting on
-        an arrival) or 'done'."""
+        `start_run`): 'prefill' (a batched prefill wave), 'work' (a chunk
+        and/or a decode or speculative wave), 'idle' (waiting on an
+        arrival) or 'done'."""
         for req in self.sched.drop_expired(now):
             self.stats.timeouts += 1
             self._results[req.rid] = RequestResult(
@@ -268,12 +404,29 @@ class Engine:
         self._expire(now)
         admitted = self.sched.admit(now)
         if admitted:
-            self._prefill_wave(admitted)
-            self._retire()            # max_new == 1 finishes at prefill
-            return "prefill"
-        if self.sched.active:
-            self._decode_wave(dict(self.sched.active))
+            if self.chunk:
+                self._admit_chunked(admitted)
+            else:
+                self._prefill_wave(admitted)
+                self._retire()        # max_new == 1 finishes at prefill
+                return "prefill"
+        worked = False
+        if self._prefill_fifo:
+            # one prefill chunk a wave, then the decode wave below: a long
+            # prompt never stalls the slots already decoding
+            self._chunk_wave()
+            self._retire()            # max_new == 1 finishes at its last chunk
+            worked = True
+        decoding = {slot: ss for slot, ss in self.sched.active.items()
+                    if not ss.prefilling}
+        if decoding:
+            if self.spec_k:
+                self._spec_wave(decoding)
+            else:
+                self._decode_wave(decoding)
             self._retire()
+            worked = True
+        if worked:
             return "work"
         return "done" if self.sched.done else "idle"
 
@@ -295,8 +448,8 @@ class Engine:
         return self.finish_run()
 
     # ------------------------------------------------------------ decode waves
-    def _decode_wave(self, decoding: dict[int, SlotState]) -> None:
-        """One slot-packed single-token decode step over all slots."""
+    def _pack(self, decoding: dict[int, SlotState]) -> torch.Tensor:
+        """[5, B] on the card: last token, position, active, seed, rid."""
         b = self.cfg.serve.max_slots
         tokens = np.zeros(b, np.int64)
         pos = np.zeros(b, np.int64)
@@ -305,16 +458,20 @@ class Engine:
             tokens[slot] = ss.out[-1]
             pos[slot] = ss.pos
             active[slot] = 1
+        return self._upload(tokens, pos, active, self._seed, self._rid)
+
+    def _decode_wave(self, decoding: dict[int, SlotState]) -> None:
+        """One slot-packed single-token decode step over all slots."""
         t0 = time.perf_counter()
-        packed = self._upload(tokens, pos, active, self._seed, self._rid)
+        packed = self._pack(decoding)
+        active = packed[2].bool()
         with record_function("engine.decode_backbone"):
             hidden, self.state = paged_decode_step(
                 self.cfg, self.params, packed[0], packed[1], self.state,
-                window=self.window)
+                window=self.window, active=active)
         with record_function("engine.decode_head"):
             keys = noise.row_keys(packed[3], packed[4], packed[1])
-            nxt = torch.where(packed[2].bool(), self._sample(hidden, keys),
-                              0)
+            nxt = torch.where(active, self._sample(hidden, keys), 0)
         nxt = nxt.cpu().numpy()
         dt = time.perf_counter() - t0
         self.stats.steps += 1
@@ -325,10 +482,65 @@ class Engine:
             self.stats.latencies_s.append(dt)
             self.stats.generated += 1
 
+    def _spec_wave(self, decoding: dict[int, SlotState]) -> None:
+        """One speculative wave: k MIDX drafts a slot, one chunked backbone
+        pass over [last token, drafts[:-1]] and one batched verify,
+        committing 1..k tokens a slot (capped at max_new). The wave's
+        latency is charged per committed token (the wave's time over its
+        committed count: the steady streaming rate)."""
+        cfg, k = self.cfg, self.spec_k
+        t0 = time.perf_counter()
+        packed = self._pack(decoding)
+        active = packed[2].bool()
+        keys = noise.row_keys(packed[3], packed[4], packed[1])  # wave keys
+        with record_function("engine.spec_draft"):
+            d = heads.midx_spec_draft(cfg, self.params, self.index,
+                                      self._hdraft, keys, k)
+        with record_function("engine.spec_backbone"):
+            # input j is the token at position pos + j (the last committed
+            # token, then the drafts), so output j is the exact target state
+            # that verifies draft j
+            chunk = torch.cat([packed[0][:, None], d.tokens[:, :-1]], dim=1)
+            hiddens, self.state = chunk_prefill_step(
+                cfg, self.params, chunk, packed[1], packed[2] * k,
+                self.state, window=self.window)              # [B, k, D]
+        with record_function("engine.spec_verify"):
+            ver = heads.spec_verify(cfg, self.params, self.index,
+                                    hiddens.transpose(0, 1), d.tokens.T,
+                                    d.log_q.T, d.s1, d.s2, d.lse, keys)
+            # the state that predicted this wave's last committed token
+            # seeds the next wave's draft
+            rows = torch.arange(hiddens.shape[0], device=hiddens.device)
+            nh = hiddens[rows, ver.n_commit - 1].to(self._hdraft.dtype)
+            self._hdraft = torch.where(active[:, None], nh, self._hdraft)
+        out = torch.cat([ver.tokens, ver.n_commit[None],
+                         ver.n_accept[None]]).cpu().numpy()       # [k+2, B]
+        dt = time.perf_counter() - t0
+        self.stats.steps += k
+        self.stats.spec_waves += 1
+        for slot, ss in decoding.items():
+            c = min(int(out[k, slot]), ss.request.max_new - len(ss.out))
+            acc = int(out[k + 1, slot])
+            ss.out.extend(int(t) for t in out[:c, slot])
+            ss.pos += c
+            ss.drafted += k
+            ss.accepted += acc
+            self.stats.spec_drafted += k
+            self.stats.spec_accepted += acc
+            per_tok = dt / max(c, 1)
+            ss.latencies.extend(per_tok for _ in range(c))
+            self.stats.latencies_s.extend(per_tok for _ in range(c))
+            self.stats.generated += c
+
     # ------------------------------------------------------------ retirement
+    def _drop_prefilling(self, slot: int) -> None:
+        if slot in self._prefill_fifo:
+            self._prefill_fifo.remove(slot)
+
     def _retire(self) -> None:
         for slot in [s for s, ss in self.sched.active.items() if ss.done]:
             ss = self.sched.finish(slot)
+            self._drop_prefilling(slot)
             reset_slot(self.state, slot)
             self._results[ss.request.rid] = RequestResult(
                 ss.request.rid, np.asarray(ss.out, np.int32), ss.latencies)
@@ -341,6 +553,7 @@ class Engine:
                    and now > ss.request.deadline]
         for slot in expired:
             ss = self.sched.finish(slot)
+            self._drop_prefilling(slot)
             reset_slot(self.state, slot)
             self.stats.timeouts += 1
             self._results[ss.request.rid] = RequestResult(
@@ -416,3 +629,6 @@ class Engine:
 
     def schedule_swap(self, *args, **kw):
         raise _unported("index hot-swap (Engine.schedule_swap)")
+
+    def rebuild_index(self, *args, **kw):
+        raise _unported("index hot-swap (Engine.rebuild_index)")

@@ -2,7 +2,7 @@
 
 A copy of `src/repro/serve/kv_pool.py` (numpy-only; copied, not imported,
 because `repro/__init__.py` imports jax). The port's engine uses it
-unchanged; its prefix cache waits for the chunked-prefill slice.
+unchanged, its prefix cache included.
 
 Host-side bookkeeping for the physical page pool that
 `models.decode.init_paged_state` lays out on device: fixed-size pages of

@@ -2,7 +2,7 @@
 
 A copy of `src/repro/serve/scheduler.py` (numpy-only; copied, not imported,
 because `repro/__init__.py` imports jax). The port's engine uses it
-unchanged; its prefix cache waits for the chunked-prefill slice.
+unchanged, its prefix cache included.
 
 FIFO admission into `cfg.serve.max_slots` decode slots, gated by page
 availability in the shared `kv_pool.PagePool`. Admission is strict FIFO (no

@@ -106,17 +106,19 @@ def test_entry_points_refuse_the_cpu_by_default():
     from repro_torch.launch import serve as serve_cli
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve_cli.main(["--reduced", "--requests", "1"])
-    with pytest.raises(SystemExit):
-        serve_cli.main(["--reduced", "--spec-decode", "2"])
+    with pytest.raises(SystemExit, match="item 9"):
+        serve_cli.main(["--reduced", "--swap-step", "2"])
 
 
 def test_unported_engine_features_raise():
     from repro_torch.serve import Engine
     cfg = tcfg.get_config("paper-lm").reduced()
-    for kw in ({"spec_decode": 2}, {"prefill_chunk": 16},
-               {"prefix_cache": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg.with_serve(**kw), device="cpu")
+    eng = Engine(cfg, device="cpu")
+    for swap in (lambda: eng.swap_index(eng.index),
+                 lambda: eng.schedule_swap(eng.index, at_step=2),
+                 eng.rebuild_index):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            swap()
     for arch in ("granite-moe-1b-a400m", "zamba2-7b"):   # moe, hybrid
         with pytest.raises(NotImplementedError, match="item 12b"):
             Engine(tcfg.get_config(arch).reduced(), device="cpu")

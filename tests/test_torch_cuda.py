@@ -1106,3 +1106,91 @@ def test_partial_shared_sampled_ce_kernels_match_plain_version(fmt):
             empty = ~okn.any(1)
             assert bool((lse[empty] == -1e30).all())
             assert not dh[empty].any()
+
+
+def _chunk_hidden(cfg, params, toks, pool, solo):
+    """Slot 1's 100 valid rows of a 128-token chunk at start 144 (a page
+    boundary, not a multiple of the flash tile) over the prefix `pool`."""
+    from repro_torch.models import chunk_prefill_step, init_paged_state
+    sv = cfg.serve
+    state = init_paged_state(cfg, 2, sv.resolved_num_pages, sv.page_size,
+                             sv.pages_per_slot, device="cuda")
+    state["page_table"].copy_(torch.arange(
+        1, 1 + 2 * sv.pages_per_slot, device="cuda").reshape(2, -1))
+    for name in ("k", "v"):
+        state[name].copy_(pool[name])
+    h, _ = chunk_prefill_step(cfg, params, toks,
+                              torch.tensor([0, 144], device="cuda"),
+                              torch.tensor([0, 100], device="cuda"), state,
+                              solo=solo)
+    return h[1, :100].float()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_prefill_flash_route_on_the_card(dtype):
+    """The flash kernel's route of a chunk against the plain route, the
+    same prefix in the pool (hd 16 and 64): fp32 within 1e-4 of
+    max(1, |plain|); in bf16, where the plain route rounds the attention
+    probabilities to bf16 and the kernel keeps them in two bf16 terms,
+    each route is held to the same chunk computed in fp32 (the same
+    weights, the prefix's bf16 values), the kernel's largest error at most
+    1.25x the plain route's. The kernel's route repeats bit for bit."""
+    _need_card()
+    import dataclasses
+    from repro_torch.kernels.flash_attention.cuda import flash_attention_cuda
+    from repro_torch.models import cast_blocks, init_params
+    for hd, d in ((16, 64), (64, 256)):
+        base = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                                   d_model=d, head_dim=hd).with_serve(
+            max_slots=2, page_size=16, max_seq=512)
+        cfg = dataclasses.replace(base, dtype=dtype)
+        master = init_params(cfg, device="cuda")
+        params = cast_blocks(cfg, master)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        shape = (cfg.num_layers, cfg.serve.resolved_num_pages, 16,
+                 cfg.num_kv_heads, hd)
+        pool = {n: torch.randn(shape, generator=g, device="cuda")
+                .to(getattr(torch, dtype)) for n in ("k", "v")}
+        toks = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                             generator=g)
+        before = flash_attention_cuda.launches
+        flash = _chunk_hidden(cfg, params, toks, pool, (1, 144))
+        assert flash_attention_cuda.launches == before + cfg.num_layers
+        assert torch.equal(flash, _chunk_hidden(cfg, params, toks, pool,
+                                                (1, 144)))
+        plain = _chunk_hidden(cfg, params, toks, pool, None)
+        if dtype == "float32":
+            assert torch.all((flash - plain).abs()
+                             <= 1e-4 * plain.abs().clamp(min=1)), hd
+            continue
+        f32 = dataclasses.replace(base, dtype="float32")
+        want = _chunk_hidden(f32, cast_blocks(f32, master), toks,
+                             {n: x.float() for n, x in pool.items()}, None)
+        err_flash = float((flash - want).abs().max())
+        err_plain = float((plain - want).abs().max())
+        assert err_flash <= 1.25 * err_plain, (hd, err_flash, err_plain)
+
+
+def test_serving_tier_on_the_card_batched_equals_solo():
+    """Speculative decoding with chunked prefill and the prefix cache on
+    the card: batched == solo, midx_probs launched by the draft."""
+    _need_card()
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    from repro_torch.serve import Engine, Request
+    cfg = get_config("paper-lm").with_serve(
+        max_slots=2, page_size=4, max_seq=64, spec_decode=3,
+        prefill_chunk=8, prefix_cache=True)
+    eng = Engine(cfg, head="midx")
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, size=12)
+    reqs = [Request(rid=i, tokens=np.concatenate(
+        [shared, rng.integers(0, cfg.vocab_size, size=5)]).astype(np.int32),
+        max_new=8, seed=1) for i in range(3)]
+    before = midx_probs_cuda.launches
+    res = eng.run(reqs[:1])
+    res.update(eng.run(reqs[1:]))
+    assert midx_probs_cuda.launches > before
+    assert eng.cache.counters()["cache_hits"] > 0
+    assert eng.stats.spec_waves > 0
+    for r in reqs:
+        np.testing.assert_array_equal(res[r.rid].tokens, eng.replay_single(r))

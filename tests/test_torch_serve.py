@@ -97,22 +97,24 @@ def test_serve_cli_on_cpu():
     assert out["verified"] == 2
     assert out["summary"]["generated"] == 20
     assert all(r.status == "ok" for r in out["results"].values())
-    with pytest.raises(SystemExit):
-        serve_cli.main(["--device", "cpu", "--prefix-cache"])
+    with pytest.raises(SystemExit, match="item 9"):
+        serve_cli.main(["--device", "cpu", "--stale-sigma", "0.5"])
 
 
 def test_synthetic_traffic_matches_the_reference_generator():
     from repro.launch import serve as jcli
     jc = jcfg.get_config("paper-lm").with_serve(page_size=4)
     tc = tcfg.get_config("paper-lm").with_serve(page_size=4)
-    a = jcli.synthetic_requests(jc, num=7, prompt=10, max_new=3, rate=5.0,
-                                seed=4)
-    b = serve_cli.synthetic_requests(tc, num=7, prompt=10, max_new=3,
-                                     rate=5.0, seed=4)
-    for x, y in zip(a, b):
-        assert (x.rid, x.max_new, x.seed, x.arrival) == \
-            (y.rid, y.max_new, y.seed, y.arrival)
-        np.testing.assert_array_equal(x.tokens, y.tokens)
+    for shared in (0.0, 0.8):
+        a = jcli.synthetic_requests(jc, num=7, prompt=10, max_new=3,
+                                    rate=5.0, seed=4, shared_prefix=shared)
+        b = serve_cli.synthetic_requests(tc, num=7, prompt=10, max_new=3,
+                                         rate=5.0, seed=4,
+                                         shared_prefix=shared)
+        for x, y in zip(a, b, strict=True):
+            assert (x.rid, x.max_new, x.seed, x.arrival) == \
+                (y.rid, y.max_new, y.seed, y.arrival)
+            np.testing.assert_array_equal(x.tokens, y.tokens)
 
 
 def test_engine_page_pressure_queues_requests():
