@@ -207,6 +207,32 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      unchanged, two hits bitwise their cold runs, first-token latency hit
      against cold; (e) two llama replicas behind the router on the card,
      16 requests x 16 tokens, every result bitwise one engine's;
+ 17. the index lifecycle (17c right after phase 16, on phase 6's engine;
+     17a and b after phase 15, 17d in phase 15's ranks): (a) `paper-lm`
+     at full width, per-token MIDX, the drift policy at lag 2 (refresh
+     every 10): 120 steps finite, applied and falling with the events'
+     (step, swap_step, mode) printed and checked; two 30-step runs bit for
+     bit; the first overlapped refresh (built at its dispatch step,
+     swapped in two steps later) bit for bit the synchronous refresh of a
+     params snapshot from its dispatch step with its seed; 20 + 20 against 40 steps resumed bit for bit; a
+     degenerate refresh rejected at its swap step, the live index and the
+     run bitwise a run without refreshes; (b) `llama3.2-1b` at full width
+     and depth, pooled, `fixed`, 30 steps of 4 x 256 at lag 0 and lag 2:
+     the refresh's host seconds, the median step with a rebuild in flight
+     against without, and the refresh step's stall (a report);
+     (c) `llama3.2-1b` bf16 on phase 6's 8 x 32 requests: phase 6's
+     index rebuilt bit for bit and swapped in at decode step 8 (tokens
+     bitwise phase 6's, one swap), a NaN index refused (tokens unchanged,
+     health not ok), unchanged swaps token-identical under spec k=4, over
+     an int8 state and across two router replicas (merged swaps 2), a
+     stale index (sigma 0.5) swapped out for the fresh one at step 8 (the
+     proposal KL of each; every token before the swap the stale-only
+     run's), `midx_probs` launched after every swap (each run's whole
+     count in the kernels line); (d) two gloo ranks on
+     the card, `paper-lm`, drift: at the first event's params both paths
+     take one branch, drift metrics and merged codebooks within 1e-5,
+     assignments equal but for at most 1e-3 of them; 30 steps at lag 2
+     finite, the ranks' losses and backbones bitwise equal;
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -1870,12 +1896,13 @@ def zero_counts(counters) -> None:
 
 def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
           lr: float, corpus=None, refresh_every=None, ckpt_dir=None,
-          check_drop: bool = True):
+          check_drop: bool = True, **loop_kw):
     """Drive `launch.train.train_loop` on the card with the counters set to
     0 just before; every step must be finite and applied and (check_drop)
     the last 5 steps' mean loss more than 0.1 below the first 5's. Returns
     (params, index, launches per counter, summary); the summary also has
-    the losses (`hist`)."""
+    the losses (`hist`) and each step's `step_s` and its wall time at
+    the step's end (`steps`). `loop_kw` goes to train_loop."""
     from repro_torch.launch.train import train_loop
     seen = []
     torch.cuda.reset_peak_memory_stats()
@@ -1886,7 +1913,8 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
         device="cuda", ckpt_dir=ckpt_dir,
         on_metrics=lambda step, m: seen.append(
             (step, float(m["loss"]), float(m["grad_norm"]),
-             float(m["skipped"]), m["step_s"])))
+             float(m["skipped"]), m["step_s"], time.perf_counter())),
+        **loop_kw)
     torch.cuda.synchronize()
     launches = [c.launches for c in counters]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1906,7 +1934,8 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
     step_s = statistics.median(s[4] for s in seen[1:])
     summary = {"first5": first, "last5": last, "median_step_ms":
                step_s * 1e3, "tok_s": batch * seq / step_s,
-               "peak_gib": peak_gib, "hist": hist}
+               "peak_gib": peak_gib, "hist": hist,
+               "steps": [(x[0], x[4], x[5]) for x in seen]}
     log(f"[smoke] train {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
         f"V={cfg.vocab_size} head={cfg.head.mode} "
         f"proposal={cfg.head.proposal} table={cfg.head.table_dtype} "
@@ -1942,10 +1971,11 @@ def same_state(a, b) -> bool:
 
 
 def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
-           refresh_every: int, counter=None) -> list:
+           refresh_every: int, counter=None, **loop_kw) -> list:
     """Two runs from one seed agree bit for bit: losses, params, optimizer
     state and head state (the MIDX index or the proposal's state). With a
-    counter, its kernel must launch in each run. Returns the launches."""
+    counter, its kernel must launch in each run. Returns the launches.
+    `loop_kw` goes to train_loop."""
     from repro_torch.launch.train import train_loop
     runs, launches = [], []
     for _ in range(2):
@@ -1954,7 +1984,7 @@ def replay(cfg, *, steps: int, batch: int, seq: int, lr: float, corpus,
         runs.append(train_loop(cfg, steps=steps, batch_size=batch,
                                seq_len=seq, lr=lr, corpus=corpus,
                                refresh_every=refresh_every, log_every=1000,
-                               device="cuda"))
+                               device="cuda", **loop_kw))
         if counter is not None:
             launches.append(counter.launches)
 
@@ -3361,6 +3391,9 @@ def vp_rank_body(group, outdir: str, llama_corpus) -> None:
             f"steps finite and applied; launches {json.dumps(launches)}")
         del run
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["lifecycle"] = lc_vp_rank_body(group)     # phase 17d
+    res["lifecycle"]["seconds"] = time.perf_counter() - t0
     with open(os.path.join(outdir, f"rank{r}.json"), "w") as f:
         json.dump(res, f)
 
@@ -3432,6 +3465,445 @@ def partial_rows(holds: dict, vp: dict) -> list:
                                  + base[kname][1],
                      "launches": n, "library_ms": None, **h})
     return rows
+
+
+# ----------------------------------------------- the index lifecycle (17)
+LC_EVERY, LC_LAG = 10, 2       # phase 17's refresh cadence and lag
+LC_TOL = 1e-5                  # 17d: |vp - replicated| <= 1e-5 max(1, |x|)
+
+
+def same_tree(a, b) -> bool:
+    """Two head states (or params trees) hold the same bits, leaf for
+    leaf."""
+    from repro_torch.index.lifecycle import _tensors
+    la, lb = list(_tensors(a)), list(_tensors(b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def lc_spy():
+    """An `IndexLifecycle` that keeps its first dispatch's inputs (cloned
+    at the dispatch, right after the step's update) and the state that
+    dispatch put live."""
+    from repro_torch.index.lifecycle import IndexLifecycle, clone_tensors
+    seen = {}
+
+    class Spy(IndexLifecycle):
+        def _dispatch(self, step, params, state):
+            seen.setdefault("dispatch", (step, clone_tensors(params),
+                                         clone_tensors(state)))
+            super()._dispatch(step, params, state)
+
+        def _complete(self, swap_step, current):
+            out = super()._complete(swap_step, current)
+            seen.setdefault("live", (self.events[-1], out[0]))
+            return out
+
+    return Spy, seen
+
+
+def lc_train_paper(get_config, midx_cuda, sce_cuda) -> dict:
+    """17a: paper-lm at full width, per-token MIDX, drift policy at lag 2:
+    120 steps (finite, applied, falling; the events' schedule), two 30-step
+    runs bit for bit, the first overlapped refresh bit for bit the
+    synchronous refresh of its dispatch step's params and seed, a resume
+    20 + 20 against 40 bit for bit, and a degenerate refresh rejected at
+    its swap step with the live index kept."""
+    import tempfile
+    from repro_torch.core import noise
+    from repro_torch.data import ZipfLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import heads
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.resilience import FaultInjector, FaultSpec
+    counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
+                sce_cuda.sampled_ce_pt_bwd_cuda)
+    names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+    cfg = get_config("paper-lm").with_head(refresh_policy="drift")
+    lag = {"refresh_every": LC_EVERY, "refresh_lag": LC_LAG}
+    out, events = {}, []
+    _, _, launches, summ = train(cfg, counters, names, steps=120, batch=16,
+                                 seq=64, lr=3e-3, on_refresh=events.append,
+                                 **lag)
+    sched = [(e.step, e.swap_step, e.mode) for e in events]
+    want = [(s, s + LC_LAG) for s in range(9, 110, LC_EVERY)] + [(119, 119)]
+    if [x[:2] for x in sched] != want or any(e.rejected for e in events):
+        raise SystemExit(f"paper-lm drift lag {LC_LAG}: refresh events "
+                         f"{sched}, expected (step, swap) {want}")
+    out["train"] = {"first5": summ["first5"], "last5": summ["last5"],
+                    "median_step_ms": summ["median_step_ms"],
+                    "events": sched,
+                    "refresh_ms": [1e3 * e.seconds for e in events],
+                    "launches": dict(zip(names, launches))}
+    log(f"[smoke] 17a paper-lm drift lag {LC_LAG}: 120 steps, loss "
+        f"{summ['first5']:.4f} -> {summ['last5']:.4f}; refresh events "
+        f"(step, swap_step, mode) {sched}; host ms a refresh "
+        f"{[round(1e3 * e.seconds, 3) for e in events]}")
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64, seq_len=65,
+                    seed=0).sample(64)
+    short = dict(batch_size=16, seq_len=64, lr=3e-3, corpus=corpus, **lag)
+    replay(cfg, steps=30, batch=16, seq=64, lr=3e-3, corpus=corpus,
+           refresh_every=LC_EVERY, refresh_lag=LC_LAG)
+    spy, seen = lc_spy()
+    real = train_mod.IndexLifecycle
+    train_mod.IndexLifecycle = spy
+    try:
+        train_mod.train_loop(cfg, steps=12, log_every=1000, device="cuda",
+                             **short)
+    finally:
+        train_mod.IndexLifecycle = real
+    step, params, state = seen["dispatch"]
+    ev, live = seen["live"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(noise.hash_bits(int(noise.hash_bits(
+        0, train_mod._STREAM_REFRESH, 0, 0)), step, 0, 0)))
+    sync, _ = heads.refresh_head_state_with_policy(cfg, params, state, gen)
+    if (ev.step, ev.swap_step) != (step, step + LC_LAG) \
+            or not same_tree(live, sync):
+        raise SystemExit(f"paper-lm: the overlapped refresh of step {step} "
+                         f"(swapped at {ev.swap_step}) != the synchronous "
+                         "refresh of that step's params and seed")
+    out["overlap_mode"] = ev.mode
+    log(f"[smoke] 17a the overlapped refresh of step {step} (built there, "
+        f"swapped after step {ev.swap_step}, mode {ev.mode}) == the "
+        f"synchronous refresh of a snapshot of step {step}'s params with "
+        "its seed, bit for bit")
+    del params, state, sync, live, seen
+    with tempfile.TemporaryDirectory(prefix="smoke-lc-") as tmp:
+        out["resume"] = resume(cfg, counters, names, tmp, steps=40,
+                               every=20, straight_ckpt=True, **short)
+    inj = FaultInjector(0, [FaultSpec("degenerate_refresh", step=9,
+                                      mode="nan")])
+    bad_events = []
+    from repro_torch.launch.train import train_loop
+    run = train_loop(cfg, steps=12, log_every=1000, device="cuda",
+                     injector=inj, on_refresh=bad_events.append, **short)
+    clean = train_loop(cfg, steps=12, log_every=1000, device="cuda",
+                       **{**short, "refresh_every": 0})
+    got = [(e.step, e.swap_step, e.rejected) for e in bad_events]
+    if got != [(9, 9 + LC_LAG, True)] or run[3] != clean[3] \
+            or not same_tree(run[2], clean[2]) \
+            or not all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(run[0]), tree_leaves(clean[0]))):
+        raise SystemExit(f"paper-lm: a degenerate refresh at lag {LC_LAG} "
+                         f"gave events {got}; the live index "
+                         + ("kept" if same_tree(run[2], clean[2])
+                            else "NOT kept"))
+    out["degenerate"] = {"events": got,
+                         "reasons": list(bad_events[0].reasons)}
+    log(f"[smoke] 17a a degenerate refresh dispatched after step 9 is "
+        f"rejected at its swap step {9 + LC_LAG} "
+        f"({'; '.join(bad_events[0].reasons)}); the live index and the "
+        "run are bitwise those of a run without refreshes")
+    return out
+
+
+def lc_overlap_llama(get_config, sce_cuda, corpus) -> dict:
+    """17b: llama3.2-1b at full width and depth, pooled, 30 steps of
+    4 x 256, refresh every 10 under `fixed`, at lag 0 and lag 2: the
+    refresh's host seconds, the median step on steps with a rebuild in
+    flight against the others, and the refresh step's stall (at either
+    lag the rebuild runs at its dispatch step). A report, not a gate."""
+    shared = (sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda)
+    cfg = get_config("llama3.2-1b")
+    b, s = SHAPE[:2]
+    out = {}
+    for lag in (0, LC_LAG):
+        events = []
+        _, _, launches, summ = train(
+            cfg, shared, ("sampled_ce", "sampled_ce_bwd"), steps=30,
+            batch=b, seq=s, lr=LLAMA_LR, corpus=corpus,
+            refresh_every=LC_EVERY, check_drop=False, refresh_lag=lag,
+            on_refresh=events.append)
+        rows = summ["steps"]
+        wall = {st: 1e3 * (w - pw) for (st, _, w), (_, _, pw)
+                in zip(rows[1:], rows[:-1])}
+        step_ms = {st: 1e3 * x for st, x, _ in rows[1:]}
+        busy = {st for e in events for st in range(e.step + 1,
+                                                   e.swap_step + 1)}
+        marks = {e.step for e in events} | {e.swap_step for e in events}
+
+        def med(d, keep):
+            vals = [v for k, v in d.items() if keep(k)]
+            return statistics.median(vals) if vals else None
+
+        r = {"refresh_s": [e.seconds for e in events],
+             "modes": [e.mode for e in events],
+             "events": [(e.step, e.swap_step) for e in events],
+             "median_step_ms_in_flight": med(step_ms, lambda k: k in busy),
+             "median_step_ms_idle": med(step_ms, lambda k: k not in busy),
+             "median_wall_ms_idle": med(wall, lambda k: k not in busy
+                                        and k not in marks),
+             "wall_ms_at_dispatch": [wall.get(e.step) for e in events],
+             "wall_ms_at_swap": [wall.get(e.swap_step) for e in events],
+             "median_wall_ms_in_flight": med(wall, lambda k: k in busy
+                                             and k not in marks),
+             "launches": launches, "peak_gib": summ["peak_gib"],
+             "last_loss": summ["hist"][-1]}
+        r["stall_ms"] = [wall[e.step] - r["median_wall_ms_idle"]
+                         for e in events if e.step in wall]
+        out[f"lag{lag}"] = r
+        log(f"[smoke] 17b llama3.2-1b pooled fixed lag {lag}: "
+            f"{json.dumps(r)}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def swap_run(engine, reqs, counter):
+    """Run `reqs` through `engine` tick by tick, as `Engine.run` does,
+    with `counter`'s launches set to 0 first. Returns (results, {rid:
+    tokens it had before the tick that swapped}, launches from that tick
+    on, launches of the whole run)."""
+    zero_counts((counter,))
+    engine.start_run(reqs)
+    tried = engine.stats.swaps + engine.stats.swap_rejected
+    before, at = None, None
+    while not engine.sched.done:
+        snap = {ss.request.rid: len(ss.out)
+                for ss in engine.sched.active.values()}
+        snap.update({rid: len(r.tokens)
+                     for rid, r in engine._results.items()})
+        n0 = counter.launches
+        engine.tick(time.perf_counter() - engine._t_start)
+        if before is None and \
+                engine.stats.swaps + engine.stats.swap_rejected > tried:
+            before, at = snap, n0
+    res = engine.finish_run()
+    torch.cuda.synchronize()
+    if before is None:
+        raise SystemExit("the scheduled swap never happened")
+    return res, before, counter.launches - at, counter.launches
+
+
+def same_tokens(label: str, a, b, upto=None) -> None:
+    """Results `a` hold the tokens of `b` (results, or {rid: tokens}), or
+    their first upto[rid]."""
+    for rid in b:
+        x, y = a[rid].tokens, getattr(b[rid], "tokens", b[rid])
+        if upto is not None:
+            x, y = x[:upto.get(rid, 0)], y[:upto.get(rid, 0)]
+        if not np.array_equal(x, y):
+            raise SystemExit(f"{label}: rid {rid} {x.tolist()} != "
+                             f"{y.tolist()}")
+
+
+def lc_serving(get_config, midx_cuda, eng6, tokens6, params, index) -> dict:
+    """17c: llama3.2-1b at full width, bf16, phase 6's 8 x 32 MIDX
+    requests: a rebuild of phase 6's index (bitwise its boot index)
+    swapped in at decode step 8 keeps phase 6's tokens; a NaN swap is
+    refused with the tokens unchanged; unchanged-index swaps keep every
+    token under spec k=4, over an int8 state and across two replicas
+    behind the router; a stale index (sigma 0.5) swapped out for the fresh
+    one at step 8: the proposal KL of each, and every token before the
+    swap equal to the stale-only run's. midx_probs must launch after each
+    swap. A request's tokens do not depend on the batch, so the runs
+    after the first and the router's take the first 4 requests (one wave
+    of 4 slots) and hold them to phase 6's (or their own base run's)."""
+    from repro_torch.index.lifecycle import clone_tensors
+    from repro_torch.index.quantized import quantize_head_state
+    from repro_torch.launch.serve import (make_stale_index, proposal_kl,
+                                          synthetic_requests)
+    from repro_torch.models.model import class_embeddings
+    from repro_torch.resilience import poison_state
+    from repro_torch.serve import Engine, EngineStats, Router
+    midx = midx_cuda.midx_probs_cuda
+    cfg = eng6.cfg
+    reqs = synthetic_requests(cfg, num=8, prompt=64, max_new=32, rate=0.0,
+                              seed=0)
+    out, after, whole = {}, {}, {}
+    rebuilt = eng6.rebuild_index()
+    if not same_tree(rebuilt, eng6.index):
+        raise SystemExit("llama3.2-1b: rebuild_index() != the boot index")
+    eng6.stats = EngineStats()
+    eng6.schedule_swap(rebuilt, at_step=8)
+    res, _, after["rebuilt"], whole["rebuilt"] = swap_run(eng6, reqs, midx)
+    same_tokens("llama3.2-1b rebuilt swap vs phase 6", res, tokens6)
+    if eng6.stats.swaps != 1:
+        raise SystemExit(f"llama3.2-1b: swaps {eng6.stats.swaps} != 1")
+    wave = reqs[:cfg.serve.max_slots]
+    eng6.stats = EngineStats()
+    eng6.schedule_swap(poison_state(eng6.index, "nan"), at_step=8)
+    res, _, after["poisoned"], whole["poisoned"] = swap_run(eng6, wave,
+                                                            midx)
+    tokens6 = {r.rid: tokens6[r.rid] for r in wave}
+    same_tokens("llama3.2-1b refused swap vs phase 6", res, tokens6)
+    health = eng6.stats.health()
+    if eng6.stats.swap_rejected != 1 or health["ok"]:
+        raise SystemExit(f"llama3.2-1b poisoned swap: health {health}")
+    out["health_after_refusal"] = health
+    for label, ecfg, state in (
+            ("spec", cfg.with_serve(spec_decode=SPEC_K), index),
+            ("int8", cfg.with_head(table_dtype="int8"), quantize_head_state(
+                index, class_embeddings(cfg, params).float(), "int8",
+                gen=torch.Generator(device="cuda").manual_seed(0)))):
+        eng = Engine(ecfg, params, index=state, head="midx", device="cuda")
+        eng.warmup([32, 48, 64])
+        base = eng.run(wave)
+        eng.stats = EngineStats()
+        eng.schedule_swap(clone_tensors(eng.index), at_step=8)
+        res, _, after[label], whole[label] = swap_run(eng, wave, midx)
+        same_tokens(f"llama3.2-1b {label} unchanged swap", res, base)
+        if eng.stats.swaps != 1:
+            raise SystemExit(f"llama3.2-1b {label}: swaps "
+                             f"{eng.stats.swaps}")
+        if label == "int8" and midx.quant_launches["int8"] <= 0:
+            raise SystemExit("llama3.2-1b int8 swap: no int8 launches")
+        del eng, state
+        torch.cuda.empty_cache()
+    replicas = [Engine(cfg, params, index=index, head="midx", device="cuda")
+                for _ in range(2)]
+    for e in replicas:
+        e.warmup([32, 48, 64])
+    router = Router(replicas)
+    router.schedule_swap(clone_tensors(index), at_step=8)
+    marks = []         # midx_probs's count as each replica swaps
+
+    def marking(eng, swap=Engine._maybe_swap):
+        def maybe_swap():
+            n = eng.stats.swaps
+            swap(eng)
+            if eng.stats.swaps > n:
+                marks.append(midx.launches)
+        return maybe_swap
+
+    for e in replicas:
+        e._maybe_swap = marking(e)
+    zero_counts((midx,))
+    res = router.run(wave)
+    torch.cuda.synchronize()
+    whole["router"] = midx.launches
+    after["router"] = midx.launches - max(marks, default=midx.launches)
+    merged = router.stats()
+    same_tokens("llama3.2-1b router swap vs phase 6", res, tokens6)
+    if merged.swaps != 2 or merged.swap_rejected:
+        raise SystemExit(f"router swap: merged swaps {merged.swaps}, "
+                         f"rejected {merged.swap_rejected}")
+    out["router_swaps"] = merged.swaps
+    del replicas, router
+    stale = make_stale_index(cfg, eng6, 0.5, 0)
+    fresh = eng6.index
+    out["kl"] = {"stale": proposal_kl(cfg, params, stale, 1),
+                 "fresh": proposal_kl(cfg, params, fresh, 1)}
+    eng6.swap_index(stale)
+    eng6.stats = EngineStats()
+    stale_res = eng6.run(wave)
+    eng6.stats = EngineStats()
+    eng6.schedule_swap(fresh, at_step=8)
+    res, before, after["stale_to_fresh"], whole["stale_to_fresh"] = \
+        swap_run(eng6, wave, midx)
+    same_tokens("llama3.2-1b tokens before the stale -> fresh swap",
+                res, stale_res, upto=before)
+    out["stale"] = {
+        "tokens_before_swap": sum(before.values()),
+        "tokens_differing_after": int(sum(
+            (res[r.rid].tokens != stale_res[r.rid].tokens).sum()
+            for r in wave))}
+    if min(after.values()) <= 0:
+        raise SystemExit(f"midx_probs was not launched after a swap: "
+                         f"{after}")
+    out["midx_launches_after_swap"] = after
+    out["midx_launches_per_run"] = whole
+    out["midx_probs"] = sum(whole.values())
+    log(f"[smoke] 17c llama3.2-1b swaps at decode step 8 on phase 6's "
+        f"8 x 32: the rebuilt boot index and a refused NaN index keep "
+        f"phase 6's tokens; unchanged swaps keep every token under spec "
+        f"k={SPEC_K}, over int8 and across 2 router replicas; proposal KL "
+        f"stale (sigma 0.5) {out['kl']['stale']:.4f} -> fresh "
+        f"{out['kl']['fresh']:.4f}, {out['stale']['tokens_before_swap']} "
+        f"tokens before the swap equal the stale-only run's; midx_probs "
+        f"launches per run {json.dumps(whole)}, of them after the swap "
+        f"(the router's: after both replicas swapped) {json.dumps(after)}")
+    return out
+
+
+def lc_vp_rank_body(group) -> dict:
+    """17d, on one of phase 15's ranks: paper-lm at the drift policy. At
+    the first event's params both paths (the rank's sharded refresh and
+    the replicated one on the gathered params and index) take one branch,
+    with the drift metrics and the merged codebooks within LC_TOL and at
+    most 1e-3 of the assignments differing; then 30 steps at lag 2,
+    finite, the ranks' losses and backbones bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shard_mod
+    from repro_torch.dist import vocab_parallel as vp_mod
+    from repro_torch.dist.collectives import all_gather_stack, pmax
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import heads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pg, dev = group.pg, group.device
+    tag = f"[smoke] 17d vp rank {group.rank}/{group.size}"
+    cfg = get_config("paper-lm").with_head(refresh_policy="drift")
+    kw = dict(batch_size=16, seq_len=64, lr=3e-3, log_every=1000,
+              group=group)
+    # the first event's params (9 steps, no refresh) on both paths
+    p, _, li, _ = train_loop(cfg, steps=LC_EVERY - 1, refresh_every=0, **kw)
+    gens = [torch.Generator(device=dev) for _ in range(2)]
+    for g in gens:
+        g.manual_seed(1234)
+    sharded, sm = steps_mod.make_vocab_refresh_step(cfg, group)(p, li,
+                                                                gens[0])
+    full_p = shard_mod.gather_params(p, pg)
+    full_i = vp_mod.unshard_index(vp_mod.stack_local_indexes(li, pg))
+    rep, rm = heads.refresh_head_state_with_policy(cfg, full_p, full_i,
+                                                   gens[1])
+    merged = vp_mod.unshard_index(vp_mod.stack_local_indexes(sharded, pg))
+    errs = {k: abs(float(sm[k]) - float(rm[k])) / max(1.0, abs(float(rm[k])))
+            for k in ("reassigned_frac", "codeword_drift", "distortion")}
+    for f in ("codebook1", "codebook2"):
+        a, b = getattr(merged, f), getattr(rep, f)
+        errs[f] = float(((a - b).abs() / b.abs().clamp(min=1)).max())
+    errs = {k: float(pmax(torch.tensor(v, device=dev), pg))
+            for k, v in errs.items()}
+    differ = int(((merged.assign1 != rep.assign1)
+                  | (merged.assign2 != rep.assign2)).sum())
+    res = {"did_full": [float(sm["did_full"]), float(rm["did_full"])],
+           "errors": errs, "assignments_differing": differ,
+           "classes": int(rep.assign1.shape[0])}
+    if res["did_full"][0] != res["did_full"][1] or max(errs.values()) > \
+            LC_TOL or differ > 1e-3 * res["classes"]:
+        raise SystemExit(f"{tag}: the vp drift refresh at the first event "
+                         f"vs the replicated one: {json.dumps(res)}")
+    print(f"{tag}: drift refresh at the first event, vp vs replicated on "
+          f"the same params: branch {'full' if rm['did_full'] else 'reassign'}"
+          f" on both; relative errors {json.dumps(errs)} (tol {LC_TOL}); "
+          f"assignments differing {differ} of {res['classes']}", flush=True)
+    events = []
+    run = train_loop(cfg, steps=30, refresh_every=LC_EVERY,
+                     refresh_lag=LC_LAG, on_refresh=events.append, **kw)
+    hist = torch.tensor(run[3], device=dev, dtype=torch.float64)
+    allh = all_gather_stack(hist, pg)
+    if not np.all(np.isfinite(run[3])) or len(run[3]) != 30 \
+            or not all(torch.equal(allh[0], allh[i])
+                       for i in range(1, group.size)) \
+            or not vp_replicas_equal(run[0], group):
+        raise SystemExit(f"{tag}: the 30-step drift run at lag {LC_LAG} is "
+                         "not finite or its ranks disagree")
+    res["lag_run"] = {"events": [(e.step, e.swap_step, e.mode)
+                                 for e in events],
+                      "loss": [run[3][0], run[3][-1]]}
+    print(f"{tag}: 30 steps at drift lag {LC_LAG}: finite, the ranks' "
+          f"losses and backbones bitwise equal; events "
+          f"{res['lag_run']['events']}; loss {run[3][0]:.4f} -> "
+          f"{run[3][-1]:.4f}", flush=True)
+    return res
+
+
+def lifecycle_phases(get_config, midx_cuda, sce_cuda, corpus,
+                     card: str) -> dict:
+    """Phase 17a and b (17c runs after phase 16, on phase 6's engine; 17d
+    in phase 15's rank processes)."""
+    t0 = time.perf_counter()
+    out = {"paper": lc_train_paper(get_config, midx_cuda, sce_cuda)}
+    torch.cuda.empty_cache()
+    out["llama"] = lc_overlap_llama(get_config, sce_cuda, corpus)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] phase 17a-b (the index lifecycle) took "
+        f"{out['seconds']:.1f}s on {card}")
+    return out
 
 
 def main() -> None:
@@ -3526,13 +3998,14 @@ def main() -> None:
                                      prompt=64, tokens=32, verify=2,
                                      counter=counter)
     greedy = llama.with_head(decode_temperature=0.0)
+    tokens6 = {rid: r.tokens.copy() for rid, r in eng._results.items()}
     eng_full, _, _ = serve(greedy, head="full", requests=8, prompt=64,
                            tokens=32, verify=2, params=eng.params)
     if args.profile:
         profile_run(eng, "llama3.2-1b head=midx", prompt=64, tokens=16)
         profile_run(eng_full, "llama3.2-1b head=full", prompt=64, tokens=16)
     llama_params, llama_index = eng.params, eng.index
-    del eng, eng_full
+    del eng_full
     # long prompts (2048 and 4096 tokens) through the chunked attention path
     flash = flash_cuda.flash_attention_cuda
     long_llama = get_config("llama3.2-1b").with_serve(
@@ -3548,9 +4021,15 @@ def main() -> None:
     mark("serving (phases 5-6b)")
     tier = serving_tier(get_config, midx_cuda, flash_cuda, llama_params,
                         llama_index, midx_serve, card)
-    del llama_params, llama_index
     torch.cuda.empty_cache()
     mark("the serving tier (phase 16)")
+    t0 = time.perf_counter()
+    lc_serve = lc_serving(get_config, midx_cuda, eng, tokens6, llama_params,
+                          llama_index)
+    lc_serve["seconds"] = time.perf_counter() - t0
+    del eng, llama_params, llama_index
+    torch.cuda.empty_cache()
+    mark("index swaps in serving (phase 17c)")
     rff_counter = rff_cuda.rff_sample_cuda
     _, rff_serve, n_rff_llama = serve(llama, head="rff-fused", requests=8,
                                       prompt=64, tokens=32, verify=2,
@@ -3680,8 +4159,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("the quantized head (phase 13)")
     vp = vp_phases(get_config, midx_cuda, corpus, card)
-    del corpus, long_corpus
     mark("vocab-parallel training (phase 15)")
+    lc = lifecycle_phases(get_config, midx_cuda, sce_cuda, corpus, card)
+    lc["serving"], lc["vp"] = lc_serve, vp.pop("lifecycle")
+    del corpus, long_corpus
+    mark("the index lifecycle (phase 17a-b)")
     n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
                            sce_cuda, args.profile, card)
     n_ssd = n_mamba["ssd_scan"]
@@ -3710,8 +4192,14 @@ def main() -> None:
         "replaces": "src/repro/kernels/midx_probs/midx_probs.py:23",
         "launches": n_paper + n_llama + n_train[0] + n_trained
                     + n_llama_trained + n_long_serve[1]
-                    + n_mamba["midx_probs"] + tier["midx_probs"],
+                    + n_mamba["midx_probs"] + tier["midx_probs"]
+                    + lc_serve["midx_probs"]
+                    + lc["paper"]["train"]["launches"]["midx_probs"],
         "launches_serving_tier": tier["midx_probs"],
+        "launches_lifecycle": {
+            "serving swap runs": lc_serve["midx_probs"],
+            "paper-lm drift lag 2": lc["paper"]["train"]["launches"][
+                "midx_probs"]},
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
         "bound_by": by, "library_ms": None,
         "shape": "llama3.2-1b decode T=4 D=2048 K=64 rq",
@@ -3834,6 +4322,8 @@ def main() -> None:
     log(f"[smoke] vocab-parallel: {json.dumps(vp)}; row-0 hot segment "
         f"{json.dumps(partial_holds.get('row0'))}; on {card}")
     log(f"[smoke] serving tier (phase 16): {json.dumps(tier)}; on {card}")
+    log(f"[smoke] the index lifecycle (phase 17): {json.dumps(lc)}; on "
+        f"{card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

@@ -4,7 +4,8 @@ Mirrors `src/repro/core/midx.py`: `log_prob` (:59), `_member_uniform`
 (:51), `twostage_tables` (:110), `sample_twostage` (:127), and the
 shared-negative samplers `_inverse_cdf_sample` (:168), `_shared_draw`
 (:177), `_joint_from_scores` (:191), `sample_pooled` (:201) and
-`sample_mixture` (:210), with the quantized head's `scores_fn` hook,
+`sample_mixture` (:210), and `proposal_kl` (:293), with the quantized
+head's `scores_fn` hook,
 `sample_twostage`'s `return_tables` and the vocab-parallel head's
 `member_fn` hook (:118, :161): `member_fn(u, flat_cluster) -> ids`
 replaces the CSR member draw, so that a vocab shard can locate each draw
@@ -223,3 +224,29 @@ def sample_mixture(index: MultiIndex, z_seq: torch.Tensor, m: int,
     mix_log = torch.log(torch.clamp(mix, min=1e-30)) + index.log_counts
     return _shared_draw(index, mix_log.reshape(mix.shape[0], -1), m, keys,
                         member_fn)
+
+
+# ----------------------------------------------------------------- quality
+def proposal_kl_at(index: MultiIndex, class_embeddings: torch.Tensor,
+                   z: torch.Tensor) -> torch.Tensor:
+    """Mean KL(full softmax ‖ MIDX proposal) at the probe queries z [P, D]:
+    the proposal's closed form (`log_prob`) over every class against the
+    log-softmax of z against the table."""
+    z = z.float()
+    log_p = torch.log_softmax(z @ class_embeddings.float().T, dim=-1)
+    ids = torch.arange(class_embeddings.shape[0],
+                       device=z.device).expand(log_p.shape)
+    log_q = log_prob(index, z, ids)
+    return torch.mean(torch.sum(torch.exp(log_p) * (log_p - log_q), dim=-1))
+
+
+def proposal_kl(index: MultiIndex, class_embeddings: torch.Tensor,
+                gen: torch.Generator, probes: int = 16,
+                scale: float = 0.5) -> torch.Tensor:
+    """Mean KL(full softmax ‖ MIDX proposal) over `probes` random queries
+    (scale · N(0, 1) from `gen`, where the reference draws them from a JAX
+    key): the quality number an index swap moves (DESIGN §8), read by the
+    serve CLI's stale-against-refreshed report."""
+    z = scale * torch.randn((probes, class_embeddings.shape[-1]),
+                            generator=gen, device=class_embeddings.device)
+    return proposal_kl_at(index, class_embeddings, z)

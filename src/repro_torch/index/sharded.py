@@ -16,9 +16,11 @@ runs inside `shard_map`:
           assignments never travel.
 Randomness comes from a `torch.Generator` seeded alike on every rank, in
 the order the single-device `index.kmeans` draws it, so a one-rank group
-builds the single-device index bit for bit. The data-parallel refresh
-(`refresh_sharded`, `_assemble`) is not ported yet (ROADMAP.md Queue 1
-item 13), nor the `drift` policy (item 9).
+builds the single-device index bit for bit. The drift probe's statistics
+are all-reduced, so every rank takes the same branch of the `drift`
+policy (a host decision on the probe, as `lifecycle.refresh_adaptive`
+takes it on one device). The data-parallel refresh (`refresh_sharded`,
+`_assemble`) is not ported yet (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -130,17 +132,15 @@ def refresh_vocab_sharded(local_idx: MultiIndex, gen: torch.Generator,
                           iters: int = 10, policy: str = "fixed",
                           threshold: float = 0.1):
     """One refresh of a rank's local view: the drift probe (its statistics
-    all-reduced, as `lifecycle.drift_metrics` computes them on one device)
-    and the warm-started sharded refit, each rank rebuilding only its own
-    CSR. -> (new local MultiIndex, metrics). 'drift' raises (ROADMAP.md
-    Queue 1 item 9)."""
-    del threshold
+    all-reduced, as `lifecycle.drift_metrics` computes them on one device),
+    then under 'fixed' (or 'drift' above `threshold`) the warm-started
+    sharded refit, under 'drift' at or below it the cheap branch: the
+    codebooks kept, the rank's rows reassigned against them. Either way
+    each rank rebuilds only its own CSR. -> (new local MultiIndex,
+    metrics)."""
     if policy not in REFRESH_POLICIES:
         raise ValueError(f"refresh_policy must be one of {REFRESH_POLICIES}, "
                          f"got {policy!r}")
-    if policy == "drift":
-        raise NotImplementedError("the 'drift' refresh policy is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 9)")
     x = table_local.float()
     d_model, rows = x.shape[-1], x.shape[0]
     n_global = rows * group_size(group)
@@ -158,12 +158,18 @@ def refresh_vocab_sharded(local_idx: MultiIndex, gen: torch.Generator,
                            local_idx.codebook1)
     move = (torch.sqrt(torch.sum((cb1_next - local_idx.codebook1) ** 2))
             / (torch.sqrt(torch.sum(local_idx.codebook1 ** 2)) + 1e-12))
-    cb1, cb2, a1, a2 = _fit_assign_sharded(
-        local_idx.kind, gen, x, k, iters, group=group,
-        init=(local_idx.codebook1, local_idx.codebook2))
+    do_full = policy == "fixed" or bool((frac > threshold)
+                                        | (move > threshold))
+    if do_full:
+        cb1, cb2, a1, a2 = _fit_assign_sharded(
+            local_idx.kind, gen, x, k, iters, group=group,
+            init=(local_idx.codebook1, local_idx.codebook2))
+    else:
+        cb1, cb2, a1, a2 = (local_idx.codebook1, local_idx.codebook2,
+                            a1_f, a2_f)
     new = local_from_build(local_idx.kind, cb1, cb2, a1, a2, k)
     diff2 = (x - _recon(local_idx.kind, cb1, cb2, a1, a2)) ** 2
     distortion = psum_no_grad(torch.sum(diff2), group) / n_global
     return new, {"reassigned_frac": frac, "codeword_drift": move,
-                 "did_full": torch.ones((), device=x.device),
+                 "did_full": torch.tensor(float(do_full), device=x.device),
                  "distortion": distortion}

@@ -34,11 +34,23 @@ The serving tier (reference :15-23, dense family only):
   --max-seq, --num-pages, --window  per-slot capacity, pool size and the
                      sliding window, as in the reference.
 
-The other flags are the reference's: --arch --reduced --requests --rate
---prompt --tokens --max-slots --page-size --head --table-dtype
---num-candidates --temperature --greedy --seed --ckpt --verify --warmup,
-plus --device (default: the card). --swap-step and --stale-sigma (index
-hot-swap) refuse until ROADMAP.md Queue 1 item 9 is ported.
+The index lifecycle (reference :43-63, :236-258, DESIGN §8; --head
+midx):
+  --swap-step N      hot-swap a freshly rebuilt index (a copy of the
+                     restored one with --ckpt) before decode step N; the
+                     params are frozen, so the rebuild is the boot index
+                     bit for bit and --verify still holds across the swap
+  --stale-sigma S    serve from an index fit to the class table plus S
+                     times Gaussian noise (simulated staleness), report the
+                     proposal KL(softmax ‖ Q) stale against refreshed, and
+                     skip --verify (tokens change where the fresh index
+                     swaps in)
+Both refuse --head full, which has no index.
+
+The other flags are the reference's: --arch --reduced --traffic (its one
+choice, synthetic) --requests --rate --prompt --tokens --max-slots
+--page-size --head --table-dtype --num-candidates --temperature --greedy
+--seed --ckpt --verify --warmup, plus --device (default: the card).
 --table-dtype int8 / fp8 serves the MIDX head from a quantized state
 (reference `launch/serve.py:139`, `:192`): the draw scores the low-bit
 codebooks (the midx_probs kernel's quantized mode on the card, also for
@@ -58,6 +70,8 @@ package's `train_loop` (reference `launch/serve.py:168-169`, `:213-214`).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --spec-decode 4 --prefix-cache --shared-prefix 0.8 --replicas 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --ckpt build/ck-cpu/serve
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --device cpu --reduced
+  python -m repro_torch.launch.serve --arch llama3.2-1b --swap-step 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --stale-sigma 0.5 --swap-step 2
 """
 from __future__ import annotations
 
@@ -65,11 +79,40 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import pad_to
+from repro_torch.core import midx
+from repro_torch.index.lifecycle import clone_tensors
+from repro_torch.index.quantized import unwrap_index
+from repro_torch.models.model import class_embeddings
 from repro_torch.proposals import registry as proposals_registry
 from repro_torch.serve import Engine, Request, Router
+
+
+def proposal_kl(cfg, params, index, seed: int, probes: int = 16) -> float:
+    """Mean KL(full softmax ‖ MIDX proposal) over `probes` random queries
+    drawn from a generator seeded `seed`: the serving-quality number an
+    index swap moves (DESIGN §8)."""
+    table = class_embeddings(cfg, params).float()
+    gen = torch.Generator(device=table.device)
+    gen.manual_seed(seed)
+    return float(midx.proposal_kl(unwrap_index(index), table, gen, probes))
+
+
+def make_stale_index(cfg, engine: Engine, sigma: float, seed: int):
+    """A head state fit to where the class table was `sigma` of drift ago
+    (table + sigma * N(0, 1) noise from a generator seeded
+    seed ^ 0x5747A7E), rebuilt by the engine as its boot state was
+    (`Engine.rebuild_index(table=)`; a quantized engine's low-bit twins
+    come from the same stale table): serving against a stale index, so
+    the --swap-step swap has a KL gap to close."""
+    table = class_embeddings(cfg, engine.params).float()
+    g_noise = torch.Generator(device=table.device)
+    g_noise.manual_seed(seed ^ 0x5747A7E)
+    noise = torch.randn(table.shape, generator=g_noise, device=table.device)
+    return engine.rebuild_index(table=table + sigma * noise)
 
 
 def prompt_buckets(prompt: int) -> list[int]:
@@ -136,6 +179,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="paper-lm")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--traffic", default="synthetic", choices=("synthetic",))
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--rate", type=float, default=0.0,
                     help="open-loop arrival rate in req/s (0 = all at t0)")
@@ -187,11 +231,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--verify", type=int, default=2,
                     help="replay N requests solo and require identical output")
     ap.add_argument("--swap-step", type=int, default=-1,
-                    help="index hot-swap before this decode step (not "
-                         "ported: ROADMAP.md Queue 1 item 9)")
+                    help="hot-swap a freshly rebuilt index before this "
+                         "decode step (DESIGN §8); serving params are "
+                         "frozen, so the rebuild is bit-identical and "
+                         "--verify must still pass across the swap")
     ap.add_argument("--stale-sigma", type=float, default=0.0,
-                    help="serve against a stale index (not ported: "
-                         "ROADMAP.md Queue 1 item 9)")
+                    help="serve against an index fit to a sigma-perturbed "
+                         "class table (simulated staleness) and report the "
+                         "proposal KL gap the --swap-step swap closes; "
+                         "disables --verify")
     ap.add_argument("--warmup", type=int, default=1,
                     help="run a warmup first so reported latency percentiles "
                          "are steady-state (0 disables)")
@@ -203,10 +251,10 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI; returns {"summary", "results", "verified"}."""
     args = parser().parse_args(argv)
-    if args.swap_step >= 0 or args.stale_sigma > 0:
-        raise SystemExit("--swap-step / --stale-sigma: index hot-swap is not "
-                         "ported to repro_torch yet; see ROADMAP.md Queue 1 "
-                         "item 9")
+    swapping = args.swap_step >= 0 or args.stale_sigma > 0
+    if swapping and args.head == "full":
+        raise SystemExit("--swap-step/--stale-sigma exercise the MIDX index "
+                         "lifecycle; --head full has no index to swap")
     cfg = build_config(args)
     window = args.window or None
     if args.ckpt:
@@ -231,6 +279,29 @@ def main(argv=None) -> dict:
     if args.warmup:
         for eng in replicas:
             eng.warmup(prompt_buckets(args.prompt))
+    kl = None
+    if args.head == "midx" and swapping:
+        # a restored index was built under the trainer's refresh seed, so a
+        # local rebuild would not be bit for bit it: swap a copy instead
+        fresh = (clone_tensors(engine.index) if args.ckpt
+                 else engine.rebuild_index())
+        if args.stale_sigma > 0:
+            stale = make_stale_index(cfg, engine, args.stale_sigma,
+                                     args.seed)
+            kl = {"stale": proposal_kl(cfg, engine.params, stale,
+                                       args.seed + 1),
+                  "refreshed": proposal_kl(cfg, engine.params, fresh,
+                                           args.seed + 1)}
+            print(f"[serve] proposal KL(softmax‖Q): stale={kl['stale']:.4f} "
+                  f"refreshed={kl['refreshed']:.4f} (gap the swap closes: "
+                  f"{kl['stale'] - kl['refreshed']:.4f})")
+            for eng in replicas:
+                eng.swap_index(stale)
+        if args.swap_step >= 0:
+            for eng in replicas:
+                eng.schedule_swap(fresh, at_step=args.swap_step)
+            print(f"[serve] index hot-swap scheduled before decode step "
+                  f"{args.swap_step}")
     if router is not None:
         results = router.run(reqs)
         s, stats = router.summary(), router.stats()
@@ -261,7 +332,14 @@ def main(argv=None) -> dict:
     if router is not None:
         print(f"[serve] router: routed_per_replica="
               f"{router.rstats.per_replica} shed={router.rstats.shed}")
+    if swapping:
+        print(f"[serve] index swaps={stats.swaps} "
+              f"rejected={stats.swap_rejected}")
     n_verify = min(args.verify, len(reqs))
+    if args.stale_sigma > 0 and n_verify:
+        print("[serve] --stale-sigma active: skipping verify (tokens "
+              "legitimately change when the refreshed index swaps in)")
+        n_verify = 0
     bad = 0
     for r in reqs[:n_verify]:
         if results[r.rid].status != "ok":
@@ -277,7 +355,8 @@ def main(argv=None) -> dict:
         raise SystemExit(1)
     print("[serve] sample output ids:",
           results[reqs[0].rid].tokens[:8].tolist())
-    return {"summary": s, "results": results, "verified": n_verify - bad}
+    return {"summary": s, "results": results, "verified": n_verify - bad,
+            "kl": kl}
 
 
 if __name__ == "__main__":

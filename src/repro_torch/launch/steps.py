@@ -7,8 +7,8 @@ contenders, which route through `heads.loss_sampled`; the fault seam
 built, :96), `make_train_step` (:129, the non-trainable branch
 :188-202 with its non-finite skip guard) and the vocab-parallel family
 (DESIGN §9): `make_vocab_parallel_train_step` (:305),
-`make_vocab_index_init` (:417) and `make_vocab_refresh_step` (:451, the
-`fixed` policy). The unported registry contenders (ROADMAP.md Queue 1
+`make_vocab_index_init` (:417) and `make_vocab_refresh_step` (:451, both
+refresh policies). The unported registry contenders (ROADMAP.md Queue 1
 item 10) raise NotImplementedError; the data-parallel step
 (`make_sharded_train_step`, item 13) is not ported yet.
 
@@ -221,9 +221,10 @@ def make_vocab_index_init(cfg: ModelConfig, group) -> Callable:
 def make_vocab_refresh_step(cfg: ModelConfig, group, *,
                             policy: Optional[str] = None) -> Callable:
     """refresh(params, local_index, gen) -> (local_index, metrics): the
-    all-reduced drift probe and the warm-started sharded refit, each rank
-    rebuilding only its own CSR (`index.sharded.refresh_vocab_sharded`;
-    the `fixed` policy, 'drift' raises: ROADMAP.md Queue 1 item 9)."""
+    all-reduced drift probe and, under `policy` (default
+    cfg.head.refresh_policy), the warm-started sharded refit or the
+    drift policy's reassign-only branch, each rank rebuilding only its own
+    CSR (`index.sharded.refresh_vocab_sharded`)."""
     from repro_torch.index.sharded import refresh_vocab_sharded
     from repro_torch.models.model import class_embeddings
 

@@ -14,14 +14,23 @@ last save or the resume already wrote that step, where the reference
 writes it again), the fault injector's seams and the guardrails'
 rollback and replay (:217-280), the loss history and the step log, and
 the CLI (`main` :348, `_parse_chaos` :438) with the flags --arch --steps
---batch --seq --lr --head --reduced --refresh-every --ckpt --chaos
---chaos-seed --seed --table-dtype (bf16, or the quantized head's int8 /
-fp8: the low-bit class table, codebooks and residual codes, DESIGN §12),
-plus --device (default: the card; 'cpu' must be asked for) and
---vocab-parallel N (below). The reference's other flags are accepted and
-raise NotImplementedError with a pointer to ROADMAP.md Queue 1: --dp and
---grad-transport (item 13), --refresh-policy drift and --refresh-lag > 0
-(item 9).
+--batch --seq --lr --head --reduced --refresh-every --refresh-policy
+--refresh-lag --ckpt --chaos --chaos-seed --seed --table-dtype (bf16, or
+the quantized head's int8 / fp8: the low-bit class table, codebooks and
+residual codes, DESIGN §12), plus --device (default: the card; 'cpu' must
+be asked for) and --vocab-parallel N (below). The reference's other flags
+are accepted and raise NotImplementedError with a pointer to ROADMAP.md
+Queue 1: --dp and --grad-transport (item 13).
+
+The index lifecycle (DESIGN §8; reference :80, :289-316, :390-395):
+`--refresh-policy drift` refreshes reassign-only until the drift probe
+passes cfg.head.refresh_drift_threshold, then refits; `--refresh-lag N`
+builds each refresh from step s's params at step s and swaps it in after
+step s + N (`index.lifecycle`: the rebuild runs on the loop's thread,
+only the swap is deferred). Every completed refresh reaches
+`train_loop(on_refresh=...)`, and the run ends with the reference's
+refresh summary (`utils.metrics.refresh_summary`). A checkpoint first
+flushes the rebuild in flight, and a rollback aborts it.
 
 Vocab-parallel training (DESIGN §9; reference :137-160, :169, :187,
 :236, :333-340): `--vocab-parallel N` spawns N rank processes
@@ -77,6 +86,8 @@ CLI's data.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 4 --ckpt build/ck-cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m --device cpu --reduced
   python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3 --vocab-parallel 2
+  python -m repro_torch.launch.train --arch llama3.2-1b --steps 40 --batch 4 --seq 256 --refresh-every 10 --refresh-lag 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 30 --refresh-every 5 --refresh-policy drift --refresh-lag 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --vocab-parallel 2 --steps 4 --ckpt build/ck-vp
 """
 from __future__ import annotations
@@ -200,7 +211,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                refresh_policy: Optional[str] = None,
                refresh_lag: Optional[int] = None,
                on_metrics: Optional[Callable[[int, dict], None]] = None,
-               device=None, injector: Optional[FaultInjector] = None,
+               on_refresh: Optional[Callable] = None, device=None,
+               injector: Optional[FaultInjector] = None,
                guardrails=None, group=None):
     """Single-device training loop. Returns (params, opt_state, index,
     history): params detached, ready for `serve.Engine(cfg, params,
@@ -218,7 +230,9 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     GuardrailConfig`; a 'rollback' restores the newest checkpoint that
     verifies and replays from its step. on_metrics(step, metrics) also
     receives `step_s`, the host time of the step (which ends in a device
-    sync), `guard_action` and `straggler`. device: default the card.
+    sync), `guard_action` and `straggler`. on_refresh(event) receives
+    every completed (or rejected) `index.lifecycle.RefreshEvent`. device:
+    default the card.
 
     group: a `launch.mesh.VocabGroup`; this process is then one rank of a
     vocab-parallel run on the group's device, and params, opt_state and
@@ -292,6 +306,21 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         enabled=mode == "midx" or (proposal is not None
                                    and proposal.adaptive),
         validate=None if vstate is None else vstate.validate)
+
+    def refreshed(ev) -> None:
+        if ev is None:
+            return
+        drift = "".join(f" {name}={ev.metrics[key]:.3f}" for name, key
+                        in (("reassigned", "reassigned_frac"),
+                            ("drift", "codeword_drift"))
+                        if key in ev.metrics)
+        print(f"[train] refresh @{ev.step} (swap @{ev.swap_step}) "
+              f"mode={ev.mode} {ev.seconds:.3f}s{drift}")
+        if ev.rejected:
+            print(f"[train] refresh @{ev.step} REJECTED: "
+                  f"{'; '.join(ev.reasons)} — keeping live state")
+        if on_refresh:
+            on_refresh(ev)
 
     ckpt = None
     if ckpt_dir and vstate is not None:
@@ -388,16 +417,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                 except CheckpointError as e:
                     print(f"[train] rollback impossible ({e}) — continuing")
         index, ev = lifecycle.step(step, params, index)
-        if ev is not None:
-            drift = "".join(f" {name}={ev.metrics[key]:.3f}" for name, key
-                            in (("reassigned", "reassigned_frac"),
-                                ("drift", "codeword_drift"))
-                            if key in ev.metrics)
-            print(f"[train] refresh @{ev.step} mode={ev.mode} "
-                  f"{ev.seconds:.3f}s{drift}")
-            if ev.rejected:
-                print(f"[train] refresh @{ev.step} REJECTED: "
-                      f"{'; '.join(ev.reasons)} — keeping live state")
+        refreshed(ev)
         if step % log_every == 0 or step == steps - 1:
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"ce {float(metrics['ce']):.4f} "
@@ -408,7 +428,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                               "straggler": 1.0 if slow else 0.0})
         if ckpt is not None and (step + 1) % ckpt_every == 0:
             # the saved head state is never mid-flight
-            index, _ = lifecycle.flush(step, index)
+            index, ev = lifecycle.flush(step, index)
+            refreshed(ev)
             try:
                 save(step + 1, params, opt_state, index)
                 saved = step + 1
@@ -416,12 +437,13 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                 print(f"[train] checkpoint save at step {step + 1} "
                       f"killed: {e} — previous checkpoint still intact")
         step += 1
-    index, _ = lifecycle.flush(steps - 1, index)
+    index, ev = lifecycle.flush(steps - 1, index)
+    refreshed(ev)
     if lifecycle.events:
-        ev = lifecycle.events
-        print(f"[train] refresh summary: {len(ev)} events "
-              f"({sum(e.rejected for e in ev)} rejected) "
-              f"{sum(e.seconds for e in ev):.2f}s total")
+        rs = lifecycle.summary()
+        print(f"[train] refresh summary: {rs['refreshes']} events "
+              f"({rs['full_refits']} full / {rs['reassign_only']} reassign / "
+              f"{rs['rejected']} rejected) {rs['refresh_s']:.2f}s total")
     if guard.events:
         gs = metrics_mod.guardrail_summary(guard.events)
         print(f"[train] guardrail summary: {gs['skips']} skips, "
@@ -464,6 +486,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--refresh-every", type=int, default=None,
                     help="steps between index refresh events "
                          "(default: cfg.head.refresh_every)")
+    ap.add_argument("--refresh-policy", default=None,
+                    choices=(None, "fixed", "drift"),
+                    help="index refresh policy (DESIGN §8): fixed = full "
+                         "warm-started refit every event; drift = reassign-"
+                         "only, escalating to the refit when drift exceeds "
+                         "cfg.head.refresh_drift_threshold")
+    ap.add_argument("--refresh-lag", type=int, default=None,
+                    help="staleness window: swap the rebuilt index in this "
+                         "many steps after dispatch (0 = synchronous)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' must be asked)")
@@ -493,8 +524,6 @@ def parser() -> argparse.ArgumentParser:
     unported = ap.add_argument_group("not ported yet (raise)")
     unported.add_argument("--dp", type=int, default=0)
     unported.add_argument("--grad-transport", default="fp32")
-    unported.add_argument("--refresh-policy", default=None)
-    unported.add_argument("--refresh-lag", type=int, default=None)
     return ap
 
 

@@ -40,9 +40,19 @@ needs head='full' (:188-191). The loop is factored as in the reference:
 what either package's `train_loop` exported to `<ckpt>/serve`; with
 cfg.head.table_dtype int8 / fp8 the MIDX head serves from a
 `QuantHeadState` (its draw scores the low-bit codebooks, its candidates
-are rescored from PQ codes) and `from_checkpoint` restores one. Index
-hot-swap and the unported proposals raise NotImplementedError (ROADMAP.md
-Queue 1 items 9 and 10).
+are rescored from PQ codes) and `from_checkpoint` restores one. The
+unported proposals raise NotImplementedError (ROADMAP.md Queue 1 item 10).
+
+Index hot-swap (reference :355-407, DESIGN §8): `swap_index` installs a
+new head state between waves behind the validation gate (a degenerate
+state is refused, counted in `stats.swap_rejected`, and `health()["ok"]`
+turns False); `schedule_swap(state, at_step)` installs it just before the
+decode or speculative wave at decode step `at_step` (`stats.steps`), never
+mid-wave; `rebuild_index()` rebuilds the head state from the engine's
+params. Every reader of the head state (the MIDX head, the speculative
+draft and verify, a chunked prompt's first token, the int8 / fp8 head)
+reads `self.index`, so the next wave samples through the swapped state,
+and the solo replay engine follows the swap.
 
 Departures:
   - randomness: the token drawn after consuming position p of request r is
@@ -74,7 +84,11 @@ Departures:
     matmul weights in the compute dtype (bf16 for llama3.2-1b and
     mamba2-370m; tree.json records it), which a restore casts back to
     fp32 exactly;
-  - EngineStats has no swap counters: index hot-swap is item 9.
+  - `rebuild_index(gen=None)` takes a `torch.Generator` where the
+    reference takes a key; by default it replays the state the engine's
+    generator had when the boot head state was built (after any params
+    init), so that unchanged params rebuild the boot state bit for bit,
+    the quantized twins included.
 """
 from __future__ import annotations
 
@@ -100,6 +114,7 @@ from repro_torch.models import (cast_blocks, chunk_prefill_step, heads,
                                 reset_slot, write_prefill)
 from repro_torch.models.model import require_ported, torch_dtype
 from repro_torch.proposals import registry as proposals_registry
+from repro_torch.resilience.validate import validate_state
 from repro_torch.serve.kv_pool import PagePool, PrefixCache
 from repro_torch.serve.scheduler import Request, Scheduler, SlotState
 from repro_torch.utils import metrics as metrics_mod
@@ -128,6 +143,8 @@ class EngineStats:
     steps: int = 0
     shed: int = 0                   # structured admission rejections
     timeouts: int = 0               # deadline retirements (partial results)
+    swap_rejected: int = 0          # degenerate head states refused
+    swaps: int = 0                  # successful head-state installs
     spec_waves: int = 0             # speculative waves run
     spec_drafted: int = 0           # draft tokens proposed
     spec_accepted: int = 0          # draft tokens accepted by the verifier
@@ -135,12 +152,14 @@ class EngineStats:
     latencies_s: list = dataclasses.field(default_factory=list)
 
     def counters(self) -> dict:
-        return {"shed": self.shed, "timeouts": self.timeouts}
+        return {"shed": self.shed, "timeouts": self.timeouts,
+                "swap_rejected": self.swap_rejected, "swaps": self.swaps}
 
     def health(self) -> dict:
-        """ok=True means no request was shed or timed out since the last
-        reset."""
-        return {"ok": not (self.shed or self.timeouts), **self.counters()}
+        """ok=True means no request was shed or timed out and no swap was
+        refused since the last reset."""
+        return {"ok": not (self.shed or self.timeouts or self.swap_rejected),
+                **self.counters()}
 
     def accept_rate(self) -> float:
         return self.spec_accepted / max(self.spec_drafted, 1)
@@ -157,11 +176,6 @@ class EngineStats:
         out.update({k: round(v, 3) for k, v in metrics_mod.latency_summary(
             self.latencies_s, counters=self.counters()).items()})
         return out
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               "see ROADMAP.md Queue 1 item 9")
 
 
 class Engine:
@@ -208,6 +222,10 @@ class Engine:
             params = init_params(cfg, gen, device=self.device)
         self.params = cast_blocks(cfg, params_to(params, self.device))
         self.index = index
+        # rebuild_index() replays the generator from here: unchanged params
+        # rebuild the boot head state bit for bit
+        self._index_gen_state = gen.get_state()
+        self._pending_swap = None     # (at decode step, head state) | None
         if head == "midx" and self.index is None:
             self.index = heads.init_head_state(cfg, self.params, gen)
         elif self.proposal is not None and self.index is None:
@@ -420,6 +438,8 @@ class Engine:
         decoding = {slot: ss for slot, ss in self.sched.active.items()
                     if not ss.prefilling}
         if decoding:
+            # the hot-swap window: between waves, never mid-wave
+            self._maybe_swap()
             if self.spec_k:
                 self._spec_wave(decoding)
             else:
@@ -623,12 +643,54 @@ class Engine:
                                   metadata={"arch": self.cfg.name,
                                             "head": self.head})
 
-    # ------------------------------------------------------------ unported
-    def swap_index(self, *args, **kw):
-        raise _unported("index hot-swap (Engine.swap_index)")
+    # ------------------------------------------------------------ index swap
+    def swap_index(self, index, validate: bool = True) -> bool:
+        """Install a new head state (DESIGN §8). The state is read only
+        inside a wave, so installing one between waves leaves in-flight
+        slots' pages, positions and streams untouched, and the next wave
+        samples through it; a state rebuilt from unchanged params keeps
+        every token. The validation gate (DESIGN §11) refuses a degenerate
+        state (NaN codebooks, an empty CSR, another structure): the live
+        state stays, `stats.swap_rejected` counts it, False comes back."""
+        if validate:
+            reasons = validate_state(index, like=self.index)
+            if reasons:
+                self.stats.swap_rejected += 1
+                print(f"[engine] swap_index rejected: {'; '.join(reasons)}")
+                return False
+        self.index = index
+        self.stats.swaps += 1
+        if self._solo is not None:
+            self._solo.index = index
+        return True
 
-    def schedule_swap(self, *args, **kw):
-        raise _unported("index hot-swap (Engine.schedule_swap)")
+    def schedule_swap(self, index, at_step: int) -> None:
+        """Install `index` just before the wave at decode step `at_step`
+        (counted by `stats.steps`) of a later run: the mid-stream swap."""
+        self._pending_swap = (at_step, index)
 
-    def rebuild_index(self, *args, **kw):
-        raise _unported("index hot-swap (Engine.rebuild_index)")
+    def rebuild_index(self, gen: Optional[torch.Generator] = None, *,
+                      table: Optional[torch.Tensor] = None):
+        """The head state (MIDX index, quantized state or proposal state)
+        rebuilt from the engine's current params, or fit to `table` in
+        place of their class table (a stale state: where the table was).
+        The default generator replays the one the boot state was built
+        with, so unchanged params give the boot state bit for bit; a
+        trainer pushing new params passes its own."""
+        if gen is None:
+            gen = torch.Generator(device=self.device)
+            gen.set_state(self._index_gen_state)
+        params = self.params
+        if table is not None:
+            params = {**params,
+                      "embed" if self.cfg.tie_embeddings else "head": table}
+        if self.proposal is not None:
+            return heads.init_proposal_state(self.cfg, params, gen,
+                                             self.proposal)
+        return heads.init_head_state(self.cfg, params, gen)
+
+    def _maybe_swap(self) -> None:
+        if self._pending_swap is not None and \
+                self.stats.steps >= self._pending_swap[0]:
+            self.swap_index(self._pending_swap[1])
+            self._pending_swap = None

@@ -16,13 +16,13 @@ over N independent `Engine` replicas:
     program order);
   - `stats()` merges the replicas' stats (wall time the max, not the sum)
     and `summary()` adds per-replica routing and prefix-cache counters;
-  - `swap_index` / `schedule_swap` fan out to the engines, which raise
-    until index hot-swap is ported (ROADMAP.md Queue 1 item 9).
+  - `swap_index` / `schedule_swap` fan a head-state swap out to every
+    replica (each behind its own validation gate), and the merged stats
+    add up their `swaps` and `swap_rejected`.
 
 Each engine keeps its own page pool, scheduler and prefix cache. On one
 card the replicas share it: their waves run one after another on the
-card's default stream. Departure: the merged stats carry no swap counters
-(the port's `EngineStats` has none until item 9).
+card's default stream.
 """
 from __future__ import annotations
 
@@ -107,11 +107,14 @@ class Router:
 
     # ------------------------------------------------------------- lifecycle
     def swap_index(self, index, validate: bool = True) -> list[bool]:
-        """Install `index` on every replica (raises until item 9)."""
+        """Install `index` on every replica (between their waves). Returns
+        each replica's outcome of its validation gate."""
         return [eng.swap_index(index, validate=validate)
                 for eng in self.engines]
 
     def schedule_swap(self, index, at_step: int) -> None:
+        """Schedule the swap before decode step `at_step` of every
+        replica."""
         for eng in self.engines:
             eng.schedule_swap(index, at_step)
 
@@ -128,6 +131,8 @@ class Router:
             out.steps += s.steps
             out.shed += s.shed
             out.timeouts += s.timeouts
+            out.swap_rejected += s.swap_rejected
+            out.swaps += s.swaps
             out.spec_waves += s.spec_waves
             out.spec_drafted += s.spec_drafted
             out.spec_accepted += s.spec_accepted

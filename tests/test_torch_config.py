@@ -106,7 +106,7 @@ def test_entry_points_refuse_the_cpu_by_default():
     from repro_torch.launch import serve as serve_cli
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve_cli.main(["--reduced", "--requests", "1"])
-    with pytest.raises(SystemExit, match="item 9"):
+    with pytest.raises(RuntimeError, match="--device cpu"):
         serve_cli.main(["--reduced", "--swap-step", "2"])
 
 
@@ -114,11 +114,13 @@ def test_unported_engine_features_raise():
     from repro_torch.serve import Engine
     cfg = tcfg.get_config("paper-lm").reduced()
     eng = Engine(cfg, device="cpu")
-    for swap in (lambda: eng.swap_index(eng.index),
-                 lambda: eng.schedule_swap(eng.index, at_step=2),
-                 eng.rebuild_index):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            swap()
+    # the index hot-swap is ported: each entry point runs
+    rebuilt = eng.rebuild_index()
+    assert torch.equal(rebuilt.sorted_ids, eng.index.sorted_ids)
+    assert eng.swap_index(rebuilt) is True and eng.index is rebuilt
+    eng.schedule_swap(eng.index, at_step=2)
+    assert eng._pending_swap == (2, eng.index)
+    assert eng.stats.counters()["swaps"] == 1
     for arch in ("granite-moe-1b-a400m", "zamba2-7b"):   # moe, hybrid
         with pytest.raises(NotImplementedError, match="item 12b"):
             Engine(tcfg.get_config(arch).reduced(), device="cpu")

@@ -2,8 +2,9 @@
 shared-negative sampled-CE, RFF sampling, flash-attention and SSD-scan
 kernels against their plain versions, the engine on the card, short
 training runs through the kernels of the per-token, the pooled and the
-rff-fused heads and of mamba2, and the chunked attention's backward on the
-card against the CPU. This
+rff-fused heads and of mamba2, the chunked attention's backward on the
+card against the CPU, and the index lifecycle's overlapped refresh and
+mid-stream swap. This
 file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -1194,3 +1195,77 @@ def test_serving_tier_on_the_card_batched_equals_solo():
     assert eng.stats.spec_waves > 0
     for r in reqs:
         np.testing.assert_array_equal(res[r.rid].tokens, eng.replay_single(r))
+
+
+def test_overlapped_refresh_equals_synchronous_on_the_card():
+    """`train_loop` at lag 2 on the card (the rebuild built at its
+    dispatch step and swapped in two steps later): two runs agree bit for
+    bit, and the first swap is, bit for bit, the synchronous refresh of a
+    params snapshot from its dispatch step with its seed."""
+    _need_card()
+    from repro_torch.core import noise
+    from repro_torch.index.lifecycle import IndexLifecycle, clone_tensors
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import heads
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = get_config("paper-lm").reduced().with_head(refresh_policy="drift")
+    kw = dict(steps=8, batch_size=4, seq_len=16, log_every=1000,
+              refresh_every=4, refresh_lag=2, device="cuda")
+    seen = {}
+
+    class Spy(IndexLifecycle):
+        """Keeps the first dispatch's inputs and the state it swapped in."""
+
+        def _dispatch(self, step, params, state):
+            seen.setdefault("dispatch", (step, clone_tensors(params),
+                                         clone_tensors(state)))
+            super()._dispatch(step, params, state)
+
+        def _complete(self, swap_step, current):
+            out = super()._complete(swap_step, current)
+            seen.setdefault("live", (self.events[-1], out[0]))
+            return out
+
+    runs = [train_mod.train_loop(cfg, **kw) for _ in range(2)]
+    assert runs[0][3] == runs[1][3]
+    for a, b in zip(tree_leaves(runs[0][0]), tree_leaves(runs[1][0])):
+        assert torch.equal(a, b)
+    train_mod.IndexLifecycle = Spy
+    try:
+        train_mod.train_loop(cfg, **kw)
+    finally:
+        train_mod.IndexLifecycle = IndexLifecycle
+    step, params, state = seen["dispatch"]
+    ev, got = seen["live"]
+    assert (step, ev.step, ev.swap_step) == (3, 3, 5) and not ev.rejected
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(noise.hash_bits(
+        int(noise.hash_bits(0, train_mod._STREAM_REFRESH, 0, 0)), 3, 0, 0)))
+    want, _ = heads.refresh_head_state_with_policy(cfg, params, state, gen)
+    for f in ("codebook1", "codebook2", "assign1", "sorted_ids", "counts"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_mid_stream_swap_on_the_card():
+    """An unchanged-index swap mid-stream on the card keeps every token; a
+    poisoned one is refused with the tokens unchanged."""
+    _need_card()
+    from repro_torch.resilience import poison_state
+    from repro_torch.serve import Engine, Request
+    cfg = get_config("paper-lm").reduced().with_serve(
+        max_slots=2, page_size=4, max_seq=32)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, 6)
+                    .astype(np.int32), max_new=10) for i in range(3)]
+    plain = Engine(cfg, head="midx", device="cuda", seed=5).run(reqs)
+    for make, swaps, rejected in (
+            (lambda e: e.rebuild_index(), 1, 0),
+            (lambda e: poison_state(e.index, "nan"), 0, 1)):
+        eng = Engine(cfg, head="midx", device="cuda", seed=5)
+        eng.schedule_swap(make(eng), at_step=3)
+        out = eng.run(reqs)
+        assert (eng.stats.swaps, eng.stats.swap_rejected) == (swaps,
+                                                              rejected)
+        for r in reqs:
+            np.testing.assert_array_equal(plain[r.rid].tokens,
+                                          out[r.rid].tokens)

@@ -292,8 +292,10 @@ def test_e2e_chaos_recovery_training_leg(tiny_cfg, corpus, tmp_path):
     """The training leg of `tests/test_resilience.py::
     test_e2e_chaos_recovery`: the newest checkpoint is corrupted, resume
     walks back past it, a NaN step mid-run is skipped, rolled back and
-    replayed, and the run ends bitwise the uninterrupted one. (The serving
-    leg needs Engine.schedule_swap, ROADMAP.md Queue 1 item 9.)"""
+    replayed, and the run ends bitwise the uninterrupted one; then the
+    serving leg: the trained state decodes, and one degenerate index swap
+    attempted mid-stream is refused with the tokens equal to the
+    fault-free engine's."""
     kw = _run_kw(corpus, 16)
     ref = train_loop(tiny_cfg, steps=16, **kw)
     ck = str(tmp_path / "ck")
@@ -307,6 +309,20 @@ def test_e2e_chaos_recovery_training_leg(tiny_cfg, corpus, tmp_path):
     assert ("nan_loss", 11) in inj.fired
     assert chaos[3] == ref[3][4:]            # resumed at step 4
     _assert_runs_equal([*chaos[:3], []], [*ref[:3], []])
+    # the serving leg
+    from repro_torch.serve import Engine, Request
+    scfg = tiny_cfg.with_serve(max_slots=2, page_size=4, max_seq=48)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, tokens=rng.integers(0, scfg.vocab_size, 6)
+                    .astype(np.int32), max_new=8) for i in range(2)]
+    plain = Engine(scfg, ref[0], index=ref[2], head="midx",
+                   device="cpu").run(reqs)
+    eng = Engine(scfg, chaos[0], index=chaos[2], head="midx", device="cpu")
+    eng.schedule_swap(poison_state(chaos[2], "zero"), at_step=2)
+    out = eng.run(reqs)
+    assert eng.stats.swap_rejected == 1 and eng._pending_swap is None
+    for rid in plain:
+        np.testing.assert_array_equal(plain[rid].tokens, out[rid].tokens)
 
 
 # ------------------------------------------------------------------ index

@@ -97,8 +97,11 @@ def test_serve_cli_on_cpu():
     assert out["verified"] == 2
     assert out["summary"]["generated"] == 20
     assert all(r.status == "ok" for r in out["results"].values())
-    with pytest.raises(SystemExit, match="item 9"):
-        serve_cli.main(["--device", "cpu", "--stale-sigma", "0.5"])
+    out = serve_cli.main(["--device", "cpu", "--reduced", "--requests", "3",
+                          "--max-slots", "2", "--tokens", "4",
+                          "--stale-sigma", "0.5", "--swap-step", "1"])
+    assert out["verified"] == 0             # skipped under --stale-sigma
+    assert out["kl"]["stale"] > out["kl"]["refreshed"]
 
 
 def test_synthetic_traffic_matches_the_reference_generator():
@@ -177,5 +180,6 @@ def test_expired_and_single_token_requests_retire():
     assert res[1].status == "ok" and len(res[1].tokens) == 1
     assert res[2].status == "shed" and "oversized" in res[2].reason
     assert res[3].status == "ok" and len(res[3].tokens) == 4
-    assert eng.stats.health() == {"ok": False, "shed": 1, "timeouts": 1}
+    assert eng.stats.health() == {"ok": False, "shed": 1, "timeouts": 1,
+                                  "swap_rejected": 0, "swaps": 0}
     np.testing.assert_array_equal(res[3].tokens, eng.replay_single(reqs[3]))

@@ -1,8 +1,8 @@
 """The port's multi-replica router on the CPU (ports of
 `tests/test_serve_router.py`): load-weighted admission, structured
 shedding, merged stats, outputs equal to one engine's, the swap fan-out
-raising until index hot-swap is ported (ROADMAP.md Queue 1 item 9), and
-routing decisions equal to the reference router's on the same traffic."""
+to every replica with merged swap counters, and routing decisions equal
+to the reference router's on the same traffic."""
 import functools
 
 import jax
@@ -143,12 +143,19 @@ def test_router_admission_prefers_freer_replica_as_the_reference():
     _drain(trouter.engines)
 
 
-def test_router_swap_fanout_raises_until_item_9():
-    router = tserve.Router(_replicas())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        router.swap_index(None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        router.schedule_swap(None, at_step=3)
+def test_router_swap_fans_out_to_every_replica():
+    """The swap fans out to every replica: a valid index goes live on
+    each, a None is refused by each gate, and the merged stats count
+    both."""
+    engines = _replicas()
+    router = tserve.Router(engines)
+    assert router.swap_index(engines[0].index) == [True, True]
+    assert router.swap_index(None) == [False, False]
+    router.schedule_swap(engines[0].index, at_step=3)
+    assert all(e._pending_swap == (3, engines[0].index) for e in engines)
+    merged = router.stats()
+    assert (merged.swaps, merged.swap_rejected) == (2, 2)
+    assert merged.health()["ok"] is False
 
 
 def test_router_requires_engines():

@@ -133,8 +133,9 @@ def test_spec_acceptance_stats():
     assert 0.0 <= s.accept_rate() <= 1.0
     assert s.spec_accepted <= s.spec_drafted
     assert s.steps == 3 * s.spec_waves
-    # the port's counters() contract: no swap counters until item 9
-    assert set(s.counters()) == {"shed", "timeouts"}
+    # the reference's counters() contract, swap counters included
+    assert set(s.counters()) == {"shed", "timeouts", "swap_rejected",
+                                 "swaps"}
     assert "accept_rate" in s.summary() and "spec_waves" in s.summary()
 
 

@@ -223,9 +223,10 @@ def test_loss_full_and_every_grad_match_jax():
 
 def test_unported_heads_raise():
     _, tc, _, tp, _, tidx, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        heads.refresh_head_state_with_policy(
-            tc, tp, tidx, torch.Generator().manual_seed(0), policy="drift")
+    # the drift policy is ported: it runs and reports its branch
+    _, m = heads.refresh_head_state_with_policy(
+        tc, tp, tidx, torch.Generator().manual_seed(0), policy="drift")
+    assert float(m["did_full"]) in (0.0, 1.0)
     with pytest.raises(NotImplementedError, match="item 10"):
         steps.make_loss_fn(tc, head_mode="uniform")
 
@@ -495,11 +496,13 @@ def test_validation_and_lifecycle_reject_a_degenerate_index():
         assert (ev is not None) == (step in (2, 5))
     assert all(e.rejected for e in lc.events) and len(calls) == 2
     assert len(set(calls)) == 2          # one seed per dispatch step
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lifecycle.IndexLifecycle(refresh_fn, every=3, base_seed=0, lag=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lifecycle.refresh_with_policy(tidx, torch.Generator(),
-                                      torch.from_numpy(x), policy="drift")
+    # lag > 0 and the drift policy are ported
+    lc = lifecycle.IndexLifecycle(refresh_fn, every=3, base_seed=0, lag=2)
+    out, ev = lc.step(2, None, tidx)
+    assert out is tidx and ev is None and lc.in_flight
+    _, m = lifecycle.refresh_with_policy(tidx, torch.Generator(),
+                                         torch.from_numpy(x), policy="drift")
+    assert float(m["did_full"]) in (0.0, 1.0)
 
 
 def test_train_keys_are_a_function_of_seed_step_and_row():
@@ -567,12 +570,13 @@ def test_cli_defaults_to_the_card_and_refuses_unported_flags():
             train_main(["--reduced", "--steps", "1"])
     base = ["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
             "--seq", "8"]
-    for flags, item in ((["--dp", "2"], "item 13"),
-                        (["--refresh-lag", "2"], "item 9"),
-                        (["--refresh-policy", "drift", "--refresh-every",
-                          "1"], "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_main(base + flags)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        train_main(base + ["--dp", "2"])
+    # the lifecycle flags are ported and run
+    for flags in (["--refresh-lag", "2", "--refresh-every", "1"],
+                  ["--refresh-policy", "drift", "--refresh-every", "1"]):
+        *_, hist = train_main(base + flags)
+        assert len(hist) == 1 and np.isfinite(hist).all()
 
 
 def test_cli_resumes_from_ckpt(tmp_path, capsys):

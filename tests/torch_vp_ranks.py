@@ -195,3 +195,60 @@ def _flat(t):
                 if torch.is_tensor(getattr(t, f.name))
                 for x in _flat(getattr(t, f.name))]
     return [t] if torch.is_tensor(t) else []
+
+
+# ------------------------------------------------------ the drift refresh
+DRIFT_N, DRIFT_D, DRIFT_K = 256, 16, 8
+
+
+def drift_tables():
+    """(x, moved, c1, c2): a clustered table (stage-1 centres c1, stage-2
+    offsets c2) and the same rows each moved to another stage-1 cluster
+    (a cyclic shift of the cluster labels): every class reassigned while
+    no codeword empties, so the drift policy refits and a warm-started
+    refit draws nothing random."""
+    rng = np.random.default_rng(0)
+    k, d, n = DRIFT_K, DRIFT_D, DRIFT_N
+    c1 = 4.0 * rng.standard_normal((k, d))
+    c2 = 1.0 * rng.standard_normal((k, d))
+    a1, a2 = rng.integers(0, k, n), rng.integers(0, k, n)
+    a1[:k], a2[:k] = np.arange(k), np.arange(k)
+    jitter = 0.05 * rng.standard_normal((n, d))
+    x = c1[a1] + c2[a2] + jitter
+    moved = c1[(a1 + 1) % k] + c2[a2] + jitter
+    return tuple(a.astype(np.float32) for a in (x, moved, c1, c2))
+
+
+def drift_index():
+    """The replicated (RQ) index the drift scenarios start from, fit to
+    the unchanged table from the true centres."""
+    from repro_torch.index.build import build
+    x, _, c1, c2 = drift_tables()
+    return build(torch.Generator().manual_seed(2), torch.from_numpy(x),
+                 kind="rq", k=DRIFT_K, iters=3, keep_residuals=False,
+                 init=(torch.from_numpy(c1), torch.from_numpy(c2)))
+
+
+def drift_scenario(group, outdir: str) -> None:
+    """`refresh_vocab_sharded(policy='drift')` on this rank's rows of the
+    unchanged table (the cheap branch) and of the moved one (the refit),
+    with the stacked CSR, the codebooks and the metrics saved."""
+    from repro_torch.index.sharded import refresh_vocab_sharded
+    n, r = group.size, group.rank
+    rows = DRIFT_N // n
+    x, moved, _, _ = drift_tables()
+    local = vp.local_index(vp.shard_index(drift_index(), n), r)
+    out = {}
+    for tag, table in (("same", x), ("moved", moved)):
+        li, m = refresh_vocab_sharded(
+            local, torch.Generator().manual_seed(3),
+            torch.from_numpy(table[r * rows:(r + 1) * rows]), iters=3,
+            policy="drift", threshold=0.5)
+        st = vp.stack_local_indexes(li, None)
+        for f in vp.CSR_FIELDS:
+            out[f"{tag}_{f}"] = getattr(st, f).numpy()
+        out[f"{tag}_codebook1"] = li.codebook1.numpy()
+        out[f"{tag}_codebook2"] = li.codebook2.numpy()
+        for k, v in m.items():
+            out[f"{tag}_{k}"] = np.array(float(v))
+    np.savez(os.path.join(outdir, f"rank{r}.npz"), **out)
