@@ -233,6 +233,30 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      take one branch, drift metrics and merged codebooks within 1e-5,
      assignments equal but for at most 1e-3 of them; 30 steps at lag 2
      finite, the ranks' losses and backbones bitwise equal;
+ 18. the proposal contenders (after phase 17a-b): (a) `paper-lm` at full
+     width with the trainable `midx-learnable-rq` head, per-token (M=20,
+     K=32): 120 steps of 16 x 64 at lr 3e-3, refresh every 50 (codebooks
+     re-assigned from the learned codewords), finite, applied, the CE
+     falling by > 0.1, `midx_probs` and the per-token CE pair launched;
+     on 3 batches of the trained model, the aux objective (KL and recon)
+     lower with the learned codebooks than with their k-means start (the
+     aux `prop_kl` itself rises as the table's logits grow: reported, not
+     gated); two 30-step runs bit for bit, codebooks included, and 15 +
+     15 resumed equal to them; the trained model served (8 x 16, batched
+     == solo on 2); (b)
+     `llama3.2-1b` at full width and depth, pooled (M=1024), from one
+     param set: `uniform`, `unigram` (the corpus's frequencies), `sphere`,
+     `lsh`, `tapas` and `midx-learnable-rq`, 10 steps of 4 x 256 each,
+     every step finite (median step, peak memory; the learnable run's
+     shared-CE launches > 0), each served (4 x 16, batched == solo on 2),
+     one contender's state freed before the next; (c) all 14 contenders
+     on the card at paper-lm width (the table 18a trained): log q over the
+     vocabulary sums to 1 within 1e-4, equals the CPU's within
+     1e-5·max(1, |cpu|) (for `rff` / `rff-fused` plus (2R + 2)·2^-24 / s,
+     the rounding of a score s = φ(z)·φ(c) near 0 carried into log s),
+     2^16 draws follow exp(log q) (each class within 6 standard errors +
+     1e-4), Theorem 1's identity within 1e-4 for the exact contenders,
+     and the B = 4 multi-book index is a distribution;
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -1899,10 +1923,12 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
           check_drop: bool = True, **loop_kw):
     """Drive `launch.train.train_loop` on the card with the counters set to
     0 just before; every step must be finite and applied and (check_drop)
-    the last 5 steps' mean loss more than 0.1 below the first 5's. Returns
+    the last 5 steps' mean CE more than 0.1 below the first 5's (the
+    model's loss: a trainable head's total adds its aux objective). Returns
     (params, index, launches per counter, summary); the summary also has
-    the losses (`hist`) and each step's `step_s` and its wall time at
-    the step's end (`steps`). `loop_kw` goes to train_loop."""
+    the losses (`hist`), each step's `step_s` and its wall time at the
+    step's end (`steps`) and, for a trainable head, its aux `prop_kl` a
+    step. `loop_kw` goes to train_loop."""
     from repro_torch.launch.train import train_loop
     seen = []
     torch.cuda.reset_peak_memory_stats()
@@ -1913,7 +1939,8 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
         device="cuda", ckpt_dir=ckpt_dir,
         on_metrics=lambda step, m: seen.append(
             (step, float(m["loss"]), float(m["grad_norm"]),
-             float(m["skipped"]), m["step_s"], time.perf_counter())),
+             float(m["skipped"]), m["step_s"], time.perf_counter(),
+             float(m.get("prop_kl", 0.0)), float(m["ce"]))),
         **loop_kw)
     torch.cuda.synchronize()
     launches = [c.launches for c in counters]
@@ -1922,9 +1949,10 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
     if len(seen) != steps or bad:
         raise SystemExit(f"{cfg.name} training: {len(seen)} steps logged, "
                          f"skipped or non-finite: {bad[:3]}")
-    first, last = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
+    ce = [x[7] for x in seen]
+    first, last = float(np.mean(ce[:5])), float(np.mean(ce[-5:]))
     if check_drop and not last < first - 0.1:
-        raise SystemExit(f"{cfg.name} training: loss did not drop by > 0.1 "
+        raise SystemExit(f"{cfg.name} training: the CE did not drop by > 0.1 "
                          f"(first 5 mean {first:.4f}, last 5 mean "
                          f"{last:.4f})")
     for name, n in zip(names, launches):
@@ -1936,11 +1964,13 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
                step_s * 1e3, "tok_s": batch * seq / step_s,
                "peak_gib": peak_gib, "hist": hist,
                "steps": [(x[0], x[4], x[5]) for x in seen]}
+    if cfg.head.mode == "midx-learnable":          # a trainable head
+        summary["prop_kl"] = [x[6] for x in seen]
     log(f"[smoke] train {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
         f"V={cfg.vocab_size} head={cfg.head.mode} "
         f"proposal={cfg.head.proposal} table={cfg.head.table_dtype} "
         f"M={cfg.head.num_negatives} K={cfg.head.midx_k}: {steps} steps x "
-        f"{batch}x{seq} tokens, lr {lr}, loss first-5 mean {first:.4f} -> "
+        f"{batch}x{seq} tokens, lr {lr}, CE first-5 mean {first:.4f} -> "
         f"last-5 mean {last:.4f}; median step {step_s * 1e3:.2f} ms, "
         f"{batch * seq / step_s:.0f} tokens/s; peak memory {peak_gib:.2f} "
         f"GiB; launches " + ", ".join(f"{n} {k}" for k, n in
@@ -1952,18 +1982,15 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
 
 def same_state(a, b) -> bool:
     """Two train_loop results hold the same bits: params, the optimizer's
-    step and moments, and the head state (the MIDX index or the
-    proposal's state)."""
-    from repro_torch.index.build import MultiIndex
+    step and moments, and every tensor of the head state (the MIDX index
+    or the proposal's state, a learnable head's codebooks included)."""
+    from repro_torch.index.lifecycle import _tensors
     from repro_torch.optim.optimizers import tree_leaves
 
     def leaves(run):
         params, opt, index, _ = run
-        head = ([index.codebook1, index.codebook2, index.sorted_ids]
-                if isinstance(index, MultiIndex)
-                else [index[k] for k in sorted(index)])
         return (tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
-                + head)
+                + list(_tensors(index)))
 
     la, lb = leaves(a), leaves(b)
     return a[1].step == b[1].step and len(la) == len(lb) and all(
@@ -3906,6 +3933,267 @@ def lifecycle_phases(get_config, midx_cuda, sce_cuda, corpus,
     return out
 
 
+# ------------------------------------------- the proposal contenders (18)
+P18_LLAMA = ("uniform", "unigram", "sphere", "lsh", "tapas",
+             "midx-learnable")    # 18b's contenders at llama width
+P18_STEPS = 10                 # 18b: steps a llama contender trains
+P18_DRAWS = 1 << 16            # 18c: draws a contender's frequencies take
+
+
+def aux_against(cfg, params, states: dict, corpus) -> dict:
+    """(prop_kl, prop_recon), each summed over the corpus's batches 0-2, of
+    a trainable head's aux objective for each head state in `states`, with
+    one params tree: the same hidden states and table for every state."""
+    from repro_torch.core import noise
+    from repro_torch.data import make_lm_stream
+    from repro_torch.launch import steps as steps_mod
+    loss_fn = steps_mod.make_loss_fn(cfg, with_aux=True)
+    stream = make_lm_stream(corpus, 16, seed=0)
+    out = {k: [0.0, 0.0] for k in states}
+    with torch.no_grad():
+        for step in range(3):
+            batch = {k: torch.from_numpy(v).long().cuda()
+                     for k, v in stream.batch_at(step).items()}
+            keys = noise.train_keys(0, step, batch["tokens"].numel(), "cuda")
+            for name, st in states.items():
+                _, m = loss_fn(params, st, batch, keys)
+                out[name][0] += float(m["prop_kl"])
+                out[name][1] += float(m["prop_recon"])
+    return out
+
+
+def p18_learnable_paper(get_config, midx_cuda, sce_cuda) -> dict:
+    """18a: paper-lm at full width with the trainable midx-learnable-rq
+    head, per-token: 120 steps (finite, applied, the CE falling;
+    midx_probs and the per-token CE pair launched; the trained model's aux
+    objective, KL and recon, lower with the learned codebooks than with
+    the k-means codebooks they started from, on the same batches), two
+    30-step runs bit for bit and a 15 + 15 resume equal to them, the
+    trained model served. Returns the run's summary and the trained class
+    table (18c's)."""
+    import tempfile
+    from repro_torch.data import ZipfLM
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import class_embeddings
+    counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
+                sce_cuda.sampled_ce_pt_bwd_cuda)
+    names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+    cfg = get_config("paper-lm").with_head(mode="midx-learnable")
+    params, state, launches, summ = train(cfg, counters, names, steps=120,
+                                          batch=16, seq=64, lr=3e-3,
+                                          refresh_every=50)
+    kl = summ["prop_kl"]
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64, seq_len=65,
+                    seed=0).sample(64)
+    kw = dict(batch_size=16, seq_len=64, lr=3e-3, corpus=corpus,
+              refresh_every=10, log_every=1000, device="cuda")
+    start = train_loop(cfg, steps=0, **kw)[2]            # the run's start
+    probe = aux_against(cfg, params, {"learned": state, "k-means start": {
+        "cb": start["cb"], "index": state["index"]}}, corpus)
+    if not (np.all(np.isfinite(kl)) and all(
+            a < b for a, b in zip(probe["learned"], probe["k-means start"]))):
+        raise SystemExit(f"paper-lm midx-learnable: the learned codebooks' "
+                         f"aux objective {probe} is not below their k-means "
+                         f"start's on the same inputs")
+    out = {"first5": summ["first5"], "last5": summ["last5"],
+           "median_step_ms": summ["median_step_ms"],
+           "peak_gib": summ["peak_gib"], "prop_kl": [kl[0], kl[-1]],
+           "prop_kl_last20": float(np.mean(kl[-20:])), "probe": probe,
+           "launches": dict(zip(names, launches))}
+    log(f"[smoke] 18a paper-lm midx-learnable-rq: prop_kl {kl[0]:.5f} at "
+        f"step 0, {kl[-1]:.5f} at step 119 (recon weight "
+        f"{cfg.head.aux_recon_weight}, KL weight {cfg.head.aux_kl_weight}, "
+        f"codebook lr {cfg.head.learnable_lr}); the trained model's (prop_kl,"
+        f" prop_recon) summed over 3 batches, learned codebooks against "
+        f"their k-means start: {json.dumps(probe)}")
+    del start
+    served = cfg.with_serve(max_slots=4, page_size=16, max_seq=32)
+    _, ss, out["serve_midx_probs"] = serve(
+        served, head="midx-learnable", requests=8, prompt=8, tokens=16,
+        verify=2, params=params, index=state, counter=counters[0])
+    out["serve"] = {k: ss[k] for k in ("tok_s", "p50_ms", "p99_ms",
+                                       "peak_gib")}
+    table = class_embeddings(cfg, params).detach().float().clone()
+    del params, state
+    runs = [train_loop(cfg, steps=30, **kw) for _ in range(2)]
+    with tempfile.TemporaryDirectory(prefix="smoke-p18-") as tmp:
+        train_loop(cfg, steps=15, total_steps=30, ckpt_dir=tmp, **kw)
+        resumed = train_loop(cfg, steps=30, ckpt_dir=tmp, **kw)
+    if runs[0][3] != runs[1][3] or not same_state(runs[0], runs[1]):
+        raise SystemExit("paper-lm midx-learnable: two 30-step runs differ")
+    if resumed[3] != runs[0][3][15:] or not same_state(resumed, runs[0]):
+        raise SystemExit("paper-lm midx-learnable: 15 + 15 resumed != 30")
+    log(f"[smoke] 18a paper-lm midx-learnable-rq: two 30-step runs (refresh "
+        f"every 10) agree bit for bit, codebooks included, and 15 + 15 "
+        f"resumed from a checkpoint equals them (final loss "
+        f"{runs[0][3][-1]:.6f})")
+    return out, table
+
+
+def p18_llama(get_config, midx_cuda, sce_cuda, corpus) -> dict:
+    """18b: llama3.2-1b at full width and depth, pooled, each of P18_LLAMA
+    for P18_STEPS steps of 4 x 256 from one param set (the loop's seed),
+    every step finite; median step, peak memory, the learnable run's
+    shared-CE launches; each contender then served, batched == solo on 2,
+    and its state freed before the next is built."""
+    shared = (sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda)
+    b, s = SHAPE[:2]
+    out = {}
+    for mode in P18_LLAMA:
+        learn = mode == "midx-learnable"
+        cfg = get_config("llama3.2-1b").with_head(mode=mode)
+        torch.cuda.empty_cache()
+        params, state, launches, summ = train(
+            cfg, shared if learn else (),
+            ("sampled_ce", "sampled_ce_bwd") if learn else (),
+            steps=P18_STEPS, batch=b, seq=s, lr=LLAMA_LR, corpus=corpus,
+            check_drop=False)
+        served = cfg.with_serve(max_slots=4, page_size=16, max_seq=48)
+        eng, ss, n_serve = serve(served, head=mode, requests=4, prompt=16,
+                                 tokens=16, verify=2, params=params,
+                                 index=state,
+                                 counter=midx_cuda.midx_probs_cuda
+                                 if learn else None)
+        if learn and n_serve <= 0:
+            raise SystemExit("llama3.2-1b midx-learnable serve: midx_probs "
+                             "was never launched on the main path")
+        out[mode] = {"median_step_ms": summ["median_step_ms"],
+                     "peak_gib": summ["peak_gib"],
+                     "first_loss": summ["hist"][0],
+                     "last_loss": summ["hist"][-1],
+                     "serve": {k: ss[k] for k in ("tok_s", "p50_ms",
+                                                  "p99_ms", "peak_gib")}}
+        if learn:
+            out[mode]["launches"] = {"sampled_ce": launches[0],
+                                     "sampled_ce_bwd": launches[1],
+                                     "midx_probs serve": n_serve}
+        del eng, params, state
+        torch.cuda.empty_cache()
+    log(f"[smoke] 18b llama3.2-1b contenders, {P18_STEPS} steps of {b}x{s} "
+        f"pooled: " + "; ".join(
+            f"{m} median step {v['median_step_ms']:.2f} ms peak "
+            f"{v['peak_gib']:.2f} GiB serve p50 {v['serve']['p50_ms']} ms"
+            for m, v in out.items()))
+    return out
+
+
+def state_to(tree, device):
+    """A proposal state with every tensor moved to `device` (dicts,
+    namedtuples, dataclasses such as the MultiIndex)."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: state_to(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: state_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(state_to(v, device) for v in tree)) \
+            if hasattr(tree, "_fields") else tuple(state_to(v, device)
+                                                    for v in tree)
+    return tree
+
+
+def frequencies_follow(ids: torch.Tensor, log_q: torch.Tensor) -> float:
+    """The largest |frequency − q| over classes, in units of the bound
+    6·sqrt(q(1 − q)/n) + 1e-4; at most 1 passes."""
+    n = ids.numel()
+    q = torch.exp(log_q.double())
+    freq = torch.bincount(ids.reshape(-1), minlength=q.numel()).double() / n
+    bound = 6 * torch.sqrt(q * (1 - q) / n) + 1e-4
+    return float(((freq - q).abs() / bound).max())
+
+
+def p18_on_card(get_config, table: torch.Tensor) -> dict:
+    """18c: every contender on the card at paper-lm width over `table`
+    (18a's trained class table): log q normalised (1e-4), the card's equal
+    to the CPU's (1e-5·max(1, |cpu|); the RFF contenders' plus their
+    score's rounding over the score, (2R + 2)·2^-24 / s), 2^16 draws
+    following exp(log q), Theorem 1's identity (1e-4), the B = 4
+    multi-book index a distribution."""
+    from repro_torch.core import midx, midx_multi
+    from repro_torch.proposals import PROPOSAL_NAMES, make_proposal, rff
+    cfg = get_config("paper-lm")
+    n, d = table.shape
+    knobs = dict(k=cfg.head.midx_k, kmeans_iters=cfg.head.kmeans_iters,
+                 rff_dim=cfg.head.rff_dim)
+    emb_cpu = table.cpu()
+    gen = torch.Generator().manual_seed(0)
+    z_cpu = 4.0 * torch.randn((4, d), generator=gen) / d ** 0.5
+    z = z_cpu.cuda()
+    freq = np.random.default_rng(0).zipf(1.2, n).astype(np.float64)
+    all_cpu = torch.arange(n).expand(4, n)
+    out = {}
+    for name in PROPOSAL_NAMES:
+        prop = make_proposal(name, **knobs)
+        st_cpu = prop.init(torch.Generator().manual_seed(1), emb_cpu, freq)
+        st = state_to(st_cpu, "cuda")
+        lp = prop.log_prob(st, z, all_cpu.cuda())
+        lp_cpu = prop.log_prob(st_cpu, z_cpu, all_cpu)
+        total = float((torch.exp(lp).sum(-1) - 1).abs().max())
+        limit = 1e-5 * lp_cpu.abs().clamp(min=1.0)
+        if name.startswith("rff"):
+            # log q = log s_i − log Σ s: a score s = φ(z)·φ(c) near 0 is a
+            # cancellation; its rounding, (2R + 2)·2^-24 at ‖φ‖ = 1, moves
+            # log s by that over s, on any device
+            phi_z = rff.rff_map(z_cpu, st_cpu["w"], st_cpu["tau"])
+            score = torch.clamp(phi_z @ st_cpu["phi_c"].T, min=1e-8)
+            limit = limit + (2 * knobs["rff_dim"] + 2) * 2.0 ** -24 / score
+        err = float(((lp.cpu() - lp_cpu).abs() / limit).max())
+        draw = prop.sample(st, torch.tensor([20260]).cuda(), z[:1], P18_DRAWS)
+        spread = frequencies_follow(draw.ids, lp[0])
+        lq_err = float((prop.log_prob(st, z[:1], draw.ids)
+                        - draw.log_q).abs().max())
+        row = {"sum_err": total, "card_cpu_err_over_limit": err,
+               "draw_spread": spread, "draw_log_q_err": lq_err}
+        if name.startswith("midx-exact"):
+            dec = midx.exact_decomposition(st["index"], z, st["emb"])
+            k1, k2 = st["index"].assign1, st["index"].assign2
+            ident = dec.log_p1[:, k1] + dec.log_p2[:, k1, k2] + dec.log_p3
+            row["theorem1_err"] = float((ident - dec.log_softmax).abs().max())
+        bad = (not total <= 1e-4 or not err <= 1.0 or not spread <= 1.0
+               or not lq_err <= 1e-4 or row.get("theorem1_err", 0) > 1e-4)
+        if bad:
+            raise SystemExit(f"18c {name} on the card: {row}")
+        out[name] = row
+        del st, st_cpu
+    idx = midx_multi.build_b(torch.Generator(device="cuda").manual_seed(2),
+                             table, b=4, k=16, iters=8)
+    total = float((torch.exp(midx_multi.log_prob(
+        idx, z, all_cpu.cuda())).sum(-1) - 1).abs().max())
+    if not total <= 1e-4:
+        raise SystemExit(f"18c midx_multi B=4: sum of q - 1 = {total}")
+    out["midx_multi B=4"] = {"sum_err": total}
+    log(f"[smoke] 18c the 14 contenders on the card at N={n}, D={d}: "
+        + json.dumps(out))
+    return out
+
+
+def proposal_phases(get_config, midx_cuda, sce_cuda, rff_cuda,
+                    corpus) -> dict:
+    """Phase 18. Returns its report; the launches of its paths go to the
+    kernels line."""
+    t0 = time.perf_counter()
+    paper, table = p18_learnable_paper(get_config, midx_cuda, sce_cuda)
+    torch.cuda.empty_cache()
+    llama = p18_llama(get_config, midx_cuda, sce_cuda, corpus)
+    counters = (midx_cuda.midx_probs_cuda, rff_cuda.rff_sample_cuda)
+    zero_counts(counters)
+    card = p18_on_card(get_config, table)
+    torch.cuda.synchronize()
+    draws = {"midx_probs": counters[0].launches,
+             "rff_sample": counters[1].launches}
+    need_launches("18c contender draws", draws)
+    del table
+    torch.cuda.empty_cache()
+    out = {"paper": paper, "llama": llama, "card": card,
+           "draw_launches": draws, "seconds": time.perf_counter() - t0}
+    log(f"[smoke] phase 18 (the proposal contenders) took "
+        f"{out['seconds']:.1f}s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4162,8 +4450,10 @@ def main() -> None:
     mark("vocab-parallel training (phase 15)")
     lc = lifecycle_phases(get_config, midx_cuda, sce_cuda, corpus, card)
     lc["serving"], lc["vp"] = lc_serve, vp.pop("lifecycle")
-    del corpus, long_corpus
     mark("the index lifecycle (phase 17a-b)")
+    p18 = proposal_phases(get_config, midx_cuda, sce_cuda, rff_cuda, corpus)
+    del corpus, long_corpus
+    mark("the proposal contenders (phase 18)")
     n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
                            sce_cuda, args.profile, card)
     n_ssd = n_mamba["ssd_scan"]
@@ -4186,20 +4476,27 @@ def main() -> None:
     ms, plain, bound, by = timings["llama3.2-1b decode"]
     t_ms, t_plain, t_bound, t_by = timings["paper-lm train"]
     src = "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce_pt.cu"
+    learn = p18["llama"]["midx-learnable"]["launches"]
+    midx_paths = {
+        "paper-lm serve": n_paper, "llama3.2-1b serve": n_llama,
+        "paper-lm train": n_train[0], "trained paper-lm serve": n_trained,
+        "trained llama3.2-1b serve": n_llama_trained,
+        "long-prompt serve": n_long_serve[1],
+        "mamba2-370m serve": n_mamba["midx_probs"],
+        "serving tier": tier["midx_probs"],
+        "serving swap runs": lc_serve["midx_probs"],
+        "paper-lm drift lag 2": lc["paper"]["train"]["launches"]["midx_probs"],
+        "18a paper-lm midx-learnable train":
+            p18["paper"]["launches"]["midx_probs"],
+        "18a trained midx-learnable serve": p18["paper"]["serve_midx_probs"],
+        "18b llama3.2-1b midx-learnable serve": learn["midx_probs serve"],
+        "18c contender draws": p18["draw_launches"]["midx_probs"]}
     rows = [{
         "name": "midx_probs", "route": "cuda",
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
         "replaces": "src/repro/kernels/midx_probs/midx_probs.py:23",
-        "launches": n_paper + n_llama + n_train[0] + n_trained
-                    + n_llama_trained + n_long_serve[1]
-                    + n_mamba["midx_probs"] + tier["midx_probs"]
-                    + lc_serve["midx_probs"]
-                    + lc["paper"]["train"]["launches"]["midx_probs"],
-        "launches_serving_tier": tier["midx_probs"],
-        "launches_lifecycle": {
-            "serving swap runs": lc_serve["midx_probs"],
-            "paper-lm drift lag 2": lc["paper"]["train"]["launches"][
-                "midx_probs"]},
+        "launches": sum(midx_paths.values()),
+        "launches_by_path": midx_paths,
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound,
         "bound_by": by, "library_ms": None,
         "shape": "llama3.2-1b decode T=4 D=2048 K=64 rq",
@@ -4214,10 +4511,14 @@ def main() -> None:
             ("sampled_ce_pt", "fwd", 74, n_train[1]),
             ("sampled_ce_pt_bwd", "bwd", 217, n_train[2])):
         ms, plain, bound, by = sce_timings["paper-lm train"][kind]
+        by_path = {"paper-lm train": n,
+                   "18a paper-lm midx-learnable train":
+                       p18["paper"]["launches"][kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/per_token.py:{line}",
-            "launches": n, "max_abs_err": sce_worst[kind], "ms": ms,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": sce_worst[kind], "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
             "shape": "paper-lm train T=1024 D=200 M=20 V=10000 fp32"})
@@ -4242,7 +4543,8 @@ def main() -> None:
             ("sampled_ce", "fwd", "33"), ("sampled_ce_bwd", "bwd", "205"))):
         ms, plain, bound, by = shared_timings["llama3.2-1b train"][kind]
         by_path = {"llama3.2-1b train": n_shared[i], "train_4k": n_4k[1 + i],
-                   "mamba2-370m train": n_mamba[kname]}
+                   "mamba2-370m train": n_mamba[kname],
+                   "18b llama3.2-1b midx-learnable train": learn[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
@@ -4264,7 +4566,13 @@ def main() -> None:
         "source": "src/repro_torch/kernels/rff_sample/csrc/rff_sample.cu",
         "replaces": "src/repro/kernels/rff_sample/rff_sample.py:31",
         "launches": n_rff_llama + n_rff_train[0] + n_rff_trained
-                    + sum(n_rff_replay),
+                    + sum(n_rff_replay) + p18["draw_launches"]["rff_sample"],
+        "launches_by_path": {
+            "llama3.2-1b serve": n_rff_llama,
+            "paper-lm train": n_rff_train[0],
+            "trained paper-lm serve": n_rff_trained,
+            "llama3.2-1b L=2 replay": n_rff_replay,
+            "18c contender draws": p18["draw_launches"]["rff_sample"]},
         "max_abs_err": rff_worst, "ms": ms, "plain_ms": plain,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "draws_differing_at_near_ties": rff_diff,
@@ -4323,6 +4631,8 @@ def main() -> None:
         f"{json.dumps(partial_holds.get('row0'))}; on {card}")
     log(f"[smoke] serving tier (phase 16): {json.dumps(tier)}; on {card}")
     log(f"[smoke] the index lifecycle (phase 17): {json.dumps(lc)}; on "
+        f"{card}")
+    log(f"[smoke] the proposal contenders (phase 18): {json.dumps(p18)}; on "
         f"{card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")

@@ -8,10 +8,16 @@ over layers as [L, ...] (`src/repro/models/model.py:81`), with linear
 weights laid out [d_in, d_out] for `x @ W`. The port keeps that layout, so
 nothing is transposed; it unstacks `blocks` into one dict per layer. The
 index is the numpy fields of a `MultiIndex` (`src/repro/index/build.py:36`);
-index fields become int64, the port's indexing type. A proposal's state is
-a flat dict of arrays (the RFF state `{emb, w, tau, phi_c}`,
-`src/repro/proposals/rff.py:36`) and crosses leaf by leaf,
-`proposal_state_from_numpy` / `proposal_state_to_numpy`. A quantized head
+index fields become int64, the port's indexing type. A proposal's state
+crosses node by node, `proposal_state_from_numpy` /
+`proposal_state_to_numpy`: a dict of arrays (the RFF state `{emb, w, tau,
+phi_c}`, `src/repro/proposals/rff.py:36`), the unigram's nested
+`AliasTable`, `{"index": MultiIndex, "emb"}` (midx-exact-*), `{"cb":
+LearnableCodebooks, "index": MultiIndex}` (midx-learnable-*), a bare
+`MultiIndex` (midx-pq / -rq) or `MultiIndexB`; a 0-d integer (`n`, a
+Python int leaf of the reference's state) becomes a Python int and a 0-d
+float (`alpha`, `eps`, `tau`) a 0-d tensor. The reference's nodes are
+recognised by their fields, so the bridge needs no JAX. A quantized head
 state (`src/repro/index/quantized.py:259`) crosses as its index's fields
 under `index` and its other data fields, `quant_state_from_numpy` /
 `quant_state_to_numpy`; fp8 leaves keep their dtype both ways (torch's
@@ -26,8 +32,10 @@ JAX uses), imported only when a bf16 tensor is met.
 `to_reference` / `from_reference` carry a whole training state, the
 `(params, opt_state, head_state)` tuple or any tree of the port's, into
 the reference's layout and back: `blocks` stacked [L, ...], `OptState`'s
-step a 0-d int32, a `MultiIndex`'s index fields int32 (the layout
-`src/repro/launch/train.py:203-213` checkpoints). The leaves stay torch
+step a 0-d int32, a `MultiIndex`'s index fields and every other int64
+tensor int32, as the reference holds them (the layout
+`src/repro/launch/train.py:203-213` checkpoints); `LearnableCodebooks`,
+`MultiIndexB` and namedtuples (`AliasTable`) keep their node types. The leaves stay torch
 tensors, on the host, so a bf16 or fp8 leaf keeps its dtype without
 `ml_dtypes`; `checkpoint.manager` writes them in the reference's format.
 
@@ -47,6 +55,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.alias import AliasTable
+from repro_torch.core.learnable import CODEBOOK_FIELDS, LearnableCodebooks
+from repro_torch.core.midx_multi import MultiIndexB
 from repro_torch.dist.vocab_parallel import (SHARDED_FIELDS,
                                              VocabShardedIndex)
 from repro_torch.index.build import MultiIndex
@@ -196,21 +207,89 @@ def quant_state_to_numpy(state: QuantHeadState) -> dict:
     return out
 
 
-def proposal_state_from_numpy(d: Mapping, *, device=None) -> dict:
-    """A JAX proposal state (a dict of arrays, e.g. the RFF state
-    `{emb, w, tau, phi_c}`) as numpy -> the port's state on `device`."""
+def _is_index(x) -> bool:
+    if isinstance(x, Mapping):
+        return "sorted_ids" in x and "log_counts" in x
+    return hasattr(x, "sorted_ids") and hasattr(x, "log_counts")
+
+
+def _fields(x, names) -> dict:
+    return {f: (x[f] if isinstance(x, Mapping) else getattr(x, f))
+            for f in names}
+
+
+def proposal_state_from_numpy(d, *, device=None):
+    """A JAX proposal state as numpy (`jax.tree_util.tree_map(np.asarray,
+    state)`, or the nested dicts `proposal_state_to_numpy` gives) -> the
+    port's state on `device`: MultiIndex, LearnableCodebooks, AliasTable
+    and MultiIndexB nodes, dicts, Python ints for 0-d integers."""
     device = resolve_device(device)
-    return {k: tensor_from_numpy(v, device) for k, v in d.items()}
+
+    def go(x):
+        if _is_index(x):
+            return index_from_numpy(_fields(x, (*_INDEX_FIELDS, "kind")),
+                                    device=device)
+        if isinstance(x, Mapping) and set(x) == {"kind", *CODEBOOK_FIELDS} \
+                or not isinstance(x, Mapping) and hasattr(x, "codebook1"):
+            f = _fields(x, ("kind", *CODEBOOK_FIELDS))
+            return LearnableCodebooks(str(f["kind"]), *(
+                tensor_from_numpy(f[k], device) for k in CODEBOOK_FIELDS))
+        if hasattr(x, "assigns") or isinstance(x, Mapping) and "assigns" in x:
+            f = _fields(x, ("codebooks", "assigns", "residuals"))
+            return MultiIndexB(
+                tuple(tensor_from_numpy(c, device) for c in f["codebooks"]),
+                tuple(tensor_from_numpy(a, device).long()
+                      for a in f["assigns"]),
+                tensor_from_numpy(f["residuals"], device))
+        if getattr(x, "_fields", None) == AliasTable._fields or \
+                isinstance(x, Mapping) and set(x) == set(AliasTable._fields):
+            f = _fields(x, AliasTable._fields)
+            return AliasTable(tensor_from_numpy(f["prob"], device),
+                              tensor_from_numpy(f["alias"], device).long(),
+                              tensor_from_numpy(f["logq"], device))
+        if isinstance(x, Mapping):
+            return {k: go(v) for k, v in x.items()}
+        a = np.asarray(x)
+        if a.ndim == 0 and a.dtype.kind in "iu":
+            return int(a)
+        t = tensor_from_numpy(a, device)
+        return t.long() if a.dtype.kind in "iu" else t
+
+    return go(d)
 
 
-def proposal_state_to_numpy(state: Mapping) -> dict:
-    """A port proposal state -> its leaves as numpy, for the JAX package."""
-    return {k: tensor_to_numpy(v) for k, v in state.items()}
+def proposal_state_to_numpy(state):
+    """A port proposal state -> numpy in the reference's dtypes (int32
+    index arrays), its nodes as dicts of their fields (a MultiIndex as
+    `index_to_numpy` gives it), Python ints as they are."""
+    def go(x):
+        if isinstance(x, MultiIndex):
+            return index_to_numpy(x)
+        if isinstance(x, LearnableCodebooks):
+            return {"kind": x.kind, **{f: tensor_to_numpy(getattr(x, f))
+                                       for f in CODEBOOK_FIELDS}}
+        if isinstance(x, MultiIndexB):
+            return {"codebooks": tuple(go(c) for c in x.codebooks),
+                    "assigns": tuple(go(a) for a in x.assigns),
+                    "residuals": go(x.residuals)}
+        if isinstance(x, AliasTable):
+            return {f: go(getattr(x, f)) for f in AliasTable._fields}
+        if isinstance(x, Mapping):
+            return {k: go(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor):
+            a = tensor_to_numpy(x)
+            return a.astype(np.int32) if a.dtype == np.int64 else a
+        return x
+
+    return go(state)
 
 
 def _host(x):
+    """A leaf on the host in the reference's dtype: int64 tensors (the
+    port's indexing type) as int32."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu()
+        x = x.detach().cpu()
+        return x.to(torch.int32) if x.dtype == torch.int64 else x
     return np.asarray(x)
 
 
@@ -242,9 +321,17 @@ def _layout(tree, leaf, stack, int32):
         if isinstance(t, QuantHeadState):
             return QuantHeadState(t.fmt, **{f: go(getattr(t, f))
                                             for f in QUANT_FIELDS})
+        if isinstance(t, LearnableCodebooks):
+            return LearnableCodebooks(t.kind, *(go(getattr(t, f))
+                                                for f in CODEBOOK_FIELDS))
+        if isinstance(t, MultiIndexB):
+            return MultiIndexB(go(t.codebooks), go(t.assigns),
+                               go(t.residuals))
         if isinstance(t, Mapping):
             return {k: (zip_layers(v) if k == "blocks" and isinstance(v, list)
                         else go(v)) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(go(v) for v in t))
         if isinstance(t, (list, tuple)):
             return type(t)(go(v) for v in t)
         return None if t is None else leaf(t)
@@ -261,8 +348,8 @@ def _layout(tree, leaf, stack, int32):
 def to_reference(tree):
     """A tree of the port's (the training tuple `(params, opt_state,
     head_state)`, a `{"params", "index"}` serving tree, or any dict / list /
-    tuple / `OptState` / `MultiIndex` / `QuantHeadState` tree of tensors,
-    numpy arrays or
+    tuple / namedtuple / `OptState` / `MultiIndex` / `QuantHeadState` /
+    `LearnableCodebooks` / `MultiIndexB` tree of tensors, numpy arrays or
     numbers) -> the same values in the reference's layout, on the host."""
     return _layout(tree, _host, _stack_host, _int32)
 
@@ -307,6 +394,15 @@ def from_reference(ref, like, *, device=None):
         if isinstance(lk, QuantHeadState):
             return QuantHeadState(lk.fmt, **{
                 f: go(getattr(r, f), getattr(lk, f)) for f in QUANT_FIELDS})
+        if isinstance(lk, LearnableCodebooks):
+            return LearnableCodebooks(lk.kind, *(
+                go(getattr(r, f), getattr(lk, f)) for f in CODEBOOK_FIELDS))
+        if isinstance(lk, MultiIndexB):
+            return MultiIndexB(go(r.codebooks, lk.codebooks),
+                               go(r.assigns, lk.assigns),
+                               go(r.residuals, lk.residuals))
+        if isinstance(lk, tuple) and hasattr(lk, "_fields"):
+            return type(lk)(*(go(a, b) for a, b in zip(r, lk)))
         if isinstance(lk, Mapping):
             return {k: (unstack(r[k], v) if k == "blocks"
                         and isinstance(v, list) else go(r[k], v))

@@ -33,7 +33,13 @@ fields in the order of `src/repro/index/build.py:30-33`, a quantized head
 state as `CustomNode(QuantHeadState[('int8',)], [...])` over its index
 and its low-bit twins, `src/repro/index/quantized.py:255-258`; a
 vocab-parallel run's stacked index as `CustomNode(VocabShardedIndex[('rq',
-2)], [...])`, `src/repro/dist/vocab_parallel.py:50-56`); bf16 and fp8
+2)], [...])`, `src/repro/dist/vocab_parallel.py:50-56`; a learnable
+proposal's codebooks as `CustomNode(LearnableCodebooks[('rq',)], [*, *])`,
+`src/repro/core/learnable.py:21-24`, a B-book index as
+`CustomNode(MultiIndexB[()], [...])`, `src/repro/core/midx_multi.py:30-33`,
+and a namedtuple such as the unigram's `AliasTable` as
+`CustomNode(namedtuple[AliasTable], [...])`; a Python int, such as a
+proposal state's `n`, is a leaf, as it is to JAX); bf16 and fp8
 leaves are stored as same-width unsigned raw bits with their true dtype's
 name in tree.json, as the reference stores them, without `ml_dtypes`.
 `restore(step, like, device=...)` takes `like` in the port's structure
@@ -56,6 +62,8 @@ import torch
 
 from repro_torch.bridge import (_INDEX_FIELDS, from_reference,
                                 reference_structure, to_reference)
+from repro_torch.core.learnable import CODEBOOK_FIELDS, LearnableCodebooks
+from repro_torch.core.midx_multi import MULTI_FIELDS, MultiIndexB
 from repro_torch.dist.vocab_parallel import (SHARDED_FIELDS,
                                              VocabShardedIndex)
 from repro_torch.index.build import MultiIndex
@@ -80,6 +88,10 @@ def _children(t) -> Optional[list]:
         return [getattr(t, f) for f in SHARDED_FIELDS]
     if isinstance(t, QuantHeadState):
         return [getattr(t, f) for f in QUANT_FIELDS]
+    if isinstance(t, LearnableCodebooks):
+        return [getattr(t, f) for f in CODEBOOK_FIELDS]
+    if isinstance(t, MultiIndexB):
+        return [getattr(t, f) for f in MULTI_FIELDS]
     if isinstance(t, dict):
         return [t[k] for k in sorted(t)]
     if isinstance(t, (list, tuple)):
@@ -110,6 +122,13 @@ def _unflatten(structure, leaves):
         return QuantHeadState(structure.fmt, **{
             f: _unflatten(getattr(structure, f), leaves)
             for f in QUANT_FIELDS})
+    if isinstance(structure, LearnableCodebooks):
+        return LearnableCodebooks(structure.kind, *(
+            _unflatten(getattr(structure, f), leaves)
+            for f in CODEBOOK_FIELDS))
+    if isinstance(structure, MultiIndexB):
+        return MultiIndexB(*(_unflatten(getattr(structure, f), leaves)
+                             for f in MULTI_FIELDS))
     if isinstance(structure, dict):
         out = {k: _unflatten(structure[k], leaves) for k in sorted(structure)}
         return {k: out[k] for k in structure}
@@ -135,6 +154,12 @@ def _treedef_str(tree) -> str:
                     f"[{', '.join(go(c) for c in _children(t))}])")
         if isinstance(t, QuantHeadState):
             return (f"CustomNode(QuantHeadState[{(t.fmt,)!r}], "
+                    f"[{', '.join(go(c) for c in _children(t))}])")
+        if isinstance(t, LearnableCodebooks):
+            return (f"CustomNode(LearnableCodebooks[{(t.kind,)!r}], "
+                    f"[{', '.join(go(c) for c in _children(t))}])")
+        if isinstance(t, MultiIndexB):
+            return (f"CustomNode(MultiIndexB[()], "
                     f"[{', '.join(go(c) for c in _children(t))}])")
         if isinstance(t, dict):
             return "{" + ", ".join(f"{k!r}: {go(t[k])}"

@@ -4,8 +4,9 @@ Mirrors `src/repro/core/midx.py`: `log_prob` (:59), `_member_uniform`
 (:51), `twostage_tables` (:110), `sample_twostage` (:127), and the
 shared-negative samplers `_inverse_cdf_sample` (:168), `_shared_draw`
 (:177), `_joint_from_scores` (:191), `sample_pooled` (:201) and
-`sample_mixture` (:210), and `proposal_kl` (:293), with the quantized
-head's `scores_fn` hook,
+`sample_mixture` (:210), the exact Theorem-1 MIDX `exact_decomposition`
+(:237), `exact_log_prob` (:273) and `sample_exact` (:280), and
+`proposal_kl` (:293), with the quantized head's `scores_fn` hook,
 `sample_twostage`'s `return_tables` and the vocab-parallel head's
 `member_fn` hook (:118, :161): `member_fn(u, flat_cluster) -> ids`
 replaces the CSR member draw, so that a vocab shard can locate each draw
@@ -30,7 +31,15 @@ log q of a draw stays differentiable in the tables (the reference does not
 stop its gradient); its table entries are picked by `_PickRows`, whose
 backward sums repeated indices over a stable sort in a fixed order on the
 card, where `torch.gather`'s backward adds with atomics — so a train step
-replays bit for bit.
+replays bit for bit. `categorical_draw` (the generic proposals' draw, which
+`proposals.base` re-exports) and `sample_exact` draw by Gumbel-max under
+ROLE_CATEGORICAL, draw j, column n.
+Theorem 1's segment logsumexp (`exact_decomposition`) reduces each joint
+cluster's residual scores over the index's CSR (`sorted_ids` / `offsets`
+hold a cluster's members contiguously): the max by `scatter_reduce`
+(order-free), the sum as a difference of float64 prefix sums at the
+cluster bounds, where the reference scatter-adds (an order-nondeterministic
+atomic sum on the card).
 """
 from __future__ import annotations
 
@@ -108,6 +117,27 @@ class _PickRows(torch.autograd.Function):
         total = torch.gather(csum, 1, end) - before
         out = g.new_zeros((g.shape[0], ctx.width))
         return out.scatter_(1, sidx, total), None
+
+
+def take_along(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [..., C], idx [..., m] -> table[..., idx] with the ordered
+    backward of `_PickRows` (the reference's `take_along_axis`)."""
+    c, m = table.shape[-1], idx.shape[-1]
+    out = _PickRows.apply(table.reshape(-1, c), idx.reshape(-1, m))
+    return out.reshape(idx.shape)
+
+
+def categorical_draw(keys: torch.Tensor, log_p: torch.Tensor,
+                     m: int) -> Draw:
+    """m iid categorical draws per row of log_p [..., N], row r keyed by
+    keys[r] -> Draw [..., m] (int64 ids, log q = log p at each id, attached
+    to log p)."""
+    lead, n = log_p.shape[:-1], log_p.shape[-1]
+    flat = log_p.reshape(-1, n)
+    ids = noise.gumbel_max_draws(flat.detach(), keys.reshape(-1),
+                                 noise.ROLE_CATEGORICAL, m)
+    log_q = _PickRows.apply(flat, ids)
+    return Draw(ids.reshape(*lead, m), log_q.reshape(*lead, m))
 
 
 def twostage_tables(index: MultiIndex, z: torch.Tensor):
@@ -224,6 +254,71 @@ def sample_mixture(index: MultiIndex, z_seq: torch.Tensor, m: int,
     mix_log = torch.log(torch.clamp(mix, min=1e-30)) + index.log_counts
     return _shared_draw(index, mix_log.reshape(mix.shape[0], -1), m, keys,
                         member_fn)
+
+
+# ------------------------------------------------------ exact MIDX (Thm 1)
+class ExactDecomposition(NamedTuple):
+    log_p1: torch.Tensor       # [..., K]      log P1(k1 | z)
+    log_p2: torch.Tensor       # [..., K, K]   log P2(k2 | k1, z)
+    log_p3: torch.Tensor       # [..., N]      log P3(i | k1(i), k2(i), z)
+    log_softmax: torch.Tensor  # [..., N]      reference full log-softmax
+
+
+def _segment_logsumexp(index: MultiIndex, x: torch.Tensor) -> torch.Tensor:
+    """log Σ_{i ∈ Ω(c)} exp(x_i) per joint cluster c: x [..., N] ->
+    [..., K²], −inf on empty clusters, deterministic on the card."""
+    kk = index.num_codewords
+    joint = index.joint_cluster()                               # [N]
+    idx = joint.expand(x.shape)
+    m_seg = torch.full((*x.shape[:-1], kk * kk), float("-inf"),
+                       dtype=x.dtype, device=x.device)
+    m_seg = m_seg.scatter_reduce(-1, idx, x, "amax", include_self=True)
+    shifted = torch.exp(x - torch.gather(m_seg, -1, idx))
+    csum = torch.cumsum(shifted.index_select(-1, index.sorted_ids).double(),
+                        dim=-1)
+    csum = torch.cat([csum.new_zeros((*x.shape[:-1], 1)), csum], dim=-1)
+    s_seg = (csum.index_select(-1, index.offsets[1:])
+             - csum.index_select(-1, index.offsets[:-1])).float()
+    log_omega = m_seg + torch.log(torch.clamp(s_seg, min=1e-30))
+    return torch.where(torch.isfinite(m_seg), log_omega,
+                       log_omega.new_tensor(float("-inf")))
+
+
+def exact_decomposition(index: MultiIndex, z: torch.Tensor,
+                        class_embeddings: torch.Tensor) -> ExactDecomposition:
+    """Materialise the Theorem-1 factorisation (validation / small N)."""
+    z = z.float()
+    _, s1, s2 = joint_logits(index, z)
+    res_scores = z @ index.residuals.float().T                   # [..., N]
+    kk = index.num_codewords
+    log_omega = _segment_logsumexp(index, res_scores)            # [..., K²]
+    log_omega2 = log_omega.reshape(*log_omega.shape[:-1], kk, kk)
+    # stage 2: P2(k2|k1) ∝ ω(k1,k2) exp(s2[k2])
+    l2 = log_omega2 + s2[..., None, :]                           # [..., K, K]
+    log_psi = torch.logsumexp(l2, dim=-1)                        # [..., K]
+    log_p2 = l2 - log_psi[..., None]
+    # stage 1: P1(k1) ∝ ψ(k1) exp(s1[k1])
+    l1 = log_psi + s1
+    log_p1 = l1 - torch.logsumexp(l1, dim=-1, keepdim=True)
+    # stage 3: P3(i) = exp(õ_i) / ω(k1(i),k2(i))
+    log_p3 = res_scores - log_omega.index_select(-1, index.joint_cluster())
+    log_sm = torch.log_softmax(z @ class_embeddings.float().T, dim=-1)
+    return ExactDecomposition(log_p1, log_p2, log_p3, log_sm)
+
+
+def exact_log_prob(index: MultiIndex, z: torch.Tensor,
+                   class_embeddings: torch.Tensor) -> torch.Tensor:
+    """Exact MIDX proposal == the true softmax over all classes. [..., N]"""
+    del index
+    return torch.log_softmax(z.float() @ class_embeddings.float().T, dim=-1)
+
+
+def sample_exact(index: MultiIndex, keys: torch.Tensor, z: torch.Tensor,
+                 class_embeddings: torch.Tensor, m: int) -> Draw:
+    """Sample from the exact (= softmax) distribution. O(N·D) per query.
+    z [..., D], keys [...] -> Draw [..., m]."""
+    return categorical_draw(keys, exact_log_prob(index, z, class_embeddings),
+                            m)
 
 
 # ----------------------------------------------------------------- quality

@@ -36,11 +36,19 @@ _M2 = -2073287029 & _M32
 #: wave salts its wave key (the row key of the wave's start position) by
 #: ROLE_SPEC_DRAFT for its k draft draws, ROLE_SPEC_ACCEPT for the accept
 #: test's uniform of draft j and ROLE_SPEC_CORRECT for the correction draw
-#: at the first rejected draft. Roles are appended, never renumbered: a
-#: new number would change every existing draw's bits.
+#: at the first rejected draft. The static and TAPAS contenders
+#: (`proposals/`) draw under their own roles: the uniform proposal's ids
+#: (ROLE_UNIFORM_IDS), the alias table's bin and flip (ROLE_ALIAS_BIN,
+#: ROLE_ALIAS_FLIP), TAPAS's ε-branch, its uniform ids and its pool
+#: categorical (ROLE_TAPAS_BRANCH, ROLE_TAPAS_UNIFORM, ROLE_TAPAS_POOL) and
+#: its pass-1 pool's Gumbels (ROLE_TAPAS_PASS1); the learnable proposal's
+#: auxiliary loss subsamples rows under ROLE_AUX_ROWS. Roles are appended,
+#: never renumbered: a new number would change every existing draw's bits.
 (ROLE_K1, ROLE_K2, ROLE_MEMBER, ROLE_PICK, ROLE_FULL, ROLE_SHARED_PAIR,
  ROLE_SHARED_MEMBER, ROLE_CATEGORICAL, ROLE_SPEC_DRAFT, ROLE_SPEC_ACCEPT,
- ROLE_SPEC_CORRECT) = range(11)
+ ROLE_SPEC_CORRECT, ROLE_UNIFORM_IDS, ROLE_ALIAS_BIN, ROLE_ALIAS_FLIP,
+ ROLE_TAPAS_BRANCH, ROLE_TAPAS_UNIFORM, ROLE_TAPAS_POOL, ROLE_TAPAS_PASS1,
+ ROLE_AUX_ROWS) = range(19)
 #: Elements of the [T, draws, N] noise block one step of
 #: `gumbel_max_draws` materialises.
 DRAW_CHUNK = 1 << 22
@@ -80,6 +88,14 @@ def uniform_noise(seed, t_ids, d_ids, n_ids) -> torch.Tensor:
     """float32 uniforms in (0, 1) from the top 24 hash bits."""
     u24 = (hash_bits(seed, t_ids, d_ids, n_ids) >> 8).to(torch.float32)
     return u24 * (1.0 / (1 << 24)) + (1.0 / (1 << 25))
+
+
+def uniform_ids(seed, t_ids, d_ids, n: int) -> torch.Tensor:
+    """Uniform int64 ids in [0, n) from the full 32 hash bits (column 0)
+    by a multiply-high, (h · n) >> 32: the bias between ids is at most
+    n / 2^32, where floor(u · n) over the 24-bit uniforms would give some
+    ids (n / 2^24 + 1) / (n / 2^24) times the mass of others."""
+    return (hash_bits(seed, t_ids, d_ids, 0) * n) >> 32
 
 
 def gumbel_noise(seed, t_ids, d_ids, n_ids) -> torch.Tensor:

@@ -164,7 +164,7 @@ def _tensors(tree):
 
 def clone_tensors(tree):
     """A copy of a params tree or a head state, every tensor cloned (dicts,
-    lists, dataclasses such as the MultiIndex)."""
+    lists, namedtuples, dataclasses such as the MultiIndex)."""
     if torch.is_tensor(tree):
         return tree.detach().clone()
     if dataclasses.is_dataclass(tree):
@@ -173,6 +173,8 @@ def clone_tensors(tree):
             for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: clone_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tensors(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(clone_tensors(v) for v in tree)
     return tree

@@ -10,7 +10,13 @@ and the decode heads —
   --head full      : exact [B, V] logits each step;
   --head rff-fused : candidates drawn from the RFF proposal (the rff_sample
                      CUDA kernel on the card), rescored, IS-corrected;
-  --head rff       : the same proposal, drawn by plain torch ops.
+  --head rff       : the same proposal, drawn by plain torch ops;
+  --head midx-learnable : the learnable-codebook index's two-stage draw
+                     (the midx_probs kernel on the card), as --head midx;
+  --head uniform | unigram | sphere | lsh | tapas : candidates drawn from
+                     that contender (`repro_torch.proposals`, its state
+                     built from the params; unigram without corpus
+                     frequencies is uniform, as in the reference).
 Synthetic open-loop traffic (Poisson arrivals at --rate req/s; 0 = all at
 t0); reports tokens/s and p50/p95/p99 per-token latency, and replays
 --verify requests alone, requiring identical tokens.
@@ -194,7 +200,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-pages", type=int, default=0,
                     help="physical pool size (0 = full residency)")
     ap.add_argument("--head", default="midx",
-                    choices=proposals_registry.PORTED_MODES)
+                    choices=proposals_registry.proposal_modes())
     ap.add_argument("--table-dtype", default=None,
                     help="hot-path class-table format (bf16|int8|fp8, "
                          "DESIGN §12): the two-stage draw reads quantized "

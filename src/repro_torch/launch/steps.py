@@ -1,16 +1,16 @@
 """Train-step functions: the loss and one optimizer step.
 
 Mirrors `src/repro/launch/steps.py`: `resolve_proposal` (:55),
-`make_loss_fn` (:70; modes `midx`, `full` and the ported registry
-contenders, which route through `heads.loss_sampled`; the fault seam
-`_apply_fault` :33; an unknown `head.table_dtype` raises when the loss is
-built, :96), `make_train_step` (:129, the non-trainable branch
-:188-202 with its non-finite skip guard) and the vocab-parallel family
-(DESIGN §9): `make_vocab_parallel_train_step` (:305),
+`make_loss_fn` (:70; modes `midx`, `full` and every registry contender,
+which route through `heads.loss_sampled`; `with_aux` adds a trainable
+proposal's auxiliary loss, :112-121; the fault seam `_apply_fault` :33; an
+unknown `head.table_dtype` raises when the loss is built, :96),
+`make_train_step` (:129: the trainable branch :159-186, the other
+:188-202, both with the non-finite skip guard) and the vocab-parallel
+family (DESIGN §9): `make_vocab_parallel_train_step` (:305),
 `make_vocab_index_init` (:417) and `make_vocab_refresh_step` (:451, both
-refresh policies). The unported registry contenders (ROADMAP.md Queue 1
-item 10) raise NotImplementedError; the data-parallel step
-(`make_sharded_train_step`, item 13) is not ported yet.
+refresh policies). The data-parallel step (`make_sharded_train_step`,
+item 13) is not ported yet.
 
 The vocab-parallel step runs on every rank of a `launch.mesh.VocabGroup`
 with the same batch and keys (data degree 1): the class table (`embed`,
@@ -33,6 +33,7 @@ Trace ranges `train.forward`, `train.head`, `train.backward` and
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -60,9 +61,8 @@ def _apply_fault(loss: torch.Tensor, batch: dict) -> torch.Tensor:
 
 def resolve_proposal(cfg: ModelConfig, head_mode: Optional[str] = None):
     """(mode, Proposal-or-None) for a head config, validated at step-build
-    time: an unknown mode raises the registry's ValueError, an unported
-    contender its NotImplementedError. 'midx' and 'full' return None: they
-    keep their dedicated lanes."""
+    time: an unknown mode raises the registry's ValueError. 'midx' and
+    'full' return None: they keep their dedicated lanes."""
     mode = head_mode or cfg.head.mode
     proposals_registry.validate_mode(mode)
     if mode in ("midx", "full"):
@@ -71,13 +71,24 @@ def resolve_proposal(cfg: ModelConfig, head_mode: Optional[str] = None):
 
 
 def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
-                 window: Optional[int] = None) -> Callable:
+                 window: Optional[int] = None,
+                 with_aux: bool = False) -> Callable:
     """loss(params, state, batch, keys) -> (loss, metrics). `state` is the
     MultiIndex for 'midx', ignored for 'full', and the proposal's state for
     a registry contender; batch holds int64 `tokens` and `labels` [B, S] on
-    the params' device."""
+    the params' device. The resolved Proposal (or None) is
+    `loss_fn.proposal`.
+
+    `with_aux=True` adds a trainable proposal's L_recon + L_KL objective
+    (paper §6.2.3) to the loss, and its `prop_recon` / `prop_kl` to the
+    metrics; it moves only what the caller differentiates, the state's
+    trainable leaves (make_train_step's trainable branch)."""
+    from repro_torch.models.model import class_embeddings
+
     mode, proposal = resolve_proposal(cfg, head_mode)
     resolve_table_dtype(cfg.head.table_dtype)
+    include_aux = bool(with_aux and proposal is not None
+                       and proposal.trainable)
 
     def loss_fn(params, state, batch, keys):
         with record_function("train.forward"):
@@ -93,9 +104,30 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
                 ce = heads.loss_sampled(cfg, params, proposal, state,
                                         out["hidden"], batch["labels"], keys)
         loss = ce + cfg.router_aux_weight * out["aux_loss"]
-        return _apply_fault(loss, batch), {"ce": ce, "aux": out["aux_loss"]}
+        metrics = {"ce": ce, "aux": out["aux_loss"]}
+        if include_aux:
+            h = out["hidden"].float()
+            aux_p, am = proposal.aux_loss(state, keys,
+                                          h.reshape(-1, h.shape[-1]),
+                                          class_embeddings(cfg, params))
+            loss = loss + aux_p
+            metrics.update(am)
+        return _apply_fault(loss, batch), metrics
 
+    loss_fn.proposal = proposal
     return loss_fn
+
+
+def _tensor_fields(tr) -> list:
+    """The tensor fields of a trainable node (a dataclass such as
+    `core.learnable.LearnableCodebooks`), in field order."""
+    return [f.name for f in dataclasses.fields(tr)
+            if isinstance(getattr(tr, f.name), torch.Tensor)]
+
+
+def _map_trainable(fn, tr):
+    return dataclasses.replace(tr, **{f: fn(getattr(tr, f))
+                                      for f in _tensor_fields(tr)})
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
@@ -103,13 +135,62 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                     window: Optional[int] = None,
                     clip_norm: float = 1.0) -> Callable:
     """step(params, opt_state, state, batch, keys) -> (params, opt_state,
-    metrics); params and the optimizer state are updated in place and come
-    back as the same objects. When the loss or the gradient's global norm
-    is NaN/Inf, nothing is written to them and metrics['skipped'] is 1: a
-    poisoned step never reaches the optimizer. The guard reads one
-    flag on the host (a sync the train loop makes anyway to log the loss);
-    the reference selects leafwise inside its jitted step instead."""
-    loss_fn = make_loss_fn(cfg, head_mode=head_mode, window=window)
+    metrics), with `step.returns_state` False; params and the optimizer
+    state are updated in place and come back as the same objects. A
+    trainable proposal (midx-learnable-*) returns its updated state too,
+    step(...) -> (params, opt_state, state, metrics) with
+    `step.returns_state` True: its trainable leaves (the codebooks) take one
+    SGD step at cfg.head.learnable_lr on their own gradient, the aux loss's,
+    which the global-norm clip leaves out (the reference clips the params'
+    gradient only).
+
+    When the loss or the gradient's global norm is NaN/Inf, nothing is
+    written to the params, the optimizer state or the trainable leaves and
+    metrics['skipped'] is 1: a poisoned step never reaches the optimizer.
+    The guard reads one flag on the host (a sync the train loop makes
+    anyway to log the loss); the reference selects leafwise inside its
+    jitted step instead."""
+    loss_fn = make_loss_fn(cfg, head_mode=head_mode, window=window,
+                           with_aux=True)
+    proposal = loss_fn.proposal
+
+    if proposal is not None and proposal.trainable:
+        lr = cfg.head.learnable_lr
+
+        def trainable_step(params, opt_state, state, batch, keys):
+            trainable, rest = proposal.split_trainable(state)
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+            tr = _map_trainable(lambda t: t.detach().requires_grad_(True),
+                                trainable)
+            loss, metrics = loss_fn(leaves, proposal.merge_trainable(tr, rest),
+                                    batch, keys)
+            flat = tree_leaves(leaves)
+            tr_flat = [getattr(tr, f) for f in _tensor_fields(tr)]
+            with record_function("train.backward"):
+                got = torch.autograd.grad(loss, flat + tr_flat)
+            it = iter(got[:len(flat)])
+            grads = tree_map(lambda _: next(it), leaves)
+            gt = dict(zip(_tensor_fields(tr), got[len(flat):]))
+            with record_function("train.optimizer"):
+                grads, gnorm = clip_by_global_norm(grads, clip_norm)
+                loss = loss.detach()
+                ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+                if ok:
+                    params, opt_state = optimizer.update(grads, opt_state,
+                                                         params)
+                    trainable = dataclasses.replace(trainable, **{
+                        f: getattr(trainable, f) - lr * g
+                        for f, g in gt.items()})
+            metrics = {**{k: v.detach() for k, v in metrics.items()},
+                       "loss": loss, "grad_norm": gnorm,
+                       "skipped": 0.0 if ok else 1.0}
+            return (params, opt_state,
+                    proposal.merge_trainable(trainable, rest), metrics)
+
+        trainable_step.returns_state = True
+        trainable_step.proposal = proposal
+        return trainable_step
 
     def train_step(params, opt_state, state, batch, keys):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -130,6 +211,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                    "skipped": 0.0 if ok else 1.0}
         return params, opt_state, metrics
 
+    train_step.returns_state = False
+    train_step.proposal = proposal
     return train_step
 
 
@@ -198,6 +281,7 @@ def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
                    "skipped": 0.0 if ok else 1.0}
         return params, opt_state, metrics
 
+    train_step.returns_state = False
     return train_step
 
 

@@ -3,9 +3,12 @@ checkpointed and fault-tolerant.
 
 Mirrors `src/repro/launch/train.py`: `StragglerWatchdog` (:40),
 `train_loop` (:68) on a single device with the `midx` and `full` heads and
-the ported registry proposals (`rff`, `rff-fused`; their state initialised
-as at :172-177 and refreshed by the lifecycle when adaptive, :200-201 —
-the RFF refresh re-maps φ(C) from the current table), the head-state
+every registry proposal (their state initialised as at :172-178, the
+unigram family and TAPAS from the corpus's class frequencies,
+`np.bincount(corpus, minlength=padded_vocab)` as float64; refreshed by
+the lifecycle when adaptive, :200-201; a trainable proposal's step returns
+its state, which the loop threads on, :168, :238-240, and its refresh
+re-derives the index from the learned codebooks), the head-state
 refresh lifecycle, checkpoints and resume (:203-215: the restore-fallback
 walk, `next_step` from the metadata; a save every `ckpt_every` steps after
 the lifecycle's flush, :299-310; the final save and the serving export to
@@ -17,9 +20,13 @@ the CLI (`main` :348, `_parse_chaos` :438) with the flags --arch --steps
 --batch --seq --lr --head --reduced --refresh-every --refresh-policy
 --refresh-lag --ckpt --chaos --chaos-seed --seed --table-dtype (bf16, or
 the quantized head's int8 / fp8: the low-bit class table, codebooks and
-residual codes, DESIGN §12), plus --device (default: the card; 'cpu' must
-be asked for) and --vocab-parallel N (below). The reference's other flags
-are accepted and raise NotImplementedError with a pointer to ROADMAP.md
+residual codes, DESIGN §12), --head taking every `proposal_modes()` entry,
+and --fused-head (the reference's `:374`): `auto` and `on` run the port's
+one route, its hand-written kernels on the card; `off` and `interpret`
+(the reference's unfused and Pallas-interpreter routes) exit with a
+message. Beside them, --device (default: the card; 'cpu' must be asked
+for) and --vocab-parallel N (below). The reference's other flags are
+accepted and raise NotImplementedError with a pointer to ROADMAP.md
 Queue 1: --dp and --grad-transport (item 13).
 
 The index lifecycle (DESIGN §8; reference :80, :289-316, :390-395):
@@ -79,6 +86,8 @@ CLI's data.
   python -m repro_torch.launch.train --arch llama3.2-1b --steps 40 --batch 4 --seq 256
   python -m repro_torch.launch.train --arch llama3.2-1b --seq 4096 --batch 2 --steps 20 --lr 1e-3
   python -m repro_torch.launch.train --arch paper-lm --head rff-fused --steps 120 --lr 3e-3
+  python -m repro_torch.launch.train --arch paper-lm --head midx-learnable --steps 120 --lr 3e-3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --head unigram --steps 30
   python -m repro_torch.launch.train --arch paper-lm --steps 120 --lr 3e-3 --table-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 2 --table-dtype fp8
   python -m repro_torch.launch.train --arch mamba2-370m --steps 30 --batch 4 --seq 1024 --lr 1e-3
@@ -280,7 +289,12 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     elif proposal is not None:
         train_step = steps_mod.make_train_step(cfg, optimizer,
                                                head_mode=mode)
-        index = heads.init_proposal_state(cfg, params, gen_index, proposal)
+        # the unigram family and TAPAS take the corpus's class frequencies;
+        # every other contender ignores them
+        freq = np.bincount(np.asarray(corpus).reshape(-1),
+                           minlength=cfg.padded_vocab).astype(np.float64)
+        index = heads.init_proposal_state(cfg, params, gen_index, proposal,
+                                          freq)
     else:
         train_step = steps_mod.make_train_step(cfg, optimizer,
                                                head_mode=mode)
@@ -385,8 +399,12 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         t0 = time.perf_counter()
         if injector is not None:
             injector.maybe_sleep(step)
-        params, opt_state, metrics = train_step(params, opt_state, index,
-                                                batch, keys)
+        if train_step.returns_state:
+            params, opt_state, index, metrics = train_step(
+                params, opt_state, index, batch, keys)
+        else:
+            params, opt_state, metrics = train_step(params, opt_state, index,
+                                                    batch, keys)
         loss = float(metrics["loss"])                  # sync point
         dt = time.perf_counter() - t0
         skipped = metrics["skipped"] > 0.5
@@ -480,8 +498,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced (CPU smoke) config")
     ap.add_argument("--head", default=None,
-                    choices=(None, *proposals_registry.PORTED_MODES),
+                    choices=(None, *proposals_registry.proposal_modes()),
                     help="head mode (default: cfg.head.mode)")
+    ap.add_argument("--fused-head", default="auto",
+                    choices=("auto", "on", "off", "interpret"),
+                    help="the head's kernel route: auto = on = the port's "
+                         "hand-written kernels on the card (their plain "
+                         "versions on the CPU); the reference's off / "
+                         "interpret routes are not offered")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--refresh-every", type=int, default=None,
                     help="steps between index refresh events "
@@ -532,6 +556,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.fused_head in ("off", "interpret"):
+        raise SystemExit(f"--fused-head {args.fused_head}: the port has one "
+                         "kernel route, its hand-written kernels on the card "
+                         "and their plain versions on the CPU; use "
+                         "--fused-head auto (or on)")
     if args.dp > 0 or args.grad_transport != "fp32":
         raise _unported("data-parallel training and gradient transports", 13)
     if args.table_dtype is not None:

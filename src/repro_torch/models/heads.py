@@ -45,11 +45,12 @@ dead read; the kernels never read them), as the reference writes
 tables of its own draw and the residual PQ codes (`code_scores`), never
 from [V, D] rows.
 
-`loss_sampled` and `proposal_decode_head` run any ported registry
-proposal (`repro_torch.proposals`): the draws come from the proposal (for
-`rff-fused`, the rff_sample kernel on the card), the rows are gathered
-with `F.embedding` and the products are plain torch ops, as the reference
-computes them outside any Pallas kernel.
+`loss_sampled` and `proposal_decode_head` run any registry proposal
+(`repro_torch.proposals`): the MIDX-backed ones (midx-pq / -rq and the
+learnable midx-learnable-*) through `loss_midx` / `midx_decode_head`, the
+others with their own draws (for `rff-fused`, the rff_sample kernel on the
+card), the rows gathered with `F.embedding` and the products as plain
+torch ops, as the reference computes them outside any Pallas kernel.
 
 The decode head draws `num_candidates` classes through the two-stage MIDX
 proposal, rescores them exactly against the class table, IS-corrects

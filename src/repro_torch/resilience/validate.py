@@ -3,8 +3,10 @@
 Mirrors `src/repro/resilience/validate.py` (`validate_index` :29,
 `_validate_generic` :71, `_validate_like` :85, `validate_state` :108,
 `_validate_quant` :120-143) for the port's head states: the `MultiIndex`,
-the quantized head's `QuantHeadState` and any proposal's state dict
-(e.g. the RFF state). A silently broken index (NaN codebooks after a diverged
+the quantized head's `QuantHeadState` and any proposal's state (a dict of
+tensors and Python ints, with nested `MultiIndex`, `LearnableCodebooks`,
+`AliasTable` or `MultiIndexB` nodes, whose leaf paths read as JAX's
+`keystr` does). A silently broken index (NaN codebooks after a diverged
 refit, a CSR that lost classes) does not crash training — it biases every
 sampled-softmax step — so the index lifecycle checks each rebuilt index
 before swapping it in; a zero or NaN scale of a quantized state would
@@ -21,6 +23,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.learnable import CODEBOOK_FIELDS, LearnableCodebooks
+from repro_torch.core.midx_multi import MULTI_FIELDS, MultiIndexB
 from repro_torch.index.build import MultiIndex
 from repro_torch.index.quantized import QUANT_FIELDS, QuantHeadState
 
@@ -66,19 +70,36 @@ def validate_index(index: MultiIndex) -> list[str]:
     return reasons
 
 
-def _leaves(tree, path: str = ""):
-    """(path, leaf) pairs of a state: a MultiIndex's array fields, a dict's
-    values in key order (the order JAX flattens a dict in), or a leaf."""
+def _node_fields(tree):
+    """The data fields of a dataclass or namedtuple node, in JAX's flatten
+    order, or None."""
     if isinstance(tree, MultiIndex):
-        for f in dataclasses.fields(MultiIndex):
-            if f.name != "kind":
-                yield from _leaves(getattr(tree, f.name), f"{path}.{f.name}")
-    elif isinstance(tree, QuantHeadState):
-        for name in QUANT_FIELDS:
-            yield from _leaves(getattr(tree, name), f"{path}.{name}")
+        return [f.name for f in dataclasses.fields(MultiIndex)
+                if f.name != "kind"]
+    for cls, fields in ((QuantHeadState, QUANT_FIELDS),
+                        (LearnableCodebooks, CODEBOOK_FIELDS),
+                        (MultiIndexB, MULTI_FIELDS)):
+        if isinstance(tree, cls):
+            return list(fields)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(tree._fields)
+    return None
+
+
+def _leaves(tree, path: str = ""):
+    """(path, leaf) pairs of a state: a node's data fields (`.name`), a
+    dict's values in key order (`['key']`, the order JAX flattens a dict
+    in), a tuple's items (`[i]`), or a leaf."""
+    fields = _node_fields(tree)
+    if fields is not None:
+        for f in fields:
+            yield from _leaves(getattr(tree, f), f"{path}.{f}")
     elif isinstance(tree, Mapping):
         for k in sorted(tree):
             yield from _leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _leaves(x, f"{path}[{i}]")
     else:
         yield path, tree
 
@@ -112,12 +133,13 @@ def _validate_like(state: Any, like: Any) -> list[str]:
                 f"expected {_structure(like)}"]
     reasons = []
     for (path, a), (_, b) in zip(_leaves(state), _leaves(like)):
-        if a.shape != b.shape:
-            reasons.append(f"leaf {path} shape {tuple(a.shape)} != current "
-                           f"{tuple(b.shape)}")
-        elif a.dtype != b.dtype:
-            reasons.append(f"leaf {path} dtype {a.dtype} != current "
-                           f"{b.dtype}")
+        shape, ref_shape = getattr(a, "shape", None), getattr(b, "shape", None)
+        if shape != ref_shape:
+            reasons.append(f"leaf {path} shape {tuple(shape or ())} != "
+                           f"current {tuple(ref_shape or ())}")
+        elif getattr(a, "dtype", None) != getattr(b, "dtype", None):
+            reasons.append(f"leaf {path} dtype {getattr(a, 'dtype', None)} "
+                           f"!= current {getattr(b, 'dtype', None)}")
     return reasons
 
 

@@ -1,10 +1,12 @@
 """Serving engine: continuous batching around the MIDX decode head.
 
 Mirrors `src/repro/serve/engine.py` (`Engine` :153) for what the port
-serves: the dense and ssm (mamba2) families, `head` 'midx', 'full' or a
-ported registry proposal ('rff', 'rff-fused': the generic candidate-rescore
-head `heads.proposal_decode_head`, its state initialised from the params
-when none is given, reference :159-166, :200-202), and single-token decode
+serves: the dense and ssm (mamba2) families, `head` 'midx', 'full' or any
+registry proposal mode ('uniform', 'unigram', 'sphere', 'rff', 'rff-fused',
+'lsh', 'tapas', 'midx-learnable': the generic candidate-rescore head
+`heads.proposal_decode_head`, which sends the learnable contender's index
+down the MIDX head; the state initialised from the params when none is
+given, reference :159-166, :200-202), and single-token decode
 waves over all `max_slots` slots (inactive slots ride along masked and
 write only the trash page; an ssm state has no page table, and its
 inactive slots' carries are overwritten at admission, as in the reference,
@@ -40,8 +42,7 @@ needs head='full' (:188-191). The loop is factored as in the reference:
 what either package's `train_loop` exported to `<ckpt>/serve`; with
 cfg.head.table_dtype int8 / fp8 the MIDX head serves from a
 `QuantHeadState` (its draw scores the low-bit codebooks, its candidates
-are rescored from PQ codes) and `from_checkpoint` restores one. The
-unported proposals raise NotImplementedError (ROADMAP.md Queue 1 item 10).
+are rescored from PQ codes) and `from_checkpoint` restores one.
 
 Index hot-swap (reference :355-407, DESIGN §8): `swap_index` installs a
 new head state between waves behind the validation gate (a degenerate
@@ -629,9 +630,12 @@ class Engine:
                     newest, {"params": like_p, "index": like_i}):
                 like_i = None
         else:
-            like_i = heads.init_proposal_state(
-                cfg, like_p, torch.Generator(),
-                proposals_registry.from_config(cfg.head, head))
+            # a proposal state's structure and dtypes do not depend on the
+            # vocabulary: built on the CPU from a small table (some
+            # contenders' builds have no meta-device kernels)
+            like_i = proposals_registry.from_config(cfg.head, head).init(
+                torch.Generator(), torch.randn((2 * cfg.head.midx_k,
+                                                cfg.d_model)))
         params, index, _ = restore_serving_state(root, like_p, like_i, step,
                                                  device=device)
         return cls(cfg, params, index=index, **{**kw, "device": device})

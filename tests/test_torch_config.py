@@ -124,8 +124,10 @@ def test_unported_engine_features_raise():
     for arch in ("granite-moe-1b-a400m", "zamba2-7b"):   # moe, hybrid
         with pytest.raises(NotImplementedError, match="item 12b"):
             Engine(tcfg.get_config(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, head="uniform", device="cpu")
+    # the generic contenders serve: a uniform head builds its state
+    uni = Engine(cfg, head="uniform", device="cpu")
+    assert uni.proposal.name == "uniform"
+    assert uni.index == {"n": cfg.padded_vocab}
     with pytest.raises(ValueError, match="greedy"):
         Engine(cfg.with_head(decode_temperature=0.0), head="midx",
                device="cpu")

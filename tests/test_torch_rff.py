@@ -491,6 +491,8 @@ def test_clis_take_the_rff_heads():
 
 # ------------------------------------------------------------ registry
 def test_registry_builds_rff_and_raises_like_the_reference():
+    """The registry builds every name as the reference's does; unknown
+    names and modes raise the reference's errors."""
     head = tcfg.get_config("paper-lm").head
     for name in ("rff", "rff-fused"):
         p = registry.make_proposal(name)
@@ -498,13 +500,16 @@ def test_registry_builds_rff_and_raises_like_the_reference():
     assert registry.from_config(head, "rff-fused").name == "rff-fused"
     assert registry.PROPOSAL_NAMES == jregistry.PROPOSAL_NAMES
     assert registry.proposal_modes() == jregistry.proposal_modes()
-    for name in set(jregistry.PROPOSAL_NAMES) - {"rff", "rff-fused"}:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            registry.make_proposal(name)
+    # every other registered name builds, with the reference's capabilities
+    for name in jregistry.PROPOSAL_NAMES:
+        p, jp = registry.make_proposal(name), jregistry.make_proposal(name)
+        assert (p.name, p.adaptive, p.trainable) == (jp.name, jp.adaptive,
+                                                     jp.trainable)
     for mode in ("uniform", "midx-learnable", "tapas"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            steps.make_loss_fn(tcfg.get_config("paper-lm").reduced(),
-                               head_mode=mode)
+        loss_fn = steps.make_loss_fn(tcfg.get_config("paper-lm").reduced(),
+                                     head_mode=mode)
+        assert loss_fn.proposal.name == registry.from_config(
+            tcfg.get_config("paper-lm").head, mode).name
     for fn, jfn, arg in ((registry.make_proposal, jregistry.make_proposal,
                           "nope"),
                          (registry.validate_mode, jregistry.validate_mode,

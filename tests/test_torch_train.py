@@ -222,13 +222,19 @@ def test_loss_full_and_every_grad_match_jax():
 
 
 def test_unported_heads_raise():
-    _, tc, _, tp, _, tidx, _, _ = _setup()
+    _, tc, _, tp, _, tidx, toks, labels = _setup()
     # the drift policy is ported: it runs and reports its branch
     _, m = heads.refresh_head_state_with_policy(
         tc, tp, tidx, torch.Generator().manual_seed(0), policy="drift")
     assert float(m["did_full"]) in (0.0, 1.0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        steps.make_loss_fn(tc, head_mode="uniform")
+    # the generic contenders train: a uniform head's loss runs
+    loss_fn = steps.make_loss_fn(tc, head_mode="uniform")
+    assert loss_fn.proposal.name == "uniform"
+    batch = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(labels).long()}
+    loss, m = loss_fn(tp, {"n": tc.padded_vocab}, batch,
+                      noise.train_keys(0, 0, B * S))
+    assert torch.isfinite(loss) and float(m["ce"]) > 0
 
 
 # ------------------------------------------------------------------ optim
