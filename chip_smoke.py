@@ -257,6 +257,28 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      2^16 draws follow exp(log q) (each class within 6 standard errors +
      1e-4), Theorem 1's identity within 1e-4 for the exact contenders,
      and the B = 4 multi-book index is a distribution;
+ 19. the moe, hybrid, vlm and audio families (after phase 12), each at
+     full width and random weights from a seed, every count read around
+     its run alone: (a) `granite-moe-1b-a400m` whole (24 layers, d=1024,
+     32 experts top-8, V=49 155): the MIDX serve on 4 slots (8 x 16,
+     batched == solo on 2); a 2048-token prompt chunked at 512 (the flash
+     kernel) beside 3 decoding requests, batched == solo on it and one
+     other; the prefix cache at capacity factor 4.0 (a 1024-token shared
+     prefix, hits resuming at 1024 and 1040 bitwise their cold runs);
+     greedy spec k=4 in fp32 token for token the greedy full head; 20
+     pooled steps of 4 x 256 with the router aux loss (the CE falling by
+     > 0.1), the trained model served; (b) `qwen2-moe-a2.7b` cut to 2
+     layers (the shared expert, 60 experts top-4, the untied V=151 936
+     head): 5 pooled steps of 4 x 256, the result served (8 x 16); (c)
+     `zamba2-7b` cut to 12 layers (two shared-block applications): served
+     with prompts of 64 and 512 (`ssd_scan`), again at window 256 (the
+     ring evicting under 512-token prompts), batched == solo; 10 pooled
+     steps of 2 x 1024; (d) `llama-3.2-vision-11b` cut to 10 layers (two
+     cross blocks, 1 600 image tokens, gates drawn nonzero): served
+     paged (the cross cache one entry a block), batched == solo, 5 steps
+     of 2 x 256 through `make_train_step` with the image embeddings; (e)
+     `whisper-tiny` whole (1 500 frames): served, 20 steps of 4 x 256
+     through `make_train_step`, the CE falling by > 0.1;
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -1962,7 +1984,7 @@ def train(cfg, counters, names, *, steps: int, batch: int, seq: int,
     step_s = statistics.median(s[4] for s in seen[1:])
     summary = {"first5": first, "last5": last, "median_step_ms":
                step_s * 1e3, "tok_s": batch * seq / step_s,
-               "peak_gib": peak_gib, "hist": hist,
+               "peak_gib": peak_gib, "hist": hist, "ce": ce,
                "steps": [(x[0], x[4], x[5]) for x in seen]}
     if cfg.head.mode == "midx-learnable":          # a trainable head
         summary["prop_kl"] = [x[6] for x in seen]
@@ -4194,6 +4216,437 @@ def proposal_phases(get_config, midx_cuda, sce_cuda, rff_cuda,
     return out
 
 
+# ------------------------------------------------------- model families (19)
+FAMILY_SLOTS = 4               # phase 19's serving slots
+GRANITE_STEPS = 20             # granite-moe pooled steps of 4 x 256
+GRANITE_LONG, GRANITE_CHUNK = 2048, 512   # the long prompt beside decodes
+GRANITE_PREFIX = 1024          # the prefix cache's shared prefix
+QWEN2_LAYERS, QWEN2_STEPS = 2, 5
+ZAMBA_LAYERS, ZAMBA_STEPS, ZAMBA_WINDOW = 12, 10, 256
+VLM_LAYERS, VLM_STEPS = 10, 5
+WHISPER_STEPS = 20
+
+
+def family_counters(midx_cuda, sce_cuda, ssd_cuda, flash_cuda) -> dict:
+    return {"midx_probs": midx_cuda.midx_probs_cuda,
+            "sampled_ce": sce_cuda.sampled_ce_cuda,
+            "sampled_ce_bwd": sce_cuda.sampled_ce_bwd_cuda,
+            "ssd_scan": ssd_cuda.ssd_scan_cuda,
+            "flash_attention": flash_cuda.flash_attention_cuda}
+
+
+def counted(counters: dict, names, label: str, fn):
+    """Run fn() with the counters of `names` set to 0 just before and read
+    just after; each must have launched. Returns (fn's result, counts)."""
+    zero_counts([counters[n] for n in names])
+    out = fn()
+    torch.cuda.synchronize()
+    n = {name: counters[name].launches for name in names}
+    need_launches(label, n)
+    return out, n
+
+
+def run_requests(engine, reqs, label: str, cfg, counters: dict, names,
+                 solo=()) -> tuple:
+    """Run `reqs` through `engine` (warmed up), the counters of `names`
+    counted over the run alone; check every result and hold the requests
+    `solo` (rids) to their solo replays bit for bit. Returns (results,
+    counts)."""
+    res, n = counted(counters, names, label, lambda: engine.run(reqs))
+    check_results(label, cfg, reqs, res)
+    same_solo(label, engine, [r for r in reqs if r.rid in solo], res)
+    return res, n
+
+
+def family_requests(cfg, lens, max_new: int, seed: int):
+    """One request a prompt length in `lens`, with the config's media
+    (0.1·N(0, 1) image embeddings or frames) drawn from `seed`."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate(lens):
+        media = {}
+        if cfg.family == "vlm":
+            media["image_emb"] = 0.1 * rng.standard_normal(
+                (cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            media["frames"] = 0.1 * rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        reqs.append(Request(rid=i, tokens=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32), max_new=max_new,
+            seed=3, **media))
+    return reqs
+
+
+def p19_granite(get_config, c: dict, card: str) -> tuple:
+    """19a: granite-moe-1b-a400m at full width and depth (24 layers,
+    d=1024, 32 experts top-8, V=49 155), capacity factor 1.25 but where
+    said. Returns (report, launches by kernel and path)."""
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    base = get_config("granite-moe-1b-a400m")
+    cfg = base.with_serve(max_slots=FAMILY_SLOTS, page_size=16, max_seq=96)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    params = init_params(cfg, gen, device="cuda")          # fp32
+    eng, serve_s, n = serve(cfg, head="midx", requests=8, prompt=64,
+                            tokens=16, verify=2, params=params,
+                            counter=c["midx_probs"])
+    need_launches("granite serve", {"midx_probs": n})
+    index = eng.index
+    launches = {"midx_probs": {"19a granite serve": n}}
+    out = {"serve": {k: serve_s[k] for k in ("tok_s", "p50_ms", "p99_ms",
+                                               "peak_gib")}}
+    del eng
+    # a 2048-token prompt chunked at 512 (the flash kernel at each chunk's
+    # offset) beside 3 requests decoding
+    long_cfg = cfg.with_serve(max_seq=GRANITE_LONG + 64,
+                              prefill_chunk=GRANITE_CHUNK)
+    eng = Engine(long_cfg, params, index=index, head="midx", device="cuda")
+    eng.warmup([64, GRANITE_LONG])
+    reqs = family_requests(long_cfg, (64, 64, 64, GRANITE_LONG), 32, 11)
+    res, n = run_requests(eng, reqs, "granite chunked prefill", long_cfg,
+                          c, ("midx_probs", "flash_attention"), solo=(0, 3))
+    out["chunked"] = {"prefill_chunks": eng.stats.prefill_chunks,
+                      "long_prefill_ms": 1e3 * res[3].latencies_s[0],
+                      **{k: eng.stats.summary()[k]
+                         for k in ("tok_s", "p50_ms", "p99_ms")}}
+    launches["midx_probs"]["19a granite chunked"] = n["midx_probs"]
+    launches["flash_attention"] = {"19a granite chunked":
+                                   n["flash_attention"]}
+    del eng
+    # the prefix cache at capacity factor 4.0 (no capacity binds: a hit
+    # resumes on another chunk grid than its cold run)
+    pcfg = dataclasses.replace(long_cfg, capacity_factor=4.0).with_serve(
+        max_seq=GRANITE_PREFIX + 96, prefix_cache=True)
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(0, cfg.vocab_size, size=GRANITE_PREFIX)
+    tails = [rng.integers(0, cfg.vocab_size, size=64) for _ in range(3)]
+    tails[1][:16] = tails[0][:16]              # hit 1 resumes at 1040
+    from repro_torch.serve import Request
+    preqs = [Request(rid=i, tokens=np.concatenate([prefix, t]).astype(
+        np.int32), max_new=16, seed=3) for i, t in enumerate(tails)]
+    eng = Engine(pcfg, params, index=index, head="midx", device="cuda")
+    eng.warmup([64, GRANITE_PREFIX + 64])
+    eng.cache.drop()
+
+    def prefix_runs():
+        r = eng.run(preqs[:1])
+        r.update(eng.run(preqs[1:]))
+        return r
+
+    res, n = counted(c, ("midx_probs", "flash_attention"),
+                     "granite prefix cache", prefix_runs)
+    hits = eng.cache.counters()
+    if hits["cache_hits"] < 2 * (GRANITE_PREFIX // 16):
+        raise SystemExit(f"granite prefix cache: {hits}")
+    cold = Engine(pcfg.with_serve(prefix_cache=False), params, index=index,
+                  head="midx", device="cuda")
+    cold.warmup([64, GRANITE_PREFIX + 64])
+    cres = cold.run(preqs)
+    for r in preqs[1:]:
+        if not np.array_equal(res[r.rid].tokens, cres[r.rid].tokens):
+            raise SystemExit(f"granite prefix cache: hit rid {r.rid} "
+                             f"{res[r.rid].tokens.tolist()} != its cold run "
+                             f"{cres[r.rid].tokens.tolist()}")
+    out["prefix"] = {"cache": hits, "hit_prefill_ms": [
+        1e3 * res[r.rid].latencies_s[0] for r in preqs[1:]],
+        "cold_prefill_ms": [1e3 * cres[r.rid].latencies_s[0]
+                            for r in preqs[1:]]}
+    for k in ("midx_probs", "flash_attention"):
+        launches[k]["19a granite prefix cache"] = n[k]
+    del eng, cold
+    # greedy speculative decoding (k = 4) against the greedy full head,
+    # fp32 (as phase 16a's paper-lm: the two passes' shapes differ, so a
+    # bf16 near-tie could flip an argmax), capacity factor 1.25
+    g32 = dataclasses.replace(cfg, dtype="float32").with_head(
+        decode_temperature=0.0)
+    sreqs = family_requests(g32, (64, 48, 64, 32), 16, 13)
+    spec = Engine(g32.with_serve(spec_decode=SPEC_K), params, index=index,
+                  head="midx", device="cuda")
+    spec.warmup([32, 48, 64])
+    sres, n = counted(c, ("midx_probs",), "granite spec",
+                      lambda: spec.run(sreqs))
+    full = Engine(g32, params, index=index, head="full", device="cuda")
+    full.warmup([32, 48, 64])
+    fres = full.run(sreqs)
+    check_results("granite spec", g32, sreqs, sres)
+    for r in sreqs:
+        if not np.array_equal(sres[r.rid].tokens, fres[r.rid].tokens):
+            raise SystemExit(f"granite greedy spec rid {r.rid} "
+                             f"{sres[r.rid].tokens.tolist()} != greedy full "
+                             f"{fres[r.rid].tokens.tolist()}")
+    out["spec"] = {"accept_rate": spec.stats.accept_rate(),
+                   "spec_waves": spec.stats.spec_waves}
+    launches["midx_probs"]["19a granite spec"] = n["midx_probs"]
+    del spec, full, params, index
+    torch.cuda.empty_cache()
+    # pooled training with the router aux loss, then serving the result
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64, seq_len=257,
+                    seed=0).sample(32)
+    tp, ti, tn, ts = train(cfg, (c["sampled_ce"], c["sampled_ce_bwd"]),
+                           ("sampled_ce", "sampled_ce_bwd"),
+                           steps=GRANITE_STEPS, batch=4, seq=256, lr=1e-3,
+                           corpus=corpus)
+    aux = [(loss - ce) / cfg.router_aux_weight
+           for loss, ce in zip(ts["hist"], ts["ce"])]
+    out["train"] = {k: ts[k] for k in ("first5", "last5", "median_step_ms",
+                                       "tok_s", "peak_gib")}
+    out["train"]["aux_first_last"] = [aux[0], aux[-1]]
+    for k, v in zip(("sampled_ce", "sampled_ce_bwd"), tn):
+        launches[k] = {"19a granite train": v}
+    _, _, nt = serve(cfg, head="midx", requests=4, prompt=16, tokens=16,
+                     verify=2, params=tp, index=ti,
+                     counter=c["midx_probs"])
+    need_launches("trained granite serve", {"midx_probs": nt})
+    launches["midx_probs"]["19a trained granite serve"] = nt
+    del tp, ti
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] 19a granite-moe-1b-a400m (24 layers, d=1024, 32 experts "
+        f"top-8): {json.dumps(out)}; greedy spec == greedy full head; "
+        f"prefix hits bitwise their cold runs (cf 4.0); batched == solo; "
+        f"on {card}")
+    return out, launches
+
+
+def p19_qwen2(get_config, c: dict, card: str) -> tuple:
+    """19b: qwen2-moe-a2.7b at full width, 2 layers: the shared expert, 60
+    experts top-4, the untied head (V=151 936): 5 pooled steps of 4 x 256,
+    then the trained model served."""
+    from repro_torch.data import ZipfLM
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              num_layers=QWEN2_LAYERS).with_serve(
+        max_slots=FAMILY_SLOTS, page_size=16, max_seq=96)
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64, seq_len=257,
+                    seed=0).sample(8)
+    tp, ti, tn, ts = train(cfg, (c["sampled_ce"], c["sampled_ce_bwd"]),
+                           ("sampled_ce", "sampled_ce_bwd"),
+                           steps=QWEN2_STEPS, batch=4, seq=256, lr=1e-3,
+                           corpus=corpus, check_drop=False)
+    _, s, ns = serve(cfg, head="midx", requests=8, prompt=64, tokens=16,
+                     verify=2, params=tp, index=ti, counter=c["midx_probs"])
+    need_launches("qwen2-moe serve", {"midx_probs": ns})
+    out = {"train": {k: ts[k] for k in ("first5", "last5", "median_step_ms",
+                                        "tok_s", "peak_gib")},
+           "serve": {k: s[k] for k in ("tok_s", "p50_ms", "p99_ms",
+                                       "peak_gib")},
+           "seconds": time.perf_counter() - t0}
+    del tp, ti
+    torch.cuda.empty_cache()
+    log(f"[smoke] 19b qwen2-moe-a2.7b ({QWEN2_LAYERS} layers, d=2048, 60 "
+        f"experts top-4 + shared): {json.dumps(out)}; on {card}")
+    return out, {"midx_probs": {"19b qwen2-moe serve": ns},
+                 "sampled_ce": {"19b qwen2-moe train": tn[0]},
+                 "sampled_ce_bwd": {"19b qwen2-moe train": tn[1]}}
+
+
+def p19_zamba2(get_config, c: dict, card: str) -> tuple:
+    """19c: zamba2-7b at full width, 12 layers (two applications of the
+    shared block): served with prompts of 64 and 512 (the scan in one
+    chunk of 64, or two of 256), once more at window 256 (the ring evicts
+    under the 512-token prompts), then 10 pooled steps of 2 x 1024."""
+    from repro_torch.data import ZipfLM
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("zamba2-7b"),
+                              num_layers=ZAMBA_LAYERS).with_serve(
+        max_slots=FAMILY_SLOTS, page_size=16, max_seq=544)
+    eng, s, n = serve_prompts(cfg, None, None,
+                              (c["ssd_scan"], c["midx_probs"]),
+                              ("ssd_scan", "midx_probs"), MAMBA_PROMPTS)
+    params, index = eng.params, eng.index
+    out = {"serve": {k: s[k] for k in ("tok_s", "p50_ms", "p99_ms",
+                                       "prefill_ms", "peak_gib")}}
+    launches = {"ssd_scan": {"19c zamba2 serve": n[0]},
+                "midx_probs": {"19c zamba2 serve": n[1]}}
+    del eng
+    win = Engine(cfg, params, index=index, head="midx",
+                 window=ZAMBA_WINDOW, device="cuda")
+    if win.state["shared_k"].shape[2] != ZAMBA_WINDOW:
+        raise SystemExit("zamba2 window: the ring is not the window")
+    win.warmup([512])
+    reqs = family_requests(cfg, (512, 512, 64), 16, 14)
+    _, n = run_requests(win, reqs, "zamba2 window", cfg, c,
+                        ("ssd_scan", "midx_probs"), solo=(0, 2))
+    for k in n:
+        launches[k]["19c zamba2 window 256"] = n[k]
+    del win, params, index
+    torch.cuda.empty_cache()
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64,
+                    seq_len=1025, seed=0).sample(8)
+    counters = (c["ssd_scan"], c["sampled_ce"], c["sampled_ce_bwd"])
+    tp, ti, tn, ts = train(cfg, counters,
+                           ("ssd_scan", "sampled_ce", "sampled_ce_bwd"),
+                           steps=ZAMBA_STEPS, batch=2, seq=1024, lr=1e-3,
+                           corpus=corpus, check_drop=False)
+    del tp, ti
+    torch.cuda.empty_cache()
+    for k, v in zip(("ssd_scan", "sampled_ce", "sampled_ce_bwd"), tn):
+        launches.setdefault(k, {})["19c zamba2 train"] = v
+    out["train"] = {k: ts[k] for k in ("first5", "last5", "median_step_ms",
+                                       "tok_s", "peak_gib")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] 19c zamba2-7b ({ZAMBA_LAYERS} layers, d=3584, 2 shared "
+        f"applications): {json.dumps(out)}; batched == solo (window "
+        f"{ZAMBA_WINDOW} too); on {card}")
+    return out, launches
+
+
+def media_train(cfg, params, index, counters: dict, *, steps: int,
+                batch: int, seq: int, lr: float, corpus, seed: int) -> dict:
+    """`launch.steps.make_train_step` on the card with batches that carry
+    the media (0.1·N(0, 1), drawn a step): every step finite and applied.
+    Returns the losses, CEs, median step ms and peak memory."""
+    from repro_torch.core import noise
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import adamw, cosine_schedule
+    opt = adamw(cosine_schedule(lr, warmup_steps=min(100, steps // 10 + 1),
+                                total_steps=steps))
+    opt_state = opt.init(params)
+    step = steps_mod.make_train_step(cfg, opt)
+    name, n = (("image_emb", cfg.num_image_tokens) if cfg.family == "vlm"
+               else ("frames", cfg.encoder_seq))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.as_tensor(corpus, device="cuda").long()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters.values())
+    losses, ces, times = [], [], []
+    for i in range(steps):
+        pick = (i * batch + torch.arange(batch, device="cuda")) % len(rows)
+        seqs = rows[pick]
+        b = {"tokens": seqs[:, :seq], "labels": seqs[:, 1:seq + 1],
+             name: 0.1 * torch.randn((batch, n, cfg.d_model), generator=gen,
+                                     device="cuda")}
+        keys = noise.train_keys(seed, i, batch * seq, "cuda")
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, index, b, keys)
+        loss = float(m["loss"])
+        times.append(time.perf_counter() - t0)
+        if not np.isfinite(loss) or float(m["skipped"]) > 0.5:
+            raise SystemExit(f"{cfg.name} media training step {i}: loss "
+                             f"{loss}, skipped {float(m['skipped'])}")
+        losses.append(loss)
+        ces.append(float(m["ce"]))
+    torch.cuda.synchronize()
+    launches = {k: ctr.launches for k, ctr in counters.items()}
+    need_launches(f"{cfg.name} media training", launches)
+    return {"losses": losses, "ce": ces,
+            "median_step_ms": 1e3 * statistics.median(times[1:]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches}
+
+
+def p19_vlm(get_config, c: dict, card: str) -> tuple:
+    """19d: llama-3.2-vision-11b at full width, 10 layers (cross blocks
+    after layers 4 and 9, 1 600 image tokens), gates drawn nonzero from a
+    seed: served paged, batched == solo, then 5 steps of 2 x 256 through
+    `make_train_step`."""
+    from repro_torch.data import ZipfLM
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b"),
+                              num_layers=VLM_LAYERS).with_serve(
+        max_slots=FAMILY_SLOTS, page_size=16, max_seq=96)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    params = init_params(cfg, gen, device="cuda")
+    for cb in params["cross_blocks"]:
+        for g in ("gate_attn", "gate_mlp"):
+            cb[g].uniform_(0.5, 1.0, generator=gen)
+    if len(params["cross_blocks"]) != 2:
+        raise SystemExit("llama-3.2-vision at 10 layers: not 2 cross blocks")
+    eng, s, ns = serve(cfg, head="midx", requests=4, prompt=64, tokens=16,
+                       verify=2, params=params, counter=c["midx_probs"])
+    need_launches("llama-3.2-vision serve", {"midx_probs": ns})
+    if eng.state["cross_k"].shape[0] != 2:
+        raise SystemExit("llama-3.2-vision: the paged cross cache is not "
+                         "one a cross block")
+    index = eng.index
+    out = {"serve": {k: s[k] for k in ("tok_s", "p50_ms", "p99_ms",
+                                       "peak_gib")}}
+    del eng
+    torch.cuda.empty_cache()
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64, seq_len=257,
+                    seed=0).sample(8)
+    tr = media_train(cfg, params, index,
+                     {k: c[k] for k in ("sampled_ce", "sampled_ce_bwd")},
+                     steps=VLM_STEPS, batch=2, seq=256, lr=1e-4,
+                     corpus=corpus, seed=19)
+    out["train"] = tr
+    out["seconds"] = time.perf_counter() - t0
+    del params, index
+    torch.cuda.empty_cache()
+    log(f"[smoke] 19d llama-3.2-vision-11b ({VLM_LAYERS} layers, d=4096, 2 "
+        f"cross blocks, 1600 image tokens): {json.dumps(out)}; batched == "
+        f"solo; on {card}")
+    return out, {"midx_probs": {"19d llama-3.2-vision serve": ns},
+                 **{k: {"19d llama-3.2-vision train": v}
+                    for k, v in tr["launches"].items()}}
+
+
+def p19_whisper(get_config, c: dict, card: str) -> tuple:
+    """19e: whisper-tiny whole (4 + 4 layers, d=384, 1 500 frames):
+    served, then 20 steps of 4 x 256 through `make_train_step`, the CE
+    falling by > 0.1 (last 5 steps' mean against the first 5's)."""
+    from repro_torch.data import ZipfLM
+    t0 = time.perf_counter()
+    from repro_torch.models import init_params
+    cfg = get_config("whisper-tiny").with_serve(max_slots=FAMILY_SLOTS,
+                                                page_size=16, max_seq=96)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(19),
+                         device="cuda")
+    eng, s, ns = serve(cfg, head="midx", requests=8, prompt=64, tokens=16,
+                       verify=2, params=params, counter=c["midx_probs"])
+    need_launches("whisper-tiny serve", {"midx_probs": ns})
+    index = eng.index
+    out = {"serve": {k: s[k] for k in ("tok_s", "p50_ms", "p99_ms",
+                                       "peak_gib")}}
+    del eng
+    corpus = ZipfLM(vocab_size=cfg.vocab_size, num_clusters=64, seq_len=257,
+                    seed=0).sample(16)
+    tr = media_train(cfg, params, index,
+                     {k: c[k] for k in ("sampled_ce", "sampled_ce_bwd")},
+                     steps=WHISPER_STEPS, batch=4, seq=256, lr=1e-3,
+                     corpus=corpus, seed=20)
+    first, last = float(np.mean(tr["ce"][:5])), float(np.mean(tr["ce"][-5:]))
+    if not last < first - 0.1:
+        raise SystemExit(f"whisper-tiny training: the CE did not drop by "
+                         f"> 0.1 ({first:.4f} -> {last:.4f})")
+    out["train"] = {**tr, "first5": first, "last5": last}
+    out["seconds"] = time.perf_counter() - t0
+    del params, index
+    torch.cuda.empty_cache()
+    log(f"[smoke] 19e whisper-tiny (4 + 4 layers, d=384, 1500 frames): "
+        f"{json.dumps(out)}; batched == solo; on {card}")
+    return out, {"midx_probs": {"19e whisper serve": ns},
+                 **{k: {"19e whisper train": v}
+                    for k, v in tr["launches"].items()}}
+
+
+def family_phases(get_config, midx_cuda, sce_cuda, ssd_cuda, flash_cuda,
+                  card: str) -> dict:
+    """Phase 19: the moe, hybrid, vlm and audio families on the card.
+    Returns its report, with `launches` {kernel: {path: count}} for the
+    kernels line."""
+    t0 = time.perf_counter()
+    c = family_counters(midx_cuda, sce_cuda, ssd_cuda, flash_cuda)
+    out, launches = {}, {}
+    for name, fn in (("granite", p19_granite), ("qwen2", p19_qwen2),
+                     ("zamba2", p19_zamba2), ("vlm", p19_vlm),
+                     ("whisper", p19_whisper)):
+        out[name], n = fn(get_config, c, card)
+        for k, paths in n.items():
+            launches.setdefault(k, {}).update(paths)
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] phase 19 (the moe, hybrid, vlm and audio families) took "
+        f"{out['seconds']:.1f}s; launches {json.dumps(launches)}; on {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4458,6 +4911,10 @@ def main() -> None:
                            sce_cuda, args.profile, card)
     n_ssd = n_mamba["ssd_scan"]
     mark("mamba2-370m (phases 11-12)")
+    p19 = family_phases(get_config, midx_cuda, sce_cuda, ssd_cuda,
+                        flash_cuda, card)
+    f19 = p19.pop("launches")
+    mark("the moe, hybrid, vlm and audio families (phase 19)")
     for name, n in (("llama3.2-1b serve", n_rff_llama),
                     ("paper-lm train", n_rff_train[0]),
                     ("trained paper-lm serve", n_rff_trained)):
@@ -4490,7 +4947,8 @@ def main() -> None:
             p18["paper"]["launches"]["midx_probs"],
         "18a trained midx-learnable serve": p18["paper"]["serve_midx_probs"],
         "18b llama3.2-1b midx-learnable serve": learn["midx_probs serve"],
-        "18c contender draws": p18["draw_launches"]["midx_probs"]}
+        "18c contender draws": p18["draw_launches"]["midx_probs"],
+        **f19["midx_probs"]}
     rows = [{
         "name": "midx_probs", "route": "cuda",
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
@@ -4544,7 +5002,8 @@ def main() -> None:
         ms, plain, bound, by = shared_timings["llama3.2-1b train"][kind]
         by_path = {"llama3.2-1b train": n_shared[i], "train_4k": n_4k[1 + i],
                    "mamba2-370m train": n_mamba[kname],
-                   "18b llama3.2-1b midx-learnable train": learn[kname]}
+                   "18b llama3.2-1b midx-learnable train": learn[kname],
+                   **f19[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
@@ -4592,11 +5051,13 @@ def main() -> None:
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:25",
         "launches": n_long_serve[0] + n_4k[0] + sum(n_4k_replay)
-                    + tier["flash_attention"],
+                    + tier["flash_attention"]
+                    + sum(f19["flash_attention"].values()),
         "launches_by_path": {"long-prompt serve": n_long_serve[0],
                              "train_4k": n_4k[0],
                              "train_4k replay": n_4k_replay,
-                             "serving tier": tier["flash_attention"]},
+                             "serving tier": tier["flash_attention"],
+                             **f19["flash_attention"]},
         "max_abs_err": max(flash_worst.values()),
         "max_abs_err_by_output": flash_worst,
         "bf16_out_elements_differing": flash_diff, "ms": ms,
@@ -4613,7 +5074,8 @@ def main() -> None:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:24",
-        "launches": sum(n_ssd.values()), "launches_by_path": n_ssd,
+        "launches": sum(n_ssd.values()) + sum(f19["ssd_scan"].values()),
+        "launches_by_path": {**n_ssd, **f19["ssd_scan"]},
         "max_abs_err": max(ssd_worst.values()),
         "max_abs_err_by_output": ssd_worst, "ms": ms, "plain_ms": plain,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -4633,6 +5095,8 @@ def main() -> None:
     log(f"[smoke] the index lifecycle (phase 17): {json.dumps(lc)}; on "
         f"{card}")
     log(f"[smoke] the proposal contenders (phase 18): {json.dumps(p18)}; on "
+        f"{card}")
+    log(f"[smoke] the model families (phase 19): {json.dumps(p19)}; on "
         f"{card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")

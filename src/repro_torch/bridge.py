@@ -6,7 +6,8 @@ state back in the JAX package's layout, so a model the port trained loads
 into `repro.models` for comparison. The JAX package's params are a pytree whose `blocks` leaves are stacked
 over layers as [L, ...] (`src/repro/models/model.py:81`), with linear
 weights laid out [d_in, d_out] for `x @ W`. The port keeps that layout, so
-nothing is transposed; it unstacks `blocks` into one dict per layer. The
+nothing is transposed; it unstacks `blocks` (and the vlm's `cross_blocks`,
+the audio encoder's `encoder.blocks`) into one dict per layer. The
 index is the numpy fields of a `MultiIndex` (`src/repro/index/build.py:36`);
 index fields become int64, the port's indexing type. A proposal's state
 crosses node by node, `proposal_state_from_numpy` /
@@ -89,20 +90,46 @@ def _tree(tree, device):
     return tensor_from_numpy(tree, device)
 
 
+#: the params' stacked nodes: the reference stacks their leaves over
+#: layers [n, ...]; the port keeps a list of one dict a layer
+STACKED = ("blocks", "cross_blocks")
+
+
+def _n_stacked(sub: Mapping) -> int:
+    first = sub
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    return first.shape[0]
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, *,
                       device=None) -> dict:
     """The JAX params pytree as numpy (`jax.tree_util.tree_map(np.asarray,
-    params)`) -> the port's params on `device` (default: the card)."""
+    params)`) -> the port's params on `device` (default: the card): the
+    stacked `blocks` (cfg.num_layers), `cross_blocks` (the vlm's cross
+    blocks) and `encoder.blocks` (the audio encoder's layers) unstack into
+    one dict a layer."""
+    del cfg                       # the layer counts are the leaves' own
     device = resolve_device(device)
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
-    stacked = _tree(tree["blocks"], device)
 
     def layer(sub, i):
         return {k: (layer(v, i) if isinstance(v, dict) else v[i])
                 for k, v in sub.items()}
 
-    out["blocks"] = [layer(stacked, i) for i in range(cfg.num_layers)]
-    return out
+    def go(t):
+        out = {}
+        for k, v in t.items():
+            if k in STACKED:
+                stacked = _tree(v, device)
+                out[k] = [layer(stacked, i)
+                          for i in range(_n_stacked(stacked))]
+            elif isinstance(v, Mapping):
+                out[k] = go(v)
+            else:
+                out[k] = tensor_from_numpy(v, device)
+        return out
+
+    return go(tree)
 
 
 def index_from_numpy(d: Mapping, *, kind: str | None = None,
@@ -128,17 +155,10 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_to_numpy(cfg: ModelConfig, params: Mapping) -> dict:
-    """The port's params (one dict per layer in `blocks`) -> the JAX
-    package's params as numpy, with `blocks` leaves stacked [L, ...]."""
+    """The port's params (one dict per layer in `blocks`, `cross_blocks`
+    and `encoder.blocks`) -> the JAX package's params as numpy, with those
+    nodes' leaves stacked [n, ...]."""
     del cfg                                  # the layer count is len(blocks)
-
-    def tree(x):
-        if isinstance(x, Mapping):
-            return {k: tree(v) for k, v in x.items()}
-        return tensor_to_numpy(x)
-
-    out = {k: tree(v) for k, v in params.items() if k != "blocks"}
-    layers = [tree(bp) for bp in params["blocks"]]
 
     def stack(subs):
         first = subs[0]
@@ -146,8 +166,13 @@ def params_to_numpy(cfg: ModelConfig, params: Mapping) -> dict:
             return {k: stack([s[k] for s in subs]) for k in first}
         return np.stack(subs)
 
-    out["blocks"] = stack(layers)
-    return out
+    def tree(x):
+        if isinstance(x, Mapping):
+            return {k: (stack([tree(l) for l in v]) if k in STACKED
+                        else tree(v)) for k, v in x.items()}
+        return tensor_to_numpy(x)
+
+    return tree(params)
 
 
 def index_to_numpy(index: MultiIndex) -> dict:
@@ -328,7 +353,7 @@ def _layout(tree, leaf, stack, int32):
             return MultiIndexB(go(t.codebooks), go(t.assigns),
                                go(t.residuals))
         if isinstance(t, Mapping):
-            return {k: (zip_layers(v) if k == "blocks" and isinstance(v, list)
+            return {k: (zip_layers(v) if k in STACKED and isinstance(v, list)
                         else go(v)) for k, v in t.items()}
         if isinstance(t, tuple) and hasattr(t, "_fields"):
             return type(t)(*(go(v) for v in t))
@@ -369,8 +394,9 @@ def from_reference(ref, like, *, device=None):
     """Inverse of `to_reference`: values in the reference's layout (torch
     or numpy leaves) -> the port's structure of `like`, each tensor on
     `device` (default: the card) in the dtype of `like`'s leaf. `blocks`
-    unstacks into as many layers as the values hold; a MultiIndex takes
-    `like`'s kind."""
+    (at any depth: `encoder.blocks` too) and `cross_blocks` unstack into
+    as many layers as the values hold; a MultiIndex takes `like`'s
+    kind."""
     device = resolve_device(device)
 
     def leaf(x, lk):
@@ -404,7 +430,7 @@ def from_reference(ref, like, *, device=None):
         if isinstance(lk, tuple) and hasattr(lk, "_fields"):
             return type(lk)(*(go(a, b) for a, b in zip(r, lk)))
         if isinstance(lk, Mapping):
-            return {k: (unstack(r[k], v) if k == "blocks"
+            return {k: (unstack(r[k], v) if k in STACKED
                         and isinstance(v, list) else go(r[k], v))
                     for k, v in lk.items()}
         if isinstance(lk, (list, tuple)):
@@ -416,9 +442,7 @@ def from_reference(ref, like, *, device=None):
             if isinstance(r, Mapping) else r[i]
 
     def unstack(r, like_layers):
-        first = r
-        while isinstance(first, Mapping):
-            first = next(iter(first.values()))
-        return [go(layer(r, i), like_layers[0]) for i in range(len(first))]
+        return [go(layer(r, i), like_layers[0])
+                for i in range(_n_stacked(r))]
 
     return go(ref, like)

@@ -1,9 +1,11 @@
 """Serving CLI: a thin command line over `repro_torch.serve.Engine`.
 
-Mirrors `src/repro/launch/serve.py` for what the port serves (the dense
-family and the ssm family, `--arch mamba2-370m`): continuous batching over
-a paged KV pool (slot-major carries for ssm), batched single-pass prefill,
-and the decode heads —
+Mirrors `src/repro/launch/serve.py` for every configuration (`--arch`
+any of the eleven in `configs`, every model family; a vlm or audio
+request carries stubbed media drawn from the traffic's seed, as the
+reference's `_make_request`, :72-83): continuous batching over a paged KV
+pool (slot-major carries for ssm and hybrid), batched single-pass
+prefill, and the decode heads —
   --head midx      : MIDX sampling head (default): candidates drawn through
                      the index (proposal tables from the midx_probs CUDA
                      kernel on the card), rescored exactly, IS-corrected;
@@ -21,7 +23,7 @@ Synthetic open-loop traffic (Poisson arrivals at --rate req/s; 0 = all at
 t0); reports tokens/s and p50/p95/p99 per-token latency, and replays
 --verify requests alone, requiring identical tokens.
 
-The serving tier (reference :15-23, dense family only):
+The serving tier (reference :15-23, the dense and moe families):
   --spec-decode K    MIDX-draft speculative decoding: K drafts a wave from
                      the midx_probs kernel's tables, one chunked backbone
                      pass and one batched full-head verify; reports the
@@ -72,6 +74,12 @@ package's `train_loop` (reference `launch/serve.py:168-169`, `:213-214`).
   python -m repro_torch.launch.serve --arch llama3.2-1b --head rff-fused
   python -m repro_torch.launch.serve --arch llama3.2-1b --head midx --table-dtype int8
   python -m repro_torch.launch.serve --arch mamba2-370m --prompt 512
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --prompt 2048 --prefill-chunk 512 --spec-decode 4
+  python -m repro_torch.launch.serve --arch zamba2-7b --prompt 512 --window 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --device cpu --reduced --prefill-chunk 16 --prompt 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --device cpu --reduced --window 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --device cpu --reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --spec-decode 4 --prefix-cache --shared-prefix 0.8 --replicas 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --ckpt build/ck-cpu/serve
@@ -134,8 +142,10 @@ def synthetic_requests(cfg, *, num: int, prompt: int, max_new: int,
     Poisson arrivals at `rate` req/s. With `shared_prefix` in (0, 1] that
     fraction of the requests longer than the prefix start with one
     page-aligned common prefix of ~half the prompt (a shared system
-    prompt). The generator is drawn from exactly as the reference's
-    (reference :86-113), so a seed gives the reference's traffic."""
+    prompt). A vlm request carries image embeddings [Ni, D], an audio one
+    frames [Senc, D], both 0.1·N(0, 1). The generator is drawn from
+    exactly as the reference's (reference :72-113), so a seed gives the
+    reference's traffic."""
     rng = np.random.default_rng(seed)
     buckets = prompt_buckets(prompt)
     arrivals = (np.cumsum(rng.exponential(1.0 / rate, size=num))
@@ -146,12 +156,19 @@ def synthetic_requests(cfg, *, num: int, prompt: int, max_new: int,
     reqs = []
     for i in range(num):
         plen = int(rng.choice(buckets))
+        media = {}
+        if cfg.family == "vlm":
+            media["image_emb"] = 0.1 * rng.standard_normal(
+                (cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            media["frames"] = 0.1 * rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
         toks = rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32)
         if shared_prefix > 0 and rng.random() < shared_prefix \
                 and plen > pfx_len:
             toks[:pfx_len] = prefix
         reqs.append(Request(rid=i, tokens=toks, max_new=max_new, seed=seed,
-                            arrival=float(arrivals[i])))
+                            arrival=float(arrivals[i]), **media))
     return reqs
 
 

@@ -1,8 +1,8 @@
 """Train-step functions: the loss and one optimizer step.
 
 Mirrors `src/repro/launch/steps.py`: `resolve_proposal` (:55),
-`make_loss_fn` (:70; modes `midx`, `full` and every registry contender,
-which route through `heads.loss_sampled`; `with_aux` adds a trainable
+`_model_extras` (:23), `make_loss_fn` (:70; modes `midx`, `full` and
+every registry contender, which route through `heads.loss_sampled`; `with_aux` adds a trainable
 proposal's auxiliary loss, :112-121; the fault seam `_apply_fault` :33; an
 unknown `head.table_dtype` raises when the loss is built, :96),
 `make_train_step` (:129: the trainable branch :159-186, the other
@@ -47,6 +47,17 @@ from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           tree_leaves, tree_map)
 from repro_torch.proposals import registry as proposals_registry
 
+def _model_extras(cfg: ModelConfig, batch: dict) -> dict:
+    """The batch's media for `forward` (reference :23-29): `image_emb`
+    [B, Ni, D] for vlm, `frames` [B, Senc, D] for audio."""
+    kw = {}
+    if cfg.family == "vlm":
+        kw["image_emb"] = batch["image_emb"]
+    if cfg.family == "audio":
+        kw["frames"] = batch["frames"]
+    return kw
+
+
 def _apply_fault(loss: torch.Tensor, batch: dict) -> torch.Tensor:
     """Resilience seam: when the batch carries `_fault_scale` ([B] fp32,
     normally all ones; the train loop adds it when a fault injector is
@@ -76,7 +87,8 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
     """loss(params, state, batch, keys) -> (loss, metrics). `state` is the
     MultiIndex for 'midx', ignored for 'full', and the proposal's state for
     a registry contender; batch holds int64 `tokens` and `labels` [B, S] on
-    the params' device. The resolved Proposal (or None) is
+    the params' device, and for vlm / audio `image_emb` [B, Ni, D] /
+    `frames` [B, Senc, D]. The resolved Proposal (or None) is
     `loss_fn.proposal`.
 
     `with_aux=True` adds a trainable proposal's L_recon + L_KL objective
@@ -92,7 +104,8 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
 
     def loss_fn(params, state, batch, keys):
         with record_function("train.forward"):
-            out = forward(cfg, params, batch["tokens"], window=window)
+            out = forward(cfg, params, batch["tokens"], window=window,
+                          **_model_extras(cfg, batch))
         with record_function("train.head"):
             if mode == "full":
                 ce = heads.loss_full(cfg, params, out["hidden"],
@@ -225,7 +238,7 @@ def _vp_loss_fn(cfg: ModelConfig, pg, window: Optional[int]):
         with record_function("train.forward"):
             emb = vp_mod.embed_lookup(params["embed"], batch["tokens"], pg)
             out = forward(cfg, params, batch["tokens"], window=window,
-                          inputs_embeds=emb)
+                          inputs_embeds=emb, **_model_extras(cfg, batch))
         with record_function("train.head"):
             ce = vp_mod.loss_midx_vp(cfg, class_embeddings(cfg, params),
                                      local_idx, out["hidden"],

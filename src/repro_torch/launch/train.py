@@ -72,8 +72,13 @@ configs, e.g. `llama3.2-1b` at full width (M = 1024, K = 64) and
 `mamba2-370m` (the ssm family, its chunked scan through the ssd_scan
 kernel on the card). Sequences longer than 1024 tokens (the repo's
 `train_4k` length, 4096) run their attention through the chunked flash
-path. The moe, hybrid, vlm and audio families raise (ROADMAP.md Queue 1
-item 12b).
+path. The moe family (its router aux loss in the loss, the config's
+`router_aux_weight`) and the hybrid family train as the reference's
+CLI trains them. The vlm and audio families need media in every batch
+(`image_emb`, `frames`), which this loop's token stream does not carry,
+nor does the reference's: `train_loop` refuses them, and they train
+through `launch.steps.make_train_step` with batches that carry the
+media.
 
 `train_loop`'s default corpus is the reference's, max(512, 4 x batch)
 `ZipfLM` sequences at every length, so CLI runs train on the reference
@@ -132,6 +137,18 @@ from repro_torch.utils import metrics as metrics_mod
 
 # Generator streams derived from the run's seed.
 _STREAM_INIT, _STREAM_INDEX, _STREAM_REFRESH = range(3)
+
+
+#: families whose batches carry media the token stream cannot make
+MEDIA_FAMILIES = ("vlm", "audio")
+
+
+def media_refusal(cfg) -> str:
+    media = "image_emb" if cfg.family == "vlm" else "frames"
+    return (f"{cfg.name} ({cfg.family}) needs {media} in every batch, "
+            "which the token stream does not carry: train it through "
+            "repro_torch.launch.steps.make_train_step with batches that "
+            "carry the media")
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -247,6 +264,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     vocab-parallel run on the group's device, and params, opt_state and
     index come back as its shard (the rows of the class table, the local
     index view). Every rank must call with the same arguments."""
+    if cfg.family in MEDIA_FAMILIES:
+        raise ValueError(media_refusal(cfg))
     refresh_kw = {k: v for k, v in (("refresh_every", refresh_every),
                                     ("refresh_policy", refresh_policy),
                                     ("refresh_lag", refresh_lag))
@@ -556,6 +575,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family in MEDIA_FAMILIES:
+        raise SystemExit(media_refusal(cfg))
     if args.fused_head in ("off", "interpret"):
         raise SystemExit(f"--fused-head {args.fused_head}: the port has one "
                          "kernel route, its hand-written kernels on the card "

@@ -1,6 +1,7 @@
-"""Dense and mamba2 backbones, decode paths and the MIDX decode head.
+"""Every family's backbone (dense, moe, ssm, hybrid, vlm, audio), the
+decode paths and the decode heads.
 
-Mirrors `src/repro/models/__init__.py` for what the port has so far."""
+Mirrors `src/repro/models/__init__.py`."""
 from repro_torch.models.model import (init_params, forward, logits_full,
                                       class_embeddings, cast_blocks,
                                       params_to)

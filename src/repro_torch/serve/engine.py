@@ -1,7 +1,10 @@
 """Serving engine: continuous batching around the MIDX decode head.
 
-Mirrors `src/repro/serve/engine.py` (`Engine` :153) for what the port
-serves: the dense and ssm (mamba2) families, `head` 'midx', 'full' or any
+Mirrors `src/repro/serve/engine.py` (`Engine` :153) for every model
+family (dense, moe, ssm, hybrid, vlm, audio; a vlm or audio request
+carries its stubbed media, `Request.image_emb` / `frames`, stacked into
+its prefill group as the reference does, :464-467), `head` 'midx',
+'full' or any
 registry proposal mode ('uniform', 'unigram', 'sphere', 'rff', 'rff-fused',
 'lsh', 'tapas', 'midx-learnable': the generic candidate-rescore head
 `heads.proposal_decode_head`, which sends the learnable contender's index
@@ -20,12 +23,13 @@ inactive slots' carries are overwritten at admission, as in the reference,
     followed by the wave of the slots already decoding, so a long prompt
     never stalls them (`tick`, :590-629). A chunk of a multiple of 128
     tokens runs its attention through the flash kernel at q_offset =
-    the chunk's start. The dense family only (mamba2: ValueError).
+    the chunk's start. The dense and moe families only (ssm, hybrid, vlm,
+    audio: ValueError, as the reference's `_CHUNK_FAMILIES`, :71).
 With `cfg.serve.prefix_cache` the scheduler matches each prompt against
 the refcounted `kv_pool.PrefixCache`: a hit maps the donor's full prompt
 pages read-only into the slot's page table and starts its prefill at the
 end of them; a prompt's pages are inserted at its last chunk. With
-`cfg.serve.spec_decode = k` (head 'midx', dense), each wave drafts k
+`cfg.serve.spec_decode = k` (head 'midx', dense or moe), each wave drafts k
 tokens a slot from ONE two-stage MIDX draw on the hidden that predicted
 the slot's last committed token (`heads.midx_spec_draft`: the midx_probs
 kernel, or its int8 / fp8 mode), runs them through one chunked backbone
@@ -113,7 +117,7 @@ from repro_torch.models import (cast_blocks, chunk_prefill_step, heads,
                                 init_paged_state, init_params, logits_full,
                                 paged_decode_step, params_to, prefill,
                                 reset_slot, write_prefill)
-from repro_torch.models.model import require_ported, torch_dtype
+from repro_torch.models.model import torch_dtype
 from repro_torch.proposals import registry as proposals_registry
 from repro_torch.resilience.validate import validate_state
 from repro_torch.serve.kv_pool import PagePool, PrefixCache
@@ -123,8 +127,10 @@ from repro_torch.utils import metrics as metrics_mod
 #: families whose paged attention cache makes speculative rollback free
 #: (stale draft K/V past the committed position is overwritten before it
 #: is ever attended) and that run the chunked backbone pass the verify and
-#: the chunked prefill go through (the reference adds moe, item 12b)
-_CHUNK_FAMILIES = ("dense",)
+#: the chunked prefill go through (reference :70-71). A moe verify pass of
+#: k <= 4 tokens dispatches at capacity >= 4, which never binds (each
+#: token picks distinct experts), so its greedy tokens are plain greedy's.
+_CHUNK_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -190,7 +196,6 @@ class Engine:
         # contender serves through the generic proposal head
         self.proposal = (None if head in ("midx", "full")
                          else proposals_registry.from_config(cfg.head, head))
-        require_ported(cfg)
         sv = cfg.serve
         self.spec_k = int(sv.spec_decode or 0)
         chunk = int(sv.prefill_chunk or 0)
@@ -207,7 +212,7 @@ class Engine:
                     f"cache ({'/'.join(_CHUNK_FAMILIES)}), not {cfg.family}")
         if self.chunk and cfg.family not in _CHUNK_FAMILIES:
             raise ValueError(f"chunked prefill / prefix cache support the "
-                             f"{'/'.join(_CHUNK_FAMILIES)} family, not "
+                             f"{'/'.join(_CHUNK_FAMILIES)} families, not "
                              f"{cfg.family}")
         if (cfg.head.decode_temperature <= 0 and self.spec_k == 0
                 and head != "full"):
@@ -241,7 +246,8 @@ class Engine:
                                token_slack=max(0, self.spec_k - 1))
         self.state = init_paged_state(cfg, sv.max_slots,
                                       sv.resolved_num_pages, sv.page_size,
-                                      sv.pages_per_slot, device=self.device)
+                                      sv.pages_per_slot, device=self.device,
+                                      window=window)
         self.stats = EngineStats()
         self._results: dict[int, RequestResult] = {}
         self._t_start = 0.0
@@ -309,7 +315,8 @@ class Engine:
             toks = self._upload(*[ss.request.tokens for ss in pad])
             with record_function("engine.prefill"):
                 hidden, cache = prefill(self.cfg, self.params, toks,
-                                        window=self.window)
+                                        window=self.window,
+                                        **self._media(pad))
             ids = self._upload([ss.slot for ss in pad],
                                [ss.request.seed for ss in pad],
                                [ss.request.rid for ss in pad])
@@ -327,6 +334,16 @@ class Engine:
                 ss.latencies.append(dt)
             self.stats.latencies_s.extend(dt for _ in sss)
         self.stats.generated += len(admitted)
+
+    def _media(self, sss: list[SlotState]) -> dict:
+        """The group's stacked media for `prefill`: `image_emb` (vlm) or
+        `frames` (audio), [G, N, D] on the card; {} for the other
+        families."""
+        name = {"vlm": "image_emb", "audio": "frames"}.get(self.cfg.family)
+        if name is None:
+            return {}
+        rows = np.stack([getattr(ss.request, name) for ss in sss])
+        return {name: torch.as_tensor(rows, device=self.device)}
 
     def _admit_chunked(self, admitted: list[SlotState]) -> None:
         """Chunked-mode admission: bind streams and queue the slots for
@@ -388,9 +405,20 @@ class Engine:
         waves (and, on the card, the kernel build and first launches), then
         reset stats so later runs report steady-state throughput and
         latency."""
-        reqs = [Request(rid=0x7FFF0000 + i, tokens=np.zeros(plen, np.int32),
-                        max_new=max(2, self.spec_k + 1))
-                for i, plen in enumerate(sorted(set(prompt_lens)))]
+        rng = np.random.default_rng(0)
+        cfg = self.cfg
+        reqs = []
+        for i, plen in enumerate(sorted(set(prompt_lens))):
+            kw = {}      # the media, drawn as the reference's (:559-565)
+            if cfg.family == "vlm":
+                kw["image_emb"] = 0.1 * rng.standard_normal(
+                    (cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+            if cfg.family == "audio":
+                kw["frames"] = 0.1 * rng.standard_normal(
+                    (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+            reqs.append(Request(rid=0x7FFF0000 + i,
+                                tokens=np.zeros(plen, np.int32),
+                                max_new=max(2, self.spec_k + 1), **kw))
         self.run(reqs)
         self.stats = EngineStats()
 
@@ -586,9 +614,10 @@ class Engine:
 
     # ------------------------------------------------------------ verification
     def replay_single(self, req: Request) -> np.ndarray:
-        """Run one request alone with the same weights, index and stream —
-        the reference the batched output must match exactly. The solo
-        engine keeps max_slots (see the module docstring) and is cached."""
+        """Run one request alone with the same weights, index, stream and
+        media — the reference the batched output must match exactly. The
+        solo engine keeps max_slots (see the module docstring) and is
+        cached."""
         if self._solo is None:
             self._solo = Engine(self.cfg, self.params, index=self.index,
                                 head=self.head, window=self.window,

@@ -122,8 +122,8 @@ def test_unported_engine_features_raise():
     assert eng._pending_swap == (2, eng.index)
     assert eng.stats.counters()["swaps"] == 1
     for arch in ("granite-moe-1b-a400m", "zamba2-7b"):   # moe, hybrid
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            Engine(tcfg.get_config(arch).reduced(), device="cpu")
+        other = Engine(tcfg.get_config(arch).reduced(), device="cpu")
+        assert other.index.sorted_ids.numel() == other.cfg.padded_vocab
     # the generic contenders serve: a uniform head builds its state
     uni = Engine(cfg, head="uniform", device="cpu")
     assert uni.proposal.name == "uniform"

@@ -81,7 +81,10 @@ def _run_both(arch, reduced, dtype, seed=0):
 
 
 @pytest.mark.parametrize("arch,reduced", [("paper-lm", False),
-                                          ("llama3.2-1b", True)])
+                                          ("llama3.2-1b", True),
+                                          ("smollm-135m", True),
+                                          ("qwen3-14b", True),
+                                          ("starcoder2-15b", True)])
 def test_prefill_and_paged_decode_match_fp32(arch, reduced):
     """fp32 end to end: within 1e-4 (summation order over the layers
     differs between the two frameworks' CPU kernels)."""

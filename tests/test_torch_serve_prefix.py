@@ -280,11 +280,19 @@ def test_prefix_cache_requires_attention_family():
                               family="ssm", ssm_state=16, ssm_head_dim=16)
     with pytest.raises(ValueError, match="chunked prefill"):
         tserve.Engine(ssm, head="midx", device="cpu")
-    with pytest.raises(ValueError, match="dense family"):
+    with pytest.raises(ValueError, match="dense and moe families"):
         chunk_prefill_step(ssm, {}, torch.zeros((1, 4), dtype=torch.long),
                            torch.zeros(1, dtype=torch.long),
                            torch.zeros(1, dtype=torch.long), {})
     moe = get_config("granite-moe-1b-a400m").reduced().with_serve(
-        prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tserve.Engine(moe, head="midx", device="cpu")
+        prefix_cache=True, max_slots=2, page_size=4, max_seq=32)
+    eng = tserve.Engine(moe, head="midx", device="cpu")
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, moe.vocab_size, size=8)
+    reqs = [_mk(tserve, i, np.concatenate(
+        [prefix, rng.integers(0, moe.vocab_size, size=3)]))
+        for i in range(3)]
+    res = eng.run(reqs[:1])
+    res.update(eng.run(reqs[1:]))
+    assert all(res[r.rid].tokens.shape == (4,) for r in reqs)
+    assert eng.cache.counters()["cache_hits"] >= 2
