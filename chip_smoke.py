@@ -279,6 +279,38 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      of 2 x 256 through `make_train_step` with the image embeddings; (e)
      `whisper-tiny` whole (1 500 frames): served, 20 steps of 4 x 256
      through `make_train_step`, the CE falling by > 0.1;
+ 20. data-parallel training and the sequence-sharded decode (after phase
+     18), ranks sharing the card over gloo: (a) `paper-lm` at its full
+     config (per-token, K=32, M=20) at dp 2, 16 x 64, 30 steps in each
+     transport (fp32, bf16, int8_ef), the data-sharded refresh every 10:
+     every step finite and applied, params bitwise equal on both ranks,
+     one gradient reduction timed a transport; the fp32-transport run
+     against a single-rank run: at the config's bf16 compute the first
+     step's loss bitwise, later ones reported (a summation-order
+     difference flips bf16 roundings), and again in fp32 compute, as
+     phase 15 holds its vp step, the losses within 1e-5 up to the first
+     refresh (after it, reported: the data-sharded refit sums in another
+     order, and an assignment near a tie can flip the draws); the
+     fp32 run's export served (8 x 16,
+     batched == solo on 2), `midx_probs` and the per-token CE pair
+     launched on each rank; (b) dp 2 x vp 2 (four ranks), paper-lm: the
+     first step on each data row held to the replicated step on the whole
+     batch as phase 15 holds it, 10 steps, the partial per-token modes
+     launched, the backbone bitwise equal on the 4 ranks; (c)
+     `llama3.2-1b` at full width and depth, pooled, dp 2, fp32, global 4
+     x 256, 3 steps: the first step's loss within 1e-4 of the single-rank
+     step's, the shared CE pair launched, step time, one gradient
+     reduction and each rank's peak memory; (d) a NaN step under int8_ef
+     at dp 2: skipped on both ranks with params, moments and the error
+     feedback bitwise unchanged, then a 10-step run with a NaN fault at
+     step 5 (skipped on both ranks) whose checkpoint the parent resumes
+     at dp 1; (e) `flash_decode_seq_sharded` on 2 ranks at B=4,
+     Smax=4096, 32 heads, 8 KV heads, hd 64, fp32, within 1e-5 of
+     `decode_attention` (per-slot pos with a window of 1024, and a scalar
+     pos), both timed; phase 6's greedy llama engine (full head, 8 x 32)
+     with the hook, its tokens in fp32 equal to the engine without it and
+     in bf16 counted against phase 6's (the hook's fp32 P·V, the
+     reference's, and `decode_attention`'s bf16 P·V round apart);
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -3138,7 +3170,10 @@ def vp_first_step(cfg, group, tokens, labels) -> dict:
     the reference's parity tests: in bf16 a 1e-7 difference of the
     hidden's cotangent (the ranks' partial sums against one chain) flips
     bf16 roundings in the backbone's backward, a bf16 ulp of some
-    gradients. Returns the largest errors."""
+    gradients. On a dp x vp grid (phase 20b) the checks of the vocab part
+    run on the rank's data rows with their global keys, and the step on
+    those rows is held to the replicated step on the whole batch. Returns
+    the largest errors."""
     cfg = dataclasses.replace(cfg, dtype="float32")
     from repro_torch.core import midx, noise
     from repro_torch.dist import sharding as shd
@@ -3155,9 +3190,13 @@ def vp_first_step(cfg, group, tokens, labels) -> dict:
     index = heads.init_head_state(cfg, params,
                                   torch.Generator(dev).manual_seed(1))
     local = vp.local_index(vp.shard_index(index, n), r)
+    all_tokens, all_labels = tokens, labels
+    all_keys = noise.train_keys(0, 0, tokens.numel(), dev)
+    rows = shd.data_rows(tokens.shape[0], group.dp, group.data_rank)
+    tokens, labels = tokens[rows], labels[rows]
     b, s = tokens.shape
     m = cfg.head.num_negatives
-    keys = noise.train_keys(0, 0, b * s, dev)
+    keys = all_keys[rows.start * s:rows.stop * s]
     errs = {}
     with torch.no_grad():
         hid = forward(cfg, params, tokens)["hidden"].float()
@@ -3198,7 +3237,9 @@ def vp_first_step(cfg, group, tokens, labels) -> dict:
     step = steps.make_vocab_parallel_train_step(cfg, opt, group)
     p_loc, _, met = step(p_loc, opt.init(p_loc), local, batch, keys)
     ref_step = steps.make_train_step(cfg, opt)
-    p_ref, _, rmet = ref_step(params, opt.init(params), index, batch, keys)
+    p_ref, _, rmet = ref_step(params, opt.init(params), index,
+                              {"tokens": all_tokens, "labels": all_labels},
+                              all_keys)
     errs["step_loss"] = vp_close("step loss", met["loss"], rmet["loss"])
     errs["grad_norm"] = vp_close("grad norm", met["grad_norm"],
                                  rmet["grad_norm"])
@@ -3219,18 +3260,24 @@ def vp_clone(tree):
     return tree.detach().clone()
 
 
+def same_across(tree, pg, n: int) -> bool:
+    """Every leaf of `tree` bitwise the same on the n ranks of `pg`: each
+    rank's bytes gathered and compared."""
+    from repro_torch.dist.collectives import all_gather_stack
+    from repro_torch.optim.optimizers import tree_leaves
+    flat = torch.cat([x.detach().reshape(-1).view(torch.uint8)
+                      for x in tree_leaves(tree)])
+    allb = all_gather_stack(flat, pg)
+    return all(torch.equal(allb[0], allb[i]) for i in range(1, n))
+
+
 def vp_replicas_equal(params, group) -> bool:
     """The backbone (every param but the class tables) bitwise the same on
-    every rank: each rank's bytes gathered and compared."""
-    from repro_torch.dist.collectives import all_gather_stack
+    every rank of the vocab group."""
     from repro_torch.dist.sharding import vocab_param_names
-    from repro_torch.optim.optimizers import tree_leaves
     names = vocab_param_names(params)
-    flat = torch.cat([x.detach().reshape(-1).view(torch.uint8) for k, v in
-                      sorted(params.items()) if k not in names
-                      for x in tree_leaves(v)])
-    allb = all_gather_stack(flat, group.pg)
-    return all(torch.equal(allb[0], allb[i]) for i in range(1, group.size))
+    return same_across({k: v for k, v in params.items() if k not in names},
+                       group.pg, group.size)
 
 
 def vp_train(cfg, group, counters, *, steps: int, batch: int, seq: int,
@@ -3490,9 +3537,10 @@ def vp_phases(get_config, midx_cuda, corpus, card: str) -> dict:
     return out
 
 
-def partial_rows(holds: dict, vp: dict) -> list:
+def partial_rows(holds: dict, vp: dict, dp: dict) -> list:
     """The kernels line's rows of the partial modes: launches from the vp
-    main paths (rank 0's counts; every rank launches alike)."""
+    main paths (rank 0's counts; every rank launches alike) and, for the
+    float modes, phase 20b's dp 2 x vp 2 run (its 4 ranks' counts)."""
     src = "src/repro_torch/kernels/sampled_ce/csrc/"
     base = {"sampled_ce_pt": ("sampled_ce_pt.cu", "per_token.py:144"),
             "sampled_ce_pt_bwd": ("sampled_ce_pt.cu", "per_token.py:297"),
@@ -3507,12 +3555,15 @@ def partial_rows(holds: dict, vp: dict) -> list:
         kname, mode = name.split("[")
         fmt = mode.rstrip("]").split(",")[1] if "," in mode else "float"
         run = vp[path[kname] + ("" if fmt == "float" else f"_{fmt}")]
-        n = run["launches"][kname][1][fmt]
+        by_path = {"15 vp2 " + path[kname]: run["launches"][kname][1][fmt]}
+        if fmt == "float":
+            by_path.update(dp.get(kname + "[partial]", {}))
         rows.append({"name": name, "route": "cuda",
                      "source": src + base[kname][0],
                      "replaces": "src/repro/kernels/sampled_ce/"
                                  + base[kname][1],
-                     "launches": n, "library_ms": None, **h})
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path, "library_ms": None, **h})
     return rows
 
 
@@ -4647,6 +4698,518 @@ def family_phases(get_config, midx_cuda, sce_cuda, ssd_cuda, flash_cuda,
     return out
 
 
+# --------------------------------------------- data-parallel training (20)
+DP_RANKS = 2                   # data ranks sharing the one card (gloo)
+DP_STEPS = 30                  # 20a: paper-lm steps in each transport
+DP_EVERY = 10                  # 20a: the data-sharded refresh's cadence
+DP_GRID_STEPS = 10             # 20b: dp 2 x vp 2 steps
+DP_LLAMA_STEPS = 3             # 20c: llama3.2-1b pooled steps of 4 x 256
+DP_FAULT_AT, DP_FAULT_STEPS = 5, 10      # 20d: the NaN step, the run
+DP_RESUME_TO = 15              # 20d: the dp = 1 leg's horizon
+DEC_SHAPE = (4, 4096, 32, 8, 64)         # 20e: B, Smax, H, KV, hd (fp32)
+DEC_POS = (4095, 17, 2048, 3000)         # 20e: per-slot positions
+DEC_WINDOW = 1024
+DEC_TOL = 1e-5
+
+
+def dp_counters():
+    from repro_torch.kernels.midx_probs import cuda as midx_cuda
+    from repro_torch.kernels.sampled_ce import cuda as sce
+    return {"midx_probs": midx_cuda.midx_probs_cuda,
+            "sampled_ce_pt": sce.sampled_ce_pt_cuda,
+            "sampled_ce_pt_bwd": sce.sampled_ce_pt_bwd_cuda,
+            "sampled_ce": sce.sampled_ce_cuda,
+            "sampled_ce_bwd": sce.sampled_ce_bwd_cuda}
+
+
+def dp_launches(counters: dict, names) -> dict:
+    """{kernel: launches} and, where kept, the partial mode's."""
+    out = {}
+    for k in names:
+        c = counters[k]
+        out[k] = c.launches
+        part = getattr(c, "partial_launches", {}).get("float", 0)
+        if part:
+            out[k + "[partial]"] = part
+    return out
+
+
+def dp_train(cfg, grid, counters: dict, names, *, transport="fp32",
+             steps: int, batch: int, seq: int, lr: float, refresh_every,
+             corpus=None, ckpt_dir=None, injector=None, total_steps=None,
+             ckpt_every: int = 100, check_applied: bool = True):
+    """One `train_loop` rank of a grid, its counters set to 0 just before
+    and read just after. -> (run, launches, summary: losses, skips,
+    median step, peak memory)."""
+    from repro_torch.launch.train import train_loop
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters.values())
+    run = train_loop(cfg, steps=steps, batch_size=batch, seq_len=seq, lr=lr,
+                     corpus=corpus, refresh_every=refresh_every,
+                     log_every=1000, ckpt_dir=ckpt_dir, group=grid,
+                     grad_transport=transport, injector=injector,
+                     total_steps=total_steps, ckpt_every=ckpt_every,
+                     on_metrics=lambda st, mt: seen.append(
+                         (float(mt["loss"]), float(mt["skipped"]),
+                          mt["step_s"])))
+    torch.cuda.synchronize()
+    launches = dp_launches(counters, names)
+    if len(seen) != steps or not np.isfinite(
+            [x[0] for x in seen if not x[1]]).all():
+        raise SystemExit(f"dp {cfg.name} {transport}: {len(seen)} steps, "
+                         f"non-finite: {seen[:3]}")
+    if check_applied and any(x[1] for x in seen):
+        raise SystemExit(f"dp {cfg.name} {transport}: a step was skipped")
+    for k in names:
+        if launches[k] <= 0:
+            raise SystemExit(f"dp {cfg.name} {transport}: {k} was never "
+                             f"launched on rank {grid.world_rank}")
+    return run, launches, {
+        "hist": run[3], "skipped": [i for i, x in enumerate(seen) if x[1]],
+        "median_step_ms": 1e3 * statistics.median(x[2] for x in seen[1:]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def dp_transport_ms(params, grid, transport: str, reps: int = 3) -> float:
+    """The host time of one gradient reduction of a params-shaped tree in
+    `transport` (the bytes one step moves), median of `reps`."""
+    from repro_torch.launch.steps import (init_grad_transport_state,
+                                          reduce_grads)
+    from repro_torch.optim.optimizers import tree_map
+    g = tree_map(lambda p: torch.full_like(p, 1e-3, dtype=torch.float32),
+                 params)
+    ef = init_grad_transport_state(params, transport)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_grads(g, grid.data_pg, transport, ef)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    del g, ef
+    return statistics.median(times)
+
+
+def dp_guard(cfg, grid) -> dict:
+    """20d at the step: int8_ef at dp 2 on paper-lm, two steps (a nonzero
+    carry), then a step whose rows carry a NaN `_fault_scale` on every
+    rank: skipped, params, both moments and ef bitwise unchanged."""
+    from repro_torch.core import noise
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import heads, init_params
+    from repro_torch.optim import adamw
+    dev = grid.device
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    index = heads.init_head_state(cfg, params,
+                                  torch.Generator(dev).manual_seed(1))
+    opt = adamw(1e-3)
+    o = opt.init(params)
+    step = steps.make_sharded_train_step(cfg, opt, grid,
+                                         grad_transport="int8_ef")
+    ef = steps.init_grad_transport_state(params, "int8_ef")
+    gen = np.random.default_rng(5)
+    rows = shd.data_rows(16, grid.dp, grid.data_rank)
+    skipped = []
+    for s in range(3):
+        toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (16, 64)))
+        labels = torch.from_numpy(gen.integers(0, cfg.vocab_size, (16, 64)))
+        batch = {"tokens": toks[rows].to(dev), "labels": labels[rows].to(dev),
+                 "_fault_scale": torch.full((8,), float("nan") if s == 2
+                                            else 1.0, device=dev)}
+        keys = noise.train_keys(0, s, 16 * 64, dev)[rows.start * 64:
+                                                     rows.stop * 64]
+        before = vp_clone([params, o.mu, o.nu, ef])
+        params, o, met, ef = step(params, o, index, batch, keys, ef)
+        skipped.append(float(met["skipped"]))
+    after = [params, o.mu, o.nu, ef]
+    from repro_torch.optim.optimizers import tree_leaves
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(before),
+                                                 tree_leaves(after)))
+    carry = max(float(e.abs().max()) for e in tree_leaves(ef))
+    if skipped != [0.0, 0.0, 1.0] or not same or carry <= 0:
+        raise SystemExit(f"dp int8_ef NaN step: skipped {skipped}, state "
+                         f"unchanged {same}, carry {carry}")
+    return {"skipped": skipped, "unchanged": same, "ef_max": carry}
+
+
+def dp_decode(grid) -> dict:
+    """20e: `flash_decode_seq_sharded` at llama decode shapes (fp32), on a
+    per-slot pos with a window and on a scalar pos without one, against
+    `decode_attention` on the whole cache; both timed."""
+    from repro_torch.dist.decode import flash_decode_seq_sharded
+    from repro_torch.models.attention import decode_attention
+    b, smax, h, kv, hd = DEC_SHAPE
+    dev = grid.device
+    gen = torch.Generator(dev).manual_seed(20)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev)
+    k = torch.randn(b, smax, kv, hd, generator=gen, device=dev)
+    v = torch.randn(b, smax, kv, hd, generator=gen, device=dev)
+    out = {}
+    for name, pos, window in (
+            ("slots_window", torch.tensor(DEC_POS, device=dev), DEC_WINDOW),
+            ("scalar", torch.tensor(smax - 1, device=dev), None)):
+        got = flash_decode_seq_sharded(q, k, v, pos, grid.data_pg,
+                                       window=window)
+        want = decode_attention(q, k, v, pos.expand(b), window=window)
+        err = float((got - want).abs().max())
+        if not err <= DEC_TOL:
+            raise SystemExit(f"flash_decode_seq_sharded {name}: max err "
+                             f"{err:.3e} > {DEC_TOL}")
+        ms = []
+        for fn in (lambda: flash_decode_seq_sharded(q, k, v, pos,
+                                                    grid.data_pg,
+                                                    window=window),
+                   lambda: decode_attention(q, k, v, pos.expand(b),
+                                            window=window)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            ms.append(1e2 * (time.perf_counter() - t0))
+        out[name] = {"max_abs_err": err, "sharded_ms": ms[0],
+                     "whole_ms": ms[1]}
+    return out
+
+
+def dp_engine(get_config, grid, want_bf16) -> dict:
+    """20e: phase 6's greedy llama engine (full head, 8 x 32, prompt 64)
+    with `attn_fn` the sequence-sharded decode over the data group. In
+    fp32 its tokens are held to the same engine without the hook; in
+    bf16 (phase 6's own engine) the hook's fp32 P·V (the reference's)
+    and `decode_attention`'s bf16 P·V round apart, and the tokens that
+    differ from phase 6's are counted, not held."""
+    import functools
+    from repro_torch.dist.decode import flash_decode_seq_sharded
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve import Engine
+    hook = functools.partial(flash_decode_seq_sharded, group=grid.data_pg)
+    greedy = get_config("llama3.2-1b").with_serve(
+        max_slots=4, page_size=16, max_seq=112).with_head(
+        decode_temperature=0.0)
+    out = {}
+    for tag, cfg in (("bf16", greedy),
+                     ("fp32", dataclasses.replace(greedy, dtype="float32"))):
+        reqs = synthetic_requests(cfg, num=8, prompt=64, max_new=32, rate=0.0,
+                                  seed=0)
+        runs = {}
+        for name, fn in (("hook", hook), ("plain", None)):
+            if tag == "bf16" and fn is None:
+                runs[name] = want_bf16
+                continue
+            eng = Engine(cfg, head="full", device="cuda", seed=0, attn_fn=fn)
+            res = eng.run(reqs)
+            runs[name] = {r.rid: res[r.rid].tokens.tolist() for r in reqs}
+            if fn is not None:
+                solo = eng.replay_single(reqs[0]).tolist()
+                if solo != runs[name][reqs[0].rid]:
+                    raise SystemExit(f"llama {tag} with the hook: batched "
+                                     f"!= solo")
+            del eng
+            torch.cuda.empty_cache()
+        diff = sum(a != b for r in reqs for a, b in
+                   zip(runs["hook"][r.rid], runs["plain"][r.rid]))
+        out[tag] = {"tokens_differing": int(diff), "of": 8 * 32}
+        if tag == "fp32" and diff:
+            raise SystemExit(f"llama fp32 engine with the sequence-sharded "
+                             f"hook: {diff} greedy tokens differ from the "
+                             f"engine without it")
+    return out
+
+
+def dp_rank(grid, outdir: str, corpus, want_bf16) -> None:
+    """One rank of phase 20's dp 2 spawn (a, c, d, e): world rank 0 logs;
+    every rank writes `<outdir>/rank<r>.json`."""
+    import contextlib
+    if grid.world_rank == 0:
+        dp_rank_body(grid, outdir, corpus, want_bf16)
+        return
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        dp_rank_body(grid, outdir, corpus, want_bf16)
+
+
+def dp_rank_body(grid, outdir: str, corpus, want_bf16) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _parse_chaos, train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = grid.world_rank
+    tag = f"[smoke] 20 dp rank {r}/{grid.dp} ({grid.backend}, {grid.device})"
+    counters = dp_counters()
+    pt = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+    res = {}
+    # (a) paper-lm at its full config in each transport
+    cfg = get_config("paper-lm")
+    for t in ("fp32", "bf16", "int8_ef"):
+        ck = os.path.join(outdir, "paper") if t == "fp32" else None
+        run, launches, summ = dp_train(cfg, grid, counters, pt,
+                                       transport=t, steps=DP_STEPS,
+                                       batch=16, seq=64, lr=3e-3,
+                                       refresh_every=DP_EVERY, ckpt_dir=ck)
+        if not same_across(run[0], grid.data_pg, grid.dp):
+            raise SystemExit(f"dp paper-lm {t}: params differ across ranks")
+        res[f"paper_{t}"] = {**summ, "launches": launches,
+                             "transport_ms": dp_transport_ms(run[0], grid, t)}
+        say = log
+        say(f"{tag}: train paper-lm dp={grid.dp} {t}: {DP_STEPS} steps x "
+            f"16x64, refresh every {DP_EVERY} (data-sharded), loss "
+            f"{summ['hist'][0]:.4f} -> {summ['hist'][-1]:.4f}; median step "
+            f"{summ['median_step_ms']:.2f} ms, one gradient reduction "
+            f"{res[f'paper_{t}']['transport_ms']:.2f} ms; peak "
+            f"{summ['peak_gib']:.3f} GiB; params bitwise equal on the "
+            f"ranks; launches {json.dumps(launches)}")
+        del run
+    # the dp run against one rank: at the config's bf16 compute the first
+    # step is bitwise the single-rank step's, and after it a
+    # summation-order difference of the reduced gradient flips bf16
+    # roundings in the backbone (reported); in fp32 compute, as phase 15
+    # holds its vp step, the losses are held within 1e-5 up to the first
+    # refresh's swap (after it, reported: the data-sharded refit sums its
+    # statistics in another order, and an assignment near a tie can flip
+    # the draws)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    run32, _, summ32 = dp_train(f32, grid, counters, pt, steps=DP_STEPS,
+                                batch=16, seq=64, lr=3e-3,
+                                refresh_every=DP_EVERY)
+    del run32
+    if r == 0:                 # the single-rank runs at the same settings
+        for name, c, dp_hist in (("bf16_compute", cfg,
+                                  res["paper_fp32"]["hist"]),
+                                 ("fp32_compute", f32, summ32["hist"])):
+            seen = []
+            *_, hist = train_loop(c, steps=DP_STEPS, batch_size=16,
+                                  seq_len=64, lr=3e-3,
+                                  refresh_every=DP_EVERY, log_every=1000,
+                                  device=grid.device,
+                                  on_metrics=lambda st, mt: seen.append(
+                                      mt["step_s"]))
+            gap = np.abs(np.array(dp_hist) - np.array(hist))
+            res[f"paper_gap_{name}"] = {
+                "max_before_refresh": float(gap[:DP_EVERY].max()),
+                "max": float(gap.max()), "at_step": int(gap.argmax()),
+                "by_step": gap.tolist(),
+                "single_rank_step_ms": 1e3 * statistics.median(seen[1:])}
+            log(f"{tag}: the single-rank run, {name}: median step "
+                f"{res[f'paper_gap_{name}']['single_rank_step_ms']:.2f} ms "
+                f"(the other rank idle); the fp32-transport dp run's losses "
+                f"against its, max gap "
+                f"{gap[:DP_EVERY].max():.3e} over steps 0-{DP_EVERY - 1}, "
+                f"{gap.max():.3e} over all {DP_STEPS} (step "
+                f"{int(gap.argmax())}); by step {json.dumps(gap.tolist())}")
+    torch.distributed.barrier()
+    # (d) a NaN fault under int8_ef: the step alone, then the loop with a
+    # checkpoint the parent resumes at dp = 1
+    res["guard"] = dp_guard(cfg, grid)
+    ck = os.path.join(outdir, "fault")
+    _, launches, summ = dp_train(
+        cfg, grid, counters, pt, transport="int8_ef", steps=DP_FAULT_STEPS,
+        batch=16, seq=64, lr=3e-3, refresh_every=DP_EVERY, ckpt_dir=ck,
+        total_steps=DP_RESUME_TO, ckpt_every=DP_FAULT_STEPS,
+        injector=_parse_chaos(f"nan_loss@{DP_FAULT_AT}", 0),
+        check_applied=False)
+    if summ["skipped"] != [DP_FAULT_AT]:
+        raise SystemExit(f"dp int8_ef fault run: skipped {summ['skipped']}")
+    res["fault"] = {"skipped": summ["skipped"], "launches": launches}
+    log(f"{tag}: int8_ef NaN step skipped with params, moments and ef "
+        f"unchanged ({json.dumps(res['guard'])}); the loop's NaN at step "
+        f"{DP_FAULT_AT} skipped on this rank, {DP_FAULT_STEPS} steps")
+    torch.cuda.empty_cache()
+    # (e) the sequence-sharded decode at llama decode shapes, then the engine
+    res["decode"] = dp_decode(grid)
+    log(f"{tag}: flash_decode_seq_sharded B,Smax,H,KV,hd={DEC_SHAPE} fp32 "
+        f"vs decode_attention: {json.dumps(res['decode'])}")
+    res["engine"] = dp_engine(get_config, grid, want_bf16)
+    log(f"{tag}: llama3.2-1b greedy engine with the hook: "
+        f"{json.dumps(res['engine'])}")
+    torch.cuda.empty_cache()
+    # (c) llama3.2-1b at full width, pooled, fp32 transport
+    llama = get_config("llama3.2-1b")
+    b, s = SHAPE[:2]
+    run, launches, summ = dp_train(
+        llama, grid, counters, ("sampled_ce", "sampled_ce_bwd"),
+        steps=DP_LLAMA_STEPS, batch=b, seq=s, lr=LLAMA_LR,
+        refresh_every=LLAMA_REFRESH, corpus=corpus)
+    res["llama"] = {**summ, "launches": launches,
+                    "transport_ms": dp_transport_ms(run[0], grid, "fp32",
+                                                    reps=1)}
+    log(f"{tag}: train llama3.2-1b dp={grid.dp} fp32: {DP_LLAMA_STEPS} "
+        f"steps x {b}x{s} (global), losses {json.dumps(summ['hist'])}; "
+        f"median step {summ['median_step_ms']:.1f} ms, one fp32 gradient "
+        f"reduction {res['llama']['transport_ms']:.1f} ms; peak "
+        f"{summ['peak_gib']:.2f} GiB; launches {json.dumps(launches)}")
+    del run
+    torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dp_grid_rank(grid, outdir: str) -> None:
+    """One rank of 20b's dp 2 x vp 2 grid."""
+    import contextlib
+    if grid.world_rank == 0:
+        dp_grid_body(grid, outdir)
+        return
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        dp_grid_body(grid, outdir)
+
+
+def dp_grid_body(grid, outdir: str) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import pmax
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("paper-lm")
+    gen = np.random.default_rng(0)
+    toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (16, 64))).to(
+        grid.device)
+    labels = torch.from_numpy(gen.integers(0, cfg.vocab_size, (16, 64))).to(
+        grid.device)
+    errs = vp_first_step(cfg, grid, toks, labels)
+    errs = {k: float(pmax(torch.tensor(v, device=grid.device)))
+            for k, v in errs.items()}
+    counters = dp_counters()
+    pt = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+    run, launches, summ = dp_train(cfg, grid, counters, pt,
+                                   steps=DP_GRID_STEPS, batch=16, seq=64,
+                                   lr=3e-3, refresh_every=5)
+    for k in ("sampled_ce_pt[partial]", "sampled_ce_pt_bwd[partial]"):
+        if launches.get(k, 0) <= 0:
+            raise SystemExit(f"dp 2 x vp 2: {k} was never launched")
+    backbone = {k: v for k, v in run[0].items() if k != "embed"}
+    if not (same_across(backbone, None, grid.world_size)
+            and same_across(run[0]["embed"], grid.data_pg, grid.dp)):
+        raise SystemExit("dp 2 x vp 2: replicas differ across the grid")
+    res = {"first_step": errs, "launches": launches,
+           **{k: v for k, v in summ.items() if k != "hist"},
+           "hist": summ["hist"]}
+    log(f"[smoke] 20b dp 2 x vp 2 rank {grid.world_rank}: the first step vs "
+        f"the replicated step, largest errors {json.dumps(errs)} (tol 1e-5 "
+        f"max(1,|x|)); {DP_GRID_STEPS} steps, loss {summ['hist'][0]:.4f} -> "
+        f"{summ['hist'][-1]:.4f}, median step {summ['median_step_ms']:.2f} "
+        f"ms, peak {summ['peak_gib']:.3f} GiB; the backbone bitwise equal "
+        f"on 4 ranks, each table shard on its 2 data replicas; launches "
+        f"{json.dumps(launches)}")
+    with open(os.path.join(outdir, f"rank{grid.world_rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dp_phases(get_config, midx_cuda, sce_cuda, corpus, want_bf16,
+              card: str) -> dict:
+    """Phase 20: the dp 2 spawn (a, c, d, e) and the dp 2 x vp 2 spawn
+    (b), ranks sharing the card over gloo; from the parent, llama's
+    single-rank first step (before the spawn), the fp32 run's export
+    served and the fault run's checkpoint resumed at dp = 1. Returns the
+    readings and the launches by path."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import train_loop
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    llama = get_config("llama3.2-1b")
+    b, s = SHAPE[:2]
+    *_, single = train_loop(llama, steps=1, batch_size=b, seq_len=s,
+                            lr=LLAMA_LR, refresh_every=LLAMA_REFRESH,
+                            corpus=corpus, log_every=1000, device="cuda")
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="smoke-dp-") as tmp:
+        spawn_ranks(dp_rank, 1, (tmp, corpus, want_bf16), dp=DP_RANKS,
+                    device="cuda", backend="gloo")
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        gap = abs(ranks[0]["llama"]["hist"][0] - single[0])
+        if not gap <= 1e-4:
+            raise SystemExit(f"dp llama3.2-1b: first-step loss "
+                             f"{ranks[0]['llama']['hist'][0]} vs the "
+                             f"single-rank step's {single[0]}: {gap:.3e}")
+        out["llama_first_step_gap"] = gap
+        # the fp32 run's export, served
+        cfg = get_config("paper-lm").with_serve(max_slots=4, page_size=16,
+                                                max_seq=32)
+        eng = Engine.from_checkpoint(cfg, os.path.join(tmp, "paper",
+                                                       "serve"),
+                                     head="midx", device="cuda")
+        _, _, n_served = serve(cfg, head="midx", requests=8, prompt=8,
+                               tokens=16, verify=2, params=eng.params,
+                               index=eng.index, counter=midx_cuda.
+                               midx_probs_cuda)
+        del eng
+        if n_served <= 0:
+            raise SystemExit("the dp export's serve never launched "
+                             "midx_probs")
+        # the int8_ef fault run's checkpoint, resumed at dp = 1
+        *_, hist = train_loop(get_config("paper-lm"), steps=DP_RESUME_TO,
+                              total_steps=DP_RESUME_TO, batch_size=16,
+                              seq_len=64, lr=3e-3, refresh_every=DP_EVERY,
+                              log_every=1000, device="cuda",
+                              ckpt_dir=os.path.join(tmp, "fault"))
+        if len(hist) != DP_RESUME_TO - DP_FAULT_STEPS or not np.isfinite(
+                hist).all():
+            raise SystemExit(f"dp 2 checkpoint resumed at dp 1: {hist}")
+        out["resumed_at_dp1"] = hist
+        spawn_ranks(dp_grid_rank, 2, (tmp,), dp=2, device="cuda",
+                    backend="gloo")
+        grid = []
+        for r in range(4):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                grid.append(json.load(f))
+    a = ranks[0]
+    held = a["paper_gap_fp32_compute"]["max_before_refresh"]
+    first = a["paper_gap_bf16_compute"]["by_step"][0]
+    if first != 0.0:
+        raise SystemExit(f"dp paper-lm: the first step's loss is not the "
+                         f"single-rank step's ({first:.3e} apart)")
+    if not held <= 1e-5:       # held here, after every other reading
+        raise SystemExit(f"dp paper-lm (fp32 compute): losses differ from "
+                         f"the single-rank run's by {held:.3e} before the "
+                         f"first refresh")
+    out.update({
+        "paper": {t: {k: a[f"paper_{t}"][k] for k in
+                      ("median_step_ms", "transport_ms", "peak_gib")}
+                  for t in ("fp32", "bf16", "int8_ef")},
+        "paper_gap": {k: a[f"paper_gap_{k}"] for k in ("bf16_compute",
+                                                        "fp32_compute")},
+        "paper_hist": {t: a[f"paper_{t}"]["hist"]
+                       for t in ("fp32", "bf16", "int8_ef")},
+        "peak_gib_by_rank": {
+            "paper-lm fp32": [x["paper_fp32"]["peak_gib"] for x in ranks],
+            "llama3.2-1b": [x["llama"]["peak_gib"] for x in ranks]},
+        "llama": {k: a["llama"][k] for k in
+                  ("hist", "median_step_ms", "transport_ms")},
+        "guard": a["guard"], "fault": a["fault"]["skipped"],
+        "decode": a["decode"], "engine": a["engine"],
+        "grid": {k: grid[0][k] for k in ("first_step", "median_step_ms",
+                                         "peak_gib", "hist")},
+        "served_midx_launches": n_served,
+        "seconds": time.perf_counter() - t0})
+    # launches by path, summed over the ranks
+    by_path = {}
+    for name, runs in (("20a paper-lm dp2 fp32", [x["paper_fp32"]
+                                                  for x in ranks]),
+                       ("20a paper-lm dp2 bf16", [x["paper_bf16"]
+                                                  for x in ranks]),
+                       ("20a paper-lm dp2 int8_ef", [x["paper_int8_ef"]
+                                                     for x in ranks]),
+                       ("20d paper-lm dp2 int8_ef NaN", [x["fault"]
+                                                         for x in ranks]),
+                       ("20c llama3.2-1b dp2", [x["llama"] for x in ranks]),
+                       ("20b paper-lm dp2 x vp2", grid)):
+        for x in runs:
+            for k, n in x["launches"].items():
+                by_path.setdefault(k, {}).setdefault(name, 0)
+                by_path[k][name] += n
+    by_path.setdefault("midx_probs", {})["20a dp2 export serve"] = n_served
+    out["launches"] = by_path
+    log(f"[smoke] phase 20 (data-parallel training, the sequence-sharded "
+        f"decode) took {out['seconds']:.1f}s (spawns included) on {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4742,6 +5305,8 @@ def main() -> None:
     tokens6 = {rid: r.tokens.copy() for rid, r in eng._results.items()}
     eng_full, _, _ = serve(greedy, head="full", requests=8, prompt=64,
                            tokens=32, verify=2, params=eng.params)
+    tokens6_full = {rid: r.tokens.tolist()
+                    for rid, r in eng_full._results.items()}
     if args.profile:
         profile_run(eng, "llama3.2-1b head=midx", prompt=64, tokens=16)
         profile_run(eng_full, "llama3.2-1b head=full", prompt=64, tokens=16)
@@ -4905,8 +5470,13 @@ def main() -> None:
     lc["serving"], lc["vp"] = lc_serve, vp.pop("lifecycle")
     mark("the index lifecycle (phase 17a-b)")
     p18 = proposal_phases(get_config, midx_cuda, sce_cuda, rff_cuda, corpus)
-    del corpus, long_corpus
     mark("the proposal contenders (phase 18)")
+    torch.cuda.empty_cache()
+    p20 = dp_phases(get_config, midx_cuda, sce_cuda, corpus, tokens6_full,
+                    card)
+    f20 = p20.pop("launches")
+    del corpus, long_corpus
+    mark("data-parallel training and the sequence-sharded decode (phase 20)")
     n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
                            sce_cuda, args.profile, card)
     n_ssd = n_mamba["ssd_scan"]
@@ -4948,7 +5518,7 @@ def main() -> None:
         "18a trained midx-learnable serve": p18["paper"]["serve_midx_probs"],
         "18b llama3.2-1b midx-learnable serve": learn["midx_probs serve"],
         "18c contender draws": p18["draw_launches"]["midx_probs"],
-        **f19["midx_probs"]}
+        **f19["midx_probs"], **f20["midx_probs"]}
     rows = [{
         "name": "midx_probs", "route": "cuda",
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
@@ -4971,7 +5541,7 @@ def main() -> None:
         ms, plain, bound, by = sce_timings["paper-lm train"][kind]
         by_path = {"paper-lm train": n,
                    "18a paper-lm midx-learnable train":
-                       p18["paper"]["launches"][kname]}
+                       p18["paper"]["launches"][kname], **f20[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/per_token.py:{line}",
@@ -5003,7 +5573,7 @@ def main() -> None:
         by_path = {"llama3.2-1b train": n_shared[i], "train_4k": n_4k[1 + i],
                    "mamba2-370m train": n_mamba[kname],
                    "18b llama3.2-1b midx-learnable train": learn[kname],
-                   **f19[kname]}
+                   **f19[kname], **f20[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
@@ -5088,7 +5658,7 @@ def main() -> None:
     n_quant["midx_probs[int8]"] += tier["midx_probs_int8"]
     rows += quantized_rows(qholds, n_quant)
     rows += partial_rows({k: v for k, v in partial_holds.items()
-                          if k != "row0"}, vp)
+                          if k != "row0"}, vp, f20)
     log(f"[smoke] vocab-parallel: {json.dumps(vp)}; row-0 hot segment "
         f"{json.dumps(partial_holds.get('row0'))}; on {card}")
     log(f"[smoke] serving tier (phase 16): {json.dumps(tier)}; on {card}")
@@ -5098,6 +5668,8 @@ def main() -> None:
         f"{card}")
     log(f"[smoke] the model families (phase 19): {json.dumps(p19)}; on "
         f"{card}")
+    log(f"[smoke] data-parallel training and the sequence-sharded decode "
+        f"(phase 20): {json.dumps(p20)}; on {card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

@@ -1,10 +1,16 @@
-"""The collectives of the vocab-parallel head, over a process group.
+"""The collectives of the vocab-parallel head and of data-parallel
+training, over a process group.
 
-Mirrors the parts of `src/repro/dist/collectives.py` (`all_gather_rows`
-:73) and of `jax.lax` (`psum`, `pmax`, `all_gather`, and the transpose
-rules `shard_map` applies) that `dist.vocab_parallel` uses. Every rank of
-the group runs the same program on the same replicated inputs and holds
-the same loss; what differs is the rows of the class table it owns.
+Mirrors `src/repro/dist/collectives.py` (`psum_bf16` :38, `psum_int8_ef`
+:49, `all_gather_rows` :73) and the parts of `jax.lax` (`psum`, `pmax`,
+`pmean`, `all_gather`, and the transpose rules `shard_map` applies) that
+`dist.vocab_parallel` and the data-parallel step
+(`launch.steps.make_sharded_train_step`) use. Every rank of a vocab group
+runs the same program on the same replicated inputs and holds the same
+loss; what differs is the rows of the class table it owns. The ranks of a
+data group hold different rows of the batch, and their gradients meet in
+one of the three transports: `pmean` (fp32), `psum_bf16` and
+`psum_int8_ef`.
 
 Gradients. Each rank differentiates its own copy of the (identical) loss,
 so a collective's backward must hand each rank exactly the gradient of
@@ -30,11 +36,27 @@ all-reduce of a zeroed buffer in which each rank fills its own slot. So
 the code runs on NCCL and on gloo with CUDA tensors alike. A group of one
 rank (or no initialised process group) makes every collective the
 identity.
+
+The gradient transports work on trees (dicts and lists of tensors, as
+`optim.optimizers.tree_map` walks them) and reduce them in buckets: the
+leaves of one dtype are packed into flat buffers of at most
+`BUCKET_BYTES`, one all-reduce each, since gloo with CUDA tensors stages
+every call through the host. The arithmetic stays per leaf (the int8
+transport's scale is a leaf's own). Departure: a leaf whose local |c| max
+is NaN enters the int8 scale's MAX as +inf, so the scale is +inf on every
+rank whatever order the backend's MAX takes NaN in, and the summed leaf is
+non-finite on every rank; the reference's XLA max propagates the NaN to
+the same end (the step's guard skips).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+#: the most bytes one all-reduce of a bucketed transport carries
+BUCKET_BYTES = 1 << 28
 
 
 def group_size(group=None) -> int:
@@ -119,3 +141,79 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """A row-sharded array back in its global row order (reference
     `all_gather_rows` :73): the ranks' [rows, ...] concatenated."""
     return all_gather_stack(x, group).reshape(-1, *x.shape[1:])
+
+
+# ------------------------------------------------------ gradient transports
+def _all_reduce_leaves(xs: list, op, group) -> list:
+    """Each tensor of `xs` reduced over the group (new tensors; `xs` are
+    left as they were), in buckets of one dtype and device of at most
+    BUCKET_BYTES, one all-reduce a bucket."""
+    if group_size(group) == 1:
+        return [x.detach().clone() for x in xs]
+    out: list = [None] * len(xs)
+    by_kind: dict = {}
+    for i, x in enumerate(xs):
+        by_kind.setdefault((x.dtype, x.device), []).append(i)
+    for ids in by_kind.values():
+        bucket, nbytes = [], 0
+        for i in ids + [None]:
+            size = 0 if i is None else xs[i].numel() * xs[i].element_size()
+            if bucket and (i is None or nbytes + size > BUCKET_BYTES):
+                flat = torch.cat([xs[j].detach().reshape(-1) for j in bucket])
+                dist.all_reduce(flat, op=op, group=group)
+                for j, piece in zip(bucket, torch.split(
+                        flat, [xs[j].numel() for j in bucket])):
+                    out[j] = piece.view(xs[j].shape)
+                bucket, nbytes = [], 0
+            if i is not None:
+                bucket.append(i)
+                nbytes += size
+    return out
+
+
+def _rebuild(tree, flat: list):
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
+def pmean(tree, group=None):
+    """The mean over ranks of every leaf (reference `lax.pmean`): the
+    all-reduce SUM divided by the group's size."""
+    n = group_size(group)
+    leaves = tree_leaves(tree)
+    return _rebuild(tree, [x / n for x in _all_reduce_leaves(
+        leaves, dist.ReduceOp.SUM, group)])
+
+
+def psum_bf16(tree, group=None):
+    """Every leaf summed over ranks in bf16, back in its own dtype
+    (reference :38): half the wire bytes of fp32; the caller divides by
+    the data degree."""
+    leaves = tree_leaves(tree)
+    summed = _all_reduce_leaves([g.to(torch.bfloat16) for g in leaves],
+                                dist.ReduceOp.SUM, group)
+    return _rebuild(tree, [s.to(g.dtype) for s, g in zip(summed, leaves)])
+
+
+def psum_int8_ef(tree, error_feedback, group=None):
+    """The error-feedback int8 all-reduce (reference :49). Per leaf:
+    c = g + ef; the scale max(|c|) over every rank (MAX) / 127, floored at
+    1e-30 / 127; q = clip(round(c / scale), ±127) (round half to even);
+    the new ef = c − q·scale; q summed as int32 (an int8 SUM would wrap),
+    times the scale. -> (summed tree in the leaves' dtypes, new ef tree,
+    fp32). `error_feedback` is `launch.steps.init_grad_transport_state`'s
+    zeros at the start. The leaves' maxima travel in one MAX all-reduce."""
+    gs, es = tree_leaves(tree), tree_leaves(error_feedback)
+    cs = [g.detach().float() + e.float() for g, e in zip(gs, es)]
+    amax = torch.stack([torch.amax(torch.abs(c)) if c.numel()
+                        else c.new_zeros(()) for c in cs])
+    amax = pmax(torch.nan_to_num(amax, nan=float("inf")), group)
+    scales = torch.clamp(amax, min=1e-30) / 127.0
+    qs = [torch.clamp(torch.round(c / s), -127, 127)
+          for c, s in zip(cs, scales)]
+    new_ef = [c - q * s for c, q, s in zip(cs, qs, scales)]
+    totals = _all_reduce_leaves([q.to(torch.int32) for q in qs],
+                                dist.ReduceOp.SUM, group)
+    summed = [(t.float() * s).to(g.dtype)
+              for t, s, g in zip(totals, scales, gs)]
+    return _rebuild(tree, summed), _rebuild(error_feedback, new_ef)

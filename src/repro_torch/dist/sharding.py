@@ -1,7 +1,8 @@
-"""Which rows of the class tables each vocab-parallel rank owns.
+"""Which rows of the class tables each vocab-parallel rank owns, and
+which rows of a batch each data-parallel rank trains on.
 
-Mirrors the vocab part of `src/repro/dist/sharding.py`:
-`refresh_rows_per_shard` (:160), `head_table_spec` (:169),
+Mirrors the runtime part of `src/repro/dist/sharding.py`: `batch_spec`
+(:123), `refresh_table_spec` (:144), `refresh_rows_per_shard` (:160), `head_table_spec` (:169),
 `head_scale_spec` (:185), `quant_head_specs` (:195), `vocab_param_specs`
 (:210) and `vocab_index_specs` (:228). Where the reference writes
 PartitionSpecs that `shard_map` slices by, the port cuts a replicated tree
@@ -10,9 +11,13 @@ into rank r's rows (`shard_params`, `shard_rows`) and gathers it back
 (`shard_index` / `local_index`). Rank r of n owns the contiguous rows
 [r·rows, (r+1)·rows) of the padded vocabulary: the top-level class tables
 (`embed`, and `head` where the embeddings are untied) with their per-row
-quantization scales and codes, and everything else replicates. `param_specs`,
-`zero1_specs` and `batch_spec` (data parallelism) are not ported yet
-(ROADMAP.md Queue 1 item 13).
+quantization scales and codes, and everything else replicates. Data rank
+d of dp trains on the contiguous batch rows [d·B/dp, (d+1)·B/dp)
+(`data_rows`), as `batch_spec` splits the batch's leading dim; a batch that dp does not divide is refused with the reference CLI's
+message (`launch/train.py:150`) rather than replicated. `param_specs`,
+`zero1_specs` / `opt_state_specs` and `decode_cache_specs` reach only the
+reference's compile-only dry run (`launch/dryrun.py`) and are not ported
+(ROADMAP.md Queue 1, the dry-run item).
 """
 from __future__ import annotations
 
@@ -46,6 +51,17 @@ def refresh_rows_per_shard(padded_vocab: int, dp: int) -> int:
     """Rows each shard owns in a data-sharded refresh: the ceiling, the
     last shard's tail rows pad-and-masked."""
     return -(-padded_vocab // max(dp, 1))
+
+
+def data_rows(batch_size: int, dp: int, rank: int) -> slice:
+    """Data rank `rank`'s contiguous rows of a [B, ...] batch."""
+    if dp < 1:
+        raise ValueError(f"--dp must be >= 1, got {dp}")
+    if batch_size % dp:
+        raise ValueError(f"--batch {batch_size} must be divisible by the "
+                         f"data-parallel degree {dp}")
+    rows = batch_size // dp
+    return slice(rank * rows, (rank + 1) * rows)
 
 
 def vocab_param_names(params: dict) -> tuple:

@@ -6,21 +6,35 @@ every registry contender, which route through `heads.loss_sampled`; `with_aux` a
 proposal's auxiliary loss, :112-121; the fault seam `_apply_fault` :33; an
 unknown `head.table_dtype` raises when the loss is built, :96),
 `make_train_step` (:129: the trainable branch :159-186, the other
-:188-202, both with the non-finite skip guard) and the vocab-parallel
-family (DESIGN §9): `make_vocab_parallel_train_step` (:305),
-`make_vocab_index_init` (:417) and `make_vocab_refresh_step` (:451, both
-refresh policies). The data-parallel step (`make_sharded_train_step`,
-item 13) is not ported yet.
+:188-202, both with the non-finite skip guard), the data-parallel family
+(DESIGN §4): `init_grad_transport_state` (:205), `make_sharded_train_step`
+(:218) and the data-sharded `make_refresh_step` (:518), and the
+vocab-parallel family (DESIGN §9): `make_vocab_parallel_train_step`
+(:305, with its data group, :369-408), `make_vocab_index_init` (:417) and
+`make_vocab_refresh_step` (:451, both refresh policies).
 
-The vocab-parallel step runs on every rank of a `launch.mesh.VocabGroup`
-with the same batch and keys (data degree 1): the class table (`embed`,
+The data-parallel step runs on every rank of a `launch.mesh.RankGrid`'s
+data group, each rank on its rows of the batch (`dist.sharding.
+data_rows`) with the replicated params, optimizer state and head state.
+Departure: the reference folds the step key with the data shard index,
+so each shard draws negatives of its own; here a token's draws are a
+function of (seed, step, its GLOBAL flat index) (`core.noise.train_keys`),
+and a rank takes the keys of its rows, so a dp run draws exactly the
+negatives of the single-device run, and its fp32 loss (the mean of the
+ranks' means, as the reference takes it) is the single-device loss up to
+summation order where the ranks hold equal token counts.
+
+The vocab-parallel step runs on every rank of a `launch.mesh.RankGrid`'s
+vocab group with the same batch rows and keys: the class table (`embed`,
 and `head` where untied) is the rank's rows, the backbone and its
 optimizer state replicate, and the index is the rank's local view
 (`dist.vocab_parallel`). Its gradients need no scaling (the collectives'
 backwards hand each rank its own inputs' gradients, `dist.collectives`);
 the global-norm clip sums the sharded leaves' squares over the ranks with
 one all-reduce, so every rank scales by the same factor and the
-replicated leaves stay the same on every rank.
+replicated leaves stay the same on every rank. On a dp x vp grid the
+gradients and the metrics are then averaged over the data group before the
+clip, as the reference pmeans them over its data axes.
 
 Departures: torch runs eagerly, so there is no jit; a step is a function
 of (params, opt state, head state, batch, keys) — `keys` [B·S] are the
@@ -40,7 +54,9 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.index.quantized import resolve_table_dtype
+from repro_torch.dist import collectives as coll
+from repro_torch.index.quantized import resolve_table_dtype, unwrap_index
+from repro_torch.launch.mesh import mesh_dp
 from repro_torch.models import heads
 from repro_torch.models.model import forward
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
@@ -229,6 +245,143 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     return train_step
 
 
+# ------------------------------------------------------------ data parallel
+GRAD_TRANSPORTS = ("fp32", "bf16", "int8_ef")
+
+
+def check_grad_transport(grad_transport: str) -> None:
+    if grad_transport not in GRAD_TRANSPORTS:
+        raise ValueError(f"--grad-transport must be one of "
+                         f"{GRAD_TRANSPORTS}, got {grad_transport!r}")
+
+
+def init_grad_transport_state(params, grad_transport: str):
+    """The int8 error-feedback carry (fp32 zeros shaped like the params)
+    for 'int8_ef', None otherwise (reference :205). Each rank carries its
+    own residual, where the reference stacks the shards' on a leading
+    [dp] dim; it is in no checkpoint (the reference saves (params,
+    opt_state, index) and rebuilds it as zeros at start)."""
+    check_grad_transport(grad_transport)
+    if grad_transport != "int8_ef":
+        return None
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _scalars(metrics: dict) -> dict:
+    return {k: torch.as_tensor(v).detach().float() for k, v in
+            metrics.items()}
+
+
+def reduce_grads(grads, group, grad_transport: str, ef=None):
+    """The data group's mean gradient in `grad_transport` (reference
+    :266-279) -> (grads, new ef): 'fp32' the all-reduce mean; 'bf16' the
+    bf16 sum over the dp ranks, divided by dp; 'int8_ef' the error-
+    feedback int8 sum, divided by dp."""
+    dp = coll.group_size(group)
+    if grad_transport == "fp32":
+        return coll.pmean(grads, group), ef
+    if grad_transport == "bf16":
+        return tree_map(lambda g: g / dp, coll.psum_bf16(grads, group)), ef
+    summed, ef = coll.psum_int8_ef(grads, ef, group)
+    return tree_map(lambda g: g / dp, summed), ef
+
+
+def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, group,
+                            *, grad_transport: str = "fp32",
+                            head_mode: Optional[str] = None) -> Callable:
+    """step(params, opt_state, state, batch, keys, ef) -> (params,
+    opt_state, metrics, ef) on one rank of `group`'s data group (a
+    `launch.mesh.RankGrid`): `batch` and `keys` are the rank's rows
+    (`dist.sharding.data_rows`, the global `train_keys` cut to them);
+    params, the optimizer state and the head state are replicated, params
+    and the optimizer state updated in place. The gradient is reduced over
+    the data group in `grad_transport` (`reduce_grads`), the metrics are
+    averaged over it, and the global-norm clip and the non-finite guard
+    then see the same values on every rank, so every rank takes the same
+    branch: a skipped step leaves params, the optimizer state and `ef` as
+    they were (reference :284-296).
+
+    As in the reference (:249), the loss carries no trainable proposal's
+    auxiliary loss and the head state is not returned: a midx-learnable
+    head trains the params against its codebooks, which stay as they are
+    (the reference's data-parallel step threads no proposal state)."""
+    check_grad_transport(grad_transport)
+    loss_fn = make_loss_fn(cfg, head_mode=head_mode)
+    pg = group.data_pg
+
+    def train_step(params, opt_state, state, batch, keys, ef):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, metrics = loss_fn(leaves, state, batch, keys)
+        flat = tree_leaves(leaves)
+        with record_function("train.backward"):
+            it = iter(torch.autograd.grad(loss, flat))
+        grads = tree_map(lambda _: next(it), leaves)
+        with record_function("train.grad_transport"):
+            grads, new_ef = reduce_grads(grads, pg, grad_transport, ef)
+            metrics = coll.pmean(_scalars({**metrics, "loss": loss}), pg)
+        with record_function("train.optimizer"):
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+            ok = bool(torch.isfinite(metrics["loss"])
+                      & torch.isfinite(gnorm))
+            if ok:
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params)
+                ef = new_ef
+        metrics = {**metrics, "grad_norm": gnorm,
+                   "skipped": 0.0 if ok else 1.0}
+        return params, opt_state, metrics, ef
+
+    train_step.returns_state = False
+    train_step.proposal = loss_fn.proposal
+    return train_step
+
+
+def make_refresh_step(cfg: ModelConfig, group=None) -> Callable:
+    """refresh(params, state, gen) -> (state, metrics) for the MIDX head
+    state (reference :518) under cfg.head.refresh_policy: on one device
+    (or a data degree of 1) the single-device refresh; with `group`'s
+    data degree dp > 1 the
+    data-sharded one (`index.sharded.refresh_sharded`): data rank d
+    quantizes the rows [d·rows, (d+1)·rows) of the class table, rows =
+    ceil(Vpad / dp), the table zero-padded where dp does not divide Vpad
+    and the pad rows masked. A quantized head state re-derives its
+    low-bit twins from the rebuilt index (reference :598-610), the same
+    on every rank. `gen` is seeded alike on every rank."""
+    from repro_torch.dist.sharding import refresh_rows_per_shard
+    from repro_torch.index.quantized import QuantHeadState
+    from repro_torch.index.sharded import refresh_sharded
+    from repro_torch.models.model import class_embeddings
+
+    dp = mesh_dp(group)
+    if dp <= 1:
+        def refresh_replicated(params, state, gen):
+            return heads.refresh_head_state_with_policy(cfg, params, state,
+                                                        gen)
+        return refresh_replicated
+    vpad = cfg.padded_vocab
+    rows = refresh_rows_per_shard(vpad, dp)
+    n_valid = vpad if rows * dp != vpad else None
+    lo = group.data_rank * rows
+
+    def refresh(params, state, gen):
+        table = class_embeddings(cfg, params).detach().float()
+        local = table[lo:lo + rows]
+        if local.shape[0] < rows:
+            local = torch.nn.functional.pad(
+                local, (0, 0, 0, rows - local.shape[0]))
+        new_index, metrics = refresh_sharded(
+            unwrap_index(state), gen, local, group=group.data_pg,
+            iters=cfg.head.kmeans_iters, policy=cfg.head.refresh_policy,
+            threshold=cfg.head.refresh_drift_threshold, n_valid=n_valid)
+        if isinstance(state, QuantHeadState):
+            return heads._requantized(cfg, state, new_index, table,
+                                      gen), metrics
+        return new_index, metrics
+
+    return refresh
+
+
 # ------------------------------------------------------------ vocab parallel
 def _vp_loss_fn(cfg: ModelConfig, pg, window: Optional[int]):
     from repro_torch.dist import vocab_parallel as vp_mod
@@ -254,18 +407,21 @@ def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
                                    clip_norm: float = 1.0) -> Callable:
     """step(params, opt_state, local_index, batch, keys) -> (params,
     opt_state, metrics) on one rank of `group` (a `launch.mesh.
-    VocabGroup`): params and opt state hold the rank's rows of the class
+    RankGrid`): params and opt state hold the rank's rows of the class
     tables and the whole backbone, updated in place; the loss, the grad
-    norm and the skip decision are the same on every rank. Parity
-    contract (tests/test_torch_vocab_parallel.py): loss, grad norm and
-    every updated param within 1e-5 of `make_train_step` on the
-    replicated layout with the same keys."""
+    norm and the skip decision are the same on every rank. With a data
+    degree dp > 1, `batch` and `keys` are the rank's data rows, and the
+    gradients and metrics are averaged over the data group before the
+    clip (reference :369-408). Parity contract
+    (tests/test_torch_vocab_parallel.py, tests/test_torch_dp.py): loss,
+    grad norm and every updated param within 1e-5 of `make_train_step` on
+    the replicated layout with the same keys."""
     from repro_torch.dist.collectives import psum_no_grad
     from repro_torch.dist.sharding import vocab_param_names
 
     if (cfg.head.mode or "midx") != "midx":
         raise ValueError("vocab-parallel training requires the MIDX head")
-    pg = group.pg
+    pg, data_pg = group.pg, group.data_pg
     loss_fn = _vp_loss_fn(cfg, pg, window)
 
     def train_step(params, opt_state, local_idx, batch, keys):
@@ -275,6 +431,11 @@ def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
         with record_function("train.backward"):
             it = iter(torch.autograd.grad(loss, flat))
         grads = tree_map(lambda _: next(it), leaves)
+        metrics = _scalars({**metrics, "loss": loss})
+        if group.dp > 1:
+            with record_function("train.grad_transport"):
+                grads = coll.pmean(grads, data_pg)
+                metrics = coll.pmean(metrics, data_pg)
         with record_function("train.optimizer"):
             sharded = vocab_param_names(grads)
             rep = [g for k, v in grads.items() if k not in sharded
@@ -284,13 +445,12 @@ def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
             sq_rep = sum(torch.sum(torch.square(g.float())) for g in rep)
             gnorm = torch.sqrt(sq_rep + psum_no_grad(sq_local, pg))
             grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=gnorm)
-            loss = loss.detach()
-            ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+            ok = bool(torch.isfinite(metrics["loss"])
+                      & torch.isfinite(gnorm))
             if ok:
                 params, opt_state = optimizer.update(grads, opt_state,
                                                      params)
-        metrics = {**{k: v.detach() for k, v in metrics.items()},
-                   "loss": loss, "grad_norm": gnorm,
+        metrics = {**metrics, "grad_norm": gnorm,
                    "skipped": 0.0 if ok else 1.0}
         return params, opt_state, metrics
 

@@ -25,9 +25,7 @@ and --fused-head (the reference's `:374`): `auto` and `on` run the port's
 one route, its hand-written kernels on the card; `off` and `interpret`
 (the reference's unfused and Pallas-interpreter routes) exit with a
 message. Beside them, --device (default: the card; 'cpu' must be asked
-for) and --vocab-parallel N (below). The reference's other flags are
-accepted and raise NotImplementedError with a pointer to ROADMAP.md
-Queue 1: --dp and --grad-transport (item 13).
+for), --vocab-parallel N and --dp N with --grad-transport (below).
 
 The index lifecycle (DESIGN §8; reference :80, :289-316, :390-395):
 `--refresh-policy drift` refreshes reassign-only until the drift probe
@@ -50,8 +48,30 @@ one rank: the index is built natively per rank and refreshed by the
 sharded refit, checkpoints are the reference's vocab-parallel format
 (rank 0 writes the gathered params and optimizer state and the stacked
 index; a run resumes on the same N), and the serving export unshards the
-index, so `Engine.from_checkpoint` serves the model. Fault injection is
-not wired into the vocab-parallel run yet (item 13).
+index, so `Engine.from_checkpoint` serves the model.
+
+Data-parallel training (DESIGN §4; reference :133-160, :181, :187-192,
+:239-241, :364-373, :412-416): `--dp N` spawns N rank processes, each
+training on its rows of every batch with the replicated params, optimizer
+state and index (`launch.steps.make_sharded_train_step`); the gradient
+meets over the data group in `--grad-transport` fp32, bf16 or int8_ef, and
+the MIDX index refreshes data-sharded (`launch.steps.make_refresh_step`).
+`--dp N --vocab-parallel M` runs the N x M grid, data outer
+(`launch.mesh.RankGrid`): the vocab-parallel step on each data row, its
+gradients averaged over the data group, and the vocab-sharded refresh;
+there only the fp32 transport runs, as in the reference (:142-144). As in
+the reference (:132-133), a non-fp32 transport without --dp runs a data
+group over every local card (one process on one card, where int8_ef still
+quantizes). Each rank takes the global per-token keys of its rows, so a
+dp run draws the single-device run's negatives (`launch.steps`).
+Checkpoints hold the replicated (params, opt_state, index), written by
+world rank 0; at vp = 1 nothing is sharded, so a run resumes at another
+dp. The int8 error-feedback carry is in no checkpoint and a guardrail
+rollback leaves it as it is, both as in the reference (:181, :260-279):
+an int8_ef run that resumes is not bit for bit the uninterrupted one.
+Fault injection runs on every rank alike (the same plan and seed), its
+`_fault_scale` cut to the rank's rows like the batch; world rank 0 alone
+saves, and a kill in its save reaches every rank.
 
 Checkpoints are the reference's format (`checkpoint.manager`): a run of
 either package resumes from the other's. `total_steps` is the job's
@@ -126,7 +146,7 @@ from repro_torch.dist import sharding as shard_mod
 from repro_torch.dist import vocab_parallel as vp_mod
 from repro_torch.index.lifecycle import IndexLifecycle
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.launch.mesh import RankGrid, mesh_dp, mesh_vp, spawn_ranks
 from repro_torch.models import heads, init_params
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.proposals import registry as proposals_registry
@@ -151,53 +171,60 @@ def media_refusal(cfg) -> str:
             "carry the media")
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"Queue 1 item {item})")
-
-
 def _generator(device: torch.device, seed: int, stream: int):
     gen = torch.Generator(device=device)
     gen.manual_seed(int(noise.hash_bits(seed, stream, 0, 0)))
     return gen
 
 
-class VocabState:
-    """A vocab-parallel run's replicated views of its state, for the
-    checkpoints and the serving export. `full` is a collective (every rank
-    calls it in turn); `local` cuts the replicated state back to this
-    rank's rows."""
+class GridState:
+    """A multi-process run's view of its rank grid for the loop: the
+    replicated state for the checkpoints and the serving export (`full`,
+    a collective over the vocab group; `local` cuts it back to this rank's
+    rows), the world barrier and the world's verdicts."""
 
-    def __init__(self, group):
-        self.group = group
+    def __init__(self, grid: RankGrid):
+        self.grid = grid
+        self.vp = mesh_vp(grid) > 1
+
+    @property
+    def writer(self) -> bool:
+        return self.grid.world_rank == 0
 
     def full(self, params, opt_state, index):
-        pg = self.group.pg
+        if not self.vp:
+            return params, opt_state, index
+        pg = self.grid.pg
         return (shard_mod.gather_params(params, pg),
                 shard_mod.map_opt_state(
                     opt_state, lambda t: shard_mod.gather_params(t, pg)),
                 vp_mod.stack_local_indexes(index, pg))
 
     def local(self, state):
+        if not self.vp:
+            return state
         params, opt_state, sharded = state
-        n, r = self.group.size, self.group.rank
+        n, r = self.grid.size, self.grid.rank
         return (shard_mod.shard_params(params, n, r),
                 shard_mod.map_opt_state(
                     opt_state, lambda t: shard_mod.shard_params(t, n, r)),
                 vp_mod.local_index(sharded, r))
 
     def barrier(self):
-        if self.group.size > 1:
-            torch.distributed.barrier(self.group.pg)
+        if coll.group_size() > 1:
+            torch.distributed.barrier()
+
+    def any(self, flag: bool) -> bool:
+        """Whether `flag` holds on any rank of the world (a collective)."""
+        return bool(coll.psum_no_grad(torch.tensor(
+            [int(flag)], device=self.grid.device)).item())
 
     def validate(self, new, like):
         """`validate_state` on this rank, with the verdict all-reduced: a
         refresh any rank rejects is rejected on every rank."""
         reasons = list(validate_state(new, like=like))
-        bad = coll.psum_no_grad(torch.tensor(
-            [int(bool(reasons))], device=new.counts.device), self.group.pg)
-        if int(bad.item()) and not reasons:
-            reasons = ["another vocab-parallel rank rejected its refresh"]
+        if self.any(bool(reasons)) and not reasons:
+            reasons = ["another rank rejected its refresh"]
         return reasons
 
 
@@ -239,7 +266,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                on_metrics: Optional[Callable[[int, dict], None]] = None,
                on_refresh: Optional[Callable] = None, device=None,
                injector: Optional[FaultInjector] = None,
-               guardrails=None, group=None):
+               guardrails=None, group: Optional[RankGrid] = None,
+               grad_transport: str = "fp32"):
     """Single-device training loop. Returns (params, opt_state, index,
     history): params detached, ready for `serve.Engine(cfg, params,
     index=index, head=mode)`; index the head state (the MultiIndex, or the
@@ -260,12 +288,22 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     every completed (or rejected) `index.lifecycle.RefreshEvent`. device:
     default the card.
 
-    group: a `launch.mesh.VocabGroup`; this process is then one rank of a
-    vocab-parallel run on the group's device, and params, opt_state and
-    index come back as its shard (the rows of the class table, the local
-    index view). Every rank must call with the same arguments."""
+    group: a `launch.mesh.RankGrid`; this process is then one rank of a
+    multi-process run on the grid's device. Every rank must call with the
+    same arguments. With a vocab degree > 1 params, opt_state and index
+    come back as its shard (the rows of the class table, the local index
+    view); with a vocab degree of 1 it runs the data-parallel step
+    (`launch.steps.make_sharded_train_step`, a data degree of 1 included)
+    on its rows of every batch, the gradient reduced in `grad_transport`
+    ('fp32', 'bf16' or 'int8_ef'; a non-fp32 transport with a vocab degree
+    > 1 is refused, as in the reference). Without a grid, a non-fp32
+    transport runs the data-parallel step on a data group of this process
+    alone, as the reference's one-device mesh does."""
     if cfg.family in MEDIA_FAMILIES:
         raise ValueError(media_refusal(cfg))
+    steps_mod.check_grad_transport(grad_transport)
+    if group is None and grad_transport != "fp32":
+        group = RankGrid(0, 1, resolve_device(device), "none")
     refresh_kw = {k: v for k, v in (("refresh_every", refresh_every),
                                     ("refresh_policy", refresh_policy),
                                     ("refresh_lag", refresh_lag))
@@ -273,12 +311,17 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     if refresh_kw:
         cfg = cfg.with_head(**refresh_kw)
     mode, proposal = steps_mod.resolve_proposal(cfg, head_mode)
-    vstate = VocabState(group) if group is not None else None
+    gstate = GridState(group) if group is not None else None
+    vstate = gstate if gstate is not None and gstate.vp else None
+    rows = shard_mod.data_rows(batch_size, mesh_dp(group),
+                               0 if group is None else group.data_rank)
     if vstate is not None:
         if mode != "midx":
             raise ValueError("vocab-parallel training requires the midx head")
-        if injector is not None:
-            raise _unported("fault injection in vocab-parallel training", 13)
+        if grad_transport != "fp32":
+            raise ValueError("compressed grad transports are not wired into "
+                             "the vocab-parallel step; use fp32")
+    if group is not None:
         device = group.device
     device = resolve_device(device)
     horizon = total_steps or steps
@@ -305,21 +348,29 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         index = steps_mod.make_vocab_index_init(cfg, group)(params,
                                                             gen_index)
         vp_refresh = steps_mod.make_vocab_refresh_step(cfg, group)
-    elif proposal is not None:
+    elif gstate is not None:
+        train_step = steps_mod.make_sharded_train_step(
+            cfg, optimizer, group, grad_transport=grad_transport,
+            head_mode=mode)
+    else:
         train_step = steps_mod.make_train_step(cfg, optimizer,
                                                head_mode=mode)
+    if vstate is None and proposal is not None:
         # the unigram family and TAPAS take the corpus's class frequencies;
         # every other contender ignores them
         freq = np.bincount(np.asarray(corpus).reshape(-1),
                            minlength=cfg.padded_vocab).astype(np.float64)
         index = heads.init_proposal_state(cfg, params, gen_index, proposal,
                                           freq)
-    else:
-        train_step = steps_mod.make_train_step(cfg, optimizer,
-                                               head_mode=mode)
+    elif vstate is None:
         # the full head trains without it, but its checkpoints carry a
         # MultiIndex, as the reference's do (reference :180)
         index = heads.init_head_state(cfg, params, gen_index)
+    ef = steps_mod.init_grad_transport_state(params, grad_transport)
+    # the MIDX index refreshes data-sharded over the data group (one device:
+    # the single-device refresh); a proposal refreshes replicated
+    midx_refresh = steps_mod.make_refresh_step(
+        cfg, None if vstate is not None else group)
 
     def refresh(p, state, step_seed):
         gen = torch.Generator(device=device)
@@ -327,7 +378,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         if vstate is not None:
             return vp_refresh(p, state, gen)
         if proposal is None:
-            return heads.refresh_head_state_with_policy(cfg, p, state, gen)
+            return midx_refresh(p, state, gen)
         # drift probes are a MultiIndex notion: a proposal reports none
         return heads.refresh_proposal_state(cfg, p, proposal, state, gen), {}
 
@@ -338,7 +389,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         base_seed=int(noise.hash_bits(seed, _STREAM_REFRESH, 0, 0)),
         enabled=mode == "midx" or (proposal is not None
                                    and proposal.adaptive),
-        validate=None if vstate is None else vstate.validate)
+        validate=None if gstate is None else gstate.validate)
 
     def refreshed(ev) -> None:
         if ev is None:
@@ -356,12 +407,12 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
             on_refresh(ev)
 
     ckpt = None
-    if ckpt_dir and vstate is not None:
+    if ckpt_dir and gstate is not None:
         # rank 0 heals a half-done swap before the others look
-        if group.rank == 0:
+        if gstate.writer:
             ckpt = CheckpointManager(ckpt_dir)
-        vstate.barrier()
-        if group.rank != 0:
+        gstate.barrier()
+        if not gstate.writer:
             ckpt = CheckpointManager(ckpt_dir)
     elif ckpt_dir:
         ckpt = CheckpointManager(ckpt_dir)
@@ -369,8 +420,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         injector.attach_checkpoint(ckpt)
 
     def ckpt_tree(p, o, i):
-        """What a checkpoint holds: the state, replicated in a
-        vocab-parallel run (a collective)."""
+        """What a checkpoint holds: the replicated state (gathered over
+        the vocab group in a vocab-parallel run, a collective)."""
         return (p, o, i) if vstate is None else vstate.full(p, o, i)
 
     def restore(fn, *a):
@@ -385,11 +436,21 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
         return vstate.local(out)
 
     def save(step_n: int, p, o, i) -> None:
+        """World rank 0 writes; a kill in its save is raised on every
+        rank, so the ranks agree on what was saved."""
         tree = ckpt_tree(p, o, i)
-        if vstate is None or group.rank == 0:
+        if gstate is None:
             ckpt.save(step_n, tree, metadata={"next_step": step_n})
-        if vstate is not None:
-            vstate.barrier()
+            return
+        killed = None
+        if gstate.writer:
+            try:
+                ckpt.save(step_n, tree, metadata={"next_step": step_n})
+            except InjectedFault as e:
+                killed = e
+        if gstate.any(killed is not None):
+            raise killed or InjectedFault(
+                f"save(step={step_n}) killed on world rank 0")
 
     start_step, saved = 0, None
     if ckpt is not None:
@@ -408,19 +469,25 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     while step < steps:
         if injector is not None:
             injector.note_step(step)
-        batch = {k: torch.from_numpy(v).long().to(device)
+        batch = {k: torch.from_numpy(v[rows]).long().to(device)
                  for k, v in stream.batch_at(step).items()}
         if injector is not None:
             batch["_fault_scale"] = torch.full(
                 (batch_size,), injector.loss_scale(step),
-                dtype=torch.float32, device=device)
-        keys = noise.train_keys(seed, step, batch_size * seq_len, device)
+                dtype=torch.float32, device=device)[rows]
+        # the global per-token keys of this rank's rows
+        keys = noise.train_keys(seed, step, batch_size * seq_len,
+                                device)[rows.start * seq_len:
+                                        rows.stop * seq_len]
         t0 = time.perf_counter()
         if injector is not None:
             injector.maybe_sleep(step)
         if train_step.returns_state:
             params, opt_state, index, metrics = train_step(
                 params, opt_state, index, batch, keys)
+        elif gstate is not None and vstate is None:
+            params, opt_state, metrics, ef = train_step(
+                params, opt_state, index, batch, keys, ef)
         else:
             params, opt_state, metrics = train_step(params, opt_state, index,
                                                     batch, keys)
@@ -499,12 +566,12 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
             export_params = shard_mod.gather_params(params, group.pg)
             export_index = vp_mod.unshard_index(
                 vp_mod.stack_local_indexes(index, group.pg))
-        if vstate is None or group.rank == 0:
+        if gstate is None or gstate.writer:
             save_serving_state(os.path.join(ckpt_dir, "serve"), steps,
                                export_params, export_index,
                                metadata={"arch": cfg.name})
-        if vstate is not None:
-            vstate.barrier()
+        if gstate is not None:
+            gstate.barrier()
     return params, opt_state, index, history
 
 
@@ -564,10 +631,24 @@ def parser() -> argparse.ArgumentParser:
                     help="the ranks' collective backend (default: gloo "
                          "where ranks share a card or run on the CPU, NCCL "
                          "where each has its own card)")
-    unported = ap.add_argument_group("not ported yet (raise)")
-    unported.add_argument("--dp", type=int, default=0)
-    unported.add_argument("--grad-transport", default="fp32")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel degree: >0 spawns that many ranks "
+                         "(times --vocab-parallel), each training on its "
+                         "rows of every batch (DESIGN §4)")
+    ap.add_argument("--grad-transport", default="fp32",
+                    choices=steps_mod.GRAD_TRANSPORTS,
+                    help="gradient all-reduce transport (DESIGN §4); without "
+                         "--dp a non-fp32 transport runs a data group over "
+                         "every local card")
     return ap
+
+
+def local_cards(device) -> int:
+    """The data degree a non-fp32 transport takes without --dp: every
+    local card (reference :132-133), one process on the CPU."""
+    if device is not None and torch.device(device).type == "cpu":
+        return 1
+    return max(1, torch.cuda.device_count())
 
 
 def main(argv=None):
@@ -582,41 +663,57 @@ def main(argv=None):
                          "kernel route, its hand-written kernels on the card "
                          "and their plain versions on the CPU; use "
                          "--fused-head auto (or on)")
-    if args.dp > 0 or args.grad_transport != "fp32":
-        raise _unported("data-parallel training and gradient transports", 13)
+    if args.vocab_parallel > 1 and args.grad_transport != "fp32":
+        raise ValueError("compressed grad transports are not wired into "
+                         "the vocab-parallel step; use fp32")
+    dp = args.dp
+    if dp == 0 and args.grad_transport != "fp32":
+        dp = local_cards(args.device)
+    shard_mod.data_rows(args.batch, max(dp, 1), 0)   # batch % dp refused
     if args.table_dtype is not None:
         cfg = cfg.with_head(table_dtype=args.table_dtype)
-    injector = _parse_chaos(args.chaos, args.chaos_seed) if args.chaos \
-        else None
     kw = dict(steps=args.steps, batch_size=args.batch, seq_len=args.seq,
               ckpt_dir=args.ckpt, head_mode=args.head, lr=args.lr,
               refresh_every=args.refresh_every,
               refresh_policy=args.refresh_policy,
-              refresh_lag=args.refresh_lag, seed=args.seed)
-    if args.vocab_parallel > 1:
-        if injector is not None:
-            raise _unported("fault injection in vocab-parallel training", 13)
+              refresh_lag=args.refresh_lag, seed=args.seed,
+              grad_transport=args.grad_transport)
+    chaos = (args.chaos, args.chaos_seed) if args.chaos else None
+    world = max(dp, 1) * args.vocab_parallel
+    if world > 1:
         # each rank a share of this process's intra-op threads on the CPU
-        threads = max(1, torch.get_num_threads() // args.vocab_parallel) \
+        threads = max(1, torch.get_num_threads() // world) \
             if args.device == "cpu" else 0
-        spawn_ranks(_vp_rank, args.vocab_parallel, (cfg, kw),
-                    device=args.device, backend=args.vp_backend,
-                    threads=threads)
+        spawn_ranks(_grid_rank, args.vocab_parallel, (cfg, kw, chaos),
+                    dp=max(dp, 1), device=args.device,
+                    backend=args.vp_backend, threads=threads)
         return None
+    if dp == 1:
+        # --dp 1: the data-parallel step on a data group of one
+        kw["group"] = RankGrid(0, 1, resolve_device(args.device), "none")
+    injector = _parse_chaos(*chaos) if chaos else None
     out = train_loop(cfg, device=args.device, injector=injector, **kw)
     if injector is not None:
         print(f"[train] chaos report: {injector.summary()}")
     return out
 
 
-def _vp_rank(group, cfg, kw) -> None:
-    """One rank of `--vocab-parallel`: rank 0 prints the run's log."""
-    if group.rank != 0:
+def _grid_rank(grid, cfg, kw, chaos) -> None:
+    """One rank of `--dp` / `--vocab-parallel`: world rank 0 prints the
+    run's log and the chaos report."""
+    injector = _parse_chaos(*chaos) if chaos else None
+
+    def run():
+        train_loop(cfg, group=grid, injector=injector, **kw)
+        if injector is not None:
+            print(f"[train] chaos report: {injector.summary()}")
+
+    if grid.world_rank != 0:
         import contextlib
         with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
-            train_loop(cfg, group=group, **kw)
+            run()
         return
-    train_loop(cfg, group=group, **kw)
+    run()
 
 
 def _parse_chaos(plan: str, seed: int) -> FaultInjector:

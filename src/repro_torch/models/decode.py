@@ -27,6 +27,13 @@ with no page table, ssm and hybrid, passing straight through,
 with physical page 0 the reserved trash page that inactive slots write into
 and that no request ever reads (its entries lie past every mask).
 
+`decode_step` and `paged_decode_step` take the reference's `attn_fn`
+hook (:118-133, :165, :504): `attn_fn(q, kc, vc, pos, window=...)`
+replaces `decode_attention` in the self-attention of the dense, moe, vlm
+and audio families, e.g. `dist.decode.flash_decode_seq_sharded` bound to a
+process group. As in the reference, the hybrid's ring attention, the
+cross-attention and the prefill paths take no hook.
+
 Departure: the KV caches and the SSM carries are updated IN PLACE
 (`index_put_` into the pool, `copy_` into the carries), where the
 reference returns a new pytree and relies on buffer donation
@@ -205,12 +212,14 @@ def _ssm_decode_layers(cfg: ModelConfig, params: dict, token: torch.Tensor,
 
 def _decode_layers(cfg: ModelConfig, params: dict, token: torch.Tensor,
                    pos: torch.Tensor, kv_at: Callable, window,
-                   state: dict):
+                   state: dict, attn_fn: Optional[Callable] = None):
     """The single-token step of the attention families. `kv_at(layer, k,
     v)` stores this step's k/v [B, KV, hd] for `layer` and returns the
     [B, Smax, KV, hd] caches the step attends over; the vlm and audio
-    cross-attention read `state`'s cross_k/v. Returns hidden [B, D]
+    cross-attention read `state`'s cross_k/v. `attn_fn` (default
+    `decode_attention`) attends over those caches. Returns hidden [B, D]
     (final-normed)."""
+    attend = attn_fn or attn_mod.decode_attention
     x = params["embed"][token][:, None, :].to(torch_dtype(cfg))  # [B,1,D]
     hd = cfg.resolved_head_dim
     cos, sin = rope_angles(pos[:, None], hd, cfg.rope_theta)
@@ -224,7 +233,7 @@ def _decode_layers(cfg: ModelConfig, params: dict, token: torch.Tensor,
                                        cfg.num_kv_heads, hd, cos, sin,
                                        cfg.qk_norm, cfg.norm_eps)
         kc, vc = kv_at(li, k[:, 0], v[:, 0])
-        o = attn_mod.decode_attention(q, kc, vc, pos, window=window)
+        o = attend(q, kc, vc, pos, window=window)
         x = x + o.reshape(b, 1, -1) @ bp["attn"]["wo"].to(x.dtype)
         if fam == "audio":
             x = _cross_decode(cfg, bp, x, state["cross_k"][li],
@@ -269,7 +278,8 @@ def init_decode_state(cfg: ModelConfig, bsz: int, max_seq: int, *,
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 pos: torch.Tensor, state: dict, *,
-                window: Optional[int] = None):
+                window: Optional[int] = None,
+                attn_fn: Optional[Callable] = None):
     """token [B] int, pos per-slot [B] int -> (hidden [B,D], state).
 
     Slot b writes its cache at its own position pos[b] and attends only to
@@ -288,7 +298,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         return state["k"][li], state["v"][li]
 
     return _decode_layers(cfg, params, token, pos, kv_at, window,
-                          state), state
+                          state, attn_fn), state
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -408,7 +418,8 @@ def init_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
 def paged_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                       pos: torch.Tensor, state: dict, *,
                       window: Optional[int] = None,
-                      active: Optional[torch.Tensor] = None):
+                      active: Optional[torch.Tensor] = None,
+                      attn_fn: Optional[Callable] = None):
     """`decode_step` against the paged layout. pos: per-slot [B].
 
     Per layer: write the slot's new K/V at (page_table[b, pos // page],
@@ -420,7 +431,8 @@ def paged_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     `decode_step`.
     """
     if "page_table" not in state:
-        return decode_step(cfg, params, token, pos, state, window=window)
+        return decode_step(cfg, params, token, pos, state, window=window,
+                           attn_fn=attn_fn)
     pt = state["page_table"]                       # [B, np]
     pool_k, pool_v = state["k"], state["v"]        # [L, P, page, KV, hd]
     _, _, page, kvh, hd = pool_k.shape
@@ -437,7 +449,7 @@ def paged_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 pool_v[li][pt].reshape(b, npages * page, kvh, hd))
 
     return _decode_layers(cfg, params, token, pos, kv_at, window,
-                          state), state
+                          state, attn_fn), state
 
 
 def _flash_chunk(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,

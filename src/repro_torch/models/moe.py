@@ -6,7 +6,9 @@ over the batch (`model.py:177-182`). Each sequence dispatches alone:
 capacity is `capacity(S, E, k, factor)` for its own S tokens, its tokens
 compete only with each other, and the aux loss is the batch mean of each
 row's. The shard_map dispatch (`set_moe_mesh`, `apply_moe_sharded`,
-`_local_moe`, :51-153) is not ported (ROADMAP Queue 1 item 13).
+`_local_moe`, :51-153) reaches only the reference's compile-only dry run
+(`launch/dryrun.py`) and is not ported (ROADMAP Queue 1, the dry-run
+item).
 
 The rows run batched, [B, ...] in every op, with per-row arithmetic only,
 so a row's bits do not depend on the other rows' values. Departures, all

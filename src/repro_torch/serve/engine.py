@@ -10,8 +10,10 @@ registry proposal mode ('uniform', 'unigram', 'sphere', 'rff', 'rff-fused',
 `heads.proposal_decode_head`, which sends the learnable contender's index
 down the MIDX head; the state initialised from the params when none is
 given, reference :159-166, :200-202), and single-token decode
-waves over all `max_slots` slots (inactive slots ride along masked and
-write only the trash page; an ssm state has no page table, and its
+waves over all `max_slots` slots, their self-attention through
+`attn_fn` where one is given (reference :158, :168, :233, :762; e.g.
+`dist.decode.flash_decode_seq_sharded`, the solo replay engine taking it
+too) (inactive slots ride along masked and write only the trash page; an ssm state has no page table, and its
 inactive slots' carries are overwritten at admission, as in the reference,
 :444, :498). Prefill runs two ways, as in the reference (:169-191,
 :494-548):
@@ -99,7 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -190,7 +192,8 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
                  index=None, head: str = "midx",
-                 window: Optional[int] = None, device=None, seed: int = 0):
+                 window: Optional[int] = None, device=None, seed: int = 0,
+                 attn_fn: Optional[Callable] = None):
         proposals_registry.validate_mode(head)
         # 'midx'/'full' keep their dedicated decode paths; a registered
         # contender serves through the generic proposal head
@@ -221,6 +224,7 @@ class Engine:
         self.cfg = cfg
         self.head = head
         self.window = window
+        self.attn_fn = attn_fn
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -517,7 +521,7 @@ class Engine:
         with record_function("engine.decode_backbone"):
             hidden, self.state = paged_decode_step(
                 self.cfg, self.params, packed[0], packed[1], self.state,
-                window=self.window, active=active)
+                window=self.window, active=active, attn_fn=self.attn_fn)
         with record_function("engine.decode_head"):
             keys = noise.row_keys(packed[3], packed[4], packed[1])
             nxt = torch.where(active, self._sample(hidden, keys), 0)
@@ -621,7 +625,7 @@ class Engine:
         if self._solo is None:
             self._solo = Engine(self.cfg, self.params, index=self.index,
                                 head=self.head, window=self.window,
-                                device=self.device)
+                                device=self.device, attn_fn=self.attn_fn)
         res = self._solo.run([dataclasses.replace(req, arrival=0.0)])
         return res[req.rid].tokens
 

@@ -576,8 +576,10 @@ def test_cli_defaults_to_the_card_and_refuses_unported_flags():
             train_main(["--reduced", "--steps", "1"])
     base = ["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
             "--seq", "8"]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_main(base + ["--dp", "2"])
+    # --dp runs on the CPU (two gloo ranks); an unknown transport is refused
+    assert train_main(base + ["--dp", "2"]) is None
+    with pytest.raises(SystemExit):
+        train_main(base + ["--dp", "2", "--grad-transport", "fp16"])
     # the lifecycle flags are ported and run
     for flags in (["--refresh-lag", "2", "--refresh-every", "1"],
                   ["--refresh-policy", "drift", "--refresh-every", "1"]):
