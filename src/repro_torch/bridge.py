@@ -404,7 +404,12 @@ def from_reference(ref, like, *, device=None):
         if isinstance(lk, (bool, int, float)):
             return type(lk)(t.item())
         dtype = _torch_dtype(lk.dtype) if hasattr(lk, "dtype") else t.dtype
-        return t.to(device=device, dtype=dtype, copy=True)
+        # moved in its stored dtype, then cast on `device`: a leaf restored
+        # into a narrower dtype (the serving engine's bf16 block weights)
+        # takes the same rounding as a cast of the fp32 tensor there, and
+        # its fp32 copy is freed before the next leaf is read
+        t = t.to(device=device, copy=True)
+        return t if t.dtype == dtype else t.to(dtype)
 
     def go(r, lk):
         if isinstance(lk, OptState):

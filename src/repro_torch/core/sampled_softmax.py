@@ -2,8 +2,8 @@
 
 Mirrors `src/repro/core/sampled_softmax.py`: `NEG_INF` / `NEG_INF_THRESHOLD`
 (:23-24), `corrected_logits` (:27), `sampled_softmax_loss` (:32),
-`partial_sampled_lse` (:53), `merge_sampled_softmax_loss` (:82) and
-`full_softmax_loss` (:103). Given a positive logit o_pos and M negatives
+`partial_sampled_lse` (:53), `merge_sampled_softmax_loss` (:82),
+`full_softmax_loss` (:103) and `sampled_softmax_from_embeddings` (:111). Given a positive logit o_pos and M negatives
 s_j ~ Q with logits o_j:
     o'_pos = o_pos,   o'_j = o_j − ln(M · q_j)
     loss   = logsumexp([o'_pos, o'_1..o'_M]) − o_pos
@@ -102,3 +102,34 @@ def full_softmax_loss(logits: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     pos = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - pos
+
+
+def sampled_softmax_from_embeddings(hidden: torch.Tensor,
+                                    class_emb: torch.Tensor,
+                                    pos_ids: torch.Tensor,
+                                    neg_ids: torch.Tensor,
+                                    log_q: torch.Tensor,
+                                    mask_collisions: bool = True
+                                    ) -> torch.Tensor:
+    """Convenience: gather embeddings, compute logits, then the loss.
+
+    hidden: [..., D]; class_emb: [N, D]; pos_ids: [...];
+    neg_ids/log_q: [..., M] (per-example) or [M] broadcast (shared
+    negatives).
+    """
+    h = hidden.float()
+    pos_ids = pos_ids.long()
+    neg_ids = neg_ids.long()
+    pos_e = class_emb[pos_ids].float()                           # [..., D]
+    pos_logit = torch.sum(h * pos_e, dim=-1)
+    if neg_ids.ndim == 1:                                        # shared
+        neg_e = class_emb[neg_ids].float()                       # [M, D]
+        neg_logits = h @ neg_e.T                                 # [..., M]
+        log_q_b = torch.broadcast_to(log_q, neg_logits.shape)
+        neg_ids_b = torch.broadcast_to(neg_ids, neg_logits.shape)
+    else:
+        neg_e = class_emb[neg_ids].float()                       # [..., M, D]
+        neg_logits = torch.einsum("...d,...md->...m", h, neg_e)
+        log_q_b, neg_ids_b = log_q, neg_ids
+    return sampled_softmax_loss(pos_logit, neg_logits, log_q_b,
+                                neg_ids_b, pos_ids, mask_collisions)

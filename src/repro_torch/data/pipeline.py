@@ -1,7 +1,7 @@
 """Deterministic data pipeline with skip-ahead resume.
 
 A copy of `src/repro/data/pipeline.py` (`TokenStream` :18, `make_lm_stream`
-:49), numpy only. Every batch is a pure function of (seed, step, shard), so
+:49, `global_batch_iterator` :56), numpy only. Every batch is a pure function of (seed, step, shard), so
 resume after preemption is exact and the port reads the same batches as
 the reference.
 """
@@ -50,3 +50,18 @@ def make_lm_stream(corpus_tokens: np.ndarray, batch_size: int, *,
                    seed: int = 0) -> TokenStream:
     assert corpus_tokens.ndim == 2
     return TokenStream(corpus_tokens, batch_size, shard, num_shards, seed)
+
+
+def global_batch_iterator(corpus: np.ndarray, global_batch: int,
+                          num_shards: int, seed: int = 0,
+                          start_step: int = 0):
+    """Host-side view of the full global batch (single-process simulation of
+    what each shard would read) — used by the CPU training examples."""
+    per = global_batch // num_shards
+    streams = [make_lm_stream(corpus, per, shard=s, num_shards=num_shards,
+                              seed=seed) for s in range(num_shards)]
+    step = start_step
+    while True:
+        parts = [st.batch_at(step) for st in streams]
+        yield {k: np.concatenate([p[k] for p in parts], 0) for k in parts[0]}
+        step += 1

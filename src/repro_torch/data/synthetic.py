@@ -1,16 +1,18 @@
 """Synthetic LM corpora with paper-matched statistics.
 
-A copy of `src/repro/data/synthetic.py` (`ZipfLM` :18, `zipf_tokens` :73),
-numpy only: `repro/__init__.py` imports jax, so the port keeps its own copy
-instead of importing it. The same seed gives the same corpus as the
-reference, bit for bit; `ZipfLM.sample` departs in how it gets there (one
-CDF per cluster, built once, where the reference rebuilds one per token),
-which makes a 512 x 4097 corpus at V = 128 256 a matter of seconds. The
-RecSys and XMC generators are not copied yet.
+A copy of `src/repro/data/synthetic.py` (`ZipfLM` :18, `zipf_tokens` :73,
+`recsys_interactions` :85, `xmc_dataset` :100), numpy only:
+`repro/__init__.py` imports jax, so the port keeps its own copy instead of
+importing it. The same seed gives the same data as the reference, bit for
+bit; `ZipfLM.sample` departs in how it gets there (one CDF per cluster,
+built once, where the reference rebuilds one per token), which makes a
+512 x 4097 corpus at V = 128 256 a matter of seconds.
 
 - Zipf LM: a latent-cluster bigram language — context determines a cluster
   of plausible next tokens (so adaptive samplers have structure to
   exploit) with a Zipf marginal (so unigram beats uniform, as in the paper).
+- RecSys: latent-factor user/item interactions (SASRec/GRU4Rec task shape).
+- XMC: sparse BOW features with clustered label embeddings.
 """
 from __future__ import annotations
 
@@ -108,3 +110,38 @@ def zipf_tokens(num_seqs: int, seq_len: int, vocab: int, a: float = 1.2,
     perm = rng.permutation(vocab)
     toks = rng.choice(vocab, p=p, size=(num_seqs, seq_len))
     return perm[toks].astype(np.int32)
+
+
+def recsys_interactions(num_users: int, num_items: int, seq_len: int,
+                        d_latent: int = 16, seed: int = 0) -> np.ndarray:
+    """User behaviour sequences from a latent-factor model. [U, seq_len] int32."""
+    rng = np.random.default_rng(seed)
+    users = rng.normal(size=(num_users, d_latent))
+    items = rng.normal(size=(num_items, d_latent))
+    # drift: each user vector takes a small random walk per step
+    out = np.empty((num_users, seq_len), np.int32)
+    for t in range(seq_len):
+        scores = users @ items.T + rng.gumbel(size=(num_users, num_items)) * 2.0
+        out[:, t] = scores.argmax(-1)
+        users = users + 0.15 * rng.normal(size=users.shape)
+    return out
+
+
+def xmc_dataset(num_samples: int, num_labels: int, feat_dim: int,
+                nnz: int = 20, num_clusters: int = 32, seed: int = 0):
+    """Sparse BOW features + clustered labels.
+
+    Returns (features [S, feat_dim] float32 dense-ified, labels [S] int32).
+    """
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(num_clusters, feat_dim)) * 2.0
+    label_cluster = rng.integers(0, num_clusters, size=num_labels)
+    label_vecs = centers[label_cluster] + 0.3 * rng.normal(
+        size=(num_labels, feat_dim))
+    labels = rng.integers(0, num_labels, size=num_samples)
+    feats = label_vecs[labels] + 0.5 * rng.normal(
+        size=(num_samples, feat_dim))
+    # sparsify: keep top-|nnz| magnitude dims per sample
+    idx = np.argsort(-np.abs(feats), axis=1)[:, nnz:]
+    np.put_along_axis(feats, idx, 0.0, axis=1)
+    return feats.astype(np.float32), labels.astype(np.int32)

@@ -87,12 +87,8 @@ def build(gen: torch.Generator, class_embeddings: torch.Tensor, *,
     sampler needs it). init: optional (codebook1, codebook2) warm start for
     both K-means stages.
     """
-    idx = from_quantization(fit(kind, gen, class_embeddings, k, iters, init))
-    if not keep_residuals:
-        d = class_embeddings.shape[-1]
-        idx = dataclasses.replace(
-            idx, residuals=class_embeddings.new_zeros((0, d)))
-    return idx
+    return from_quantization(fit(kind, gen, class_embeddings, k, iters, init,
+                                 keep_residuals))
 
 
 def reassign(index: MultiIndex, class_embeddings: torch.Tensor) -> MultiIndex:

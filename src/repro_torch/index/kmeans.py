@@ -6,13 +6,18 @@ repair) comes from an explicit `torch.Generator` instead of a JAX key, so a
 cold fit picks other points than the reference; with `init=` centroids and
 no cluster going empty the two fits agree exactly. The centroid sums stay a
 one-hot matmul, as in the reference, rather than an atomic `index_add_`:
-on the card that keeps a build deterministic.
+on the card that keeps a build deterministic. The distortion's squared
+distances are taken a block of `ROW_BLOCK` rows at a time, so a fit holds
+no [N, D] temporary beside x.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+
+ROW_BLOCK = 8192               # rows a block of the [N, D] elementwise passes
 
 
 class KMeansResult(NamedTuple):
@@ -64,6 +69,11 @@ def kmeans(gen: torch.Generator, x: torch.Tensor, k: int, iters: int = 10,
     for _ in range(iters):
         centroids = _update(x, _assign(x, centroids), k, gen)
     assign = _assign(x, centroids)
-    diff = x - centroids[assign]
-    distortion = torch.mean(torch.sum(diff * diff, dim=-1))
+    # each row's squared distance, a block of rows at a time (no [N, D]
+    # temporaries beside x)
+    sq = []
+    for i in range(0, n, ROW_BLOCK):
+        diff = x[i:i + ROW_BLOCK] - centroids[assign[i:i + ROW_BLOCK]]
+        sq.append(torch.sum(diff * diff, dim=-1))
+    distortion = torch.mean(torch.cat(sq))
     return KMeansResult(centroids, assign, distortion)

@@ -10,7 +10,9 @@ hand-written CUDA kernel on the card and `ref.flash_fwd_ref` on the CPU,
 and whose backward is the blockwise recompute. The dispatcher takes it
 under the reference's rule: a sequence longer than `direct_threshold`
 whose lengths are multiples of both chunks. The reference's
-`set_impl("autodiff")` switch (:237-250) is not ported (ROADMAP.md).
+`set_impl("autodiff")` switch (:237-250) is not ported: its one caller is
+the compile-only dry run (`launch/dryrun.py:165`), and it goes with that
+(ROADMAP Queue 1, the dry-run item).
 """
 from __future__ import annotations
 

@@ -25,6 +25,10 @@ Departures from the reference:
     engine then reads bf16 weights instead of casting fp32 ones on every
     token. The MoE router and shared-expert gate and the vlm gates stay
     fp32: the reference multiplies fp32 activations by them.
+    `init_serving_params` gives `cast_blocks(init_params(...))`'s bits
+    while casting each block as it is drawn, so the fp32 block tree and
+    its cast copy are never held together (the serving engine builds its
+    weights through it).
 """
 from __future__ import annotations
 
@@ -131,15 +135,11 @@ _BLOCK_INIT = {"dense": _attn_block_init, "moe": _attn_block_init,
                "hybrid": _mamba_block_init, "audio": _decoder_block_init}
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                *, device=None) -> dict:
-    """Random fp32 params on `device` (default: the card). `generator` must
-    live on that device; None seeds a fresh one with 0."""
-    device = resolve_device(device)
-    gen = generator
-    if gen is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(0)
+def _draw_params(cfg: ModelConfig, gen: torch.Generator, device,
+                 block) -> dict:
+    """The params drawn from `gen` in `init_params`'s order, each block
+    (`blocks`, `encoder.blocks`, `shared_attn`, `cross_blocks`) passed
+    through `block` as soon as it is drawn."""
     vpad = cfg.padded_vocab
     params: dict[str, Any] = {
         "embed": embed_init(gen, vpad, cfg.d_model, device=device),
@@ -148,19 +148,53 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, vpad, cfg.d_model, device=device)
     block_init = _BLOCK_INIT[cfg.family]
-    params["blocks"] = [block_init(gen, cfg, device)
+    params["blocks"] = [block(block_init(gen, cfg, device))
                         for _ in range(cfg.num_layers)]
     if cfg.family == "audio":
         params["encoder"] = {
-            "blocks": [_attn_block_init(gen, cfg, device)
+            "blocks": [block(_attn_block_init(gen, cfg, device))
                        for _ in range(cfg.encoder_layers)],
             "final_norm": norm_init(cfg.d_model, cfg.norm, device=device)}
     if cfg.family == "hybrid":
-        params["shared_attn"] = _shared_attn_init(gen, cfg, device)
+        params["shared_attn"] = block(_shared_attn_init(gen, cfg, device))
     if cfg.family == "vlm":
-        params["cross_blocks"] = [_cross_block_init(gen, cfg, device)
+        params["cross_blocks"] = [block(_cross_block_init(gen, cfg, device))
                                   for _ in range(num_cross_blocks(cfg))]
     return params
+
+
+def _generator(generator: Optional[torch.Generator], device):
+    if generator is not None:
+        return generator
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return gen
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                *, device=None) -> dict:
+    """Random fp32 params on `device` (default: the card). `generator` must
+    live on that device; None seeds a fresh one with 0."""
+    device = resolve_device(device)
+    return _draw_params(cfg, _generator(generator, device), device,
+                        lambda bp: bp)
+
+
+def init_serving_params(cfg: ModelConfig,
+                        generator: Optional[torch.Generator] = None, *,
+                        device=None) -> dict:
+    """`cast_blocks(cfg, init_params(cfg, generator))` bit for bit, and the
+    generator left in the same state, without the fp32 block tree: each
+    block's matmul weights are cast to the compute dtype as soon as the
+    block is drawn, and its fp32 copy is released before the next block
+    is drawn. The peak is the cast blocks, the fp32 embedding (and untied
+    head) and one fp32 block, where `cast_blocks(init_params(...))` holds
+    the whole fp32 tree and its cast copy at once (which for qwen3-14b
+    and starcoder2-15b exceeds one 80 GB card)."""
+    device = resolve_device(device)
+    dt = torch_dtype(cfg)
+    return _draw_params(cfg, _generator(generator, device), device,
+                        lambda bp: _cast_tree(bp, dt))
 
 
 _MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "gate", "up", "down",
@@ -168,6 +202,14 @@ _MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "gate", "up", "down",
                    "z_proj", "x_proj", "b_proj", "c_proj", "dt_proj",
                    "out_proj", "conv_x", "conv_x_b", "conv_b", "conv_b_b",
                    "conv_c", "conv_c_b")
+
+
+def _cast_tree(tree: dict, dt: torch.dtype) -> dict:
+    """A block's dict with its matmul weights (`_MATMUL_WEIGHTS`, at any
+    depth) in dtype `dt`; every other tensor shared."""
+    return {k: (_cast_tree(v, dt) if isinstance(v, dict)
+                else v.to(dt) if k in _MATMUL_WEIGHTS else v)
+            for k, v in tree.items()}
 
 
 def cast_blocks(cfg: ModelConfig, params: dict) -> dict:
@@ -179,20 +221,17 @@ def cast_blocks(cfg: ModelConfig, params: dict) -> dict:
     fp32, as the reference reads them. Shares every other tensor with
     `params`."""
     dt = torch_dtype(cfg)
-
-    def cast(tree):
-        return {k: (cast(v) if isinstance(v, dict)
-                    else v.to(dt) if k in _MATMUL_WEIGHTS else v)
-                for k, v in tree.items()}
-
-    out = {**params, "blocks": [cast(bp) for bp in params["blocks"]]}
+    out = {**params,
+           "blocks": [_cast_tree(bp, dt) for bp in params["blocks"]]}
     if "shared_attn" in params:
-        out["shared_attn"] = cast(params["shared_attn"])
+        out["shared_attn"] = _cast_tree(params["shared_attn"], dt)
     if "cross_blocks" in params:
-        out["cross_blocks"] = [cast(cb) for cb in params["cross_blocks"]]
+        out["cross_blocks"] = [_cast_tree(cb, dt)
+                               for cb in params["cross_blocks"]]
     if "encoder" in params:
         enc = params["encoder"]
-        out["encoder"] = {**enc, "blocks": [cast(bp) for bp in enc["blocks"]]}
+        out["encoder"] = {**enc, "blocks": [_cast_tree(bp, dt)
+                                            for bp in enc["blocks"]]}
     return out
 
 

@@ -83,6 +83,11 @@ Departures:
     then has the batched run's shapes, so a GEMM library cannot pick
     another algorithm for another row count and change a row's rounding;
   - `device=None` means the card, and the engine raises without one;
+    without params it builds them through `models.init_serving_params`
+    (each block cast to the compute dtype as it is drawn: bitwise the
+    fp32 tree's cast, without holding both), and `from_checkpoint`
+    restores each block leaf into the compute dtype, cast on the device;
+    `build_seconds` keeps the load's and the head state's host seconds;
   - the engine shares the params tensors it is given (block weights in
     the compute dtype are cast copies): a train step updates params in
     place (`launch/steps.py`), so a caller that trains on after handing
@@ -116,7 +121,8 @@ from repro_torch.index.build import MultiIndex
 from repro_torch.index.quantized import (QuantHeadState, resolve_table_dtype,
                                          storage_dtype)
 from repro_torch.models import (cast_blocks, chunk_prefill_step, heads,
-                                init_paged_state, init_params, logits_full,
+                                init_paged_state, init_params,
+                                init_serving_params, logits_full,
                                 paged_decode_step, params_to, prefill,
                                 reset_slot, write_prefill)
 from repro_torch.models.model import torch_dtype
@@ -228,9 +234,12 @@ class Engine:
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        t0 = time.perf_counter()
         if params is None:
-            params = init_params(cfg, gen, device=self.device)
+            params = init_serving_params(cfg, gen, device=self.device)
         self.params = cast_blocks(cfg, params_to(params, self.device))
+        self._sync()
+        t1 = time.perf_counter()
         self.index = index
         # rebuild_index() replays the generator from here: unchanged params
         # rebuild the boot head state bit for bit
@@ -241,6 +250,11 @@ class Engine:
         elif self.proposal is not None and self.index is None:
             self.index = heads.init_proposal_state(cfg, self.params, gen,
                                                    self.proposal)
+        self._sync()
+        # host seconds of the weights' load (or move and cast) and of the
+        # head state's build, each ending in a sync of the device
+        self.build_seconds = {"params": t1 - t0,
+                              "index": time.perf_counter() - t1}
         self.pool = PagePool(sv.resolved_num_pages, sv.page_size,
                              sv.pages_per_slot, sv.max_slots)
         self.cache = PrefixCache(self.pool) if sv.prefix_cache else None
@@ -266,6 +280,10 @@ class Engine:
         # moved by each wave)
         self._hdraft = torch.zeros((sv.max_slots, cfg.d_model),
                                    dtype=torch_dtype(cfg), device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ sampling
     def _sample(self, hidden: torch.Tensor, keys: torch.Tensor, *,
@@ -641,8 +659,11 @@ class Engine:
         proposals_registry.validate_mode(head)
         device = resolve_device(kw.get("device"))
         # restore targets: only their structure and dtypes are read, so
-        # they are built on the meta device
-        like_p = init_params(cfg, torch.Generator(), device="meta")
+        # they are built on the meta device; the block matmul weights take
+        # the compute dtype, so each block leaf is cast on the device as it
+        # is restored and its fp32 copy freed before the next one
+        like_p = cast_blocks(cfg, init_params(cfg, torch.Generator(),
+                                              device="meta"))
         if head in ("midx", "full"):
             f32, i64 = torch.float32, torch.int64
             like_i = MultiIndex(cfg.head.quantizer, *(

@@ -1,13 +1,45 @@
-"""Serving latency and training guardrail metrics.
+"""Ranking, serving-latency and training guardrail metrics (paper
+§6.3–6.4).
 
-Mirrors `src/repro/utils/metrics.py`: `percentiles` (:37),
-`latency_summary` (:45), `refresh_summary` (:93) and `guardrail_summary`
-(:123) only — the ranking, load-test and speculative summaries arrive with
-the slices that need them.
+A copy of `src/repro/utils/metrics.py`, numpy only (the reference module
+imports jax): `rank_of_target` (:8), `recall_at_k` (:14), `ndcg_at_k`
+(:18), `precision_at_k` (:24), `perplexity` (:33), `percentiles` (:37),
+`latency_summary` (:45), `serving_load_summary` (:59),
+`spec_decode_summary` (:85), `refresh_summary` (:93) and
+`guardrail_summary` (:123).
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def rank_of_target(scores: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """scores [B, N]; targets [B] -> 0-based rank of the target per row."""
+    t_score = np.take_along_axis(scores, targets[:, None], axis=1)
+    return (scores > t_score).sum(axis=1)
+
+
+def recall_at_k(scores: np.ndarray, targets: np.ndarray, k: int) -> float:
+    return float((rank_of_target(scores, targets) < k).mean())
+
+
+def ndcg_at_k(scores: np.ndarray, targets: np.ndarray, k: int) -> float:
+    ranks = rank_of_target(scores, targets)
+    gains = np.where(ranks < k, 1.0 / np.log2(ranks + 2.0), 0.0)
+    return float(gains.mean())
+
+
+def precision_at_k(scores: np.ndarray, label_sets: list[set[int]],
+                   k: int) -> float:
+    """Multi-label P@k: fraction of the top-k that are true labels."""
+    topk = np.argsort(-scores, axis=1)[:, :k]
+    hits = [len(set(row.tolist()) & labels) / k
+            for row, labels in zip(topk, label_sets)]
+    return float(np.mean(hits))
+
+
+def perplexity(mean_ce: float) -> float:
+    return float(np.exp(mean_ce))
 
 
 def percentiles(xs, qs=(50, 95, 99)) -> dict[int, float]:
@@ -27,6 +59,40 @@ def latency_summary(latencies_s, qs=(50, 95, 99),
     if counters:
         out.update({k: float(v) for k, v in counters.items()})
     return out
+
+
+def serving_load_summary(results, wall_s: float,
+                         deadline_ms: float | None = None) -> dict[str, float]:
+    """Open-loop load-test summary over a dict of engine `RequestResult`s
+    (DESIGN §13): admitted / shed / timeout split, token throughput, and
+    goodput — tokens that landed inside their request's latency budget
+    (all ok-status tokens when `deadline_ms` is None, since shed and
+    timed-out requests already fell out of the ok bucket)."""
+    rs = list(results.values())
+    ok = [r for r in rs if r.status == "ok"]
+    shed = sum(1 for r in rs if r.status == "shed")
+    timeout = sum(1 for r in rs if r.status == "timeout")
+    tokens = sum(len(r.tokens) for r in ok)
+    good = tokens
+    if deadline_ms is not None:
+        good = sum(
+            sum(1 for lat in r.latencies_s if lat * 1e3 <= deadline_ms)
+            for r in ok)
+    lats = [lat for r in ok for lat in r.latencies_s]
+    out = {"admitted": len(ok), "shed": shed, "timeouts": timeout,
+           "tokens": tokens,
+           "tok_s": tokens / max(wall_s, 1e-9),
+           "goodput_tok_s": good / max(wall_s, 1e-9)}
+    out.update(latency_summary(lats, qs=(50, 99)))
+    return out
+
+
+def spec_decode_summary(stats) -> dict[str, float]:
+    """Speculative-decoding report off an EngineStats (DESIGN §13)."""
+    return {"spec_waves": stats.spec_waves,
+            "spec_drafted": stats.spec_drafted,
+            "spec_accepted": stats.spec_accepted,
+            "accept_rate": stats.accept_rate()}
 
 
 def refresh_summary(events) -> dict[str, float]:
