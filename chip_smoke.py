@@ -337,6 +337,28 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      and `starcoder2-15b` at full width cut to 2 layers (Adam's moments at
      full depth exceed one card): 5 pooled steps of 4 x 256, every step
      finite, the shared CE pair launched;
+ 22. the unfused head route (after phase 21; `fused=False`,
+     `HeadConfig.use_fused_head=False`, `--fused-head off`): (a) one
+     step's draws at full width fed to both routes (paper-lm per-token,
+     M=20, fp32 and int8 states, 16 x 64; llama3.2-1b per-token, M=64, and
+     pooled and mixture, M=1024, bf16 table, 4 x 256): the kernel's
+     per-token tables within 1e-5·max(1, |x|) of `twostage_tables`, the
+     draws then pinned (ids, log q a leaf) and the fused route's loss, dh,
+     d(table) and d log q within the sampled CEs' holds of the unfused
+     route's (a bf16 d(table) also within two bf16 roundings of its
+     largest entry), the unfused route launching no head kernel; (b)
+     paper-lm through `launch.train.main`, 120 steps of 16 x 64 at lr
+     3e-3, `--fused-head off` then `on`, each CE dropping by > 0.1, and
+     llama3.2-1b pooled 20 steps of 4 x 256 each way, each CE falling:
+     step time, peak memory, the head kernels' launches (none unfused);
+     (c) paper-lm and llama3.2-1b served (4 slots, 8 x 32) with
+     use_fused_head False (batched == solo on 2, no midx_probs launch) and
+     True on the same weights; (d) the unfused route's forward and forward
+     + backward timed at the five head kernels' phase-3 shapes and inputs
+     (and the fused route's forward + backward through its autograd op)
+     beside the kernels' times and bounds; (e) the examples:
+     `quickstart`, `serve_decode`, `train_lm_midx --full-width --steps 20`
+     with `--head midx` and `--head full`;
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -5579,6 +5601,445 @@ def dp_phases(get_config, midx_cuda, sce_cuda, corpus, want_bf16,
     return out
 
 
+# --------------------------------------------- the unfused head route (22)
+BF16_ULP = 2.0 ** -7           # a bf16 gradient's rounding, relative
+P22_CASES = (                  # label, arch, head overrides, B, S, table
+    ("paper-lm per-token", "paper-lm", {}, 16, 64, torch.float32),
+    ("paper-lm per-token int8", "paper-lm", {"table_dtype": "int8"}, 16,
+     64, torch.float32),
+    ("llama3.2-1b per-token", "llama3.2-1b",
+     {"proposal": "per_token", "num_negatives": 64}, 4, 256, torch.bfloat16),
+    ("llama3.2-1b pooled", "llama3.2-1b", {}, 4, 256, torch.bfloat16),
+    ("llama3.2-1b mixture", "llama3.2-1b", {"proposal": "mixture"}, 4, 256,
+     torch.bfloat16))
+P22_SAMPLERS = {"per_token": "sample_twostage", "pooled": "sample_pooled",
+                "mixture": "sample_mixture"}
+
+
+def head_counters(midx_cuda, sce_cuda) -> dict:
+    return {"midx_probs": midx_cuda.midx_probs_cuda,
+            "sampled_ce_pt": sce_cuda.sampled_ce_pt_cuda,
+            "sampled_ce_pt_bwd": sce_cuda.sampled_ce_pt_bwd_cuda,
+            "sampled_ce": sce_cuda.sampled_ce_cuda,
+            "sampled_ce_bwd": sce_cuda.sampled_ce_bwd_cuda}
+
+
+def head_launches(counters: dict) -> dict:
+    return {k: c.launches for k, c in counters.items()}
+
+
+def route_tables(qs, fused: bool):
+    """The per-token proposal tables of a route (`heads.route_tables_fn`,
+    whose unfused hook over a bf16 table is the sampler's default,
+    `core.midx.twostage_tables`)."""
+    from repro_torch.core import midx as midx_mod
+    from repro_torch.models import heads
+    return heads.route_tables_fn(qs, fused) or midx_mod.twostage_tables
+
+
+def hold_routes(label: str, got, want, bf16_table: bool) -> dict:
+    """The fused route's (loss, dh, dtab, dlq) against the unfused route's,
+    each within `sce_limit`; a bf16 table's gradient within that plus two
+    bf16 roundings of its largest entry (the kernel rounds its fp32
+    d(table) to bf16 once; the unfused route's positive and negative
+    gathers each round theirs, and autograd adds the two in bf16). Returns
+    each output's max error."""
+    out = {}
+    for name, a, b in zip(("loss", "dh", "dtab", "dlq"), got, want):
+        a, b = a.float(), b.float()
+        lim = sce_limit(b)
+        if name == "dtab" and bf16_table:
+            lim = lim + 2 * BF16_ULP * float(b.abs().max())
+        err = (a - b).abs()
+        ratio = float((err / lim).max())
+        if a.shape != b.shape or not torch.isfinite(a).all() or ratio > 1.0:
+            raise SystemExit(f"22a {label}: the fused route's {name} "
+                             f"disagrees with the unfused route's: max err "
+                             f"{float(err.max()):.3e}, {ratio:.3f} of the "
+                             "limit")
+        out[name] = float(err.max())
+    return out
+
+
+def p22_same_draws(get_config, counters: dict, card: str) -> dict:
+    """22a: one training step's draws fed to both routes at full width.
+    The per-token tables of the kernel held to `twostage_tables` (or its
+    quantized twin) within 1e-5·max(1, |unfused|); the draws then pinned
+    (ids, and log q as a leaf) and the loss, dh, d(table) and d log q of
+    `loss_midx(fused=True)` held to `loss_midx(fused=False)`'s; the
+    unfused route launches no head kernel."""
+    from repro_torch.core import midx as midx_mod
+    from repro_torch.core import noise
+    from repro_torch.index.quantized import (QuantHeadState,
+                                             quantized_query_scores,
+                                             unwrap_index)
+    from repro_torch.models import heads
+    out, states = {}, {}
+    for label, arch, head, b, s, tdtype in P22_CASES:
+        cfg = get_config(arch).with_head(**head)
+        g = torch.Generator(device="cuda").manual_seed(22)
+        table = (0.05 * torch.randn((cfg.padded_vocab, cfg.d_model),
+                                    generator=g, device="cuda")).to(tdtype)
+        key = (arch, cfg.head.table_dtype)
+        if key not in states:
+            states[key] = (table, heads.init_head_state(
+                cfg, {"embed": table}, g))
+        table, state = states[key]
+        qs = state if isinstance(state, QuantHeadState) else None
+        idx = unwrap_index(state)
+        h = 0.5 * torch.randn((b, s, cfg.d_model), generator=g,
+                              device="cuda")
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                               device="cuda")
+        keys = noise.train_keys(0, 1, b * s, device="cuda")
+        m, proposal = cfg.head.num_negatives, cfg.head.proposal
+        res = {"shape": f"B={b} S={s} M={m} D={cfg.d_model} "
+                        f"V={cfg.vocab_size} {proposal} "
+                        f"{cfg.head.table_dtype}/{str(tdtype)[6:]}"}
+        z = h.reshape(b * s, -1)
+        if proposal == "per_token":
+            worst = 0.0
+            for name, a, c in zip(("s1", "s2", "log_psi", "lse"),
+                                  route_tables(qs, True)(idx, z),
+                                  route_tables(qs, False)(idx, z)):
+                err = (a - c).abs()
+                ratio = float((err / (1e-5 * c.abs().clamp(min=1))).max())
+                if ratio > 1.0 or not torch.isfinite(a).all():
+                    raise SystemExit(f"22a {label}: the kernel's {name} "
+                                     f"disagrees with twostage_tables: "
+                                     f"{ratio:.3f} of the limit")
+                worst = max(worst, float(err.max()))
+            res["tables_max_abs_err"] = worst
+            draw = midx_mod.sample_twostage(idx, z, m, keys,
+                                            tables_fn=route_tables(qs, True))
+        else:
+            sampler = getattr(midx_mod, P22_SAMPLERS[proposal])
+            sf = None if qs is None else (
+                lambda i, zz: quantized_query_scores(
+                    i.kind, qs.qcb1, qs.qcb1_scale, qs.qcb2, qs.qcb2_scale,
+                    zz))
+            draw = sampler(idx, h, m, noise.sequence_keys(keys, s),
+                           scores_fn=sf)
+        lq = draw.log_q.detach().clone().requires_grad_(True)
+        name = P22_SAMPLERS[proposal]
+        real = getattr(midx_mod, name)
+        setattr(midx_mod, name,
+                lambda *a, **kw: midx_mod.Draw(draw.ids, lq))
+        try:
+            got = {}
+            for fused in (True, False):
+                zero_counts(counters.values())
+                hh = h.clone().requires_grad_(True)
+                tab = table.clone().requires_grad_(True)
+                loss = heads.loss_midx(cfg, {"embed": tab}, state, hh,
+                                       labels, keys, fused=fused)
+                grads = torch.autograd.grad(loss, (hh, tab, lq))
+                torch.cuda.synchronize()
+                got[fused] = ((loss.detach(),) + grads,
+                              head_launches(counters))
+        finally:
+            setattr(midx_mod, name, real)
+        res["max_abs_err"] = hold_routes(label, got[True][0], got[False][0],
+                                         tdtype == torch.bfloat16)
+        res["loss"] = [float(got[f][0][0]) for f in (True, False)]
+        res["launches_fused"], res["launches_unfused"] = got[True][1], \
+            got[False][1]
+        if any(got[False][1].values()) or not any(got[True][1].values()):
+            raise SystemExit(f"22a {label}: launches fused {got[True][1]}, "
+                             f"unfused {got[False][1]}")
+        out[label] = res
+        log(f"[smoke] 22a {label} ({res['shape']}): fused loss "
+            f"{res['loss'][0]:.6f}, unfused {res['loss'][1]:.6f}; max err "
+            f"{json.dumps(res['max_abs_err'])}"
+            + (f"; tables max err {res['tables_max_abs_err']:.3e}"
+               if "tables_max_abs_err" in res else "")
+            + f"; launches fused {res['launches_fused']}, unfused none; on "
+            f"{card}")
+        del got, table, state
+    return out
+
+
+def cli_train(argv: list, counters: dict) -> dict:
+    """`launch.train.main(argv)` on the card with the counters set to 0
+    just before; each step's CE and `step_s` read through train_loop's
+    on_metrics. Every step finite and applied."""
+    from repro_torch.launch import train as train_mod
+    seen, loop = [], train_mod.train_loop
+
+    def metered(cfg, **kw):
+        return loop(cfg, on_metrics=lambda step, m: seen.append(
+            (float(m["ce"]), m["step_s"], float(m["skipped"]))), **kw)
+
+    zero_counts(counters.values())
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.train_loop = metered
+    try:
+        train_mod.main(argv)
+    finally:
+        train_mod.train_loop = loop
+    torch.cuda.synchronize()
+    ce = [x[0] for x in seen]
+    if any(x[2] for x in seen) or not np.all(np.isfinite(ce)):
+        raise SystemExit(f"22b {' '.join(argv)}: a step was skipped or "
+                         "non-finite")
+    return {"step0": ce[0], "first5": float(np.mean(ce[:5])),
+            "last5": float(np.mean(ce[-5:])),
+            "median_step_ms": statistics.median(x[1] for x in seen[1:]) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": head_launches(counters), "steps": len(seen)}
+
+
+def p22_training(get_config, counters: dict, corpus, card: str) -> dict:
+    """22b: paper-lm through the train CLI, 120 steps of 16 x 64 at lr
+    3e-3, `--fused-head off` then `on`: the CE must drop by > 0.1 on both;
+    llama3.2-1b pooled at full width, 20 steps of 4 x 256 each way
+    (`train_loop(fused_head=...)`): the CE must fall. The unfused runs
+    launch no head kernel, the fused runs theirs."""
+    out = {}
+    argv = ["--arch", "paper-lm", "--steps", "120", "--batch", "16", "--seq",
+            "64", "--lr", "3e-3", "--fused-head"]
+    for route in ("off", "on"):
+        r = out[f"paper-lm {route}"] = cli_train(argv + [route], counters)
+        if not r["last5"] < r["first5"] - 0.1 or r["steps"] != 120:
+            raise SystemExit(f"22b paper-lm --fused-head {route}: the CE "
+                             f"did not drop by > 0.1 ({r})")
+    b, s, _, _ = SHAPE
+    llama = get_config("llama3.2-1b")
+    for route, fused in (("off", False), ("on", True)):
+        _, _, n, summ = train(llama, tuple(counters.values()), (),
+                              steps=20, batch=b, seq=s, lr=LLAMA_LR,
+                              corpus=corpus, check_drop=False,
+                              fused_head=fused)
+        if not summ["last5"] < summ["first5"]:
+            raise SystemExit(f"22b llama3.2-1b pooled fused_head={fused}: "
+                             f"the CE did not fall ({summ['first5']:.4f} -> "
+                             f"{summ['last5']:.4f})")
+        out[f"llama3.2-1b pooled {route}"] = {
+            k: summ[k] for k in ("first5", "last5", "median_step_ms",
+                                 "peak_gib")} | {
+            "step0": summ["ce"][0], "launches": dict(zip(counters, n)),
+            "steps": 20}
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        fused = name.endswith(" on")
+        kernels = (("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+                   if name.startswith("paper") else
+                   ("sampled_ce", "sampled_ce_bwd"))
+        if (not fused and any(r["launches"].values())) or (
+                fused and min(r["launches"][k] for k in kernels) <= 0):
+            raise SystemExit(f"22b {name}: head kernel launches "
+                             f"{r['launches']}")
+        log(f"[smoke] 22b {name}: CE step 0 {r['step0']:.6f}, first-5 "
+            f"{r['first5']:.4f} -> last-5 "
+            f"{r['last5']:.4f}, median step {r['median_step_ms']:.2f} ms, "
+            f"peak {r['peak_gib']:.3f} GiB, launches {r['launches']}; on "
+            f"{card}")
+    return out
+
+
+def p22_serving(get_config, midx_cuda, card: str) -> dict:
+    """22c: paper-lm and llama3.2-1b at full width served on 4 slots, 8
+    requests x 32 tokens, with use_fused_head False (batched == solo on 2,
+    no midx_probs launch) and then True on the same weights and index
+    (midx_probs launched); the routes' tokens compared."""
+    out = {}
+    for arch, prompt, max_seq in (("paper-lm", 8, 48),
+                                  ("llama3.2-1b", 64, 112)):
+        cfg = get_config(arch).with_serve(max_slots=4, page_size=16,
+                                          max_seq=max_seq)
+        eng, s_off, n_off = serve(cfg.with_head(use_fused_head=False),
+                                  head="midx", requests=8, prompt=prompt,
+                                  tokens=32, verify=2,
+                                  counter=midx_cuda.midx_probs_cuda)
+        toks = {r: v.tokens.copy() for r, v in eng._results.items()}
+        eng2, s_on, n_on = serve(cfg, head="midx", requests=8, prompt=prompt,
+                                 tokens=32, verify=0, params=eng.params,
+                                 index=eng.index,
+                                 counter=midx_cuda.midx_probs_cuda)
+        if n_off != 0 or n_on <= 0:
+            raise SystemExit(f"22c {arch}: midx_probs launches unfused "
+                             f"{n_off}, fused {n_on}")
+        same = sum(int(np.array_equal(toks[r], v.tokens))
+                   for r, v in eng2._results.items())
+        out[arch] = {"off": {k: s_off[k] for k in ("p50_ms", "p99_ms",
+                                                   "tok_s", "peak_gib")},
+                     "on": {k: s_on[k] for k in ("p50_ms", "p99_ms",
+                                                 "tok_s", "peak_gib")},
+                     "requests_with_equal_tokens": same,
+                     "midx_probs_on": n_on}
+        log(f"[smoke] 22c {arch}: unfused p50 {s_off['p50_ms']} ms p99 "
+            f"{s_off['p99_ms']} ms, fused p50 {s_on['p50_ms']} ms p99 "
+            f"{s_on['p99_ms']} ms; {same} of 8 requests' tokens equal "
+            f"across the routes; midx_probs launches unfused 0, fused "
+            f"{n_on}; on {card}")
+        del eng, eng2
+        torch.cuda.empty_cache()
+    return out
+
+
+def tables_index(cb1, cb2, counts, split: bool):
+    """A MultiIndex with the fields the proposal tables read (the CSR
+    fields empty)."""
+    from repro_torch.index.build import MultiIndex
+    e = torch.empty(0, dtype=torch.long, device="cuda")
+    return MultiIndex("pq" if split else "rq", cb1, cb2, e, e, e, e, e,
+                      counts.long(), torch.log(counts))
+
+
+def grad_of(fn, leaves, cot):
+    return lambda: torch.autograd.grad(fn(*leaves), leaves, cot)
+
+
+def p22_yardstick(timings, sce_timings, shared_timings, buf,
+                  card: str) -> dict:
+    """22d: the unfused route's forward and forward + backward at the
+    phase-3 shapes and inputs of the five head kernels, timed by
+    `time_ms` beside the kernel's time (phase 3) and bound, and the fused
+    route's forward + backward through its autograd op; no kernel runs in
+    an unfused timing (the counters are read around them)."""
+    from repro_torch.core import midx as midx_mod
+    from repro_torch.kernels.midx_probs.ops import proposal_tables
+    from repro_torch.kernels.sampled_ce.ops import (sampled_ce_op,
+                                                    sampled_ce_pt_op)
+    from repro_torch.models import heads
+    from repro_torch.configs import get_config
+    cfg = get_config("paper-lm")              # collisions masked
+    out = {"midx_probs": {}, "sampled_ce_pt": {}, "sampled_ce": {}}
+
+    def row(kind, name, fwd, unf_fb, fused_fb, kernel, bound):
+        ms = {"fwd_ms": time_ms(fwd, buf),
+              "fwd_bwd_ms": time_ms(unf_fb, buf),
+              "fused_fwd_bwd_ms": time_ms(fused_fb, buf),
+              "kernel_ms": kernel, "bound_ms": bound}
+        out[kind][name] = ms
+        log(f"[smoke] 22d {kind} {name}: unfused fwd {ms['fwd_ms']:.4f} ms, "
+            f"fwd+bwd {ms['fwd_bwd_ms']:.4f} ms; kernel {json.dumps(kernel)}"
+            f", fused route fwd+bwd {ms['fused_fwd_bwd_ms']:.4f} ms; bound "
+            f"{json.dumps(bound)}; on {card}")
+
+    for name, (t, d, k, split) in (
+            ("llama3.2-1b decode", (4, 2048, 64, False)),
+            ("paper-lm train", (1024, 200, 32, False)),
+            ("mamba2-370m decode", (4, 1024, 64, False))):
+        z, cb1, cb2, counts = midx_inputs(t, d, k, split, seed=1)
+        idx = tables_index(cb1, cb2, counts, split)
+        zl = z.clone().requires_grad_(True)
+        cot = [torch.randn_like(x) for x in midx_mod.twostage_tables(idx, z)]
+        row("midx_probs", name, lambda: midx_mod.twostage_tables(idx, z),
+            grad_of(lambda zz: midx_mod.twostage_tables(idx, zz), [zl], cot),
+            grad_of(lambda zz: proposal_tables(idx, zz), [zl], cot),
+            {"fwd": timings[name][0]}, {"fwd": timings[name][2]})
+    for name, (t, d, m, v, dtype), hot in SCE_PT_TIMED:
+        if hot:
+            continue
+        h, tab, lq, neg, pos, g = sce_inputs(t, d, m, v, dtype, seed=1)
+        leaves = [x.clone().requires_grad_(True) for x in (h, tab, lq)]
+        row("sampled_ce_pt", name,
+            lambda: heads.sampled_ce_unfused(cfg, h, tab, None, lq, neg, pos),
+            grad_of(lambda a, b_, c: heads.sampled_ce_unfused(
+                cfg, a, b_, None, c, neg, pos), leaves, g),
+            grad_of(lambda a, b_, c: sampled_ce_pt_op(a, b_, c, neg, pos),
+                    leaves, g),
+            {"fwd": sce_timings[name]["fwd"][0],
+             "bwd": sce_timings[name]["bwd"][0]},
+            {"fwd": sce_timings[name]["fwd"][2],
+             "bwd": sce_timings[name]["bwd"][2]})
+        del h, tab, leaves
+    for label, ((b, s, m, d), v) in SHARED_TRAIN.items():
+        h, pe, ne, lq, neg, pos, g = shared_inputs(b, s, m, d, v,
+                                                   torch.float32, seed=1)
+        leaves = [x.clone().requires_grad_(True) for x in (h, pe, ne, lq)]
+        row("sampled_ce", label,
+            lambda: heads.sampled_ce_rows(cfg, h, pe, ne, lq, neg, pos),
+            grad_of(lambda a, b_, c, e: heads.sampled_ce_rows(
+                cfg, a, b_, c, e, neg, pos), leaves, g),
+            grad_of(lambda a, b_, c, e: sampled_ce_op(a, b_, c, e, neg, pos),
+                    leaves, g),
+            {"fwd": shared_timings[label]["fwd"][0],
+             "bwd": shared_timings[label]["bwd"][0]},
+            {"fwd": shared_timings[label]["fwd"][2],
+             "bwd": shared_timings[label]["bwd"][2]})
+        del h, pe, ne, leaves
+    return out
+
+
+def p22_examples(counters: dict, card: str) -> dict:
+    """22e: the three examples on the card (their default device):
+    quickstart (Theorem 2's error <= 1e-5, KL(MIDX‖P) < KL(uniform‖P)),
+    serve_decode (both heads' summaries) and `train_lm_midx --full-width
+    --steps 20` with `--head midx` (the per-token kernels launched) and
+    `--head full`, every loss finite."""
+    from repro_torch.examples import quickstart, serve_decode, train_lm_midx
+    out = {}
+    t0 = time.perf_counter()
+    q = quickstart.main([])
+    if not (q["theorem2_err"] <= 1e-5 and q["kl_midx"] < q["kl_uniform"]):
+        raise SystemExit(f"22e quickstart: {q}")
+    out["quickstart"] = q | {"seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    sd = serve_decode.main([])
+    if set(sd) != {"full", "midx"} or any(x["generated"] != 192
+                                          for x in sd.values()):
+        raise SystemExit(f"22e serve_decode: {sd}")
+    out["serve_decode"] = sd | {"seconds": time.perf_counter() - t0}
+    for head in ("midx", "full"):
+        zero_counts(counters.values())
+        t0 = time.perf_counter()
+        r = train_lm_midx.main(["--full-width", "--steps", "20", "--head",
+                                head])
+        torch.cuda.synchronize()
+        n = head_launches(counters)
+        if not r["finite"] or (head == "midx" and min(
+                n[k] for k in ("midx_probs", "sampled_ce_pt",
+                               "sampled_ce_pt_bwd")) <= 0):
+            raise SystemExit(f"22e train_lm_midx --head {head}: {r}, {n}")
+        hist = r["hist"]
+        out[f"train_lm_midx {head}"] = {
+            "first5": float(np.mean(hist[:5])),
+            "last5": float(np.mean(hist[-5:])), "launches": n,
+            "seconds": time.perf_counter() - t0,
+            "layers": r["layers"], "vocab": r["vocab"]}
+    log(f"[smoke] 22e examples: {json.dumps(out)}; on {card}")
+    return out
+
+
+def unfused_phases(get_config, midx_cuda, sce_cuda, corpus, timings,
+                   sce_timings, shared_timings, card: str) -> dict:
+    """Phase 22: the unfused head route (22a-e)."""
+    t0 = time.perf_counter()
+    counters = head_counters(midx_cuda, sce_cuda)
+    out = {"same_draws": p22_same_draws(get_config, counters, card)}
+    torch.cuda.empty_cache()
+    out["training"] = p22_training(get_config, counters, corpus, card)
+    out["serving"] = p22_serving(get_config, midx_cuda, card)
+    buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    out["yardstick"] = p22_yardstick(timings, sce_timings, shared_timings,
+                                     buf, card)
+    del buf
+    torch.cuda.empty_cache()
+    out["examples"] = p22_examples(counters, card)
+    launches = {k: {} for k in counters}
+    for name, r in out["training"].items():
+        if name.endswith(" on"):
+            for k, n in r["launches"].items():
+                if n:
+                    launches[k][f"22b {name}"] = n
+    for label, r in out["same_draws"].items():
+        for k, n in r["launches_fused"].items():
+            if n:
+                launches[k][f"22a {label}"] = n
+    for arch, r in out["serving"].items():
+        launches["midx_probs"][f"22c {arch} fused serve"] = r["midx_probs_on"]
+    for k, n in out["examples"]["train_lm_midx midx"]["launches"].items():
+        if n:
+            launches[k]["22e train_lm_midx --head midx"] = n
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] phase 22 (the unfused head route) took "
+        f"{out['seconds']:.1f}s on {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -5844,7 +6305,7 @@ def main() -> None:
     p20 = dp_phases(get_config, midx_cuda, sce_cuda, corpus, tokens6_full,
                     card)
     f20 = p20.pop("launches")
-    del corpus, long_corpus
+    del long_corpus
     mark("data-parallel training and the sequence-sharded decode (phase 20)")
     n_mamba = mamba_phases(get_config, ssd_cuda.ssd_scan_cuda, midx_cuda,
                            sce_cuda, args.profile, card)
@@ -5859,6 +6320,11 @@ def main() -> None:
                        flash_cuda, flash_fwd_ref, card)
     f21, h21 = p21.pop("launches"), p21.pop("holds")
     mark("the large configurations whole (phase 21)")
+    p22 = unfused_phases(get_config, midx_cuda, sce_cuda, corpus, timings,
+                         sce_timings, shared_timings, card)
+    f22, u22 = p22.pop("launches"), p22["yardstick"]
+    del corpus
+    mark("the unfused head route (phase 22)")
     for name, n in (("llama3.2-1b serve", n_rff_llama),
                     ("paper-lm train", n_rff_train[0]),
                     ("trained paper-lm serve", n_rff_trained)):
@@ -5892,7 +6358,8 @@ def main() -> None:
         "18a trained midx-learnable serve": p18["paper"]["serve_midx_probs"],
         "18b llama3.2-1b midx-learnable serve": learn["midx_probs serve"],
         "18c contender draws": p18["draw_launches"]["midx_probs"],
-        **f19["midx_probs"], **f20["midx_probs"], **f21["midx_probs"]}
+        **f19["midx_probs"], **f20["midx_probs"], **f21["midx_probs"],
+        **f22["midx_probs"]}
     rows = [{
         "name": "midx_probs", "route": "cuda",
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
@@ -5911,21 +6378,23 @@ def main() -> None:
                    "launches": n_mamba["midx_probs"],
                    **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
                               timings["mamba2-370m decode"]))},
-        "phase21_shapes": h21["midx_probs"]}]
+        "phase21_shapes": h21["midx_probs"],
+        "unfused": u22["midx_probs"]}]
     for kname, kind, line, n in (
             ("sampled_ce_pt", "fwd", 74, n_train[1]),
             ("sampled_ce_pt_bwd", "bwd", 217, n_train[2])):
         ms, plain, bound, by = sce_timings["paper-lm train"][kind]
         by_path = {"paper-lm train": n,
                    "18a paper-lm midx-learnable train":
-                       p18["paper"]["launches"][kname], **f20[kname]}
+                       p18["paper"]["launches"][kname], **f20[kname],
+                   **f22[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/per_token.py:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": sce_worst[kind], "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "unfused": u22["sampled_ce_pt"],
             "shape": "paper-lm train T=1024 D=200 M=20 V=10000 fp32"})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     rows[-2]["other_shapes"] = [
@@ -5950,7 +6419,7 @@ def main() -> None:
         by_path = {"llama3.2-1b train": n_shared[i], "train_4k": n_4k[1 + i],
                    "mamba2-370m train": n_mamba[kname],
                    "18b llama3.2-1b midx-learnable train": learn[kname],
-                   **f19[kname], **f20[kname], **f21[kname]}
+                   **f19[kname], **f20[kname], **f21[kname], **f22[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
@@ -5958,7 +6427,7 @@ def main() -> None:
             "max_abs_err": max([shared_worst[kind]] + [
                 r["max_abs_err"] for r in h21[kname]]), "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "unfused": u22["sampled_ce"],
             "shape": "llama3.2-1b train B=4 S=256 M=1024 D=2048 fp32 rows",
             "phase21_shapes": h21[kname],
             "other_shapes": [
@@ -6056,6 +6525,8 @@ def main() -> None:
         f"(phase 20): {json.dumps(p20)}; on {card}")
     log(f"[smoke] the large configurations whole (phase 21): "
         f"{json.dumps(p21)}; on {card}")
+    log(f"[smoke] the unfused head route (phase 22): {json.dumps(p22)}; on "
+        f"{card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 """Fast MIDX two-stage sampler (paper §4.3) and its closed-form log-prob.
 
 Mirrors `src/repro/core/midx.py`: `log_prob` (:59), `_member_uniform`
-(:51), `twostage_tables` (:110), `sample_twostage` (:127), and the
+(:51), `twostage_tables` (:110; `twostage_tables_q` its twin over a
+quantized state's codebooks), `sample_twostage` (:127), and the
 shared-negative samplers `_inverse_cdf_sample` (:168), `_shared_draw`
 (:177), `_joint_from_scores` (:191), `sample_pooled` (:201) and
 `sample_mixture` (:210), the exact Theorem-1 MIDX `exact_decomposition`
@@ -50,6 +51,9 @@ import torch
 from repro_torch.core import noise
 from repro_torch.index.build import MultiIndex
 from repro_torch.index.quantization import query_scores
+# a module reference: index.quantized imports core.noise, whose package
+# imports this module
+from repro_torch.index import quantized as quantized_mod
 
 
 class Draw(NamedTuple):
@@ -140,6 +144,15 @@ def categorical_draw(keys: torch.Tensor, log_p: torch.Tensor,
     return Draw(ids.reshape(*lead, m), log_q.reshape(*lead, m))
 
 
+def _tables_from_scores(index: MultiIndex, s1: torch.Tensor,
+                        s2: torch.Tensor):
+    c2 = torch.amax(s2, dim=-1, keepdim=True)
+    psi = torch.exp(s2 - c2) @ index.counts.T.float()
+    log_psi = torch.log(torch.clamp(psi, min=1e-30)) + c2
+    lse = torch.logsumexp(s1 + log_psi, dim=-1)
+    return s1, s2, log_psi, lse
+
+
 def twostage_tables(index: MultiIndex, z: torch.Tensor):
     """Proposal tables, plain torch ops:
       s1, s2 [..., K];  logψ[..., k1] = log Σ_k2 |Ω(k1,k2)| e^{s2[k2]}
@@ -147,11 +160,21 @@ def twostage_tables(index: MultiIndex, z: torch.Tensor):
     This is what the midx_probs kernel fuses."""
     s1, s2 = query_scores(index.kind, index.codebook1, index.codebook2,
                           z.float())
-    c2 = torch.amax(s2, dim=-1, keepdim=True)
-    psi = torch.exp(s2 - c2) @ index.counts.T.float()
-    log_psi = torch.log(torch.clamp(psi, min=1e-30)) + c2
-    lse = torch.logsumexp(s1 + log_psi, dim=-1)
-    return s1, s2, log_psi, lse
+    return _tables_from_scores(index, s1, s2)
+
+
+def twostage_tables_q(index: MultiIndex, qcb1: torch.Tensor,
+                      sc1: torch.Tensor, qcb2: torch.Tensor,
+                      sc2: torch.Tensor, z: torch.Tensor):
+    """`twostage_tables` over the low-bit codebooks qcb1 / qcb2 and their
+    [K, 1] fp32 scales (the reference's unfused quantized tables,
+    `kernels/midx_probs/ops.py:138-141`): the scores from
+    `quantized_query_scores`, the scales applied after the dot as the
+    midx_probs kernel's quantized mode applies them. Differentiable in z;
+    the low-bit codebooks take no gradient."""
+    s1, s2 = quantized_mod.quantized_query_scores(index.kind, qcb1, sc1,
+                                                  qcb2, sc2, z)
+    return _tables_from_scores(index, s1, s2)
 
 
 def sample_twostage(index: MultiIndex, z: torch.Tensor, m: int,

@@ -26,9 +26,11 @@ The stable sort of the CSR and the contiguous ownership make the global
 within-cluster order the concatenation of the local ones, so the draws
 are the replicated sampler's bit for bit.
 
-Loss. Each rank takes the partial lse of the negatives it owns (the
-partial modes of the sampled-CE kernels, or `partial_sampled_lse` for a
-head without collision masking) and the owner-masked positive logit; the
+Loss. Each rank takes the partial lse of the negatives it owns (on the
+fused route the partial modes of the sampled-CE kernels; on the unfused
+route, always taken by a head without collision masking, the gathered
+rows' logits and `partial_sampled_lse`) and the owner-masked positive
+logit; the
 merge (the pmax of the detached partials as the shift, a psum of the
 shifted exponentials) gives the loss on every rank, within fp
 reassociation of the replicated loss.
@@ -40,10 +42,10 @@ row gradients of the sharded table are local and complete. The
 reference gets there by taking every shard's cotangent and dividing
 (`launch/steps.py:321-329`); here no gradient needs a scale.
 
-Departures: the reference's `fused` / `interpret` switches are the
-device (the kernels on the card, their plain versions on the CPU), and,
-as in `models.heads.loss_midx`, a head without collision masking takes
-the plain lane (gathered rows and `partial_sampled_lse`).
+Departure: `fused` picks the route as in `models.heads.loss_midx`
+(the reference :244-300); there is no `interpret` switch, the fused
+route's wrappers running the kernels on the card and their plain
+versions on the CPU.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ from repro_torch.index.build import MultiIndex, _csr_from_assignments
 from repro_torch.index.quantized import (dequant_rows, quantize_rows,
                                          quantized_query_scores,
                                          resolve_table_dtype)
+from repro_torch.kernels.dispatch import fused_head_active
 from repro_torch.kernels.midx_probs.ops import (proposal_tables,
                                                 proposal_tables_q)
 from repro_torch.kernels.sampled_ce.ops import (sampled_ce_partial_op,
@@ -240,13 +243,14 @@ def _masked_mean(loss, mask):
 def loss_midx_vp(cfg, table_local: torch.Tensor, local_idx: MultiIndex,
                  hidden: torch.Tensor, labels: torch.Tensor,
                  keys: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
-                 group=None) -> torch.Tensor:
+                 group=None, fused: Optional[bool] = None) -> torch.Tensor:
     """This rank's MIDX sampled CE, merged across the vocab ranks: the same
     scalar on every rank, within 1e-5 of `heads.loss_midx` on the
-    replicated layout, loss and gradients, for the three proposals.
-    hidden [B,S,D] and labels [B,S] replicated; table_local [rows, D] this
-    rank's rows; local_idx its local view (`local_index`); keys [B·S] the
-    tokens' stream keys, the same on every rank.
+    replicated layout, loss and gradients, for the three proposals, on
+    either route (`fused`, as in `heads.loss_midx`). hidden [B,S,D] and
+    labels [B,S] replicated; table_local [rows, D] this rank's rows;
+    local_idx its local view (`local_index`); keys [B·S] the tokens'
+    stream keys, the same on every rank.
 
     cfg.head.table_dtype int8 / fp8: the rank quantizes its own rows in the
     step (per-row scales are row-local) and the replicated codebooks as
@@ -266,7 +270,7 @@ def loss_midx_vp(cfg, table_local: torch.Tensor, local_idx: MultiIndex,
         qcb2, scb2 = quantize_rows(local_idx.codebook2, fmt)
     prop = proposal_index(local_idx, group)
     member = make_member_fn(local_idx, prop.counts, group)
-    masked = cfg.head.mask_collisions
+    use_fused = fused_head_active(cfg.head, fused=fused)
 
     def gather(ids):
         if quantized:
@@ -283,17 +287,20 @@ def loss_midx_vp(cfg, table_local: torch.Tensor, local_idx: MultiIndex,
 
     if cfg.head.proposal == "per_token":
         z = h32.reshape(b * s, d)
-        tables_fn = proposal_tables
+        tables_fn = proposal_tables if use_fused else None
         if quantized:
+            tables_q = (proposal_tables_q if use_fused
+                        else midx_mod.twostage_tables_q)
+
             def tables_fn(idx, zz):
-                return proposal_tables_q(idx, qcb1, scb1, qcb2, scb2, zz)
+                return tables_q(idx, qcb1, scb1, qcb2, scb2, zz)
         draw = midx_mod.sample_twostage(prop, z, m, keys,
                                         tables_fn=tables_fn,
                                         member_fn=member)          # [T,M]
         lneg = draw.ids - shard * rows
         okn = (lneg >= 0) & (lneg < rows)
         lneg_c = torch.where(okn, lneg, torch.zeros_like(lneg))
-        if masked:
+        if use_fused:
             lq_m = torch.where(okn, draw.log_q,
                                draw.log_q.new_tensor(-NEG_INF))
             if quantized:
@@ -305,8 +312,9 @@ def loss_midx_vp(cfg, table_local: torch.Tensor, local_idx: MultiIndex,
                     z, table_local, lq_m, lneg_c, pid_local.reshape(-1), m)
         else:
             neg_logits = torch.einsum("td,tmd->tm", z, gather(lneg_c))
-            partial = partial_sampled_lse(neg_logits, draw.log_q, m,
-                                          mask_collisions=False, valid=okn)
+            partial = partial_sampled_lse(
+                neg_logits, draw.log_q, m, draw.ids, labels.reshape(-1),
+                cfg.head.mask_collisions, valid=okn)
         partial = partial.reshape(b, s)
     elif cfg.head.proposal in ("pooled", "mixture"):
         sampler = (midx_mod.sample_pooled if cfg.head.proposal == "pooled"
@@ -321,7 +329,7 @@ def loss_midx_vp(cfg, table_local: torch.Tensor, local_idx: MultiIndex,
         lneg = draw.ids - shard * rows
         okn = (lneg >= 0) & (lneg < rows)
         lneg_c = torch.where(okn, lneg, torch.zeros_like(lneg))
-        if masked:
+        if use_fused:
             lq_m = torch.where(okn, draw.log_q,
                                draw.log_q.new_tensor(-NEG_INF))
             neg_emb = F.embedding(lneg_c, table_local)            # [B,M,D]
@@ -335,8 +343,8 @@ def loss_midx_vp(cfg, table_local: torch.Tensor, local_idx: MultiIndex,
         else:
             neg_logits = torch.einsum("bsd,bmd->bsm", h32, gather(lneg_c))
             partial = partial_sampled_lse(
-                neg_logits, draw.log_q[:, None, :], m, mask_collisions=False,
-                valid=okn[:, None, :])
+                neg_logits, draw.log_q[:, None, :], m, draw.ids[:, None, :],
+                labels, cfg.head.mask_collisions, valid=okn[:, None, :])
     else:
         raise ValueError(f"unknown proposal {cfg.head.proposal!r}")
     return _masked_mean(merge_loss(pos_logit, partial, group), mask)

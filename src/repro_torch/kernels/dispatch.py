@@ -12,8 +12,15 @@ switches:
   - anything else -> an error.
 There is no fallback from a failed build or launch to the plain version,
 and no interpret mode.
+
+`fused_head_active` (reference :46-62) picks the MIDX head's route: the
+fused route calls the wrappers below (the kernels on the card, their
+plain versions on the CPU); the unfused route never calls them and runs
+the head's plain torch formulation on whatever device its tensors live.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,6 +32,21 @@ from repro_torch.kernels.sampled_ce.ref import (
     sampled_ce_partial_fwd_ref, sampled_ce_pt_bwd_ref, sampled_ce_pt_fwd_ref,
     sampled_ce_pt_partial_bwd_ref, sampled_ce_pt_partial_ref)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+
+def fused_head_active(head_cfg, *, fused: Optional[bool] = None) -> bool:
+    """Does the MIDX head take the fused route? A head without collision
+    masking never does (the kernels always mask collisions); else an
+    explicit `fused` wins; else `head_cfg.use_fused_head`. Departures: no
+    REPRO_FUSED_HEAD / REPRO_PALLAS_INTERPRET environment switches, and no
+    backend gate on `use_fused_head`, since every device the port runs on
+    has a fused route (the kernels on the card, their plain versions on
+    the CPU)."""
+    if not head_cfg.mask_collisions:
+        return False
+    if fused is not None:
+        return fused
+    return head_cfg.use_fused_head
 
 
 def _unsupported(name: str, x: torch.Tensor):

@@ -6,9 +6,11 @@ every registry contender, which route through `heads.loss_sampled`; `with_aux` a
 proposal's auxiliary loss, :112-121; the fault seam `_apply_fault` :33; an
 unknown `head.table_dtype` raises when the loss is built, :96),
 `make_train_step` (:129: the trainable branch :159-186, the other
-:188-202, both with the non-finite skip guard), the data-parallel family
-(DESIGN §4): `init_grad_transport_state` (:205), `make_sharded_train_step`
-(:218) and the data-sharded `make_refresh_step` (:518), and the
+:188-202, both with the non-finite skip guard), the head's route switch
+`fused_head` (:72-112, :133-155) on every step builder, the
+data-parallel family (DESIGN §4): `init_grad_transport_state` (:205),
+`make_sharded_train_step` (:218) and the data-sharded `make_refresh_step`
+(:518), and the
 vocab-parallel family (DESIGN §9): `make_vocab_parallel_train_step`
 (:305, with its data group, :369-408), `make_vocab_index_init` (:417) and
 `make_vocab_refresh_step` (:451, both refresh policies).
@@ -99,13 +101,15 @@ def resolve_proposal(cfg: ModelConfig, head_mode: Optional[str] = None):
 
 def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
                  window: Optional[int] = None,
+                 fused_head: Optional[bool] = None,
                  with_aux: bool = False) -> Callable:
     """loss(params, state, batch, keys) -> (loss, metrics). `state` is the
     MultiIndex for 'midx', ignored for 'full', and the proposal's state for
     a registry contender; batch holds int64 `tokens` and `labels` [B, S] on
     the params' device, and for vlm / audio `image_emb` [B, Ni, D] /
     `frames` [B, Senc, D]. The resolved Proposal (or None) is
-    `loss_fn.proposal`.
+    `loss_fn.proposal`. `fused_head` picks the MIDX head's route
+    (`heads.loss_midx`'s `fused`: None defers to cfg.head.use_fused_head).
 
     `with_aux=True` adds a trainable proposal's L_recon + L_KL objective
     (paper §6.2.3) to the loss, and its `prop_recon` / `prop_kl` to the
@@ -128,10 +132,11 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
                                      batch["labels"])
             elif mode == "midx":
                 ce = heads.loss_midx(cfg, params, state, out["hidden"],
-                                     batch["labels"], keys)
+                                     batch["labels"], keys, fused=fused_head)
             else:
                 ce = heads.loss_sampled(cfg, params, proposal, state,
-                                        out["hidden"], batch["labels"], keys)
+                                        out["hidden"], batch["labels"], keys,
+                                        fused=fused_head)
         loss = ce + cfg.router_aux_weight * out["aux_loss"]
         metrics = {"ce": ce, "aux": out["aux_loss"]}
         if include_aux:
@@ -162,7 +167,8 @@ def _map_trainable(fn, tr):
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                     head_mode: Optional[str] = None,
                     window: Optional[int] = None,
-                    clip_norm: float = 1.0) -> Callable:
+                    clip_norm: float = 1.0,
+                    fused_head: Optional[bool] = None) -> Callable:
     """step(params, opt_state, state, batch, keys) -> (params, opt_state,
     metrics), with `step.returns_state` False; params and the optimizer
     state are updated in place and come back as the same objects. A
@@ -178,9 +184,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     metrics['skipped'] is 1: a poisoned step never reaches the optimizer.
     The guard reads one flag on the host (a sync the train loop makes
     anyway to log the loss); the reference selects leafwise inside its
-    jitted step instead."""
+    jitted step instead. `fused_head` as in `make_loss_fn`."""
     loss_fn = make_loss_fn(cfg, head_mode=head_mode, window=window,
-                           with_aux=True)
+                           fused_head=fused_head, with_aux=True)
     proposal = loss_fn.proposal
 
     if proposal is not None and proposal.trainable:
@@ -289,7 +295,8 @@ def reduce_grads(grads, group, grad_transport: str, ef=None):
 
 def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, group,
                             *, grad_transport: str = "fp32",
-                            head_mode: Optional[str] = None) -> Callable:
+                            head_mode: Optional[str] = None,
+                            fused_head: Optional[bool] = None) -> Callable:
     """step(params, opt_state, state, batch, keys, ef) -> (params,
     opt_state, metrics, ef) on one rank of `group`'s data group (a
     `launch.mesh.RankGrid`): `batch` and `keys` are the rank's rows
@@ -305,9 +312,10 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, group,
     As in the reference (:249), the loss carries no trainable proposal's
     auxiliary loss and the head state is not returned: a midx-learnable
     head trains the params against its codebooks, which stay as they are
-    (the reference's data-parallel step threads no proposal state)."""
+    (the reference's data-parallel step threads no proposal state).
+    `fused_head` as in `make_loss_fn`."""
     check_grad_transport(grad_transport)
-    loss_fn = make_loss_fn(cfg, head_mode=head_mode)
+    loss_fn = make_loss_fn(cfg, head_mode=head_mode, fused_head=fused_head)
     pg = group.data_pg
 
     def train_step(params, opt_state, state, batch, keys, ef):
@@ -383,7 +391,8 @@ def make_refresh_step(cfg: ModelConfig, group=None) -> Callable:
 
 
 # ------------------------------------------------------------ vocab parallel
-def _vp_loss_fn(cfg: ModelConfig, pg, window: Optional[int]):
+def _vp_loss_fn(cfg: ModelConfig, pg, window: Optional[int],
+                fused_head: Optional[bool]):
     from repro_torch.dist import vocab_parallel as vp_mod
     from repro_torch.models.model import class_embeddings
 
@@ -395,7 +404,8 @@ def _vp_loss_fn(cfg: ModelConfig, pg, window: Optional[int]):
         with record_function("train.head"):
             ce = vp_mod.loss_midx_vp(cfg, class_embeddings(cfg, params),
                                      local_idx, out["hidden"],
-                                     batch["labels"], keys, group=pg)
+                                     batch["labels"], keys, group=pg,
+                                     fused=fused_head)
         loss = ce + cfg.router_aux_weight * out["aux_loss"]
         return _apply_fault(loss, batch), {"ce": ce, "aux": out["aux_loss"]}
 
@@ -404,7 +414,9 @@ def _vp_loss_fn(cfg: ModelConfig, pg, window: Optional[int]):
 
 def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
                                    group, *, window: Optional[int] = None,
-                                   clip_norm: float = 1.0) -> Callable:
+                                   clip_norm: float = 1.0,
+                                   fused_head: Optional[bool] = None
+                                   ) -> Callable:
     """step(params, opt_state, local_index, batch, keys) -> (params,
     opt_state, metrics) on one rank of `group` (a `launch.mesh.
     RankGrid`): params and opt state hold the rank's rows of the class
@@ -415,14 +427,15 @@ def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
     clip (reference :369-408). Parity contract
     (tests/test_torch_vocab_parallel.py, tests/test_torch_dp.py): loss,
     grad norm and every updated param within 1e-5 of `make_train_step` on
-    the replicated layout with the same keys."""
+    the replicated layout with the same keys, on either route
+    (`fused_head`, as in `make_loss_fn`)."""
     from repro_torch.dist.collectives import psum_no_grad
     from repro_torch.dist.sharding import vocab_param_names
 
     if (cfg.head.mode or "midx") != "midx":
         raise ValueError("vocab-parallel training requires the MIDX head")
     pg, data_pg = group.pg, group.data_pg
-    loss_fn = _vp_loss_fn(cfg, pg, window)
+    loss_fn = _vp_loss_fn(cfg, pg, window, fused_head)
 
     def train_step(params, opt_state, local_idx, batch, keys):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)

@@ -21,11 +21,14 @@ the CLI (`main` :348, `_parse_chaos` :438) with the flags --arch --steps
 --refresh-lag --ckpt --chaos --chaos-seed --seed --table-dtype (bf16, or
 the quantized head's int8 / fp8: the low-bit class table, codebooks and
 residual codes, DESIGN §12), --head taking every `proposal_modes()` entry,
-and --fused-head (the reference's `:374`): `auto` and `on` run the port's
-one route, its hand-written kernels on the card; `off` and `interpret`
-(the reference's unfused and Pallas-interpreter routes) exit with a
-message. Beside them, --device (default: the card; 'cpu' must be asked
-for), --vocab-parallel N and --dp N with --grad-transport (below).
+and --fused-head (the reference's `:374`, `:417-418`): `auto` defers to
+cfg.head.use_fused_head, `on` takes the fused route (the hand-written
+kernels on the card, their plain versions on the CPU) and `off` the
+unfused route (plain torch ops, no kernel; `train_loop(fused_head=...)`
+passes the switch to every step builder and rank); `interpret` (the
+reference's Pallas-interpreter route) exits with a message. Beside them,
+--device (default: the card; 'cpu' must be asked for), --vocab-parallel N
+and --dp N with --grad-transport (below).
 
 The index lifecycle (DESIGN §8; reference :80, :289-316, :390-395):
 `--refresh-policy drift` refreshes reassign-only until the drift probe
@@ -267,7 +270,8 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
                on_refresh: Optional[Callable] = None, device=None,
                injector: Optional[FaultInjector] = None,
                guardrails=None, group: Optional[RankGrid] = None,
-               grad_transport: str = "fp32"):
+               grad_transport: str = "fp32",
+               fused_head: Optional[bool] = None):
     """Single-device training loop. Returns (params, opt_state, index,
     history): params detached, ready for `serve.Engine(cfg, params,
     index=index, head=mode)`; index the head state (the MultiIndex, or the
@@ -298,7 +302,9 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     ('fp32', 'bf16' or 'int8_ef'; a non-fp32 transport with a vocab degree
     > 1 is refused, as in the reference). Without a grid, a non-fp32
     transport runs the data-parallel step on a data group of this process
-    alone, as the reference's one-device mesh does."""
+    alone, as the reference's one-device mesh does. fused_head: the MIDX
+    head's route on every step (`launch.steps.make_loss_fn`; None defers
+    to cfg.head.use_fused_head)."""
     if cfg.family in MEDIA_FAMILIES:
         raise ValueError(media_refusal(cfg))
     steps_mod.check_grad_transport(grad_transport)
@@ -343,18 +349,19 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
 
     gen_index = _generator(device, seed, _STREAM_INDEX)
     if vstate is not None:
-        train_step = steps_mod.make_vocab_parallel_train_step(cfg, optimizer,
-                                                              group)
+        train_step = steps_mod.make_vocab_parallel_train_step(
+            cfg, optimizer, group, fused_head=fused_head)
         index = steps_mod.make_vocab_index_init(cfg, group)(params,
                                                             gen_index)
         vp_refresh = steps_mod.make_vocab_refresh_step(cfg, group)
     elif gstate is not None:
         train_step = steps_mod.make_sharded_train_step(
             cfg, optimizer, group, grad_transport=grad_transport,
-            head_mode=mode)
+            head_mode=mode, fused_head=fused_head)
     else:
         train_step = steps_mod.make_train_step(cfg, optimizer,
-                                               head_mode=mode)
+                                               head_mode=mode,
+                                               fused_head=fused_head)
     if vstate is None and proposal is not None:
         # the unigram family and TAPAS take the corpus's class frequencies;
         # every other contender ignores them
@@ -588,10 +595,12 @@ def parser() -> argparse.ArgumentParser:
                     help="head mode (default: cfg.head.mode)")
     ap.add_argument("--fused-head", default="auto",
                     choices=("auto", "on", "off", "interpret"),
-                    help="the head's kernel route: auto = on = the port's "
-                         "hand-written kernels on the card (their plain "
-                         "versions on the CPU); the reference's off / "
-                         "interpret routes are not offered")
+                    help="the MIDX head's route: auto = "
+                         "cfg.head.use_fused_head; on = the fused route "
+                         "(the hand-written kernels on the card, their "
+                         "plain versions on the CPU); off = the unfused "
+                         "route (plain torch ops, no kernel); the "
+                         "reference's interpret route is not offered")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--refresh-every", type=int, default=None,
                     help="steps between index refresh events "
@@ -658,11 +667,12 @@ def main(argv=None):
         cfg = cfg.reduced()
     if cfg.family in MEDIA_FAMILIES:
         raise SystemExit(media_refusal(cfg))
-    if args.fused_head in ("off", "interpret"):
-        raise SystemExit(f"--fused-head {args.fused_head}: the port has one "
-                         "kernel route, its hand-written kernels on the card "
-                         "and their plain versions on the CPU; use "
-                         "--fused-head auto (or on)")
+    if args.fused_head == "interpret":
+        raise SystemExit("--fused-head interpret: the port has no Pallas "
+                         "interpreter; its fused route runs the hand-written "
+                         "kernels on the card and their plain versions on "
+                         "the CPU (--fused-head on), its unfused route plain "
+                         "torch ops (--fused-head off)")
     if args.vocab_parallel > 1 and args.grad_transport != "fp32":
         raise ValueError("compressed grad transports are not wired into "
                          "the vocab-parallel step; use fp32")
@@ -677,7 +687,9 @@ def main(argv=None):
               refresh_every=args.refresh_every,
               refresh_policy=args.refresh_policy,
               refresh_lag=args.refresh_lag, seed=args.seed,
-              grad_transport=args.grad_transport)
+              grad_transport=args.grad_transport,
+              fused_head={"auto": None, "on": True,
+                          "off": False}[args.fused_head])
     chaos = (args.chaos, args.chaos_seed) if args.chaos else None
     world = max(dp, 1) * args.vocab_parallel
     if world > 1:

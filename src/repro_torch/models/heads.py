@@ -4,41 +4,47 @@ Mirrors `src/repro/models/heads.py`: `init_head_state` (:39-54, the bare
 MultiIndex for a bf16 table, a `QuantHeadState` for int8 / fp8),
 `_requantized` (:56), `refresh_head_state` (:71),
 `refresh_head_state_with_policy` (:86), `loss_full` (:106), `loss_midx`
-(:113, the fused lane: per-token, pooled and mixture proposals, with the
+(:113, both routes: per-token, pooled and mixture proposals, with the
 table in its native dtype or, over a quantized state, its int8 / fp8
 twin), `_gathered_rows` (:219), `_masked_mean` (:232), the generic proposal
 heads `_midx_index_of` (:239), `init_proposal_state` (:253),
 `refresh_proposal_state` (:260), `loss_sampled` (:267),
 `proposal_decode_head` (:538), `midx_decode_head` (:316, both
-branches), and speculative decoding's `_spec_tables_fn` (:377),
-`midx_spec_draft` (:401) and `spec_verify` (:442).
+branches), and speculative decoding's `_spec_tables_fn` (:377, here
+`_decode_tables_fn`, shared with the decode head), `midx_spec_draft`
+(:401) and `spec_verify` (:442).
 
-`loss_midx` is the reference's fused lane. Per-token proposals: the
-proposal tables come from the midx_probs kernel and the CE from the
-per-token sampled-CE kernels (`kernels.sampled_ce.ops.sampled_ce_pt_op`,
-forward and backward) — the [T, M, D] gather and the [T, M] logits never
-reach device memory on the card. Pooled and mixture proposals: each
-sequence draws M shared negatives (`core.midx.sample_pooled` /
-`sample_mixture`, plain joint logits as in the reference), their rows and
-the positives' are gathered in the table's native dtype, and the CE runs
-in the shared-negative kernels (`sampled_ce_op`) — the [B, S, M] logits
-never reach device memory. log q stays attached to the graph, as in the
-reference, so d(loss)/d log q flows back through the proposal into the
-hidden states. The kernels always mask collisions, so, as in the
-reference (`kernels/dispatch.py:55-56`), a head with `mask_collisions`
-False takes the plain lane instead (reference :214-215): the same draws,
-the rows gathered with `F.embedding` (dequantized through `dequant_rows`
-over a quantized state), and `sampled_softmax_loss` with collisions left
-unmasked.
+`loss_midx` takes the reference's two routes (`fused=`, defaulting to
+`cfg.head.use_fused_head`, through `kernels.dispatch.fused_head_active`).
+The fused route, the default: per-token proposals take the proposal
+tables from the midx_probs kernel and the CE from the per-token
+sampled-CE kernels (`kernels.sampled_ce.ops.sampled_ce_pt_op`, forward and
+backward) — the [T, M, D] gather and the [T, M] logits never reach device
+memory on the card; pooled and mixture proposals draw M shared negatives
+a sequence (`core.midx.sample_pooled` / `sample_mixture`, plain joint
+logits as in the reference), gather their rows and the positives' in the
+table's native dtype, and run the CE in the shared-negative kernels
+(`sampled_ce_op`) — the [B, S, M] logits never reach device memory. The
+unfused route (reference :178-216) runs no kernel: the tables from
+`core.midx.twostage_tables` (or its quantized twin), the rows gathered
+with `F.embedding` (dequantized through `dequant_rows` over a quantized
+state), the logits an `einsum`, and `sampled_softmax_loss` with the
+head's `mask_collisions`; on the card these are torch's own CUDA ops. The
+kernels always mask collisions, so a head with `mask_collisions` False
+always takes the unfused route (reference `kernels/dispatch.py:55-56`).
+log q stays attached to the graph on both routes, as in the reference, so
+d(loss)/d log q flows back through the proposal into the hidden states.
 
 Over a `QuantHeadState` (cfg.head.table_dtype int8 / fp8, DESIGN §12)
 the whole hot path reads the low-bit twins: the proposal scores the
 quantized codebooks (`proposal_tables_q`, the midx_probs kernel's
-quantized mode; `quantized_query_scores` for the shared draws), the
-per-token CE reads int8 / fp8 rows and their scales in the kernels
-(`sampled_ce_pt_q_op`), and the shared CE the gathered low-bit rows
-(`sampled_ce_q_op`). The master table's gradient is the straight-through
-one: the kernels' scale-unaware row gradients. Departure in the shared
+quantized mode, on the fused route, `core.midx.twostage_tables_q` on the
+unfused; `quantized_query_scores` for the shared draws), the per-token CE
+reads int8 / fp8 rows and their scales in the kernels
+(`sampled_ce_pt_q_op`), the shared CE the gathered low-bit rows
+(`sampled_ce_q_op`), and the unfused CE the rows `dequant_rows` gathers.
+The master table's gradient is the straight-through one: the kernels'
+scale-unaware row gradients, or `dequant_rows`' gather. Departure in the shared
 lane: the master rows `pos_emb` / `neg_emb` are gathered (torch removes no
 dead read; the kernels never read them), as the reference writes
 `table[labels]`. The decode head rescores its candidates from the stage
@@ -67,9 +73,10 @@ matrix. Departures:
   - the gathers use `F.embedding`, whose backward onto the table sums
     repeated ids in a fixed order, where `table[ids]`'s backward adds
     with atomics;
-  - the proposal tables always come through `proposal_tables` and
+  - the fused route's proposal tables come through `proposal_tables` and
     `kernels.dispatch` (the CUDA kernel on the card, the plain version on
-    the CPU); there is no `fused`/`interpret` switch;
+    the CPU); `fused` has no `interpret` companion (the port has no
+    Pallas interpreter);
   - speculative decoding: `midx_spec_draft` draws all B rows' k drafts in
     one `sample_twostage` call (the reference vmaps a one-row draw per
     slot), under the wave key salted by ROLE_SPEC_DRAFT; `spec_verify`'s
@@ -98,6 +105,7 @@ from repro_torch.index.quantized import (QuantHeadState, code_scores,
                                          dequant_rows, quantize_head_state,
                                          quantized_query_scores,
                                          resolve_table_dtype, unwrap_index)
+from repro_torch.kernels.dispatch import fused_head_active
 from repro_torch.kernels.midx_probs.ops import (proposal_tables,
                                                 proposal_tables_q)
 from repro_torch.kernels.sampled_ce.ops import (sampled_ce_op,
@@ -181,53 +189,74 @@ def loss_full(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
     return _masked_mean(full_softmax_loss(logits, labels), mask)
 
 
-def quantized_tables_fn(qs: QuantHeadState):
-    """The `tables_fn` hook of a quantized state: the proposal tables from
-    its low-bit codebooks (the midx_probs kernel's quantized mode on the
-    card, its plain version on the CPU), so that training and serving draw
-    from the same distribution."""
+def route_tables_fn(qs: Optional[QuantHeadState], use_fused: bool):
+    """The two-stage draw's `tables_fn` hook on each route (reference
+    `kernels/dispatch.py:65-111`): fused, the midx_probs wrappers
+    (`proposal_tables`, or `proposal_tables_q` over a quantized state's
+    low-bit codebooks); unfused, `core.midx.twostage_tables` (the
+    sampler's default, None) or `twostage_tables_q`, plain torch ops on
+    the tensors' own device."""
+    if qs is None:
+        return proposal_tables if use_fused else None
+    tables_q = proposal_tables_q if use_fused else midx_mod.twostage_tables_q
+
     def tables_fn(index, z):
-        return proposal_tables_q(index, qs.qcb1, qs.qcb1_scale, qs.qcb2,
-                                 qs.qcb2_scale, z)
+        return tables_q(index, qs.qcb1, qs.qcb1_scale, qs.qcb2,
+                        qs.qcb2_scale, z)
     return tables_fn
+
+
+def quantized_tables_fn(qs: QuantHeadState):
+    """The fused route's `tables_fn` hook of a quantized state: the
+    proposal tables from its low-bit codebooks (the midx_probs kernel's
+    quantized mode on the card, its plain version on the CPU), so that
+    training and serving draw from the same distribution."""
+    return route_tables_fn(qs, use_fused=True)
+
+
+def _decode_tables_fn(cfg: ModelConfig, qs: Optional[QuantHeadState],
+                      fused: Optional[bool]):
+    """The decode head's and the speculative draft's hook (reference
+    `_spec_tables_fn` :377-390): both draw from the distribution the
+    serving head samples."""
+    return route_tables_fn(qs, fused_head_active(cfg.head, fused=fused))
 
 
 def loss_midx(cfg: ModelConfig, params: dict, index, hidden: torch.Tensor,
               labels: torch.Tensor, keys: torch.Tensor,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None, *,
+              fused: Optional[bool] = None) -> torch.Tensor:
     """MIDX sampled-softmax CE. `index` is the head state: a MultiIndex,
     or a QuantHeadState whose low-bit twins the whole path then reads.
     hidden [B,S,D], labels [B,S], keys [B·S] the tokens' stream keys
     (`noise.train_keys(seed, step, B·S)`); the shared proposals key
-    sequence b by keys[b·S]."""
+    sequence b by keys[b·S]. `fused` picks the route
+    (`kernels.dispatch.fused_head_active`: None defers to
+    cfg.head.use_fused_head; a head without collision masking is always
+    unfused)."""
     qs = index if isinstance(index, QuantHeadState) else None
     index = unwrap_index(index)
     table = class_embeddings(cfg, params)
     m = cfg.head.num_negatives
     b, s, d = hidden.shape
     proposal = cfg.head.proposal
-    masked = cfg.head.mask_collisions
+    use_fused = fused_head_active(cfg.head, fused=fused)
     if proposal == "per_token":
         h32 = hidden.float().reshape(b * s, d)
-        tables_fn = proposal_tables if qs is None else quantized_tables_fn(qs)
-        draw = midx_mod.sample_twostage(index, h32, m, keys,
-                                        tables_fn=tables_fn)        # [T,M]
-        if masked:
-            if qs is None:
-                loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
-                                        labels.reshape(b * s))
-            else:
-                loss = sampled_ce_pt_q_op(h32, table, qs.qdata, qs.qscale,
-                                          draw.log_q, draw.ids,
-                                          labels.reshape(b * s))
-            return _masked_mean(loss.reshape(b, s), mask)
-        pos_e, neg_e = _gathered_rows(table, qs, labels, draw.ids)
-        neg_logits = torch.einsum("td,tmd->tm", h32, neg_e)
-        loss = _unmasked_loss(h32.reshape(b, s, d), pos_e, labels,
-                              neg_logits.reshape(b, s, m),
-                              draw.log_q.reshape(b, s, m),
-                              draw.ids.reshape(b, s, m))
-        return _masked_mean(loss, mask)
+        draw = midx_mod.sample_twostage(
+            index, h32, m, keys,
+            tables_fn=route_tables_fn(qs, use_fused))           # [T,M]
+        pos_ids = labels.reshape(b * s)
+        if not use_fused:
+            loss = sampled_ce_unfused(cfg, h32, table, qs, draw.log_q,
+                                      draw.ids, pos_ids)
+        elif qs is None:
+            loss = sampled_ce_pt_op(h32, table, draw.log_q, draw.ids,
+                                    pos_ids)
+        else:
+            loss = sampled_ce_pt_q_op(h32, table, qs.qdata, qs.qscale,
+                                      draw.log_q, draw.ids, pos_ids)
+        return _masked_mean(loss.reshape(b, s), mask)
     if proposal not in ("pooled", "mixture"):
         raise ValueError(f"unknown proposal {proposal!r}")
     sampler = (midx_mod.sample_pooled if proposal == "pooled"
@@ -240,31 +269,28 @@ def loss_midx(cfg: ModelConfig, params: dict, index, hidden: torch.Tensor,
     h32 = hidden.float()
     draw = sampler(index, h32, m, noise.sequence_keys(keys, s),
                    scores_fn=scores_fn)                           # [B,M]
-    if masked:
-        pos_emb = F.embedding(labels, table)              # [B,S,D] native
-        neg_emb = F.embedding(draw.ids, table)            # [B,M,D] native
-        if qs is None:
-            loss = sampled_ce_op(h32, pos_emb, neg_emb, draw.log_q, draw.ids,
-                                 labels)
-        else:
-            loss = sampled_ce_q_op(h32, pos_emb, neg_emb, qs.qdata[labels],
-                                   qs.qscale[labels], qs.qdata[draw.ids],
-                                   qs.qscale[draw.ids], draw.log_q,
-                                   draw.ids, labels)
-        return _masked_mean(loss, mask)
-    pos_e, neg_e = _gathered_rows(table, qs, labels, draw.ids)
-    neg_logits = torch.einsum("bsd,bmd->bsm", h32, neg_e)
-    loss = _unmasked_loss(h32, pos_e, labels, neg_logits,
-                          draw.log_q[:, None, :], draw.ids[:, None, :])
+    if not use_fused:
+        return _masked_mean(sampled_ce_unfused(
+            cfg, h32, table, qs, draw.log_q, draw.ids, labels), mask)
+    pos_emb = F.embedding(labels, table)                  # [B,S,D] native
+    neg_emb = F.embedding(draw.ids, table)                # [B,M,D] native
+    if qs is None:
+        loss = sampled_ce_op(h32, pos_emb, neg_emb, draw.log_q, draw.ids,
+                             labels)
+    else:
+        loss = sampled_ce_q_op(h32, pos_emb, neg_emb, qs.qdata[labels],
+                               qs.qscale[labels], qs.qdata[draw.ids],
+                               qs.qscale[draw.ids], draw.log_q, draw.ids,
+                               labels)
     return _masked_mean(loss, mask)
 
 
 def _gathered_rows(table: torch.Tensor, qs: Optional[QuantHeadState],
                    labels: torch.Tensor, neg_ids: torch.Tensor):
-    """fp32 (pos_rows, neg_rows) for the plain lane: a quantized state's
-    rows dequantized per gathered row with straight-through gradients onto
-    the master table; else the rows cast per gathered row (never the whole
-    [V, D] table)."""
+    """fp32 (pos_rows, neg_rows) for the unfused route: a quantized
+    state's rows dequantized per gathered row with straight-through
+    gradients onto the master table; else the rows cast per gathered row
+    (never the whole [V, D] table)."""
     if qs is not None:
         return (dequant_rows(table, qs.qdata, qs.qscale, labels),
                 dequant_rows(table, qs.qdata, qs.qscale, neg_ids))
@@ -272,12 +298,36 @@ def _gathered_rows(table: torch.Tensor, qs: Optional[QuantHeadState],
             F.embedding(neg_ids, table).float())
 
 
-def _unmasked_loss(h32, pos_e, labels, neg_logits, log_q, neg_ids):
-    """The plain lane of `loss_midx` for `mask_collisions` False: per-token
-    sampled CE [B, S] with a negative equal to the positive left in."""
+def sampled_ce_unfused(cfg: ModelConfig, h32: torch.Tensor,
+                       table: torch.Tensor, qs: Optional[QuantHeadState],
+                       log_q: torch.Tensor, neg_ids: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """The unfused route's sampled CE (reference :178-181, :208-216; the
+    generic contenders' too, :289-308): the rows gathered
+    (`_gathered_rows`), then `sampled_ce_rows`. Per-token draws: h32
+    [..., D], log_q / neg_ids [..., M], labels [...] -> [...]; shared
+    draws: h32 [B, S, D], log_q / neg_ids [B, M], labels [B, S] ->
+    [B, S]."""
+    pos_e, neg_e = _gathered_rows(table, qs, labels, neg_ids)
+    return sampled_ce_rows(cfg, h32, pos_e, neg_e, log_q, neg_ids, labels)
+
+
+def sampled_ce_rows(cfg: ModelConfig, h32: torch.Tensor,
+                    pos_e: torch.Tensor, neg_e: torch.Tensor,
+                    log_q: torch.Tensor, neg_ids: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """`sampled_ce_unfused` from the gathered fp32 rows (pos_e like h32,
+    neg_e [..., M, D] per token or [B, M, D] shared), plain torch ops: the
+    logits an einsum, then `sampled_softmax_loss` with the head's
+    `mask_collisions`."""
+    if neg_ids.dim() == h32.dim():                      # per-token
+        neg_logits = torch.einsum("...d,...md->...m", h32, neg_e)
+    else:                                               # shared over S
+        neg_logits = torch.einsum("bsd,bmd->bsm", h32, neg_e)
+        log_q, neg_ids = log_q[:, None, :], neg_ids[:, None, :]
     pos_logit = torch.sum(h32 * pos_e, dim=-1)
     return sampled_softmax_loss(pos_logit, neg_logits, log_q, neg_ids,
-                                labels, mask_collisions=False)
+                                labels, cfg.head.mask_collisions)
 
 
 class MidxDecodeOut(NamedTuple):
@@ -299,7 +349,8 @@ def candidate_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
 def midx_decode_head(cfg: ModelConfig, params: dict, index,
                      hidden: torch.Tensor, keys: torch.Tensor,
                      num_candidates: Optional[int] = None,
-                     temperature: Optional[float] = None) -> MidxDecodeOut:
+                     temperature: Optional[float] = None, *,
+                     fused: Optional[bool] = None) -> MidxDecodeOut:
     """Next-token sampling for T rows at once. hidden [T, D]; keys [T] the
     rows' stream keys (`noise.row_keys(seed, rid, pos)`). Over a
     QuantHeadState the draw scores the low-bit codebooks and the candidates
@@ -308,22 +359,25 @@ def midx_decode_head(cfg: ModelConfig, params: dict, index,
     candidate instead of a D-wide row.
 
     `num_candidates` / `temperature` default to `cfg.head.decode_candidates`
-    / `cfg.head.decode_temperature`."""
+    / `cfg.head.decode_temperature`; `fused` picks the stage tables' route
+    as in `loss_midx`."""
     if num_candidates is None:
         num_candidates = cfg.head.decode_candidates
     if temperature is None:
         temperature = cfg.head.decode_temperature
     h = hidden.float()
-    if isinstance(index, QuantHeadState):
-        qs, index = index, index.index
+    qs = index if isinstance(index, QuantHeadState) else None
+    index = unwrap_index(index)
+    tables_fn = _decode_tables_fn(cfg, qs, fused)
+    if qs is not None:
         draw, (s1, s2, _, _) = midx_mod.sample_twostage(
-            index, h, num_candidates, keys, tables_fn=quantized_tables_fn(qs),
+            index, h, num_candidates, keys, tables_fn=tables_fn,
             return_tables=True)                                     # [T,M]
         scores = code_scores(index, qs.residual_codes, h, draw.ids, s1, s2)
         corrected = scores / temperature - draw.log_q
     else:
         draw = midx_mod.sample_twostage(index, h, num_candidates, keys,
-                                        tables_fn=proposal_tables)  # [T,M]
+                                        tables_fn=tables_fn)        # [T,M]
         corrected = candidate_logits(cfg, params, h, draw.ids, draw.log_q,
                                      temperature)
     return _pick(draw, corrected, keys)
@@ -340,14 +394,6 @@ def _pick(draw, corrected: torch.Tensor, keys: torch.Tensor) -> MidxDecodeOut:
 
 
 # ------------------------------------------------------ speculative decoding
-def _spec_tables_fn(qs: Optional[QuantHeadState]):
-    """The stage-table hook of `midx_decode_head`: the speculative draft
-    then draws from exactly the distribution the serving head samples
-    (the midx_probs kernel, or its int8 / fp8 mode over a quantized
-    state, on the card)."""
-    return proposal_tables if qs is None else quantized_tables_fn(qs)
-
-
 class SpecDraftOut(NamedTuple):
     tokens: torch.Tensor     # [B, k] draft tokens, i.i.d. ~ q(.|h)
     log_q: torch.Tensor      # [B, k] their proposal log-probs
@@ -358,7 +404,8 @@ class SpecDraftOut(NamedTuple):
 
 def midx_spec_draft(cfg: ModelConfig, params: dict, index,
                     hidden: torch.Tensor, keys: torch.Tensor,
-                    k: int = 1) -> SpecDraftOut:
+                    k: int = 1, *,
+                    fused: Optional[bool] = None) -> SpecDraftOut:
     """k MIDX draft tokens per row for speculative decoding.
 
     The whole wave drafts from ONE hidden per slot, the backbone state
@@ -370,12 +417,13 @@ def midx_spec_draft(cfg: ModelConfig, params: dict, index,
     pass rebuilds log q over the whole vocabulary from two assignment
     gathers. hidden [B, D]; keys [B] the wave keys (`noise.row_keys` of
     the wave's start position); the draws run under hash(key,
-    ROLE_SPEC_DRAFT, 0, 0), a key no other draw of the wave uses."""
+    ROLE_SPEC_DRAFT, 0, 0), a key no other draw of the wave uses. `fused`
+    as in `midx_decode_head`."""
     qs = index if isinstance(index, QuantHeadState) else None
     draw, (s1, s2, _, lse) = midx_mod.sample_twostage(
         unwrap_index(index), hidden.float(), k,
         noise.hash_bits(keys, noise.ROLE_SPEC_DRAFT, 0, 0),
-        tables_fn=_spec_tables_fn(qs), return_tables=True)
+        tables_fn=_decode_tables_fn(cfg, qs, fused), return_tables=True)
     return SpecDraftOut(draw.ids, draw.log_q, s1, s2, lse)
 
 
@@ -486,12 +534,14 @@ def refresh_proposal_state(cfg: ModelConfig, params: dict, proposal, state,
 def loss_sampled(cfg: ModelConfig, params: dict, proposal, state,
                  hidden: torch.Tensor, labels: torch.Tensor,
                  keys: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None, *,
+                 fused: Optional[bool] = None) -> torch.Tensor:
     """Sampled softmax CE through any registered proposal. hidden [B,S,D],
     labels [B,S], keys [B·S] the tokens' stream keys.
 
     MIDX-backed contenders short-circuit to `loss_midx` with their
-    MultiIndex as the head state. Everything else runs the plain
+    MultiIndex as the head state, on the route `fused` picks. Everything
+    else runs the plain
     formulation, its products as torch ops, as the reference computes them
     outside any Pallas kernel:
       per_token        draws [B,S,M] negatives from q(·|h_t), token t keyed
@@ -502,42 +552,35 @@ def loss_sampled(cfg: ModelConfig, params: dict, proposal, state,
                        per-token mixture form, so 'mixture' pools too."""
     idx = _midx_index_of(proposal, state)
     if idx is not None:
-        return loss_midx(cfg, params, idx, hidden, labels, keys, mask)
-    table = class_embeddings(cfg, params)
+        return loss_midx(cfg, params, idx, hidden, labels, keys, mask,
+                         fused=fused)
     m = cfg.head.num_negatives
     b, s, _ = hidden.shape
     h32 = hidden.float()
-    pos_logit = torch.sum(h32 * F.embedding(labels, table).float(), dim=-1)
     if cfg.head.proposal == "per_token":
         draw = proposal.sample(state, keys.reshape(b, s), h32, m)  # [B,S,M]
-        neg_e = F.embedding(draw.ids, table).float()              # [B,S,M,D]
-        neg_logits = torch.einsum("bsd,bsmd->bsm", h32, neg_e)
-        log_q, neg_ids = draw.log_q, draw.ids
     else:
         z_bar = torch.mean(h32, dim=-2)                           # [B,D]
         draw = proposal.sample(state, noise.sequence_keys(keys, s), z_bar,
                                m)                                 # [B,M]
-        neg_e = F.embedding(draw.ids, table).float()              # [B,M,D]
-        neg_logits = torch.einsum("bsd,bmd->bsm", h32, neg_e)
-        log_q = draw.log_q[:, None, :]                            # over S
-        neg_ids = draw.ids[:, None, :]
-    loss = sampled_softmax_loss(pos_logit, neg_logits, log_q, neg_ids, labels,
-                                cfg.head.mask_collisions)
-    return _masked_mean(loss, mask)
+    return _masked_mean(sampled_ce_unfused(
+        cfg, h32, class_embeddings(cfg, params), None, draw.log_q, draw.ids,
+        labels), mask)
 
 
 def proposal_decode_head(cfg: ModelConfig, params: dict, proposal, state,
                          hidden: torch.Tensor, keys: torch.Tensor,
                          num_candidates: Optional[int] = None,
-                         temperature: Optional[float] = None
-                         ) -> MidxDecodeOut:
+                         temperature: Optional[float] = None, *,
+                         fused: Optional[bool] = None) -> MidxDecodeOut:
     """midx_decode_head generalised to any proposal: draw candidates from
     q(·|h), rescore exactly, IS-correct, sample. hidden [T, D], keys [T].
-    MIDX-backed states keep the dedicated path."""
+    MIDX-backed states keep the dedicated path, on the route `fused`
+    picks."""
     idx = _midx_index_of(proposal, state)
     if idx is not None:
         return midx_decode_head(cfg, params, idx, hidden, keys,
-                                num_candidates, temperature)
+                                num_candidates, temperature, fused=fused)
     if num_candidates is None:
         num_candidates = cfg.head.decode_candidates
     if temperature is None:

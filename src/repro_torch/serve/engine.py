@@ -48,7 +48,11 @@ needs head='full' (:188-191). The loop is factored as in the reference:
 what either package's `train_loop` exported to `<ckpt>/serve`; with
 cfg.head.table_dtype int8 / fp8 the MIDX head serves from a
 `QuantHeadState` (its draw scores the low-bit codebooks, its candidates
-are rescored from PQ codes) and `from_checkpoint` restores one.
+are rescored from PQ codes) and `from_checkpoint` restores one. The MIDX
+decode head and the speculative draft take the route of
+cfg.head.use_fused_head (the reference's engine calls its heads with
+`fused=None`): with it False their stage tables are plain torch ops and
+no midx_probs kernel runs.
 
 Index hot-swap (reference :355-407, DESIGN §8): `swap_index` installs a
 new head state between waves behind the validation gate (a degenerate

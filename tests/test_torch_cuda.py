@@ -3,8 +3,9 @@ shared-negative sampled-CE, RFF sampling, flash-attention and SSD-scan
 kernels against their plain versions, the engine on the card, short
 training runs through the kernels of the per-token, the pooled and the
 rff-fused heads and of mamba2, the chunked attention's backward on the
-card against the CPU, and the index lifecycle's overlapped refresh and
-mid-stream swap. This
+card against the CPU, the index lifecycle's overlapped refresh and
+mid-stream swap, and the fused MIDX head route against the unfused one on
+the same draws. This
 file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -1269,3 +1270,65 @@ def test_mid_stream_swap_on_the_card():
         for r in reqs:
             np.testing.assert_array_equal(plain[r.rid].tokens,
                                           out[r.rid].tokens)
+
+
+@pytest.mark.parametrize("proposal", ["per_token", "pooled", "mixture"])
+def test_fused_route_matches_the_unfused_route_on_the_card(monkeypatch,
+                                                           proposal):
+    """paper-lm's head on the card, one step's draws fed to both routes:
+    the per-token proposal tables of the kernel within 1e-5·max(1, |x|) of
+    `twostage_tables`; the loss and its gradients (hidden, table and, for
+    per-token draws, log q: pinned as a leaf) of the fused route within
+    1e-4·max(|x|, min(1, max |x|)) of the unfused route's, which launches
+    no head kernel."""
+    _need_card()
+    from repro_torch.core import midx, noise
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    from repro_torch.kernels.midx_probs.ops import proposal_tables
+    from repro_torch.kernels.sampled_ce.cuda import (sampled_ce_bwd_cuda,
+                                                     sampled_ce_cuda,
+                                                     sampled_ce_pt_bwd_cuda,
+                                                     sampled_ce_pt_cuda)
+    from repro_torch.models import heads, init_params
+    cfg = get_config("paper-lm").with_head(proposal=proposal)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    index = heads.init_head_state(cfg, params, gen)
+    b, s = 4, 64
+    h = 0.5 * torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    keys = noise.train_keys(0, 1, b * s, device="cuda")
+    leaves = []
+    if proposal == "per_token":
+        z = h.reshape(b * s, -1)
+        for a, c in zip(proposal_tables(index, z),
+                        midx.twostage_tables(index, z)):
+            assert torch.all((a - c).abs() <= 1e-5 * c.abs().clamp(min=1))
+        draw = midx.sample_twostage(index, z, cfg.head.num_negatives, keys,
+                                    tables_fn=proposal_tables)
+        lq = draw.log_q.detach().clone().requires_grad_(True)
+        monkeypatch.setattr(midx, "sample_twostage",
+                            lambda *a, **kw: midx.Draw(draw.ids, lq))
+        leaves = [lq]
+    counters = (midx_probs_cuda, sampled_ce_pt_cuda, sampled_ce_pt_bwd_cuda,
+                sampled_ce_cuda, sampled_ce_bwd_cuda)
+
+    def run(fused):
+        before = [c.launches for c in counters]
+        hh = h.clone().requires_grad_(True)
+        tab = params["embed"].detach().clone().requires_grad_(True)
+        loss = heads.loss_midx(cfg, {**params, "embed": tab}, index, hh,
+                               labels, keys, fused=fused)
+        grads = torch.autograd.grad(loss, [hh, tab] + leaves)
+        torch.cuda.synchronize()
+        return [loss] + list(grads), [c.launches - n
+                                      for c, n in zip(counters, before)]
+
+    fused, n_fused = run(True)
+    unfused, n_unfused = run(False)
+    assert n_unfused == [0] * 5 and sum(n_fused) > 0
+    for a, c in zip(fused, unfused):
+        scale = min(1.0, float(c.abs().max()))
+        assert torch.all((a - c).abs()
+                         <= 1e-4 * c.abs().clamp(min=max(scale, 1e-30)))

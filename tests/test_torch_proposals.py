@@ -675,13 +675,16 @@ def test_clis_take_every_head_mode_and_the_reference_flags():
     # reference command lines: --traffic synthetic, --fused-head auto / on
     assert serve_cli.parser().parse_args(
         ["--traffic", "synthetic"]).traffic == "synthetic"
-    for route in ("auto", "on"):
+    for route in ("auto", "on", "off"):
         assert train_cli.parser().parse_args(
             ["--fused-head", route]).fused_head == route
-    for route in ("off", "interpret"):
-        with pytest.raises(SystemExit, match="one kernel route"):
-            train_cli.main(["--device", "cpu", "--reduced", "--fused-head",
-                            route, "--steps", "1"])
+    _, _, _, hist = train_cli.main(
+        ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "2",
+         "--seq", "8", "--fused-head", "off"])
+    assert len(hist) == 2 and np.all(np.isfinite(hist))
+    with pytest.raises(SystemExit, match="no Pallas interpreter"):
+        train_cli.main(["--device", "cpu", "--reduced", "--fused-head",
+                        "interpret", "--steps", "1"])
     _, _, state, hist = train_cli.main(
         ["--device", "cpu", "--reduced", "--head", "unigram", "--steps", "2",
          "--batch", "2", "--seq", "8", "--fused-head", "on"])

@@ -404,6 +404,28 @@ def grid_scenario(grid, outdir: str) -> None:
     np.savez(os.path.join(outdir, f"rank{grid.world_rank}.npz"), **out)
 
 
+# ------------------------------------------------ the unfused head route
+UNFUSED_TRAIN = dict(steps=3, batch_size=4, seq_len=8, lr=1e-3,
+                     log_every=1000, seed=0, refresh_every=10)
+
+
+def unfused_corpus(cfg):
+    from repro_torch.data import ZipfLM
+    return ZipfLM(vocab_size=cfg.vocab_size, num_clusters=8, seq_len=9,
+                  seed=0).sample(16)
+
+
+def unfused_train_scenario(grid, outdir: str) -> None:
+    """`train_loop(fused_head=False)` on this rank's rows of every batch:
+    the loss history."""
+    from torch_vp_ranks import make_cfg
+    cfg = make_cfg()
+    _, _, _, hist = train_loop(cfg, corpus=unfused_corpus(cfg), group=grid,
+                               fused_head=False, **UNFUSED_TRAIN)
+    np.savez(os.path.join(outdir, f"rank{grid.world_rank}.npz"),
+             hist=np.array(hist))
+
+
 # ------------------------------------------------ the sequence-sharded decode
 DEC_B, DEC_S, DEC_H, DEC_KV, DEC_HD = 3, 32, 4, 2, 8
 DEC_CASES = {            # name: (pos, window)

@@ -37,6 +37,15 @@ LOSS_CASES = {          # name: (proposal, table_dtype, mask_collisions)
 }
 
 
+UNFUSED_CASES = {      # the unfused route's: (proposal, table_dtype, mask)
+    "per_token": ("per_token", "bf16", True),
+    "per_token_unmasked": ("per_token", "bf16", False),
+    "pooled": ("pooled", "bf16", True),
+    "mixture": ("mixture", "bf16", True),
+    "per_token_int8": ("per_token", "int8", True),
+}
+
+
 def make_cfg(proposal="per_token", table_dtype="bf16", mask=True,
              vocab=200):
     return ModelConfig(
@@ -69,10 +78,11 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
-def _loss_grads(cfg, table_local, local, h, labels, keys, pg):
+def _loss_grads(cfg, table_local, local, h, labels, keys, pg, fused=None):
     t = table_local.detach().clone().requires_grad_(True)
     hh = h.detach().clone().requires_grad_(True)
-    loss = vp.loss_midx_vp(cfg, t, local, hh, labels, keys, group=pg)
+    loss = vp.loss_midx_vp(cfg, t, local, hh, labels, keys, group=pg,
+                           fused=fused)
     dt, dh = torch.autograd.grad(loss, (t, hh))
     return loss, coll.all_gather_rows(dt, pg), dh
 
@@ -162,6 +172,24 @@ def scenarios(group, outdir: str, extra: bool) -> None:
                                              i_res),
                                             (p_one, o_one.mu, o_one.nu,
                                              i_one)))
+    np.savez(os.path.join(outdir, f"rank{r}.npz"), **out)
+
+
+def unfused_scenario(group, outdir: str) -> None:
+    """`loss_midx_vp(fused=False)` and its gradients (d(table) gathered
+    to the replicated rows, dh) for each of `UNFUSED_CASES`."""
+    pg, n, r = group.pg, group.size, group.rank
+    out = {}
+    for name, (proposal, fmt, mask) in UNFUSED_CASES.items():
+        cfg = make_cfg(proposal, fmt, mask)
+        params, index, h, labels, _, keys = setup(cfg)
+        local = vp.local_index(vp.shard_index(index, n), r)
+        table_local = shd.shard_rows(class_embeddings(cfg, params).detach(),
+                                     n, r)
+        loss, dt, dh = _loss_grads(cfg, table_local, local, h, labels, keys,
+                                   pg, fused=False)
+        out[f"loss_{name}"], out[f"dtab_{name}"] = _np(loss), _np(dt)
+        out[f"dh_{name}"] = _np(dh)
     np.savez(os.path.join(outdir, f"rank{r}.npz"), **out)
 
 
