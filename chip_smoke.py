@@ -359,6 +359,31 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      beside the kernels' times and bounds; (e) the examples:
      `quickstart`, `serve_decode`, `train_lm_midx --full-width --steps 20`
      with `--head midx` and `--head full`;
+ 23. the model axis (after phase 22; `dist.tensor_parallel`, ranks
+     sharing the card over gloo, fp32): (a) paper-lm per-token MIDX
+     16 x 64, llama3.2-1b pooled 4 x 256 and granite-moe-1b-a400m pooled
+     4 x 256 at full width and depth with the sharded MoE dispatch off
+     and, at capacity factor 8.0, on, each at tp 2 against the same step
+     on one card (the switch-on cell against the one-card step under the
+     switch): step 0's loss and the gradients of a replicated leaf
+     (final_norm) and a split one (wq's columns) within 1e-5 max(1,
+     |x|), 3 SGD steps' losses (lr 0.01) within 1e-4 while every draw
+     and expert pick agrees (a last-bit difference can flip a Gumbel-max
+     or a top-k; the parting and step 0's differing picks printed),
+     `midx_probs` and the partial CE modes' launches counted; (b)
+     llama3.2-1b (4 layers) at dp 2 with ZeRO-1 moments: params after 3
+     steps bitwise the dp 2 step's, each rank's moment bytes and peak
+     against the plain dp 2 rank's; (c) llama3.2-1b (fp32) served at tp
+     2 through the engine, 8 requests x 32 tokens with the MIDX head:
+     tokens equal tp 1's where every draw agrees, p50 / p99; (d) each of
+     those cells (and one slot-major decode step at B=8, Smax=256)
+     planned on the meta device (`launch.dryrun.build_cell` / `plan`):
+     the collectives the ranks counted equal the plan's op kind by op
+     kind, the argument bytes equal, the plan's peak within 15 % of each
+     rank's `max_memory_allocated` over the step (less what the rank held
+     beyond the step's arguments: cuBLAS workspaces); and the CLI's
+     qwen3-14b `train_4k`
+     plan on the CPU beside the phase, its dominant term;
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -3589,7 +3614,8 @@ def vp_phases(get_config, midx_cuda, corpus, card: str) -> dict:
 def partial_rows(holds: dict, vp: dict, dp: dict) -> list:
     """The kernels line's rows of the partial modes: launches from the vp
     main paths (rank 0's counts; every rank launches alike) and, for the
-    float modes, phase 20b's dp 2 x vp 2 run (its 4 ranks' counts)."""
+    float modes, phase 20b's dp 2 x vp 2 run (its 4 ranks' counts) and
+    phase 23a's tp 2 runs (both ranks' counts)."""
     src = "src/repro_torch/kernels/sampled_ce/csrc/"
     base = {"sampled_ce_pt": ("sampled_ce_pt.cu", "per_token.py:144"),
             "sampled_ce_pt_bwd": ("sampled_ce_pt.cu", "per_token.py:297"),
@@ -6040,6 +6066,637 @@ def unfused_phases(get_config, midx_cuda, sce_cuda, corpus, timings,
     return out
 
 
+# ------------------------------------------- the model axis on the card (23)
+TP_RANKS = 2                   # model ranks sharing the card (gloo)
+TP_STEPS = 3                   # 23a / 23b: steps of each run
+TP_SGD = (0.01, 0.0)           # 23a's runs: SGD lr, momentum. An AdamW
+                               # first step is sign-like (it lifts last-bit
+                               # gradient differences to lr-sized ones), and
+                               # at random init a router's near-uniform
+                               # softmax flips a top-k pick on last-bit
+                               # differences: the later losses part by as
+                               # much as the step size carries a flip
+TP_LR = 1e-3                   # 23b's AdamW
+TP_ZERO1_LAYERS = 4            # 23b: llama3.2-1b at full width, cut to 4
+                               # layers (each dp 2 step moves its gradient
+                               # through gloo: ~5 s at 16 layers)
+TP_TOL = 1e-5                  # step 0: |tp 2 - tp 1| <= 1e-5 max(1, |x|)
+TP_LOSS_TOL = 1e-4             # the 3-step losses
+TP_PEAK_TOL = 0.15             # the plan's peak against the card's
+# 23a: name -> (arch, batch, seq, moe_sharded, capacity factor or None)
+TP_CELLS = {"paper-lm": ("paper-lm", 16, 64, False, None),
+            "llama3.2-1b": ("llama3.2-1b", 4, 256, False, None),
+            "granite-moe switch off": ("granite-moe-1b-a400m", 4, 256,
+                                       False, None),
+            "granite-moe switch on cf 8": ("granite-moe-1b-a400m", 4, 256,
+                                           True, 8.0)}
+TP_DECODE = (8, 32, 8)         # 23c: requests, new tokens, prompt length
+TP_DEC_STEP = (8, 256)         # 23d: the decode step's B, Smax
+TP_PREFILL = (1, 2048)         # 23c: the prefill's B, S (S > 1024: flash)
+TP_PREFILL_TOL = 1e-4          # 23c fp32: the prefill's logits, |tp 2 -
+                               # tp 1| <= 1e-4 max(1, |x|): 16 blocks over
+                               # 2048 tokens carry the row sums' last-bit
+                               # reassociation further than 23a's step 0
+TP_BF16_GAP = 2.0              # 23c bf16: tp 2's distance from tp 1's fp32
+                               # logits <= 2x tp 1 bf16's own distance
+
+
+def tp_cfg(get_config, cell: str):
+    arch, _, _, _, cf = TP_CELLS[cell]
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    return cfg
+
+
+def tp_batch(cfg, b: int, s: int, device):
+    gen = np.random.default_rng(23)
+    toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (b, s)))
+    labels = torch.from_numpy(gen.integers(0, cfg.vocab_size, (b, s)))
+    return {"tokens": toks.to(device), "labels": labels.to(device)}
+
+
+def tp_probe_leaves(params) -> dict:
+    """The leaves step 0's gradient is held on: a replicated one and a
+    split one (wq's columns)."""
+    return {"final_norm": params["final_norm"]["scale"],
+            "wq": params["blocks"][0]["attn"]["wq"]}
+
+
+class Decisions:
+    """A run's discrete decisions, in call order: each MIDX draw's ids
+    (`core.midx`'s samplers) and each MoE routing's expert picks
+    (`models.moe.route`), on the host. The model axis reassociates its
+    row sums, so its hidden states differ from one card's in the last
+    bits, and a Gumbel-max over near-equal scores or a router's top-k at
+    random init (a near-uniform softmax) can then pick otherwise: two
+    runs' later steps are comparable up to the first decision that parts
+    (23a, 23c)."""
+
+    SAMPLERS = ("sample_twostage", "sample_pooled", "sample_mixture")
+
+    def __init__(self):
+        self.log: list = []
+
+    @staticmethod
+    def digest(x: torch.Tensor) -> torch.Tensor:
+        return x.detach().to("cpu", torch.int32)
+
+    def __enter__(self):
+        from repro_torch.core import midx as midx_mod
+        from repro_torch.models import moe as moe_mod
+        self._saved = [(midx_mod, n, getattr(midx_mod, n))
+                       for n in self.SAMPLERS] + [(moe_mod, "route",
+                                                   moe_mod.route)]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            if name == "route":
+                self.log.append(self.digest(out.tope))
+            else:          # a Draw, or (Draw, tables) with return_tables
+                draw = out if hasattr(out, "ids") else out[0]
+                self.log.append(self.digest(draw.ids))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def tp_differing(a: list, b: list) -> int:
+    """How many single picks differ between two lists of decisions."""
+    if len(a) != len(b):
+        return -1
+    return int(sum(int((x != y).sum()) if x.shape == y.shape else x.numel()
+                   for x, y in zip(a, b)))
+
+
+def tp_parted(a: list, b: list) -> int:
+    """The index of the first step (a list of decisions each) whose
+    decisions part, or len(a) where none does."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if tp_differing(x, y):
+            return i
+    return len(a)
+
+
+def tp_run(cfg, grid, b: int, s: int, moe_sharded: bool, counters,
+           names, *, zero1_on: bool = False, plain_dp: bool = False) -> dict:
+    """One cell on this process: params from seed 0 (cut to the rank's
+    slices with a grid of tp > 1), the MIDX index over the whole table,
+    then (a) step 0 at SGD lr 1 (the clipped gradient is p0 - p1) and (b)
+    TP_STEPS steps (SGD with momentum; AdamW for 23b's ZeRO-1 and plain
+    dp 2 runs), the counts set to 0 just before (b) and read
+    just after; step 1's collectives, its peak and the arguments' bytes
+    for the plan. grid None: the one-card step (`make_train_step`), with
+    `moe_sharded` the shard's tokens dispatched together there too (the
+    switch pools the aux loss over the shard as well as the capacity, so
+    the switch-on cell is held to the one-card step under the switch)."""
+    from repro_torch.core import noise
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import heads, init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw, sgd, zero1
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    dev = torch.device("cuda") if grid is None else grid.device
+    full = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    index = heads.init_head_state(cfg, full, torch.Generator(dev)
+                                  .manual_seed(1))
+    batch = tp_batch(cfg, b, s, dev)
+    dp = 1 if grid is None else grid.dp
+    if grid is not None and grid.tp > 1:
+        params = steps.shard_for_rank(cfg, full, grid)
+        state = steps.tp_head_state(cfg, index, grid)
+    else:
+        params, state = full, index
+    del full, index
+    if dp > 1:
+        rows = slice(grid.data_rank * b // dp, (grid.data_rank + 1) * b // dp)
+        batch = {k: v[rows] for k, v in batch.items()}
+    n = batch["tokens"].numel()
+    lo = 0 if grid is None else grid.data_rank * n
+
+    def keys(step):
+        return noise.train_keys(7, step, b * s, device=dev)[lo:lo + n]
+
+    def make(opt):
+        if grid is None:
+            step = steps.make_train_step(cfg, opt)
+
+            def one_card(p, o, st, bt, k):
+                with moe_mod.sharded_dispatch(moe_sharded):
+                    return (*step(p, o, st, bt, k), None)
+            return one_card
+        return steps.make_sharded_train_step(cfg, opt, grid,
+                                             moe_sharded=moe_sharded)
+
+    out = {}
+    if not plain_dp and not zero1_on:
+        p = tree_map(lambda x: x.clone(), params)
+        opt = sgd(1.0, momentum=0.0)
+        before = {k: v.clone() for k, v in tp_probe_leaves(p).items()}
+        with Decisions() as dec:
+            p, _, met, _ = make(opt)(p, opt.init(p), state, batch, keys(0))
+        out["decisions0"] = dec.log
+        out["loss0"] = float(met["loss"])
+        out["grad0"] = {k: (before[k] - v).cpu() for k, v in
+                        tp_probe_leaves(p).items()}
+        del p, before
+    if zero1_on or plain_dp:
+        opt = adamw(TP_LR)
+    else:
+        opt = sgd(TP_SGD[0], momentum=TP_SGD[1])
+    if zero1_on:
+        opt = zero1(opt, steps.zero1_dims(cfg, grid), grid.data_pg)
+    step = make(opt)
+    o = opt.init(params)
+    out["moment_bytes"] = sum(t.numel() * t.element_size()
+                              for t in tree_leaves(o.mu))
+    out["arg_bytes"] = dryrun.arg_bytes(params, o, state, batch, keys(0))
+    zero_counts(counters.values())
+    hist, times, decisions = [], [], []
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        if i == 1:
+            out["before_bytes"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with coll.counting() as events, Decisions() as dec:
+            params, o, met, _ = step(params, o, state, batch, keys(i))
+        hist.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+        decisions.append(dec.log)
+        if i == 1:
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["events"] = coll.summarize(events)
+    torch.cuda.synchronize()
+    out.update(hist=hist, step_ms=1e3 * statistics.median(times[1:]),
+               launches=dp_launches(counters, names), decisions=decisions)
+    if zero1_on or plain_dp:
+        out["params"] = [x.cpu() for x in tree_leaves(params)]
+    del params, o, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_decode_run(cfg, grid, counters: dict, params_seed: int = 2) -> dict:
+    """23c: the engine (fp32, the MIDX head, the index over the whole
+    table) on TP_DECODE's requests; then (23d) two slot-major greedy
+    decode steps of `launch.steps.make_decode_step` (the full head) at
+    TP_DEC_STEP, their tokens, and the second's collectives, peak and
+    arguments for the plan."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import heads, init_params
+    from repro_torch.models.decode import init_decode_state
+    from repro_torch.serve import Engine
+    from repro_torch.serve.scheduler import Request
+    dev = torch.device("cuda") if grid is None else grid.device
+    full = init_params(cfg, torch.Generator(dev).manual_seed(params_seed),
+                       device=dev)
+    index = heads.init_head_state(cfg, full, torch.Generator(dev)
+                                  .manual_seed(3))
+    params = full if grid is None else steps.shard_for_rank(cfg, full, grid)
+    del full
+    group = None if grid is None else grid.model_pg
+    n_req, n_new, plen = TP_DECODE
+    gen = np.random.default_rng(5)
+    reqs = [Request(rid=i, tokens=gen.integers(0, cfg.vocab_size, plen)
+                    .astype(np.int32), max_new=n_new, seed=i)
+            for i in range(n_req)]
+    out = {}
+    with tp.model_axis(group):
+        eng = Engine(cfg.with_serve(max_slots=n_req, page_size=16,
+                                    max_seq=64), params, index=index,
+                     device=dev, seed=0)
+        zero_counts(counters.values())
+        with Decisions() as dec:
+            res = eng.run(reqs)
+        torch.cuda.synchronize()
+        out["decisions"] = dec.log
+        out["launches"] = dp_launches(counters, ("midx_probs",))
+        out["tokens"] = [np.asarray(res[r.rid].tokens).tolist()
+                         for r in reqs]
+        lat = [x for r in reqs for x in res[r.rid].latencies_s[1:]]
+        out["p50_ms"] = 1e3 * float(np.percentile(lat, 50))
+        out["p99_ms"] = 1e3 * float(np.percentile(lat, 99))
+        del eng
+        torch.cuda.empty_cache()
+        b, smax = TP_DEC_STEP
+        cache = init_decode_state(cfg, b, smax, device=dev)
+        tok = torch.arange(b, device=dev)
+        pos = torch.arange(b, device=dev)
+        serve = steps.make_decode_step(cfg)
+        out["arg_bytes"] = dryrun.arg_bytes(params, cache, tok, pos)
+        with torch.no_grad():
+            nxt0, cache = serve(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            out["before_bytes"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with coll.counting() as events:
+                nxt1, cache = serve(params, cache, tok + 1, pos + 1)
+            torch.cuda.synchronize()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["events"] = coll.summarize(events)
+        out["greedy"] = [nxt0.cpu().tolist(), nxt1.cpu().tolist()]
+    del params, cache, index
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_prefill_run(get_config, grid) -> dict:
+    """23c: `launch.steps.make_prefill_step` (the last position's full
+    logits) of llama3.2-1b at full depth on TP_PREFILL's tokens, in fp32
+    and in the config's own bf16 from the same params, each with
+    flash_attention's launches (the count set to 0 just before the
+    prefill, read just after): at S > 1024 every block's attention takes
+    the flash kernel, on the rank's local heads at tp 2."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.kernels.flash_attention import cuda as flash_cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    dev = torch.device("cuda") if grid is None else grid.device
+    base = get_config("llama3.2-1b")
+    b, s = TP_PREFILL
+    toks = torch.from_numpy(np.random.default_rng(29).integers(
+        0, base.vocab_size, (b, s))).to(dev)
+    full = init_params(base, torch.Generator(dev).manual_seed(6), device=dev)
+    params = full if grid is None else steps.shard_for_rank(base, full, grid)
+    del full
+    flash = flash_cuda.flash_attention_cuda
+    out = {}
+    for dt in ("float32", base.dtype):
+        cfg = dataclasses.replace(base, dtype=dt)
+        prefill = steps.make_prefill_step(cfg)
+        with tp.model_axis(None if grid is None else grid.model_pg), \
+                torch.no_grad():
+            flash.launches = 0
+            logits = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            out[dt] = {"flash": flash.launches, "logits": logits.float().cpu()}
+        del logits
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+TP_NAMES = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd",
+            "sampled_ce", "sampled_ce_bwd")
+
+
+def tp_zero1_cfg(get_config):
+    return dataclasses.replace(get_config("llama3.2-1b"), dtype="float32",
+                               num_layers=TP_ZERO1_LAYERS)
+
+
+def tp_rank(grid, outdir: str, mode: str) -> None:
+    """One rank of phase 23's spawns: mode 'tp' (dp 1 x tp 2: 23a, 23c)
+    or 'zero1' (dp 2 x tp 1: 23b). World rank 0 logs; every rank writes
+    `<outdir>/<mode><r>.pt`."""
+    import contextlib
+    if grid.world_rank == 0:
+        tp_rank_body(grid, outdir, mode)
+        return
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        tp_rank_body(grid, outdir, mode)
+
+
+def tp_rank_body(grid, outdir: str, mode: str) -> None:
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = dp_counters()
+    res = {}
+    if mode == "tp":
+        for cell, (_, b, s, moe_on, _) in TP_CELLS.items():
+            cfg = tp_cfg(get_config, cell)
+            res[cell] = tp_run(cfg, grid, b, s, moe_on, counters, TP_NAMES)
+            log(f"[smoke] 23a tp {grid.tp} rank {grid.world_rank} {cell}: "
+                f"losses {json.dumps(res[cell]['hist'])}, step "
+                f"{res[cell]['step_ms']:.1f} ms, launches "
+                f"{json.dumps(res[cell]['launches'])}")
+        res["decode"] = tp_decode_run(dataclasses.replace(
+            get_config("llama3.2-1b"), dtype="float32"), grid, counters)
+        res["prefill"] = tp_prefill_run(get_config, grid)
+    else:
+        cfg = tp_zero1_cfg(get_config)
+        for name, kw in (("plain", {"plain_dp": True}),
+                         ("zero1", {"zero1_on": True})):
+            torch.cuda.reset_peak_memory_stats()
+            res[name] = tp_run(cfg, grid, 4, 256, False, counters, TP_NAMES,
+                               **kw)
+            res[name]["max_memory_allocated"] = \
+                torch.cuda.max_memory_allocated()
+    torch.save(res, os.path.join(outdir, f"{mode}{grid.world_rank}.pt"))
+
+
+def tp_close(label: str, got, want, tol: float = TP_TOL) -> float:
+    """max |got - want| / max(1, |want|); fails the run past `tol`."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    err = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    if not err <= tol:
+        raise SystemExit(f"{label}: {err:.3e} from tp 1 (tol {tol})")
+    return err
+
+
+def tp_plan_check(label: str, cell, rank: dict) -> dict:
+    """23d: the plan of a cell the ranks ran against a rank's readings:
+    the collectives op kind by op kind equal, the argument bytes equal,
+    the plan's peak within TP_PEAK_TOL of the rank's `max_memory_allocated`
+    over the step less what the rank held before it beyond the step's
+    arguments (the CUDA libraries' workspaces, the caching allocator's
+    rounding: no part of the step's program), both printed."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.plan(cell, shape_name=label)
+    plan_c = {k: [v["count"], v["bytes"]]
+              for k, v in rec["collectives"].items() if isinstance(v, dict)}
+    got_c = {k: [v["count"], v["bytes"]] for k, v in rank["events"].items()}
+    if plan_c != got_c:
+        raise SystemExit(f"23d {label}: the plan's collectives {plan_c} vs "
+                         f"the ranks' {got_c}")
+    if rec["memory"]["argument_bytes"] != rank["arg_bytes"]:
+        raise SystemExit(f"23d {label}: the plan's argument bytes "
+                         f"{rec['memory']['argument_bytes']} vs the rank's "
+                         f"tensors' {rank['arg_bytes']}")
+    outside = rank["before_bytes"] - rank["arg_bytes"]
+    card = rank["peak_bytes"] - outside
+    ratio = rec["memory"]["peak_bytes"] / card
+    return {"peak_held": abs(ratio - 1.0) <= TP_PEAK_TOL,"collectives": plan_c, "arg_bytes": rank["arg_bytes"],
+            "plan_peak_gib": rec["memory"]["peak_bytes"] / 2**30,
+            "card_peak_gib": card / 2**30,
+            "max_memory_allocated_gib": rank["peak_bytes"] / 2**30,
+            "held_outside_gib": outside / 2**30,
+            "peak_ratio": ratio, "plan_s": rec["plan_s"],
+            "plan_flops": rec["flops_per_device"]}
+
+
+def tp_phases(get_config, card: str) -> dict:
+    """Phase 23: the model axis on the card. The one-card references in
+    this process, then the dp 1 x tp 2 spawn (23a, 23c) and the dp 2 x tp
+    1 spawn (23b), ranks sharing the card over gloo; then the plans of
+    those cells on the meta device (23d) and the qwen3-14b train_4k plan
+    through the CLI, started at the phase's start beside the rest."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshDesc, spawn_ranks
+    from repro_torch.optim import sgd
+    t0 = time.perf_counter()
+    plan_cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-14b", "--shape", "train_4k", "--mesh", "single", "--out",
+         os.path.join(HERE, "build", "dryrun_torch")],
+        cwd=HERE, env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src"),
+                       "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    counters = dp_counters()
+    ref = {}
+    for cell, (_, b, s, moe_on, _) in TP_CELLS.items():
+        ref[cell] = tp_run(tp_cfg(get_config, cell), None, b, s, moe_on,
+                           counters, TP_NAMES)
+    llama32 = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32")
+    ref_dec = tp_decode_run(llama32, None, counters)
+    ref_pre = tp_prefill_run(get_config, None)
+    t_ref = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="smoke-tp-") as tmp:
+        spawn_ranks(tp_rank, 1, (tmp, "tp"), tp=TP_RANKS, device="cuda",
+                    backend="gloo")
+        ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"))
+                 for r in range(TP_RANKS)]
+        spawn_ranks(tp_rank, 1, (tmp, "zero1"), dp=2, device="cuda",
+                    backend="gloo")
+        zranks = [torch.load(os.path.join(tmp, f"zero1{r}.pt"))
+                  for r in range(2)]
+    out = {"a": {}, "launches": {k: {} for k in TP_NAMES}}
+    for cell in TP_CELLS:
+        want = ref[cell]
+        errs = {"loss0": 0.0, "final_norm": 0.0, "wq": 0.0}
+        parted, flips0 = TP_STEPS, 0
+        for r, rank in enumerate(ranks):
+            got = rank[cell]
+            flips0 = max(flips0, tp_differing(got["decisions0"],
+                                              want["decisions0"]))
+            errs["loss0"] = max(errs["loss0"], tp_close(
+                f"23a {cell} step-0 loss", got["loss0"], want["loss0"]))
+            errs["final_norm"] = max(errs["final_norm"], tp_close(
+                f"23a {cell} replicated final_norm grad",
+                got["grad0"]["final_norm"], want["grad0"]["final_norm"]))
+            cols = got["grad0"]["wq"].shape[1]
+            errs["wq"] = max(errs["wq"], tp_close(
+                f"23a {cell} split wq grad", got["grad0"]["wq"],
+                want["grad0"]["wq"][:, r * cols:(r + 1) * cols]))
+            # step 0's loss is held whatever its decisions; a later step's
+            # while every decision up to it agrees (its own draws and
+            # picks, and the earlier steps' updates)
+            parted = min(parted, tp_parted(got["decisions"],
+                                           want["decisions"]))
+            held = max(parted, 1)
+            gap = max(abs(x - y) for x, y in zip(got["hist"][:held],
+                                                 want["hist"][:held]))
+            if not gap <= TP_LOSS_TOL:
+                raise SystemExit(f"23a {cell}: {TP_STEPS}-step losses "
+                                 f"{got['hist']} vs tp 1's {want['hist']} "
+                                 f"(decisions agree through step "
+                                 f"{parted - 1})")
+            for k, n in got["launches"].items():
+                out["launches"].setdefault(k, {}).setdefault(
+                    f"23a {cell} tp2", 0)
+                out["launches"][k][f"23a {cell} tp2"] += n
+        la = {k: sum(rk[cell]["launches"].get(k, 0) for rk in ranks)
+              for k in ranks[0][cell]["launches"]}
+        part = ("sampled_ce_pt[partial]" if cell == "paper-lm"
+                else "sampled_ce[partial]")
+        if la.get(part, 0) <= 0 or (cell == "paper-lm"
+                                    and la.get("midx_probs", 0) <= 0):
+            raise SystemExit(f"23a {cell}: {part} / midx_probs never "
+                             f"launched: {la}")
+        out["a"][cell] = {"errs": errs, "hist_tp1": want["hist"],
+                          "hist_tp2": ranks[0][cell]["hist"],
+                          "steps_held": max(parted, 1),
+                          "picks_differing_step0": flips0,
+                          "decisions_step0": sum(
+                              x.numel() for x in want["decisions0"]),
+                          "step_ms_tp1": want["step_ms"],
+                          "step_ms_tp2": ranks[0][cell]["step_ms"],
+                          "launches": la}
+        log(f"[smoke] 23a {cell} tp 2 (2 gloo ranks on one card) vs tp 1: "
+            f"step 0 errors {json.dumps(errs)} (tol {TP_TOL} max(1,|x|)); "
+            f"losses {json.dumps(ranks[0][cell]['hist'])} vs "
+            f"{json.dumps(want['hist'])}, held within {TP_LOSS_TOL} on "
+            f"step 0 and the steps whose draws and expert picks all agree "
+            f"({max(parted, 1)} of {TP_STEPS}); step 0 picks differing "
+            f"{flips0} of {out['a'][cell]['decisions_step0']}; step "
+            f"{ranks[0][cell]['step_ms']:.1f}"
+            f" ms vs {want['step_ms']:.1f} ms; launches {json.dumps(la)}")
+    # 23b: ZeRO-1 at dp 2
+    for r, z in enumerate(zranks):
+        same = all(torch.equal(a, b) for a, b in
+                   zip(z["plain"]["params"], z["zero1"]["params"]))
+        if not same:
+            raise SystemExit(f"23b rank {r}: ZeRO-1 params differ from the "
+                             f"dp 2 step's after {TP_STEPS} steps")
+    out["b"] = [{k: {"moment_bytes": z[k]["moment_bytes"],
+                     "max_memory_gib": z[k]["max_memory_allocated"] / 2**30,
+                     "step_ms": z[k]["step_ms"]} for k in ("plain", "zero1")}
+                for z in zranks]
+    log(f"[smoke] 23b llama3.2-1b ({TP_ZERO1_LAYERS} layers) dp 2 ZeRO-1: "
+        f"params after {TP_STEPS} steps "
+        f"bitwise the dp 2 step's on both ranks; {json.dumps(out['b'])}")
+    # 23c: TP decode and the long prefill, every rank held to tp 1
+    out["c"] = {k: {"p50_ms": d["p50_ms"], "p99_ms": d["p99_ms"]}
+                for k, d in (("tp1", ref_dec), ("tp2", ranks[0]["decode"]))}
+    out["c"]["ranks"] = []
+    for r, rank in enumerate(ranks):
+        dec = rank["decode"]
+        differing = tp_differing(dec["decisions"], ref_dec["decisions"])
+        same = sum(a == b for a, b in zip(dec["tokens"], ref_dec["tokens"]))
+        out["c"]["ranks"].append({"requests_with_equal_tokens": same,
+                                  "draws_differing": differing})
+        if differing or dec["tokens"] != ref_dec["tokens"]:
+            raise SystemExit(f"23c rank {r}: the tp 2 engine's tokens equal "
+                             f"tp 1's on {same} of {TP_DECODE[0]} requests, "
+                             f"{differing} MIDX draws differ")
+        if dec["greedy"] != ref_dec["greedy"]:
+            raise SystemExit(f"23c rank {r}: the tp 2 greedy decode steps' "
+                             f"tokens {dec['greedy']} vs tp 1's "
+                             f"{ref_dec['greedy']}")
+    n_dec = sum(rk["decode"]["launches"]["midx_probs"] for rk in ranks)
+    if n_dec <= 0:
+        raise SystemExit("23c: midx_probs was never launched at tp 2")
+    out["launches"]["midx_probs"]["23c llama3.2-1b tp2 serve"] = n_dec
+    log(f"[smoke] 23c llama3.2-1b fp32 tp 2 engine (MIDX head) "
+        f"{TP_DECODE[0]} x {TP_DECODE[1]}: tokens equal tp 1's on every "
+        f"request and rank, every draw agrees; the greedy decode steps' "
+        f"tokens equal too; {json.dumps(out['c'])}")
+    f32, bf = ref_pre["float32"]["logits"], ref_pre["bfloat16"]["logits"]
+    own = float((bf - f32).abs().max())
+    pre = {"bf16_tp1_from_fp32": own,
+           "fp32_logit_absmax": float(f32.abs().max())}
+    n_flash, faults = 0, []
+    for r, rank in enumerate(ranks):
+        got = rank["prefill"]
+        d32 = (got["float32"]["logits"].double() - f32.double()).abs()
+        pre[f"fp32_rank{r}"] = float((d32 / f32.double().abs().clamp(
+            min=1.0)).max())
+        pre[f"fp32_rank{r}_abs"] = float(d32.max())
+        pre[f"bf16_rank{r}_from_fp32"] = float(
+            (got["bfloat16"]["logits"] - f32).abs().max())
+        if not pre[f"fp32_rank{r}"] <= TP_PREFILL_TOL:
+            faults.append(f"rank {r}: fp32 logits {pre[f'fp32_rank{r}']:.3e}"
+                          f" from tp 1's (tol {TP_PREFILL_TOL})")
+        if not torch.equal(got["float32"]["logits"].argmax(-1),
+                           f32.argmax(-1)):
+            faults.append(f"rank {r}: the fp32 argmax differs from tp 1's")
+        if not pre[f"bf16_rank{r}_from_fp32"] <= TP_BF16_GAP * own:
+            faults.append(f"rank {r}: bf16 logits "
+                          f"{pre[f'bf16_rank{r}_from_fp32']:.4g} from tp 1's"
+                          f" fp32, past {TP_BF16_GAP} x tp 1 bf16's "
+                          f"{own:.4g}")
+        for dt in ("float32", "bfloat16"):
+            if got[dt]["flash"] <= 0:
+                faults.append(f"rank {r}: flash_attention was never "
+                              f"launched in the {dt} prefill")
+            n_flash += got[dt]["flash"]
+    out["c"]["prefill"] = pre
+    out["launches"]["flash_attention"] = {
+        "23c llama3.2-1b tp2 prefill 2048": n_flash}
+    log(f"[smoke] 23c llama3.2-1b tp 2 prefill {TP_PREFILL[0]} x "
+        f"{TP_PREFILL[1]} (flash on the rank's local heads, {n_flash} "
+        f"launches over both ranks and dtypes) vs tp 1: fp32 logits within "
+        f"{TP_PREFILL_TOL} max(1,|x|), argmax equal; bf16 within "
+        f"{TP_BF16_GAP} x tp 1 bf16's own distance from fp32; "
+        f"{json.dumps(pre)}")
+    if faults:
+        raise SystemExit("23c the tp 2 prefill: " + "; ".join(faults))
+    # 23d: the plans of those cells
+    tp_mesh = MeshDesc(("data", "model"), (1, TP_RANKS))
+    out["d"] = {}
+    for cell, (_, b, s, moe_on, _) in TP_CELLS.items():
+        c = dryrun.build_cell(tp_cfg(get_config, cell), "train", tp_mesh,
+                              global_batch=b, seq_len=s,
+                              moe_sharded=moe_on, use_zero1=False,
+                              optimizer=sgd(TP_SGD[0], momentum=TP_SGD[1]))
+        out["d"][cell] = [tp_plan_check(cell, c, rk[cell]) for rk in ranks]
+    c = dryrun.build_cell(tp_zero1_cfg(get_config), "train",
+                          MeshDesc(("data", "model"), (2, 1)),
+                          global_batch=4, seq_len=256, use_zero1=True)
+    out["d"]["llama3.2-1b dp2 zero1"] = [
+        tp_plan_check("llama3.2-1b dp2 zero1", c, z["zero1"])
+        for z in zranks]
+    c = dryrun.build_cell(llama32, "decode", tp_mesh,
+                          global_batch=TP_DEC_STEP[0],
+                          seq_len=TP_DEC_STEP[1])
+    out["d"]["llama3.2-1b decode step"] = [
+        tp_plan_check("llama3.2-1b decode step", c, rk["decode"])
+        for rk in ranks]
+    log(f"[smoke] 23d the plans vs the ranks: collectives equal op kind by "
+        f"op kind, argument bytes equal; peaks: {json.dumps(out['d'])}")
+    missed = [k for k, v in out["d"].items() if not all(
+        x["peak_held"] for x in v)]
+    if missed:
+        raise SystemExit(f"23d the plan's peak is not within "
+                         f"{TP_PEAK_TOL:.0%} of the card's for {missed}")
+    cli_out, _ = plan_cli.communicate(timeout=600)
+    if plan_cli.returncode != 0:
+        raise SystemExit(f"23d the qwen3-14b plan failed:\n{cli_out[-3000:]}")
+    line = [x for x in cli_out.splitlines() if x.startswith("[dryrun] qwen3")]
+    out["qwen3_plan"] = line[-1] if line else cli_out[-500:]
+    log(f"[smoke] 23d `python -m repro_torch.launch.dryrun --arch qwen3-14b "
+        f"--shape train_4k --mesh single` (CPU, beside the phase): "
+        f"{out['qwen3_plan']}")
+    out["seconds"] = time.perf_counter() - t0
+    out["reference_seconds"] = t_ref
+    log(f"[smoke] phase 23 (the model axis) took {out['seconds']:.1f}s "
+        f"(spawns included) on {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -6325,6 +6982,11 @@ def main() -> None:
     f22, u22 = p22.pop("launches"), p22["yardstick"]
     del corpus
     mark("the unfused head route (phase 22)")
+    torch.cuda.empty_cache()
+    p23 = tp_phases(get_config, card)
+    f23 = p23.pop("launches")
+    f23_flash = f23.pop("flash_attention")
+    mark("the model axis (phase 23)")
     for name, n in (("llama3.2-1b serve", n_rff_llama),
                     ("paper-lm train", n_rff_train[0]),
                     ("trained paper-lm serve", n_rff_trained)):
@@ -6359,7 +7021,7 @@ def main() -> None:
         "18b llama3.2-1b midx-learnable serve": learn["midx_probs serve"],
         "18c contender draws": p18["draw_launches"]["midx_probs"],
         **f19["midx_probs"], **f20["midx_probs"], **f21["midx_probs"],
-        **f22["midx_probs"]}
+        **f22["midx_probs"], **f23["midx_probs"]}
     rows = [{
         "name": "midx_probs", "route": "cuda",
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
@@ -6387,7 +7049,7 @@ def main() -> None:
         by_path = {"paper-lm train": n,
                    "18a paper-lm midx-learnable train":
                        p18["paper"]["launches"][kname], **f20[kname],
-                   **f22[kname]}
+                   **f22[kname], **f23[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/per_token.py:{line}",
@@ -6419,7 +7081,8 @@ def main() -> None:
         by_path = {"llama3.2-1b train": n_shared[i], "train_4k": n_4k[1 + i],
                    "mamba2-370m train": n_mamba[kname],
                    "18b llama3.2-1b midx-learnable train": learn[kname],
-                   **f19[kname], **f20[kname], **f21[kname], **f22[kname]}
+                   **f19[kname], **f20[kname], **f21[kname], **f22[kname],
+                   **f23[kname]}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
@@ -6471,13 +7134,14 @@ def main() -> None:
         "launches": n_long_serve[0] + n_4k[0] + sum(n_4k_replay)
                     + tier["flash_attention"]
                     + sum(f19["flash_attention"].values())
-                    + sum(f21["flash_attention"].values()),
+                    + sum(f21["flash_attention"].values())
+                    + sum(f23_flash.values()),
         "launches_by_path": {"long-prompt serve": n_long_serve[0],
                              "train_4k": n_4k[0],
                              "train_4k replay": n_4k_replay,
                              "serving tier": tier["flash_attention"],
                              **f19["flash_attention"],
-                             **f21["flash_attention"]},
+                             **f21["flash_attention"], **f23_flash},
         "max_abs_err": max(list(flash_worst.values()) + [
             r["max_abs_err"] for r in h21["flash_attention"]]),
         "phase21_shapes": h21["flash_attention"],
@@ -6511,7 +7175,9 @@ def main() -> None:
     n_quant["midx_probs[int8]"] += tier["midx_probs_int8"]
     rows += quantized_rows(qholds, n_quant)
     rows += partial_rows({k: v for k, v in partial_holds.items()
-                          if k != "row0"}, vp, f20)
+                          if k != "row0"}, vp,
+                         {k: {**f20.get(k, {}), **f23.get(k, {})}
+                          for k in set(f20) | set(f23)})
     log(f"[smoke] vocab-parallel: {json.dumps(vp)}; row-0 hot segment "
         f"{json.dumps(partial_holds.get('row0'))}; on {card}")
     log(f"[smoke] serving tier (phase 16): {json.dumps(tier)}; on {card}")
@@ -6527,6 +7193,7 @@ def main() -> None:
         f"{json.dumps(p21)}; on {card}")
     log(f"[smoke] the unfused head route (phase 22): {json.dumps(p22)}; on "
         f"{card}")
+    log(f"[smoke] the model axis (phase 23): {json.dumps(p23)}; on {card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

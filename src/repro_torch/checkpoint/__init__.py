@@ -3,4 +3,5 @@
 from repro_torch.checkpoint.manager import (CheckpointError,
                                             CheckpointManager,
                                             restore_serving_state,
+                                            restore_sharded, save_gathered,
                                             save_serving_state)

@@ -47,7 +47,10 @@ name in tree.json, as the reference stores them, without `ml_dtypes`.
 tensors on `device`.
 
 Departure: the reference's `shardings=` (elastic re-shard onto a mesh) is
-`device=` here; the port runs on one device.
+`device=` here. Across meshes a rank of a dp x tp grid saves the gathered
+replicated tree (`save_gathered`) and restores its slice for any other
+mesh (`restore_sharded`, `dist.sharding.shard_by_spec`), ZeRO-1 moments
+gathered to the reference's format first.
 """
 from __future__ import annotations
 
@@ -471,3 +474,34 @@ def restore_serving_state(root: str, like_params: Any, like_index: Any,
     else:
         tree = mgr.restore(step, like, device=device)
     return tree["params"], tree["index"], mgr.metadata(step)
+
+
+# ---------------------------------------------------------------------------
+# across meshes
+# ---------------------------------------------------------------------------
+# A rank of a dp x tp grid holds slices (`dist.sharding.shard_by_spec`);
+# the checkpoint holds the replicated tree, so it restores onto any mesh:
+# the reference's `restore(..., shardings=...)` (its test_dist.py:149
+# saves on 4 x 2 and restores onto 2 x 4 and 8 x 1).
+
+def save_gathered(mgr: CheckpointManager, step: int, tree: Any, specs: Any,
+                  groups: dict, *, write: bool,
+                  metadata: Optional[dict] = None) -> Any:
+    """Gather a rank's slices of `tree` whole (`gather_by_spec` over
+    `groups`, axis -> process group; collective, so every rank calls it)
+    and, where `write`, save the replicated tree. Returns it."""
+    from repro_torch.dist.sharding import gather_by_spec
+    full = gather_by_spec(tree, specs, groups)
+    if write:
+        mgr.save(step, full, metadata)
+    return full
+
+
+def restore_sharded(mgr: CheckpointManager, step: int, like: Any,
+                    specs: Any, sizes: dict, coords: dict, *,
+                    device=None) -> Any:
+    """Restore the replicated tree and cut the slices of the rank at
+    `coords` on a mesh of `sizes` (the specs of that mesh's degrees)."""
+    from repro_torch.dist.sharding import shard_by_spec
+    return shard_by_spec(mgr.restore(step, like, device=device), specs,
+                         sizes, coords)

@@ -31,11 +31,19 @@ its OWN inputs:
                no gradient (the merge's detached shift; integer counts,
                the member ids, norms).
 
-Every collective is an `all_reduce` (SUM or MAX): an all-gather is the
-all-reduce of a zeroed buffer in which each rank fills its own slot. So
-the code runs on NCCL and on gloo with CUDA tensors alike. A group of one
+Every collective is an `all_reduce` (SUM or MAX) or an `all_gather` of
+raw bytes, the two that NCCL and gloo both run on CUDA tensors. There is
+no reduce-scatter (gloo has none for CUDA tensors): a gradient is reduced
+whole. A group of one
 rank (or no initialised process group) makes every collective the
-identity.
+identity. The model axis (`dist.tensor_parallel`) adds the gather along
+a dimension `gather_region`, whose backward sums the ranks' gradients
+(an all-reduce) and hands each its slice, a reduce-scatter's result.
+
+`counting()` notes every collective of two or more ranks (its kind, group
+size and buffer bytes); a `RecordingGroup` is a group that moves nothing,
+over which the dry run's plan runs one rank's program on the meta device,
+so the plan's schedule and the ranks' counted one come from the same code.
 
 The gradient transports work on trees (dicts and lists of tensors, as
 `optim.optimizers.tree_map` walks them) and reduce them in buckets: the
@@ -50,6 +58,10 @@ the same end (the step's guard skips).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
@@ -59,23 +71,105 @@ from repro_torch.optim.optimizers import tree_leaves, tree_map
 BUCKET_BYTES = 1 << 28
 
 
+@dataclasses.dataclass(frozen=True)
+class RecordingGroup:
+    """A process group that moves nothing: a collective over it returns
+    its input (a gather, the input in every slot) and is noted in the
+    active `counting()` log with this group's `axis` name. The meta-device
+    plan (`launch.dryrun`) runs one rank's program over such groups, so
+    the schedule it reads is the one the real ranks run."""
+    size: int
+    rank: int = 0
+    axis: str = "model"
+
+
 def group_size(group=None) -> int:
+    if isinstance(group, RecordingGroup):
+        return group.size
     if not dist.is_available() or not dist.is_initialized():
         return 1
     return dist.get_world_size(group)
 
 
 def group_rank(group=None) -> int:
+    if isinstance(group, RecordingGroup):
+        return group.rank
     if not dist.is_available() or not dist.is_initialized():
         return 0
     return dist.get_rank(group)
+
+
+# ------------------------------------------------------ counting collectives
+_LOG: dict = {"events": None}
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveEvent:
+    """One collective: its kind ('all-reduce' or 'all-gather'), the size
+    of its group, the bytes of its buffer (an all-gather's: the gathered
+    result) and the axis of a `RecordingGroup` (None for a real group)."""
+    kind: str
+    group_size: int
+    nbytes: int
+    axis: Optional[str] = None
+
+    @property
+    def ring_bytes(self) -> float:
+        """Bytes one rank sends in the ring algorithm: 2 (n - 1) / n of an
+        all-reduce's buffer, (n - 1) / n of an all-gather's result."""
+        n = self.group_size
+        hops = 2.0 if self.kind == "all-reduce" else 1.0
+        return hops * self.nbytes * (n - 1) / n
+
+
+@contextlib.contextmanager
+def counting():
+    """Note every collective of a group of two or more ranks made inside
+    the block into the yielded list of `CollectiveEvent`s (nests: an
+    inner block's events reach the outer list too)."""
+    outer = _LOG["events"]
+    events: list = []
+    _LOG["events"] = events
+    try:
+        yield events
+    finally:
+        _LOG["events"] = outer
+        if outer is not None:
+            outer.extend(events)
+
+
+def _note(kind: str, nbytes: int, group) -> None:
+    if _LOG["events"] is not None:
+        _LOG["events"].append(CollectiveEvent(
+            kind, group_size(group), int(nbytes),
+            group.axis if isinstance(group, RecordingGroup) else None))
+
+
+def summarize(events: list) -> dict:
+    """{kind: {"count", "bytes", "ring_bytes"}} over `events`."""
+    out: dict = {}
+    for e in events:
+        k = out.setdefault(e.kind, {"count": 0, "bytes": 0,
+                                    "ring_bytes": 0.0})
+        k["count"] += 1
+        k["bytes"] += e.nbytes
+        k["ring_bytes"] += e.ring_bytes
+    return out
+
+
+def _reduce_(buf: torch.Tensor, op, group) -> None:
+    """All-reduce `buf` in place over `group` (noted; a recording group
+    leaves it as it is)."""
+    _note("all-reduce", buf.numel() * buf.element_size(), group)
+    if not isinstance(group, RecordingGroup):
+        dist.all_reduce(buf, op=op, group=group)
 
 
 def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """A reduced copy of x (x itself is left as it was)."""
     out = x.detach().clone().contiguous()
     if group_size(group) > 1:
-        dist.all_reduce(out, op=op, group=group)
+        _reduce_(out, op, group)
     return out
 
 
@@ -122,18 +216,19 @@ def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def all_gather_stack(x: torch.Tensor, group=None) -> torch.Tensor:
-    """[n, *x.shape]: rank r's x in slot r, detached — the all-reduce SUM
-    of a zeroed byte buffer in which each rank fills its own slot with x's
-    raw bytes: every other slot adds zero bytes, so each value arrives bit
-    for bit (a −0.0 stays −0.0), whatever its dtype."""
-    n, r = group_size(group), group_rank(group)
+    """[n, *x.shape]: rank r's x in slot r, detached — an all-gather of
+    x's raw bytes, so each value arrives bit for bit (a −0.0 stays −0.0),
+    whatever its dtype."""
+    n = group_size(group)
     src = x.detach().contiguous()
     if n == 1:
         return src.clone()[None]
+    _note("all-gather", n * src.numel() * src.element_size(), group)
+    if isinstance(group, RecordingGroup):
+        return src[None].expand(n, *src.shape).clone()
     raw = src.reshape(-1).view(torch.uint8)
-    buf = raw.new_zeros((n, raw.numel()))
-    buf[r] = raw
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    buf = raw.new_empty((n, raw.numel()))
+    dist.all_gather(list(buf.unbind(0)), raw, group=group)
     return buf.view(src.dtype).reshape(n, *src.shape)
 
 
@@ -141,6 +236,38 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """A row-sharded array back in its global row order (reference
     `all_gather_rows` :73): the ranks' [rows, ...] concatenated."""
     return all_gather_stack(x, group).reshape(-1, *x.shape[1:])
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The ranks' x concatenated along `dim` in rank order, detached and
+    bit for bit (the inverse of cutting `dim` into equal contiguous
+    slices)."""
+    dim = dim % x.dim()
+    st = all_gather_stack(x, group)                     # [n, *x.shape]
+    return torch.movedim(st, 0, dim).reshape(
+        *x.shape[:dim], -1, *x.shape[dim + 1:])
+
+
+class _GatherRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.width = dim, group, x.shape[dim]
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, dist.ReduceOp.SUM, ctx.group)
+        r, w = group_rank(ctx.group), ctx.width
+        return g.narrow(ctx.dim, r * w, w), None, None
+
+
+def gather_region(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """x's slices gathered along `dim` into the whole tensor, where what
+    follows on each rank uses only part of it: the backward sums the
+    ranks' gradients of the whole tensor and hands each rank its slice
+    (Megatron's all-gather, whose transpose is a reduce-scatter: here an
+    all-reduce, then the rank's slice)."""
+    return _GatherRegion.apply(x, dim, group)
 
 
 # ------------------------------------------------------ gradient transports
@@ -160,7 +287,7 @@ def _all_reduce_leaves(xs: list, op, group) -> list:
             size = 0 if i is None else xs[i].numel() * xs[i].element_size()
             if bucket and (i is None or nbytes + size > BUCKET_BYTES):
                 flat = torch.cat([xs[j].detach().reshape(-1) for j in bucket])
-                dist.all_reduce(flat, op=op, group=group)
+                _reduce_(flat, op, group)
                 for j, piece in zip(bucket, torch.split(
                         flat, [xs[j].numel() for j in bucket])):
                     out[j] = piece.view(xs[j].shape)

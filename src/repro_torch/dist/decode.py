@@ -32,14 +32,18 @@ NEG_INF = -1e30
 def flash_decode_seq_sharded(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, pos: torch.Tensor,
                              group=None, *,
-                             window: Optional[int] = None) -> torch.Tensor:
+                             window: Optional[int] = None,
+                             local: bool = False) -> torch.Tensor:
     """q [B, 1, H, hd]; k/v caches [B, Smax, KV, hd], the same on every
     rank of `group`; pos a scalar or per-slot [B] int tensor. -> [B, 1, H,
     hd] in q's dtype, the same on every rank. Matches `decode_attention(q,
     k, v, pos, window=window)`: entries past `pos` (and outside the
-    window) are masked. Smax must divide the group's size."""
+    window) are masked. Smax must divide the group's size. `local=True`:
+    the caches are this rank's slice [B, Smax / n, KV, hd] (the model
+    axis's sequence-sharded cache, `decode_cache_specs`)."""
     n, r = group_size(group), group_rank(group)
-    smax = k_cache.shape[1]
+    sliced = local
+    smax = k_cache.shape[1] * (n if sliced else 1)
     if smax % n:
         raise ValueError(f"seq len {smax} must divide the group's size {n}")
     local = smax // n
@@ -47,8 +51,11 @@ def flash_decode_seq_sharded(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
     g = h // kvh
-    k = k_cache[:, lo:lo + local].float()
-    v = v_cache[:, lo:lo + local].float()
+    if sliced:
+        k, v = k_cache.float(), v_cache.float()
+    else:
+        k = k_cache[:, lo:lo + local].float()
+        v = v_cache[:, lo:lo + local].float()
     qg = q.reshape(b, 1, kvh, g, hd).float() * hd ** -0.5
     scores = torch.einsum("bqkgh,bmkh->bkgqm", qg, k)       # [b,kv,g,1,L]
     j = lo + torch.arange(local, device=q.device)

@@ -234,6 +234,27 @@ def merge_loss(pos_logit: torch.Tensor, partial: torch.Tensor,
     return torch.log(torch.clamp(total, min=1e-30)) + shift - pos_logit
 
 
+def loss_full_vp(table_local: torch.Tensor, hidden: torch.Tensor,
+                 labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 *, group=None) -> torch.Tensor:
+    """The full-softmax CE over a row-split class table, merged across the
+    ranks (a vocab-split softmax): the rank's logits over its rows, the
+    detached pmax as the shift, the psum of the shifted exponentials, the
+    owner-masked positive logit psummed. The same scalar on every rank,
+    within fp reassociation of `heads.loss_full` on the whole table."""
+    rows = table_local.shape[0]
+    h32 = copy_to_vocab_region(hidden.float(), group)
+    logits = h32 @ table_local.float().T                        # [.., rows]
+    shift = pmax(torch.amax(logits.detach(), dim=-1), group)
+    total = psum(torch.sum(torch.exp(logits - shift[..., None]), -1), group)
+    lpos = labels - group_rank(group) * rows
+    okp = (lpos >= 0) & (lpos < rows)
+    pos = torch.gather(logits, -1, torch.where(okp, lpos, 0)[..., None]
+                       .long())[..., 0]
+    pos = psum(torch.where(okp, pos, torch.zeros_like(pos)), group)
+    return _masked_mean(torch.log(total) + shift - pos, mask)
+
+
 def _masked_mean(loss, mask):
     if mask is not None:
         return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -58,7 +58,10 @@ def _csr_from_assignments(assign1: torch.Tensor, assign2: torch.Tensor,
                           k: int):
     joint = assign1.long() * k + assign2.long()                     # [N]
     sorted_ids = torch.sort(joint, stable=True).indices
-    counts_flat = torch.bincount(joint, minlength=k * k)
+    if joint.is_meta:       # the dry run's plan: shapes only
+        counts_flat = joint.new_empty((k * k,))
+    else:
+        counts_flat = torch.bincount(joint, minlength=k * k)
     offsets = torch.cat([counts_flat.new_zeros(1),
                          torch.cumsum(counts_flat, 0)])
     counts = counts_flat.reshape(k, k)

@@ -180,9 +180,11 @@ def _refit_or_keep(idx: MultiIndex, gen, x, frozen, frac, move, *, group,
                    iters, policy, threshold, valid=None, n_valid=None):
     """The policy's branch: the warm-started sharded refit ('fixed', or
     'drift' above `threshold`) or the frozen codebooks with the probe's
-    assignments. -> (cb1, cb2, a1_local, a2_local, did_full)."""
-    do_full = policy == "fixed" or bool((frac > threshold)
-                                        | (move > threshold))
+    assignments. -> (cb1, cb2, a1_local, a2_local, did_full). On the
+    meta device (the dry run's plan) the probe has no value and 'drift'
+    plans its costlier branch, the refit."""
+    do_full = policy == "fixed" or frac.is_meta or bool(
+        (frac > threshold) | (move > threshold))
     if do_full:
         fit = _fit_assign_sharded(idx.kind, gen, x, idx.num_codewords, iters,
                                   group=group,

@@ -1,14 +1,20 @@
 """The rank grid of a multi-process run: which device and backend each
-rank uses, its data and vocab process groups, and how ranks are started.
+rank uses, its data, model and vocab process groups, and how ranks are
+started; and the production meshes as descriptions.
 
-Mirrors `src/repro/launch/mesh.py::make_debug_mesh` (:41),
-`make_vocab_mesh` (:46), `mesh_dp_tp` (:36) and `mesh_vp` (:48) for the
-port's one-process-per-shard layout. A run of dp x vp ranks lays them out
-as `jax.make_mesh((data, vocab))` does, data outer and vocab inner: world
-rank w is data rank w // vp and vocab rank w % vp. Each rank joins the
-vocab group of its data row (the vp ranks that share its batch rows) and
-the data group of its vocab column (the dp ranks that hold the same rows
-of the class table), both `torch.distributed.new_group`s.
+Mirrors `src/repro/launch/mesh.py::make_production_mesh` (:7),
+`make_debug_mesh` (:41), `make_vocab_mesh` (:46), `mesh_dp_tp` (:36) and
+`mesh_vp` (:48) for the port's one-process-per-shard layout. A run of
+dp x tp ranks lays them out as `jax.make_mesh((data, model))` does, data
+outer and model inner: world rank w is data rank w // tp and model rank
+w % tp; a dp x vp run likewise with the vocab axis inner. Each rank joins
+the model (or vocab) group of its data row and the data group of its
+column, all `torch.distributed.new_group`s. dp x tp x vp is not a grid
+here: the reference carves `vocab` out of `model`, and the plan
+(`launch.dryrun`) models that by sizes alone.
+
+`make_production_mesh` / `mesh_dp_tp` describe the reference's 16 x 16
+and 2 x 16 x 16 meshes (axis names and sizes, no processes) for the plan.
 
 Rank w's device is explicit, `cuda:{w % device_count}`, so that ranks
 share the card when there is one (or run on the CPU when asked). The
@@ -21,6 +27,7 @@ directory, so ranks need no free TCP port.
   spawn_ranks(fn, 2, args, device="cuda")          # vp 2: fn(grid, *args)
   spawn_ranks(fn, 1, args, dp=2, device="cuda")    # dp 2
   spawn_ranks(fn, 2, args, dp=2, device="cuda")    # dp 2 x vp 2
+  spawn_ranks(fn, 1, args, dp=2, tp=2, device="cuda")   # dp 2 x tp 2
 """
 from __future__ import annotations
 
@@ -35,11 +42,12 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class RankGrid:
-    """One rank's place on the dp x vp grid. `rank`, `size` and `pg` are
-    its vocab group's (its vocab rank, vp, the process group the
-    vocab-parallel collectives take; None: the default group), the names
-    the vocab-parallel code reads; `data_rank`, `dp` and `data_pg` its data
-    group's."""
+    """One rank's place on the dp x tp (or dp x vp) grid. `rank`, `size`
+    and `pg` are its vocab group's (its vocab rank, vp, the process group
+    the vocab-parallel collectives take; None: the default group), the
+    names the vocab-parallel code reads; `data_rank`, `dp` and `data_pg`
+    its data group's; `model_rank`, `tp` and `model_pg` its model
+    group's (a group of its own even where it is the world)."""
     rank: int
     size: int
     device: torch.device
@@ -48,14 +56,65 @@ class RankGrid:
     dp: int = 1
     data_rank: int = 0
     data_pg: object = None
+    tp: int = 1
+    model_rank: int = 0
+    model_pg: object = None
 
     @property
     def world_rank(self) -> int:
-        return self.data_rank * self.size + self.rank
+        return ((self.data_rank * self.tp + self.model_rank) * self.size
+                + self.rank)
 
     @property
     def world_size(self) -> int:
-        return self.dp * self.size
+        return self.dp * self.tp * self.size
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshDesc:
+    """A mesh by its axis names and sizes (no devices, no processes)."""
+    axis_names: tuple
+    shape: tuple
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         vocab_parallel: int = 1) -> MeshDesc:
+    """16 x 16 chips a pod, 2 pods when multi_pod (reference :7);
+    vocab_parallel > 1 carves a `vocab` axis out of the 16-chip model
+    axis: (16 // vocab_parallel) model x vocab_parallel vocab."""
+    if vocab_parallel > 1:
+        if 16 % vocab_parallel:
+            raise ValueError(f"vocab_parallel {vocab_parallel} must divide "
+                             f"the 16-chip inner mesh dim")
+        model = 16 // vocab_parallel
+        if multi_pod:
+            return MeshDesc(("pod", "data", "model", "vocab"),
+                            (2, 16, model, vocab_parallel))
+        return MeshDesc(("data", "model", "vocab"),
+                        (16, model, vocab_parallel))
+    if multi_pod:
+        return MeshDesc(("pod", "data", "model"), (2, 16, 16))
+    return MeshDesc(("data", "model"), (16, 16))
+
+
+def mesh_dp_tp(mesh) -> tuple[int, int]:
+    """(data-parallel degree incl. the pod axis, tensor-parallel degree)
+    of a `MeshDesc` or a `RankGrid` (reference :36)."""
+    if isinstance(mesh, RankGrid):
+        return mesh.dp, mesh.tp
+    sizes = mesh.sizes
+    return sizes.get("data", 1) * sizes.get("pod", 1), sizes.get("model", 1)
 
 
 def mesh_dp(grid: Optional[RankGrid]) -> int:
@@ -97,18 +156,39 @@ def choose_backend(size: int, device: torch.device,
 
 
 def make_rank_grid(dp: int, vp: int, world_rank: int, store_path: str, *,
-                   device=None, backend: Optional[str] = None) -> RankGrid:
-    """Join the dp x vp grid as `world_rank`, rendezvousing through a
-    FileStore at `store_path` (every rank gives the same path). Every rank
-    creates every row's and column's group, in one order, as
+                   device=None, backend: Optional[str] = None,
+                   tp: int = 1) -> RankGrid:
+    """Join the dp x vp (or dp x tp) grid as `world_rank`, rendezvousing
+    through a FileStore at `store_path` (every rank gives the same path).
+    Every rank creates every row's and column's group, in one order, as
     `new_group` requires."""
-    size = dp * vp
+    if tp > 1 and vp > 1:
+        raise ValueError(f"a grid has a model axis or a vocab axis, not "
+                         f"both (tp={tp}, vp={vp})")
+    size = dp * vp * tp
     dev = rank_device(world_rank, device)
     be = choose_backend(size, dev, backend)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(be, store=dist.FileStore(store_path, size),
                             rank=world_rank, world_size=size)
+    if tp > 1:
+        d, m = divmod(world_rank, tp)
+        model_pg = data_pg = vocab_pg = None
+        for row in range(dp):
+            pg = dist.new_group([row * tp + c for c in range(tp)])
+            if row == d:
+                model_pg = pg
+        for col in range(tp):
+            pg = dist.new_group([r * tp + col for r in range(dp)])
+            if col == m:
+                data_pg = pg
+        for r in range(size):
+            pg = dist.new_group([r])
+            if r == world_rank:
+                vocab_pg = pg
+        return RankGrid(0, 1, dev, be, vocab_pg, dp, d, data_pg, tp, m,
+                        model_pg)
     d, v = divmod(world_rank, vp)
     vocab_pg = data_pg = None
     if dp > 1:
@@ -138,11 +218,11 @@ def close_rank_grid() -> None:
 
 def _rank_main(world_rank: int, fn: Callable, dp: int, vp: int,
                store_path: str, device, backend, threads: int,
-               args: tuple) -> None:
+               args: tuple, tp: int) -> None:
     if threads:
         torch.set_num_threads(threads)
     grid = make_rank_grid(dp, vp, world_rank, store_path, device=device,
-                          backend=backend)
+                          backend=backend, tp=tp)
     try:
         fn(grid, *args)
     finally:
@@ -150,17 +230,21 @@ def _rank_main(world_rank: int, fn: Callable, dp: int, vp: int,
 
 
 def spawn_ranks(fn: Callable, size: int, args: tuple = (), *, dp: int = 1,
-                device=None, backend: Optional[str] = None,
+                tp: int = 1, device=None, backend: Optional[str] = None,
                 threads: int = 0) -> None:
-    """Run fn(grid, *args) in dp x `size` new processes (spawned, so `fn`
-    must be importable at module level), one rank each, `size` the vocab
-    degree, and wait for all of them; a rank that fails fails the call.
-    threads > 0 caps each rank's torch intra-op threads."""
-    if dp < 1 or size < 1:
-        raise ValueError(f"the grid needs dp >= 1 and vp >= 1, got dp={dp} "
-                         f"vp={size}")
+    """Run fn(grid, *args) in dp x tp x `size` new processes (spawned, so
+    `fn` must be importable at module level), one rank each, `size` the
+    vocab degree and `tp` the model degree (not both above 1), and wait
+    for all of them; a rank that fails fails the call. threads > 0 caps
+    each rank's torch intra-op threads."""
+    if dp < 1 or size < 1 or tp < 1:
+        raise ValueError(f"the grid needs dp, tp and vp >= 1, got dp={dp} "
+                         f"tp={tp} vp={size}")
+    if tp > 1 and size > 1:
+        raise ValueError(f"a grid has a model axis or a vocab axis, not "
+                         f"both (tp={tp}, vp={size})")
     with tempfile.TemporaryDirectory(prefix="rank-grid-") as tmp:
         torch.multiprocessing.start_processes(
             _rank_main, args=(fn, dp, size, os.path.join(tmp, "store"),
-                              device, backend, threads, args),
-            nprocs=dp * size, join=True, start_method="spawn")
+                              device, backend, threads, args, tp),
+            nprocs=dp * size * tp, join=True, start_method="spawn")

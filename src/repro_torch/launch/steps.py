@@ -102,7 +102,7 @@ def resolve_proposal(cfg: ModelConfig, head_mode: Optional[str] = None):
 def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
                  window: Optional[int] = None,
                  fused_head: Optional[bool] = None,
-                 with_aux: bool = False) -> Callable:
+                 with_aux: bool = False, model_group=None) -> Callable:
     """loss(params, state, batch, keys) -> (loss, metrics). `state` is the
     MultiIndex for 'midx', ignored for 'full', and the proposal's state for
     a registry contender; batch holds int64 `tokens` and `labels` [B, S] on
@@ -114,13 +114,24 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
     `with_aux=True` adds a trainable proposal's L_recon + L_KL objective
     (paper §6.2.3) to the loss, and its `prop_recon` / `prop_kl` to the
     metrics; it moves only what the caller differentiates, the state's
-    trainable leaves (make_train_step's trainable branch)."""
+    trainable leaves (make_train_step's trainable branch).
+
+    `model_group`: the model axis's group, under which the caller runs
+    the loss (`make_sharded_train_step`). Where its ranks split the class
+    table's rows, the MIDX loss is `dist.vocab_parallel.loss_midx_vp`
+    over that group, on the replicated index's local view
+    (`tp_head_state`); it takes the 'midx' and 'full' heads only."""
+    from repro_torch.dist import vocab_parallel as vp_mod
     from repro_torch.models.model import class_embeddings
 
     mode, proposal = resolve_proposal(cfg, head_mode)
     resolve_table_dtype(cfg.head.table_dtype)
     include_aux = bool(with_aux and proposal is not None
                        and proposal.trainable)
+    tpn = 1 if model_group is None else coll.group_size(model_group)
+    if tpn > 1 and proposal is not None:
+        raise ValueError("the model axis takes the 'midx' and 'full' heads")
+    table_split = tpn > 1 and cfg.padded_vocab % tpn == 0
 
     def loss_fn(params, state, batch, keys):
         with record_function("train.forward"):
@@ -130,6 +141,11 @@ def make_loss_fn(cfg: ModelConfig, *, head_mode: Optional[str] = None,
             if mode == "full":
                 ce = heads.loss_full(cfg, params, out["hidden"],
                                      batch["labels"])
+            elif table_split:
+                ce = vp_mod.loss_midx_vp(
+                    cfg, class_embeddings(cfg, params), unwrap_index(state),
+                    out["hidden"], batch["labels"], keys, group=model_group,
+                    fused=fused_head)
             elif mode == "midx":
                 ce = heads.loss_midx(cfg, params, state, out["hidden"],
                                      batch["labels"], keys, fused=fused_head)
@@ -296,42 +312,86 @@ def reduce_grads(grads, group, grad_transport: str, ef=None):
 def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, group,
                             *, grad_transport: str = "fp32",
                             head_mode: Optional[str] = None,
-                            fused_head: Optional[bool] = None) -> Callable:
-    """step(params, opt_state, state, batch, keys, ef) -> (params,
-    opt_state, metrics, ef) on one rank of `group`'s data group (a
-    `launch.mesh.RankGrid`): `batch` and `keys` are the rank's rows
+                            window: Optional[int] = None,
+                            clip_norm: float = 1.0,
+                            fused_head: Optional[bool] = None,
+                            moe_sharded: bool = False) -> Callable:
+    """step(params, opt_state, state, batch, keys, ef=None) -> (params,
+    opt_state, metrics, ef) on one rank of a dp x tp `group` (a
+    `launch.mesh.RankGrid`): `batch` and `keys` are the rank's data rows
     (`dist.sharding.data_rows`, the global `train_keys` cut to them);
-    params, the optimizer state and the head state are replicated, params
-    and the optimizer state updated in place. The gradient is reduced over
-    the data group in `grad_transport` (`reduce_grads`), the metrics are
-    averaged over it, and the global-norm clip and the non-finite guard
-    then see the same values on every rank, so every rank takes the same
-    branch: a skipped step leaves params, the optimizer state and `ef` as
-    they were (reference :284-296).
+    params are the rank's model slices (`shard_for_rank`; whole at tp 1)
+    and `state` its head state (`tp_head_state`), params and the optimizer
+    state updated in place. The forward runs under the model axis over
+    `group.model_pg` (`dist.tensor_parallel`); the MIDX loss over a
+    row-split table is `dist.vocab_parallel.loss_midx_vp` with the model
+    group as its group, the full head the vocab-split softmax
+    (`make_loss_fn`'s `model_group`). The gradient is reduced over the
+    data group in `grad_transport` (`reduce_grads`; at dp 1 an fp32
+    transport is the identity and is skipped), the metrics are averaged
+    over it, and the global-norm clip and the non-finite guard then see
+    the same values on every rank, so every rank takes the same branch: a
+    skipped step leaves params, the optimizer state and `ef` as they were
+    (reference :284-296). Replicated leaves' gradients are the same on
+    every model rank (the region ops see to it), so they are not
+    all-reduced again; the global norm sums the split leaves' squares
+    over the model group once. `moe_sharded` turns on the sharded MoE
+    dispatch (`models.moe.set_moe_group`'s semantics: capacity per rank's
+    b_loc·S tokens). `optimizer` may be `optim.zero1(...)` over
+    `group.data_pg` (`zero1_dims`).
 
     As in the reference (:249), the loss carries no trainable proposal's
     auxiliary loss and the head state is not returned: a midx-learnable
     head trains the params against its codebooks, which stay as they are
-    (the reference's data-parallel step threads no proposal state).
-    `fused_head` as in `make_loss_fn`."""
-    check_grad_transport(grad_transport)
-    loss_fn = make_loss_fn(cfg, head_mode=head_mode, fused_head=fused_head)
-    pg = group.data_pg
+    (the reference's data-parallel step threads no proposal state); the
+    model axis takes the 'midx' and 'full' heads only. `fused_head` as in
+    `make_loss_fn`."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.dist.sharding import tree_map_with_path
+    from repro_torch.models import moe as moe_mod
 
-    def train_step(params, opt_state, state, batch, keys, ef):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = loss_fn(leaves, state, batch, keys)
-        flat = tree_leaves(leaves)
-        with record_function("train.backward"):
-            it = iter(torch.autograd.grad(loss, flat))
-        grads = tree_map(lambda _: next(it), leaves)
-        with record_function("train.grad_transport"):
-            grads, new_ef = reduce_grads(grads, pg, grad_transport, ef)
-            metrics = coll.pmean(_scalars({**metrics, "loss": loss}), pg)
+    check_grad_transport(grad_transport)
+    mpg, dpg, tpn = group.model_pg, group.data_pg, group.tp
+    loss_fn = make_loss_fn(cfg, head_mode=head_mode, window=window,
+                           fused_head=fused_head,
+                           model_group=mpg if tpn > 1 else None)
+    reduce = group.dp > 1 or grad_transport != "fp32"
+    split = tree_leaves(tree_map_with_path(
+        lambda _, s: any(e is not None for e in s),
+        tp_param_specs(cfg, tpn))) if tpn > 1 else None
+
+    def global_norm(grads):
+        if split is None:
+            return None
+        g = tree_leaves(grads)
+        zero = g[0].new_zeros((), dtype=torch.float32)
+        sq_split = sum((torch.sum(torch.square(x.float()))
+                        for x, s in zip(g, split) if s), zero)
+        sq_rep = sum((torch.sum(torch.square(x.float()))
+                      for x, s in zip(g, split) if not s), zero)
+        return torch.sqrt(sq_rep + coll.psum_no_grad(sq_split, mpg))
+
+    def train_step(params, opt_state, state, batch, keys, ef=None):
+        with tp.model_axis(mpg if tpn > 1 else None), \
+                moe_mod.sharded_dispatch(moe_sharded, dpg):
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+            loss, metrics = loss_fn(leaves, state, batch, keys)
+            flat = tree_leaves(leaves)
+            with record_function("train.backward"):
+                it = iter(torch.autograd.grad(loss, flat))
+            grads = tree_map(lambda _: next(it), leaves)
+        metrics = _scalars({**metrics, "loss": loss})
+        new_ef = ef
+        if reduce:
+            with record_function("train.grad_transport"):
+                grads, new_ef = reduce_grads(grads, dpg, grad_transport, ef)
+                metrics = coll.pmean(metrics, dpg)
         with record_function("train.optimizer"):
-            grads, gnorm = clip_by_global_norm(grads, 1.0)
-            ok = bool(torch.isfinite(metrics["loss"])
-                      & torch.isfinite(gnorm))
+            grads, gnorm = clip_by_global_norm(grads, clip_norm,
+                                               norm=global_norm(grads))
+            ok = (gnorm.is_meta or bool(torch.isfinite(metrics["loss"])
+                                        & torch.isfinite(gnorm)))
             if ok:
                 params, opt_state = optimizer.update(grads, opt_state,
                                                      params)
@@ -458,8 +518,8 @@ def make_vocab_parallel_train_step(cfg: ModelConfig, optimizer: Optimizer,
             sq_rep = sum(torch.sum(torch.square(g.float())) for g in rep)
             gnorm = torch.sqrt(sq_rep + psum_no_grad(sq_local, pg))
             grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=gnorm)
-            ok = bool(torch.isfinite(metrics["loss"])
-                      & torch.isfinite(gnorm))
+            ok = gnorm.is_meta or bool(torch.isfinite(metrics["loss"])
+                                       & torch.isfinite(gnorm))
             if ok:
                 params, opt_state = optimizer.update(grads, opt_state,
                                                      params)
@@ -507,3 +567,128 @@ def make_vocab_refresh_step(cfg: ModelConfig, group, *,
             threshold=cfg.head.refresh_drift_threshold)
 
     return refresh
+
+
+# ---------------------------------------------------------------- model axis
+def abstract_params(cfg: ModelConfig, cast_dtype: Optional[str] = None):
+    """The params tree on the meta device (reference :642): the shapes and
+    dtypes of `init_params`, nothing drawn (a CPU generator cannot feed a
+    meta tensor). `cast_dtype` casts every leaf's dtype."""
+    from repro_torch.models.model import _draw_params
+    meta = torch.device("meta")
+    params = _draw_params(cfg, None, meta, lambda bp: bp)
+    if cast_dtype is not None:
+        dt = getattr(torch, cast_dtype)
+        params = tree_map(lambda x: torch.empty(x.shape, dtype=dt,
+                                                device=meta), params)
+    return params
+
+
+def abstract_index(cfg: ModelConfig, params_abs=None, rows=None):
+    """The MultiIndex `heads.init_head_state` builds, on the meta device
+    (reference :666; the bare index, residuals dropped); `rows` sizes a
+    vocab shard's local view (`dist.vocab_parallel.local_index`)."""
+    from repro_torch.index.build import MultiIndex
+    del params_abs
+    meta = torch.device("meta")
+    k, d = cfg.head.midx_k, cfg.d_model
+    dq = d // 2 if cfg.head.quantizer == "pq" else d
+    n = cfg.padded_vocab if rows is None else rows
+
+    def e(*shape, dt=torch.int64):
+        return torch.empty(shape, dtype=dt, device=meta)
+
+    return MultiIndex(cfg.head.quantizer, e(k, dq, dt=torch.float32),
+                      e(k, dq, dt=torch.float32), e(n), e(n),
+                      e(0, dq, dt=torch.float32), e(n), e(k * k + 1),
+                      e(k, k), e(k, k, dt=torch.float32))
+
+
+def abstract_vocab_index(cfg: ModelConfig, params_abs, vp: int):
+    """The VocabShardedIndex at `vp` shards on the meta device (reference
+    :672)."""
+    from repro_torch.dist.vocab_parallel import VocabShardedIndex
+    rows = cfg.padded_vocab // vp
+    loc = abstract_index(cfg, params_abs, rows)
+
+    def st(x):
+        return torch.empty((vp, *x.shape), dtype=x.dtype, device=x.device)
+
+    return VocabShardedIndex(loc.kind, vp, loc.codebook1, loc.codebook2,
+                             st(loc.assign1), st(loc.assign2),
+                             st(loc.sorted_ids), st(loc.offsets),
+                             st(loc.counts), st(loc.log_counts))
+
+
+def abstract_decode_state(cfg: ModelConfig, params_abs, bsz: int,
+                          max_seq: int, window: Optional[int] = None):
+    """The slot-major decode state on the meta device (reference :651),
+    in this rank's layout under the model axis (`decode_cache_specs`)."""
+    from repro_torch.models.decode import init_decode_state
+    return init_decode_state(cfg, bsz, max_seq, device="meta",
+                             params=params_abs, window=window)
+
+
+def make_prefill_step(cfg: ModelConfig, *, window: Optional[int] = None):
+    """prefill(params, batch) -> the last position's full logits [B, Vpad]
+    (reference :489)."""
+    from repro_torch.models.model import logits_full
+
+    def prefill_step(params, batch):
+        out = forward(cfg, params, batch["tokens"], window=window,
+                      **_model_extras(cfg, batch))
+        return logits_full(cfg, params, out["hidden"][:, -1, :])
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, window: Optional[int] = None):
+    """serve(params, cache, token, pos) -> (next token [B], cache): one
+    token against the cache, the full head, greedy (reference :501 with
+    `sample=False`; its categorical draw needs a JAX key)."""
+    from repro_torch.models.decode import decode_step
+    from repro_torch.models.model import logits_full
+
+    def serve_step(params, cache, token, pos):
+        hidden, cache = decode_step(cfg, params, token, pos, cache,
+                                    window=window)
+        return torch.argmax(logits_full(cfg, params, hidden), -1), cache
+
+    return serve_step
+
+
+def tp_param_specs(cfg: ModelConfig, tp: int):
+    """`param_specs` of cfg's whole params at degree tp."""
+    from repro_torch.dist.sharding import param_specs
+    return param_specs(cfg, abstract_params(cfg), tp=tp)
+
+
+def shard_for_rank(cfg: ModelConfig, params: dict, grid) -> dict:
+    """The params a rank of `grid` trains: its model slice of every leaf
+    (`shard_by_spec` under `param_specs` at the grid's tp)."""
+    from repro_torch.dist.sharding import shard_by_spec
+    return shard_by_spec(params, tp_param_specs(cfg, grid.tp),
+                         {"data": grid.dp, "model": grid.tp},
+                         {"data": grid.data_rank, "model": grid.model_rank})
+
+
+def tp_head_state(cfg: ModelConfig, index, grid):
+    """The head state a rank's TP loss reads, built once a refresh: where
+    the model ranks split the class table, the local view of the
+    replicated index over the rank's rows (`local_index(shard_index(idx,
+    tp), m)`, so every model rank draws the replicated index's ids from
+    the same keys); else the index itself."""
+    from repro_torch.dist.vocab_parallel import local_index, shard_index
+    if grid.tp == 1 or cfg.padded_vocab % grid.tp:
+        return index
+    return local_index(shard_index(unwrap_index(index), grid.tp),
+                       grid.model_rank)
+
+
+def zero1_dims(cfg: ModelConfig, grid, min_size: int = 1 << 16):
+    """The dimension of each param leaf ZeRO-1 splits over the data group
+    (`zero1_specs` over `param_specs` at the grid's tp), or None."""
+    from repro_torch.dist.sharding import spec_dim, zero1_specs
+    specs = zero1_specs(tp_param_specs(cfg, grid.tp), abstract_params(cfg),
+                        dp=grid.dp, min_size=min_size)
+    return tree_map(lambda s: spec_dim(s, "data"), specs)

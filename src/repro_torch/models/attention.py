@@ -9,20 +9,44 @@ scores. The chunked online-softmax path (`_block_mask` :87, `_flash_fwd`
 hand-written CUDA kernel on the card and `ref.flash_fwd_ref` on the CPU,
 and whose backward is the blockwise recompute. The dispatcher takes it
 under the reference's rule: a sequence longer than `direct_threshold`
-whose lengths are multiples of both chunks. The reference's
-`set_impl("autodiff")` switch (:237-250) is not ported: its one caller is
-the compile-only dry run (`launch/dryrun.py:165`), and it goes with that
-(ROADMAP Queue 1, the dry-run item).
+whose lengths are multiples of both chunks. `set_impl` (:237-250) picks
+that path's gradient: "flash" (the default) is `FlashAttentionFn`'s
+blockwise recompute; "autodiff" differentiates through the plain
+blockwise forward `ref.flash_fwd_ref` instead (every block's probabilities
+kept for the backward; the same forward, the gradients within the fp32
+bar), the paper-naive baseline the dry run's `--attn autodiff` plans.
+
+Under the model axis (`dist.tensor_parallel`) `project_qkv` returns the
+rank's heads, or whole heads gathered over the model group, as
+`head_layout` says, and `attn_out` applies the rank's rows of wo and
+sums over the ranks.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.flash_attention.ref import check_chunks, \
+    flash_fwd_ref
 from repro_torch.models.layers import apply_norm, apply_rope, dense_init, \
     norm_init
 
 NEG_INF = -1e30
+
+_IMPL = {"impl": "flash"}
+
+
+def set_impl(name: str) -> None:
+    """The chunked path's gradient: "flash" (blockwise recompute) or
+    "autodiff" (autograd through the plain blockwise forward)."""
+    if name not in ("flash", "autodiff"):
+        raise ValueError(f"unknown attention impl {name!r}")
+    _IMPL["impl"] = name
+
+
+def get_impl() -> str:
+    return _IMPL["impl"]
 
 
 def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
@@ -43,19 +67,48 @@ def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
 def project_qkv(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
                 head_dim: int, cos=None, sin=None, qk_norm: bool = False,
                 eps: float = 1e-5):
-    """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE + optional qk-norm."""
+    """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE + optional
+    qk-norm. Under the model axis H and KV are the rank's heads
+    ('heads' layout) or all of them (module docstring)."""
     dt = x.dtype
     b, s, _ = x.shape
-    q = (x @ p["wq"].to(dt)).reshape(b, s, num_heads, head_dim)
-    k = (x @ p["wk"].to(dt)).reshape(b, s, num_kv_heads, head_dim)
-    v = (x @ p["wv"].to(dt)).reshape(b, s, num_kv_heads, head_dim)
+    lay = tp.head_layout(num_heads, num_kv_heads, head_dim)
+    qn = p.get("q_norm")
+    kn = p.get("k_norm")
+    if lay != "replicated":
+        x = tp.region_in(x)
+        if qk_norm:
+            qn = {"scale": tp.region_in(qn["scale"])}
+            kn = {"scale": tp.region_in(kn["scale"])}
+    q, k, v = (x @ p["wq"].to(dt), x @ p["wk"].to(dt), x @ p["wv"].to(dt))
+    if lay == "gather":
+        q, k, v = (tp.gather_cols(t) for t in (q, k, v))
+    q = q.reshape(b, s, -1, head_dim)
+    k = k.reshape(b, s, -1, head_dim)
+    v = v.reshape(b, s, -1, head_dim)
     if qk_norm:
-        q = apply_norm(p["q_norm"], q, eps=eps)
-        k = apply_norm(p["k_norm"], k, eps=eps)
+        q = apply_norm(qn, q, eps=eps)
+        k = apply_norm(kn, k, eps=eps)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def attn_out(p: dict, o: torch.Tensor, num_heads: int, num_kv_heads: int,
+             head_dim: int, dt: torch.dtype) -> torch.Tensor:
+    """The output projection of o [..., H·hd] (the heads `project_qkv`
+    gave) in `dt`: under the model axis the rank's rows of wo on its
+    columns of o, summed over the model ranks."""
+    lay = tp.head_layout(num_heads, num_kv_heads, head_dim)
+    full = num_heads * head_dim
+    if lay == "heads":
+        return tp.row_out(o, p["wo"], dt)
+    if lay == "gather":
+        # a copy of the rank's columns: the product saves its input for the
+        # backward, and a narrow view would hold the whole o alive
+        return tp.row_out(tp.own_slice(o, full).contiguous(), p["wo"], dt)
+    return o @ p["wo"].to(dt)
 
 
 def _scores_mask(sq: int, sk: int, q_offset: int, causal: bool,
@@ -100,6 +153,11 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     sq, sk = q.shape[1], k.shape[1]
     if max(sq, sk) <= direct_threshold or sq % q_chunk or sk % kv_chunk:
         return _direct_attention(q, k, v, causal, window, q_offset)
+    if _IMPL["impl"] == "autodiff":
+        check_chunks(sq, sk, q_chunk, kv_chunk)
+        return flash_fwd_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)[0]
     return flash_attention_op(q, k, v, causal, window, q_chunk, kv_chunk,
                               q_offset)
 

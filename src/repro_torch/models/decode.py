@@ -71,13 +71,18 @@ from typing import Callable, Optional
 
 import torch
 
+import functools
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.decode import flash_decode_seq_sharded
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.layers import apply_norm, rope_angles
 from repro_torch.models.model import (apply_attn_part, apply_cross_part,
                                       apply_ffn_part, apply_mamba_part,
+                                      attn_proj,
                                       apply_shared_attn, cross_kv, cross_out,
                                       encode, num_cross_blocks,
                                       num_shared_apps, shared_attn_mlp,
@@ -174,7 +179,8 @@ def _ssm_decode_layers(cfg: ModelConfig, params: dict, token: torch.Tensor,
     block writes its ring entry pos % Wring and attends over the ring
     entries whose positions lie in [pos - window, pos]. Returns hidden
     [B, D] (final-normed)."""
-    x = params["embed"][token][:, None, :].to(torch_dtype(cfg))  # [B,1,D]
+    x = tp.table_rows(params["embed"], token, cfg.padded_vocab)[:, None, :].to(
+        torch_dtype(cfg))  # [B,1,D]
     hybrid = cfg.family == "hybrid"
     if hybrid:
         sp, every = params["shared_attn"], cfg.hybrid_attn_every
@@ -220,7 +226,8 @@ def _decode_layers(cfg: ModelConfig, params: dict, token: torch.Tensor,
     `decode_attention`) attends over those caches. Returns hidden [B, D]
     (final-normed)."""
     attend = attn_fn or attn_mod.decode_attention
-    x = params["embed"][token][:, None, :].to(torch_dtype(cfg))  # [B,1,D]
+    x = tp.table_rows(params["embed"], token, cfg.padded_vocab)[:, None, :].to(
+        torch_dtype(cfg))  # [B,1,D]
     hd = cfg.resolved_head_dim
     cos, sin = rope_angles(pos[:, None], hd, cfg.rope_theta)
     b = x.shape[0]
@@ -234,7 +241,7 @@ def _decode_layers(cfg: ModelConfig, params: dict, token: torch.Tensor,
                                        cfg.qk_norm, cfg.norm_eps)
         kc, vc = kv_at(li, k[:, 0], v[:, 0])
         o = attend(q, kc, vc, pos, window=window)
-        x = x + o.reshape(b, 1, -1) @ bp["attn"]["wo"].to(x.dtype)
+        x = x + attn_proj(cfg, bp["attn"], o.reshape(b, 1, -1), x.dtype)
         if fam == "audio":
             x = _cross_decode(cfg, bp, x, state["cross_k"][li],
                               state["cross_v"][li], gated=False)
@@ -262,8 +269,12 @@ def init_decode_state(cfg: ModelConfig, bsz: int, max_seq: int, *,
     state: dict = {}
     dt = torch_dtype(cfg)
     if fam in ATTN_FAMILIES:
-        shape = (cfg.num_layers, bsz, max_seq, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        seq = max_seq
+        if tp.seq_sharded_cache(kvh, max_seq):
+            seq = max_seq // tp.tp_size()
+        shape = (cfg.num_layers, bsz, seq, tp.local_kv_heads(h, kvh, hd),
+                 hd)
         state["k"] = torch.zeros(shape, dtype=dt, device=device)
         state["v"] = torch.zeros(shape, dtype=dt, device=device)
     if fam in ("ssm", "hybrid"):
@@ -291,11 +302,30 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         return _ssm_decode_layers(cfg, params, token, pos, state,
                                   window), state
     rows = torch.arange(token.shape[0], device=token.device)
+    local = state["k"].shape[2]
+    if tp.seq_sharded_cache(cfg.num_kv_heads, local * tp.tp_size()):
+        # the model ranks hold contiguous sequence slices of the cache
+        # (`decode_cache_specs`); the owner of pos writes it, and the
+        # attention merges the slices (`flash_decode_seq_sharded`)
+        lo = tp.tp_rank() * local
+        own = ((pos >= lo) & (pos < lo + local))[:, None, None]
+        at = torch.clamp(pos - lo, 0, local - 1)
 
-    def kv_at(li, k, v):
-        state["k"][li, rows, pos] = k.to(state["k"].dtype)
-        state["v"][li, rows, pos] = v.to(state["v"].dtype)
-        return state["k"][li], state["v"][li]
+        def kv_at(li, k, v):
+            for name, new in (("k", k), ("v", v)):
+                c = state[name]
+                c[li, rows, at] = torch.where(own, new.to(c.dtype),
+                                              c[li, rows, at])
+            return state["k"][li], state["v"][li]
+
+        if attn_fn is None:
+            attn_fn = functools.partial(flash_decode_seq_sharded,
+                                        group=tp.model_group(), local=True)
+    else:
+        def kv_at(li, k, v):
+            state["k"][li, rows, pos] = k.to(state["k"].dtype)
+            state["v"][li, rows, pos] = v.to(state["v"].dtype)
+            return state["k"][li], state["v"][li]
 
     return _decode_layers(cfg, params, token, pos, kv_at, window,
                           state, attn_fn), state
@@ -322,7 +352,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     fam = cfg.family
     s = tokens.shape[1]
     dtype = torch_dtype(cfg)
-    x = params["embed"][tokens].to(dtype)
+    x = tp.table_rows(params["embed"], tokens, cfg.padded_vocab).to(dtype)
     cache: dict = {}
     if fam != "ssm":
         cos, sin = rope_angles(torch.arange(s, device=tokens.device),
@@ -395,6 +425,14 @@ def init_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     state: dict = {}
     if fam in ATTN_FAMILIES:
+        if tp.head_layout(cfg.num_heads, kvh, hd) not in ("heads",
+                                                         "replicated"):
+            raise NotImplementedError(
+                f"the paged pool under tensor parallelism needs the heads "
+                f"to divide tp ({cfg.num_heads} / {kvh} heads at tp "
+                f"{tp.tp_size()}); the slot-major decode_step shards the "
+                f"sequence instead")
+        kvh = tp.local_kv_heads(cfg.num_heads, kvh, hd)
         shape = (cfg.num_layers, num_pages, page_size, kvh, hd)
         state["k"] = torch.zeros(shape, dtype=dt, device=device)
         state["v"] = torch.zeros(shape, dtype=dt, device=device)
@@ -510,10 +548,10 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                          f"families, not {cfg.family}")
     b, c = tokens.shape
     dev = tokens.device
-    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     pt = state["page_table"]                       # [B, np]
     pool_k, pool_v = state["k"], state["v"]        # [L, P, page, KV, hd]
-    page = pool_k.shape[2]
+    page, kvh = pool_k.shape[2], pool_k.shape[3]
     npages = pt.shape[1]
     smax = npages * page
     rows = torch.arange(b, device=dev)
@@ -531,7 +569,8 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         if window is not None:
             ok &= j[None, None, :] > positions[:, :, None] - window
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    x = params["embed"][tokens].to(torch_dtype(cfg))                # [B,C,D]
+    x = tp.table_rows(params["embed"], tokens, cfg.padded_vocab).to(
+        torch_dtype(cfg))                                           # [B,C,D]
     for li, bp in enumerate(params["blocks"]):
         h = apply_norm(bp["ln1"], x, eps=cfg.norm_eps, kind=cfg.norm)
         q, k, v = attn_mod.project_qkv(bp["attn"], h, cfg.num_heads, kvh, hd,
@@ -547,7 +586,7 @@ def chunk_prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             o = _masked_attention(
                 q, pool_k[li][pt].reshape(b, smax, kvh, hd),
                 pool_v[li][pt].reshape(b, smax, kvh, hd), ok)
-        x = x + o.reshape(b, c, -1) @ bp["attn"]["wo"].to(x.dtype)
+        x = x + attn_proj(cfg, bp["attn"], o.reshape(b, c, -1), x.dtype)
         x, _ = apply_ffn_part(cfg, bp, x)
     x = apply_norm(params["final_norm"], x, eps=cfg.norm_eps, kind=cfg.norm)
     return x, state

@@ -99,6 +99,7 @@ from repro_torch.core import midx as midx_mod
 from repro_torch.core import noise
 from repro_torch.core.sampled_softmax import (full_softmax_loss,
                                               sampled_softmax_loss)
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.index import lifecycle as lifecycle_mod
 from repro_torch.index.build import MultiIndex, build, refresh
 from repro_torch.index.quantized import (QuantHeadState, code_scores,
@@ -184,7 +185,13 @@ def _masked_mean(loss: torch.Tensor,
 def loss_full(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
               labels: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-softmax CE over the padded vocabulary; [B,S,D] -> scalar."""
+    """Full-softmax CE over the padded vocabulary; [B,S,D] -> scalar.
+    Under the model axis a row-split table takes the vocab-split softmax
+    (`dist.vocab_parallel.loss_full_vp` over the model group)."""
+    if tp.splits(cfg.padded_vocab):
+        from repro_torch.dist.vocab_parallel import loss_full_vp
+        return loss_full_vp(class_embeddings(cfg, params), hidden, labels,
+                            mask, group=tp.model_group())
     logits = logits_full(cfg, params, hidden)
     return _masked_mean(full_softmax_loss(logits, labels), mask)
 
@@ -341,7 +348,8 @@ def candidate_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
     """IS-corrected candidate logits: h·e_i / temperature − log q(i).
     hidden [T, D], ids/log_q [T, M] -> [T, M]. Casts per gathered row,
     never the whole [V, D] table."""
-    cand = class_embeddings(cfg, params)[ids].float()            # [T,M,D]
+    cand = tp.table_rows(class_embeddings(cfg, params), ids,
+                         cfg.padded_vocab).float()               # [T,M,D]
     logits = torch.einsum("td,tmd->tm", hidden.float(), cand) / temperature
     return logits - log_q
 

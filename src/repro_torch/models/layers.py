@@ -15,17 +15,24 @@ import torch
 import torch.nn.functional as F
 
 
+def normal(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """Standard normal fp32 draws from `gen`; on the meta device (the
+    dry run's abstract params) an uninitialised tensor, drawing nothing."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: float | None = None, *, device) -> torch.Tensor:
     scale = scale if scale is not None else d_in ** -0.5
-    return scale * torch.randn((d_in, d_out), generator=gen, device=device,
-                               dtype=torch.float32)
+    return scale * normal((d_in, d_out), gen, device)
 
 
 def embed_init(gen: torch.Generator, n: int, d: int, scale: float = 0.02, *,
                device) -> torch.Tensor:
-    return scale * torch.randn((n, d), generator=gen, device=device,
-                               dtype=torch.float32)
+    return scale * normal((n, d), gen, device)
 
 
 # ------------------------------------------------------------------- norms
@@ -59,12 +66,22 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str = "silu", *,
     return p
 
 
-def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu",
+              d_ff: int | None = None) -> torch.Tensor:
+    """The MLP; `d_ff`, its whole width, turns on the model axis: where
+    the model ranks split it, gate / up are the rank's columns and down
+    its rows, summed over the ranks (`dist.tensor_parallel`)."""
+    from repro_torch.dist import tensor_parallel as tp
     dt = x.dtype
+    split = d_ff is not None and tp.splits(d_ff)
+    if split:
+        x = tp.region_in(x)
     if act == "silu":
         h = F.silu(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))
     else:
         h = F.gelu(x @ p["up"].to(dt), approximate="tanh")
+    if split:
+        return tp.row_out(h, p["down"], dt)
     return h @ p["down"].to(dt)
 
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+from repro_torch.models import layers
 from repro_torch.models.layers import dense_init
 
 
@@ -35,8 +36,7 @@ def mamba2_init(gen: torch.Generator, d_model: int, *, d_state: int,
     nheads = d_inner // head_dim
 
     def normal(*shape):
-        return 0.1 * torch.randn(shape, generator=gen, device=device,
-                                 dtype=torch.float32)
+        return 0.1 * layers.normal(shape, gen, device)
 
     def zeros(n):
         return torch.zeros((n,), dtype=torch.float32, device=device)

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -258,20 +259,29 @@ def apply_attn_part(cfg: ModelConfig, bp: dict, x, cos, sin, *,
                                    cos, sin, cfg.qk_norm, cfg.norm_eps)
     o = attn_mod.attention(q, k, v, causal=causal, window=window)
     b, s, _, _ = o.shape
-    return x + o.reshape(b, s, -1) @ bp["attn"]["wo"].to(x.dtype), k, v
+    return x + attn_proj(cfg, bp["attn"], o.reshape(b, s, -1), x.dtype), k, v
+
+
+def attn_proj(cfg: ModelConfig, ap: dict, o, dt):
+    """The self-attention output projection of o [..., H·hd] in `dt`
+    (under the model axis, `attention.attn_out`'s row-parallel sum)."""
+    return attn_mod.attn_out(ap, o, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.resolved_head_dim, dt)
 
 
 def apply_ffn_part(cfg: ModelConfig, bp: dict, x):
-    """Pre-norm FFN sublayer. Returns (x', aux): the moe family's row-wise
-    dispatch and its aux loss (the batch mean), else the MLP and 0."""
+    """Pre-norm FFN sublayer. Returns (x', aux): the moe family's dispatch
+    (per row, or per shard under `moe.set_moe_group`, reference :168-182)
+    and its aux loss, else the MLP and 0."""
     h = apply_norm(bp["ln2"], x, eps=cfg.norm_eps, kind=cfg.norm)
     if cfg.family == "moe":
-        y, aux = moe_mod.apply_moe(bp["ffn"], h,
-                                   top_k=cfg.num_experts_per_tok,
-                                   capacity_factor=cfg.capacity_factor,
-                                   act=cfg.act)
+        moe = (moe_mod.apply_moe_sharded if moe_mod.moe_shard_mode()
+               else moe_mod.apply_moe)
+        y, aux = moe(bp["ffn"], h, top_k=cfg.num_experts_per_tok,
+                     capacity_factor=cfg.capacity_factor, act=cfg.act,
+                     d_ff=cfg.d_ff, shared_d_ff=cfg.shared_expert_d_ff)
         return x + y, aux
-    return x + apply_mlp(bp["ffn"], h, cfg.act), None
+    return x + apply_mlp(bp["ffn"], h, cfg.act, cfg.d_ff), None
 
 
 def cross_kv(cfg: ModelConfig, ap: dict, src: torch.Tensor):
@@ -369,10 +379,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     vocab-parallel lookup, `dist.vocab_parallel.embed_lookup`), in place
     of the lookup in `params["embed"]` (reference :223-236)."""
     s = tokens.shape[1]
+    tp.check_family(cfg)
     # F.embedding, not params["embed"][tokens]: the same rows, and on the
-    # CPU a backward that sums repeated tokens in a fixed order.
+    # CPU a backward that sums repeated tokens in a fixed order. Under the
+    # model axis a row-split table is looked up vocab-parallel.
     x = (inputs_embeds if inputs_embeds is not None
-         else F.embedding(tokens, params["embed"])).to(torch_dtype(cfg))
+         else tp.table_rows(params["embed"], tokens, cfg.padded_vocab)
+         ).to(torch_dtype(cfg))
     aux = torch.zeros((), device=x.device)
     fam = cfg.family
     if fam != "ssm":
@@ -406,6 +419,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 def logits_full(cfg: ModelConfig, params: dict,
                 hidden: torch.Tensor) -> torch.Tensor:
-    """Full softmax head: [.., D] -> [.., Vpad] (fp32)."""
+    """Full softmax head: [.., D] -> [.., Vpad] (fp32). Under the model
+    axis a row-split table's logits are gathered (serving reads them
+    whole; the training loss is `heads.loss_full`'s vocab-split one)."""
     table = class_embeddings(cfg, params)
-    return hidden.float() @ table.float().T
+    return tp.gather_logits(hidden.float() @ table.float().T,
+                            cfg.padded_vocab)

@@ -163,6 +163,50 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
+def opt_state_specs(param_specs, params_abs, opt_state_abs, *, dp: int,
+                    data_axes=("data",)) -> OptState:
+    """The specs of an OptState (reference :79): ZeRO-1 moments, the
+    params' specs extended over the data axes (`dist.sharding.
+    zero1_specs`); the step replicated; sgd's missing nu passes as None."""
+    from repro_torch.dist.sharding import zero1_specs
+    z = zero1_specs(param_specs, params_abs, dp=dp, data_axes=data_axes)
+    return OptState((), z, z if opt_state_abs.nu is not None else None)
+
+
+def zero1(opt: Optimizer, data_dims, group) -> Optimizer:
+    """ZeRO-1 over the data group `group`: each data rank keeps its slice
+    of the moments, cut along `data_dims` (a tree like the params of the
+    dimension `zero1_specs` splits over the data axis, or None), updates
+    its slice of each param with `opt`'s in-place update on views, and
+    all-gathers the updated slices. AdamW is elementwise, so the params
+    are the unsharded update's bit for bit. Gradients come whole (the data
+    group's mean) and params stay whole on every rank."""
+    from repro_torch.dist.collectives import (all_gather_dim, group_rank,
+                                              group_size)
+    n, r = group_size(group), group_rank(group)
+
+    def cut(x, d):
+        if d is None or n == 1:
+            return x
+        w = x.shape[d] // n
+        return x.narrow(d, r * w, w)
+
+    def init(params):
+        return opt.init(tree_map(cut, params, data_dims))
+
+    def update(grads, state, params):
+        views = tree_map(cut, params, data_dims)
+        _, state = opt.update(tree_map(cut, grads, data_dims), state, views)
+        if n > 1:
+            with torch.no_grad():
+                tree_map(lambda p, v, d: None if d is None
+                         else p.copy_(all_gather_dim(v, d, group)),
+                         params, views, data_dims)
+        return params, state
+
+    return Optimizer(init, update)
+
+
 def sgd(lr, *, momentum: float = 0.9, nesterov: bool = False) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda step: float(_f32(lr)))
 
