@@ -137,7 +137,7 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      resumes from the step-20 checkpoint to 40, all at total_steps=40:
      losses, params, m, v and the index bitwise equal, `midx_probs`,
      `sampled_ce_pt` and `sampled_ce_pt_bwd` launched in every leg; the
-     same for `llama3.2-1b` cut to 2 layers with its pooled head (10 + 10
+     same for `llama3.2-1b` cut to 1 layer with its pooled head (10 + 10
      against 20 steps of 4 x 256, refresh every 5; `sampled_ce` and
      `sampled_ce_bwd`); then `paper-lm`'s chaos checks: a NaN step skipped
      with params, m and v unchanged, a save killed at each of its four
@@ -297,8 +297,8 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      first step on each data row held to the replicated step on the whole
      batch as phase 15 holds it, 10 steps, the partial per-token modes
      launched, the backbone bitwise equal on the 4 ranks; (c)
-     `llama3.2-1b` at full width and depth, pooled, dp 2, fp32, global 4
-     x 256, 3 steps: the first step's loss within 1e-4 of the single-rank
+     `llama3.2-1b` at full width (4 of 16 layers), pooled, dp 2, fp32,
+     global 4 x 256, 3 steps: the first step's loss within 1e-4 of the single-rank
      step's, the shared CE pair launched, step time, one gradient
      reduction and each rank's peak memory; (d) a NaN step under int8_ef
      at dp 2: skipped on both ranks with params, moments and the error
@@ -361,9 +361,9 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      with `--head midx` and `--head full`;
  23. the model axis (after phase 22; `dist.tensor_parallel`, ranks
      sharing the card over gloo, fp32): (a) paper-lm per-token MIDX
-     16 x 64, llama3.2-1b pooled 4 x 256 and granite-moe-1b-a400m pooled
-     4 x 256 at full width and depth with the sharded MoE dispatch off
-     and, at capacity factor 8.0, on, each at tp 2 against the same step
+     16 x 64, llama3.2-1b pooled 4 x 256 at full width and depth and
+     granite-moe-1b-a400m pooled 4 x 256 at full width (8 of 24 layers)
+     with the sharded MoE dispatch off and, at capacity factor 8.0, on, each at tp 2 against the same step
      on one card (the switch-on cell against the one-card step under the
      switch): step 0's loss and the gradients of a replicated leaf
      (final_norm) and a split one (wq's columns) within 1e-5 max(1,
@@ -384,6 +384,25 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      beyond the step's arguments: cuBLAS workspaces); and the CLI's
      qwen3-14b `train_4k`
      plan on the CPU beside the phase, its dominant term;
+ 24. the model axis for the ssm, hybrid, vlm and audio families (after
+     phase 23; ranks sharing the card over gloo, fp32): (a)
+     mamba2-370m whole 2 x 512, zamba2-7b (12 layers) 2 x 512,
+     llama-3.2-vision-11b (10 layers, 2 cross blocks, gates drawn
+     nonzero) 2 x 256 and whisper-tiny whole 4 x 256, pooled, at tp 2
+     against the same step on one card: step 0's loss and the gradients
+     of the probe leaves (replicated: final_norm, mamba2's b_proj and
+     a_log, the vlm's gate; split: wq, x_proj, the cross wk, the
+     encoder's wq) within 1e-5 max(1, |x|), 3 SGD steps' losses within
+     1e-4 while every draw agrees, the partial shared CE and the scan
+     (at the rank's H / 2 heads) launched; (b) `ssd_scan` at the ranks'
+     head counts (16 of mamba2's 32, 56 of zamba2's 112) held to its
+     plain version and timed beside it and its bound; (c) each config
+     served at tp 2 through the engine (the MIDX head, 4 requests x 16
+     tokens, with media): every rank's draws and tokens equal tp 1's,
+     p50 / p99; (d) zamba2 (12 layers) prefilled at 1 x 2048 (flash on
+     the rank's 16 heads, the scan on its 56): fp32 logits within 1e-4
+     max(1, |x|) of tp 1's, argmax equal; (e) the training cells planned
+     on meta as 23d;
  14. print the kernels' JSON line (a row per kernel and per quantized and
      partial mode, e.g. `midx_probs[int8]`, `sampled_ce_pt[partial]`),
      then the result line.
@@ -2310,13 +2329,18 @@ def chaos(cfg, counters, names, root: str, corpus) -> list:
     return n
 
 
+CKPT_LLAMA_LAYERS = 1          # 10b's llama: its checkpoints are the 1.05 GB
+                               # class table's params and moments, written
+                               # and read at ~200 MB/s (~80 s at 2 layers)
+
+
 def checkpoint_phase(get_config, midx_cuda, sce_cuda, short, corpus,
                      card: str) -> None:
     """Phase 10b, checkpoints and recovery, under a temporary directory
     that is removed at the end: resume paper-lm at full width (per-token
     MIDX head, 20 + 20 against 40 steps of 16 x 64) and llama3.2-1b cut to
-    2 layers (pooled, 10 + 10 against 20 of 4 x 256), then paper-lm's
-    chaos checks."""
+    CKPT_LLAMA_LAYERS (pooled, 10 + 10 against 20 of 4 x 256), then
+    paper-lm's chaos checks."""
     import tempfile
     from repro_torch.data import ZipfLM
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2332,7 +2356,8 @@ def checkpoint_phase(get_config, midx_cuda, sce_cuda, short, corpus,
                every=20, straight_ckpt=True, batch_size=16, seq_len=64,
                corpus=pz, lr=3e-3, refresh_every=10)
         b, s, _, _ = SHAPE
-        resume(short, (sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda),
+        resume(dataclasses.replace(short, num_layers=CKPT_LLAMA_LAYERS),
+               (sce_cuda.sampled_ce_cuda, sce_cuda.sampled_ce_bwd_cuda),
                ("sampled_ce", "sampled_ce_bwd"), os.path.join(root, "llama"),
                steps=20, every=10, straight_ckpt=False, batch_size=b,
                seq_len=s, corpus=corpus, lr=LLAMA_LR, refresh_every=5)
@@ -5121,6 +5146,9 @@ DP_STEPS = 30                  # 20a: paper-lm steps in each transport
 DP_EVERY = 10                  # 20a: the data-sharded refresh's cadence
 DP_GRID_STEPS = 10             # 20b: dp 2 x vp 2 steps
 DP_LLAMA_STEPS = 3             # 20c: llama3.2-1b pooled steps of 4 x 256
+DP_LLAMA_LAYERS = 4            # 20c: llama3.2-1b cut to 4 of 16 layers (each
+                               # dp 2 step moves its gradient through gloo:
+                               # ~5.7 s at 16 layers), as 23b's
 DP_FAULT_AT, DP_FAULT_STEPS = 5, 10      # 20d: the NaN step, the run
 DP_RESUME_TO = 15              # 20d: the dp = 1 leg's horizon
 DEC_SHAPE = (4, 4096, 32, 8, 64)         # 20e: B, Smax, H, KV, hd (fp32)
@@ -5443,7 +5471,8 @@ def dp_rank_body(grid, outdir: str, corpus, want_bf16) -> None:
         f"{json.dumps(res['engine'])}")
     torch.cuda.empty_cache()
     # (c) llama3.2-1b at full width, pooled, fp32 transport
-    llama = get_config("llama3.2-1b")
+    llama = dataclasses.replace(get_config("llama3.2-1b"),
+                                num_layers=DP_LLAMA_LAYERS)
     b, s = SHAPE[:2]
     run, launches, summ = dp_train(
         llama, grid, counters, ("sampled_ce", "sampled_ce_bwd"),
@@ -5525,7 +5554,8 @@ def dp_phases(get_config, midx_cuda, sce_cuda, corpus, want_bf16,
     from repro_torch.launch.train import train_loop
     from repro_torch.serve import Engine
     t0 = time.perf_counter()
-    llama = get_config("llama3.2-1b")
+    llama = dataclasses.replace(get_config("llama3.2-1b"),
+                                num_layers=DP_LLAMA_LAYERS)
     b, s = SHAPE[:2]
     *_, single = train_loop(llama, steps=1, batch_size=b, seq_len=s,
                             lr=LLAMA_LR, refresh_every=LLAMA_REFRESH,
@@ -6090,6 +6120,8 @@ TP_CELLS = {"paper-lm": ("paper-lm", 16, 64, False, None),
                                        False, None),
             "granite-moe switch on cf 8": ("granite-moe-1b-a400m", 4, 256,
                                            True, 8.0)}
+TP_GRANITE_LAYERS = 8          # 23a: granite-moe cut to 8 of 24 layers (its
+                               # switch-on step ~3.3 s at 24 over gloo)
 TP_DECODE = (8, 32, 8)         # 23c: requests, new tokens, prompt length
 TP_DEC_STEP = (8, 256)         # 23d: the decode step's B, Smax
 TP_PREFILL = (1, 2048)         # 23c: the prefill's B, S (S > 1024: flash)
@@ -6104,23 +6136,53 @@ TP_BF16_GAP = 2.0              # 23c bf16: tp 2's distance from tp 1's fp32
 def tp_cfg(get_config, cell: str):
     arch, _, _, _, cf = TP_CELLS[cell]
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if arch == "granite-moe-1b-a400m":
+        cfg = dataclasses.replace(cfg, num_layers=TP_GRANITE_LAYERS)
     if cf is not None:
         cfg = dataclasses.replace(cfg, capacity_factor=cf)
     return cfg
 
 
 def tp_batch(cfg, b: int, s: int, device):
+    """Tokens and labels, and the vlm's / whisper's media (0.1·N(0, 1)),
+    from one seed."""
     gen = np.random.default_rng(23)
     toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (b, s)))
     labels = torch.from_numpy(gen.integers(0, cfg.vocab_size, (b, s)))
-    return {"tokens": toks.to(device), "labels": labels.to(device)}
+    out = {"tokens": toks.to(device), "labels": labels.to(device)}
+    media = {"vlm": ("image_emb", cfg.num_image_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if media is not None:
+        out[media[0]] = torch.from_numpy((0.1 * gen.standard_normal(
+            (b, media[1], cfg.d_model))).astype(np.float32)).to(device)
+    return out
+
+
+TP_SPLIT_PROBES = ("wq", "x_proj", "xattn_wk", "enc_wq")   # by columns
 
 
 def tp_probe_leaves(params) -> dict:
-    """The leaves step 0's gradient is held on: a replicated one and a
-    split one (wq's columns)."""
-    return {"final_norm": params["final_norm"]["scale"],
-            "wq": params["blocks"][0]["attn"]["wq"]}
+    """The leaves step 0's gradient is held on: the replicated final norm,
+    the first block's split wq (attention families) or x_proj and its
+    replicated b_proj and a_log (mamba2's B / C and head parameters), a
+    cross block's split wk and replicated gate (vlm), and the split wk of
+    a decoder's cross-attention and wq of an encoder block (whisper).
+    `TP_SPLIT_PROBES` are cut by columns."""
+    out = {"final_norm": params["final_norm"]["scale"]}
+    b0 = params["blocks"][0]
+    if "mamba" in b0:
+        m = b0["mamba"]
+        out.update(x_proj=m["x_proj"], b_proj=m["b_proj"], a_log=m["a_log"])
+    else:
+        out["wq"] = b0["attn"]["wq"]
+    if "xattn" in b0:
+        out["xattn_wk"] = b0["xattn"]["wk"]
+    if "cross_blocks" in params:
+        cb = params["cross_blocks"][0]
+        out.update(gate_attn=cb["gate_attn"], xattn_wk=cb["xattn"]["wk"])
+    if "encoder" in params:
+        out["enc_wq"] = params["encoder"]["blocks"][0]["attn"]["wq"]
+    return out
 
 
 class Decisions:
@@ -6186,7 +6248,8 @@ def tp_parted(a: list, b: list) -> int:
 
 
 def tp_run(cfg, grid, b: int, s: int, moe_sharded: bool, counters,
-           names, *, zero1_on: bool = False, plain_dp: bool = False) -> dict:
+           names, *, zero1_on: bool = False, plain_dp: bool = False,
+           prepare=None) -> dict:
     """One cell on this process: params from seed 0 (cut to the rank's
     slices with a grid of tp > 1), the MIDX index over the whole table,
     then (a) step 0 at SGD lr 1 (the clipped gradient is p0 - p1) and (b)
@@ -6196,7 +6259,9 @@ def tp_run(cfg, grid, b: int, s: int, moe_sharded: bool, counters,
     for the plan. grid None: the one-card step (`make_train_step`), with
     `moe_sharded` the shard's tokens dispatched together there too (the
     switch pools the aux loss over the shard as well as the capacity, so
-    the switch-on cell is held to the one-card step under the switch)."""
+    the switch-on cell is held to the one-card step under the switch).
+    `prepare(params)` edits the whole params in place before the index
+    is built (phase 24: the vlm's gates)."""
     from repro_torch.core import noise
     from repro_torch.dist import collectives as coll
     from repro_torch.launch import dryrun, steps
@@ -6206,6 +6271,8 @@ def tp_run(cfg, grid, b: int, s: int, moe_sharded: bool, counters,
     from repro_torch.optim.optimizers import tree_leaves, tree_map
     dev = torch.device("cuda") if grid is None else grid.device
     full = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    if prepare is not None:
+        prepare(full)
     index = heads.init_head_state(cfg, full, torch.Generator(dev)
                                   .manual_seed(1))
     batch = tp_batch(cfg, b, s, dev)
@@ -6217,8 +6284,7 @@ def tp_run(cfg, grid, b: int, s: int, moe_sharded: bool, counters,
         params, state = full, index
     del full, index
     if dp > 1:
-        rows = slice(grid.data_rank * b // dp, (grid.data_rank + 1) * b // dp)
-        batch = {k: v[rows] for k, v in batch.items()}
+        batch = steps.rank_batch(batch, grid)
     n = batch["tokens"].numel()
     lo = 0 if grid is None else grid.data_rank * n
 
@@ -6414,6 +6480,7 @@ def tp_rank_body(grid, outdir: str, mode: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     counters = dp_counters()
     res = {}
+    t0 = time.perf_counter()
     if mode == "tp":
         for cell, (_, b, s, moe_on, _) in TP_CELLS.items():
             cfg = tp_cfg(get_config, cell)
@@ -6421,10 +6488,13 @@ def tp_rank_body(grid, outdir: str, mode: str) -> None:
             log(f"[smoke] 23a tp {grid.tp} rank {grid.world_rank} {cell}: "
                 f"losses {json.dumps(res[cell]['hist'])}, step "
                 f"{res[cell]['step_ms']:.1f} ms, launches "
-                f"{json.dumps(res[cell]['launches'])}")
+                f"{json.dumps(res[cell]['launches'])}; rank time "
+                f"{time.perf_counter() - t0:.1f}s")
         res["decode"] = tp_decode_run(dataclasses.replace(
             get_config("llama3.2-1b"), dtype="float32"), grid, counters)
         res["prefill"] = tp_prefill_run(get_config, grid)
+        log(f"[smoke] 23c tp {grid.tp} rank {grid.world_rank}: decode and "
+            f"prefill done, rank time {time.perf_counter() - t0:.1f}s")
     else:
         cfg = tp_zero1_cfg(get_config)
         for name, kw in (("plain", {"plain_dp": True}),
@@ -6434,6 +6504,12 @@ def tp_rank_body(grid, outdir: str, mode: str) -> None:
                                **kw)
             res[name]["max_memory_allocated"] = \
                 torch.cuda.max_memory_allocated()
+        # compared here: the parent reads the verdict, not 2 x 2 GB of
+        # params through the disk
+        res["params_equal"] = all(torch.equal(a, b) for a, b in zip(
+            res["plain"].pop("params"), res["zero1"].pop("params")))
+        log(f"[smoke] 23b dp {grid.dp} rank {grid.world_rank}: rank time "
+            f"{time.perf_counter() - t0:.1f}s")
     torch.save(res, os.path.join(outdir, f"{mode}{grid.world_rank}.pt"))
 
 
@@ -6446,23 +6522,58 @@ def tp_close(label: str, got, want, tol: float = TP_TOL) -> float:
     return err
 
 
-def tp_plan_check(label: str, cell, rank: dict) -> dict:
-    """23d: the plan of a cell the ranks ran against a rank's readings:
-    the collectives op kind by op kind equal, the argument bytes equal,
-    the plan's peak within TP_PEAK_TOL of the rank's `max_memory_allocated`
-    over the step less what the rank held before it beyond the step's
-    arguments (the CUDA libraries' workspaces, the caching allocator's
-    rounding: no part of the step's program), both printed."""
-    from repro_torch.launch import dryrun
-    rec = dryrun.plan(cell, shape_name=label)
+def tp_hold_train(label: str, want: dict, gots: list) -> tuple:
+    """Each rank's run of a cell against the one-card run: step 0's loss
+    and probe gradients (`tp_probe_leaves`; a split one against the
+    rank's columns) within TP_TOL, and the losses within TP_LOSS_TOL on
+    step 0 and the later steps whose decisions all agree. Returns (the
+    largest errors, the first step whose decisions part, the most picks
+    differing at step 0)."""
+    errs = {k: 0.0 for k in ("loss0", *want["grad0"])}
+    parted, flips0 = TP_STEPS, 0
+    for r, got in enumerate(gots):
+        flips0 = max(flips0, tp_differing(got["decisions0"],
+                                          want["decisions0"]))
+        errs["loss0"] = max(errs["loss0"], tp_close(
+            f"{label} step-0 loss", got["loss0"], want["loss0"]))
+        for k, g in got["grad0"].items():
+            w = want["grad0"][k]
+            kind = "replicated"
+            if k in TP_SPLIT_PROBES:
+                cols, kind = g.shape[1], "split"
+                w = w[:, r * cols:(r + 1) * cols]
+            errs[k] = max(errs[k], tp_close(f"{label} {kind} {k} grad", g,
+                                            w))
+        # step 0's loss is held whatever its decisions; a later step's
+        # while every decision up to it agrees (its own draws and picks,
+        # and the earlier steps' updates)
+        parted = min(parted, tp_parted(got["decisions"], want["decisions"]))
+        held = max(parted, 1)
+        gap = max(abs(x - y) for x, y in zip(got["hist"][:held],
+                                             want["hist"][:held]))
+        if not gap <= TP_LOSS_TOL:
+            raise SystemExit(f"{label}: {TP_STEPS}-step losses "
+                             f"{got['hist']} vs tp 1's {want['hist']} "
+                             f"(decisions agree through step {parted - 1})")
+    return errs, parted, flips0
+
+
+def tp_plan_check(label: str, rec: dict, rank: dict) -> dict:
+    """23d / 24e: the plan `rec` of a cell the ranks ran
+    (`launch.dryrun.plan`) against a rank's readings: the collectives op
+    kind by op kind equal, the argument bytes equal, the plan's peak
+    within TP_PEAK_TOL of the rank's `max_memory_allocated` over the step
+    less what the rank held before it beyond the step's arguments (the
+    CUDA libraries' workspaces, the caching allocator's rounding: no part
+    of the step's program), both printed."""
     plan_c = {k: [v["count"], v["bytes"]]
               for k, v in rec["collectives"].items() if isinstance(v, dict)}
     got_c = {k: [v["count"], v["bytes"]] for k, v in rank["events"].items()}
     if plan_c != got_c:
-        raise SystemExit(f"23d {label}: the plan's collectives {plan_c} vs "
+        raise SystemExit(f"{label}: the plan's collectives {plan_c} vs "
                          f"the ranks' {got_c}")
     if rec["memory"]["argument_bytes"] != rank["arg_bytes"]:
-        raise SystemExit(f"23d {label}: the plan's argument bytes "
+        raise SystemExit(f"{label}: the plan's argument bytes "
                          f"{rec['memory']['argument_bytes']} vs the rank's "
                          f"tensors' {rank['arg_bytes']}")
     outside = rank["before_bytes"] - rank["arg_bytes"]
@@ -6504,46 +6615,27 @@ def tp_phases(get_config, card: str) -> dict:
     ref_dec = tp_decode_run(llama32, None, counters)
     ref_pre = tp_prefill_run(get_config, None)
     t_ref = time.perf_counter() - t0
+    spawn_s = []
     with tempfile.TemporaryDirectory(prefix="smoke-tp-") as tmp:
+        t1 = time.perf_counter()
         spawn_ranks(tp_rank, 1, (tmp, "tp"), tp=TP_RANKS, device="cuda",
                     backend="gloo")
         ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"))
                  for r in range(TP_RANKS)]
+        spawn_s.append(time.perf_counter() - t1)
         spawn_ranks(tp_rank, 1, (tmp, "zero1"), dp=2, device="cuda",
                     backend="gloo")
         zranks = [torch.load(os.path.join(tmp, f"zero1{r}.pt"))
                   for r in range(2)]
-    out = {"a": {}, "launches": {k: {} for k in TP_NAMES}}
+        spawn_s.append(time.perf_counter() - t1 - spawn_s[0])
+    out = {"a": {}, "launches": {k: {} for k in TP_NAMES},
+           "spawn_seconds": spawn_s}
     for cell in TP_CELLS:
         want = ref[cell]
-        errs = {"loss0": 0.0, "final_norm": 0.0, "wq": 0.0}
-        parted, flips0 = TP_STEPS, 0
+        errs, parted, flips0 = tp_hold_train(f"23a {cell}", want,
+                                             [rk[cell] for rk in ranks])
         for r, rank in enumerate(ranks):
             got = rank[cell]
-            flips0 = max(flips0, tp_differing(got["decisions0"],
-                                              want["decisions0"]))
-            errs["loss0"] = max(errs["loss0"], tp_close(
-                f"23a {cell} step-0 loss", got["loss0"], want["loss0"]))
-            errs["final_norm"] = max(errs["final_norm"], tp_close(
-                f"23a {cell} replicated final_norm grad",
-                got["grad0"]["final_norm"], want["grad0"]["final_norm"]))
-            cols = got["grad0"]["wq"].shape[1]
-            errs["wq"] = max(errs["wq"], tp_close(
-                f"23a {cell} split wq grad", got["grad0"]["wq"],
-                want["grad0"]["wq"][:, r * cols:(r + 1) * cols]))
-            # step 0's loss is held whatever its decisions; a later step's
-            # while every decision up to it agrees (its own draws and
-            # picks, and the earlier steps' updates)
-            parted = min(parted, tp_parted(got["decisions"],
-                                           want["decisions"]))
-            held = max(parted, 1)
-            gap = max(abs(x - y) for x, y in zip(got["hist"][:held],
-                                                 want["hist"][:held]))
-            if not gap <= TP_LOSS_TOL:
-                raise SystemExit(f"23a {cell}: {TP_STEPS}-step losses "
-                                 f"{got['hist']} vs tp 1's {want['hist']} "
-                                 f"(decisions agree through step "
-                                 f"{parted - 1})")
             for k, n in got["launches"].items():
                 out["launches"].setdefault(k, {}).setdefault(
                     f"23a {cell} tp2", 0)
@@ -6576,9 +6668,7 @@ def tp_phases(get_config, card: str) -> dict:
             f" ms vs {want['step_ms']:.1f} ms; launches {json.dumps(la)}")
     # 23b: ZeRO-1 at dp 2
     for r, z in enumerate(zranks):
-        same = all(torch.equal(a, b) for a, b in
-                   zip(z["plain"]["params"], z["zero1"]["params"]))
-        if not same:
+        if not z["params_equal"]:
             raise SystemExit(f"23b rank {r}: ZeRO-1 params differ from the "
                              f"dp 2 step's after {TP_STEPS} steps")
     out["b"] = [{k: {"moment_bytes": z[k]["moment_bytes"],
@@ -6662,18 +6752,22 @@ def tp_phases(get_config, card: str) -> dict:
                               global_batch=b, seq_len=s,
                               moe_sharded=moe_on, use_zero1=False,
                               optimizer=sgd(TP_SGD[0], momentum=TP_SGD[1]))
-        out["d"][cell] = [tp_plan_check(cell, c, rk[cell]) for rk in ranks]
+        rec = dryrun.plan(c, shape_name=cell)
+        out["d"][cell] = [tp_plan_check(f"23d {cell}", rec, rk[cell])
+                          for rk in ranks]
     c = dryrun.build_cell(tp_zero1_cfg(get_config), "train",
                           MeshDesc(("data", "model"), (2, 1)),
                           global_batch=4, seq_len=256, use_zero1=True)
+    rec = dryrun.plan(c, shape_name="llama3.2-1b dp2 zero1")
     out["d"]["llama3.2-1b dp2 zero1"] = [
-        tp_plan_check("llama3.2-1b dp2 zero1", c, z["zero1"])
+        tp_plan_check("23d llama3.2-1b dp2 zero1", rec, z["zero1"])
         for z in zranks]
     c = dryrun.build_cell(llama32, "decode", tp_mesh,
                           global_batch=TP_DEC_STEP[0],
                           seq_len=TP_DEC_STEP[1])
+    rec = dryrun.plan(c, shape_name="llama3.2-1b decode step")
     out["d"]["llama3.2-1b decode step"] = [
-        tp_plan_check("llama3.2-1b decode step", c, rk["decode"])
+        tp_plan_check("23d llama3.2-1b decode step", rec, rk["decode"])
         for rk in ranks]
     log(f"[smoke] 23d the plans vs the ranks: collectives equal op kind by "
         f"op kind, argument bytes equal; peaks: {json.dumps(out['d'])}")
@@ -6694,6 +6788,305 @@ def tp_phases(get_config, card: str) -> dict:
     out["reference_seconds"] = t_ref
     log(f"[smoke] phase 23 (the model axis) took {out['seconds']:.1f}s "
         f"(spawns included) on {card}")
+    return out
+
+
+# -------------------------------- the model axis for the families (24)
+# 24a: name -> (arch, layers or None for the config's own, batch, seq)
+TP24_CELLS = {"mamba2-370m": ("mamba2-370m", None, 2, 512),
+              "zamba2-7b": ("zamba2-7b", ZAMBA_LAYERS, 2, 512),
+              "llama-3.2-vision-11b": ("llama-3.2-vision-11b", VLM_LAYERS,
+                                       2, 256),
+              "whisper-tiny": ("whisper-tiny", None, 4, 256)}
+TP24_SERVE = (4, 16, 16)       # 24c: requests, new tokens, prompt length
+TP24_PREFILL = (1, 2048)       # 24d: zamba2's prefill (S > 1024: flash)
+# 24b: the scan at the rank's heads of the phase's paths: name -> (Bt, S,
+# H, P, N, Q)
+TP24_SSD = {"mamba2-370m train tp2 2x512 H=16": (2, 512, 16, 64, 128, 256),
+            "zamba2-7b prefill tp2 1x2048 H=56": (1, 2048, 56, 64, 64, 256)}
+TP24_NAMES = ("midx_probs", "sampled_ce", "sampled_ce_bwd", "ssd_scan",
+              "flash_attention")
+
+
+def tp24_counters() -> dict:
+    from repro_torch.kernels.flash_attention import cuda as flash_cuda
+    from repro_torch.kernels.ssd_scan import cuda as ssd_cuda
+    return {**dp_counters(), "ssd_scan": ssd_cuda.ssd_scan_cuda,
+            "flash_attention": flash_cuda.flash_attention_cuda}
+
+
+def tp24_cfg(get_config, cell: str):
+    arch, layers, _, _ = TP24_CELLS[cell]
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def tp24_gates(params) -> None:
+    """The vlm's gates drawn nonzero from a seed (at 0 they hide the
+    cross blocks), the same in every process."""
+    for i, cb in enumerate(params.get("cross_blocks", [])):
+        gen = torch.Generator(cb["gate_attn"].device).manual_seed(24 + i)
+        for g in ("gate_attn", "gate_mlp"):
+            cb[g].uniform_(0.5, 1.0, generator=gen)
+
+
+def tp24_serve(cfg, grid, counters: dict) -> dict:
+    """24c: the engine (fp32, the MIDX head, the index over the whole
+    table) on TP24_SERVE's requests with their media, under the model
+    axis at tp > 1: each draw and token, p50 / p99, and the launches of
+    the run (the counts set to 0 just before, read just after)."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.launch import steps
+    from repro_torch.models import heads, init_params
+    from repro_torch.serve import Engine
+    dev = torch.device("cuda") if grid is None else grid.device
+    full = init_params(cfg, torch.Generator(dev).manual_seed(2), device=dev)
+    tp24_gates(full)
+    index = heads.init_head_state(cfg, full, torch.Generator(dev)
+                                  .manual_seed(3))
+    params = full if grid is None else steps.shard_for_rank(cfg, full, grid)
+    del full
+    n_req, n_new, plen = TP24_SERVE
+    reqs = family_requests(cfg, [plen] * n_req, n_new, seed=5)
+    names = ("midx_probs",) + (("ssd_scan",) if cfg.family in
+                               ("ssm", "hybrid") else ())
+    with tp.model_axis(None if grid is None else grid.model_pg):
+        eng = Engine(cfg.with_serve(max_slots=n_req, page_size=16,
+                                    max_seq=64), params, index=index,
+                     device=dev, seed=0)
+        zero_counts(counters.values())
+        with Decisions() as dec:
+            res = eng.run(reqs)
+        torch.cuda.synchronize()
+    lat = [x for r in reqs for x in res[r.rid].latencies_s[1:]]
+    out = {"decisions": dec.log, "launches": dp_launches(counters, names),
+           "tokens": [np.asarray(res[r.rid].tokens).tolist() for r in reqs],
+           "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+           "p99_ms": 1e3 * float(np.percentile(lat, 99))}
+    del eng, params, index
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp24_prefill(get_config, grid, counters: dict) -> dict:
+    """24d: `launch.steps.make_prefill_step` of zamba2 (ZAMBA_LAYERS
+    layers, fp32) on TP24_PREFILL's tokens: the last position's full
+    logits, with the flash and scan launches of the prefill (the counts
+    set to 0 just before, read just after): at S > 1024 each shared
+    application's attention takes flash, each mamba2 layer one scan, on
+    the rank's heads at tp 2."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    dev = torch.device("cuda") if grid is None else grid.device
+    cfg = dataclasses.replace(get_config("zamba2-7b"), dtype="float32",
+                              num_layers=ZAMBA_LAYERS)
+    b, s = TP24_PREFILL
+    toks = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (b, s))).to(dev)
+    full = init_params(cfg, torch.Generator(dev).manual_seed(6), device=dev)
+    params = full if grid is None else steps.shard_for_rank(cfg, full, grid)
+    del full
+    names = ("flash_attention", "ssd_scan")
+    with tp.model_axis(None if grid is None else grid.model_pg), \
+            torch.no_grad():
+        zero_counts(counters[k] for k in names)
+        logits = steps.make_prefill_step(cfg)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    out = {"launches": dp_launches(counters, names),
+           "logits": logits.float().cpu()}
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp24_rank(grid, outdir: str) -> None:
+    """One rank of phase 24's dp 1 x tp 2 spawn: world rank 0 logs; every
+    rank writes `<outdir>/tp24_<r>.pt`."""
+    import contextlib
+    if grid.world_rank == 0:
+        tp24_rank_body(grid, outdir)
+        return
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        tp24_rank_body(grid, outdir)
+
+
+def tp24_runs(get_config, grid) -> dict:
+    """Phase 24's runs on this process (grid None: the one-card
+    references): each cell's steps (`tp_run`) and serve, then zamba2's
+    long prefill."""
+    counters = tp24_counters()
+    res = {}
+    t0 = time.perf_counter()
+    for cell, (_, _, b, s) in TP24_CELLS.items():
+        cfg = tp24_cfg(get_config, cell)
+        res[cell] = tp_run(cfg, grid, b, s, False, counters, TP24_NAMES,
+                           prepare=tp24_gates)
+        res[cell + " serve"] = tp24_serve(cfg, grid, counters)
+        where = "tp 1" if grid is None else \
+            f"tp {grid.tp} rank {grid.world_rank}"
+        log(f"[smoke] 24 {where} {cell}: losses "
+            f"{json.dumps(res[cell]['hist'])}, step "
+            f"{res[cell]['step_ms']:.1f} ms, launches "
+            f"{json.dumps(res[cell]['launches'])}; serve p50 "
+            f"{res[cell + ' serve']['p50_ms']:.2f} ms; time "
+            f"{time.perf_counter() - t0:.1f}s")
+    res["prefill"] = tp24_prefill(get_config, grid, counters)
+    return res
+
+
+def tp24_rank_body(grid, outdir: str) -> None:
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.save(tp24_runs(get_config, grid),
+               os.path.join(outdir, f"tp24_{grid.world_rank}.pt"))
+
+
+def tp24_ssd(ssd_cuda, ssd_ref, buf, card: str) -> dict:
+    """24b: the scan at the rank-local shapes of the phase's paths, held
+    to its plain version (`hold_ssd`) and timed beside it and its
+    bound."""
+    out = {}
+    for name, (bt, s, h, p, n, q) in TP24_SSD.items():
+        args = ssd_inputs(bt, s, h, p, n, seed=s + h)
+        e_y, e_h = hold_ssd(ssd_cuda, ssd_ref, args, q, name)
+        ms = time_ms(lambda: ssd_cuda.ssd_scan_cuda(*args, chunk=q), buf)
+        plain = time_ms(lambda: ssd_ref(*args, chunk=q), buf)
+        bound, by, _ = ssd_bound_ms(bt, s, h, p, n, q)
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "max_abs_err": max(e_y, e_h)}
+        log(f"[smoke] 24b ssd_scan {name} (P={p} N={n} Q={q} fp32; y err "
+            f"{e_y:.3e}, h_last err {e_h:.3e}, tol {REL_TOL} max(1,|ref|); "
+            f"batched == solo): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bound:.6f} ms ({by}); on {card}")
+    return out
+
+
+def tp24_phases(get_config, ssd_cuda, ssd_ref, card: str) -> dict:
+    """Phase 24: the model axis for the ssm, hybrid, vlm and audio
+    families on the card. The one-card references in this process, then
+    the dp 1 x tp 2 spawn (ranks sharing the card over gloo): 24a the
+    steps held to one card's, 24c every rank's served draws and tokens
+    equal tp 1's, 24d zamba2's long prefill; 24b the scan at the ranks'
+    head counts; 24e the cells planned on meta against the ranks."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshDesc, spawn_ranks
+    from repro_torch.optim import sgd
+    t0 = time.perf_counter()
+    buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    out = {"b": tp24_ssd(ssd_cuda, ssd_ref, buf, card)}
+    del buf
+    ref = tp24_runs(get_config, None)
+    t_ref = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t_spawn = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-tp24-") as tmp:
+        spawn_ranks(tp24_rank, 1, (tmp,), tp=TP_RANKS, device="cuda",
+                    backend="gloo")
+        ranks = [torch.load(os.path.join(tmp, f"tp24_{r}.pt"))
+                 for r in range(TP_RANKS)]
+    t_spawn = time.perf_counter() - t_spawn
+    launches: dict = {}
+
+    def count(path: str, runs) -> dict:
+        la: dict = {}
+        for run in runs:
+            for k, n in run["launches"].items():
+                la[k] = la.get(k, 0) + n
+        for k, n in la.items():
+            if n:
+                launches.setdefault(k, {})[path] = n
+        return la
+
+    out["a"], out["c"] = {}, {}
+    for cell in TP24_CELLS:
+        want = ref[cell]
+        errs, parted, flips0 = tp_hold_train(f"24a {cell}", want,
+                                             [rk[cell] for rk in ranks])
+        la = count(f"24a {cell} tp2", [rk[cell] for rk in ranks])
+        fam = tp24_cfg(get_config, cell).family
+        need = ["sampled_ce[partial]"] + (["ssd_scan"] if fam in
+                                          ("ssm", "hybrid") else [])
+        if min(la.get(k, 0) for k in need) <= 0:
+            raise SystemExit(f"24a {cell}: {need} never launched: {la}")
+        out["a"][cell] = {"errs": errs, "hist_tp1": want["hist"],
+                          "hist_tp2": ranks[0][cell]["hist"],
+                          "steps_held": max(parted, 1),
+                          "picks_differing_step0": flips0,
+                          "step_ms_tp1": want["step_ms"],
+                          "step_ms_tp2": ranks[0][cell]["step_ms"],
+                          "launches": la}
+        log(f"[smoke] 24a {cell} tp 2 (2 gloo ranks on one card) vs tp 1: "
+            f"step 0 errors {json.dumps(errs)} (tol {TP_TOL} max(1,|x|)); "
+            f"losses {json.dumps(ranks[0][cell]['hist'])} vs "
+            f"{json.dumps(want['hist'])}, held within {TP_LOSS_TOL} on "
+            f"step 0 and the steps whose draws all agree ({max(parted, 1)} "
+            f"of {TP_STEPS}); step {ranks[0][cell]['step_ms']:.1f} ms vs "
+            f"{want['step_ms']:.1f} ms; launches {json.dumps(la)}")
+        # 24c: the served draws and tokens
+        want = ref[cell + " serve"]
+        gots = [rk[cell + " serve"] for rk in ranks]
+        for r, got in enumerate(gots):
+            differing = tp_differing(got["decisions"], want["decisions"])
+            if differing or got["tokens"] != want["tokens"]:
+                raise SystemExit(f"24c {cell} rank {r}: the tp 2 engine's "
+                                 f"tokens {got['tokens']} vs tp 1's "
+                                 f"{want['tokens']}, {differing} MIDX draws "
+                                 f"differ")
+        la = count(f"24c {cell} tp2 serve", gots)
+        if la.get("midx_probs", 0) <= 0:
+            raise SystemExit(f"24c {cell}: midx_probs never launched")
+        out["c"][cell] = {"p50_ms_tp1": want["p50_ms"],
+                          "p99_ms_tp1": want["p99_ms"],
+                          "p50_ms_tp2": gots[0]["p50_ms"],
+                          "p99_ms_tp2": gots[0]["p99_ms"], "launches": la}
+        log(f"[smoke] 24c {cell} fp32 tp 2 engine (MIDX head) "
+            f"{TP24_SERVE[0]} x {TP24_SERVE[1]}: every rank's draws and "
+            f"tokens equal tp 1's; {json.dumps(out['c'][cell])}")
+    # 24d: zamba2's long prefill
+    f32 = ref["prefill"]["logits"]
+    pre = {"fp32_logit_absmax": float(f32.abs().max())}
+    for r, rank in enumerate(ranks):
+        got = rank["prefill"]["logits"]
+        pre[f"rank{r}"] = tp_close(f"24d zamba2 prefill rank {r} logits",
+                                   got, f32, TP_PREFILL_TOL)
+        if not torch.equal(got.argmax(-1), f32.argmax(-1)):
+            raise SystemExit(f"24d rank {r}: the argmax differs from tp 1's")
+    la = count("24d zamba2 tp2 prefill 2048", [rk["prefill"] for rk in ranks])
+    if min(la.values()) <= 0:
+        raise SystemExit(f"24d: flash / ssd_scan never launched: {la}")
+    out["d"] = {**pre, "launches": la}
+    log(f"[smoke] 24d zamba2-7b ({ZAMBA_LAYERS} layers) tp 2 prefill "
+        f"{TP24_PREFILL[0]} x {TP24_PREFILL[1]} (flash on the rank's 16 "
+        f"heads, the scan on its 56) vs tp 1: fp32 logits within "
+        f"{TP_PREFILL_TOL} max(1,|x|), argmax equal; {json.dumps(out['d'])}")
+    # 24e: the plans of the training cells
+    tp_mesh = MeshDesc(("data", "model"), (1, TP_RANKS))
+    out["e"] = {}
+    for cell, (_, _, b, s) in TP24_CELLS.items():
+        c = dryrun.build_cell(tp24_cfg(get_config, cell), "train", tp_mesh,
+                              global_batch=b, seq_len=s, use_zero1=False,
+                              optimizer=sgd(TP_SGD[0], momentum=TP_SGD[1]))
+        rec = dryrun.plan(c, shape_name=cell)
+        out["e"][cell] = [tp_plan_check(f"24e {cell}", rec, rk[cell])
+                          for rk in ranks]
+    log(f"[smoke] 24e the plans vs the ranks: collectives equal op kind by "
+        f"op kind, argument bytes equal; peaks: {json.dumps(out['e'])}")
+    missed = [k for k, v in out["e"].items()
+              if not all(x["peak_held"] for x in v)]
+    if missed:
+        raise SystemExit(f"24e the plan's peak is not within "
+                         f"{TP_PEAK_TOL:.0%} of the card's for {missed}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    out["reference_seconds"] = t_ref
+    out["spawn_seconds"] = t_spawn
+    log(f"[smoke] phase 24 (the model axis for the families) took "
+        f"{out['seconds']:.1f}s (spawn included) on {card}")
     return out
 
 
@@ -6987,6 +7380,10 @@ def main() -> None:
     f23 = p23.pop("launches")
     f23_flash = f23.pop("flash_attention")
     mark("the model axis (phase 23)")
+    torch.cuda.empty_cache()
+    p24 = tp24_phases(get_config, ssd_cuda, ssd_scan_ref, card)
+    f24 = p24.pop("launches")
+    mark("the model axis for the families (phase 24)")
     for name, n in (("llama3.2-1b serve", n_rff_llama),
                     ("paper-lm train", n_rff_train[0]),
                     ("trained paper-lm serve", n_rff_trained)):
@@ -7021,7 +7418,7 @@ def main() -> None:
         "18b llama3.2-1b midx-learnable serve": learn["midx_probs serve"],
         "18c contender draws": p18["draw_launches"]["midx_probs"],
         **f19["midx_probs"], **f20["midx_probs"], **f21["midx_probs"],
-        **f22["midx_probs"], **f23["midx_probs"]}
+        **f22["midx_probs"], **f23["midx_probs"], **f24["midx_probs"]}
     rows = [{
         "name": "midx_probs", "route": "cuda",
         "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
@@ -7082,7 +7479,7 @@ def main() -> None:
                    "mamba2-370m train": n_mamba[kname],
                    "18b llama3.2-1b midx-learnable train": learn[kname],
                    **f19[kname], **f20[kname], **f21[kname], **f22[kname],
-                   **f23[kname]}
+                   **f23[kname], **f24.get(kname, {})}
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/sampled_ce/sampled_ce.py:{line}",
@@ -7135,13 +7532,15 @@ def main() -> None:
                     + tier["flash_attention"]
                     + sum(f19["flash_attention"].values())
                     + sum(f21["flash_attention"].values())
-                    + sum(f23_flash.values()),
+                    + sum(f23_flash.values())
+                    + sum(f24["flash_attention"].values()),
         "launches_by_path": {"long-prompt serve": n_long_serve[0],
                              "train_4k": n_4k[0],
                              "train_4k replay": n_4k_replay,
                              "serving tier": tier["flash_attention"],
                              **f19["flash_attention"],
-                             **f21["flash_attention"], **f23_flash},
+                             **f21["flash_attention"], **f23_flash,
+                             **f24["flash_attention"]},
         "max_abs_err": max(list(flash_worst.values()) + [
             r["max_abs_err"] for r in h21["flash_attention"]]),
         "phase21_shapes": h21["flash_attention"],
@@ -7161,9 +7560,13 @@ def main() -> None:
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:24",
         "launches": sum(n_ssd.values()) + sum(f19["ssd_scan"].values())
-                    + sum(f21["ssd_scan"].values()),
-        "launches_by_path": {**n_ssd, **f19["ssd_scan"], **f21["ssd_scan"]},
-        "max_abs_err": max(ssd_worst.values()),
+                    + sum(f21["ssd_scan"].values())
+                    + sum(f24["ssd_scan"].values()),
+        "launches_by_path": {**n_ssd, **f19["ssd_scan"], **f21["ssd_scan"],
+                             **f24["ssd_scan"]},
+        "max_abs_err": max(list(ssd_worst.values()) + [
+            r["max_abs_err"] for r in p24["b"].values()]),
+        "phase24_shapes": p24["b"],
         "max_abs_err_by_output": ssd_worst, "ms": ms, "plain_ms": plain,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "shape": "mamba2-370m train Bt=4 S=1024 H=32 P=64 N=128 Q=256 fp32",
@@ -7176,8 +7579,9 @@ def main() -> None:
     rows += quantized_rows(qholds, n_quant)
     rows += partial_rows({k: v for k, v in partial_holds.items()
                           if k != "row0"}, vp,
-                         {k: {**f20.get(k, {}), **f23.get(k, {})}
-                          for k in set(f20) | set(f23)})
+                         {k: {**f20.get(k, {}), **f23.get(k, {}),
+                              **f24.get(k, {})}
+                          for k in set(f20) | set(f23) | set(f24)})
     log(f"[smoke] vocab-parallel: {json.dumps(vp)}; row-0 hot segment "
         f"{json.dumps(partial_holds.get('row0'))}; on {card}")
     log(f"[smoke] serving tier (phase 16): {json.dumps(tier)}; on {card}")
@@ -7194,6 +7598,8 @@ def main() -> None:
     log(f"[smoke] the unfused head route (phase 22): {json.dumps(p22)}; on "
         f"{card}")
     log(f"[smoke] the model axis (phase 23): {json.dumps(p23)}; on {card}")
+    log(f"[smoke] the model axis for the families (phase 24): "
+        f"{json.dumps(p24)}; on {card}")
     log(f"[smoke] long context: serve {json.dumps(long_serve)}; train_4k "
         f"{json.dumps(train_4k)}; on {card}")
     log(json.dumps({"kernels": rows}))

@@ -22,6 +22,11 @@ its OWN inputs:
                and give n times it.) The reference reaches the same values
                with psum's transpose followed by a 1/n or a pmean
                (`launch/steps.py:321-329`).
+  psum_shared(x)
+               forward all-reduce SUM; backward all-reduce SUM — for a sum
+               that every rank then reads on its own slice of a split
+               tensor (the gated norm's mean square over mamba2's split
+               d_inner), each rank's gradient of it only its slice's part.
   copy_to_vocab_region(x)
                Megatron's copy region for a replicated input of the
                rank-local head (the hidden state): identity forward,
@@ -183,6 +188,17 @@ class _Psum(torch.autograd.Function):
         return g, None
 
 
+class _PsumShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, dist.ReduceOp.SUM, ctx.group), None
+
+
 class _CopyToRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -198,6 +214,14 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Σ over ranks of x; the backward hands each rank the output's
     gradient (a replicated loss downstream)."""
     return _Psum.apply(x, group)
+
+
+def psum_shared(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Σ over ranks of x where each rank reads the sum on its own part of
+    a split tensor (a normaliser over split columns): the backward sums
+    the ranks' gradients of the sum too, since each holds only its part's
+    share of d(loss)/d(sum)."""
+    return _PsumShared.apply(x, group)
 
 
 def copy_to_vocab_region(x: torch.Tensor, group=None) -> torch.Tensor:

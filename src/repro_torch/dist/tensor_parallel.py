@@ -18,6 +18,11 @@ A replicated parameter read inside the region on rank-local activations
 enters through `region_in` too, so its gradient is whole and equal on
 every model rank.
 
+Every family runs under the model axis; the hybrid's shared block, the
+vlm's cross blocks and whisper's encoder and decoder are built of the
+same column / row pieces (the vlm's gates multiply an output already
+summed, so they stay replicated outside any region).
+
 The switch is `set_model_group(group)` (module state, as the reference's
 `models/moe.py::set_moe_mesh` is): with no group, or a group of one rank,
 every function here is the identity and the layers run their one-device
@@ -39,7 +44,23 @@ inside a head (llama3.2-1b at tp 16: wk is [2048, 512] for 8 KV heads of
              to its rows of wo;
   'replicated' nothing splits (tp 1, or no column count divides).
 A degree at which only one of H·hd and KV·hd divides (no config of
-`configs/` at tp 1, 2 or 16) is refused.
+`configs/` at tp 1, 2 or 16) is refused. Cross-attention (the vlm's cross
+blocks, whisper's decoder) takes the same layouts, q from the block's
+input and k / v from the media, each entering the region on its own.
+
+Mamba2 (`mamba_layout`). The name rules split z_proj / x_proj / conv_x /
+conv_x_b / norm_scale over d_inner, dt_proj over the heads and out_proj's
+rows; B / C (b_proj, c_proj, conv_b, conv_c) and a_log / dt_bias /
+d_skip replicate:
+  'heads'      d_inner and H divide tp: the rank scans its H / tp heads;
+               every rank computes B and C whole and reads them through
+               `region_in` (their gradient is each rank's heads' part),
+               takes its heads of a_log / dt_bias / d_skip after
+               `region_in`, and sums the gated norm's squares over the
+               ranks (`sum_shares`) before dividing by the whole d_inner;
+  'replicated' nothing splits.
+A degree that splits d_inner but not H (the reduced mamba2's 8 heads at
+tp 16; no config of `configs/` at tp 2 or 16) is refused.
 Row-parallel partial products are the compute dtype's (a bf16 GEMM at
 bf16), their sum over the ranks runs in fp32 and rounds once to the
 compute dtype (a departure for bf16, where the reference sums in bf16).
@@ -106,6 +127,13 @@ def sum_ranks(x: torch.Tensor) -> torch.Tensor:
     return coll.psum(x, _STATE["group"])
 
 
+def sum_shares(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the model ranks where each rank reads the sum on its
+    own columns (all-reduce forward and backward: `collectives.
+    psum_shared`)."""
+    return coll.psum_shared(x, _STATE["group"])
+
+
 def gather_cols(x: torch.Tensor) -> torch.Tensor:
     """The ranks' column slices of x gathered whole; the backward hands
     each rank its slice of the summed gradient (`collectives.
@@ -144,6 +172,18 @@ def head_layout(num_heads: int, num_kv_heads: int, head_dim: int) -> str:
     if num_heads % n == 0 and num_kv_heads % n == 0:
         return "heads"
     return "gather"
+
+
+def mamba_layout(d_inner: int, num_heads: int) -> str:
+    """'replicated' | 'heads': how the model ranks split a mamba2 block
+    (module docstring)."""
+    if not splits(d_inner):
+        return "replicated"
+    if num_heads % tp_size():
+        raise NotImplementedError(
+            f"tp {tp_size()} splits mamba2's d_inner {d_inner} but not its "
+            f"{num_heads} heads")
+    return "heads"
 
 
 def local_kv_heads(num_heads: int, num_kv_heads: int, head_dim: int) -> int:
@@ -189,12 +229,3 @@ def mean_over(x: torch.Tensor, group) -> torch.Tensor:
         return x
     m = coll.psum_no_grad(x, group) / coll.group_size(group)
     return x + (m - x).detach()
-
-
-def check_family(cfg) -> None:
-    """The model axis covers the dense and moe families."""
-    if tp_size() > 1 and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"tensor parallelism covers the dense and moe families; "
-            f"{cfg.name} is {cfg.family} (ROADMAP item 15b: TP for mamba2 "
-            f"and the ssm / hybrid / vlm / audio families)")

@@ -54,9 +54,12 @@ mesh axis whose group fits in one 8-GPU node rides NVLink 4 at 450 GB/s a
 direction, a wider one (a 16-way axis spans two nodes) 400 Gb/s
 InfiniBand, 50 GB/s a GPU. The reference's TPU dict (:37-41) is not used.
 
-The model axis covers the dense and moe families: a cell of the ssm,
-hybrid, vlm or audio family fails with a message naming ROADMAP item 15b,
-and `--all` then exits 1, as the reference's does on any failure.
+The model axis covers every family (dense, moe, ssm, hybrid, vlm,
+audio): a vlm or audio cell's batch carries the rank's rows of the
+stubbed media (`steps.media_batch`), and its decode cache the cross K/V
+over them, as the reference's `batch_struct` and
+`abstract_decode_state`. A failing cell makes `--all` exit 1, as the
+reference's does on any failure.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
@@ -98,7 +101,6 @@ from repro_torch.optim.optimizers import OptState, zero1
 
 # pure full-attention archs skip long_500k (quadratic at 500k, DESIGN §5)
 LONG_OK_FAMILIES = ("ssm", "hybrid")
-TP_FAMILIES = ("dense", "moe")
 
 HW = {  # NVIDIA H100 80GB HBM3 (SXM, 700 W) data-sheet figures
     "device": "NVIDIA H100 80GB HBM3, 700.00 W (data sheet, not measured)",
@@ -112,11 +114,6 @@ HW = {  # NVIDIA H100 80GB HBM3 (SXM, 700 W) data-sheet figures
                            "real; ring model 2(n-1)/n of an all-reduce, "
                            "(n-1)/n of an all-gather",
 }
-
-MEET_15B = ("the model axis covers the dense and moe families; {arch} is "
-            "{family} (ROADMAP item 15b: TP for mamba2 and the ssm / hybrid "
-            "/ vlm / audio families and their plan cells)")
-
 
 def cells_for(arch: str) -> list[ShapeConfig]:
     cfg = get_config(arch)
@@ -325,9 +322,6 @@ def build_cell(cfg, kind: str, mesh: MeshDesc, *, global_batch: int,
     """One rank's train / prefill / decode program of a cell on meta;
     `optimizer` (default AdamW, as the reference plans) under ZeRO-1 where
     `use_zero1` and the data degree is above 1."""
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(MEET_15B.format(arch=cfg.name,
-                                                  family=cfg.family))
     if vocab_parallel > 1 and (kind != "train" or head_mode != "midx"):
         raise ValueError("--vocab-parallel applies to train cells with the "
                          "midx head only")
@@ -354,7 +348,8 @@ def build_cell(cfg, kind: str, mesh: MeshDesc, *, global_batch: int,
         if use_zero1 and vocab_parallel == 1 and dp > 1:
             opt = zero1(opt, steps_mod.zero1_dims(cfg, grid), grid.data_pg)
         opt_state = opt.init(params)
-        batch = {"tokens": ids(b, seq_len), "labels": ids(b, seq_len)}
+        batch = {"tokens": ids(b, seq_len), "labels": ids(b, seq_len),
+                 **steps_mod.media_batch(cfg, b, meta)}
         keys = ids(b * seq_len)
         fh = _FUSED_HEAD_MODES[fused_head]
         if vocab_parallel > 1:
@@ -387,11 +382,12 @@ def build_cell(cfg, kind: str, mesh: MeshDesc, *, global_batch: int,
         return run
 
     if kind == "prefill":
-        batch = {"tokens": ids(b, seq_len)}
+        batch = {"tokens": ids(b, seq_len),
+                 **steps_mod.media_batch(cfg, b, meta)}
         return Cell(cfg, kind, mesh, run_in_axis(prefill),
                     (params, batch), arg_bytes(params, batch))
     with tp.model_axis(grid.model_pg if tpn > 1 else None):
-        cache = steps_mod.abstract_decode_state(cfg, p_abs, b, seq_len,
+        cache = steps_mod.abstract_decode_state(cfg, params, b, seq_len,
                                                 window=window)
     args = (params, cache, ids(b), ids(b))
     return Cell(cfg, kind, mesh, run_in_axis(decode), args,

@@ -319,7 +319,8 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, group,
     """step(params, opt_state, state, batch, keys, ef=None) -> (params,
     opt_state, metrics, ef) on one rank of a dp x tp `group` (a
     `launch.mesh.RankGrid`): `batch` and `keys` are the rank's data rows
-    (`dist.sharding.data_rows`, the global `train_keys` cut to them);
+    (`rank_batch`: the vlm's `image_emb` and whisper's `frames` cut with
+    the tokens; the global `train_keys` cut to them);
     params are the rank's model slices (`shard_for_rank`; whole at tp 1)
     and `state` its head state (`tp_head_state`), params and the optimizer
     state updated in place. The forward runs under the model axis over
@@ -379,7 +380,11 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, group,
             loss, metrics = loss_fn(leaves, state, batch, keys)
             flat = tree_leaves(leaves)
             with record_function("train.backward"):
-                it = iter(torch.autograd.grad(loss, flat))
+                # a leaf the loss does not read (the calibration's L = 0
+                # variant of the hybrid's shared block or the vlm's cross
+                # block) takes a zero gradient, as the reference's grad
+                it = iter(torch.autograd.grad(loss, flat, allow_unused=True,
+                                              materialize_grads=True))
             grads = tree_map(lambda _: next(it), leaves)
         metrics = _scalars({**metrics, "loss": loss})
         new_ef = ef
@@ -623,10 +628,39 @@ def abstract_vocab_index(cfg: ModelConfig, params_abs, vp: int):
 def abstract_decode_state(cfg: ModelConfig, params_abs, bsz: int,
                           max_seq: int, window: Optional[int] = None):
     """The slot-major decode state on the meta device (reference :651),
-    in this rank's layout under the model axis (`decode_cache_specs`)."""
+    in this rank's layout under the model axis (`decode_cache_specs`;
+    `params_abs` then the rank's slices); the vlm's and whisper's cross
+    K/V over `media_batch`'s media (the reference's over zeros)."""
     from repro_torch.models.decode import init_decode_state
     return init_decode_state(cfg, bsz, max_seq, device="meta",
-                             params=params_abs, window=window)
+                             params=params_abs, window=window,
+                             **media_batch(cfg, bsz, "meta"))
+
+
+def media_batch(cfg: ModelConfig, bsz: int, device) -> dict:
+    """The batch's media on `device` as the dry run plans them (reference
+    `batch_struct` :622-632): `image_emb` [B, Ni, D] (vlm), `frames`
+    [B, Senc, D] (audio), uninitialised, in the compute dtype."""
+    from repro_torch.models.model import torch_dtype
+    dt = torch_dtype(cfg)
+    if cfg.family == "vlm":
+        return {"image_emb": torch.empty(
+            (bsz, cfg.num_image_tokens, cfg.d_model), dtype=dt,
+            device=device)}
+    if cfg.family == "audio":
+        return {"frames": torch.empty((bsz, cfg.encoder_seq, cfg.d_model),
+                                      dtype=dt, device=device)}
+    return {}
+
+
+def rank_batch(batch: dict, grid) -> dict:
+    """Data rank `grid.data_rank`'s rows of every leaf of a [B, ...]
+    batch (tokens, labels, and the vlm's `image_emb` / whisper's `frames`
+    with them; `dist.sharding.data_rows`)."""
+    from repro_torch.dist.sharding import data_rows
+    b = batch["tokens"].shape[0]
+    rows = data_rows(b, grid.dp, grid.data_rank)
+    return {k: v[rows] for k, v in batch.items()}
 
 
 def make_prefill_step(cfg: ModelConfig, *, window: Optional[int] = None):

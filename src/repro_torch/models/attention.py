@@ -16,9 +16,10 @@ blockwise forward `ref.flash_fwd_ref` instead (every block's probabilities
 kept for the backward; the same forward, the gradients within the fp32
 bar), the paper-naive baseline the dry run's `--attn autodiff` plans.
 
-Under the model axis (`dist.tensor_parallel`) `project_qkv` returns the
-rank's heads, or whole heads gathered over the model group, as
-`head_layout` says, and `attn_out` applies the rank's rows of wo and
+Under the model axis (`dist.tensor_parallel`) `project_qkv` (and the
+cross-attention's `cross_q` / `cross_kv`) returns the rank's heads, or
+whole heads gathered over the model group, as `head_layout` says, and
+`attn_out` applies the rank's rows of wo and
 sums over the ranks.
 """
 from __future__ import annotations
@@ -64,25 +65,32 @@ def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
     return p
 
 
+def _columns(x: torch.Tensor, ws: tuple, lay: str) -> list:
+    """x @ w for each column-parallel w of `ws`, x entering the region
+    once; under 'gather' each product's columns gathered whole."""
+    dt = x.dtype
+    if lay != "replicated":
+        x = tp.region_in(x)
+    outs = [x @ w.to(dt) for w in ws]
+    if lay == "gather":
+        outs = [tp.gather_cols(o) for o in outs]
+    return outs
+
+
 def project_qkv(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
                 head_dim: int, cos=None, sin=None, qk_norm: bool = False,
                 eps: float = 1e-5):
     """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE + optional
     qk-norm. Under the model axis H and KV are the rank's heads
     ('heads' layout) or all of them (module docstring)."""
-    dt = x.dtype
     b, s, _ = x.shape
     lay = tp.head_layout(num_heads, num_kv_heads, head_dim)
     qn = p.get("q_norm")
     kn = p.get("k_norm")
-    if lay != "replicated":
-        x = tp.region_in(x)
-        if qk_norm:
-            qn = {"scale": tp.region_in(qn["scale"])}
-            kn = {"scale": tp.region_in(kn["scale"])}
-    q, k, v = (x @ p["wq"].to(dt), x @ p["wk"].to(dt), x @ p["wv"].to(dt))
-    if lay == "gather":
-        q, k, v = (tp.gather_cols(t) for t in (q, k, v))
+    if lay != "replicated" and qk_norm:
+        qn = {"scale": tp.region_in(qn["scale"])}
+        kn = {"scale": tp.region_in(kn["scale"])}
+    q, k, v = _columns(x, (p["wq"], p["wk"], p["wv"]), lay)
     q = q.reshape(b, s, -1, head_dim)
     k = k.reshape(b, s, -1, head_dim)
     v = v.reshape(b, s, -1, head_dim)
@@ -93,6 +101,27 @@ def project_qkv(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def cross_q(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
+            head_dim: int) -> torch.Tensor:
+    """Cross-attention queries of x [B,S,D] (no RoPE): [B,S,H,hd], under
+    the model axis laid out as `project_qkv`'s."""
+    b, s, _ = x.shape
+    lay = tp.head_layout(num_heads, num_kv_heads, head_dim)
+    (q,) = _columns(x, (p["wq"],), lay)
+    return q.reshape(b, s, -1, head_dim)
+
+
+def cross_kv(p: dict, src: torch.Tensor, num_heads: int, num_kv_heads: int,
+             head_dim: int):
+    """Cross-attention keys and values of src [B,Ssrc,D] (no RoPE):
+    [B,Ssrc,KV,hd] each, under the model axis laid out as `project_qkv`'s
+    (src enters the region on its own)."""
+    b, sk, _ = src.shape
+    lay = tp.head_layout(num_heads, num_kv_heads, head_dim)
+    k, v = _columns(src, (p["wk"], p["wv"]), lay)
+    return k.reshape(b, sk, -1, head_dim), v.reshape(b, sk, -1, head_dim)
 
 
 def attn_out(p: dict, o: torch.Tensor, num_heads: int, num_kv_heads: int,

@@ -27,6 +27,14 @@ with no page table, ssm and hybrid, passing straight through,
 with physical page 0 the reserved trash page that inactive slots write into
 and that no request ever reads (its entries lie past every mask).
 
+Under the model axis (`dist.tensor_parallel`) every piece is the rank's
+part as `dist.sharding.decode_cache_specs` cuts it: K/V caches, the
+hybrid ring and the cross K/V hold the rank's KV heads, or a slot-major
+K/V cache and the cross K/V (the vlm's at tp 16) its slice of the
+sequence, merged over the ranks (`dist.decode.flash_decode_seq_sharded`);
+the ssm carries hold its conv_x columns and ssm heads, conv_b / conv_c
+whole (reference `src/repro/dist/sharding.py:240-307`).
+
 `decode_step` and `paged_decode_step` take the reference's `attn_fn`
 hook (:118-133, :165, :504): `attn_fn(q, kc, vc, pos, window=...)`
 replaces `decode_attention` in the self-attention of the dense, moe, vlm
@@ -84,6 +92,7 @@ from repro_torch.models.model import (apply_attn_part, apply_cross_part,
                                       apply_ffn_part, apply_mamba_part,
                                       attn_proj,
                                       apply_shared_attn, cross_kv, cross_out,
+                                      cross_q,
                                       encode, num_cross_blocks,
                                       num_shared_apps, shared_attn_mlp,
                                       torch_dtype)
@@ -113,10 +122,19 @@ def _ssm_cache(cfg: ModelConfig, n_layers: int, bsz: int, *,
 def _ring(cfg: ModelConfig, bsz: int, max_seq: int, window, *,
           device) -> dict:
     """The hybrid's ring cache of its shared block: [A, B, Wring, KV, hd]
-    and each entry's absolute position, -1 while empty."""
+    and each entry's absolute position, -1 while empty. Under the model
+    axis the rank's KV heads ('heads' layout) or all of them; a ring whose
+    KV heads do not divide tp while Wring does (`decode_cache_specs` would
+    split its sequence; no config of `configs/` at tp 2 or 16) is
+    refused."""
     wring = min(max_seq, window or max_seq)
-    shape = (num_shared_apps(cfg), bsz, wring, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if tp.seq_sharded_cache(kvh, wring):
+        raise NotImplementedError(
+            f"the hybrid ring split over its sequence ({kvh} KV heads at tp "
+            f"{tp.tp_size()})")
+    shape = (num_shared_apps(cfg), bsz, wring, tp.local_kv_heads(h, kvh, hd),
+             hd)
     dt = torch_dtype(cfg)
     return {"shared_k": torch.zeros(shape, dtype=dt, device=device),
             "shared_v": torch.zeros(shape, dtype=dt, device=device),
@@ -124,11 +142,25 @@ def _ring(cfg: ModelConfig, bsz: int, max_seq: int, window, *,
                                    device=device)}
 
 
+def _cross_len(cfg: ModelConfig) -> int:
+    """The media's length: the vlm's image tokens, whisper's frames."""
+    return cfg.num_image_tokens if cfg.family == "vlm" else cfg.encoder_seq
+
+
+def _cross_split(cfg: ModelConfig) -> bool:
+    """Whether the model ranks hold sequence slices of the cross K/V
+    (`decode_cache_specs`: KV heads that do not divide tp, a media length
+    that does; the vlm's 1600 image tokens at tp 16)."""
+    return tp.seq_sharded_cache(cfg.num_kv_heads, _cross_len(cfg))
+
+
 def media_kv(cfg: ModelConfig, params: dict, *, image_emb=None,
              frames=None) -> dict:
     """The read-only cross K/V (reference `_cross_kv`): vlm over the image
     embeddings, one per cross block [n_cross, B, Ni, KV, hd]; audio over
-    the encoder's output, one per decoder layer [L, B, Senc, KV, hd]."""
+    the encoder's output, one per decoder layer [L, B, Senc, KV, hd].
+    Under the model axis the rank's KV heads, or its slice of the media's
+    sequence (`_cross_split`)."""
     if cfg.family == "vlm":
         return _cross_cache(cfg, [cb["xattn"] for cb in
                                   params["cross_blocks"]],
@@ -139,21 +171,35 @@ def media_kv(cfg: ModelConfig, params: dict, *, image_emb=None,
 
 def _cross_cache(cfg: ModelConfig, aps: list, src: torch.Tensor) -> dict:
     ks, vs = zip(*(cross_kv(cfg, ap, src) for ap in aps))
-    return {"cross_k": torch.stack(ks), "cross_v": torch.stack(vs)}
+    out = {"cross_k": torch.stack(ks), "cross_v": torch.stack(vs)}
+    if _cross_split(cfg):
+        n = src.shape[1]
+        if n != _cross_len(cfg):
+            raise ValueError(f"media of {n} positions, the config's "
+                             f"{_cross_len(cfg)}")
+        out = {k: tp.own_slice(v, n, dim=2).contiguous()
+               for k, v in out.items()}
+    return out
 
 
 def _cross_decode(cfg: ModelConfig, bp: dict, x: torch.Tensor, xk, xv, *,
                   gated: bool) -> torch.Tensor:
     """Cross-attention of one token x [B,1,D] against precomputed
-    xk / xv [B, Ssrc, KV, hd] (reference `_cross_attn_decode`)."""
+    xk / xv [B, Ssrc, KV, hd] (reference `_cross_attn_decode`); a
+    sequence slice of them (`_cross_split`) merged over the model ranks
+    (`flash_decode_seq_sharded`, every position allowed)."""
     h = apply_norm(bp["ln1"] if gated else bp["ln_x"], x, eps=cfg.norm_eps,
                    kind=cfg.norm)
     b = x.shape[0]
-    q = (h @ bp["xattn"]["wq"].to(h.dtype)).reshape(
-        b, 1, cfg.num_heads, cfg.resolved_head_dim)
-    last = torch.full((b,), xk.shape[1] - 1, dtype=torch.long,
-                      device=x.device)
-    o = attn_mod.decode_attention(q, xk, xv, last)
+    q = cross_q(cfg, bp["xattn"], h)
+    split = _cross_split(cfg)
+    n = _cross_len(cfg) if split else xk.shape[1]
+    last = torch.full((b,), n - 1, dtype=torch.long, device=x.device)
+    if split:
+        o = flash_decode_seq_sharded(q, xk, xv, last, tp.model_group(),
+                                     local=True)
+    else:
+        o = attn_mod.decode_attention(q, xk, xv, last)
     return cross_out(cfg, bp, x, o.reshape(b, 1, -1), gated=gated)
 
 

@@ -29,6 +29,10 @@ Departures from the reference:
     while casting each block as it is drawn, so the fp32 block tree and
     its cast copy are never held together (the serving engine builds its
     weights through it).
+Under the model axis (`dist.tensor_parallel`) every family runs on the
+rank's slices: the attention and cross-attention projections by
+`head_layout`, the MLPs by `d_ff`, mamba2 by `mamba_layout`; the vlm's
+gates stay replicated.
 """
 from __future__ import annotations
 
@@ -286,23 +290,30 @@ def apply_ffn_part(cfg: ModelConfig, bp: dict, x):
 
 def cross_kv(cfg: ModelConfig, ap: dict, src: torch.Tensor):
     """Cross-attention keys and values of `src` [B, Ssrc, D] (no RoPE):
-    k, v [B, Ssrc, KV, hd]."""
-    b, sk, _ = src.shape
-    shape = (b, sk, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return ((src @ ap["wk"].to(src.dtype)).reshape(shape),
-            (src @ ap["wv"].to(src.dtype)).reshape(shape))
+    k, v [B, Ssrc, KV, hd] (under the model axis `attention.cross_kv`'s
+    layout)."""
+    return attn_mod.cross_kv(ap, src, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.resolved_head_dim)
+
+
+def cross_q(cfg: ModelConfig, ap: dict, h: torch.Tensor):
+    """Cross-attention queries of h [B, S, D]: [B, S, H, hd]."""
+    return attn_mod.cross_q(ap, h, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim)
 
 
 def cross_out(cfg: ModelConfig, bp: dict, x, o, *, gated: bool):
     """The cross sublayer after its attention output o [B, S, H·hd]: the
     output projection, then (gated, the vlm block) tanh(gate_attn) on the
-    residual and the gated MLP, else the plain residual (audio)."""
-    o = o @ bp["xattn"]["wo"].to(x.dtype)
+    residual and the gated MLP, else the plain residual (audio). The
+    gates stay fp32 and replicated: they scale outputs already summed
+    over the model ranks."""
+    o = attn_proj(cfg, bp["xattn"], o, x.dtype)
     if not gated:
         return x + o
     x = x + (torch.tanh(bp["gate_attn"]) * o).to(x.dtype)
     h2 = apply_norm(bp["ln2"], x, eps=cfg.norm_eps, kind=cfg.norm)
-    y = apply_mlp(bp["mlp"], h2, cfg.act)
+    y = apply_mlp(bp["mlp"], h2, cfg.act, cfg.d_ff)
     return x + (torch.tanh(bp["gate_mlp"]) * y).to(x.dtype)
 
 
@@ -313,8 +324,7 @@ def apply_cross_part(cfg: ModelConfig, bp: dict, x, kv_src, *,
     h = apply_norm(bp["ln1"] if gated else bp["ln_x"], x, eps=cfg.norm_eps,
                    kind=cfg.norm)
     b, s, _ = h.shape
-    q = (h @ bp["xattn"]["wq"].to(h.dtype)).reshape(
-        b, s, cfg.num_heads, cfg.resolved_head_dim)
+    q = cross_q(cfg, bp["xattn"], h)
     k, v = cross_kv(cfg, bp["xattn"], kv_src.to(h.dtype))
     o = attn_mod.attention(q, k, v, causal=False)
     return cross_out(cfg, bp, x, o.reshape(b, s, -1), gated=gated)
@@ -323,9 +333,9 @@ def apply_cross_part(cfg: ModelConfig, bp: dict, x, kv_src, *,
 def shared_attn_mlp(cfg: ModelConfig, sp: dict, x, o):
     """The hybrid's shared block after its attention output o
     [B, S, H·hd]: the output projection and the MLP sublayer."""
-    x = x + o @ sp["attn"]["wo"].to(x.dtype)
+    x = x + attn_proj(cfg, sp["attn"], o, x.dtype)
     h2 = apply_norm(sp["ln2"], x, eps=cfg.norm_eps, kind=cfg.norm)
-    return x + apply_mlp(sp["mlp"], h2, cfg.act)
+    return x + apply_mlp(sp["mlp"], h2, cfg.act, cfg.d_ff)
 
 
 def apply_shared_attn(cfg: ModelConfig, sp: dict, x, cos, sin, window=None):
@@ -379,7 +389,6 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     vocab-parallel lookup, `dist.vocab_parallel.embed_lookup`), in place
     of the lookup in `params["embed"]` (reference :223-236)."""
     s = tokens.shape[1]
-    tp.check_family(cfg)
     # F.embedding, not params["embed"][tokens]: the same rows, and on the
     # CPU a backward that sums repeated tokens in a fixed order. Under the
     # model axis a row-split table is looked up vocab-parallel.

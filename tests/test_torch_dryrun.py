@@ -4,8 +4,7 @@ a cell planned on the meta device, on the CPU, without JAX.
 What the plan reads is held here against what it stands for: a cell's
 argument bytes against the bytes of the spec trees' slices, the roofline
 against the named H100 constants, the calibration variants against the
-linear law, and the families the model axis does not cover against their
-refusal. The schedule of the recording groups is held against what gloo
+linear law, and every family's cells under the model axis. The schedule of the recording groups is held against what gloo
 ranks moved in `tests/test_torch_tensor_parallel.py`.
 """
 from __future__ import annotations
@@ -131,16 +130,31 @@ def test_calibrate_variants_follow_the_linear_law(tmp_path):
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b",
                                   "llama-3.2-vision-11b", "whisper-tiny"])
-def test_other_families_fail_naming_item_15b(arch, tmp_path):
-    """ssm / hybrid / vlm / audio cells fail with the item-15b message, and
-    the CLI then exits 1."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        dryrun.run_cell(arch, "decode_32k", multi_pod=False,
-                        out_dir=str(tmp_path))
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", arch, "--shape", "decode_32k", "--mesh",
-                     "single", "--out", str(tmp_path)])
-    assert e.value.code == 1
+def test_other_families_plan(arch, tmp_path):
+    """ssm / hybrid / vlm / audio decode cells plan at tp 16 through the
+    CLI: `main` returns (exit 0), the JSON is written, and the model
+    axis's collectives are in it (the vlm's cross K/V split over its 1600
+    image tokens merges over the model ranks)."""
+    dryrun.main(["--arch", arch, "--shape", "decode_32k", "--mesh",
+                 "single", "--out", str(tmp_path)])
+    with open(tmp_path / f"{arch}__decode_32k__single__midx.json") as f:
+        rec = json.load(f)
+    assert rec["mesh"] == [16, 16]
+    c = rec["collectives"]
+    assert c["all-reduce"]["count"] > 0 and c["total_bytes"] > 0
+    assert rec["flops_per_device"] > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "llama-3.2-vision-11b"])
+def test_calibrate_family_twins_plan_under_tp(arch, tmp_path):
+    """The hybrid's and the vlm's train_4k calibration at tp 16: the L =
+    0, 1, 2 variants (the shared block or a cross block unread at L = 0,
+    its gradient zero) and the L = 0, 1 family twins plan, linearly."""
+    out = dryrun.calibrate_cell(arch, "train_4k", multi_pod=False,
+                                out_dir=str(tmp_path))
+    assert out["linear"]
+    assert set(out["variants"]) == {"0", "1", "2", "twin0", "twin1"}
+    assert all(v["collective_bytes"] > 0 for v in out["variants"].values())
 
 
 def test_port_and_plan_import_without_jax(tmp_path):

@@ -524,11 +524,13 @@ def test_set_impl_autodiff_matches_flash(causal):
         attn_mod.set_impl("xla")
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m",
+                                  "mamba2-370m", "zamba2-7b",
+                                  "llama-3.2-vision-11b", "whisper-tiny"])
 def test_tp_step_at_one_rank_is_the_one_device_step(arch):
     """A grid of one rank: `make_sharded_train_step` is `make_train_step` bit
-    for bit (MIDX head, two AdamW steps), its norm summed as the one-device
-    clip sums it."""
+    for bit (MIDX head, two AdamW steps; the vlm's and whisper's batches
+    carry their media), its norm summed as the one-device clip sums it."""
     from repro_torch.core import noise
     from repro_torch.dist.collectives import RecordingGroup
     from repro_torch.launch.mesh import RankGrid
@@ -541,6 +543,11 @@ def test_tp_step_at_one_rank_is_the_one_device_step(arch):
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)))
              for k in ("tokens", "labels")}
+    media = {"vlm": ("image_emb", cfg.num_image_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if media is not None:
+        batch[media[0]] = torch.from_numpy(rng.standard_normal(
+            (4, media[1], cfg.d_model)).astype(np.float32))
     grid = RankGrid(0, 1, torch.device("cpu"), "gloo", None, 1, 0,
                     RecordingGroup(1, 0, "data"), 1, 0,
                     RecordingGroup(1, 0, "model"))
