@@ -9,7 +9,8 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
   2. build every kernel of the serving and training paths from the sources
      in the checkout, one nvcc per source, all at once (`kernels/
      flash_attention/csrc/flash_attention.cu`, `kernels/midx_probs/csrc/
-     midx_probs.cu`, `kernels/sampled_ce/csrc/sampled_ce_pt.cu` and
+     midx_probs.cu` and `midx_probs_bwd.cu`, `kernels/sampled_ce/csrc/
+     sampled_ce_pt.cu` and
      `sampled_ce.cu`, `kernels/rff_sample/csrc/rff_sample.cu`, `kernels/
      ssd_scan/csrc/ssd_scan.cu`), and print what ptxas says; for the
      flash, ssd_scan, shared-CE and per-token CE libraries, each kernel's
@@ -35,7 +36,13 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      scan, matrix products over 3xTF32's 165 TFLOP/s, with the all-fp32
      bound beside it), the shared CE also at `train_4k`'s shape (B=2,
      S=4096, M=1024, D=2048), and the fp32 bmm of the shared CE's logit
-     product as a reference point;
+     product as a reference point; the MIDX tables' backward
+     (`midx_probs_bwd`: dz, and ds for d(codebooks)) within 1e-5·max(1,
+     |plain|) of its plain closed form at phase 22d's three shapes
+     (llama3.2-1b and mamba2-370m decode, paper-lm train), llama decode
+     PQ, and int8 and fp8 at llama decode and paper-lm train, each with a
+     zeroed row of counts, each row alone equal bit for bit to that row
+     of the call, timed beside its bound and plain version;
  3b. hold the flash-attention forward against its plain version, TF32 off:
      a sweep (fp32/bf16, hd 50/64/128, four (H, KV), S 128..2048, causal
      on/off, window None/16, Sq < Sk, rows with no allowed key), every
@@ -355,8 +362,9 @@ It imports nothing of JAX or of the JAX package. Phases, each fatal:
      use_fused_head False (batched == solo on 2, no midx_probs launch) and
      True on the same weights; (d) the unfused route's forward and forward
      + backward timed at the five head kernels' phase-3 shapes and inputs
-     (and the fused route's forward + backward through its autograd op)
-     beside the kernels' times and bounds; (e) the examples:
+     (and the fused route's forward + backward through its autograd op:
+     for midx_probs the forward kernel and the backward kernel) beside
+     the kernels' times and bounds; (e) the examples:
      `quickstart`, `serve_decode`, `train_lm_midx --full-width --steps 20`
      with `--head midx` and `--head full`;
  23. the model axis (after phase 22; `dist.tensor_parallel`, ranks
@@ -684,6 +692,105 @@ def check_midx_probs(cuda_mod, ref_fn, buf, card: str):
             f"{plain:.4f} ms, bound {bound:.6f} ms ({by}); library: none; "
             f"on {card}")
     return worst, timings
+
+
+BWD_TOL = 1e-5                 # the tables' backward: 1e-5·max(1, |plain|)
+MIDX_BWD_TIMED = (             # (name, (T, D, K, split)): 22d's three, PQ
+    ("llama3.2-1b decode", (4, 2048, 64, False)),
+    ("paper-lm train", (1024, 200, 32, False)),
+    ("mamba2-370m decode", (4, 1024, 64, False)),
+    ("llama3.2-1b decode pq", (4, 2048, 64, True)))
+
+
+def midx_bwd_inputs(cuda_mod, t: int, d: int, k: int, split: bool,
+                    seed: int, fmt: str = "fp32"):
+    """The backward's inputs: the forward kernel's outputs on `midx_inputs`
+    (whose counts have row 1 zeroed: that row's psi is floored) and
+    cotangents drawn on the card, then the codebooks as the forward took
+    them (int8 / fp8 with their [K] scales in `kw`) and the counts."""
+    from repro_torch.index.quantized import quantize_rows
+    z, cb1, cb2, counts = midx_inputs(t, d, k, split, seed)
+    kw = {"split": split}
+    if fmt != "fp32":
+        (cb1, s1), (cb2, s2) = quantize_rows(cb1, fmt), quantize_rows(cb2,
+                                                                      fmt)
+        kw.update(scale1=s1.reshape(-1), scale2=s2.reshape(-1))
+    out = cuda_mod.midx_probs_cuda(z, cb1, cb2, counts, **kw)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    cot = [torch.randn(x.shape, generator=g, device="cuda") for x in out]
+    return (*out, *cot), (cb1, cb2, counts), kw
+
+
+def midx_bwd_bound_ms(t: int, d: int, k: int, split: bool, elem: int = 4):
+    """The backward's bound: s1, s2, log_psi and their cotangents [T, K],
+    lse and its cotangent [T], counts, the codebooks (`elem` bytes an
+    element, with [K] fp32 scales where 1-byte) read once and dz written;
+    the products (two K x Dc books a row), psi's and r·C's K² chains and
+    ~12 operations a (row, codeword) over the fp32 rate."""
+    dc = d // 2 if split else d
+    nbytes = (4 * (6 * t * k + 2 * t + k * k + t * d) + 2 * k * dc * elem
+              + (8 * k if elem == 1 else 0))
+    ops = 4 * t * k * dc + 4 * t * k * k + 12 * t * k
+    return roofline_ms(nbytes, ops)[:2]
+
+
+def check_midx_probs_bwd(cuda_mod, ref_fn, buf, card: str):
+    """Phase 3 for the tables' backward: the kernel's dz and ds (for
+    d(codebooks)) within BWD_TOL·max(1, |plain|) of the plain closed form,
+    finite, at 22d's three shapes, PQ, int8 and fp8 (every case with a
+    zeroed row of counts); each row alone equal bit for bit to that row of
+    the call; times (cold L2) of the kernel and the plain version beside
+    the bound. Returns (worst error, {name: (ms, plain, bound, by)},
+    {"midx_probs_bwd[fmt]": hold row})."""
+    worst, timings, qholds = 0.0, {}, {}
+    cases = [(name, shape, "fp32") for name, shape in MIDX_BWD_TIMED] + [
+        (name, shape, fmt) for fmt in QFMTS for name, shape in QMIDX_SHAPES]
+    for name, (t, d, k, split), fmt in cases:
+        args, books, kw = midx_bwd_inputs(cuda_mod, t, d, k, split,
+                                          seed=t + d + k, fmt=fmt)
+        where = f"{name} T={t} D={d} K={k} {'pq' if split else 'rq'} {fmt}"
+        got = cuda_mod.midx_probs_bwd_cuda(*args, *books, with_ds=True, **kw)
+        want = ref_fn(*args, *books, with_ds=True, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for oname, a, b in zip(("dz", "ds1", "ds2"), got, want):
+            e = (a - b).abs()
+            if a.shape != b.shape or not torch.isfinite(a).all() or bool(
+                    (e > BWD_TOL * b.abs().clamp(min=1.0)).any()):
+                raise SystemExit(f"midx_probs_bwd {oname} disagrees with the"
+                                 f" plain version at {where}: max err "
+                                 f"{float(e.max()):.3e}")
+            err = max(err, float(e.max()))
+        worst = max(worst, err)
+        for r in sorted({0, t // 2, t - 1}):
+            solo = cuda_mod.midx_probs_bwd_cuda(
+                *(x[r:r + 1] for x in args), *books, with_ds=True, **kw)
+            if not all(torch.equal(a[0], b[r]) for a, b in zip(solo, got)):
+                raise SystemExit(f"midx_probs_bwd: row {r} alone differs "
+                                 f"from row {r} of the call at {where}")
+        ms = time_ms(lambda: cuda_mod.midx_probs_bwd_cuda(*args, *books,
+                                                          **kw), buf)
+        plain = time_ms(lambda: ref_fn(*args, *books, **kw), buf)
+        bound, by = midx_bwd_bound_ms(t, d, k, split,
+                                      4 if fmt == "fp32" else 1)
+        if fmt == "fp32":
+            timings[name] = (ms, plain, bound, by)
+        else:
+            row = qholds.setdefault(f"midx_probs_bwd[{fmt}]", {
+                "max_abs_err": 0.0, "other_shapes": []})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            t_ = {"shape": where, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bound, "bound_by": by}
+            if "ms" in row:
+                row["other_shapes"].append(t_)
+            else:
+                row.update(t_)
+        log(f"[smoke] midx_probs_bwd {where}: max_abs_err {err:.3e} (tol "
+            f"{BWD_TOL}*max(1,|plain|), counts row 1 zeroed); rows alone "
+            f"bit for bit; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bound:.6f} ms ({by}); library: none; on {card}")
+    return worst, timings, qholds
 
 
 def sce_inputs(t: int, d: int, m: int, v: int, dtype, seed: int,
@@ -2819,8 +2926,10 @@ def quantized_phases(get_config, midx_cuda, sce_cuda, corpus) -> dict:
     import tempfile
     from repro_torch.serve import Engine
     midx = midx_cuda.midx_probs_cuda
-    pt = (midx, sce_cuda.sampled_ce_pt_cuda, sce_cuda.sampled_ce_pt_bwd_cuda)
-    names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+    pt = (midx, sce_cuda.sampled_ce_pt_cuda, sce_cuda.sampled_ce_pt_bwd_cuda,
+          midx_cuda.midx_probs_bwd_cuda)
+    names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd",
+             "midx_probs_bwd")
     launches = {}
     paper = get_config("paper-lm")
     hists = {}
@@ -2909,6 +3018,9 @@ def quantized_phases(get_config, midx_cuda, sce_cuda, corpus) -> dict:
 QROWS = (                      # kernels-line rows: (name, source, replaces)
     ("midx_probs", "src/repro_torch/kernels/midx_probs/csrc/midx_probs.cu",
      "src/repro/kernels/midx_probs/midx_probs.py:23"),
+    ("midx_probs_bwd",
+     "src/repro_torch/kernels/midx_probs/csrc/midx_probs_bwd.cu",
+     "src/repro/kernels/midx_probs/ops.py:110"),
     ("sampled_ce_pt",
      "src/repro_torch/kernels/sampled_ce/csrc/sampled_ce_pt.cu",
      "src/repro/kernels/sampled_ce/per_token.py:74"),
@@ -4149,8 +4261,9 @@ def p18_learnable_paper(get_config, midx_cuda, sce_cuda) -> dict:
     from repro_torch.launch.train import train_loop
     from repro_torch.models.model import class_embeddings
     counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
-                sce_cuda.sampled_ce_pt_bwd_cuda)
-    names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+                sce_cuda.sampled_ce_pt_bwd_cuda, midx_cuda.midx_probs_bwd_cuda)
+    names = ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd",
+             "midx_probs_bwd")
     cfg = get_config("paper-lm").with_head(mode="midx-learnable")
     params, state, launches, summ = train(cfg, counters, names, steps=120,
                                           batch=16, seq=64, lr=3e-3,
@@ -5674,6 +5787,7 @@ P22_SAMPLERS = {"per_token": "sample_twostage", "pooled": "sample_pooled",
 
 def head_counters(midx_cuda, sce_cuda) -> dict:
     return {"midx_probs": midx_cuda.midx_probs_cuda,
+            "midx_probs_bwd": midx_cuda.midx_probs_bwd_cuda,
             "sampled_ce_pt": sce_cuda.sampled_ce_pt_cuda,
             "sampled_ce_pt_bwd": sce_cuda.sampled_ce_pt_bwd_cuda,
             "sampled_ce": sce_cuda.sampled_ce_cuda,
@@ -5878,7 +5992,8 @@ def p22_training(get_config, counters: dict, corpus, card: str) -> dict:
         torch.cuda.empty_cache()
     for name, r in out.items():
         fused = name.endswith(" on")
-        kernels = (("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd")
+        kernels = (("midx_probs", "midx_probs_bwd", "sampled_ce_pt",
+                    "sampled_ce_pt_bwd")
                    if name.startswith("paper") else
                    ("sampled_ce", "sampled_ce_bwd"))
         if (not fused and any(r["launches"].values())) or (
@@ -5946,13 +6061,14 @@ def grad_of(fn, leaves, cot):
     return lambda: torch.autograd.grad(fn(*leaves), leaves, cot)
 
 
-def p22_yardstick(timings, sce_timings, shared_timings, buf,
+def p22_yardstick(timings, bwd_timings, sce_timings, shared_timings, buf,
                   card: str) -> dict:
     """22d: the unfused route's forward and forward + backward at the
-    phase-3 shapes and inputs of the five head kernels, timed by
-    `time_ms` beside the kernel's time (phase 3) and bound, and the fused
-    route's forward + backward through its autograd op; no kernel runs in
-    an unfused timing (the counters are read around them)."""
+    phase-3 shapes and inputs of the head kernels, timed by `time_ms`
+    beside the kernels' times (phase 3) and bounds, and the fused route's
+    forward + backward through its autograd op (midx_probs: the forward
+    and the backward kernel); no kernel runs in an unfused timing (the
+    counters are read around them)."""
     from repro_torch.core import midx as midx_mod
     from repro_torch.kernels.midx_probs.ops import proposal_tables
     from repro_torch.kernels.sampled_ce.ops import (sampled_ce_op,
@@ -5984,7 +6100,8 @@ def p22_yardstick(timings, sce_timings, shared_timings, buf,
         row("midx_probs", name, lambda: midx_mod.twostage_tables(idx, z),
             grad_of(lambda zz: midx_mod.twostage_tables(idx, zz), [zl], cot),
             grad_of(lambda zz: proposal_tables(idx, zz), [zl], cot),
-            {"fwd": timings[name][0]}, {"fwd": timings[name][2]})
+            {"fwd": timings[name][0], "bwd": bwd_timings[name][0]},
+            {"fwd": timings[name][2], "bwd": bwd_timings[name][2]})
     for name, (t, d, m, v, dtype), hot in SCE_PT_TIMED:
         if hot:
             continue
@@ -6046,8 +6163,8 @@ def p22_examples(counters: dict, card: str) -> dict:
         torch.cuda.synchronize()
         n = head_launches(counters)
         if not r["finite"] or (head == "midx" and min(
-                n[k] for k in ("midx_probs", "sampled_ce_pt",
-                               "sampled_ce_pt_bwd")) <= 0):
+                n[k] for k in ("midx_probs", "midx_probs_bwd",
+                               "sampled_ce_pt", "sampled_ce_pt_bwd")) <= 0):
             raise SystemExit(f"22e train_lm_midx --head {head}: {r}, {n}")
         hist = r["hist"]
         out[f"train_lm_midx {head}"] = {
@@ -6060,7 +6177,8 @@ def p22_examples(counters: dict, card: str) -> dict:
 
 
 def unfused_phases(get_config, midx_cuda, sce_cuda, corpus, timings,
-                   sce_timings, shared_timings, card: str) -> dict:
+                   bwd_timings, sce_timings, shared_timings,
+                   card: str) -> dict:
     """Phase 22: the unfused head route (22a-e)."""
     t0 = time.perf_counter()
     counters = head_counters(midx_cuda, sce_cuda)
@@ -6069,8 +6187,8 @@ def unfused_phases(get_config, midx_cuda, sce_cuda, corpus, timings,
     out["training"] = p22_training(get_config, counters, corpus, card)
     out["serving"] = p22_serving(get_config, midx_cuda, card)
     buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    out["yardstick"] = p22_yardstick(timings, sce_timings, shared_timings,
-                                     buf, card)
+    out["yardstick"] = p22_yardstick(timings, bwd_timings, sce_timings,
+                                     shared_timings, buf, card)
     del buf
     torch.cuda.empty_cache()
     out["examples"] = p22_examples(counters, card)
@@ -7108,7 +7226,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import cuda as flash_cuda
     from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
     from repro_torch.kernels.midx_probs import cuda as midx_cuda
-    from repro_torch.kernels.midx_probs.ref import midx_probs_ref
+    from repro_torch.kernels.midx_probs.ref import (midx_probs_bwd_ref,
+                                                    midx_probs_ref)
     from repro_torch.kernels.rff_sample import cuda as rff_cuda
     from repro_torch.kernels.rff_sample import ref as rff_ref
     from repro_torch.kernels.sampled_ce import cuda as sce_cuda
@@ -7127,8 +7246,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libraries = (flash_cuda.LIBRARY, midx_cuda.LIBRARY, sce_cuda.LIBRARY,
-                 sce_cuda.SHARED_LIBRARY, rff_cuda.LIBRARY, ssd_cuda.LIBRARY)
+    libraries = (flash_cuda.LIBRARY, midx_cuda.LIBRARY, midx_cuda.BWD_LIBRARY,
+                 sce_cuda.LIBRARY, sce_cuda.SHARED_LIBRARY, rff_cuda.LIBRARY,
+                 ssd_cuda.LIBRARY)
     for lib in libraries:                      # one nvcc per source, at once
         lib.start()
     for lib in libraries:
@@ -7151,6 +7271,8 @@ def main() -> None:
     buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     worst, timings = check_midx_probs(midx_cuda, midx_probs_ref, buf,
                                      card)
+    bwd_worst, bwd_timings, bwd_qholds = check_midx_probs_bwd(
+        midx_cuda, midx_probs_bwd_ref, buf, card)
     sce_worst, sce_timings = check_sampled_ce(
         sce_cuda, sampled_ce_pt_fwd_ref, sampled_ce_pt_bwd_ref, buf, card)
     shared_worst, shared_timings = check_shared_ce(
@@ -7163,7 +7285,7 @@ def main() -> None:
     qholds = check_quantized_kernels(
         midx_cuda, midx_probs_ref, sce_cuda, sampled_ce_pt_fwd_ref,
         sampled_ce_pt_bwd_ref, sampled_ce_fwd_ref, sampled_ce_bwd_ref, buf,
-        card)
+        card) | bwd_qholds
     partial_holds = check_partial_kernels(sce_cuda, buf, card)
     del buf
     mark("kernel checks (phases 3-3e)")
@@ -7229,14 +7351,15 @@ def main() -> None:
 
     from repro_torch.data import ZipfLM
     counters = (midx_cuda.midx_probs_cuda, sce_cuda.sampled_ce_pt_cuda,
-                sce_cuda.sampled_ce_pt_bwd_cuda)
+                sce_cuda.sampled_ce_pt_bwd_cuda, midx_cuda.midx_probs_bwd_cuda)
     cfg = get_config("paper-lm")
     # the backward's inputs at the last step (one backward a step)
     last_bwd, undo = keep_call(dispatch, "sampled_ce_pt_bwd", at=119)
     try:
         params, index, n_train, _ = train(
             cfg, counters,
-            ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd"),
+            ("midx_probs", "sampled_ce_pt", "sampled_ce_pt_bwd",
+             "midx_probs_bwd"),
             steps=120, batch=16, seq=64, lr=3e-3)
     finally:
         undo()
@@ -7371,7 +7494,7 @@ def main() -> None:
     f21, h21 = p21.pop("launches"), p21.pop("holds")
     mark("the large configurations whole (phase 21)")
     p22 = unfused_phases(get_config, midx_cuda, sce_cuda, corpus, timings,
-                         sce_timings, shared_timings, card)
+                         bwd_timings, sce_timings, shared_timings, card)
     f22, u22 = p22.pop("launches"), p22["yardstick"]
     del corpus
     mark("the unfused head route (phase 22)")
@@ -7439,6 +7562,29 @@ def main() -> None:
                               timings["mamba2-370m decode"]))},
         "phase21_shapes": h21["midx_probs"],
         "unfused": u22["midx_probs"]}]
+    ms, plain, bound, by = bwd_timings["paper-lm train"]
+    bwd_paths = {"paper-lm train": n_train[3],
+                 "18a paper-lm midx-learnable train":
+                     p18["paper"]["launches"]["midx_probs_bwd"],
+                 **f22["midx_probs_bwd"]}
+    rows.append({
+        "name": "midx_probs_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/midx_probs/csrc/midx_probs_bwd.cu",
+        "replaces": "src/repro/kernels/midx_probs/ops.py:48",
+        "replaces_note": "no TPU kernel: the reference's _tables_bwd "
+                         "(ops.py:48) and _tables_q_bwd (:110) differentiate "
+                         "a recompute through the oracle under XLA",
+        "launches": sum(bwd_paths.values()), "launches_by_path": bwd_paths,
+        "max_abs_err": bwd_worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": "paper-lm train T=1024 D=200 K=32 rq",
+        "other_shapes": [
+            {"shape": f"{name} T={t} D={d} K={k} {'pq' if split else 'rq'}",
+             **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                        bwd_timings[name]))}
+            for name, (t, d, k, split) in MIDX_BWD_TIMED
+            if name != "paper-lm train"],
+        "unfused": u22["midx_probs"]})
     for kname, kind, line, n in (
             ("sampled_ce_pt", "fwd", 74, n_train[1]),
             ("sampled_ce_pt_bwd", "bwd", 217, n_train[2])):

@@ -33,7 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
-from repro_torch.kernels.midx_probs.ref import midx_probs_ref
+from repro_torch.kernels.midx_probs.ref import (midx_probs_bwd_ref,
+                                                midx_probs_ref)
 from repro_torch.kernels.rff_sample.ref import rff_gumbel_ref
 from repro_torch.kernels.sampled_ce.ref import (
     sampled_ce_bwd_ref, sampled_ce_fwd_ref, sampled_ce_partial_bwd_ref,
@@ -121,6 +122,24 @@ def midx_probs(z: torch.Tensor, cb1: torch.Tensor, cb2: torch.Tensor,
         return midx_probs_ref(z, cb1, cb2, counts, split=split,
                               scale1=scale1, scale2=scale2)
     raise _unsupported("midx_probs", z)
+
+
+@_kernel
+def midx_probs_bwd(s1, s2, lpsi, lse, g1, g2, g3, g4, cb1, cb2, counts, *,
+                   split: bool, scale1=None, scale2=None,
+                   with_ds: bool = False):
+    """Its backward from the forward's outputs and their cotangents: (dz
+    [T, D], ds1, ds2 [T, K] where `with_ds`, else None)."""
+    if s1.is_cuda:
+        from repro_torch.kernels.midx_probs.cuda import midx_probs_bwd_cuda
+        return midx_probs_bwd_cuda(s1, s2, lpsi, lse, g1, g2, g3, g4, cb1,
+                                   cb2, counts, split=split, scale1=scale1,
+                                   scale2=scale2, with_ds=with_ds)
+    if _plain(s1):
+        return midx_probs_bwd_ref(s1, s2, lpsi, lse, g1, g2, g3, g4, cb1,
+                                  cb2, counts, split=split, scale1=scale1,
+                                  scale2=scale2, with_ds=with_ds)
+    raise _unsupported("midx_probs_bwd", s1)
 
 
 @_kernel

@@ -1,20 +1,23 @@
 """Public wrapper: MIDX proposal tables, differentiable.
 
 Mirrors `src/repro/kernels/midx_probs/ops.py` (`proposal_tables` :63 and
-the custom-VJP `_tables_op` :33-60). The forward goes through
-`kernels.dispatch.midx_probs` (the CUDA kernel for a CUDA tensor, the plain
-version for a CPU tensor); the backward recomputes through the plain
-version, as `_tables_bwd` (:48) does — three K-wide GEMMs, [T, K]
-transients only — so d(tables)/dz and d(tables)/d(codebooks) are ready for
-the training slice. Unlike the reference there is no `use_kernel` or
-`interpret` switch and no padding of T: the device decides, and the kernel
-masks the ragged edge itself.
+the custom-VJP `_tables_op` :33-60). Both directions go through
+`kernels.dispatch` (the CUDA kernel for a CUDA tensor, the plain version
+for a CPU tensor): the forward through `midx_probs`, the backward through
+`midx_probs_bwd`, the closed form of the reference's VJP (`_tables_bwd`
+:48, which differentiates a recompute through the oracle) evaluated from
+the forward's saved outputs, so nothing is recomputed. d(tables)/dz comes
+from the kernel; d(tables)/d(codebooks) = dsᵀ·z is a torch.matmul on the
+kernel's ds, taken only where a codebook asks for a gradient. Unlike the
+reference there is no `use_kernel` or `interpret` switch and no padding
+of T: the device decides, and the kernels mask the ragged edge
+themselves.
 
 `proposal_tables_q` mirrors the quantized twin (reference `ops.py:94-148`,
 `_tables_q_op` / `_tables_q_bwd`): the low-bit codebooks and their [K, 1]
-scales go to the kernel, and the backward gives d(tables)/dz only,
-through the plain version; the low-bit codebooks and their scales are
-quantization artifacts, not trained, and get no gradient.
+scales go to both kernels, and the backward gives d(tables)/dz only; the
+low-bit codebooks and their scales are quantization artifacts, not
+trained, and get no gradient.
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ import torch
 
 from repro_torch.index.build import MultiIndex
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.midx_probs.ref import midx_probs_ref
 
 
 class TablesFn(torch.autograd.Function):
@@ -30,22 +32,26 @@ class TablesFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z2d, cb1, cb2, counts, split: bool):
-        ctx.save_for_backward(z2d, cb1, cb2, counts)
+        out = dispatch.midx_probs(z2d, cb1, cb2, counts, split=split)
+        want_cb = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        ctx.save_for_backward(*out, cb1, cb2, counts,
+                              z2d if want_cb else None)
         ctx.split = split
-        return dispatch.midx_probs(z2d, cb1, cb2, counts, split=split)
+        return out
 
     @staticmethod
     def backward(ctx, g1, g2, g3, g4):
-        z2d, cb1, cb2, counts = ctx.saved_tensors
+        s1, s2, lpsi, lse, cb1, cb2, counts, z2d = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_(n)
-                      for x, n in zip((z2d, cb1, cb2), need)]
-            outs = midx_probs_ref(*leaves, counts, split=ctx.split)
-            wrt = [x for x, n in zip(leaves, need) if n]
-            got = iter(torch.autograd.grad(outs, wrt, (g1, g2, g3, g4)))
-        grads = [next(got) if n else None for n in need]
-        return (*grads, None, None)
+        dz, ds1, ds2 = dispatch.midx_probs_bwd(
+            s1, s2, lpsi, lse, *(g.contiguous() for g in (g1, g2, g3, g4)),
+            cb1, cb2, counts, split=ctx.split, with_ds=need[1] or need[2])
+        dcb1 = dcb2 = None
+        if need[1] or need[2]:
+            z1, z2 = z2d.chunk(2, dim=1) if ctx.split else (z2d, z2d)
+            dcb1 = ds1.T @ z1 if need[1] else None
+            dcb2 = ds2.T @ z2 if need[2] else None
+        return dz if need[0] else None, dcb1, dcb2, None, None
 
 
 def proposal_tables(index: MultiIndex, z: torch.Tensor):
@@ -69,19 +75,18 @@ class TablesQFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z2d, qcb1, sc1, qcb2, sc2, counts, split: bool):
-        ctx.save_for_backward(z2d, qcb1, sc1, qcb2, sc2, counts)
+        out = dispatch.midx_probs(z2d, qcb1, qcb2, counts, split=split,
+                                  scale1=sc1, scale2=sc2)
+        ctx.save_for_backward(*out, qcb1, sc1, qcb2, sc2, counts)
         ctx.split = split
-        return dispatch.midx_probs(z2d, qcb1, qcb2, counts, split=split,
-                                   scale1=sc1, scale2=sc2)
+        return out
 
     @staticmethod
     def backward(ctx, g1, g2, g3, g4):
-        z2d, qcb1, sc1, qcb2, sc2, counts = ctx.saved_tensors
-        with torch.enable_grad():
-            z = z2d.detach().requires_grad_(True)
-            outs = midx_probs_ref(z, qcb1, qcb2, counts, split=ctx.split,
-                                  scale1=sc1, scale2=sc2)
-            dz, = torch.autograd.grad(outs, (z,), (g1, g2, g3, g4))
+        s1, s2, lpsi, lse, qcb1, sc1, qcb2, sc2, counts = ctx.saved_tensors
+        dz, _, _ = dispatch.midx_probs_bwd(
+            s1, s2, lpsi, lse, *(g.contiguous() for g in (g1, g2, g3, g4)),
+            qcb1, qcb2, counts, split=ctx.split, scale1=sc1, scale2=sc2)
         return dz, None, None, None, None, None, None
 
 

@@ -92,6 +92,97 @@ def test_cuda_kernel_rejects_what_it_cannot_take():
                         split=False)
 
 
+def _bwd_case(t, d, k, split, fmt, seed):
+    """The backward's inputs on the card: the forward kernel's outputs at
+    random z, codebooks (fp32, or int8 / fp8 with [K] scales) and counts
+    with row 1 zeroed (its psi floored), and random cotangents."""
+    from repro_torch.index.quantized import quantize_rows
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dc = d // 2 if split else d
+    z = torch.randn((t, d), generator=g, device="cuda")
+    cbs = [0.1 * torch.randn((k, dc), generator=g, device="cuda")
+           for _ in range(2)]
+    kw = {"split": split}
+    if fmt != "fp32":
+        (q1, s1), (q2, s2) = (quantize_rows(c, fmt) for c in cbs)
+        cbs = [q1, q2]
+        kw.update(scale1=s1.reshape(-1), scale2=s2.reshape(-1))
+    cnt = torch.randint(0, 3, (k, k), generator=g, device="cuda").float()
+    cnt[1] = 0
+    out = midx_probs_cuda(z, *cbs, cnt, **kw)
+    cot = [torch.randn(x.shape, generator=g, device="cuda") for x in out]
+    return z, out, cot, cbs, cnt, kw
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "int8", "fp8"])
+@pytest.mark.parametrize("kind", ["pq", "rq"])
+def test_cuda_backward_matches_plain_version(kind, fmt):
+    """The backward kernel (dz, and ds for d(codebooks)) within
+    1e-5·max(1, |plain|) of its plain closed form, finite with a zeroed
+    row of counts, bitwise repeatable, and a row alone equal to that row
+    inside the call; T = 0 launches nothing."""
+    _need_card()
+    from repro_torch.kernels.midx_probs.cuda import midx_probs_bwd_cuda
+    from repro_torch.kernels.midx_probs.ref import midx_probs_bwd_ref
+    for t, d, k in ((1, 200, 32), (33, 2048, 64), (130, 20, 8),
+                    (1024, 200, 32), (0, 16, 8)):
+        z, out, cot, cbs, cnt, kw = _bwd_case(t, d, k, kind == "pq", fmt,
+                                              seed=t + d)
+        got = midx_probs_bwd_cuda(*out, *cot, *cbs, cnt, with_ds=True, **kw)
+        want = midx_probs_bwd_ref(*out, *cot, *cbs, cnt, with_ds=True, **kw)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.isfinite(a).all()
+            assert torch.all((a - b).abs() <= 1e-5 * b.abs().clamp(min=1))
+        again = midx_probs_bwd_cuda(*out, *cot, *cbs, cnt, with_ds=True,
+                                    **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        if t:
+            solo = midx_probs_bwd_cuda(*(x[t - 1:] for x in out),
+                                       *(x[t - 1:] for x in cot), *cbs, cnt,
+                                       with_ds=True, **kw)
+            assert all(torch.equal(a[0], b[t - 1]) for a, b in zip(solo, got))
+
+
+def test_tables_backward_on_the_card_launches_the_kernel(monkeypatch):
+    """`proposal_tables` / `proposal_tables_q` on CUDA tensors: the backward
+    launches the kernel once a call and runs neither the plain forward nor
+    torch.autograd.grad; a refused launch raises."""
+    _need_card()
+    from repro_torch.index.build import MultiIndex
+    from repro_torch.index.quantized import quantize_rows
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.midx_probs import cuda
+    from repro_torch.kernels.midx_probs.ops import (proposal_tables,
+                                                    proposal_tables_q)
+    z, _, _, (cb1, cb2), cnt, _ = _bwd_case(64, 200, 32, False, "fp32", 3)
+    e = torch.empty(0, dtype=torch.long, device="cuda")
+    idx = MultiIndex("rq", cb1, cb2, e, e, e, e, e, cnt.long(),
+                     torch.log(cnt))
+
+    def refuse(*a, **kw):
+        raise AssertionError("recomputed")
+
+    monkeypatch.setattr(dispatch, "midx_probs_ref", refuse)
+    monkeypatch.setattr(torch.autograd, "grad", refuse)
+    (q1, s1), (q2, s2) = (quantize_rows(c, "int8") for c in (cb1, cb2))
+    for fn in (lambda zz: proposal_tables(idx, zz),
+               lambda zz: proposal_tables_q(idx, q1, s1, q2, s2, zz)):
+        zl = z.clone().requires_grad_(True)
+        before = cuda.midx_probs_bwd_cuda.launches
+        fn(zl)[3].sum().backward()
+        torch.cuda.synchronize()
+        assert cuda.midx_probs_bwd_cuda.launches == before + 1
+        assert torch.isfinite(zl.grad).all()
+    assert cuda.midx_probs_bwd_cuda.quant_launches["int8"] >= 1
+    with pytest.raises(ValueError):
+        cuda.midx_probs_bwd_cuda(*(torch.zeros((4, 32), device="cuda"),) * 3,
+                                 torch.zeros(4, device="cuda"),
+                                 *(torch.zeros((4, 32), device="cuda"),) * 3,
+                                 torch.zeros(4, device="cuda").double(),
+                                 cb1, cb2, cnt, split=False)
+
+
 def test_engine_on_the_card_goes_through_the_kernel():
     _need_card()
     from repro_torch.kernels.midx_probs.cuda import midx_probs_cuda
